@@ -1,0 +1,13 @@
+"""curvine_tpu_torch: the PyTorch/CUDA port of curvine_tpu's device side.
+
+The JAX package ``curvine_tpu`` stays the reference. This package imports
+``torch`` and never ``jax``, and nothing of ``curvine_tpu``: what it needs
+from there it keeps as its own copy. Module names mirror the JAX package
+(``tpu/`` becomes ``gpu/``) and each module's docstring names the file it
+ports.
+
+Entry points run on ``cuda:0`` unless the caller passes a CPU device, as
+the CPU tests do; with no CUDA device and no CPU request they raise
+(``device.default_device``). The one hand-written kernel of this slice,
+``gpu.cuda_ops.block_checksum``, is CUDA C++ for ``sm_90a`` under
+``csrc/``, built with ``nvcc`` at first use into ``build/``."""

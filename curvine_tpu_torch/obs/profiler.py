@@ -1,0 +1,96 @@
+"""Ingest-pipeline StepProfiler: where did this training step's time go?
+
+Port of ``curvine_tpu/obs/profiler.py`` (its own copy, same stage names).
+
+Attributes each step of the cache → host → HBM → compute pipeline to
+stages and exports them as histograms through the shared metrics
+registry (prometheus text via ``prometheus_text()``):
+
+* ``cache_fetch``  — reading shard bytes out of the distributed cache
+  (short-circuit preadv or remote block streams);
+* ``decode``       — token reshaping/concat on the host;
+* ``host_to_hbm``  — pinned staging copy + host→device copy dispatch
+  (the stage keeps the JAX package's name so reports read alike);
+* ``compute_wait`` — producer blocked because the device queue is full
+  (the model step is the bottleneck);
+* ``input_wait``   — consumer blocked because the queue is empty (the
+  data pipeline is the bottleneck — the number that indicts the cache).
+
+Wired through ``gpu/loader.py`` (ShardSource/GpuTrainFeed) and
+``gpu/ingest.py`` (the device prefetchers)."""
+
+from __future__ import annotations
+
+import time
+from contextlib import contextmanager
+
+from curvine_tpu_torch.common.metrics import MetricsRegistry
+
+STAGES = ("cache_fetch", "decode", "host_to_hbm", "compute_wait",
+          "input_wait")
+
+
+class StepProfiler:
+    def __init__(self, metrics: MetricsRegistry | None = None,
+                 component: str = "ingest"):
+        self.metrics = metrics if metrics is not None \
+            else MetricsRegistry(component)
+        self.steps = 0
+
+    def record(self, stage: str, dur_s: float, nbytes: int = 0) -> None:
+        self.metrics.observe(f"stage.{stage}", max(0.0, dur_s))
+        if nbytes:
+            self.metrics.inc(f"stage.{stage}.bytes", nbytes)
+
+    @contextmanager
+    def measure(self, stage: str, nbytes: int = 0):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.record(stage, time.perf_counter() - t0, nbytes)
+
+    def step_done(self) -> None:
+        self.steps += 1
+        self.metrics.inc("steps")
+        self.publish_fractions()
+
+    def publish_fractions(self) -> None:
+        """Gauge each stage's share of accounted pipeline time as
+        ``stage.<name>.frac`` so /metrics answers 'where did the step
+        go' without a snapshot call (input_wait is the cache indictment
+        number the perf gate watches)."""
+        for stage, frac in self.summary()["fractions"].items():
+            self.metrics.gauge(f"stage.{stage}.frac", frac)
+
+    # ---------------- reporting ----------------
+
+    def snapshot(self) -> dict:
+        """Per-stage {count, total_s, p50, p99} + step count."""
+        out: dict = {"steps": self.steps, "stages": {}}
+        for stage in STAGES:
+            h = self.metrics.histograms.get(f"stage.{stage}")
+            if h is None:
+                continue
+            out["stages"][stage] = {
+                "count": h.count, "total_s": h.sum,
+                "p50": h.quantile(0.5), "p99": h.quantile(0.99),
+                "bytes": self.metrics.counters.get(
+                    f"stage.{stage}.bytes", 0),
+            }
+        return out
+
+    def summary(self) -> dict:
+        """Stage totals as fractions of the accounted pipeline time —
+        the one-look 'where did the step go' answer."""
+        snap = self.snapshot()
+        total = sum(s["total_s"] for s in snap["stages"].values()) or 1.0
+        return {
+            "steps": self.steps,
+            "accounted_s": total,
+            "fractions": {k: s["total_s"] / total
+                          for k, s in snap["stages"].items()},
+        }
+
+    def prometheus_text(self) -> str:
+        return self.metrics.prometheus_text()

@@ -1,0 +1,55 @@
+"""The port stands alone: every module of ``curvine_tpu_torch`` imports
+without pulling in ``jax`` or anything of ``curvine_tpu``, and its entry
+points refuse to run on the CPU unless asked to."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+
+import torch
+
+from curvine_tpu_torch import device as dev_mod
+from curvine_tpu_torch.gpu import hbm, ingest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = r"""
+import importlib, pkgutil, sys
+import curvine_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(curvine_tpu_torch.__path__,
+                                               "curvine_tpu_torch.")]
+for n in names:
+    importlib.import_module(n)
+bad = sorted(k for k in sys.modules
+             if k == "jax" or k.startswith(("jax.", "jaxlib"))
+             or k == "curvine_tpu" or k.startswith("curvine_tpu."))
+print(len(names), "modules;", "leaked:", bad)
+sys.exit(1 if bad or len(names) < 15 else 0)
+"""
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "leaked: []" in out.stdout
+
+
+def test_entry_points_need_cuda_unless_the_cpu_is_asked_for(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dev_mod.default_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dev_mod.local_devices()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        hbm.HbmTier(1024)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        hbm.MultiHbmTier(1024)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ingest.DevicePrefetcher(iter([]))
+    assert dev_mod.default_device(cpu=True) == torch.device("cpu")
+    assert dev_mod.device_id(torch.device("cpu", 3)) == 3
+    assert dev_mod.device_id(5) == 5

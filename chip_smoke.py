@@ -5,7 +5,8 @@
 
 Phases, each raising on a fault (the exit code is then non-zero):
 
-1. build: compile every CUDA source of the port with ``nvcc`` (sm_90a);
+1. build: compile every source of the port, all at once: the CUDA ones
+   with ``nvcc`` (sm_90a), the host C++ one (crc32c) with ``c++``;
 2. kernel: ``block_checksum`` on the card against its plain PyTorch
    version and the host hash at sizes from 1 byte to 64 MiB + 1, a bit
    flip and a word swap; its time at 64 MiB (CUDA events, median of 20,
@@ -20,11 +21,29 @@ Phases, each raising on a fault (the exit code is then non-zero):
    → device, interleaved;
 4. feed: 8 int32 token shards of 64 MiB through ``GpuTrainFeed`` at
    batch 32 x seq 8192, depth 2, over the whole epoch; every device batch
-   must equal the host tokens.
+   must equal the host tokens;
+5. flash: the four K3 kernels (forward, di, dK/dV, dQ) on the card against
+   their plain PyTorch versions, element by element and row by row
+   (``flash_errors``), at the flagship's attention shape
+   [16, 20, 1024, 128] bf16, causal, and at [1, 2, 128, 128] and
+   [2, 4, 2048, 128]; each kernel's time at the flagship's shape (CUDA
+   events, median of 20, L2 flushed) beside its bound, the plain
+   version's and ``scaled_dot_product_attention``'s (a yardstick only);
+6. train: the flagship 1.03 B-parameter transformer (bench.py's: vocab
+   32,000, d_model 2560, 20 heads, 12 layers, d_ff 10,240, bf16, flash
+   attention, chunked cross entropy) on one card at batch 16 x seq 1024:
+   a cache-fed pass through ``GpuTrainFeed`` (the next batch's fetch
+   overlaps the step, one sync a step) and a synthetic pass on one fixed
+   device tensor; step times, ``ingest_overlap_ratio``, tokens/s, MFU,
+   peak memory, every loss, K3's share of the step; a profiler table of
+   two steps; at batch 2 the loss and every gradient of the kernel path
+   against the same model with its attention taken by the plain
+   versions, and each layer's dQ against f64 dense attention.
 
 The kernel launch counts are set to 0 just before phase 3 and read just
-after phase 4. Prints each phase's numbers, the card's name and power
-limit, one JSON line of kernels, and last the line
+after phase 4 (K1), and again just before the two passes of phase 6 and
+read just after them (K3). Prints each phase's numbers, the card's name
+and power limit, one JSON line of kernels, and last the line
 ``{"ok": true, "device": {...}}``. Exits non-zero, and prints no result,
 where no CUDA device is visible or the port is not importable."""
 
@@ -33,6 +52,7 @@ from __future__ import annotations
 import argparse
 import asyncio
 import json
+import math
 import os
 import shutil
 import statistics
@@ -52,10 +72,14 @@ N_BLOCKS = 96
 N_HOT = 16
 TIER_BYTES = 4 * GiB
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM published memory rate
+BF16_FLOP_PER_S = 989e12           # H100 SXM dense bf16 tensor-core peak
 SIZES = [1, 3, 4, 262143, 262144, 262145, MiB + 13, BLOCK, BLOCK + 1]
 SHARDS = 8
 SHARD_BYTES = 64 * MiB
 BATCH, SEQ = 32, 8192
+FLASH_SHAPES = [(16, 20, 1024, 128), (1, 2, 128, 128), (2, 4, 2048, 128)]
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 16, 1024, 8
+CHECK_BATCH = 2                    # the full-width agreement check
 
 
 def log(msg: str) -> None:
@@ -98,7 +122,7 @@ def phase_build() -> dict:
     info = _build.build_all()
     secs = time.perf_counter() - t0
     for name, i in sorted(info.items()):
-        log(f"build: {name}: nvcc {i['seconds']:.2f}s")
+        log(f"build: {name}: {i['seconds']:.2f}s")
         for line in i["log"].splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"  ptxas: {line.strip()}")
@@ -373,6 +397,456 @@ def phase_feed(rng: np.random.Generator, dev: torch.device, root: str
     return res
 
 
+# K3 against its plain version. The plain version rounds P to bf16 after
+# normalising it, the forward kernel before (against a running maximum),
+# and both round their f32 sums, taken in other orders, to bf16. So an
+# element may be off by the rounding of its own value (2 bf16 ulps of
+# it) plus a sum of small rounding differences of P (and dS) that scales
+# with its row, not with the element: near zero an element has no ulps
+# to spare. The floor is FLASH_ROW_FLOOR_ULPS bf16 ulps of its row's
+# scale: the median magnitude of the row (a query row of o and dq, a key
+# row of dk and dv), or of the whole tensor where that is larger, since
+# a row may be nothing but rounding (dQ's first row is exactly 0: dS of
+# a row sums to 0 and that row has one key). A row as a whole, against
+# its norm or the median row norm where that is larger, and the whole
+# tensor must agree to FLASH_ROW_REL and FLASH_REL in relative norm: a
+# kernel that drops or mis-scales a tile moves whole rows. lse is f32,
+# sums of up to L exponentials in another order and __expf's few-ulp
+# error: 1e-4 at |lse| <= 20. di is f32, a sum of L products P dP: 1e-4
+# of its own magnitude plus 1e-4 of the median one.
+FLASH_ELEM_ULPS = 2
+FLASH_ROW_FLOOR_ULPS = 8
+FLASH_ROW_REL = 1e-2
+FLASH_REL = 1e-2
+FLASH_LSE_ABS = 1e-4
+FLASH_DI_REL = 1e-4
+
+
+def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp (8 significant bits) at each magnitude of ``x``."""
+    _, e = torch.frexp(x.abs().clamp_min(2.0 ** -126))
+    return torch.ldexp(torch.ones_like(x), e - 8)
+
+
+def flash_pairs(q, k, v, do) -> dict:
+    """Each K3 kernel's outputs beside its plain version's, in f32 from
+    the same bf16 inputs, the same ``do`` and the same residuals (lse, di
+    from the kernels)."""
+    from curvine_tpu_torch.gpu import flash
+    o, lse = flash.flash_fwd(q, k, v)
+    di = flash.flash_bwd_di(q, k, v, do, lse)
+    dk, dv = flash.flash_bwd_dkv(q, k, v, do, lse, di)
+    dq = flash.flash_bwd_dq(q, k, v, do, lse, di)
+    o_p, lse_p = flash.flash_fwd_plain(q, k, v)
+    di_p = flash.flash_bwd_di_plain(q, k, v, do, lse)
+    dq_p, dk_p, dv_p = flash.flash_bwd_plain(q, k, v, do, lse, di)
+    return {"o": (o, o_p), "dk": (dk, dk_p), "dv": (dv, dv_p),
+            "dq": (dq, dq_p), "lse": (lse, lse_p), "di": (di, di_p)}
+
+
+def flash_errors(name: str, got: torch.Tensor, ref: torch.Tensor) -> dict:
+    """How far ``got`` is from ``ref`` against the limits above:
+    ``elem_ratio`` is the largest error over its element's tolerance and
+    ``ok`` whether every limit holds."""
+    g, r = got.float(), ref.float()
+    err, mag = (g - r).abs(), r.abs()
+    med = mag.median()
+    if name == "lse":
+        tol = torch.full_like(mag, FLASH_LSE_ABS)
+    elif name == "di":
+        tol = FLASH_DI_REL * (mag + med)
+    else:
+        row_scale = mag.median(dim=-1, keepdim=True).values.clamp_min(med)
+        tol = (FLASH_ELEM_ULPS * _bf16_ulp(mag)
+               + FLASH_ROW_FLOOR_ULPS * _bf16_ulp(row_scale))
+    out = {"max_abs_err": err.max().item(), "max_abs_ref": mag.max().item(),
+           "median_abs_ref": med.item(),
+           "elem_ratio": (err / tol).max().item(),
+           "rel": (err.norm() / r.norm()).item()}
+    ok = out["elem_ratio"] <= 1.0
+    if name in ("o", "dk", "dv", "dq"):
+        norms = r.norm(dim=-1)
+        out["row_rel"] = (err.norm(dim=-1) / norms.clamp_min(
+            norms.median())).max().item()
+        ok = ok and out["row_rel"] <= FLASH_ROW_REL and out["rel"] <= FLASH_REL
+    out["ok"] = ok
+    return out
+
+
+def flash_bounds(shape) -> dict:
+    """Each K3 kernel's least time on the card at ``shape``: the larger of
+    its operations (the causal half: L(L+1)/2 query-key pairs a head, 2D
+    FLOP a pair a product) over the bf16 peak, and its bytes (each input
+    read once, each output written once) over the memory rate."""
+    B, H, L, D = shape
+    prod = 2 * D * B * H * L * (L + 1) / 2      # FLOP of one product
+    t = B * H * L * D * 2                       # bytes of one bf16 operand
+    r = B * H * L * 4                           # bytes of one f32 row vector
+    work = {
+        # S, P V; q, k, v in, o and lse out
+        "flash_fwd": (2 * prod, 4 * t + r),
+        # S, dP; q, k, v, do, lse in, di out
+        "flash_bwd_di": (2 * prod, 4 * t + 2 * r),
+        # S, dP, dV, dK; q, k, v, do, lse, di in, dk, dv out
+        "flash_bwd_dkv": (4 * prod, 6 * t + 2 * r),
+        # S, dP, dQ; q, k, v, do, lse, di in, dq out
+        "flash_bwd_dq": (3 * prod, 5 * t + 2 * r),
+    }
+    out = {}
+    for name, (flop, nbytes) in work.items():
+        ops_ms = flop / BF16_FLOP_PER_S * 1e3
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        out[name] = {"flop": flop, "bytes": nbytes,
+                     "bound_ms": max(ops_ms, bytes_ms),
+                     "bound_by": "operations" if ops_ms >= bytes_ms
+                     else "bytes"}
+    return out
+
+
+def phase_flash(dev: torch.device, seed: int) -> dict:
+    import torch.nn.functional as F
+    from curvine_tpu_torch.gpu import flash
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    res = {"shapes": {}}
+    main = None
+    for shape in FLASH_SHAPES:
+        q, k, v, do = (torch.randn(shape, generator=gen, device=dev)
+                       .to(torch.bfloat16) for _ in range(4))
+        pairs = flash_pairs(q, k, v, do)
+        torch.cuda.synchronize()
+        errs = {n: flash_errors(n, g, r) for n, (g, r) in pairs.items()}
+        lse, di = pairs["lse"][0], pairs["di"][0]
+        del pairs
+        bad = {n: e for n, e in errs.items() if not e["ok"]}
+        if bad:
+            raise AssertionError(f"flash {shape}: kernel and plain version "
+                                 f"disagree: {bad}")
+        res["shapes"][str(list(shape))] = errs
+        log(f"flash: {list(shape)} kernel vs plain: " + "; ".join(
+            f"{n} max abs err {e['max_abs_err']:.3g} (|ref| median "
+            f"{e['median_abs_ref']:.3g}, max {e['max_abs_ref']:.3g}), "
+            f"worst element at {e['elem_ratio']:.3f} of its tolerance"
+            + (f", worst row rel {e['row_rel']:.2e}" if "row_rel" in e
+               else "") + f", rel {e['rel']:.2e}" for n, e in errs.items()))
+        if main is None:
+            main = (shape, q, k, v, do, lse, di, errs)
+    shape, q, k, v, do, lse, di, errs = main
+    scratch = torch.empty(256 * MiB, dtype=torch.uint8, device=dev)
+
+    def med(fn, prep=None):
+        fn()
+        torch.cuda.synchronize()
+        return statistics.median(event_ms(fn, 20, scratch, prep=prep))
+
+    fwd_ms = med(lambda: flash.flash_fwd(q, k, v))
+    di_ms = med(lambda: flash.flash_bwd_di(q, k, v, do, lse))
+    dkv_ms = med(lambda: flash.flash_bwd_dkv(q, k, v, do, lse, di))
+    dq_ms = med(lambda: flash.flash_bwd_dq(q, k, v, do, lse, di))
+    fwd_plain_ms = med(lambda: flash.flash_fwd_plain(q, k, v))
+    di_plain_ms = med(lambda: flash.flash_bwd_di_plain(q, k, v, do, lse))
+    bwd_plain_ms = med(lambda: flash.flash_bwd_plain(q, k, v, do, lse, di))
+    # yardstick only: PyTorch's fused attention, forward, and its
+    # backward (dq, dk, dv in one call) through autograd
+    sdpa_fwd_ms = med(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True))
+    qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+    sdpa_bwd_ms = med(lambda: torch.autograd.grad(
+        out, (qg, kg, vg), do, retain_graph=True))
+    del out, qg, kg, vg, scratch
+    bounds = flash_bounds(shape)
+    err_of = {"flash_fwd": max(errs["o"]["max_abs_err"],
+                               errs["lse"]["max_abs_err"]),
+              "flash_bwd_di": errs["di"]["max_abs_err"],
+              "flash_bwd_dkv": max(errs["dk"]["max_abs_err"],
+                                   errs["dv"]["max_abs_err"]),
+              "flash_bwd_dq": errs["dq"]["max_abs_err"]}
+    # di has no single PyTorch call of its own: library_ms is None
+    timed = {"flash_fwd": (fwd_ms, fwd_plain_ms, sdpa_fwd_ms),
+             "flash_bwd_di": (di_ms, di_plain_ms, None),
+             "flash_bwd_dkv": (dkv_ms, bwd_plain_ms, sdpa_bwd_ms),
+             "flash_bwd_dq": (dq_ms, bwd_plain_ms, sdpa_bwd_ms)}
+    res["kernels"] = {}
+    for name, (ms, plain_ms, lib_ms) in timed.items():
+        b = bounds[name]
+        res["kernels"][name] = {
+            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+            "max_abs_err": err_of[name], "flop": b["flop"],
+            "bytes": b["bytes"], "tflops": b["flop"] / ms / 1e9}
+        lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
+        log(f"flash: {name} at {list(shape)}: {ms:.4f} ms "
+            f"({b['flop'] / ms / 1e9:.1f} TFLOP/s), bound {b['bound_ms']:.4f}"
+            f" ms by {b['bound_by']} ({b['bound_ms'] / ms:.1%} of it); "
+            f"plain {plain_ms:.4f} ms; sdpa {lib}")
+    log("flash: the plain backward and sdpa's backward compute dq, dk and "
+        "dv in one call: their time stands beside both backward kernels")
+    return res
+
+
+def _flagship():
+    from curvine_tpu_torch.gpu.model import ModelConfig
+    # bench.py:1751-1755
+    return ModelConfig(vocab=32_000, d_model=2560, n_heads=20, n_layers=12,
+                       d_ff=10_240, max_seq=1024, dtype="bfloat16",
+                       use_flash_attention=True, ce_chunk=2048)
+
+
+K3_NAMES = ("flash_fwd", "flash_bwd_di", "flash_bwd_dkv", "flash_bwd_dq")
+
+
+def phase_train(dev: torch.device, root: str, seed: int, flash_res: dict
+                ) -> dict:
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from curvine_tpu_torch.gpu import flash, model as tm
+    from curvine_tpu_torch.gpu.loader import GpuTrainFeed, write_token_shards
+    cfg = _flagship()
+    B, L, steps = TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS
+    # bench.py:1761-1763: batch·seq·(steps+2) tokens, one batch a shard
+    tokens = np.random.default_rng(seed).integers(
+        0, cfg.vocab, B * L * (steps + 2), dtype=np.int32)
+    shard_dir = os.path.join(root, "train")
+    write_token_shards(shard_dir, tokens, shard_tokens=B * L)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = tm.init_params(torch.Generator(device=dev).manual_seed(seed),
+                            cfg, dev)
+    n_params = tm.n_params(params)
+    opt = tm.make_optimizer(params)
+    step = tm.make_train_step(cfg, opt)
+    torch.cuda.synchronize()
+    log(f"train: {n_params:,} parameters initialised on {dev} in "
+        f"{time.perf_counter() - t0:.2f}s")
+    D, Fd = cfg.d_model, cfg.d_ff
+    expect = (cfg.vocab + cfg.max_seq + 1) * D + cfg.n_layers * (
+        4 * D * D + 2 * D * Fd + 2 * D)         # 1,028,323,840
+    if n_params != expect:
+        raise AssertionError(f"{n_params} parameters, {expect} expected")
+
+    async def timed_steps(batches):
+        """bench.py:1777-1791: batch k+1's fetch and copy overlap step k
+        (the step returns once its work is queued); one sync a step."""
+        times, losses = [], []
+        nxt = await anext(batches, None)
+        while nxt is not None:
+            t = time.perf_counter()
+            loss = step(params, nxt)
+            nxt = await anext(batches, None)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            losses.append(loss)
+        return times, [float(x) for x in losses]
+
+    async def cache_fed():
+        feed = GpuTrainFeed(shard_dir, B, L, depth=2, device=dev)
+        return feed.profiler, await timed_steps(feed.prefetcher)
+
+    async def synthetic(tok, n):
+        for _ in range(n):
+            yield tok
+
+    tok0 = torch.from_numpy(np.random.default_rng(seed + 5).integers(
+        0, cfg.vocab, (B, L), dtype=np.int32)).to(dev)
+    kernels = [getattr(flash, n) for n in K3_NAMES]
+    for fn in kernels:
+        fn.launches = 0
+    feed_prof, (cache_times, cache_losses) = asyncio.run(cache_fed())
+    synth_times, synth_losses = asyncio.run(timed_steps(synthetic(tok0,
+                                                                  steps)))
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    peak = torch.cuda.max_memory_allocated(dev)
+    n_steps = len(cache_times) + len(synth_times)
+    for name, n in launches.items():
+        if n != cfg.n_layers * n_steps:
+            raise AssertionError(f"{name} launched {n} times in {n_steps} "
+                                 f"steps of {cfg.n_layers} layers")
+    losses = cache_losses + synth_losses
+    if len(cache_times) != steps + 2 or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"train: {len(cache_times)} cache-fed steps, "
+                             f"losses {losses}")
+    step_s = statistics.median(cache_times[1:])      # the first warms up
+    synth_s = statistics.median(synth_times)
+    tokens_per_step = B * L
+    mfu = 6.0 * n_params * tokens_per_step / step_s / BF16_FLOP_PER_S
+    k3_ms = sum(flash_res["kernels"][n]["ms"] for n in K3_NAMES)
+    k3_share = cfg.n_layers * k3_ms / (step_s * 1e3)
+    fractions = feed_prof.summary()["fractions"]
+    res = {"params": n_params, "batch": B, "seq": L,
+           "train_step_ms": step_s * 1e3, "train_step_synth_ms": synth_s * 1e3,
+           "ingest_overlap_ratio": step_s / synth_s,
+           "tokens_per_s": tokens_per_step / step_s, "mfu": mfu,
+           "peak_bytes": peak, "losses_cache_fed": cache_losses,
+           "losses_synthetic": synth_losses,
+           "step_ms_cache_fed": [t * 1e3 for t in cache_times],
+           "step_ms_synthetic": [t * 1e3 for t in synth_times],
+           "launches": launches, "k3_share_of_step": k3_share,
+           "feed_fractions": fractions}
+    log(f"train: cache-fed step times ms "
+        f"{[round(t * 1e3, 2) for t in cache_times]} (first dropped); "
+        f"synthetic {[round(t * 1e3, 2) for t in synth_times]}")
+    log(f"train: losses cache-fed {[round(x, 4) for x in cache_losses]}; "
+        f"synthetic {[round(x, 4) for x in synth_losses]}")
+    log(f"train: train_step_ms {res['train_step_ms']:.2f} "
+        f"train_step_synth_ms {res['train_step_synth_ms']:.2f} "
+        f"ingest_overlap_ratio {res['ingest_overlap_ratio']:.4f} "
+        f"tokens_per_s {res['tokens_per_s']:.0f} mfu {mfu:.4f} (6 x "
+        f"params x tokens / step / 989 TFLOP/s) peak "
+        f"{peak / GiB:.2f} GiB; K3 launches {launches} in {n_steps} steps; "
+        f"K3 share of the step {k3_share:.3f} ({cfg.n_layers} x "
+        f"{k3_ms:.3f} ms / {step_s * 1e3:.2f} ms); feed input_wait "
+        f"{fractions.get('input_wait', 0.0):.3f} host_to_hbm "
+        f"{fractions.get('host_to_hbm', 0.0):.3f}")
+
+    # where the step goes: two synthetic steps under the profiler
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(2):
+            step(params, tok0)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t
+    # work on the card: kernels and copies, less CUPTI's "Command Buffer
+    # Full" spans (the host waiting on a full launch queue) and the
+    # device-side ranges of user annotations; busy time is the union of
+    # their spans
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and not e.is_user_annotation and e.name != "Command Buffer Full"]
+    busy_us, end = 0.0, None
+    for a, b in sorted((e.time_range.start, e.time_range.end) for e in kern):
+        if end is None or a > end:
+            busy_us += b - a
+            end = b
+        elif b > end:
+            busy_us += b - end
+            end = b
+    k3_us = sum(e.time_range.elapsed_us() for e in kern
+                if "flash_" in e.name)
+    res["profile"] = {"wall_ms": wall_s * 1e3, "device_busy_ms": busy_us / 1e3,
+                      "k3_device_ms": k3_us / 1e3, "device_events": len(kern)}
+    if kern:
+        log(f"train: profiler, 2 steps: wall {wall_s * 1e3:.1f} ms, device "
+            f"kernels {busy_us / 1e3:.1f} ms (busy share "
+            f"{busy_us / 1e3 / (wall_s * 1e3):.3f}), K3 {k3_us / 1e3:.1f} ms"
+            f" ({k3_us / max(busy_us, 1):.3f} of device time)")
+        for line in prof.key_averages().table(
+                sort_by="self_device_time_total", row_limit=14,
+                max_name_column_width=48).splitlines():
+            log(f"  {line}")
+    else:
+        log("train: the profiler recorded no device time (not measured)")
+    del prof, kern
+
+    # the loss alone, forward and backward, on hidden states of the
+    # flagship's batch: peak memory chunked (one [ce_chunk, V] f32 slice
+    # of logits alive at a time) and one-shot (all B·(L-1) rows at once)
+    x = torch.randn(B * (L - 1), cfg.d_model, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(seed)
+                    ).to(torch.bfloat16).requires_grad_(True)
+    targets = torch.from_numpy(tokens[:B * (L - 1)]).to(dev).long()
+    ce_peak = {}
+    for name, chunk in (("chunked", cfg.ce_chunk), ("one_shot", 0)):
+        for p in tm.leaves(params):
+            p.grad = None
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        loss = (tm._chunked_ce(x, targets, params["embed"], chunk) if chunk
+                else tm._oneshot_ce(x, targets, params["embed"]))
+        loss.backward()
+        torch.cuda.synchronize()
+        ce_peak[name] = torch.cuda.max_memory_allocated(dev) - base
+        x.grad = None
+        del loss
+    res["ce_peak_bytes"] = ce_peak
+    log(f"train: cross entropy of {B * (L - 1)} rows x {cfg.vocab} vocab, "
+        f"forward and backward: peak {ce_peak['chunked'] / GiB:.3f} GiB "
+        f"above its inputs in chunks of {cfg.ce_chunk}, "
+        f"{ce_peak['one_shot'] / GiB:.3f} GiB one-shot")
+    del x, targets
+
+    # full width, batch 2: the kernel path against the plain versions
+    check = torch.from_numpy(tokens[:CHECK_BATCH * L].reshape(
+        CHECK_BATCH, L)).to(dev)
+    leaves = tm.leaves(params)
+
+    def loss_and_grads():
+        for p in leaves:
+            p.grad = None
+        loss = tm.loss_fn(params, check, cfg)
+        loss.backward()
+        return loss.item(), [p.grad for p in leaves]
+
+    real = tm.flash_attention
+    seen = []                   # each layer's q, k, v and incoming do
+
+    def recording(q, k, v, causal=True, sm_scale=None):
+        o = real(q, k, v, causal, sm_scale)
+        entry = [q.detach(), k.detach(), v.detach(), None]
+        o.register_hook(lambda g: entry.__setitem__(3, g.contiguous()))
+        seen.append(entry)
+        return o
+
+    before = [fn.launches for fn in kernels]
+    tm.flash_attention = recording
+    try:
+        loss_k, grads_k = loss_and_grads()
+    finally:
+        tm.flash_attention = real
+    if [fn.launches - b for fn, b in zip(kernels, before)] != \
+            [cfg.n_layers] * len(kernels):
+        raise AssertionError("the kernel path did not launch K3 once a layer")
+    tm.flash_attention = flash.flash_attention_plain
+    try:
+        before = [fn.launches for fn in kernels]
+        loss_p, grads_p = loss_and_grads()
+        if [fn.launches for fn in kernels] != before:
+            raise AssertionError("the plain path launched a kernel")
+    finally:
+        tm.flash_attention = real
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    cos = [torch.nn.functional.cosine_similarity(
+        a.float().flatten(), b.float().flatten(), dim=0).item()
+        for a, b in zip(grads_k, grads_p)]
+    worst = min(range(len(cos)), key=cos.__getitem__)
+    res["check"] = {"batch": CHECK_BATCH, "loss_kernel": loss_k,
+                    "loss_plain": loss_p, "loss_rel_diff": rel,
+                    "min_grad_cosine": cos[worst], "worst_leaf": worst,
+                    "grad_cosines": cos}
+    log(f"train: full-width check at batch {CHECK_BATCH}: loss kernel "
+        f"{loss_k:.6f} plain {loss_p:.6f} (rel diff {rel:.2e}, limit 1e-3); "
+        f"gradient cosine min {cos[worst]:.6f} (leaf {worst} of "
+        f"{len(cos)}, limit 0.99)")
+    if not rel <= 1e-3 or not cos[worst] >= 0.99:
+        raise AssertionError(f"kernel path and plain path disagree: loss "
+                             f"rel {rel}, gradient cosine {cos[worst]}")
+
+    # each layer's dQ from the kernels (di the row sums of P dP) against
+    # f64 dense attention on the same q, k, v and do
+    from curvine_tpu_torch.gpu.attention import dense_attention
+    cos_dq = []
+    for q, k, v, do in seen:
+        _, lse = flash.flash_fwd(q, k, v)
+        dq = flash.flash_bwd_dq(q, k, v, do, lse,
+                                flash.flash_bwd_di(q, k, v, do, lse))
+        q64 = q.double().requires_grad_(True)
+        dense_attention(q64, k.double(), v.double()).backward(do.double())
+        cos_dq.append(torch.nn.functional.cosine_similarity(
+            dq.double().flatten(), q64.grad.flatten(), dim=0).item())
+        del lse, dq, q64
+    res["dq_cosine_f64"] = cos_dq
+    log(f"train: dQ against f64 dense attention, layer by layer, at batch "
+        f"{CHECK_BATCH}: cosine {[round(c, 5) for c in cos_dq]} (limit "
+        f"0.99)")
+    if not min(cos_dq) >= 0.99:
+        raise AssertionError(f"dQ against f64: cosine {min(cos_dq)}")
+    del seen
+    del grads_k, grads_p, leaves, params, opt, step
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -386,6 +860,8 @@ def main() -> int:
     from curvine_tpu_torch.gpu import cuda_ops
 
     dev = default_device()
+    # the plain versions' f32 products in full f32, as stated
+    torch.backends.cuda.matmul.allow_tf32 = False
     card = gpu_name_and_limit()
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)} ({card})")
@@ -400,6 +876,10 @@ def main() -> int:
         results["main"] = phase_main(rng, dev, root)
         results["feed"] = phase_feed(rng, dev, root)
         launches = cuda_ops.block_checksum.launches
+        results["flash"] = phase_flash(dev, args.seed)
+        results["train"] = phase_train(dev, root, args.seed,
+                                       results["flash"])
+        log(f"train: mfu {results['train']['mfu']:.4f} on {card}")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     if launches != results["main"]["pins"]:
@@ -413,6 +893,20 @@ def main() -> int:
         "launches": launches, "max_abs_err": k["max_abs_err"],
         "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": "bytes", "library_ms": None}]
+    replaces = {"flash_fwd": ":758", "flash_bwd_di": ":273",
+                "flash_bwd_dkv": ":1121", "flash_bwd_dq": ":1456"}
+    for name in K3_NAMES:
+        f = results["flash"]["kernels"][name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "curvine_tpu_torch/csrc/flash_attention.cu",
+            "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py"
+                        + replaces[name] + " (via curvine_tpu/tpu/model.py"
+                        ":113)",
+            "launches": results["train"]["launches"][name],
+            "max_abs_err": f["max_abs_err"], "ms": f["ms"],
+            "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"],
+            "bound_by": f["bound_by"], "library_ms": f["library_ms"]})
     results["kernels"] = kernels
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -1,13 +1,14 @@
-"""Build and load the port's CUDA C++ kernels.
+"""Build and load the port's native code: CUDA C++ kernels and host C++.
 
-Each ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C interface, at first use, into
-``curvine_tpu_torch/build/`` (listed in ``.gitignore``), and loaded with
-``ctypes``. The sources include no PyTorch header, so a build takes
-seconds. Nothing here runs at import time: the CPU tests import every
-module of the port on machines without ``nvcc``.
+Each ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a``, and
+each ``csrc/*.cc`` source (host code, such as the crc32c routine) by the
+host C++ compiler, into a shared library with a plain C interface, at
+first use, into ``curvine_tpu_torch/build/`` (listed in ``.gitignore``),
+and loaded with ``ctypes``. The sources include no PyTorch header, so a
+build takes seconds. Nothing here runs at import time: the CPU tests
+import every module of the port on machines without ``nvcc``.
 
-A missing ``nvcc`` or a failed build raises ``KernelBuildError`` with the
+A missing compiler or a failed build raises ``KernelBuildError`` with the
 compiler's output; there is no fallback."""
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ CSRC = os.path.join(PKG, "csrc")
 BUILD = os.path.join(PKG, "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+CXX_FLAGS = ["-std=c++17", "-O3", "-shared", "-fPIC"]
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -47,24 +49,39 @@ def nvcc_path() -> str:
         "port's CUDA kernels build only where the CUDA toolkit is installed")
 
 
+def cxx_path() -> str:
+    for cand in ("c++", "g++", "clang++"):
+        path = shutil.which(cand)
+        if path:
+            return path
+    raise KernelBuildError("no host C++ compiler (c++, g++ or clang++) on "
+                           "PATH: the port's host routines need one")
+
+
 def build(name: str) -> str:
-    """Compile ``csrc/<name>.cu`` into ``build/lib<name>.so`` unless the
+    """Compile ``csrc/<name>.cu`` (with ``nvcc``) or ``csrc/<name>.cc``
+    (with the host compiler) into ``build/lib<name>.so`` unless the
     library is newer than its source; return the library's path."""
     src = os.path.join(CSRC, f"{name}.cu")
+    if os.path.exists(src):
+        compiler, flags = nvcc_path(), NVCC_FLAGS
+    else:
+        src = os.path.join(CSRC, f"{name}.cc")
+        compiler, flags = cxx_path(), CXX_FLAGS
     so = os.path.join(BUILD, f"lib{name}.so")
     if os.path.exists(so) and os.path.getmtime(so) >= os.path.getmtime(src):
         build_info.setdefault(name, {"seconds": 0.0, "log": ""})
         return so
     os.makedirs(BUILD, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, src]
+    cmd = [compiler, *flags, "-o", tmp, src]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0
     log = proc.stdout + proc.stderr
     if proc.returncode != 0:
         raise KernelBuildError(
-            f"nvcc failed ({proc.returncode}) for {src}:\n{' '.join(cmd)}\n"
+            f"{os.path.basename(compiler)} failed ({proc.returncode}) for {src}:\n{' '.join(cmd)}\n"
             f"{log}")
     os.replace(tmp, so)
     build_info[name] = {"seconds": seconds, "log": log}
@@ -72,12 +89,13 @@ def build(name: str) -> str:
 
 
 def sources() -> list[str]:
-    """Names of every kernel source under ``csrc/``."""
-    return sorted(f[:-3] for f in os.listdir(CSRC) if f.endswith(".cu"))
+    """Names of every source under ``csrc/`` (``.cu`` and ``.cc``)."""
+    return sorted(os.path.splitext(f)[0] for f in os.listdir(CSRC)
+                  if f.endswith((".cu", ".cc")))
 
 
 def build_all() -> dict[str, dict]:
-    """Build every source at once, one ``nvcc`` each, all started
+    """Build every source at once, one compiler each, all started
     together; return ``build_info``."""
     from concurrent.futures import ThreadPoolExecutor
     names = sources()
@@ -88,7 +106,8 @@ def build_all() -> dict[str, dict]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built at first use."""
+    """The loaded library of ``csrc/<name>.cu`` or ``.cc``, built at
+    first use."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:

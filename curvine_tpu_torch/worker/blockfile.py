@@ -8,32 +8,34 @@ backing file, so every reader takes an offset.
 
 ``crc_update`` is the port's own copy of
 ``curvine_tpu/common/checksum.py:26-34``: ``crc32`` is zlib's, and
-``crc32c`` (Castagnoli) goes through the repo's native helper library
-``csrc/build/libcurvine_native.so`` when it has been built, else through
-a table version (as ``curvine_tpu/common/native.py:163-181``) that is
-right but slow."""
+``crc32c`` (Castagnoli) goes through the port's own host routine
+``csrc/crc32c.cc`` (SSE4.2 where the CPU has it), built with the host C++
+compiler at first use (``gpu/_build.py``). A failed build raises
+``KernelBuildError`` when crc32c is asked for. ``crc32c_table`` is the
+plain table version (as ``curvine_tpu/common/native.py:163-181``), the
+reference the built routine is tested against."""
 
 from __future__ import annotations
 
 import ctypes
 import mmap
 import os
+import threading
 import zlib
 
 import numpy as np
 
+from curvine_tpu_torch.gpu import _build
+
 __all__ = ["ALGO_CRC32", "ALGO_CRC32C", "SUBDIRS", "block_path",
-           "map_block", "crc_update", "supported"]
+           "map_block", "crc_update", "crc32c_table", "supported"]
 
 SUBDIRS = 256
 ALGO_CRC32 = "crc32"
 ALGO_CRC32C = "crc32c"
 
-_NATIVE_SO = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__)))), "csrc", "build", "libcurvine_native.so")
-_native: ctypes.CDLL | None = None
-_native_tried = False
+_crc_lock = threading.Lock()
+_crc_lib: ctypes.CDLL | None = None
 _table: list[int] | None = None
 
 
@@ -65,23 +67,27 @@ def map_block(path: str, offset: int = 0, length: int | None = None
     return view[offset - start:]
 
 
-def _load_native() -> ctypes.CDLL | None:
-    global _native, _native_tried
-    if not _native_tried:
-        _native_tried = True
-        if os.path.exists(_NATIVE_SO):
-            try:
-                lib = ctypes.CDLL(_NATIVE_SO)
-                lib.cv_crc32c.restype = ctypes.c_uint32
-                lib.cv_crc32c.argtypes = [ctypes.c_void_p, ctypes.c_size_t,
-                                          ctypes.c_uint32]
-                _native = lib
-            except (OSError, AttributeError):
-                _native = None
-    return _native
+def _crc32c_lib() -> ctypes.CDLL:
+    """The built ``csrc/crc32c.cc``, its tables filled once."""
+    global _crc_lib
+    with _crc_lock:
+        if _crc_lib is None:
+            lib = _build.load("crc32c")
+            lib.cv_crc32c_init.argtypes = []
+            lib.cv_crc32c_init.restype = None
+            lib.cv_crc32c_hw.argtypes = []
+            lib.cv_crc32c_hw.restype = ctypes.c_int
+            lib.cv_crc32c.argtypes = [ctypes.c_void_p, ctypes.c_size_t,
+                                      ctypes.c_uint32]
+            lib.cv_crc32c.restype = ctypes.c_uint32
+            lib.cv_crc32c_init()
+            _crc_lib = lib
+        return _crc_lib
 
 
-def _crc32c_table(data, seed: int) -> int:
+def crc32c_table(data, seed: int = 0) -> int:
+    """Plain crc32c, one table lookup a byte: the reference for the built
+    routine."""
     global _table
     if _table is None:
         t = []
@@ -100,9 +106,7 @@ def _crc32c_table(data, seed: int) -> int:
 def crc_update(algo: str, data, crc: int = 0) -> int:
     """One streaming step of ``algo`` over ``data``, chained from ``crc``."""
     if algo == ALGO_CRC32C:
-        lib = _load_native()
-        if lib is None:
-            return _crc32c_table(data, crc)
+        lib = _crc32c_lib()
         arr = np.frombuffer(data, dtype=np.uint8) if isinstance(
             data, (bytes, bytearray, memoryview)) else np.asarray(data)
         arr = np.ascontiguousarray(arr).reshape(-1).view(np.uint8)

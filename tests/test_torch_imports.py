@@ -1,6 +1,7 @@
 """The port stands alone: every module of ``curvine_tpu_torch`` imports
-without pulling in ``jax`` or anything of ``curvine_tpu``, and its entry
-points refuse to run on the CPU unless asked to."""
+without pulling in ``jax``, ``optax`` or anything of ``curvine_tpu``, its
+crc32c maps no library of the JAX package's ``csrc/build/``, and its
+entry points refuse to run on the CPU unless asked to."""
 
 import os
 import subprocess
@@ -22,11 +23,18 @@ names = [m.name for m in pkgutil.walk_packages(curvine_tpu_torch.__path__,
                                                "curvine_tpu_torch.")]
 for n in names:
     importlib.import_module(n)
+from curvine_tpu_torch.worker import blockfile
+assert blockfile.crc_update("crc32c", b"123456789") == 0xE3069283
+with open("/proc/self/maps") as f:
+    mapped = sorted({line.split()[-1] for line in f if "csrc/build" in line})
 bad = sorted(k for k in sys.modules
-             if k == "jax" or k.startswith(("jax.", "jaxlib"))
-             or k == "curvine_tpu" or k.startswith("curvine_tpu."))
-print(len(names), "modules;", "leaked:", bad)
-sys.exit(1 if bad or len(names) < 15 else 0)
+             if k in ("jax", "optax", "curvine_tpu")
+             or k.startswith(("jax.", "jaxlib", "optax.", "curvine_tpu.")))
+print(len(names), "modules;", "leaked:", bad, "mapped:", mapped)
+required = {"curvine_tpu_torch.gpu.attention", "curvine_tpu_torch.gpu.flash",
+            "curvine_tpu_torch.gpu.model"}
+sys.exit(1 if bad or mapped or len(names) < 18 or required - set(names)
+         else 0)
 """
 
 

@@ -38,11 +38,26 @@ Phases, each raising on a fault (the exit code is then non-zero):
    peak memory, every loss, K3's share of the step; a profiler table of
    two steps; at batch 2 the loss and every gradient of the kernel path
    against the same model with its attention taken by the plain
-   versions, and each layer's dQ against f64 dense attention.
+   versions, and each layer's dQ against f64 dense attention;
+7. vector: K2, the ADC scan, on the card against its plain version, bit
+   for bit, at four shapes (the path's own among them) with planted
+   out-of-range codes, both code layouts; its time at the path's shape
+   beside its bound, the plain version's and ``embedding_bag``'s (a
+   yardstick only). Then bench.py's headline ANN configuration at full
+   size through the port's ``VectorTable`` on the POSIX client: 500,000
+   rows x 256 from a mixture of 1,024 Gaussians, an IVF-PQ index (nlist
+   1024, pq_m 16, cap_pct 90), ``AnnServer.query_many`` (4,096 queries,
+   batch 256, depth 4), 3,072 concurrent ``query()`` callers, flat IVF,
+   the exact scan in float32 and bf16, recall@10 of both indexed paths
+   against the exact scan (at least 0.9 each, scripts/perf_floor.json),
+   and the PQ search of 64 queries with K2 against the same search with
+   its ADC stage taken by the plain version (ids and scores equal).
 
 The kernel launch counts are set to 0 just before phase 3 and read just
-after phase 4 (K1), and again just before the two passes of phase 6 and
-read just after them (K3). Prints each phase's numbers, the card's name
+after phase 4 (K1), again just before the two passes of phase 6 and read
+just after them (K3), and just before phase 7's ``query_many`` and read
+just after it (K2, which must equal the ADC stages the search issued).
+Prints each phase's numbers, the card's name
 and power limit, one JSON line of kernels, and last the line
 ``{"ok": true, "device": {...}}``. Exits non-zero, and prints no result,
 where no CUDA device is visible or the port is not importable."""
@@ -80,6 +95,15 @@ BATCH, SEQ = 32, 8192
 FLASH_SHAPES = [(16, 20, 1024, 128), (1, 2, 128, 128), (2, 4, 2048, 128)]
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 16, 1024, 8
 CHECK_BATCH = 2                    # the full-width agreement check
+# bench.py:1581-1693, the headline ANN configuration (docs/ann-serving.md)
+VEC_ROWS, VEC_DIM, VEC_CENTERS, VEC_SIGMA = 500_000, 256, 1024, 0.25
+VEC_INDEX = dict(nlist=1024, metric="cosine", iters=4, pq_m=16, cap_pct=90.0)
+VEC_K, VEC_NPROBE, VEC_RERANK = 10, 8, 512
+ANN_QUERIES, ANN_BATCH, ANN_DEPTH = 4096, 256, 4
+SERVED_QUERIES, FLAT_QUERIES, SCAN_REPS, RECALL_QUERIES = 3072, 512, 8, 64
+# K2 against its plain version: (Q, W, M, ksub); the path's own shape,
+# (256, W of the run, 16, 256), is added by the phase
+PQ_SHAPES = [(1, 1, 4, 16), (3, 1000, 8, 32), (16, 7777, 64, 256)]
 
 
 def log(msg: str) -> None:
@@ -595,9 +619,27 @@ def _flagship():
 K3_NAMES = ("flash_fwd", "flash_bwd_di", "flash_bwd_dkv", "flash_bwd_dq")
 
 
+def device_work(prof) -> tuple[list, float]:
+    """Work on the card in a profile: kernels and copies, less CUPTI's
+    "Command Buffer Full" spans (the host waiting on a full launch queue)
+    and the device-side ranges of user annotations; and the busy time in
+    microseconds, the union of their spans."""
+    from torch.autograd import DeviceType
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and not e.is_user_annotation and e.name != "Command Buffer Full"]
+    busy_us, end = 0.0, None
+    for a, b in sorted((e.time_range.start, e.time_range.end) for e in kern):
+        if end is None or a > end:
+            busy_us += b - a
+            end = b
+        elif b > end:
+            busy_us += b - end
+            end = b
+    return kern, busy_us
+
+
 def phase_train(dev: torch.device, root: str, seed: int, flash_res: dict
                 ) -> dict:
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from curvine_tpu_torch.gpu import flash, model as tm
     from curvine_tpu_torch.gpu.loader import GpuTrainFeed, write_token_shards
@@ -707,20 +749,7 @@ def phase_train(dev: torch.device, root: str, seed: int, flash_res: dict
             step(params, tok0)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t
-    # work on the card: kernels and copies, less CUPTI's "Command Buffer
-    # Full" spans (the host waiting on a full launch queue) and the
-    # device-side ranges of user annotations; busy time is the union of
-    # their spans
-    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-            and not e.is_user_annotation and e.name != "Command Buffer Full"]
-    busy_us, end = 0.0, None
-    for a, b in sorted((e.time_range.start, e.time_range.end) for e in kern):
-        if end is None or a > end:
-            busy_us += b - a
-            end = b
-        elif b > end:
-            busy_us += b - end
-            end = b
+    kern, busy_us = device_work(prof)
     k3_us = sum(e.time_range.elapsed_us() for e in kern
                 if "flash_" in e.name)
     res["profile"] = {"wall_ms": wall_s * 1e3, "device_busy_ms": busy_us / 1e3,
@@ -847,6 +876,300 @@ def phase_train(dev: torch.device, root: str, seed: int, flash_res: dict
     return res
 
 
+# ------------------------------------------------------------------ vector
+
+def pq_case(gen: torch.Generator, dev: torch.device, q: int, w: int, m: int,
+            ksub: int, pre_offset: bool):
+    """A random LUT [Q, M, ksub] and codes [Q, W, M] on the card, with
+    planted out-of-range codes: -1, past the table, and (pre-offset) a
+    code in the next subspace's range."""
+    lut = torch.randn((q, m, ksub), generator=gen, device=dev)
+    codes = torch.randint(0, ksub, (q, w, m), generator=gen, device=dev,
+                          dtype=torch.int32)
+    if pre_offset:
+        codes += torch.arange(m, device=dev, dtype=torch.int32) * ksub
+    codes[:, ::7, 0] = -1
+    codes[:, 1::5, m - 1] = m * ksub + 3
+    if m > 1:
+        codes[:, 2::3, 1] += ksub
+    return lut, codes
+
+
+def pq_bit_check(lut, codes, pre_offset: bool) -> float:
+    """K2 against its plain version on the same tensors: every float32
+    bit equal (both add the same terms in the same order). Returns the
+    largest absolute difference (0 when equal)."""
+    from curvine_tpu_torch.gpu import pq
+    got = pq.pq_lut_scan(lut, codes, pre_offset=pre_offset)
+    ref = pq.pq_lut_scan_plain(lut, codes, pre_offset=pre_offset)
+    torch.cuda.synchronize()
+    if not torch.equal(got.view(torch.int32), ref.view(torch.int32)):
+        bad = int((got.view(torch.int32) != ref.view(torch.int32)).sum())
+        raise AssertionError(f"pq_lut_scan {tuple(lut.shape)} x "
+                             f"{tuple(codes.shape)} pre_offset={pre_offset}:"
+                             f" {bad} scores differ from the plain version "
+                             f"(max abs {(got - ref).abs().max().item()})")
+    return (got - ref).abs().max().item()
+
+
+def pq_timing(lut, codes, dev: torch.device) -> dict:
+    """K2 at the path's shape, on the search's own LUT and pre-offset
+    codes: CUDA events, median of 20, L2 flushed before each launch;
+    beside its bound, the plain version and one ``embedding_bag`` call
+    on the same codes offset per query (computed outside the timing)."""
+    import torch.nn.functional as F
+    from curvine_tpu_torch.gpu import pq
+    q, w, m = codes.shape
+    ksub = lut.shape[2]
+    scratch = torch.empty(256 * MiB, dtype=torch.uint8, device=dev)
+    flat_idx = (codes + (torch.arange(q, device=dev, dtype=torch.int32)
+                         * (m * ksub))[:, None, None]).view(q * w, m)
+    table = lut.reshape(-1, 1)
+
+    def med(fn):
+        fn()
+        torch.cuda.synchronize()
+        return statistics.median(event_ms(fn, 20, scratch))
+
+    ms = med(lambda: pq.pq_lut_scan(lut, codes, pre_offset=True))
+    plain_ms = med(lambda: pq.pq_lut_scan_plain(lut, codes, pre_offset=True))
+    lib_ms = med(lambda: F.embedding_bag(flat_idx, table, mode="sum"))
+    lib = F.embedding_bag(flat_idx, table, mode="sum").view(q, w)
+    got = pq.pq_lut_scan(lut, codes, pre_offset=True)
+    lib_err = (lib - got).abs().max().item()
+    nbytes = q * w * m * 4 + q * m * ksub * 4 + q * w * 4
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    del scratch
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes", "bytes": nbytes,
+            "embedding_bag_max_abs_diff": lib_err}
+
+
+def phase_vector(dev: torch.device, root: str, seed: int) -> dict:
+    from torch.profiler import ProfilerActivity, profile
+    from curvine_tpu_torch.client.posix import PosixClient
+    from curvine_tpu_torch.gpu import pq
+    from curvine_tpu_torch.vector import AnnServer, VectorTable
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    res = {"pq_shapes": {}}
+    max_err = 0.0
+    for shape in PQ_SHAPES:
+        for pre_offset in (False, True):
+            max_err = max(max_err, pq_bit_check(
+                *pq_case(gen, dev, *shape, pre_offset), pre_offset))
+        res["pq_shapes"][str(list(shape))] = "bit-equal"
+        log(f"vector: K2 {list(shape)} (Q, W, M, ksub), both code layouts, "
+            f"planted out-of-range codes: bit-equal to the plain version")
+
+    # bench.py:1587-1592: a mixture of 1,024 Gaussians, sigma 0.25
+    centers = rng.standard_normal((VEC_CENTERS, VEC_DIM), dtype=np.float32)
+    vecs = rng.standard_normal((VEC_ROWS, VEC_DIM), dtype=np.float32)
+    vecs *= VEC_SIGMA
+    vecs += centers[rng.integers(0, VEC_CENTERS, VEC_ROWS)]
+    queries = vecs[rng.integers(0, VEC_ROWS, ANN_QUERIES)]
+    client = PosixClient(os.path.join(root, "cache"))
+
+    def recall10(ann_i, exact_i) -> float:
+        hits = sum(len(set(map(int, a)) & set(map(int, b)))
+                   for a, b in zip(ann_i[:RECALL_QUERIES], exact_i))
+        return hits / (RECALL_QUERIES * 10)
+
+    async def run():
+        t0 = time.perf_counter()
+        table = await VectorTable.create(client, "/bench/vec", VEC_DIM)
+        await table.append(vecs)
+        res["append_s"] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        await table.knn(vecs[0], k=8, device=dev)        # pin
+        res["pin_s"] = time.perf_counter() - t0
+        # the pinned tensors, and all that pinning and the first scan left
+        # allocated (cuBLAS keeps its workspace in PyTorch's allocator)
+        res["table_bytes_pinned"] = sum(
+            t.nbytes for t in next(iter(table._dev_cache.values())))
+        res["allocated_after_pin_bytes"] = \
+            torch.cuda.memory_allocated(dev) - base
+        # a stream of single-query scans, one sync at the end
+        t0 = time.perf_counter()
+        outs = [await table.knn(vecs[123 + i], k=8, device=dev,
+                                materialize=False) for i in range(SCAN_REPS)]
+        ids = outs[-1][0].cpu().numpy()
+        res["vector_scan_mrows_s"] = SCAN_REPS * VEC_ROWS / (
+            time.perf_counter() - t0) / 1e6
+        if int(ids[0, 0]) != 123 + SCAN_REPS - 1:
+            raise AssertionError(f"exact scan: top id {ids[0, 0]}")
+
+        t0 = time.perf_counter()
+        idx = await table.create_index(device=dev, **VEC_INDEX)
+        torch.cuda.synchronize()
+        res["vector_index_build_s"] = time.perf_counter() - t0
+        cap = int(idx.lists.shape[1])
+        res.update(list_cap=cap, nlist_total=idx.nlist_total,
+                   width=VEC_NPROBE * cap)
+        exact_i, _ = await table.knn(queries[:RECALL_QUERIES], k=10,
+                                     device=dev, use_index=False)
+
+        # the PQ search of 64 queries: K2 against the plain ADC stage,
+        # passed in through the search's hook; and the path's own K2
+        # inputs (the first 256 queries' LUT and codes) for the timing
+        v, vid = await table._device_vectors("cosine", dev)
+        kw = dict(k=VEC_K, metric="cosine", nprobe=VEC_NPROBE, device=dev,
+                  rerank=VEC_RERANK)
+        s_k, i_k = idx.search(queries[:64], v, vid, **kw)
+        s_p, i_p = idx.search(queries[:64], v, vid, adc=pq.pq_lut_scan_plain,
+                              **kw)
+        if not (torch.equal(i_k, i_p) and torch.equal(s_k, s_p)):
+            raise AssertionError("the PQ search with K2 and with its plain "
+                                 "ADC stage disagree")
+        seen = []
+
+        def capture(lut, codes, pre_offset):
+            seen.append((lut, codes))
+            return pq.pq_lut_scan_plain(lut, codes, pre_offset)
+        idx.search(queries[:ANN_BATCH], v, vid, adc=capture, **kw)
+        del v, vid
+
+        srv = await AnnServer(table, k=VEC_K, nprobe=VEC_NPROBE,
+                              rerank=VEC_RERANK, device=dev,
+                              max_batch=ANN_BATCH, warm_all=False).start()
+        await srv.query_many(queries[:ANN_BATCH])          # warm
+        pq.pq_lut_scan.launches = 0
+        idx.adc_calls = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ann_i, _ = await srv.query_many(queries, batch=ANN_BATCH,
+                                        depth=ANN_DEPTH)
+        ann_s = time.perf_counter() - t0
+        launches, adc_calls = pq.pq_lut_scan.launches, idx.adc_calls
+        # where a batch goes: 4 batches of query_many under the profiler
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            await srv.query_many(queries[:4 * ANN_BATCH], batch=ANN_BATCH,
+                                 depth=ANN_DEPTH)
+            wall_s = time.perf_counter() - t0
+        kern, busy_us = device_work(prof)
+        k2_us = sum(e.time_range.elapsed_us() for e in kern
+                    if "pq_scan" in e.name)
+        res["profile"] = {"wall_ms": wall_s * 1e3,
+                          "device_busy_ms": busy_us / 1e3,
+                          "k2_device_ms": k2_us / 1e3,
+                          "device_events": len(kern)}
+        if kern:
+            log(f"vector: profiler, query_many of {4 * ANN_BATCH}: wall "
+                f"{wall_s * 1e3:.2f} ms, device busy {busy_us / 1e3:.2f} ms"
+                f" (busy share {busy_us / 1e3 / (wall_s * 1e3):.3f}), K2 "
+                f"{k2_us / 1e3:.3f} ms, {len(kern)} device events")
+            for line in prof.key_averages().table(
+                    sort_by="self_device_time_total", row_limit=12,
+                    max_name_column_width=48).splitlines():
+                log(f"  {line}")
+        else:
+            log("vector: the profiler recorded no device time "
+                "(not measured)")
+        del prof, kern
+        await srv.stop()
+        if not 0 < launches == adc_calls:
+            raise AssertionError(f"query_many: {launches} K2 launches for "
+                                 f"{adc_calls} ADC stages")
+        res.update(vector_ann_qps=ANN_QUERIES / ann_s,
+                   vector_ann_recall10=recall10(ann_i, exact_i),
+                   k2_launches=launches, adc_calls=adc_calls)
+
+        srv = await AnnServer(table, k=VEC_K, nprobe=VEC_NPROBE,
+                              use_pq=False, device=dev, max_batch=ANN_BATCH,
+                              warm_all=False).start()
+        await srv.query_many(queries[:ANN_BATCH])          # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        flat_i, _ = await srv.query_many(queries[:FLAT_QUERIES],
+                                         batch=ANN_BATCH, depth=ANN_DEPTH)
+        res["vector_ann_flat_qps"] = FLAT_QUERIES / (time.perf_counter() - t0)
+        res["vector_ann_flat_recall10"] = recall10(flat_i, exact_i)
+        await srv.stop()
+
+        srv = await AnnServer(table, k=VEC_K, nprobe=VEC_NPROBE,
+                              rerank=VEC_RERANK, device=dev,
+                              max_batch=ANN_BATCH, max_wait_ms=2.0).start()
+        await asyncio.gather(*(srv.query(q) for q in queries[:ANN_BATCH]))
+        t0 = time.perf_counter()
+        served = await asyncio.gather(
+            *(srv.query(q) for q in queries[:SERVED_QUERIES]))
+        res["vector_ann_served_qps"] = SERVED_QUERIES / (
+            time.perf_counter() - t0)
+        st = srv.stats()
+        res["vector_ann_batch_occupancy"] = st["batch_occupancy"]
+        res["served_batches"] = st["batches"]
+        await srv.stop()
+        res["vector_ann_served_recall10"] = recall10(
+            np.stack([i for i, _ in served]), exact_i)
+
+        torch.cuda.synchronize()
+        res["device_bytes_after_index"] = torch.cuda.memory_allocated(dev)
+        await table.knn(vecs[0], k=8, device=dev, use_index=False,
+                        dtype="bf16")                      # re-pin in bf16
+        t0 = time.perf_counter()
+        outs = [await table.knn(vecs[123 + i], k=8, device=dev,
+                                use_index=False, materialize=False,
+                                dtype="bf16") for i in range(SCAN_REPS)]
+        ids = outs[-1][0].cpu().numpy()
+        res["vector_scan_bf16_mrows_s"] = SCAN_REPS * VEC_ROWS / (
+            time.perf_counter() - t0) / 1e6
+        if int(ids[0, 0]) != 123 + SCAN_REPS - 1:
+            raise AssertionError(f"bf16 scan: top id {ids[0, 0]}")
+        res["table_bf16_bytes_pinned"] = sum(
+            t.nbytes for t in next(iter(table._dev_cache.values())))
+        return seen[0]
+
+    lut, codes = asyncio.run(run())
+    q, w, m = codes.shape
+    ksub = lut.shape[2]
+    for pre_offset in (False, True):          # the path's own shape
+        max_err = max(max_err, pq_bit_check(
+            *pq_case(gen, dev, q, w, m, ksub, pre_offset), pre_offset))
+    max_err = max(max_err, pq_bit_check(lut, codes, True))
+    res["pq_shapes"][str([q, w, m, ksub])] = "bit-equal"
+    res["max_abs_err"] = max_err
+    res["k2"] = pq_timing(lut, codes, dev)
+    res["k2"]["shape"] = [q, w, m, ksub]
+    k2 = res["k2"]
+    log(f"vector: K2 {[q, w, m, ksub]} (the path's, and on its own "
+        f"inputs): bit-equal to the plain version; {k2['ms']:.4f} ms, "
+        f"bound {k2['bound_ms']:.4f} ms by bytes ({k2['bound_ms'] / k2['ms']:.1%}"
+        f" of it); plain {k2['plain_ms']:.4f} ms; embedding_bag "
+        f"{k2['library_ms']:.4f} ms (max abs diff "
+        f"{k2['embedding_bag_max_abs_diff']:.3g})")
+    for key in ("vector_ann_recall10", "vector_ann_flat_recall10",
+                "vector_ann_served_recall10"):
+        if not res[key] >= 0.9:          # scripts/perf_floor.json:13
+            raise AssertionError(f"{key} {res[key]} < 0.9")
+    log(f"vector: {VEC_ROWS:,} x {VEC_DIM} f32 appended in "
+        f"{res['append_s']:.2f}s, pinned in {res['pin_s']:.2f}s "
+        f"({res['table_bytes_pinned'] / MiB:.1f} MiB pinned, "
+        f"{res['allocated_after_pin_bytes'] / MiB:.1f} MiB more allocated on"
+        f" the card); "
+        f"vector_index_build_s {res['vector_index_build_s']:.3f} (list cap "
+        f"{res['list_cap']}, {res['nlist_total']} lists with spills, W "
+        f"{res['width']}); device memory after the index "
+        f"{res['device_bytes_after_index'] / MiB:.1f} MiB; bf16 table "
+        f"{res['table_bf16_bytes_pinned'] / MiB:.1f} MiB pinned")
+    log(f"vector: vector_ann_qps {res['vector_ann_qps']:.1f} "
+        f"vector_ann_recall10 {res['vector_ann_recall10']:.4f} "
+        f"vector_ann_flat_qps {res['vector_ann_flat_qps']:.1f} "
+        f"vector_ann_flat_recall10 {res['vector_ann_flat_recall10']:.4f} "
+        f"vector_ann_served_qps {res['vector_ann_served_qps']:.1f} "
+        f"vector_ann_batch_occupancy {res['vector_ann_batch_occupancy']:.3f}"
+        f" ({res['served_batches']} batches, recall10 "
+        f"{res['vector_ann_served_recall10']:.4f}) vector_scan_mrows_s "
+        f"{res['vector_scan_mrows_s']:.1f} vector_scan_bf16_mrows_s "
+        f"{res['vector_scan_bf16_mrows_s']:.1f}; K2 launches in "
+        f"query_many {res['k2_launches']} for {res['adc_calls']} ADC "
+        f"stages; PQ search with K2 == with the plain ADC (64 queries)")
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -869,7 +1192,8 @@ def main() -> int:
     results = {"card": card, "seed": args.seed}
     results["build"] = phase_build()
     results["kernel"] = phase_kernel(rng, dev)
-    root = pick_data_dir(N_BLOCKS * BLOCK + SHARDS * SHARD_BYTES)
+    root = pick_data_dir(N_BLOCKS * BLOCK + SHARDS * SHARD_BYTES
+                         + VEC_ROWS * VEC_DIM * 4 + GiB)
     log(f"main: data under {root}")
     try:
         cuda_ops.block_checksum.launches = 0
@@ -880,6 +1204,7 @@ def main() -> int:
         results["train"] = phase_train(dev, root, args.seed,
                                        results["flash"])
         log(f"train: mfu {results['train']['mfu']:.4f} on {card}")
+        results["vector"] = phase_vector(dev, root, args.seed)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     if launches != results["main"]["pins"]:
@@ -907,6 +1232,15 @@ def main() -> int:
             "max_abs_err": f["max_abs_err"], "ms": f["ms"],
             "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"],
             "bound_by": f["bound_by"], "library_ms": f["library_ms"]})
+    v = results["vector"]
+    kernels.append({
+        "name": "pq_lut_scan", "route": "cuda",
+        "source": "curvine_tpu_torch/csrc/pq_scan.cu",
+        "replaces": "curvine_tpu/tpu/pallas_ops.py:111",
+        "launches": v["k2_launches"], "max_abs_err": v["max_abs_err"],
+        "ms": v["k2"]["ms"], "plain_ms": v["k2"]["plain_ms"],
+        "bound_ms": v["k2"]["bound_ms"], "bound_by": "bytes",
+        "library_ms": v["k2"]["library_ms"]})
     results["kernels"] = kernels
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -11,7 +11,8 @@ the CPU tests do; with no CUDA device and no CPU request they raise
 (``device.default_device``). The hand-written kernels are CUDA C++ for
 ``sm_90a`` under ``csrc/``, built with ``nvcc`` at first use into
 ``build/`` (``gpu/_build.py``): K1, the block checksum
-(``gpu.cuda_ops.block_checksum``), and K3, causal flash attention
-forward, dK/dV and dQ (``gpu.flash.flash_attention``), which the train
-step of ``gpu.model`` runs on a CUDA device. ``csrc/crc32c.cc`` is host
-C++, built there too with the host compiler."""
+(``gpu.cuda_ops.block_checksum``); K2, the ADC scan of the IVF-PQ search
+(``gpu.pq.pq_lut_scan``), which ``vector``'s ANN search runs; and K3,
+causal flash attention forward, dK/dV and dQ (``gpu.flash.flash_attention``),
+which the train step of ``gpu.model`` runs on a CUDA device.
+``csrc/crc32c.cc`` is host C++, built there too with the host compiler."""

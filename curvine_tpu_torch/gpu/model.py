@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from curvine_tpu_torch.device import default_device
 from curvine_tpu_torch.gpu.attention import dense_attention
 from curvine_tpu_torch.gpu.flash import flash_attention
 
@@ -134,10 +135,11 @@ def _from_numpy(a, device) -> torch.Tensor:
 
 def params_from_jax(tree: dict, device=None) -> dict:
     """The JAX package's parameter tree, as numpy arrays (``np.asarray``
-    of each leaf), as the port's parameters on ``device`` (the CPU when
-    None). bf16 arrays are carried bit for bit through their uint16
-    bits."""
-    device = torch.device("cpu") if device is None else torch.device(device)
+    of each leaf), as the port's parameters on ``device``
+    (``default_device()`` when None: the card, or an error without one;
+    the CPU only when asked for). bf16 arrays are carried bit for bit
+    through their uint16 bits."""
+    device = default_device() if device is None else torch.device(device)
     return {
         "embed": _from_numpy(tree["embed"], device),
         "pos": _from_numpy(tree["pos"], device),

@@ -1,0 +1,236 @@
+"""Batched ANN serving over the port's VectorTable.
+
+Port of ``curvine_tpu/vector/serving.py``. One query per device call pays
+the call's fixed cost for one row, so the server MICRO-BATCHES:
+
+* callers await ``query()``; a collector coalesces everything that
+  arrives within ``max_wait_ms`` (or until ``max_batch``) into one [Q, D]
+  batch, padded to the next power of two (the JAX package pads so that
+  XLA compiles a handful of shapes; eager PyTorch compiles nothing, and
+  the padding is kept so that batches, counters and warm-up mean the same
+  in both);
+* the table, centroids, lists and PQ codes stay pinned on the device
+  across calls (``VectorTable._device_vectors``, ``IvfIndex._dev``);
+* ``use_pq``/``rerank`` select the two-stage ADC (K2) + exact re-rank
+  search when the index carries PQ codes.
+
+``query_many()`` is the throughput path: caller-sized batches, no
+padding, ``depth`` batches queued on the device before the oldest is
+copied back. The copy back to the host (``.cpu()``, which waits for the
+device) runs in a worker thread so the event loop keeps serving.
+
+``stats()`` reports batch occupancy, queue wait, the recall-relevant
+config and the table's ``stale_fallbacks``."""
+
+from __future__ import annotations
+
+import asyncio
+
+import numpy as np
+import torch
+
+from curvine_tpu_torch.common import errors as err
+from curvine_tpu_torch.vector.index import _device
+
+
+def _to_host(i_dev: torch.Tensor, s_dev: torch.Tensor):
+    return i_dev.cpu().numpy(), s_dev.cpu().numpy()
+
+
+class AnnServer:
+    def __init__(self, table, k: int = 10, metric: str = "cosine",
+                 nprobe: int = 8, device=None, max_batch: int = 256,
+                 max_wait_ms: float = 2.0, use_index: bool = True,
+                 dtype: str = "f32", warm_all: bool = True,
+                 use_pq: bool | str = "auto", rerank: int | None = None):
+        self.table = table
+        self.k = k
+        self.metric = metric
+        self.nprobe = nprobe
+        self.device = device
+        self.max_batch = max_batch
+        self.max_wait_ms = max_wait_ms
+        self.use_index = use_index
+        self.dtype = dtype
+        self.use_pq = use_pq
+        self.rerank = rerank
+        # warm_all=False: only the 1 and max_batch shapes are warmed, for
+        # bulk-only callers (query_many at a fixed batch)
+        self.warm_all = warm_all
+        self._queue: asyncio.Queue = asyncio.Queue()
+        self._collector: asyncio.Task | None = None
+        self._closed = False
+        self._warmed: set[int] = set()
+        self._counters = {"queries": 0, "batches": 0, "batch_rows": 0,
+                          "queue_wait_ms": 0.0, "max_queue_wait_ms": 0.0}
+
+    def _knn(self, qs: np.ndarray):
+        return self.table.knn(
+            qs, k=self.k, metric=self.metric, device=self.device,
+            materialize=False, use_index=self.use_index, nprobe=self.nprobe,
+            dtype=self.dtype, use_pq=self.use_pq, rerank=self.rerank)
+
+    async def start(self) -> "AnnServer":
+        """Pin the table (and index) on the device and run each padded
+        batch shape once, so the first real queries pay no first-call
+        costs. The warm-up calls are queued without waiting and the
+        device is synchronised once at the end; shapes warmed by a
+        previous start() of this server are skipped."""
+        self.device = _device(self.device)
+        warm = np.zeros((1, self.table.dim), dtype=np.float32)
+        q = 1
+        while True:
+            if (self.warm_all or q in (1, self.max_batch)) \
+                    and q not in self._warmed:
+                await self._knn(np.repeat(warm, q, axis=0))
+                self._warmed.add(q)
+            if q >= self.max_batch:
+                break
+            q = min(q * 2, self.max_batch)
+        if self.device.type == "cuda":
+            await asyncio.to_thread(torch.cuda.synchronize, self.device)
+        self._closed = False
+        self._collector = asyncio.ensure_future(self._collect_loop())
+        return self
+
+    async def stop(self) -> None:
+        self._closed = True
+        if self._collector:
+            self._collector.cancel()
+            try:
+                await self._collector
+            except asyncio.CancelledError:
+                pass
+            self._collector = None
+        # reject every waiter still queued (or whose batch was cut down
+        # mid-flight by the cancellation): nobody hangs on a dead server
+        while not self._queue.empty():
+            item = self._queue.get_nowait()
+            if not item[1].done():
+                item[1].set_exception(
+                    err.InvalidArgument("AnnServer stopped"))
+
+    def stats(self) -> dict:
+        """Serving counters + the recall-relevant config. batch_occupancy
+        near 1/max_batch means callers are not concurrent enough for
+        micro-batching to pay."""
+        c = dict(self._counters)
+        batches = c.pop("batches")
+        rows = c.pop("batch_rows")
+        wait = c.pop("queue_wait_ms")
+        return {
+            "queries": c["queries"], "batches": batches,
+            "batch_occupancy": rows / (batches * self.max_batch)
+            if batches else 0.0,
+            "avg_batch": rows / batches if batches else 0.0,
+            "avg_queue_wait_ms": wait / c["queries"]
+            if c["queries"] else 0.0,
+            "max_queue_wait_ms": c["max_queue_wait_ms"],
+            "stale_fallbacks": getattr(self.table, "stale_fallbacks", 0),
+            "config": {"k": self.k, "metric": self.metric,
+                       "nprobe": self.nprobe, "use_index": self.use_index,
+                       "use_pq": self.use_pq, "rerank": self.rerank,
+                       "dtype": self.dtype, "max_batch": self.max_batch,
+                       "max_wait_ms": self.max_wait_ms},
+        }
+
+    # ---------------- single-query path (micro-batched) ----------------
+
+    async def query(self, q: np.ndarray):
+        """One [D] query -> (ids [k], scores [k]), coalesced with
+        concurrent callers into one device batch."""
+        if self._closed:
+            raise err.InvalidArgument("AnnServer is stopped")
+        q = np.asarray(q, dtype=np.float32)
+        if q.shape != (self.table.dim,):
+            # validate BEFORE enqueueing: one malformed query must not
+            # poison every innocent waiter coalesced into its batch
+            raise err.InvalidArgument(
+                f"query shape {q.shape} != ({self.table.dim},)")
+        loop = asyncio.get_running_loop()
+        fut: asyncio.Future = loop.create_future()
+        await self._queue.put((q, fut, loop.time()))
+        ids, scores = await fut
+        return ids, scores
+
+    async def _collect_loop(self) -> None:
+        while True:
+            batch = [await self._queue.get()]
+            try:
+                deadline = asyncio.get_running_loop().time() \
+                    + self.max_wait_ms / 1000.0
+                while len(batch) < self.max_batch:
+                    timeout = deadline - asyncio.get_running_loop().time()
+                    if timeout <= 0:
+                        break
+                    try:
+                        batch.append(await asyncio.wait_for(
+                            self._queue.get(), timeout))
+                    except asyncio.TimeoutError:
+                        break
+                await self._run_batch(batch)
+            except asyncio.CancelledError:
+                # stop() while coalescing OR mid-batch: reject every
+                # waiter already popped from the queue (the queued rest
+                # are rejected by stop itself), then propagate
+                for item in batch:
+                    if not item[1].done():
+                        item[1].set_exception(
+                            err.InvalidArgument("AnnServer stopped"))
+                raise
+            except Exception as e:  # noqa: BLE001 — fail the waiters
+                for item in batch:
+                    if not item[1].done():
+                        item[1].set_exception(e)
+
+    async def _run_batch(self, batch) -> None:
+        now = asyncio.get_running_loop().time()
+        c = self._counters
+        c["queries"] += len(batch)
+        c["batches"] += 1
+        c["batch_rows"] += len(batch)
+        for _, _, t_enq in batch:
+            wait_ms = (now - t_enq) * 1000.0
+            c["queue_wait_ms"] += wait_ms
+            if wait_ms > c["max_queue_wait_ms"]:
+                c["max_queue_wait_ms"] = wait_ms
+        qs = np.stack([q for q, _, _ in batch])
+        n = qs.shape[0]
+        padded = 1                      # the next power of two
+        while padded < n:
+            padded *= 2
+        padded = min(padded, self.max_batch)
+        if padded > n:
+            qs = np.concatenate(
+                [qs, np.zeros((padded - n, qs.shape[1]), qs.dtype)])
+        i_dev, s_dev = await self._knn(qs)
+        # device->host copy off the event loop so OTHER tasks (bulk
+        # query_many pipelines, RPC handlers) keep running during it
+        ids, scores = await asyncio.to_thread(_to_host, i_dev, s_dev)
+        for j, (_, fut, _) in enumerate(batch):
+            if not fut.done():
+                fut.set_result((ids[j], scores[j]))
+
+    # ---------------- bulk path ----------------
+
+    async def query_many(self, queries: np.ndarray,
+                         batch: int = 0, depth: int = 4):
+        """[Q, D] queries -> (ids [Q, k], scores [Q, k]). Splits into
+        device batches and keeps `depth` of them queued on the device
+        before copying the oldest back."""
+        queries = np.atleast_2d(np.asarray(queries, dtype=np.float32))
+        batch = batch or self.max_batch
+        pend: list = []
+        out_i, out_s = [], []
+
+        async def drain(n_keep: int) -> None:
+            while len(pend) > n_keep:
+                i, s = await asyncio.to_thread(_to_host, *pend.pop(0))
+                out_i.append(i)
+                out_s.append(s)
+
+        for off in range(0, queries.shape[0], batch):
+            pend.append(await self._knn(queries[off:off + batch]))
+            await drain(depth)
+        await drain(0)
+        return np.concatenate(out_i), np.concatenate(out_s)

@@ -7,12 +7,13 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 
 import torch
 
 from curvine_tpu_torch import device as dev_mod
-from curvine_tpu_torch.gpu import hbm, ingest
+from curvine_tpu_torch.gpu import hbm, ingest, model
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -32,8 +33,11 @@ bad = sorted(k for k in sys.modules
              or k.startswith(("jax.", "jaxlib", "optax.", "curvine_tpu.")))
 print(len(names), "modules;", "leaked:", bad, "mapped:", mapped)
 required = {"curvine_tpu_torch.gpu.attention", "curvine_tpu_torch.gpu.flash",
-            "curvine_tpu_torch.gpu.model"}
-sys.exit(1 if bad or mapped or len(names) < 18 or required - set(names)
+            "curvine_tpu_torch.gpu.model", "curvine_tpu_torch.gpu.pq",
+            "curvine_tpu_torch.client.posix", "curvine_tpu_torch.vector",
+            "curvine_tpu_torch.vector.index", "curvine_tpu_torch.vector.table",
+            "curvine_tpu_torch.vector.serving"}
+sys.exit(1 if bad or mapped or len(names) < 25 or required - set(names)
          else 0)
 """
 
@@ -58,6 +62,16 @@ def test_entry_points_need_cuda_unless_the_cpu_is_asked_for(monkeypatch):
         hbm.MultiHbmTier(1024)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ingest.DevicePrefetcher(iter([]))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model.params_from_jax(
+            {"embed": np.zeros((4, 2), np.float32), "pos": np.zeros(
+                (4, 2), np.float32), "ln_f": np.ones(2, np.float32),
+             "layers": []})
+    tree = model.params_from_jax(
+        {"embed": np.zeros((4, 2), np.float32), "pos": np.zeros(
+            (4, 2), np.float32), "ln_f": np.ones(2, np.float32),
+         "layers": []}, device="cpu")
+    assert tree["embed"].device == torch.device("cpu")
     assert dev_mod.default_device(cpu=True) == torch.device("cpu")
     assert dev_mod.device_id(torch.device("cpu", 3)) == 3
     assert dev_mod.device_id(5) == 5

@@ -256,7 +256,7 @@ def test_model_matches_jax(monkeypatch, name, cfg, shape, flash_on_cpu):
     ref_loss, ref_grads = jax.jit(jax.value_and_grad(jm.loss_fn),
                                   static_argnums=2)(tree, tokens, cfg)
 
-    params = tm.params_from_jax(tree)
+    params = tm.params_from_jax(tree, device="cpu")
     tok = torch.from_numpy(tokens)
     with torch.no_grad():
         logits = tm.forward(params, tok, pcfg).numpy()
@@ -292,7 +292,7 @@ def test_adamw_step_matches_optax():
         upd, state = opt.update(g, state, ref)
         ref = optax.apply_updates(ref, upd)
 
-    params = tm.params_from_jax(tree)
+    params = tm.params_from_jax(tree, device="cpu")
     topt = tm.make_optimizer(params, lr)
     for g in grads:
         for p, gl in zip(tm.leaves(params), jax.tree.leaves(g)):
@@ -329,7 +329,7 @@ def test_train_step_matches_jax():
         tree, opt.init(tree), tokens)
     _, jgrads = jax.jit(jax.value_and_grad(jm.loss_fn), static_argnums=2)(
         tree, tokens, cfg)
-    params = tm.params_from_jax(tree)
+    params = tm.params_from_jax(tree, device="cpu")
     step = tm.make_train_step(_port_cfg(cfg), tm.make_optimizer(params, lr))
     loss = step(params, torch.from_numpy(tokens))
     np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
@@ -418,7 +418,7 @@ def test_bf16_params_round_trip_bit_for_bit():
     cfg = jm.ModelConfig.tiny()                 # bf16
     tree = _jax_params(cfg, 9)
     assert jax.tree.leaves(tree)[0].dtype == ml_dtypes.bfloat16
-    params = tm.params_from_jax(tree)
+    params = tm.params_from_jax(tree, device="cpu")
     assert all(p.dtype == torch.bfloat16 for p in tm.leaves(params))
     back = tm.params_to_numpy(params)
     for b, r in zip(jax.tree.leaves(back), jax.tree.leaves(tree)):
@@ -438,7 +438,7 @@ def test_bf16_forward_close_to_jax():
     tokens = _tokens(cfg, (2, 32), 11)
     ref = np.asarray(jm.forward(tree, tokens, cfg))
     with torch.no_grad():
-        got = tm.forward(tm.params_from_jax(tree), torch.from_numpy(tokens),
+        got = tm.forward(tm.params_from_jax(tree, device="cpu"), torch.from_numpy(tokens),
                          _port_cfg(cfg)).numpy()
     scale = float(np.abs(ref).max())
     assert np.abs(got - ref).max() <= 0.05 * scale

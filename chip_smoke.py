@@ -6,7 +6,8 @@
 Phases, each raising on a fault (the exit code is then non-zero):
 
 1. build: compile every source of the port, all at once: the CUDA ones
-   with ``nvcc`` (sm_90a), the host C++ one (crc32c) with ``c++``;
+   with ``nvcc`` (sm_90a), the host C++ one (crc32c) with ``c++``; each
+   kernel's registers, spills and stack as ptxas reports them;
 2. kernel: ``block_checksum`` on the card against its plain PyTorch
    version and the host hash at sizes from 1 byte to 64 MiB + 1, a bit
    flip and a word swap; its time at 64 MiB (CUDA events, median of 20,
@@ -25,10 +26,11 @@ Phases, each raising on a fault (the exit code is then non-zero):
 5. flash: the four K3 kernels (forward, di, dK/dV, dQ) on the card against
    their plain PyTorch versions, element by element and row by row
    (``flash_errors``), at the flagship's attention shape
-   [16, 20, 1024, 128] bf16, causal, and at [1, 2, 128, 128] and
-   [2, 4, 2048, 128]; each kernel's time at the flagship's shape (CUDA
-   events, median of 20, L2 flushed) beside its bound, the plain
-   version's and ``scaled_dot_product_attention``'s (a yardstick only);
+   [16, 20, 1024, 128] bf16, causal, and at [1, 2, 128, 128],
+   [2, 4, 2048, 128] and [3, 5, 384, 128]; each kernel's time at the
+   flagship's shape (CUDA events, median of 20, L2 flushed) beside its
+   bound, the plain version's and ``scaled_dot_product_attention``'s (a
+   yardstick only);
 6. train: the flagship 1.03 B-parameter transformer (bench.py's: vocab
    32,000, d_model 2560, 20 heads, 12 layers, d_ff 10,240, bf16, flash
    attention, chunked cross entropy) on one card at batch 16 x seq 1024:
@@ -38,7 +40,8 @@ Phases, each raising on a fault (the exit code is then non-zero):
    peak memory, every loss, K3's share of the step; a profiler table of
    two steps; at batch 2 the loss and every gradient of the kernel path
    against the same model with its attention taken by the plain
-   versions, and each layer's dQ against f64 dense attention;
+   versions, and each layer's dQ, dK and dV against f64 dense
+   attention;
 7. vector: K2, the ADC scan, on the card against its plain version, bit
    for bit, at four shapes (the path's own among them) with planted
    out-of-range codes, both code layouts; its time at the path's shape
@@ -69,6 +72,7 @@ import asyncio
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -92,7 +96,10 @@ SIZES = [1, 3, 4, 262143, 262144, 262145, MiB + 13, BLOCK, BLOCK + 1]
 SHARDS = 8
 SHARD_BYTES = 64 * MiB
 BATCH, SEQ = 32, 8192
-FLASH_SHAPES = [(16, 20, 1024, 128), (1, 2, 128, 128), (2, 4, 2048, 128)]
+# the flagship's first; [3, 5, 384, 128] has an odd B*H and three
+# 128-row tiles, so diagonal tiles and partial walks run in every kernel
+FLASH_SHAPES = [(16, 20, 1024, 128), (1, 2, 128, 128), (2, 4, 2048, 128),
+                (3, 5, 384, 128)]
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 16, 1024, 8
 CHECK_BATCH = 2                    # the full-width agreement check
 # bench.py:1581-1693, the headline ANN configuration (docs/ann-serving.md)
@@ -140,18 +147,64 @@ def event_ms(fn, reps: int, scratch: torch.Tensor, prep=None
 
 # ------------------------------------------------------------------ phases
 
+def _kernel_name(mangled: str) -> str:
+    """The function's own name out of an Itanium-mangled one: the
+    shortest length-prefixed part that ends in ``_kernel`` (a length may
+    follow other digits, and a hash in the namespace may look like one),
+    with a template's arguments as mangled, else the whole."""
+    found = []
+    for m in re.finditer(r"\d+", mangled):
+        for k in range(m.start(), m.end()):
+            n = int(mangled[k:m.end()])
+            cand = mangled[m.end():m.end() + n]
+            if len(cand) == n and cand.endswith("_kernel"):
+                targs = re.match(r"I(\w+?)E", mangled[m.end() + n:])
+                found.append(cand + (f"<{targs.group(1)}>" if targs else ""))
+    return min(found, key=len) if found else mangled
+
+
+def ptxas_stats(log_text: str) -> dict:
+    """Per kernel, what ``ptxas -v`` reports: registers, bytes of stack,
+    spill stores and loads, static shared memory."""
+    out, cur = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = out.setdefault(_kernel_name(m.group(1)), {
+                "registers": None, "stack": 0, "spill_stores": 0,
+                "spill_loads": 0, "smem": 0})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            cur["stack"], cur["spill_stores"], cur["spill_loads"] = map(
+                int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            s = re.search(r"(\d+) bytes smem", line)
+            cur["smem"] = int(s.group(1)) if s else 0
+    return out
+
+
 def phase_build() -> dict:
     from curvine_tpu_torch.gpu import _build
     t0 = time.perf_counter()
     info = _build.build_all()
     secs = time.perf_counter() - t0
+    ptxas = {}
     for name, i in sorted(info.items()):
         log(f"build: {name}: {i['seconds']:.2f}s")
-        for line in i["log"].splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                log(f"  ptxas: {line.strip()}")
+        ptxas[name] = ptxas_stats(i["log"])
+        for kern, st in ptxas[name].items():
+            log(f"  ptxas: {kern}: {st['registers']} registers, "
+                f"{st['spill_stores']} bytes spill stores, "
+                f"{st['spill_loads']} bytes spill loads, {st['stack']} bytes "
+                f"stack, {st['smem']} bytes static smem")
     log(f"build: all sources in {secs:.2f}s")
-    return {"seconds": secs}
+    return {"seconds": secs, "ptxas": ptxas}
 
 
 def phase_kernel(rng: np.random.Generator, dev: torch.device) -> dict:
@@ -851,25 +904,30 @@ def phase_train(dev: torch.device, root: str, seed: int, flash_res: dict
         raise AssertionError(f"kernel path and plain path disagree: loss "
                              f"rel {rel}, gradient cosine {cos[worst]}")
 
-    # each layer's dQ from the kernels (di the row sums of P dP) against
-    # f64 dense attention on the same q, k, v and do
+    # each layer's dQ, dK and dV from the kernels (di the row sums of
+    # P dP) against f64 dense attention on the same q, k, v and do
     from curvine_tpu_torch.gpu.attention import dense_attention
-    cos_dq = []
+    cos64 = {"dq": [], "dk": [], "dv": []}
     for q, k, v, do in seen:
         _, lse = flash.flash_fwd(q, k, v)
-        dq = flash.flash_bwd_dq(q, k, v, do, lse,
-                                flash.flash_bwd_di(q, k, v, do, lse))
-        q64 = q.double().requires_grad_(True)
-        dense_attention(q64, k.double(), v.double()).backward(do.double())
-        cos_dq.append(torch.nn.functional.cosine_similarity(
-            dq.double().flatten(), q64.grad.flatten(), dim=0).item())
-        del lse, dq, q64
-    res["dq_cosine_f64"] = cos_dq
-    log(f"train: dQ against f64 dense attention, layer by layer, at batch "
-        f"{CHECK_BATCH}: cosine {[round(c, 5) for c in cos_dq]} (limit "
-        f"0.99)")
-    if not min(cos_dq) >= 0.99:
-        raise AssertionError(f"dQ against f64: cosine {min(cos_dq)}")
+        di = flash.flash_bwd_di(q, k, v, do, lse)
+        got = {"dq": flash.flash_bwd_dq(q, k, v, do, lse, di)}
+        got["dk"], got["dv"] = flash.flash_bwd_dkv(q, k, v, do, lse, di)
+        q64, k64, v64 = (t.double().requires_grad_(True) for t in (q, k, v))
+        dense_attention(q64, k64, v64).backward(do.double())
+        for name, ref in (("dq", q64), ("dk", k64), ("dv", v64)):
+            cos64[name].append(torch.nn.functional.cosine_similarity(
+                got[name].double().flatten(), ref.grad.flatten(),
+                dim=0).item())
+        del lse, di, got, q64, k64, v64
+    for name, cos_l in cos64.items():
+        res[f"{name}_cosine_f64"] = cos_l
+        log(f"train: {name} against f64 dense attention, layer by layer, at "
+            f"batch {CHECK_BATCH}: cosine {[round(c, 5) for c in cos_l]} "
+            f"(limit 0.99)")
+    worst = {name: min(cos_l) for name, cos_l in cos64.items()}
+    if not min(worst.values()) >= 0.99:
+        raise AssertionError(f"gradients against f64: cosine {worst}")
     del seen
     del grads_k, grads_p, leaves, params, opt, step
     torch.cuda.empty_cache()

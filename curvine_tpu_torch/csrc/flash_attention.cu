@@ -24,42 +24,58 @@
 // layer's wq. flash_bwd_di takes di = sum_j P_ij dP_ij in f32 from the
 // same P and dP that the other backward kernels recompute, which is
 // rowsum(o * do) for the exact o and keeps sum_j dS_ij = 0; chip_smoke.py
-// holds each layer's dQ against f64 dense attention there.
+// holds each layer's dQ, dK and dV against f64 dense attention there.
 //
 // Numerics follow the library kernel: S = Q K^T accumulates in f32 and
 // is scaled by sm_scale; P is rounded to bf16 before P V (forward) and
 // before dV = P^T dO; dS = P (dP - di) sm_scale is rounded to bf16
 // before dK = dS^T Q and dQ = dS K. Masked scores get -inf in the
 // forward (the diagonal of a causal row is always visible, so every row
-// has a finite maximum) and P = 0 in the backward.
+// has a finite maximum) and P = 0 in the backward. The forward and dK/dV
+// take exp as ex2 of the score scaled by sm_scale * log2(e).
 //
 // What bounds them: at the flagship's shape ([16*20, 1024, 128]) the
 // forward does 8.6e10 causal FLOP over 336 MB of q, k, v and o (0.087 ms
 // of tensor-core time against 0.100 ms of bytes at 3.35 TB/s); the
 // dK/dV and dQ kernels recompute S and do 1.3-1.7e11 FLOP over 419-503
 // MB, so they are bound by operations; the di kernel does the forward's
-// FLOP over its bytes, bound by bytes. All four are products of 16-row
-// tiles, so the design's one aim is to keep them on the tensor cores:
-// every product is an mma.sync m16n8k16 bf16 -> f32 (inline PTX). The
-// softmax runs in registers on the accumulator fragments, and the
-// accumulator layout of S is reused directly as the A operand of the
-// next product (P V, P^T dO, dS^T Q, dS K), so P and dS never touch
-// shared or device memory. Tiles come in through shared memory with
-// 16-byte loads; operands that a product needs along the other axis
-// (V for P V, Q and dO for the key-side products, K for dS K) are
-// stored a second time transposed, so every fragment is one 32-bit
-// shared load without bank conflicts. No atomics: the dK/dV kernel owns
-// a key tile and walks the query tiles, the dQ kernel owns a query tile
-// and walks the key tiles, so each output is written once and the
-// result is deterministic; the di kernel owns a query tile like dQ.
-// Causal tiles above the diagonal are skipped.
-// This is the simple form: no TMA, no wgmma, no pipelining of loads
-// with products; those wait for the redesign.
+// FLOP over its bytes, bound by bytes. Either way the tensor cores must
+// not wait, and on Hopper only wgmma reaches their full rate.
+//
+// The forward and dK/dV kernels are built for that (hopper.cuh):
+// - one producer warpgroup (its registers lowered with setmaxnreg) issues
+//   TMA loads of 128-byte-swizzled tiles into a three-stage ring guarded
+//   by full and empty mbarriers, so loads run ahead of the products;
+// - two consumer warpgroups (registers raised to 240) each own 64 rows
+//   and run every product as wgmma: S and dP with both operands in shared
+//   memory, P V, P^T dO and dS^T Q with P or dS rounded to bf16 in
+//   registers as the A operand (the accumulator layout of S is the A
+//   fragment layout), and the other operand read in its natural [row][d]
+//   order through the transpose bit, so no transposed copy is made;
+// - the forward issues the next tile's S = Q K^T and this tile's P V
+//   back to back and runs the next tile's softmax while P V is in
+//   flight;
+// - the blocks of one head run together, longest walk first (the
+//   forward's last query tile, dK/dV's first key tile): the head's K and
+//   V (or Q and dO), read by each of its blocks, stay in L2. Ordering all
+//   heads' longest walks first instead made every block read them from
+//   device memory, 12% slower for the forward.
+// Forward: one block per 128-row Q tile, 128-key tiles (only the diagonal
+// tile is masked). dK/dV: one block per 128-key tile walking the 64-row
+// Q tiles from the diagonal on; a consumer skips a tile wholly above its
+// keys. No atomics: each output is written once and the result is
+// deterministic.
+//
+// The di and dQ kernels keep the simple form: mma.sync m16n8k16 with S's
+// accumulator reused as the A operand, tiles loaded by all threads
+// between barriers, K stored a second time transposed for dS K.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -69,8 +85,6 @@ constexpr int D = 128;          // head_dim
 constexpr int LDS = D + 8;      // pitch (bf16) of a [row][d] tile in smem
 constexpr int THREADS = 128;    // 4 warps, each owning 16 rows of a tile
 
-constexpr int FWD_BQ = 64, FWD_BK = 64;   // forward: Q tile, K/V tile
-constexpr int DKV_BK = 64, DKV_BQ = 32;   // dK/dV: K tile, Q tile walked
 constexpr int DQ_BQ = 64, DQ_BK = 64;     // dQ: Q tile, K tile walked
 
 __device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4],
@@ -96,6 +110,9 @@ __device__ __forceinline__ uint32_t ld32(const bf16* p) {
 //                      a3 (g+8, 2t+8..)
 //   B 16x8 (k x n):    b0 (k 2t..2t+1, n g), b1 (k 2t+8.., n g)
 //   C 16x8 f32:        c0,c1 (g, 2t..2t+1), c2,c3 (g+8, 2t..2t+1)
+// A wgmma accumulator of N columns holds, for each warp's 16 rows, N / 8
+// such C fragments in order, and a wgmma A operand in registers is the
+// A fragment above for each warp's 16 rows.
 
 // A operand, rows [row0, row0+16) x cols [col0, col0+16) of a [row][col]
 // smem tile with pitch `ld`.
@@ -152,11 +169,6 @@ __device__ __forceinline__ void load_rows_t(bf16* s, const bf16* g) {
     }
 }
 
-template <int N>
-__device__ __forceinline__ void load_f32(float* s, const float* g) {
-    for (int i = threadIdx.x; i < N; i += THREADS) s[i] = g[i];
-}
-
 __device__ __forceinline__ float quad_max(float x) {
     x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
     return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
@@ -167,239 +179,459 @@ __device__ __forceinline__ float quad_sum(float x) {
     return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
+// ----------------------------------------------- Hopper kernels: common
+
+constexpr int HOP_THREADS = 384;     // producer + two consumer warpgroups
+constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
+// setmaxnreg moves registers within the block's allocation at launch
+// (168 a thread at 384 threads): a consumer that asks for more than the
+// producer gave up waits for ever.
+static_assert(128 * PRODUCER_REGS + 256 * CONSUMER_REGS <= 168 * HOP_THREADS,
+              "register budget");
+constexpr int BOX_ROW = 128;         // bytes of a box row: 64 bf16
+constexpr int HALF_D = 64;           // columns of a box
+constexpr int KT = 128;              // rows of a K/V tile, both kernels
+constexpr int KV_BYTES = KT * D * 2;             // 32 KB, two boxes
+constexpr int SBO = 8 * BOX_ROW;                 // 1024: next 8 rows
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+__device__ __forceinline__ float ex2(float x) {
+    float y;
+    asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+    return y;
+}
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+    return p + ((1024 - (hopper::smem_addr(p) & 1023)) & 1023);
+}
+
+// A row tile of `rows` x 128 bf16 at `row` of the map: two boxes of 64
+// columns, one after the other in shared memory.
+__device__ __forceinline__ void load_tile(unsigned char* dst,
+                                          const CUtensorMap* map,
+                                          uint64_t* bar, int row, int rows) {
+    hopper::tma_load_2d(dst, map, bar, 0, row);
+    hopper::tma_load_2d(dst + rows * BOX_ROW, map, bar, HALF_D, row);
+}
+
+// Descriptors of a K-major tile at shared address `a` (two boxes of 64
+// columns) and of an MN-major one of `rows` rows (the reduction runs
+// down the rows; 128 columns in two boxes).
+__device__ __forceinline__ uint64_t kdesc(uint32_t a) {
+    return hopper::desc(a, 16, SBO);
+}
+
+__device__ __forceinline__ uint64_t mndesc(uint32_t a, int rows) {
+    return hopper::desc(a, rows * BOX_ROW, SBO);
+}
+
+// The k-th 16-wide step of the reduction: 32 bytes along a K-major row
+// (the fifth step is the next box of a `rows`-row tile), 16 rows down an
+// MN-major tile. The start address is the descriptor's low field.
+__device__ __forceinline__ uint64_t kstep(uint64_t d, int rows, int k) {
+    return d + (uint64_t)(((k >> 2) * rows * BOX_ROW + (k & 3) * 32) >> 4);
+}
+
+__device__ __forceinline__ uint64_t mnstep(uint64_t d, int k) {
+    return d + (uint64_t)((k * 16 * BOX_ROW) >> 4);
+}
+
+// Round 16 columns (k-step kk) of a wgmma accumulator to a bf16 A operand.
+template <int N>
+__device__ __forceinline__ void acc_to_a(uint32_t a[4], const float (&c)[N],
+                                         int kk) {
+    a[0] = pack2(c[8 * kk], c[8 * kk + 1]);
+    a[1] = pack2(c[8 * kk + 2], c[8 * kk + 3]);
+    a[2] = pack2(c[8 * kk + 4], c[8 * kk + 5]);
+    a[3] = pack2(c[8 * kk + 6], c[8 * kk + 7]);
+}
+
 // ------------------------------------------------------------- forward
-// grid (L / 64, B*H): one block per 64-row Q tile, heaviest tiles first.
-// Each warp keeps its 16 Q rows as A fragments in registers and walks
-// the K/V tiles up to the diagonal with an online softmax.
+// grid (L / 128, B*H): one block per 128-row Q tile, a head's last Q
+// tile (the longest walk) first. The producer loads Q once and then K
+// and V tile by tile, up to the diagonal, into the ring; each consumer
+// owns 64 query rows and keeps its O accumulator (64 x 128 f32) and the
+// online softmax's m and l in registers.
 
-constexpr int FWD_SMEM =
-    (FWD_BK * LDS + D * (FWD_BK + 8)) * (int)sizeof(bf16);
+constexpr int FWD_STAGES = 3;
+constexpr int FWD_Q = 0;                              // 32 KB
+constexpr int FWD_KV = KV_BYTES;                      // stage s: K, then V
+constexpr int FWD_STAGE = 2 * KV_BYTES;               // 64 KB
+constexpr int FWD_BAR = FWD_KV + FWD_STAGES * FWD_STAGE;
+constexpr int FWD_SMEM = FWD_BAR + 8 * (1 + 2 * FWD_STAGES) + 1024;
 
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o,
-                 float* __restrict__ lse, int L, float scale) {
-    extern __shared__ __align__(16) unsigned char smem[];
-    bf16* sK = reinterpret_cast<bf16*>(smem);       // [64][LDS]; Q first
-    bf16* sVt = sK + FWD_BK * LDS;                  // [128][64 + 8]
-    constexpr int LDV = FWD_BK + 8;
+__global__ void __launch_bounds__(HOP_THREADS, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap mq,
+                 const __grid_constant__ CUtensorMap mk,
+                 const __grid_constant__ CUtensorMap mv,
+                 bf16* __restrict__ o, float* __restrict__ lse, int L,
+                 float scale_log2) {
+    extern __shared__ __align__(1024) unsigned char smem_raw[];
+    unsigned char* sm = align1024(smem_raw);
+    uint64_t* qfull = reinterpret_cast<uint64_t*>(sm + FWD_BAR);
+    uint64_t* full = qfull + 1;                   // [FWD_STAGES]
+    uint64_t* empty = full + FWD_STAGES;          // [FWD_STAGES]
 
     const int qt = gridDim.x - 1 - blockIdx.x;
-    const size_t bh = blockIdx.y;
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int g = lane >> 2, t = lane & 3;
-    const bf16* K = k + bh * L * D;
-    const bf16* V = v + bh * L * D;
+    const int base = blockIdx.y * L;     // first row of the head
+    const int wg = threadIdx.x / 128;
 
-    load_rows<FWD_BQ>(sK, q + (bh * L + (size_t)qt * FWD_BQ) * D);
+    if (threadIdx.x == 0) {
+        hopper::mbar_init(qfull, 1);
+        for (int s = 0; s < FWD_STAGES; s++) {
+            hopper::mbar_init(&full[s], 1);
+            hopper::mbar_init(&empty[s], 8);      // one arrival a warp
+        }
+        hopper::mbar_fence_init();
+    }
     __syncthreads();
-    uint32_t qa[D / 16][4];
-#pragma unroll
-    for (int kk = 0; kk < D / 16; kk++)
-        load_a(qa[kk], sK, LDS, warp * 16, kk * 16, g, t);
 
-    float acc[D / 8][4];
-#pragma unroll
-    for (int i = 0; i < D / 8; i++)
-        acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-    const int row0 = qt * FWD_BQ + warp * 16 + g;   // rows row0, row0 + 8
-
-    for (int kt = 0; kt <= qt; kt++) {
-        __syncthreads();                 // the last tile's reads are done
-        load_rows<FWD_BK>(sK, K + (size_t)kt * FWD_BK * D);
-        load_rows_t<FWD_BK>(sVt, V + (size_t)kt * FWD_BK * D);
-        __syncthreads();
-
-        float s[FWD_BK / 8][4];
-#pragma unroll
-        for (int nt = 0; nt < FWD_BK / 8; nt++)
-            s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-        for (int kk = 0; kk < D / 16; kk++) {
-#pragma unroll
-            for (int nt = 0; nt < FWD_BK / 8; nt++) {
-                uint32_t b0, b1;
-                load_b(b0, b1, sK, LDS, nt * 8, kk * 16, g, t);
-                mma16816(s[nt], qa[kk], b0, b1);
+    if (wg == 0) {
+        // ------------------------------------------------ producer
+        hopper::regs_dec<PRODUCER_REGS>();
+        if (threadIdx.x == 0) {
+            hopper::mbar_expect_tx(qfull, KV_BYTES);
+            load_tile(sm + FWD_Q, &mq, qfull, base + qt * KT, KT);
+            for (int kt = 0; kt <= qt; kt++) {
+                const int s = kt % FWD_STAGES;
+                hopper::mbar_wait(&empty[s], ((kt / FWD_STAGES) & 1) ^ 1);
+                hopper::mbar_expect_tx(&full[s], 2 * KV_BYTES);
+                unsigned char* st = sm + FWD_KV + s * FWD_STAGE;
+                load_tile(st, &mk, &full[s], base + kt * KT, KT);
+                load_tile(st + KV_BYTES, &mv, &full[s], base + kt * KT, KT);
             }
         }
-        const bool diag = kt == qt;
-        float mx[2] = {m[0], m[1]};
+        return;
+    }
+
+    // ----------------------------------------------------- consumers
+    hopper::regs_inc<CONSUMER_REGS>();
+    const int c = wg - 1;
+    const int tid = threadIdx.x & 127;
+    const int warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int row0 = qt * KT + c * 64 + warp * 16 + g;   // and row0 + 8
+    // this consumer's 64 rows of Q: 8 KB into each box
+    const uint64_t qd =
+        kdesc(hopper::smem_addr(sm + FWD_Q) + c * 64 * BOX_ROW);
+    const uint32_t kv_addr = hopper::smem_addr(sm + FWD_KV);
+
+    float acc[64], s[64];
 #pragma unroll
-        for (int nt = 0; nt < FWD_BK / 8; nt++) {
+    for (int i = 0; i < 64; i++) acc[i] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    uint32_t p[8][4];
+
+    // Online softmax of the S of key tile kt (in s), in the log2 domain:
+    // s becomes P, m and l move on, alpha is O's rescale. The mask on the
+    // diagonal tile only, the row maximum taken on the raw scores
+    // (sm_scale > 0 keeps their order, the wrapper checks), then
+    // P = 2^(S scale log2(e) - m) with one FMA an element.
+    float alpha[2];
+    auto softmax = [&](int kt) {
+        float mx[2] = {-INFINITY, -INFINITY};
+        if (kt == qt) {
 #pragma unroll
-            for (int e = 0; e < 4; e++) {
-                const int r = row0 + (e >> 1) * 8;
-                const int c = kt * FWD_BK + nt * 8 + 2 * t + (e & 1);
-                float x = s[nt][e] * scale;
-                if (diag && c > r) x = -INFINITY;
-                s[nt][e] = x;
-                mx[e >> 1] = fmaxf(mx[e >> 1], x);
+            for (int j = 0; j < 16; j++) {
+#pragma unroll
+                for (int e = 0; e < 4; e++) {
+                    const int r = row0 + (e >> 1) * 8;
+                    const int col = kt * KT + j * 8 + 2 * t + (e & 1);
+                    if (col > r) s[4 * j + e] = -INFINITY;
+                }
             }
+        }
+#pragma unroll
+        for (int j = 0; j < 16; j++) {
+#pragma unroll
+            for (int e = 0; e < 4; e++)
+                mx[e >> 1] = fmaxf(mx[e >> 1], s[4 * j + e]);
         }
 #pragma unroll
         for (int i = 0; i < 2; i++) {
-            mx[i] = quad_max(mx[i]);
-            const float alpha = __expf(m[i] - mx[i]);
+            mx[i] = fmaxf(m[i], quad_max(mx[i]) * scale_log2);
+            alpha[i] = ex2(m[i] - mx[i]);
             m[i] = mx[i];
-            l[i] *= alpha;
-#pragma unroll
-            for (int dt = 0; dt < D / 8; dt++) {
-                acc[dt][2 * i] *= alpha;
-                acc[dt][2 * i + 1] *= alpha;
-            }
+            l[i] *= alpha[i];
         }
 #pragma unroll
-        for (int nt = 0; nt < FWD_BK / 8; nt++) {
+        for (int j = 0; j < 16; j++) {
 #pragma unroll
             for (int e = 0; e < 4; e++) {
-                const float p = __expf(s[nt][e] - m[e >> 1]);
-                s[nt][e] = p;
-                l[e >> 1] += p;
+                const float pv =
+                    ex2(fmaf(s[4 * j + e], scale_log2, -m[e >> 1]));
+                s[4 * j + e] = pv;
+                l[e >> 1] += pv;
             }
         }
+    };
+
+    // S and P of the first tile
+    hopper::mbar_wait(qfull, 0);
+    hopper::mbar_wait(&full[0], 0);
+    hopper::wg_fence();
 #pragma unroll
-        for (int kk = 0; kk < FWD_BK / 16; kk++) {
-            uint32_t pa[4];
-            c_to_a(pa, s[2 * kk], s[2 * kk + 1]);
+    for (int kk = 0; kk < D / 16; kk++)
+        hopper::wgmma_128_ss<0>(s, kstep(qd, KT, kk),
+                                kstep(kdesc(kv_addr), KT, kk), kk);
+    hopper::wg_commit();
+    hopper::wg_wait<0>();
+    hopper::wg_hold(s);
+    softmax(0);
 #pragma unroll
-            for (int dt = 0; dt < D / 8; dt++) {
-                uint32_t b0, b1;
-                load_b(b0, b1, sVt, LDV, dt * 8, kk * 16, g, t);
-                mma16816(acc[dt], pa, b0, b1);
-            }
+    for (int kk = 0; kk < KT / 16; kk++) acc_to_a(p[kk], s, kk);
+
+    // Each step issues the next tile's S = Q K^T and this tile's O += P V
+    // back to back, runs the next softmax while P V is in flight, then
+    // rescales O. The last tile's P V is peeled off the loop: with the S
+    // under a condition inside it, ptxas serialised the warpgroup's
+    // wgmmas (warning C7514).
+    for (int kt = 0; kt < qt; kt++) {
+        const int st = kt % FWD_STAGES, sn = (kt + 1) % FWD_STAGES;
+        hopper::mbar_wait(&full[sn], ((kt + 1) / FWD_STAGES) & 1);
+        const uint64_t kd = kdesc(kv_addr + sn * FWD_STAGE);
+        const uint64_t vd = mndesc(kv_addr + st * FWD_STAGE + KV_BYTES, KT);
+        hopper::wg_hold(acc);
+        hopper::wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; kk++)
+            hopper::wgmma_128_ss<0>(s, kstep(qd, KT, kk), kstep(kd, KT, kk),
+                                    kk);
+        hopper::wg_commit();
+#pragma unroll
+        for (int kk = 0; kk < KT / 16; kk++)
+            hopper::wgmma_128_rs<1>(acc, p[kk], mnstep(vd, kk));
+        hopper::wg_commit();
+        hopper::wg_wait<1>();
+        hopper::wg_hold(s);
+        softmax(kt + 1);
+        hopper::wg_wait<0>();
+        hopper::wg_keep(p);
+        hopper::wg_hold(acc);
+        __syncwarp();
+        if (lane == 0) hopper::mbar_arrive(&empty[st]);
+#pragma unroll
+        for (int j = 0; j < 16; j++) {
+#pragma unroll
+            for (int e = 0; e < 4; e++) acc[4 * j + e] *= alpha[e >> 1];
         }
+#pragma unroll
+        for (int kk = 0; kk < KT / 16; kk++) acc_to_a(p[kk], s, kk);
+    }
+    {
+        const int st = qt % FWD_STAGES;
+        const uint64_t vd = mndesc(kv_addr + st * FWD_STAGE + KV_BYTES, KT);
+        hopper::wg_hold(acc);
+        hopper::wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < KT / 16; kk++)
+            hopper::wgmma_128_rs<1>(acc, p[kk], mnstep(vd, kk));
+        hopper::wg_commit();
+        hopper::wg_wait<0>();
+        hopper::wg_keep(p);
+        hopper::wg_hold(acc);
+        __syncwarp();
+        if (lane == 0) hopper::mbar_arrive(&empty[st]);
     }
 
 #pragma unroll
     for (int i = 0; i < 2; i++) {
         const float li = quad_sum(l[i]);
         const float inv = 1.f / li;
-        const size_t r = bh * L + row0 + i * 8;
+        const size_t r = (size_t)base + row0 + i * 8;
         bf16* orow = o + r * D;
 #pragma unroll
-        for (int dt = 0; dt < D / 8; dt++)
-            *reinterpret_cast<uint32_t*>(orow + dt * 8 + 2 * t) =
-                pack2(acc[dt][2 * i] * inv, acc[dt][2 * i + 1] * inv);
-        if (t == 0) lse[r] = m[i] + logf(li);
+        for (int j = 0; j < 16; j++)
+            *reinterpret_cast<uint32_t*>(orow + j * 8 + 2 * t) =
+                pack2(acc[4 * j + 2 * i] * inv, acc[4 * j + 2 * i + 1] * inv);
+        if (t == 0) lse[r] = m[i] * LN2 + logf(li);
     }
 }
 
 // ----------------------------------------------------- backward: dK, dV
-// grid (L / 64, B*H): one block per 64-key tile; each warp owns 16 keys.
-// The block walks the 32-row Q tiles from the diagonal to the end and
-// accumulates dV = P^T dO and dK = dS^T Q in registers, with
+// grid (L / 128, B*H): one block per 128-key tile, a head's key tile 0
+// (the longest walk) first. The producer loads K and V once and then, into the
+// ring, each 64-row Q tile from the diagonal to the end with its dO, lse
+// and di. Each consumer owns 64 keys and accumulates dV = P^T dO and
+// dK = dS^T Q (64 x 128 f32 each) in registers, with
 // P^T = exp(K Q^T scale - lse) and dS^T = P^T (V dO^T - di) scale.
 
-constexpr int DKV_LDT = DKV_BQ + 8;
-constexpr int DKV_SMEM =
-    (2 * DKV_BK * LDS + 2 * DKV_BQ * LDS + 2 * D * DKV_LDT)
-        * (int)sizeof(bf16) + 2 * DKV_BQ * (int)sizeof(float);
+constexpr int DKV_STAGES = 3;
+constexpr int BQ = 64;            // Q rows a stage: S^T, dP^T are m64n64
+constexpr int Q_BYTES = BQ * D * 2;                   // 16 KB
+constexpr int DKV_K = 0, DKV_V = KV_BYTES;            // 32 KB each
+constexpr int DKV_Q = 2 * KV_BYTES;                   // stage s: Q, dO
+constexpr int DKV_STAGE = 2 * Q_BYTES;                // 32 KB
+constexpr int DKV_ROWS = DKV_Q + DKV_STAGES * DKV_STAGE;   // s: lse, di
+constexpr int DKV_BAR = DKV_ROWS + DKV_STAGES * 2 * BQ * 4;
+constexpr int DKV_SMEM = DKV_BAR + 8 * (1 + 2 * DKV_STAGES) + 1024;
+constexpr uint32_t DKV_TX = 2 * Q_BYTES + 2 * BQ * 4;
 
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
+__global__ void __launch_bounds__(HOP_THREADS, 1)
+flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap mq,
+                     const __grid_constant__ CUtensorMap mk,
+                     const __grid_constant__ CUtensorMap mv,
+                     const __grid_constant__ CUtensorMap mdo,
                      const float* __restrict__ lse,
                      const float* __restrict__ di, bf16* __restrict__ dk,
-                     bf16* __restrict__ dv, int L, float scale) {
-    extern __shared__ __align__(16) unsigned char smem[];
-    bf16* sK = reinterpret_cast<bf16*>(smem);       // [64][LDS]
-    bf16* sV = sK + DKV_BK * LDS;                   // [64][LDS]
-    bf16* sQ = sV + DKV_BK * LDS;                   // [32][LDS]
-    bf16* sdO = sQ + DKV_BQ * LDS;                  // [32][LDS]
-    bf16* sQt = sdO + DKV_BQ * LDS;                 // [128][32 + 8]
-    bf16* sdOt = sQt + D * DKV_LDT;                 // [128][32 + 8]
-    float* sL = reinterpret_cast<float*>(sdOt + D * DKV_LDT);  // [32]
-    float* sD = sL + DKV_BQ;                                   // [32]
+                     bf16* __restrict__ dv, int L, float scale,
+                     float scale_log2) {
+    extern __shared__ __align__(1024) unsigned char smem_raw[];
+    unsigned char* sm = align1024(smem_raw);
+    uint64_t* kvfull = reinterpret_cast<uint64_t*>(sm + DKV_BAR);
+    uint64_t* full = kvfull + 1;                  // [DKV_STAGES]
+    uint64_t* empty = full + DKV_STAGES;          // [DKV_STAGES]
+    float* rows = reinterpret_cast<float*>(sm + DKV_ROWS);   // [s][lse, di]
 
-    const int kt = gridDim.x - 1 - blockIdx.x;
-    const size_t bh = blockIdx.y;
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int g = lane >> 2, t = lane & 3;
-    const size_t base = bh * L;
+    const int kt = blockIdx.x;
+    const int base = blockIdx.y * L;
+    const int wg = threadIdx.x / 128;
+    const int qt0 = kt * KT / BQ, n_qt = L / BQ - qt0;
 
-    load_rows<DKV_BK>(sK, k + (base + (size_t)kt * DKV_BK) * D);
-    load_rows<DKV_BK>(sV, v + (base + (size_t)kt * DKV_BK) * D);
-
-    float dKa[D / 8][4], dVa[D / 8][4];
-#pragma unroll
-    for (int i = 0; i < D / 8; i++) {
-        dKa[i][0] = dKa[i][1] = dKa[i][2] = dKa[i][3] = 0.f;
-        dVa[i][0] = dVa[i][1] = dVa[i][2] = dVa[i][3] = 0.f;
+    if (threadIdx.x == 0) {
+        hopper::mbar_init(kvfull, 1);
+        for (int s = 0; s < DKV_STAGES; s++) {
+            hopper::mbar_init(&full[s], 1);
+            hopper::mbar_init(&empty[s], 8);
+        }
+        hopper::mbar_fence_init();
     }
-    const int key0 = kt * DKV_BK + warp * 16 + g;   // keys key0, key0 + 8
+    __syncthreads();
 
-    for (int qt = kt * DKV_BK / DKV_BQ; qt < L / DKV_BQ; qt++) {
-        const size_t r0 = base + (size_t)qt * DKV_BQ;
-        __syncthreads();
-        load_rows<DKV_BQ>(sQ, q + r0 * D);
-        load_rows<DKV_BQ>(sdO, dout + r0 * D);
-        load_rows_t<DKV_BQ>(sQt, q + r0 * D);
-        load_rows_t<DKV_BQ>(sdOt, dout + r0 * D);
-        load_f32<DKV_BQ>(sL, lse + r0);
-        load_f32<DKV_BQ>(sD, di + r0);
-        __syncthreads();
+    if (wg == 0) {
+        // ------------------------------------------------ producer
+        hopper::regs_dec<PRODUCER_REGS>();
+        if (threadIdx.x == 0) {
+            hopper::mbar_expect_tx(kvfull, 2 * KV_BYTES);
+            load_tile(sm + DKV_K, &mk, kvfull, base + kt * KT, KT);
+            load_tile(sm + DKV_V, &mv, kvfull, base + kt * KT, KT);
+            for (int i = 0; i < n_qt; i++) {
+                const int s = i % DKV_STAGES;
+                const int r = base + (qt0 + i) * BQ;
+                hopper::mbar_wait(&empty[s], ((i / DKV_STAGES) & 1) ^ 1);
+                hopper::mbar_expect_tx(&full[s], DKV_TX);
+                unsigned char* st = sm + DKV_Q + s * DKV_STAGE;
+                load_tile(st, &mq, &full[s], r, BQ);
+                load_tile(st + Q_BYTES, &mdo, &full[s], r, BQ);
+                hopper::bulk_load(rows + s * 2 * BQ, lse + r, BQ * 4,
+                                  &full[s]);
+                hopper::bulk_load(rows + s * 2 * BQ + BQ, di + r, BQ * 4,
+                                  &full[s]);
+            }
+        }
+        return;
+    }
 
-        float s[DKV_BQ / 8][4], dp[DKV_BQ / 8][4];
+    // ----------------------------------------------------- consumers
+    hopper::regs_inc<CONSUMER_REGS>();
+    const int c = wg - 1;
+    const int tid = threadIdx.x & 127;
+    const int warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int key_lo = kt * KT + c * 64;                 // this consumer's
+    const int key0 = key_lo + warp * 16 + g;             // and key0 + 8
+    const uint64_t kd0 =
+        kdesc(hopper::smem_addr(sm + DKV_K) + c * 64 * BOX_ROW);
+    const uint64_t vd0 =
+        kdesc(hopper::smem_addr(sm + DKV_V) + c * 64 * BOX_ROW);
+    const uint32_t q_base = hopper::smem_addr(sm + DKV_Q);
+
+    float dK[64], dV[64];
 #pragma unroll
-        for (int nt = 0; nt < DKV_BQ / 8; nt++) {
-            s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-            dp[nt][0] = dp[nt][1] = dp[nt][2] = dp[nt][3] = 0.f;
-        }
+    for (int i = 0; i < 64; i++) dK[i] = dV[i] = 0.f;
+
+    hopper::mbar_wait(kvfull, 0);
+    for (int i = 0; i < n_qt; i++) {
+        const int st = i % DKV_STAGES;
+        const int qt = qt0 + i;
+        hopper::mbar_wait(&full[st], (i / DKV_STAGES) & 1);
+        if (qt * BQ + BQ - 1 >= key_lo) {        // else wholly masked
+            const uint32_t q_addr = q_base + st * DKV_STAGE;
+            const uint32_t do_addr = q_addr + Q_BYTES;
+            const uint64_t qd = kdesc(q_addr), dod = kdesc(do_addr);
+            float s[BQ / 2], dp[BQ / 2];
+            hopper::wg_fence();
 #pragma unroll
-        for (int kk = 0; kk < D / 16; kk++) {
-            uint32_t ka[4], va[4];
-            load_a(ka, sK, LDS, warp * 16, kk * 16, g, t);
-            load_a(va, sV, LDS, warp * 16, kk * 16, g, t);
+            for (int kk = 0; kk < D / 16; kk++)
+                hopper::wgmma_64_ss(s, kstep(kd0, KT, kk), kstep(qd, BQ, kk),
+                                    kk);
+            hopper::wg_commit();
 #pragma unroll
-            for (int nt = 0; nt < DKV_BQ / 8; nt++) {
-                uint32_t b0, b1;
-                load_b(b0, b1, sQ, LDS, nt * 8, kk * 16, g, t);
-                mma16816(s[nt], ka, b0, b1);
-                load_b(b0, b1, sdO, LDS, nt * 8, kk * 16, g, t);
-                mma16816(dp[nt], va, b0, b1);
+            for (int kk = 0; kk < D / 16; kk++)
+                hopper::wgmma_64_ss(dp, kstep(vd0, KT, kk),
+                                    kstep(dod, BQ, kk), kk);
+            hopper::wg_commit();
+
+            hopper::wg_wait<0>();
+            hopper::wg_hold(s);
+            hopper::wg_hold(dp);
+            const float* sl = rows + st * 2 * BQ;
+            const float* sd = sl + BQ;
+            if (qt * BQ < key_lo + 63) {     // a query row before a key
+#pragma unroll
+                for (int j = 0; j < BQ / 8; j++) {
+#pragma unroll
+                    for (int e = 0; e < 4; e++) {
+                        const int key = key0 + (e >> 1) * 8;
+                        const int row = qt * BQ + j * 8 + 2 * t + (e & 1);
+                        if (row < key) s[4 * j + e] = -INFINITY;
+                    }
+                }
             }
-        }
 #pragma unroll
-        for (int nt = 0; nt < DKV_BQ / 8; nt++) {
+            for (int j = 0; j < BQ / 8; j++) {
+                const int cq = j * 8 + 2 * t;
+                const float2 lv = *reinterpret_cast<const float2*>(sl + cq);
+                const float2 dv2 = *reinterpret_cast<const float2*>(sd + cq);
+                const float l2[2] = {lv.x * LOG2E, lv.y * LOG2E};
+                const float dd[2] = {dv2.x, dv2.y};
 #pragma unroll
-            for (int e = 0; e < 4; e++) {
-                const int key = key0 + (e >> 1) * 8;
-                const int cq = nt * 8 + 2 * t + (e & 1);
-                const int row = qt * DKV_BQ + cq;
-                const float p = row >= key
-                    ? __expf(s[nt][e] * scale - sL[cq]) : 0.f;
-                s[nt][e] = p;
-                dp[nt][e] = p * (dp[nt][e] - sD[cq]) * scale;
+                for (int e = 0; e < 4; e++) {
+                    const float pv =
+                        ex2(fmaf(s[4 * j + e], scale_log2, -l2[e & 1]));
+                    s[4 * j + e] = pv;
+                    dp[4 * j + e] = pv * (dp[4 * j + e] - dd[e & 1]) * scale;
+                }
             }
-        }
+            uint32_t pa[BQ / 16][4], dsa[BQ / 16][4];
 #pragma unroll
-        for (int kk = 0; kk < DKV_BQ / 16; kk++) {
-            uint32_t pa[4], dsa[4];
-            c_to_a(pa, s[2 * kk], s[2 * kk + 1]);
-            c_to_a(dsa, dp[2 * kk], dp[2 * kk + 1]);
-#pragma unroll
-            for (int dt = 0; dt < D / 8; dt++) {
-                uint32_t b0, b1;
-                load_b(b0, b1, sdOt, DKV_LDT, dt * 8, kk * 16, g, t);
-                mma16816(dVa[dt], pa, b0, b1);
-                load_b(b0, b1, sQt, DKV_LDT, dt * 8, kk * 16, g, t);
-                mma16816(dKa[dt], dsa, b0, b1);
+            for (int kk = 0; kk < BQ / 16; kk++) {
+                acc_to_a(pa[kk], s, kk);
+                acc_to_a(dsa[kk], dp, kk);
             }
+            hopper::wg_hold(dV);
+            hopper::wg_hold(dK);
+            hopper::wg_fence();
+#pragma unroll
+            for (int kk = 0; kk < BQ / 16; kk++)
+                hopper::wgmma_128_rs<1>(dV, pa[kk],
+                                        mnstep(mndesc(do_addr, BQ), kk));
+#pragma unroll
+            for (int kk = 0; kk < BQ / 16; kk++)
+                hopper::wgmma_128_rs<1>(dK, dsa[kk],
+                                        mnstep(mndesc(q_addr, BQ), kk));
+            hopper::wg_commit();
+            hopper::wg_wait<0>();
+            hopper::wg_keep(pa);
+            hopper::wg_keep(dsa);
+            hopper::wg_hold(dV);
+            hopper::wg_hold(dK);
         }
+        __syncwarp();
+        if (lane == 0) hopper::mbar_arrive(&empty[st]);
     }
 
 #pragma unroll
     for (int i = 0; i < 2; i++) {
-        const size_t r = base + key0 + i * 8;
+        const size_t r = (size_t)base + key0 + i * 8;
 #pragma unroll
-        for (int dt = 0; dt < D / 8; dt++) {
-            const int c = dt * 8 + 2 * t;
-            *reinterpret_cast<uint32_t*>(dk + r * D + c) =
-                pack2(dKa[dt][2 * i], dKa[dt][2 * i + 1]);
-            *reinterpret_cast<uint32_t*>(dv + r * D + c) =
-                pack2(dVa[dt][2 * i], dVa[dt][2 * i + 1]);
+        for (int j = 0; j < 16; j++) {
+            const int col = j * 8 + 2 * t;
+            *reinterpret_cast<uint32_t*>(dk + r * D + col) =
+                pack2(dK[4 * j + 2 * i], dK[4 * j + 2 * i + 1]);
+            *reinterpret_cast<uint32_t*>(dv + r * D + col) =
+                pack2(dV[4 * j + 2 * i], dV[4 * j + 2 * i + 1]);
         }
     }
 }
@@ -572,25 +804,40 @@ int launch_check(int L, int bh) {
     return 0;
 }
 
+// B*H*L rows of 128 bf16: each operand is one 2-D map of boxes of 64
+// columns, rows addressed as int in the kernels and the maps.
+int hop_check(int L, int bh) {
+    if (L <= 0 || L % KT != 0 || bh <= 0 || bh > 65535
+        || (long long)bh * L > 0x7fffffffLL)
+        return (int)cudaErrorInvalidValue;
+    return 0;
+}
+
 }  // namespace
 
 extern "C" {
 
 // Each returns 0 or the CUDA error of the launch. Pointers are device
-// pointers; `stream` is a cudaStream_t. Nothing here synchronises.
+// pointers; `stream` is a cudaStream_t. Nothing here synchronises. The
+// forward and dK/dV launchers encode their TMA maps for the call's
+// pointers (16-byte aligned; the wrapper checks).
 
 int cv_flash_fwd(const void* q, const void* k, const void* v, void* o,
                  void* lse, int bh, int L, float scale, void* stream) {
-    int rc = launch_check(L, bh);
+    int rc = hop_check(L, bh);
     if (rc) return rc;
+    const uint64_t rows = (uint64_t)bh * L;
+    CUtensorMap mq, mk, mv;
+    if ((rc = hopper::bf16_map(&mq, q, rows, D, KT))) return rc;
+    if ((rc = hopper::bf16_map(&mk, k, rows, D, KT))) return rc;
+    if ((rc = hopper::bf16_map(&mv, v, rows, D, KT))) return rc;
     cudaError_t e = cudaFuncSetAttribute(
         flash_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         FWD_SMEM);
     if (e != cudaSuccess) return (int)e;
-    flash_fwd_kernel<<<dim3(L / FWD_BQ, bh), THREADS, FWD_SMEM,
+    flash_fwd_kernel<<<dim3(L / KT, bh), HOP_THREADS, FWD_SMEM,
                        (cudaStream_t)stream>>>(
-        (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o,
-        (float*)lse, L, scale);
+        mq, mk, mv, (bf16*)o, (float*)lse, L, scale * LOG2E);
     return (int)cudaGetLastError();
 }
 
@@ -614,16 +861,22 @@ int cv_flash_bwd_dkv(const void* q, const void* k, const void* v,
                      const void* dout, const void* lse, const void* di,
                      void* dk, void* dv, int bh, int L, float scale,
                      void* stream) {
-    int rc = launch_check(L, bh);
+    int rc = hop_check(L, bh);
     if (rc) return rc;
+    const uint64_t rows = (uint64_t)bh * L;
+    CUtensorMap mq, mk, mv, mdo;
+    if ((rc = hopper::bf16_map(&mq, q, rows, D, BQ))) return rc;
+    if ((rc = hopper::bf16_map(&mk, k, rows, D, KT))) return rc;
+    if ((rc = hopper::bf16_map(&mv, v, rows, D, KT))) return rc;
+    if ((rc = hopper::bf16_map(&mdo, dout, rows, D, BQ))) return rc;
     cudaError_t e = cudaFuncSetAttribute(
         flash_bwd_dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         DKV_SMEM);
     if (e != cudaSuccess) return (int)e;
-    flash_bwd_dkv_kernel<<<dim3(L / DKV_BK, bh), THREADS, DKV_SMEM,
+    flash_bwd_dkv_kernel<<<dim3(L / KT, bh), HOP_THREADS, DKV_SMEM,
                            (cudaStream_t)stream>>>(
-        (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
-        (const float*)lse, (const float*)di, (bf16*)dk, (bf16*)dv, L, scale);
+        mq, mk, mv, mdo, (const float*)lse, (const float*)di, (bf16*)dk,
+        (bf16*)dv, L, scale, scale * LOG2E);
     return (int)cudaGetLastError();
 }
 

@@ -4,9 +4,11 @@ Each ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a``, and
 each ``csrc/*.cc`` source (host code, such as the crc32c routine) by the
 host C++ compiler, into a shared library with a plain C interface, at
 first use, into ``curvine_tpu_torch/build/`` (listed in ``.gitignore``),
-and loaded with ``ctypes``. The sources include no PyTorch header, so a
-build takes seconds. Nothing here runs at import time: the CPU tests
-import every module of the port on machines without ``nvcc``.
+and loaded with ``ctypes``; again whenever the source, or for a ``.cu``
+source any ``csrc/*.cuh`` header, is newer than the library. The sources
+include no PyTorch header, so a build takes seconds. Nothing here runs
+at import time: the CPU tests import every module of the port on
+machines without ``nvcc``.
 
 A missing compiler or a failed build raises ``KernelBuildError`` with the
 compiler's output; there is no fallback."""
@@ -58,10 +60,25 @@ def cxx_path() -> str:
                            "PATH: the port's host routines need one")
 
 
+def is_stale(so: str, src: str, csrc: str = CSRC) -> bool:
+    """Whether the library ``so`` must be built again from ``src``: it is
+    missing, or older than its source or, for a ``.cu`` source, than the
+    newest ``.cuh`` header under ``csrc`` (any kernel may include any of
+    them)."""
+    if not os.path.exists(so):
+        return True
+    newest = os.path.getmtime(src)
+    if src.endswith(".cu"):
+        for f in os.listdir(csrc):
+            if f.endswith(".cuh"):
+                newest = max(newest, os.path.getmtime(os.path.join(csrc, f)))
+    return os.path.getmtime(so) < newest
+
+
 def build(name: str) -> str:
     """Compile ``csrc/<name>.cu`` (with ``nvcc``) or ``csrc/<name>.cc``
     (with the host compiler) into ``build/lib<name>.so`` unless the
-    library is newer than its source; return the library's path."""
+    library is current (``is_stale``); return the library's path."""
     src = os.path.join(CSRC, f"{name}.cu")
     if os.path.exists(src):
         compiler, flags = nvcc_path(), NVCC_FLAGS
@@ -69,7 +86,7 @@ def build(name: str) -> str:
         src = os.path.join(CSRC, f"{name}.cc")
         compiler, flags = cxx_path(), CXX_FLAGS
     so = os.path.join(BUILD, f"lib{name}.so")
-    if os.path.exists(so) and os.path.getmtime(so) >= os.path.getmtime(src):
+    if not is_stale(so, src):
         build_info.setdefault(name, {"seconds": 0.0, "log": ""})
         return so
     os.makedirs(BUILD, exist_ok=True)

@@ -8,14 +8,19 @@ backward's row sums ``di`` taken by XLA between them. Here they are the
 four CUDA C++ kernels of ``csrc/flash_attention.cu`` (see its note for
 the design, and for why ``di`` is a kernel of its own that sums P∘dP
 rather than o∘do), bound with ctypes, and an ``autograd.Function``
-around them.
+around them. The forward and dK/dV kernels are built for Hopper: TMA
+loads into a ring of tiles guarded by mbarriers, ``wgmma`` products, a
+producer warpgroup and two consumer warpgroups; the di and dQ kernels
+use ``mma.sync``.
 
 * ``flash_attention(q, k, v, causal=True, sm_scale=None)`` is the entry
   point, over ``[B, H, L, D]``. For CPU tensors it runs the plain
   versions; for CUDA tensors it launches the kernels, and raises for
   what they do not take (a dtype other than bf16, ``D != 128``,
-  ``L % 128 != 0``, non-causal, a non-contiguous tensor) or for a
-  launch that fails. It never falls back to the plain version.
+  ``L % 128 != 0``, non-causal, a non-contiguous tensor, one that does
+  not start on a 16-byte boundary, as TMA needs, an ``sm_scale`` that is
+  not positive) or for a launch that fails. It never falls back to the
+  plain version.
 * ``flash_fwd``, ``flash_bwd_di``, ``flash_bwd_dkv`` and ``flash_bwd_dq``
   launch one kernel each on the current stream and count their launches
   (``flash_fwd.launches`` ...), where they launch and nowhere else.
@@ -71,7 +76,8 @@ def check_kernel_args(q, k, v, causal: bool = True, *more) -> None:
     """Raise ``ValueError`` for anything the kernels do not take: q, k, v
     (and any further ``[B, H, L, D]`` operand, such as ``o`` or ``do``)
     must be contiguous bf16 tensors of one shape with ``D == 128`` and
-    ``L % 128 == 0``, on one device, and the mask causal. The device is
+    ``L % 128 == 0``, on one device, each starting on a 16-byte boundary
+    (TMA's rule for a tensor's base), and the mask causal. The device is
     checked where a kernel launches."""
     if not causal:
         raise ValueError("flash kernels: only causal attention is ported")
@@ -91,6 +97,7 @@ def check_kernel_args(q, k, v, causal: bool = True, *more) -> None:
         if t.device != q.device:
             raise ValueError(f"flash kernels: operands on {t.device} and "
                              f"{q.device}")
+        _check_aligned(t)
     B, H, L, D = q.shape
     if D != HEAD_DIM:
         raise ValueError(f"flash kernels: head_dim must be {HEAD_DIM}, "
@@ -101,6 +108,13 @@ def check_kernel_args(q, k, v, causal: bool = True, *more) -> None:
     if not 0 < B * H <= _MAX_BH:
         raise ValueError(f"flash kernels: B*H must be in 1..{_MAX_BH}, "
                          f"got {B * H}")
+
+
+def _check_aligned(t: torch.Tensor) -> None:
+    if t.data_ptr() % 16:
+        raise ValueError(f"flash kernels: operands must start on a 16-byte "
+                         f"boundary, got address {t.data_ptr():#x} (an "
+                         f"offset view; call .clone() at the call site)")
 
 
 def _on_cuda(t: torch.Tensor, what: str) -> None:
@@ -125,6 +139,10 @@ def _scale(q: torch.Tensor, sm_scale: float | None) -> float:
 def flash_fwd(q, k, v, sm_scale: float | None = None):
     """Launch the forward kernel: (o bf16 [B,H,L,D], lse f32 [B,H,L])."""
     check_kernel_args(q, k, v)
+    scale = _scale(q, sm_scale)
+    if not 0.0 < scale < math.inf:       # rows' maxima on unscaled scores
+        raise ValueError(f"flash_fwd kernel: sm_scale must be positive and "
+                         f"finite, got {scale}")
     _on_cuda(q, "flash_fwd")
     B, H, L, _ = q.shape
     o = torch.empty_like(q)
@@ -132,7 +150,7 @@ def flash_fwd(q, k, v, sm_scale: float | None = None):
     with torch.cuda.device(q.device):
         rc = _lib().cv_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                  o.data_ptr(), lse.data_ptr(), B * H, L,
-                                 _scale(q, sm_scale), _stream(q))
+                                 scale, _stream(q))
     _raise_on(rc, "flash_fwd")
     flash_fwd.launches += 1
     return o, lse
@@ -145,6 +163,7 @@ def _check_residuals(q, **rows) -> None:
                 or not t.is_contiguous() or t.device != q.device:
             raise ValueError(f"flash kernels: {name} must be contiguous f32 "
                              f"of shape {(B, H, L)} on {q.device}")
+        _check_aligned(t)
 
 
 def flash_bwd_di(q, k, v, do, lse, sm_scale: float | None = None):
@@ -152,14 +171,14 @@ def flash_bwd_di(q, k, v, do, lse, sm_scale: float | None = None):
     P = exp(S - lse) and dP = dO Vᵀ."""
     check_kernel_args(q, k, v, True, do)
     _check_residuals(q, lse=lse)
+    scale = _scale(q, sm_scale)
     _on_cuda(q, "flash_bwd_di")
     B, H, L, _ = q.shape
     di = torch.empty((B, H, L), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         rc = _lib().cv_flash_bwd_di(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), di.data_ptr(), B * H, L, _scale(q, sm_scale),
-            _stream(q))
+            lse.data_ptr(), di.data_ptr(), B * H, L, scale, _stream(q))
     _raise_on(rc, "flash_bwd_di")
     flash_bwd_di.launches += 1
     return di
@@ -169,6 +188,7 @@ def flash_bwd_dkv(q, k, v, do, lse, di, sm_scale: float | None = None):
     """Launch the dK/dV kernel: (dk, dv), bf16 like k and v."""
     check_kernel_args(q, k, v, True, do)
     _check_residuals(q, lse=lse, di=di)
+    scale = _scale(q, sm_scale)
     _on_cuda(q, "flash_bwd_dkv")
     B, H, L, _ = q.shape
     dk = torch.empty_like(k)
@@ -177,7 +197,7 @@ def flash_bwd_dkv(q, k, v, do, lse, di, sm_scale: float | None = None):
         rc = _lib().cv_flash_bwd_dkv(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), di.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            B * H, L, _scale(q, sm_scale), _stream(q))
+            B * H, L, scale, _stream(q))
     _raise_on(rc, "flash_bwd_dkv")
     flash_bwd_dkv.launches += 1
     return dk, dv
@@ -187,14 +207,15 @@ def flash_bwd_dq(q, k, v, do, lse, di, sm_scale: float | None = None):
     """Launch the dQ kernel: dq, bf16 like q."""
     check_kernel_args(q, k, v, True, do)
     _check_residuals(q, lse=lse, di=di)
+    scale = _scale(q, sm_scale)
     _on_cuda(q, "flash_bwd_dq")
     B, H, L, _ = q.shape
     dq = torch.empty_like(q)
     with torch.cuda.device(q.device):
         rc = _lib().cv_flash_bwd_dq(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), di.data_ptr(), dq.data_ptr(), B * H, L,
-            _scale(q, sm_scale), _stream(q))
+            lse.data_ptr(), di.data_ptr(), dq.data_ptr(), B * H, L, scale,
+            _stream(q))
     _raise_on(rc, "flash_bwd_dq")
     flash_bwd_dq.launches += 1
     return dq

@@ -146,6 +146,9 @@ def _bf16(shape=(1, 2, 128, 128)):
      * 3),
     ("B*H too large", lambda: [torch.empty(
         (65536, 1, 128, 128), dtype=torch.bfloat16, device="meta")] * 3),
+    ("misaligned", lambda: [torch.empty(
+        2 * 128 * 128 + 1, dtype=torch.bfloat16)[1:].view(1, 2, 128, 128)]
+     * 3),
 ])
 def test_flash_kernel_args_rejected(case, args):
     """What the CUDA kernels do not take raises before any launch; the
@@ -161,6 +164,9 @@ def test_flash_kernel_args_accepted_and_cuda_only():
         flash.check_kernel_args(q, q, q, False)
     with pytest.raises(ValueError, match="not a CUDA device"):
         flash.flash_fwd(q, q, q)
+    for bad in (0.0, -0.5, float("inf"), float("nan")):
+        with pytest.raises(ValueError, match="sm_scale"):
+            flash.flash_fwd(q, q, q, sm_scale=bad)
     lse = torch.zeros(1, 2, 128)
     with pytest.raises(ValueError, match="not a CUDA device"):
         flash.flash_bwd_di(q, q, q, q, lse)

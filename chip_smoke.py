@@ -29,7 +29,8 @@ Phases, each raising on a fault (the exit code is then non-zero):
    [16, 20, 1024, 128] bf16, causal, and at [1, 2, 128, 128],
    [2, 4, 2048, 128] and [3, 5, 384, 128]; each kernel's time at the
    flagship's shape (CUDA events, median of 20, L2 flushed) beside its
-   bound, the plain version's and ``scaled_dot_product_attention``'s (a
+   bound, the plain version's and ``scaled_dot_product_attention``'s
+   (di's: ``torch.linalg.vecdot(o, do)``, the library's formula; each a
    yardstick only);
 6. train: the flagship 1.03 B-parameter transformer (bench.py's: vocab
    32,000, d_model 2560, 20 heads, 12 layers, d_ff 10,240, bf16, flash
@@ -593,7 +594,6 @@ def phase_flash(dev: torch.device, seed: int) -> dict:
         torch.cuda.synchronize()
         errs = {n: flash_errors(n, g, r) for n, (g, r) in pairs.items()}
         lse, di = pairs["lse"][0], pairs["di"][0]
-        del pairs
         bad = {n: e for n, e in errs.items() if not e["ok"]}
         if bad:
             raise AssertionError(f"flash {shape}: kernel and plain version "
@@ -606,8 +606,9 @@ def phase_flash(dev: torch.device, seed: int) -> dict:
             + (f", worst row rel {e['row_rel']:.2e}" if "row_rel" in e
                else "") + f", rel {e['rel']:.2e}" for n, e in errs.items()))
         if main is None:
-            main = (shape, q, k, v, do, lse, di, errs)
-    shape, q, k, v, do, lse, di, errs = main
+            main = (shape, q, k, v, do, pairs["o"][0], lse, di, errs)
+        del pairs
+    shape, q, k, v, do, o, lse, di, errs = main
     scratch = torch.empty(256 * MiB, dtype=torch.uint8, device=dev)
 
     def med(fn, prep=None):
@@ -630,7 +631,10 @@ def phase_flash(dev: torch.device, seed: int) -> dict:
     out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
     sdpa_bwd_ms = med(lambda: torch.autograd.grad(
         out, (qg, kg, vg), do, retain_graph=True))
-    del out, qg, kg, vg, scratch
+    # the library's di = rowsum(o * do) from the forward's bf16 o: too
+    # coarse for dQ (PERF.md §6), a yardstick of speed only
+    vecdot_ms = med(lambda: torch.linalg.vecdot(o, do, dim=-1))
+    del out, qg, kg, vg, o, scratch
     bounds = flash_bounds(shape)
     err_of = {"flash_fwd": max(errs["o"]["max_abs_err"],
                                errs["lse"]["max_abs_err"]),
@@ -638,9 +642,8 @@ def phase_flash(dev: torch.device, seed: int) -> dict:
               "flash_bwd_dkv": max(errs["dk"]["max_abs_err"],
                                    errs["dv"]["max_abs_err"]),
               "flash_bwd_dq": errs["dq"]["max_abs_err"]}
-    # di has no single PyTorch call of its own: library_ms is None
     timed = {"flash_fwd": (fwd_ms, fwd_plain_ms, sdpa_fwd_ms),
-             "flash_bwd_di": (di_ms, di_plain_ms, None),
+             "flash_bwd_di": (di_ms, di_plain_ms, vecdot_ms),
              "flash_bwd_dkv": (dkv_ms, bwd_plain_ms, sdpa_bwd_ms),
              "flash_bwd_dq": (dq_ms, bwd_plain_ms, sdpa_bwd_ms)}
     res["kernels"] = {}
@@ -651,13 +654,15 @@ def phase_flash(dev: torch.device, seed: int) -> dict:
             "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
             "max_abs_err": err_of[name], "flop": b["flop"],
             "bytes": b["bytes"], "tflops": b["flop"] / ms / 1e9}
-        lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
+        lib = "vecdot(o, do)" if name == "flash_bwd_di" else "sdpa"
         log(f"flash: {name} at {list(shape)}: {ms:.4f} ms "
             f"({b['flop'] / ms / 1e9:.1f} TFLOP/s), bound {b['bound_ms']:.4f}"
             f" ms by {b['bound_by']} ({b['bound_ms'] / ms:.1%} of it); "
-            f"plain {plain_ms:.4f} ms; sdpa {lib}")
+            f"plain {plain_ms:.4f} ms; {lib} {lib_ms:.4f} ms")
     log("flash: the plain backward and sdpa's backward compute dq, dk and "
-        "dv in one call: their time stands beside both backward kernels")
+        "dv in one call: their time stands beside both backward kernels; "
+        "di's yardstick is the library's formula, rowsum(o * do) from the "
+        "bf16 o, not the function the kernel computes")
     return res
 
 

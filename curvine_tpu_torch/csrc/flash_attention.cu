@@ -42,33 +42,32 @@
 // FLOP over its bytes, bound by bytes. Either way the tensor cores must
 // not wait, and on Hopper only wgmma reaches their full rate.
 //
-// The forward and dK/dV kernels are built for that (hopper.cuh):
+// All four kernels are built for that (hopper.cuh):
 // - one producer warpgroup (its registers lowered with setmaxnreg) issues
-//   TMA loads of 128-byte-swizzled tiles into a three-stage ring guarded
-//   by full and empty mbarriers, so loads run ahead of the products;
+//   TMA loads of 128-byte-swizzled tiles into a ring of three stages
+//   (four for di and dQ) guarded by full and empty mbarriers, so loads
+//   run ahead of the products;
 // - two consumer warpgroups (registers raised to 240) each own 64 rows
 //   and run every product as wgmma: S and dP with both operands in shared
-//   memory, P V, P^T dO and dS^T Q with P or dS rounded to bf16 in
+//   memory, P V, P^T dO, dS^T Q and dS K with P or dS rounded to bf16 in
 //   registers as the A operand (the accumulator layout of S is the A
 //   fragment layout), and the other operand read in its natural [row][d]
 //   order through the transpose bit, so no transposed copy is made;
 // - the forward issues the next tile's S = Q K^T and this tile's P V
 //   back to back and runs the next tile's softmax while P V is in
 //   flight;
-// - the blocks of one head run together, longest walk first (the
-//   forward's last query tile, dK/dV's first key tile): the head's K and
-//   V (or Q and dO), read by each of its blocks, stay in L2. Ordering all
-//   heads' longest walks first instead made every block read them from
-//   device memory, 12% slower for the forward.
+// - the blocks of one head run together, longest walk first (the last
+//   query tile for the forward, di and dQ; dK/dV's first key tile): the
+//   head's K and V (or Q and dO), read by each of its blocks, stay in L2.
+//   Ordering all heads' longest walks first instead made every block
+//   read them from device memory, 12% slower for the forward.
 // Forward: one block per 128-row Q tile, 128-key tiles (only the diagonal
 // tile is masked). dK/dV: one block per 128-key tile walking the 64-row
 // Q tiles from the diagonal on; a consumer skips a tile wholly above its
-// keys. No atomics: each output is written once and the result is
-// deterministic.
-//
-// The di and dQ kernels keep the simple form: mma.sync m16n8k16 with S's
-// accumulator reused as the A operand, tiles loaded by all threads
-// between barriers, K stored a second time transposed for dS K.
+// keys. di and dQ: one kernel template, one block per 128-row Q tile
+// walking 64-key tiles up to the diagonal (dQ's 64 x 128 accumulator
+// leaves no registers for 128-key S and dP). No atomics: each output is
+// written once and the result is deterministic.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -82,92 +81,18 @@ namespace {
 typedef __nv_bfloat16 bf16;
 
 constexpr int D = 128;          // head_dim
-constexpr int LDS = D + 8;      // pitch (bf16) of a [row][d] tile in smem
-constexpr int THREADS = 128;    // 4 warps, each owning 16 rows of a tile
-
-constexpr int DQ_BQ = 64, DQ_BK = 64;     // dQ: Q tile, K tile walked
-
-__device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
     __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
     return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-    return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Fragment layouts of m16n8k16 (g = lane / 4, t = lane % 4):
-//   A 16x16 row-major: a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..),
-//                      a3 (g+8, 2t+8..)
-//   B 16x8 (k x n):    b0 (k 2t..2t+1, n g), b1 (k 2t+8.., n g)
-//   C 16x8 f32:        c0,c1 (g, 2t..2t+1), c2,c3 (g+8, 2t..2t+1)
-// A wgmma accumulator of N columns holds, for each warp's 16 rows, N / 8
-// such C fragments in order, and a wgmma A operand in registers is the
-// A fragment above for each warp's 16 rows.
-
-// A operand, rows [row0, row0+16) x cols [col0, col0+16) of a [row][col]
-// smem tile with pitch `ld`.
-__device__ __forceinline__ void load_a(uint32_t a[4], const bf16* s, int ld,
-                                       int row0, int col0, int g, int t) {
-    const bf16* p = s + (row0 + g) * ld + col0 + 2 * t;
-    a[0] = ld32(p);
-    a[1] = ld32(p + 8 * ld);
-    a[2] = ld32(p + 8);
-    a[3] = ld32(p + 8 * ld + 8);
-}
-
-// B operand (k x n = 16 x 8) read from a smem tile stored [n][k], pitch ld.
-__device__ __forceinline__ void load_b(uint32_t& b0, uint32_t& b1,
-                                       const bf16* s, int ld, int n0, int k0,
-                                       int g, int t) {
-    const bf16* p = s + (n0 + g) * ld + k0 + 2 * t;
-    b0 = ld32(p);
-    b1 = ld32(p + 8);
-}
-
-// The accumulators of two neighbouring n-tiles (16 x 16 of C) as the A
-// operand of the next product, rounded to bf16.
-__device__ __forceinline__ void c_to_a(uint32_t a[4], const float c0[4],
-                                       const float c1[4]) {
-    a[0] = pack2(c0[0], c0[1]);
-    a[1] = pack2(c0[2], c0[3]);
-    a[2] = pack2(c1[0], c1[1]);
-    a[3] = pack2(c1[2], c1[3]);
-}
-
-// ROWS rows of 128 bf16 from global (pitch D) into smem [row][LDS].
-template <int ROWS>
-__device__ __forceinline__ void load_rows(bf16* s, const bf16* g) {
-    for (int i = threadIdx.x; i < ROWS * (D / 8); i += THREADS) {
-        const int r = i / (D / 8), c = (i % (D / 8)) * 8;
-        *reinterpret_cast<uint4*>(s + r * LDS + c) =
-            *reinterpret_cast<const uint4*>(g + (size_t)r * D + c);
-    }
-}
-
-// The same rows stored transposed, smem [d][row] with pitch ROWS + 8.
-// Neighbouring threads take neighbouring rows, so the 2-byte stores of
-// a warp fall in distinct banks.
-template <int ROWS>
-__device__ __forceinline__ void load_rows_t(bf16* s, const bf16* g) {
-    constexpr int LDT = ROWS + 8;
-    for (int i = threadIdx.x; i < ROWS * (D / 8); i += THREADS) {
-        const int r = i % ROWS, c = (i / ROWS) * 8;
-        uint4 v = *reinterpret_cast<const uint4*>(g + (size_t)r * D + c);
-        const bf16* e = reinterpret_cast<const bf16*>(&v);
-#pragma unroll
-        for (int j = 0; j < 8; j++) s[(c + j) * LDT + r] = e[j];
-    }
-}
+// A wgmma accumulator of N columns holds, for each warp's 16 rows
+// (g = lane / 4, t = lane % 4), N / 8 fragments of 8 columns in order:
+// c[4j], c[4j+1] at row g, columns 8j + 2t and 8j + 2t + 1, and c[4j+2],
+// c[4j+3] at row g + 8. A wgmma A operand in registers holds, for each
+// warp's 16 rows and 16 columns of k: a0 (g, 2t..2t+1), a1 (g+8, 2t..),
+// a2 (g, 2t+8..), a3 (g+8, 2t+8..), four neighbouring accumulator pairs.
 
 __device__ __forceinline__ float quad_max(float x) {
     x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
@@ -637,171 +562,205 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap mq,
 }
 
 // ------------------------------------------------- backward: di and dQ
-// grid (L / 64, B*H): one block per 64-row Q tile; each warp owns 16
-// rows. The block walks the K/V tiles up to the diagonal; for each it
-// recomputes S = Q K^T and dP = dO V^T for the warp's rows
-// (s_and_dp), then P = exp(S scale - lse). The di kernel sums P dP a
-// row; the dQ kernel accumulates dQ = dS K in registers with
-// dS = P (dP - di) scale.
+// grid (L / 128, B*H): one block per 128-row Q tile, a head's last Q
+// tile (the longest walk) first. The producer loads the tile's Q and dO
+// once, with its lse rows (and di rows, for dQ), and then K and V, 64
+// keys a tile, up to the diagonal, into the ring. Each consumer owns 64
+// query rows and recomputes S = Q K^T and dP = dO V^T (m64n64, both
+// operands in shared memory), then P = 2^(S scale log2(e) - lse log2(e)),
+// as dK/dV does, and P = 0 above the diagonal, which only the tile
+// crossing the consumer's diagonal, its last, needs. di (kDq false) sums
+// P dP a row in f32. dQ (kDq true) accumulates dQ += dS K (64 x 128 f32
+// in registers), dS = P (dP - di) scale rounded to bf16 as the A operand
+// and K's tile read MN-major; with 128-key S and dP beside that
+// accumulator the registers would not do. Consumer 0's rows end where
+// tile 2 qt + 1 begins: it skips that tile but still releases its
+// stage, or the ring would stop.
 
-constexpr int DQ_LDT = DQ_BK + 8;
-constexpr int DI_SMEM = (2 * DQ_BQ * LDS + 2 * DQ_BK * LDS) * (int)sizeof(bf16);
-constexpr int DQ_SMEM = DI_SMEM + D * DQ_LDT * (int)sizeof(bf16);
+// Four stages: di ran 0.6-2.4% faster than with three on the card, dQ
+// as fast (scripts/flash_variants.py).
+constexpr int QB_STAGES = 4;
+constexpr int BK = 64;                                // keys a tile
+constexpr int QB_Q = 0, QB_DO = KV_BYTES;             // 128 rows, 32 KB
+constexpr int QB_KV = 2 * KV_BYTES;                   // stage s: K, then V
+constexpr int QB_STAGE = 2 * Q_BYTES;                 // 32 KB
+constexpr int QB_ROWS = QB_KV + QB_STAGES * QB_STAGE;      // lse, di
+constexpr int QB_BAR = QB_ROWS + 2 * KT * 4;
+constexpr int QB_SMEM = QB_BAR + 8 * (1 + 2 * QB_STAGES) + 1024;
+static_assert(BK * D * 2 == Q_BYTES, "a K or V tile is one Q tile's size");
 
-__device__ __forceinline__ void s_and_dp(float s[DQ_BK / 8][4],
-                                         float dp[DQ_BK / 8][4],
-                                         const bf16* sQ, const bf16* sdO,
-                                         const bf16* sK, const bf16* sV,
-                                         int warp, int g, int t) {
-#pragma unroll
-    for (int nt = 0; nt < DQ_BK / 8; nt++) {
-        s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-        dp[nt][0] = dp[nt][1] = dp[nt][2] = dp[nt][3] = 0.f;
-    }
-#pragma unroll
-    for (int kk = 0; kk < D / 16; kk++) {
-        uint32_t qa[4], da[4];
-        load_a(qa, sQ, LDS, warp * 16, kk * 16, g, t);
-        load_a(da, sdO, LDS, warp * 16, kk * 16, g, t);
-#pragma unroll
-        for (int nt = 0; nt < DQ_BK / 8; nt++) {
-            uint32_t b0, b1;
-            load_b(b0, b1, sK, LDS, nt * 8, kk * 16, g, t);
-            mma16816(s[nt], qa, b0, b1);
-            load_b(b0, b1, sV, LDS, nt * 8, kk * 16, g, t);
-            mma16816(dp[nt], da, b0, b1);
-        }
-    }
-}
-
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_di_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                    const float* __restrict__ lse, float* __restrict__ di,
-                    int L, float scale) {
-    extern __shared__ __align__(16) unsigned char smem[];
-    bf16* sQ = reinterpret_cast<bf16*>(smem);       // [64][LDS]
-    bf16* sdO = sQ + DQ_BQ * LDS;                   // [64][LDS]
-    bf16* sK = sdO + DQ_BQ * LDS;                   // [64][LDS]
-    bf16* sV = sK + DQ_BK * LDS;                    // [64][LDS]
+template <bool kDq>
+__global__ void __launch_bounds__(HOP_THREADS, 1)
+flash_bwd_q_kernel(const __grid_constant__ CUtensorMap mq,
+                   const __grid_constant__ CUtensorMap mk,
+                   const __grid_constant__ CUtensorMap mv,
+                   const __grid_constant__ CUtensorMap mdo,
+                   const float* __restrict__ lse,
+                   float* __restrict__ di,        // written by di, read by dQ
+                   bf16* __restrict__ dq, int L, float scale,
+                   float scale_log2) {
+    extern __shared__ __align__(1024) unsigned char smem_raw[];
+    unsigned char* sm = align1024(smem_raw);
+    uint64_t* qfull = reinterpret_cast<uint64_t*>(sm + QB_BAR);
+    uint64_t* full = qfull + 1;                   // [QB_STAGES]
+    uint64_t* empty = full + QB_STAGES;           // [QB_STAGES]
+    float* rows = reinterpret_cast<float*>(sm + QB_ROWS);   // lse, di
 
     const int qt = gridDim.x - 1 - blockIdx.x;
-    const size_t bh = blockIdx.y;
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int g = lane >> 2, t = lane & 3;
-    const size_t base = bh * L;
-    const int row0 = qt * DQ_BQ + warp * 16 + g;    // rows row0, row0 + 8
+    const int base = blockIdx.y * L;
+    const int wg = threadIdx.x / 128;
 
-    load_rows<DQ_BQ>(sQ, q + (base + (size_t)qt * DQ_BQ) * D);
-    load_rows<DQ_BQ>(sdO, dout + (base + (size_t)qt * DQ_BQ) * D);
-    const float lr[2] = {lse[base + row0], lse[base + row0 + 8]};
-    float acc[2] = {0.f, 0.f};
+    if (threadIdx.x == 0) {
+        hopper::mbar_init(qfull, 1);
+        for (int s = 0; s < QB_STAGES; s++) {
+            hopper::mbar_init(&full[s], 1);
+            hopper::mbar_init(&empty[s], 8);      // one arrival a warp
+        }
+        hopper::mbar_fence_init();
+    }
+    __syncthreads();
 
-    for (int kt = 0; kt <= qt * DQ_BQ / DQ_BK; kt++) {
-        const size_t r0 = base + (size_t)kt * DQ_BK;
-        __syncthreads();
-        load_rows<DQ_BK>(sK, k + r0 * D);
-        load_rows<DQ_BK>(sV, v + r0 * D);
-        __syncthreads();
-        float s[DQ_BK / 8][4], dp[DQ_BK / 8][4];
-        s_and_dp(s, dp, sQ, sdO, sK, sV, warp, g, t);
-#pragma unroll
-        for (int nt = 0; nt < DQ_BK / 8; nt++) {
-#pragma unroll
-            for (int e = 0; e < 4; e++) {
-                const int i = e >> 1;
-                const int key = kt * DQ_BK + nt * 8 + 2 * t + (e & 1);
-                if (key <= row0 + i * 8)
-                    acc[i] += __expf(s[nt][e] * scale - lr[i]) * dp[nt][e];
+    if (wg == 0) {
+        // ------------------------------------------------ producer
+        hopper::regs_dec<PRODUCER_REGS>();
+        if (threadIdx.x == 0) {
+            const int r = base + qt * KT;
+            hopper::mbar_expect_tx(qfull,
+                                   2 * KV_BYTES + (kDq ? 2 : 1) * KT * 4);
+            load_tile(sm + QB_Q, &mq, qfull, r, KT);
+            load_tile(sm + QB_DO, &mdo, qfull, r, KT);
+            hopper::bulk_load(rows, lse + r, KT * 4, qfull);
+            if (kDq) hopper::bulk_load(rows + KT, di + r, KT * 4, qfull);
+            for (int kt = 0; kt < 2 * qt + 2; kt++) {
+                const int s = kt % QB_STAGES;
+                hopper::mbar_wait(&empty[s], ((kt / QB_STAGES) & 1) ^ 1);
+                hopper::mbar_expect_tx(&full[s], QB_STAGE);
+                unsigned char* st = sm + QB_KV + s * QB_STAGE;
+                load_tile(st, &mk, &full[s], base + kt * BK, BK);
+                load_tile(st + Q_BYTES, &mv, &full[s], base + kt * BK, BK);
             }
         }
+        return;
     }
+
+    // ----------------------------------------------------- consumers
+    hopper::regs_inc<CONSUMER_REGS>();
+    const int c = wg - 1;
+    const int tid = threadIdx.x & 127;
+    const int warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int lrow = c * 64 + warp * 16 + g;         // in the tile, and + 8
+    const int row0 = qt * KT + lrow;
+    // this consumer's 64 rows of Q and dO: 8 KB into each box
+    const uint64_t qd =
+        kdesc(hopper::smem_addr(sm + QB_Q) + c * 64 * BOX_ROW);
+    const uint64_t dod =
+        kdesc(hopper::smem_addr(sm + QB_DO) + c * 64 * BOX_ROW);
+    const uint32_t kv_addr = hopper::smem_addr(sm + QB_KV);
+
+    hopper::mbar_wait(qfull, 0);
+    float l2[2], dr[2], acc[kDq ? 64 : 2];
 #pragma unroll
     for (int i = 0; i < 2; i++) {
-        const float sum = quad_sum(acc[i]);
-        if (t == 0) di[base + row0 + i * 8] = sum;
+        l2[i] = rows[lrow + i * 8] * LOG2E;
+        dr[i] = kDq ? rows[KT + lrow + i * 8] : 0.f;
     }
-}
-
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ di, bf16* __restrict__ dq,
-                    int L, float scale) {
-    extern __shared__ __align__(16) unsigned char smem[];
-    bf16* sQ = reinterpret_cast<bf16*>(smem);       // [64][LDS]
-    bf16* sdO = sQ + DQ_BQ * LDS;                   // [64][LDS]
-    bf16* sK = sdO + DQ_BQ * LDS;                   // [64][LDS]
-    bf16* sV = sK + DQ_BK * LDS;                    // [64][LDS]
-    bf16* sKt = sV + DQ_BK * LDS;                   // [128][64 + 8]
-
-    const int qt = gridDim.x - 1 - blockIdx.x;
-    const size_t bh = blockIdx.y;
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int g = lane >> 2, t = lane & 3;
-    const size_t base = bh * L;
-    const int row0 = qt * DQ_BQ + warp * 16 + g;    // rows row0, row0 + 8
-
-    load_rows<DQ_BQ>(sQ, q + (base + (size_t)qt * DQ_BQ) * D);
-    load_rows<DQ_BQ>(sdO, dout + (base + (size_t)qt * DQ_BQ) * D);
-    const float lr[2] = {lse[base + row0], lse[base + row0 + 8]};
-    const float dr[2] = {di[base + row0], di[base + row0 + 8]};
-
-    float dQa[D / 8][4];
 #pragma unroll
-    for (int i = 0; i < D / 8; i++)
-        dQa[i][0] = dQa[i][1] = dQa[i][2] = dQa[i][3] = 0.f;
+    for (int i = 0; i < (kDq ? 64 : 2); i++) acc[i] = 0.f;
 
-    for (int kt = 0; kt <= qt * DQ_BQ / DQ_BK; kt++) {
-        const size_t r0 = base + (size_t)kt * DQ_BK;
-        __syncthreads();
-        load_rows<DQ_BK>(sK, k + r0 * D);
-        load_rows<DQ_BK>(sV, v + r0 * D);
-        load_rows_t<DQ_BK>(sKt, k + r0 * D);
-        __syncthreads();
+    // up to the tile that holds this consumer's last row (written so, the
+    // dQ kernel ran 5-10% faster on the card than with the equal
+    // n_kt = 2 qt + 1 + c: scripts/flash_variants.py)
+    const int n_kt = (qt * KT + c * 64 + 63) / BK + 1;
+    for (int kt = 0; kt < n_kt; kt++) {
+        const int st = kt % QB_STAGES;
+        const uint32_t k_addr = kv_addr + st * QB_STAGE;
+        const uint64_t kd = kdesc(k_addr), vd = kdesc(k_addr + Q_BYTES);
+        hopper::mbar_wait(&full[st], (kt / QB_STAGES) & 1);
+        float s[BK / 2], dp[BK / 2];
+        hopper::wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; kk++)
+            hopper::wgmma_64_ss(s, kstep(qd, KT, kk), kstep(kd, BK, kk), kk);
+        hopper::wg_commit();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; kk++)
+            hopper::wgmma_64_ss(dp, kstep(dod, KT, kk), kstep(vd, BK, kk),
+                                kk);
+        hopper::wg_commit();
+        hopper::wg_wait<0>();
+        hopper::wg_hold(s);
+        hopper::wg_hold(dp);
 
-        float s[DQ_BK / 8][4], dp[DQ_BK / 8][4];
-        s_and_dp(s, dp, sQ, sdO, sK, sV, warp, g, t);
 #pragma unroll
-        for (int nt = 0; nt < DQ_BK / 8; nt++) {
+        for (int j = 0; j < BK / 8; j++) {
 #pragma unroll
-            for (int e = 0; e < 4; e++) {
-                const int i = e >> 1;
-                const int row = row0 + i * 8;
-                const int key = kt * DQ_BK + nt * 8 + 2 * t + (e & 1);
-                const float p = key <= row
-                    ? __expf(s[nt][e] * scale - lr[i]) : 0.f;
-                dp[nt][e] = p * (dp[nt][e] - dr[i]) * scale;
+            for (int e = 0; e < 4; e++)
+                s[4 * j + e] =
+                    ex2(fmaf(s[4 * j + e], scale_log2, -l2[e >> 1]));
+        }
+        if (kt == n_kt - 1) {                     // the diagonal tile
+#pragma unroll
+            for (int j = 0; j < BK / 8; j++) {
+#pragma unroll
+                for (int e = 0; e < 4; e++) {
+                    const int key = kt * BK + j * 8 + 2 * t + (e & 1);
+                    if (key > row0 + (e >> 1) * 8) s[4 * j + e] = 0.f;
+                }
             }
         }
+        if constexpr (kDq) {
 #pragma unroll
-        for (int kk = 0; kk < DQ_BK / 16; kk++) {
-            uint32_t dsa[4];
-            c_to_a(dsa, dp[2 * kk], dp[2 * kk + 1]);
+            for (int j = 0; j < BK / 8; j++) {
 #pragma unroll
-            for (int dt = 0; dt < D / 8; dt++) {
-                uint32_t b0, b1;
-                load_b(b0, b1, sKt, DQ_LDT, dt * 8, kk * 16, g, t);
-                mma16816(dQa[dt], dsa, b0, b1);
+                for (int e = 0; e < 4; e++)
+                    dp[4 * j + e] =
+                        s[4 * j + e] * (dp[4 * j + e] - dr[e >> 1]) * scale;
+            }
+            uint32_t dsa[BK / 16][4];
+#pragma unroll
+            for (int kk = 0; kk < BK / 16; kk++) acc_to_a(dsa[kk], dp, kk);
+            hopper::wg_hold(acc);
+            hopper::wg_fence();
+#pragma unroll
+            for (int kk = 0; kk < BK / 16; kk++)
+                hopper::wgmma_128_rs<1>(acc, dsa[kk],
+                                        mnstep(mndesc(k_addr, BK), kk));
+            hopper::wg_commit();
+            hopper::wg_wait<0>();
+            hopper::wg_keep(dsa);
+            hopper::wg_hold(acc);
+        } else {
+#pragma unroll
+            for (int j = 0; j < BK / 8; j++) {
+#pragma unroll
+                for (int e = 0; e < 4; e++)
+                    acc[e >> 1] += s[4 * j + e] * dp[4 * j + e];
             }
         }
+        __syncwarp();
+        if (lane == 0) hopper::mbar_arrive(&empty[st]);
+    }
+    if (n_kt < 2 * qt + 2) {    // tile 2 qt + 1, wholly above its rows
+        const int st = n_kt % QB_STAGES;
+        hopper::mbar_wait(&full[st], (n_kt / QB_STAGES) & 1);
+        __syncwarp();
+        if (lane == 0) hopper::mbar_arrive(&empty[st]);
     }
 
 #pragma unroll
     for (int i = 0; i < 2; i++) {
-        bf16* orow = dq + (base + row0 + i * 8) * D;
+        const size_t r = (size_t)base + row0 + i * 8;
+        if constexpr (kDq) {
 #pragma unroll
-        for (int dt = 0; dt < D / 8; dt++)
-            *reinterpret_cast<uint32_t*>(orow + dt * 8 + 2 * t) =
-                pack2(dQa[dt][2 * i], dQa[dt][2 * i + 1]);
+            for (int j = 0; j < 16; j++)
+                *reinterpret_cast<uint32_t*>(dq + r * D + j * 8 + 2 * t) =
+                    pack2(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
+        } else {
+            const float sum = quad_sum(acc[i]);
+            if (t == 0) di[r] = sum;
+        }
     }
-}
-
-int launch_check(int L, int bh) {
-    if (L <= 0 || L % 64 != 0 || bh <= 0 || bh > 65535)
-        return (int)cudaErrorInvalidValue;
-    return 0;
 }
 
 // B*H*L rows of 128 bf16: each operand is one 2-D map of boxes of 64
@@ -813,14 +772,37 @@ int hop_check(int L, int bh) {
     return 0;
 }
 
+template <bool kDq>
+int launch_bwd_q(const void* q, const void* k, const void* v,
+                 const void* dout, const void* lse, void* di, void* dq,
+                 int bh, int L, float scale, void* stream) {
+    int rc = hop_check(L, bh);
+    if (rc) return rc;
+    const uint64_t rows = (uint64_t)bh * L;
+    CUtensorMap mq, mk, mv, mdo;
+    if ((rc = hopper::bf16_map(&mq, q, rows, D, KT))) return rc;
+    if ((rc = hopper::bf16_map(&mk, k, rows, D, BK))) return rc;
+    if ((rc = hopper::bf16_map(&mv, v, rows, D, BK))) return rc;
+    if ((rc = hopper::bf16_map(&mdo, dout, rows, D, KT))) return rc;
+    cudaError_t e = cudaFuncSetAttribute(
+        flash_bwd_q_kernel<kDq>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        QB_SMEM);
+    if (e != cudaSuccess) return (int)e;
+    flash_bwd_q_kernel<kDq><<<dim3(L / KT, bh), HOP_THREADS, QB_SMEM,
+                              (cudaStream_t)stream>>>(
+        mq, mk, mv, mdo, (const float*)lse, (float*)di, (bf16*)dq, L, scale,
+        scale * LOG2E);
+    return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 // Each returns 0 or the CUDA error of the launch. Pointers are device
-// pointers; `stream` is a cudaStream_t. Nothing here synchronises. The
-// forward and dK/dV launchers encode their TMA maps for the call's
-// pointers (16-byte aligned; the wrapper checks).
+// pointers; `stream` is a cudaStream_t. Nothing here synchronises. Each
+// launcher encodes its TMA maps for the call's pointers (16-byte aligned;
+// the wrapper checks).
 
 int cv_flash_fwd(const void* q, const void* k, const void* v, void* o,
                  void* lse, int bh, int L, float scale, void* stream) {
@@ -844,17 +826,8 @@ int cv_flash_fwd(const void* q, const void* k, const void* v, void* o,
 int cv_flash_bwd_di(const void* q, const void* k, const void* v,
                     const void* dout, const void* lse, void* di, int bh,
                     int L, float scale, void* stream) {
-    int rc = launch_check(L, bh);
-    if (rc) return rc;
-    cudaError_t e = cudaFuncSetAttribute(
-        flash_bwd_di_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        DI_SMEM);
-    if (e != cudaSuccess) return (int)e;
-    flash_bwd_di_kernel<<<dim3(L / DQ_BQ, bh), THREADS, DI_SMEM,
-                          (cudaStream_t)stream>>>(
-        (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
-        (const float*)lse, (float*)di, L, scale);
-    return (int)cudaGetLastError();
+    return launch_bwd_q<false>(q, k, v, dout, lse, di, nullptr, bh, L, scale,
+                               stream);
 }
 
 int cv_flash_bwd_dkv(const void* q, const void* k, const void* v,
@@ -883,17 +856,8 @@ int cv_flash_bwd_dkv(const void* q, const void* k, const void* v,
 int cv_flash_bwd_dq(const void* q, const void* k, const void* v,
                     const void* dout, const void* lse, const void* di,
                     void* dq, int bh, int L, float scale, void* stream) {
-    int rc = launch_check(L, bh);
-    if (rc) return rc;
-    cudaError_t e = cudaFuncSetAttribute(
-        flash_bwd_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        DQ_SMEM);
-    if (e != cudaSuccess) return (int)e;
-    flash_bwd_dq_kernel<<<dim3(L / DQ_BQ, bh), THREADS, DQ_SMEM,
-                          (cudaStream_t)stream>>>(
-        (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
-        (const float*)lse, (const float*)di, (bf16*)dq, L, scale);
-    return (int)cudaGetLastError();
+    return launch_bwd_q<true>(q, k, v, dout, lse, const_cast<void*>(di), dq,
+                              bh, L, scale, stream);
 }
 
 }  // extern "C"

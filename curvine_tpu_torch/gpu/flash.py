@@ -8,10 +8,10 @@ backward's row sums ``di`` taken by XLA between them. Here they are the
 four CUDA C++ kernels of ``csrc/flash_attention.cu`` (see its note for
 the design, and for why ``di`` is a kernel of its own that sums P∘dP
 rather than o∘do), bound with ctypes, and an ``autograd.Function``
-around them. The forward and dK/dV kernels are built for Hopper: TMA
-loads into a ring of tiles guarded by mbarriers, ``wgmma`` products, a
-producer warpgroup and two consumer warpgroups; the di and dQ kernels
-use ``mma.sync``.
+around them. All four are built for Hopper: TMA loads into a ring of
+tiles guarded by mbarriers, ``wgmma`` products, a producer warpgroup and
+two consumer warpgroups; di and dQ are one kernel template that differs
+in its epilogue.
 
 * ``flash_attention(q, k, v, causal=True, sm_scale=None)`` is the entry
   point, over ``[B, H, L, D]``. For CPU tensors it runs the plain

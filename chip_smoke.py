@@ -20,9 +20,20 @@ Phases, each raising on a fault (the exit code is then non-zero):
    set survived the scan, and that a corrupted device copy is caught and
    dropped. Measures mmap views → tier against a pinned 128 MiB buffer
    → device, interleaved;
-4. feed: 8 int32 token shards of 64 MiB through ``GpuTrainFeed`` at
-   batch 32 x seq 8192, depth 2, over the whole epoch; every device batch
-   must equal the host tokens;
+4. feed: 8 int32 token shards of 64 MiB, files under a POSIX directory,
+   through ``PosixTrainFeed`` at batch 32 x seq 8192, depth 2, over the
+   whole epoch; every device batch must equal the host tokens;
+4b. client: a one-worker cache started as its own process
+   (``scripts/card_cluster.py``: the JAX package's master and worker, a
+   mem tier on the same tmpfs, the port's codec in place of
+   ``msgpack``), 8 new shards of 64 MiB written through the port's
+   ``CurvineClient`` (``write_token_shards``, one block each) and
+   streamed through the client-backed ``GpuTrainFeed`` (short-circuit
+   ``mmap_view``, prefetch advice to the master) at phase 4's batch;
+   every device batch must equal the host tokens, and some bytes must
+   come by short circuit; rates beside phase 4's, stage shares, bytes by
+   each path, advise RPCs, write GiB/s; then one shard read through
+   READ_BLOCK with the short circuit off, byte-equal;
 5. flash: the four K3 kernels (forward, di, dK/dV, dQ) on the card against
    their plain PyTorch versions, element by element and row by row
    (``flash_errors``), at the flagship's attention shape
@@ -35,14 +46,19 @@ Phases, each raising on a fault (the exit code is then non-zero):
 6. train: the flagship 1.03 B-parameter transformer (bench.py's: vocab
    32,000, d_model 2560, 20 heads, 12 layers, d_ff 10,240, bf16, flash
    attention, chunked cross entropy) on one card at batch 16 x seq 1024:
-   a cache-fed pass through ``GpuTrainFeed`` (the next batch's fetch
-   overlaps the step, one sync a step) and a synthetic pass on one fixed
-   device tensor; step times, ``ingest_overlap_ratio``, tokens/s, MFU,
-   peak memory, every loss, K3's share of the step; a profiler table of
+   a cache-fed pass through the client-backed ``GpuTrainFeed`` from the
+   same cluster (10 shards of one batch under ``/ds/train``; the next
+   batch's fetch overlaps the step, one sync a step) and a synthetic
+   pass on one fixed device tensor; step times,
+   ``ingest_overlap_ratio``, tokens/s, MFU, peak memory, every loss,
+   K3's share of the step; a profiler table of
    two steps; at batch 2 the loss and every gradient of the kernel path
    against the same model with its attention taken by the plain
    versions, and each layer's dQ, dK and dV against f64 dense
-   attention;
+   attention; last, a float32 model at head_dim 128 with flash attention
+   asked for, one layer forward at L 128: the gate admits it as the
+   reference's does, and the kernels' argument check must refuse it
+   before any launch (they take bf16 only), never dense in its place;
 7. vector: K2, the ADC scan, on the card against its plain version, bit
    for bit, at four shapes (the path's own among them) with planted
    out-of-range codes, both code layouts; its time at the path's shape
@@ -61,7 +77,8 @@ The kernel launch counts are set to 0 just before phase 3 and read just
 after phase 4 (K1), again just before the two passes of phase 6 and read
 just after them (K3), and just before phase 7's ``query_many`` and read
 just after it (K2, which must equal the ADC stages the search issued).
-Prints each phase's numbers, the card's name
+The cluster is stopped, and the data directory removed, however the
+run ends. Prints each phase's numbers, the card's name
 and power limit, one JSON line of kernels, and last the line
 ``{"ok": true, "device": {...}}``. Exits non-zero, and prints no result,
 where no CUDA device is visible or the port is not importable."""
@@ -112,6 +129,11 @@ SERVED_QUERIES, FLAT_QUERIES, SCAN_REPS, RECALL_QUERIES = 3072, 512, 8, 64
 # K2 against its plain version: (Q, W, M, ksub); the path's own shape,
 # (256, W of the run, 16, 256), is added by the phase
 PQ_SHAPES = [(1, 1, 4, 16), (3, 1000, 8, 32), (16, 7777, 64, 256)]
+HERE = os.path.dirname(os.path.abspath(__file__))
+# the cluster's mem tier: the client phase's shards plus 1 GiB (the train
+# phase's ten shards take 640 KiB of it)
+CLUSTER_TIER_BYTES = SHARDS * SHARD_BYTES + GiB
+CLUSTER_START_S = 300
 
 
 def log(msg: str) -> None:
@@ -425,36 +447,29 @@ def phase_main(rng: np.random.Generator, dev: torch.device, root: str
     return res
 
 
-def phase_feed(rng: np.random.Generator, dev: torch.device, root: str
-               ) -> dict:
-    from curvine_tpu_torch.gpu.loader import GpuTrainFeed, write_token_shards
-    shard_tokens = SHARD_BYTES // 4
-    tokens = rng.integers(0, 50257, SHARDS * shard_tokens, dtype=np.int32)
-    shard_dir = os.path.join(root, "shards")
-    write_token_shards(shard_dir, tokens, shard_tokens)
-    expect = torch.from_numpy(tokens).to(dev)
+async def drive_feed(feed, expect: torch.Tensor, dev: torch.device
+                     ) -> tuple[int, int, float]:
+    """Drain a feed of [BATCH, SEQ] device batches, each compared on the
+    card with its slice of ``expect``: (batches, tokens that differ,
+    seconds)."""
     per_batch = BATCH * SEQ
-    n_expect = tokens.size // per_batch
+    bad = torch.zeros((), dtype=torch.int64, device=dev)
+    n = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    async for b in feed:
+        if b.shape != (BATCH, SEQ) or b.device != dev:
+            raise AssertionError(f"batch {n}: {b.shape} on {b.device}")
+        ref = expect[n * per_batch:(n + 1) * per_batch].view(BATCH, SEQ)
+        bad += (b != ref).sum()
+        n += 1
+    torch.cuda.synchronize()
+    return n, int(bad), time.perf_counter() - t
 
-    async def run():
-        feed = GpuTrainFeed(shard_dir, BATCH, SEQ, depth=2, device=dev)
-        bad = torch.zeros((), dtype=torch.int64, device=dev)
-        n = 0
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        async for b in feed:
-            if b.shape != (BATCH, SEQ) or b.device != dev:
-                raise AssertionError(f"batch {n}: {b.shape} on {b.device}")
-            ref = expect[n * per_batch:(n + 1) * per_batch].view(BATCH, SEQ)
-            bad += (b != ref).sum()
-            n += 1
-        torch.cuda.synchronize()
-        return n, int(bad), time.perf_counter() - t, feed.profiler
 
-    n, bad, secs, prof = asyncio.run(run())
-    if n != n_expect or bad:
-        raise AssertionError(f"feed: {n}/{n_expect} batches, {bad} tokens "
-                             f"differ from the host tokens")
+def feed_stats(phase: str, n: int, secs: float, prof) -> dict:
+    """A feed's rates and the profiler's stage shares, logged."""
+    per_batch = BATCH * SEQ
     summary = prof.summary()
     snap = prof.snapshot()["stages"]
     res = {"batches": n, "batches_per_s": n / secs,
@@ -463,15 +478,165 @@ def phase_feed(rng: np.random.Generator, dev: torch.device, root: str
            "fractions": summary["fractions"],
            "stage_p50_ms": {k: v["p50"] * 1e3 for k, v in snap.items()},
            "stage_total_s": {k: v["total_s"] for k, v in snap.items()}}
-    log(f"feed: {n} batches of {BATCH}x{SEQ} int32, all equal to the host "
-        f"tokens, {res['batches_per_s']:.1f} batches/s "
+    log(f"{phase}: {n} batches of {BATCH}x{SEQ} int32, all equal to the "
+        f"host tokens, {res['batches_per_s']:.1f} batches/s "
         f"({res['gibs']:.3f} GiB/s)")
     for k in ("host_to_hbm", "input_wait", "compute_wait", "cache_fetch",
               "decode"):
         if k in snap:
-            log(f"feed: {k:>12}: total {snap[k]['total_s']:.4f}s "
+            log(f"{phase}: {k:>12}: total {snap[k]['total_s']:.4f}s "
                 f"p50 {snap[k]['p50'] * 1e3:.3f} ms "
                 f"share {summary['fractions'][k]:.3f}")
+    return res
+
+
+def feed_tokens(rng: np.random.Generator) -> np.ndarray:
+    return rng.integers(0, 50257, SHARDS * SHARD_BYTES // 4, dtype=np.int32)
+
+
+def phase_feed(rng: np.random.Generator, dev: torch.device, root: str
+               ) -> dict:
+    from curvine_tpu_torch.gpu.loader import PosixTrainFeed, write_posix_shards
+    tokens = feed_tokens(rng)
+    shard_dir = os.path.join(root, "shards")
+    write_posix_shards(shard_dir, tokens, SHARD_BYTES // 4)
+    expect = torch.from_numpy(tokens).to(dev)
+    n_expect = tokens.size // (BATCH * SEQ)
+
+    async def run():
+        feed = PosixTrainFeed(shard_dir, BATCH, SEQ, depth=2, device=dev)
+        return await drive_feed(feed, expect, dev), feed.profiler
+
+    (n, bad, secs), prof = asyncio.run(run())
+    if n != n_expect or bad:
+        raise AssertionError(f"feed: {n}/{n_expect} batches, {bad} tokens "
+                             f"differ from the host tokens")
+    return feed_stats("feed", n, secs, prof)
+
+
+# ------------------------------------------------------------ the cluster
+
+def start_cluster(root: str, tier_bytes: int):
+    """``scripts/card_cluster.py`` in its own process: a one-worker cache
+    (the JAX package's master and worker) with a mem tier of
+    ``tier_bytes`` under ``root``, its control plane on the port's codec
+    (``rpc/wirepack.py`` standing in for ``msgpack``). Returns the
+    process and its JSON line (master address, codec, native helpers);
+    raises when the line does not come within CLUSTER_START_S."""
+    import select
+    err = open(os.path.join(root, "cluster.err"), "wb")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.join(HERE, "scripts", "card_cluster.py"),
+         "--base-dir", os.path.join(root, "cluster"),
+         "--tier-bytes", str(tier_bytes), "--codec", "port"],
+        cwd=HERE, stdout=subprocess.PIPE, stderr=err)
+    err.close()
+    ready, _, _ = select.select([proc.stdout], [], [], CLUSTER_START_S)
+    line = proc.stdout.readline() if ready else b""
+    if not line:
+        stop_cluster(proc)
+        with open(os.path.join(root, "cluster.err"), "rb") as f:
+            tail = f.read()[-4000:].decode(errors="replace")
+        raise RuntimeError(f"the cluster did not start (exit "
+                           f"{proc.returncode}):\n{tail}")
+    info = json.loads(line)
+    log(f"client: cluster pid {info['pid']} serves at {info['master']}, "
+        f"codec {info['codec']}, the package's C++ helpers "
+        f"{'loaded' if info['native'] else 'MISSING'}")
+    if not info["native"]:
+        stop_cluster(proc)
+        raise RuntimeError("the cluster's C++ helpers did not build: its "
+                           "worker would hash 64 MiB blocks in Python")
+    return proc, info
+
+
+def stop_cluster(proc) -> None:
+    if proc.poll() is None:
+        proc.terminate()
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    proc.stdout.close()
+
+
+def port_client(master: str, **client):
+    from curvine_tpu_torch.client.unified import CurvineClient
+    from curvine_tpu_torch.common.conf import ClusterConf
+    conf = ClusterConf()
+    conf.client.master_addrs = [master]
+    for k, v in client.items():
+        setattr(conf.client, k, v)
+    return CurvineClient(conf)
+
+
+def phase_client(rng: np.random.Generator, dev: torch.device, master: str,
+                 posix: dict) -> dict:
+    from curvine_tpu_torch.gpu.loader import GpuTrainFeed, write_token_shards
+    tokens = feed_tokens(rng)
+    expect = torch.from_numpy(tokens).to(dev)
+    n_expect = tokens.size // (BATCH * SEQ)
+
+    async def run():
+        async with port_client(master) as c:
+            t = time.perf_counter()
+            paths = await write_token_shards(c, "/ds/feed", tokens,
+                                             SHARD_BYTES // 4)
+            write_s = time.perf_counter() - t
+            written = dict(c.counters)
+            feed = GpuTrainFeed(c, "/ds/feed", BATCH, SEQ, prefetch=True,
+                                device=dev)
+            fed = await drive_feed(feed, expect, dev)
+            counters = {k: v - written.get(k, 0)
+                        for k, v in c.counters.items()}
+        async with port_client(master, short_circuit=False) as c:
+            t = time.perf_counter()
+            raw = await c.read_all(paths[0])
+            rb_s = time.perf_counter() - t
+            rb_counters = dict(c.counters)
+        return paths, write_s, fed, feed.profiler, counters, raw, rb_s, \
+            rb_counters
+
+    paths, write_s, (n, bad, secs), prof, counters, raw, rb_s, rb = \
+        asyncio.run(run())
+    if len(paths) != SHARDS or n != n_expect or bad:
+        raise AssertionError(f"client: {len(paths)} shards, {n}/{n_expect} "
+                             f"batches, {bad} tokens differ from the host "
+                             f"tokens")
+    res = feed_stats("client", n, secs, prof)
+    sc = counters.get("sc.bytes.read", 0)
+    res.update({
+        "write_s": write_s, "write_gibs": tokens.nbytes / GiB / write_s,
+        "sc_bytes": sc, "read_block_bytes": counters.get(
+            "read_block.bytes", 0),
+        "advise_rpcs": counters.get("advise.rpcs", 0),
+        "read_block_check_bytes": rb.get("read_block.bytes", 0),
+        "read_block_gibs": len(raw) / GiB / rb_s,
+        "posix_batches_per_s": posix["batches_per_s"],
+        "posix_gibs": posix["gibs"]})
+    if not np.array_equal(np.frombuffer(raw, dtype=np.int32),
+                          tokens[:SHARD_BYTES // 4]):
+        raise AssertionError(f"client: {paths[0]} read through READ_BLOCK "
+                             f"differs from the host tokens")
+    if res["read_block_check_bytes"] != SHARD_BYTES:
+        raise AssertionError(f"client: READ_BLOCK served "
+                             f"{res['read_block_check_bytes']} bytes of "
+                             f"{SHARD_BYTES}")
+    log(f"client: wrote {SHARDS} shards of {SHARD_BYTES // MiB} MiB through "
+        f"the port's client in {write_s:.3f}s ({res['write_gibs']:.3f} "
+        f"GiB/s); the feed read {sc} bytes by short circuit (mmap_view) "
+        f"and {res['read_block_bytes']} by READ_BLOCK, sent "
+        f"{res['advise_rpcs']} advise RPCs; {res['batches_per_s']:.1f} "
+        f"batches/s ({res['gibs']:.3f} GiB/s) against phase 4's POSIX "
+        f"{posix['batches_per_s']:.1f} batches/s ({posix['gibs']:.3f} "
+        f"GiB/s) on this machine")
+    log(f"client: with short circuit off, {paths[0]} read through "
+        f"READ_BLOCK byte-equal in {rb_s:.3f}s ({res['read_block_gibs']:.3f}"
+        f" GiB/s)")
+    if sc == 0:
+        raise AssertionError("client: no byte came through the short "
+                             "circuit, the path this phase drives")
     return res
 
 
@@ -696,7 +861,48 @@ def device_work(prof) -> tuple[list, float]:
     return kern, busy_us
 
 
-def phase_train(dev: torch.device, root: str, seed: int, flash_res: dict
+def flash_gate_check(dev: torch.device, seed: int) -> dict:
+    """A float32 model at head_dim 128, flash attention asked for, one
+    layer forward at L 128 on the card: the gate admits it, as the
+    reference's does on the TPU, and the kernels' argument check refuses
+    it (they take bf16 only) with a ValueError before any launch; it never
+    runs quietly as dense attention. The same model with flash attention
+    off runs dense, finite."""
+    import dataclasses
+    from curvine_tpu_torch.gpu import flash, model as tm
+    cfg = tm.ModelConfig(vocab=128, d_model=256, n_heads=2, n_layers=1,
+                         d_ff=512, max_seq=128, dtype="float32",
+                         use_flash_attention=True)
+    params = tm.init_params(torch.Generator(device=dev).manual_seed(seed),
+                            cfg, dev)
+    tok = torch.randint(0, cfg.vocab, (2, 128), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(
+                            seed + 1), dtype=torch.int32)
+    before = flash.flash_fwd.launches
+    refused = ""
+    with torch.no_grad():
+        try:
+            tm.forward(params, tok, cfg)
+        except ValueError as e:
+            refused = str(e)
+        dense = tm.forward(params, tok, dataclasses.replace(
+            cfg, use_flash_attention=False))
+    torch.cuda.synchronize()
+    ok = ("bf16" in refused and flash.flash_fwd.launches == before
+          and tm._flash_eligible(cfg, 128, dev)
+          and dense.shape == (2, 128, cfg.vocab)
+          and bool(torch.isfinite(dense).all()))
+    what = f"refused before any launch ({refused})" if ok else "FAILED"
+    log(f"train: float32 head_dim 128 with flash attention asked for, one "
+        f"layer at L 128: {what}; flash off: dense, logits "
+        f"{tuple(dense.shape)}")
+    if not ok:
+        raise AssertionError(f"the flash path took or hid a float32 config "
+                             f"(error {refused!r})")
+    return {"refused": refused, "dense_shape": list(dense.shape)}
+
+
+def phase_train(dev: torch.device, master: str, seed: int, flash_res: dict
                 ) -> dict:
     from torch.profiler import ProfilerActivity, profile
     from curvine_tpu_torch.gpu import flash, model as tm
@@ -706,8 +912,13 @@ def phase_train(dev: torch.device, root: str, seed: int, flash_res: dict
     # bench.py:1761-1763: batch·seq·(steps+2) tokens, one batch a shard
     tokens = np.random.default_rng(seed).integers(
         0, cfg.vocab, B * L * (steps + 2), dtype=np.int32)
-    shard_dir = os.path.join(root, "train")
-    write_token_shards(shard_dir, tokens, shard_tokens=B * L)
+
+    async def write():
+        async with port_client(master) as c:
+            return await write_token_shards(c, "/ds/train", tokens,
+                                            shard_tokens=B * L)
+
+    n_shards = len(asyncio.run(write()))
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
@@ -740,8 +951,10 @@ def phase_train(dev: torch.device, root: str, seed: int, flash_res: dict
         return times, [float(x) for x in losses]
 
     async def cache_fed():
-        feed = GpuTrainFeed(shard_dir, B, L, depth=2, device=dev)
-        return feed.profiler, await timed_steps(feed.prefetcher)
+        async with port_client(master) as c:
+            feed = GpuTrainFeed(c, "/ds/train", B, L, depth=2, device=dev)
+            return feed.profiler, await timed_steps(feed.prefetcher), \
+                c.counters.get("sc.bytes.read", 0)
 
     async def synthetic(tok, n):
         for _ in range(n):
@@ -752,7 +965,8 @@ def phase_train(dev: torch.device, root: str, seed: int, flash_res: dict
     kernels = [getattr(flash, n) for n in K3_NAMES]
     for fn in kernels:
         fn.launches = 0
-    feed_prof, (cache_times, cache_losses) = asyncio.run(cache_fed())
+    feed_prof, (cache_times, cache_losses), sc_bytes = asyncio.run(
+        cache_fed())
     synth_times, synth_losses = asyncio.run(timed_steps(synthetic(tok0,
                                                                   steps)))
     launches = {fn.__name__: fn.launches for fn in kernels}
@@ -782,7 +996,14 @@ def phase_train(dev: torch.device, root: str, seed: int, flash_res: dict
            "step_ms_cache_fed": [t * 1e3 for t in cache_times],
            "step_ms_synthetic": [t * 1e3 for t in synth_times],
            "launches": launches, "k3_share_of_step": k3_share,
-           "feed_fractions": fractions}
+           "feed_fractions": fractions, "shards": n_shards,
+           "feed_sc_bytes": sc_bytes}
+    if sc_bytes != tokens.nbytes:
+        raise AssertionError(f"train: the client feed read {sc_bytes} of "
+                             f"{tokens.nbytes} bytes by short circuit")
+    log(f"train: cache-fed steps read {n_shards} shards of {B}x{L} int32 "
+        f"through the port's client (/ds/train, {sc_bytes} bytes by short "
+        f"circuit)")
     log(f"train: cache-fed step times ms "
         f"{[round(t * 1e3, 2) for t in cache_times]} (first dropped); "
         f"synthetic {[round(t * 1e3, 2) for t in synth_times]}")
@@ -936,6 +1157,7 @@ def phase_train(dev: torch.device, root: str, seed: int, flash_res: dict
     del seen
     del grads_k, grads_p, leaves, params, opt, step
     torch.cuda.empty_cache()
+    res["flash_gate"] = flash_gate_check(dev, seed)
     return res
 
 
@@ -1256,19 +1478,26 @@ def main() -> int:
     results["build"] = phase_build()
     results["kernel"] = phase_kernel(rng, dev)
     root = pick_data_dir(N_BLOCKS * BLOCK + SHARDS * SHARD_BYTES
-                         + VEC_ROWS * VEC_DIM * 4 + GiB)
+                         + CLUSTER_TIER_BYTES + VEC_ROWS * VEC_DIM * 4 + GiB)
     log(f"main: data under {root}")
+    cluster = None
     try:
         cuda_ops.block_checksum.launches = 0
         results["main"] = phase_main(rng, dev, root)
         results["feed"] = phase_feed(rng, dev, root)
         launches = cuda_ops.block_checksum.launches
+        cluster, info = start_cluster(root, CLUSTER_TIER_BYTES)
+        results["cluster"] = info
+        results["client"] = phase_client(rng, dev, info["master"],
+                                         results["feed"])
         results["flash"] = phase_flash(dev, args.seed)
-        results["train"] = phase_train(dev, root, args.seed,
+        results["train"] = phase_train(dev, info["master"], args.seed,
                                        results["flash"])
         log(f"train: mfu {results['train']['mfu']:.4f} on {card}")
         results["vector"] = phase_vector(dev, root, args.seed)
     finally:
+        if cluster is not None:
+            stop_cluster(cluster)
         shutil.rmtree(root, ignore_errors=True)
     if launches != results["main"]["pins"]:
         raise AssertionError(f"{launches} kernel launches for "

@@ -15,4 +15,7 @@ the CPU tests do; with no CUDA device and no CPU request they raise
 (``gpu.pq.pq_lut_scan``), which ``vector``'s ANN search runs; and K3,
 causal flash attention forward, dK/dV and dQ (``gpu.flash.flash_attention``),
 which the train step of ``gpu.model`` runs on a CUDA device.
-``csrc/crc32c.cc`` is host C++, built there too with the host compiler."""
+``csrc/crc32c.cc`` is host C++, built there too with the host compiler.
+``rpc`` and ``client`` are the port's own cache client (its wire codec
+``rpc.wirepack`` stands in for ``msgpack``), which ``gpu.loader``'s
+``GpuTrainFeed`` reads shards through."""

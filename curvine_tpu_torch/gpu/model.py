@@ -78,11 +78,12 @@ def _no_moe(cfg: ModelConfig) -> None:
 def init_params(generator: torch.Generator, cfg: ModelConfig,
                 device=None) -> dict:
     """Random parameters, drawn from ``generator`` on its own device and
-    placed on ``device`` (the generator's when None): the JAX tree's
+    placed on ``device`` (``default_device()`` when None: the card, or an
+    error without one; the CPU only when asked for): the JAX tree's
     names and shapes, weights N(0, 1/fan_in), norms 1."""
     _no_moe(cfg)
     dt = cfg.torch_dtype()
-    device = generator.device if device is None else torch.device(device)
+    device = default_device() if device is None else torch.device(device)
     D, Fd = cfg.d_model, cfg.d_ff
 
     def dense(fan_in, shape):
@@ -174,6 +175,11 @@ def _rmsnorm(x, scale):
 
 
 def _flash_eligible(cfg: ModelConfig, L: int, device: torch.device) -> bool:
+    """The reference's gate (``curvine_tpu/tpu/model.py:106-110``) with
+    the card for the TPU: head_dim and L multiples of 128. What K3's
+    kernels do not take among the configs it admits (float32, head_dim
+    256) raises in ``flash.check_kernel_args`` before any launch; it is
+    never sent quietly to dense attention on the card."""
     return (cfg.use_flash_attention
             and device.type == "cuda"
             and cfg.head_dim % 128 == 0

@@ -138,7 +138,7 @@ async def test_shard_source_matches_cache_shard_source(tmp_path, seed, drop):
                                           seq_len=128, shuffle_seed=seed,
                                           drop_remainder=drop)
         ref = [b.copy() async for b in src.batches()]
-    local = loader.write_token_shards(str(tmp_path), tokens, 1000)
+    local = loader.write_posix_shards(str(tmp_path), tokens, 1000)
     assert [p.rsplit("/", 1)[1] for p in local] == \
         [p.rsplit("/", 1)[1] for p in shards]
     port = loader.ShardSource(str(tmp_path), batch=4, seq_len=128,
@@ -152,11 +152,11 @@ async def test_shard_source_matches_cache_shard_source(tmp_path, seed, drop):
 async def test_gpu_train_feed_equals_host_batches(tmp_path):
     tokens = np.random.default_rng(2).integers(0, 50257, 5000,
                                                dtype=np.int32)
-    loader.write_token_shards(str(tmp_path), tokens, 1000)
+    loader.write_posix_shards(str(tmp_path), tokens, 1000)
     host = [b.copy() async for b in loader.ShardSource(
         str(tmp_path), batch=4, seq_len=128).batches()]
     assert sum(b.size for b in host) == 5000 - 5000 % 512
-    feed = loader.GpuTrainFeed(str(tmp_path), batch=4, seq_len=128,
+    feed = loader.PosixTrainFeed(str(tmp_path), batch=4, seq_len=128,
                                depth=2, device=CPU)
     dev = [b async for b in feed]
     assert len(dev) == len(host)

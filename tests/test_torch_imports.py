@@ -1,5 +1,6 @@
 """The port stands alone: every module of ``curvine_tpu_torch`` imports
-without pulling in ``jax``, ``optax`` or anything of ``curvine_tpu``, its
+without pulling in ``jax``, ``optax``, ``msgpack``, ``aiohttp`` or
+anything of ``curvine_tpu``, its
 crc32c maps no library of the JAX package's ``csrc/build/``, and its
 entry points refuse to run on the CPU unless asked to."""
 
@@ -13,7 +14,8 @@ import pytest
 import torch
 
 from curvine_tpu_torch import device as dev_mod
-from curvine_tpu_torch.gpu import hbm, ingest, model
+from curvine_tpu_torch.client.unified import CurvineClient
+from curvine_tpu_torch.gpu import hbm, ingest, loader, model
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -29,15 +31,22 @@ assert blockfile.crc_update("crc32c", b"123456789") == 0xE3069283
 with open("/proc/self/maps") as f:
     mapped = sorted({line.split()[-1] for line in f if "csrc/build" in line})
 bad = sorted(k for k in sys.modules
-             if k in ("jax", "optax", "curvine_tpu")
-             or k.startswith(("jax.", "jaxlib", "optax.", "curvine_tpu.")))
+             if k in ("jax", "optax", "curvine_tpu", "msgpack", "aiohttp")
+             or k.startswith(("jax.", "jaxlib", "optax.", "curvine_tpu.",
+                              "msgpack.", "aiohttp.")))
 print(len(names), "modules;", "leaked:", bad, "mapped:", mapped)
 required = {"curvine_tpu_torch.gpu.attention", "curvine_tpu_torch.gpu.flash",
             "curvine_tpu_torch.gpu.model", "curvine_tpu_torch.gpu.pq",
             "curvine_tpu_torch.client.posix", "curvine_tpu_torch.vector",
             "curvine_tpu_torch.vector.index", "curvine_tpu_torch.vector.table",
-            "curvine_tpu_torch.vector.serving"}
-sys.exit(1 if bad or mapped or len(names) < 25 or required - set(names)
+            "curvine_tpu_torch.vector.serving",
+            "curvine_tpu_torch.rpc.wirepack", "curvine_tpu_torch.rpc.frame",
+            "curvine_tpu_torch.rpc.client",
+            "curvine_tpu_torch.client.fs_client",
+            "curvine_tpu_torch.client.reader",
+            "curvine_tpu_torch.client.writer",
+            "curvine_tpu_torch.client.unified"}
+sys.exit(1 if bad or mapped or len(names) < 38 or required - set(names)
          else 0)
 """
 
@@ -62,6 +71,11 @@ def test_entry_points_need_cuda_unless_the_cpu_is_asked_for(monkeypatch):
         hbm.MultiHbmTier(1024)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ingest.DevicePrefetcher(iter([]))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model.init_params(torch.Generator().manual_seed(0),
+                          model.ModelConfig.tiny())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        loader.GpuTrainFeed(CurvineClient(), "/ds", batch=2, seq_len=8)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         model.params_from_jax(
             {"embed": np.zeros((4, 2), np.float32), "pos": np.zeros(

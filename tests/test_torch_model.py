@@ -27,7 +27,7 @@ from curvine_tpu.tpu import model as jm
 from curvine_tpu.tpu.ring_attention import dense_attention as jax_dense
 from curvine_tpu_torch.gpu import flash, model as tm
 from curvine_tpu_torch.gpu.attention import dense_attention
-from curvine_tpu_torch.gpu.loader import GpuTrainFeed, write_token_shards
+from curvine_tpu_torch.gpu.loader import PosixTrainFeed, write_posix_shards
 
 CPU = torch.device("cpu")
 CPUS = jax.devices("cpu")
@@ -453,19 +453,19 @@ def test_bf16_forward_close_to_jax():
 
 async def test_train_from_cache_e2e_one_device(tmp_path):
     """A repeating 16-token pattern written as shards, fed through
-    GpuTrainFeed (CPU device) into the port's train step: the loss falls
+    PosixTrainFeed (CPU device) into the port's train step: the loss falls
     below half its first value."""
     cfg = tm.ModelConfig(vocab=128, d_model=64, n_heads=4, n_layers=2,
                          d_ff=128, max_seq=64, dtype="float32")
     tokens = np.tile(np.arange(16, dtype=np.int32), 4096 // 16 * 8)
     root = str(tmp_path / "tok")
-    write_token_shards(root, tokens, shard_tokens=4096)
+    write_posix_shards(root, tokens, shard_tokens=4096)
     params = tm.init_params(torch.Generator().manual_seed(0), cfg, CPU)
     step = tm.make_train_step(cfg, tm.make_optimizer(params, 1e-2))
     losses = []
     for _ in range(4):
-        async for batch in GpuTrainFeed(root, batch=8, seq_len=64,
-                                        device=CPU):
+        async for batch in PosixTrainFeed(root, batch=8, seq_len=64,
+                                          device=CPU):
             assert batch.shape == (8, 64) and batch.dtype == torch.int32
             losses.append(float(step(params, batch)))
     assert len(losses) == 4 * tokens.size // (8 * 64)

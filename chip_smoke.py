@@ -32,8 +32,9 @@ Phases, each raising on a fault (the exit code is then non-zero):
    ``mmap_view``, prefetch advice to the master) at phase 4's batch;
    every device batch must equal the host tokens, and some bytes must
    come by short circuit; rates beside phase 4's, stage shares, bytes by
-   each path, advise RPCs, write GiB/s; then one shard read through
-   READ_BLOCK with the short circuit off, byte-equal;
+   each path, advise RPCs, write GiB/s (by short circuit); then one
+   shard read twice through READ_BLOCK (received into the caller's
+   buffer) with the short circuit off, byte-equal;
 5. flash: the four K3 kernels (forward, di, dK/dV, dQ) on the card against
    their plain PyTorch versions, element by element and row by row
    (``flash_errors``), at the flagship's attention shape
@@ -59,24 +60,40 @@ Phases, each raising on a fault (the exit code is then non-zero):
    asked for, one layer forward at L 128: the gate admits it as the
    reference's does, and the kernels' argument check must refuse it
    before any launch (they take bf16 only), never dense in its place;
+6b. ckpt: the flagship's parameters as phase 6 left them (99 tensors,
+   1.92 GiB of bf16) saved with ``save_checkpoint`` through the port's
+   client into the cluster, every byte by short circuit (SC_WRITE_OPEN:
+   the worker is on this host), then loaded onto the card with
+   ``distribute_checkpoint_to_device`` by short circuit and again with
+   it off (READ_BLOCK received into the caller's buffer); each load bit
+   for bit equal to the saved tensors, compared on the card through
+   integer views, and the loss of one train batch from the loaded
+   parameters equal to the saved ones' (K3's forward); save and load
+   GiB/s beside phase 3's ``link_gibs``, the pinned ring's staging time;
 7. vector: K2, the ADC scan, on the card against its plain version, bit
    for bit, at four shapes (the path's own among them) with planted
    out-of-range codes, both code layouts; its time at the path's shape
    beside its bound, the plain version's and ``embedding_bag``'s (a
    yardstick only). Then bench.py's headline ANN configuration at full
-   size through the port's ``VectorTable`` on the POSIX client: 500,000
+   size through the port's ``VectorTable`` on the port's client (the
+   table in the cluster, by short circuit both ways): 500,000
    rows x 256 from a mixture of 1,024 Gaussians, an IVF-PQ index (nlist
    1024, pq_m 16, cap_pct 90), ``AnnServer.query_many`` (4,096 queries,
    batch 256, depth 4), 3,072 concurrent ``query()`` callers, flat IVF,
    the exact scan in float32 and bf16, recall@10 of both indexed paths
    against the exact scan (at least 0.9 each, scripts/perf_floor.json),
    and the PQ search of 64 queries with K2 against the same search with
-   its ADC stage taken by the plain version (ids and scores equal).
+   its ADC stage taken by the plain version (ids and scores equal); last,
+   a small table compacted, its old row group deleted through the
+   client's ``meta.delete``.
 
 The kernel launch counts are set to 0 just before phase 3 and read just
 after phase 4 (K1), again just before the two passes of phase 6 and read
-just after them (K3), and just before phase 7's ``query_many`` and read
-just after it (K2, which must equal the ADC stages the search issued).
+just after them (K3), again just before phase 6b and read just after it
+(K3's forward, twice a layer for the two losses, and no backward
+kernel), and just before phase 7's ``query_many`` and read just after it
+(K2, which must equal the ADC stages the search issued). The kernels
+line gives phase 6's K3 counts.
 The cluster is stopped, and the data directory removed, however the
 run ends. Prints each phase's numbers, the card's name
 and power limit, one JSON line of kernels, and last the line
@@ -130,9 +147,14 @@ SERVED_QUERIES, FLAT_QUERIES, SCAN_REPS, RECALL_QUERIES = 3072, 512, 8, 64
 # (256, W of the run, 16, 256), is added by the phase
 PQ_SHAPES = [(1, 1, 4, 16), (3, 1000, 8, 32), (16, 7777, 64, 256)]
 HERE = os.path.dirname(os.path.abspath(__file__))
-# the cluster's mem tier: the client phase's shards plus 1 GiB (the train
-# phase's ten shards take 640 KiB of it)
-CLUSTER_TIER_BYTES = SHARDS * SHARD_BYTES + GiB
+# the flagship's checkpoint: 1,028,323,840 bf16 parameters, 1.92 GiB
+CKPT_PATH, CKPT_BYTES = "/ckpt/flagship", 2 * GiB
+# the cluster's mem tier holds, without evicting: the client phase's
+# shards, the checkpoint, the vector table, and 1 GiB for the rest (the
+# train phase's shards, 768 KiB; the index; the compaction check; the
+# block being written, which the worker reserves at its full size)
+CLUSTER_TIER_BYTES = SHARDS * SHARD_BYTES + CKPT_BYTES \
+    + VEC_ROWS * VEC_DIM * 4 + GiB
 CLUSTER_START_S = 300
 
 
@@ -590,16 +612,19 @@ def phase_client(rng: np.random.Generator, dev: torch.device, master: str,
             fed = await drive_feed(feed, expect, dev)
             counters = {k: v - written.get(k, 0)
                         for k, v in c.counters.items()}
+        # twice: the worker's first READ_BLOCK is its slowest
+        raws, rb_s = [], []
         async with port_client(master, short_circuit=False) as c:
-            t = time.perf_counter()
-            raw = await c.read_all(paths[0])
-            rb_s = time.perf_counter() - t
+            for _ in range(2):
+                t = time.perf_counter()
+                raws.append(await c.read_all(paths[0]))
+                rb_s.append(time.perf_counter() - t)
             rb_counters = dict(c.counters)
-        return paths, write_s, fed, feed.profiler, counters, raw, rb_s, \
-            rb_counters
+        return paths, write_s, written, fed, feed.profiler, counters, raws, \
+            rb_s, rb_counters
 
-    paths, write_s, (n, bad, secs), prof, counters, raw, rb_s, rb = \
-        asyncio.run(run())
+    paths, write_s, written, (n, bad, secs), prof, counters, raws, rb_s, \
+        rb = asyncio.run(run())
     if len(paths) != SHARDS or n != n_expect or bad:
         raise AssertionError(f"client: {len(paths)} shards, {n}/{n_expect} "
                              f"batches, {bad} tokens differ from the host "
@@ -609,34 +634,45 @@ def phase_client(rng: np.random.Generator, dev: torch.device, master: str,
     res.update({
         "write_s": write_s, "write_gibs": tokens.nbytes / GiB / write_s,
         "sc_bytes": sc, "read_block_bytes": counters.get(
-            "read_block.bytes", 0),
+            "read.zero_copy_bytes", 0),
         "advise_rpcs": counters.get("advise.rpcs", 0),
-        "read_block_check_bytes": rb.get("read_block.bytes", 0),
-        "read_block_gibs": len(raw) / GiB / rb_s,
+        "sc_bytes_written": written.get("sc.bytes.written", 0),
+        "sc_write_fallbacks": written.get("sc.write.fallbacks", 0),
+        "read_block_check_bytes": rb.get("read.zero_copy_bytes", 0),
+        "read_block_gibs": SHARD_BYTES / GiB / rb_s[0],
+        "read_block_again_gibs": SHARD_BYTES / GiB / rb_s[1],
         "posix_batches_per_s": posix["batches_per_s"],
         "posix_gibs": posix["gibs"]})
-    if not np.array_equal(np.frombuffer(raw, dtype=np.int32),
-                          tokens[:SHARD_BYTES // 4]):
+    if not all(np.array_equal(np.frombuffer(raw, dtype=np.int32),
+                              tokens[:SHARD_BYTES // 4]) for raw in raws):
         raise AssertionError(f"client: {paths[0]} read through READ_BLOCK "
                              f"differs from the host tokens")
-    if res["read_block_check_bytes"] != SHARD_BYTES:
+    if res["read_block_check_bytes"] != 2 * SHARD_BYTES:
         raise AssertionError(f"client: READ_BLOCK served "
                              f"{res['read_block_check_bytes']} bytes of "
-                             f"{SHARD_BYTES}")
+                             f"{2 * SHARD_BYTES}")
     log(f"client: wrote {SHARDS} shards of {SHARD_BYTES // MiB} MiB through "
         f"the port's client in {write_s:.3f}s ({res['write_gibs']:.3f} "
-        f"GiB/s); the feed read {sc} bytes by short circuit (mmap_view) "
+        f"GiB/s; {res['sc_bytes_written']} bytes by short circuit, "
+        f"{res['sc_write_fallbacks']} blocks over WRITE_BLOCK); the feed "
+        f"read {sc} bytes by short circuit (mmap_view) "
         f"and {res['read_block_bytes']} by READ_BLOCK, sent "
         f"{res['advise_rpcs']} advise RPCs; {res['batches_per_s']:.1f} "
         f"batches/s ({res['gibs']:.3f} GiB/s) against phase 4's POSIX "
         f"{posix['batches_per_s']:.1f} batches/s ({posix['gibs']:.3f} "
         f"GiB/s) on this machine")
-    log(f"client: with short circuit off, {paths[0]} read through "
-        f"READ_BLOCK byte-equal in {rb_s:.3f}s ({res['read_block_gibs']:.3f}"
-        f" GiB/s)")
+    log(f"client: with short circuit off, {paths[0]} read twice through "
+        f"READ_BLOCK into the caller's buffer, byte-equal, in "
+        f"{rb_s[0]:.3f}s ({res['read_block_gibs']:.3f} GiB/s, the worker's "
+        f"first READ_BLOCK) and {rb_s[1]:.3f}s "
+        f"({res['read_block_again_gibs']:.3f} GiB/s)")
     if sc == 0:
         raise AssertionError("client: no byte came through the short "
                              "circuit, the path this phase drives")
+    if res["sc_bytes_written"] != tokens.nbytes:
+        raise AssertionError(f"client: {res['sc_bytes_written']} of "
+                             f"{tokens.nbytes} bytes written by short "
+                             f"circuit to a worker on this host")
     return res
 
 
@@ -902,16 +938,23 @@ def flash_gate_check(dev: torch.device, seed: int) -> dict:
     return {"refused": refused, "dense_shape": list(dense.shape)}
 
 
+def train_tokens(cfg, seed: int) -> np.ndarray:
+    """bench.py:1761-1763: batch·seq·(steps+2) tokens, one batch a shard."""
+    return np.random.default_rng(seed).integers(
+        0, cfg.vocab, TRAIN_BATCH * TRAIN_SEQ * (TRAIN_STEPS + 2),
+        dtype=np.int32)
+
+
 def phase_train(dev: torch.device, master: str, seed: int, flash_res: dict
-                ) -> dict:
+                ) -> tuple[dict, dict]:
+    """The flagship trained on the card; returns its numbers and its
+    parameters as the steps left them."""
     from torch.profiler import ProfilerActivity, profile
     from curvine_tpu_torch.gpu import flash, model as tm
     from curvine_tpu_torch.gpu.loader import GpuTrainFeed, write_token_shards
     cfg = _flagship()
     B, L, steps = TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS
-    # bench.py:1761-1763: batch·seq·(steps+2) tokens, one batch a shard
-    tokens = np.random.default_rng(seed).integers(
-        0, cfg.vocab, B * L * (steps + 2), dtype=np.int32)
+    tokens = train_tokens(cfg, seed)
 
     async def write():
         async with port_client(master) as c:
@@ -1155,9 +1198,174 @@ def phase_train(dev: torch.device, master: str, seed: int, flash_res: dict
     if not min(worst.values()) >= 0.99:
         raise AssertionError(f"gradients against f64: cosine {worst}")
     del seen
-    del grads_k, grads_p, leaves, params, opt, step
+    for p in leaves:
+        p.grad = None
+    del grads_k, grads_p, leaves, opt, step
     torch.cuda.empty_cache()
     res["flash_gate"] = flash_gate_check(dev, seed)
+    return res, params
+
+
+# ------------------------------------------------------------ checkpoint
+
+def _int_view(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s bits as integers of its width, for a comparison bit for
+    bit (a float compare would call -0.0 and 0.0 equal, NaN unequal)."""
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    return t.detach().reshape(-1).view(ints[t.element_size()])
+
+
+def phase_ckpt(dev: torch.device, master: str, seed: int, params: dict,
+               link_gibs: float) -> dict:
+    """The flagship's parameters as the train phase left them, saved
+    through the port's client into the cluster (every byte by short
+    circuit: the worker is on this host) and loaded back onto the card
+    twice with ``distribute_checkpoint_to_device``: by short circuit, and
+    with it off (READ_BLOCK into the caller's buffer, the path of a host
+    without a worker). Each load bit-equal to the saved tensors on the
+    card; one forward loss of a train batch from the loaded parameters
+    equal to the saved ones' (K3's forward, counted here)."""
+    from curvine_tpu_torch.gpu import broadcast, flash, ingest, model as tm
+    cfg = _flagship()
+    saved = tm.leaves(params)
+    nbytes = sum(t.nbytes for t in saved)
+    batch = torch.from_numpy(train_tokens(cfg, seed)[
+        :TRAIN_BATCH * TRAIN_SEQ].reshape(TRAIN_BATCH, TRAIN_SEQ)).to(dev)
+    kernels = [getattr(flash, n) for n in K3_NAMES]
+
+    def loss_of(p) -> torch.Tensor:
+        with torch.no_grad():
+            return tm.loss_fn(p, batch, cfg)
+
+    # timed inside the save: each tensor's copy to the host; inside the
+    # short-circuit load: the pinned ring's host side (np.copyto into the
+    # ring's buffers and the copies' enqueue)
+    real_leaf_bytes = broadcast._leaf_bytes
+    real_transfer = ingest.DeviceCopier.transfer
+    to_host, staging = [], []
+
+    def timed_leaf_bytes(leaf):
+        t = time.perf_counter()
+        out = real_leaf_bytes(leaf)
+        to_host.append(time.perf_counter() - t)
+        return out
+
+    def timed_transfer(self, raw):
+        t = time.perf_counter()
+        out = real_transfer(self, raw)
+        staging.append(time.perf_counter() - t)
+        return out
+
+    async def load(short_circuit: bool):
+        async with port_client(master, short_circuit=short_circuit) as c:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            got = await broadcast.distribute_checkpoint_to_device(
+                c, CKPT_PATH, dev)
+            torch.cuda.synchronize()
+            return got, time.perf_counter() - t, dict(c.counters)
+
+    async def run():
+        async with port_client(master) as c:
+            torch.cuda.synchronize()
+            broadcast._leaf_bytes = timed_leaf_bytes
+            try:
+                t = time.perf_counter()
+                await broadcast.save_checkpoint(c, CKPT_PATH, params)
+                save_s = time.perf_counter() - t
+            finally:
+                broadcast._leaf_bytes = real_leaf_bytes
+            save_counters = dict(c.counters)
+        ingest.DeviceCopier.transfer = timed_transfer
+        try:
+            sc_load = await load(True)
+        finally:
+            ingest.DeviceCopier.transfer = real_transfer
+        return save_s, save_counters, sc_load
+
+    for fn in kernels:
+        fn.launches = 0
+    save_s, wrote, (loaded, sc_s, sc_counters) = asyncio.run(run())
+    manifest_bytes = wrote.get("write.bytes", 0) - nbytes
+    res = {"tensors": len(saved), "bytes": nbytes,
+           "manifest_bytes": manifest_bytes, "save_s": save_s,
+           "save_gibs": nbytes / GiB / save_s,
+           "save_to_host_s": sum(to_host),
+           "sc_bytes_written": wrote.get("sc.bytes.written", 0),
+           "write_bytes": wrote.get("write.bytes", 0),
+           "sc_write_fallbacks": wrote.get("sc.write.fallbacks", 0),
+           "load_sc_s": sc_s, "load_sc_gibs": nbytes / GiB / sc_s,
+           "load_sc_bytes": sc_counters.get("sc.bytes.read", 0),
+           "load_sc_read_block_bytes": sc_counters.get(
+               "read.zero_copy_bytes", 0),
+           "staging_s": sum(staging), "staging_share": sum(staging) / sc_s,
+           "link_gibs": link_gibs}
+    log(f"ckpt: saved {len(saved)} tensors, {nbytes:,} bytes (+ a "
+        f"{manifest_bytes:,}-byte manifest) through the port's client in "
+        f"{save_s:.3f}s ({res['save_gibs']:.3f} GiB/s; the copies to the "
+        f"host {res['save_to_host_s']:.3f}s of it); "
+        f"{res['sc_bytes_written']:,} of {res['write_bytes']:,} bytes by "
+        f"short circuit, {res['sc_write_fallbacks']} blocks over "
+        f"WRITE_BLOCK")
+    if res["sc_bytes_written"] != res["write_bytes"] or \
+            res["sc_write_fallbacks"] or manifest_bytes <= 0:
+        raise AssertionError("ckpt: the checkpoint did not go all by short "
+                             "circuit to a worker on this host")
+
+    def check(name: str, got: dict) -> None:
+        back = tm.leaves(got)
+        bad = [i for i, (a, b) in enumerate(zip(saved, back))
+               if a.dtype != b.dtype or a.shape != b.shape
+               or a.device != b.device
+               or not torch.equal(_int_view(a), _int_view(b))]
+        if len(back) != len(saved) or bad:
+            raise AssertionError(f"ckpt: {name} load: {len(back)} tensors, "
+                                 f"{len(bad)} not bit-equal ({bad[:5]})")
+
+    check("short-circuit", loaded)
+    loss_saved = loss_of(params)
+    loss_loaded = loss_of(loaded)
+    res["loss_saved"], res["loss_loaded"] = loss_saved.item(), \
+        loss_loaded.item()
+    del loaded
+    log(f"ckpt: loaded onto {dev} by short circuit in {sc_s:.3f}s "
+        f"({res['load_sc_gibs']:.3f} GiB/s against phase 3's link_gibs "
+        f"{link_gibs:.3f}; {res['load_sc_bytes']:,} bytes by short "
+        f"circuit, {res['load_sc_read_block_bytes']} by READ_BLOCK); "
+        f"staging through the pinned ring on the event loop "
+        f"{res['staging_s']:.3f}s ({res['staging_share']:.3f} of the "
+        f"load); every tensor bit-equal on the card; loss of a "
+        f"{TRAIN_BATCH}x{TRAIN_SEQ} train batch saved "
+        f"{res['loss_saved']!r} loaded {res['loss_loaded']!r}")
+    if not (torch.equal(loss_saved, loss_loaded)
+            and math.isfinite(res["loss_saved"])):
+        raise AssertionError("ckpt: the loaded parameters' loss differs")
+    if res["load_sc_bytes"] != nbytes + manifest_bytes or \
+            res["load_sc_read_block_bytes"]:
+        raise AssertionError("ckpt: the short-circuit load did not read "
+                             "every byte by short circuit")
+
+    loaded, rb_s, rb_counters = asyncio.run(load(False))
+    res.update(load_rb_s=rb_s, load_rb_gibs=nbytes / GiB / rb_s,
+               load_rb_bytes=rb_counters.get("read.zero_copy_bytes", 0),
+               load_rb_sc_bytes=rb_counters.get("sc.bytes.read", 0))
+    check("READ_BLOCK", loaded)
+    del loaded
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    res["launches"] = launches
+    log(f"ckpt: loaded onto {dev} with the short circuit off in "
+        f"{rb_s:.3f}s ({res['load_rb_gibs']:.3f} GiB/s; "
+        f"{res['load_rb_bytes']:,} bytes by READ_BLOCK into the caller's "
+        f"buffer, {res['load_rb_sc_bytes']} by short circuit); every "
+        f"tensor bit-equal on the card; K3 launches on this path "
+        f"{launches}")
+    if res["load_rb_bytes"] != nbytes + manifest_bytes or \
+            res["load_rb_sc_bytes"]:
+        raise AssertionError("ckpt: the READ_BLOCK load took another path")
+    if launches != {"flash_fwd": 2 * cfg.n_layers, "flash_bwd_di": 0,
+                    "flash_bwd_dkv": 0, "flash_bwd_dq": 0}:
+        raise AssertionError(f"ckpt: K3 launches {launches} for two "
+                             f"forward losses of {cfg.n_layers} layers")
     return res
 
 
@@ -1230,9 +1438,9 @@ def pq_timing(lut, codes, dev: torch.device) -> dict:
             "embedding_bag_max_abs_diff": lib_err}
 
 
-def phase_vector(dev: torch.device, root: str, seed: int) -> dict:
+def phase_vector(dev: torch.device, master: str, seed: int) -> dict:
     from torch.profiler import ProfilerActivity, profile
-    from curvine_tpu_torch.client.posix import PosixClient
+    from curvine_tpu_torch.common.errors import FileNotFound
     from curvine_tpu_torch.gpu import pq
     from curvine_tpu_torch.vector import AnnServer, VectorTable
     rng = np.random.default_rng(seed)
@@ -1253,14 +1461,40 @@ def phase_vector(dev: torch.device, root: str, seed: int) -> dict:
     vecs *= VEC_SIGMA
     vecs += centers[rng.integers(0, VEC_CENTERS, VEC_ROWS)]
     queries = vecs[rng.integers(0, VEC_ROWS, ANN_QUERIES)]
-    client = PosixClient(os.path.join(root, "cache"))
 
     def recall10(ann_i, exact_i) -> float:
         hits = sum(len(set(map(int, a)) & set(map(int, b)))
                    for a, b in zip(ann_i[:RECALL_QUERIES], exact_i))
         return hits / (RECALL_QUERIES * 10)
 
+    async def compaction(client) -> None:
+        """A small table's first row group deleted and compacted away:
+        the port client's ``meta.delete`` of one row-group file."""
+        small = vecs[:2000]
+        t = await VectorTable.create(client, "/bench/compact", VEC_DIM)
+        await t.append(small[:1000])
+        await t.append(small[1000:])
+        await t.delete(list(range(1000)))
+        if await t.compact() != 1000 or t.row_groups != 1:
+            raise AssertionError("vector: compaction kept the deleted rows")
+        try:
+            await client.meta.file_status("/bench/compact/rg-00001.vec")
+            raise AssertionError("vector: compaction left its old row group")
+        except FileNotFound:
+            pass
+        got, _ = await t.take([0, 999])
+        if not np.array_equal(got, small[[1000, 1999]]):
+            raise AssertionError("vector: compacted rows differ")
+        res["compaction"] = "row group rg-00001.vec deleted, rows equal"
+
     async def run():
+        async with port_client(master) as client:
+            out = await serve(client)
+            await compaction(client)
+            res["client_counters"] = dict(client.counters)
+        return out
+
+    async def serve(client):
         t0 = time.perf_counter()
         table = await VectorTable.create(client, "/bench/vec", VEC_DIM)
         await table.append(vecs)
@@ -1409,6 +1643,11 @@ def phase_vector(dev: torch.device, root: str, seed: int) -> dict:
         return seen[0]
 
     lut, codes = asyncio.run(run())
+    cc = res["client_counters"]
+    if cc.get("sc.write.fallbacks") or not cc.get("sc.bytes.written") or \
+            cc.get("read.zero_copy_bytes"):
+        raise AssertionError(f"vector: the table's bytes took another path "
+                             f"than the short circuit: {cc}")
     q, w, m = codes.shape
     ksub = lut.shape[2]
     for pre_offset in (False, True):          # the path's own shape
@@ -1430,6 +1669,10 @@ def phase_vector(dev: torch.device, root: str, seed: int) -> dict:
                 "vector_ann_served_recall10"):
         if not res[key] >= 0.9:          # scripts/perf_floor.json:13
             raise AssertionError(f"{key} {res[key]} < 0.9")
+    log(f"vector: the table through the port's client: "
+        f"{cc.get('sc.bytes.written', 0):,} bytes written and "
+        f"{cc.get('sc.bytes.read', 0):,} read by short circuit; "
+        f"{res['compaction']}")
     log(f"vector: {VEC_ROWS:,} x {VEC_DIM} f32 appended in "
         f"{res['append_s']:.2f}s, pinned in {res['pin_s']:.2f}s "
         f"({res['table_bytes_pinned'] / MiB:.1f} MiB pinned, "
@@ -1477,9 +1720,11 @@ def main() -> int:
     results = {"card": card, "seed": args.seed}
     results["build"] = phase_build()
     results["kernel"] = phase_kernel(rng, dev)
-    root = pick_data_dir(N_BLOCKS * BLOCK + SHARDS * SHARD_BYTES
-                         + CLUSTER_TIER_BYTES + VEC_ROWS * VEC_DIM * 4 + GiB)
-    log(f"main: data under {root}")
+    need = N_BLOCKS * BLOCK + SHARDS * SHARD_BYTES + CLUSTER_TIER_BYTES
+    root = pick_data_dir(need)
+    log(f"main: data under {root} (needs {need / GiB:.2f} GiB and 1 GiB "
+        f"spare: {N_BLOCKS} blocks and {SHARDS} POSIX shards of 64 MiB, "
+        f"the cluster's mem tier of {CLUSTER_TIER_BYTES / GiB:.2f} GiB)")
     cluster = None
     try:
         cuda_ops.block_checksum.launches = 0
@@ -1491,10 +1736,14 @@ def main() -> int:
         results["client"] = phase_client(rng, dev, info["master"],
                                          results["feed"])
         results["flash"] = phase_flash(dev, args.seed)
-        results["train"] = phase_train(dev, info["master"], args.seed,
-                                       results["flash"])
+        results["train"], params = phase_train(
+            dev, info["master"], args.seed, results["flash"])
         log(f"train: mfu {results['train']['mfu']:.4f} on {card}")
-        results["vector"] = phase_vector(dev, root, args.seed)
+        results["ckpt"] = phase_ckpt(dev, info["master"], args.seed, params,
+                                     results["main"]["link_gibs"])
+        del params
+        torch.cuda.empty_cache()
+        results["vector"] = phase_vector(dev, info["master"], args.seed)
     finally:
         if cluster is not None:
             stop_cluster(cluster)

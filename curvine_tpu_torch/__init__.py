@@ -18,4 +18,5 @@ which the train step of ``gpu.model`` runs on a CUDA device.
 ``csrc/crc32c.cc`` is host C++, built there too with the host compiler.
 ``rpc`` and ``client`` are the port's own cache client (its wire codec
 ``rpc.wirepack`` stands in for ``msgpack``), which ``gpu.loader``'s
-``GpuTrainFeed`` reads shards through."""
+``GpuTrainFeed`` reads shards through, ``gpu.broadcast`` saves and loads
+checkpoints through, and ``vector``'s tables live on."""

@@ -76,6 +76,13 @@ class FsClient:
     async def close(self) -> None:
         await self.pool.close()
 
+    def is_local(self, loc) -> bool:
+        """A worker location on this host (its hostname or ip is this
+        client's host, or it is the loopback): the short circuit's test,
+        for reads and writes alike."""
+        return self.client_host in (loc.hostname, loc.ip_addr) or \
+            loc.ip_addr in ("127.0.0.1", "localhost")
+
     async def _conn(self) -> Connection:
         return await self.pool.get(self.masters[self._active])
 

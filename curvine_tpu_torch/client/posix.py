@@ -128,6 +128,9 @@ class UfsReader:
     async def mmap_view(self, offset: int, n: int):
         return None      # no local block files to map
 
+    async def close(self) -> None:
+        pass             # holds no handle between reads
+
 
 class _Meta:
     def __init__(self, client: "PosixClient"):

@@ -14,13 +14,18 @@ feed reads through:
   a fresh buffer, the whole block verified against its crc when
   ``verify`` is set (``_sc_verify_ok``, :538; crc32c through the port's
   ``csrc/crc32c.cc``), None when the range is not short-circuit readable;
-- ``read``, ``read_all`` and ``pread`` (:605-646, :1159-1262): the local
-  fd first, else READ_BLOCK streamed from each replica in turn; a whole
-  block is verified against the crc its EOF frame carries.
+- ``read``, ``read_all`` and ``pread`` (:605-646) over the positional
+  core ``_read_into`` (:665-738): one buffer for the whole range, each
+  block range landing in it once, by a preadv from the local block file
+  or by READ_BLOCK received straight into it (``_readinto_remote``,
+  :905-950, over ``Connection.call_readinto``) from each replica in
+  turn; a whole block is verified against the crc its EOF frame carries.
+  They return that buffer, a ``bytearray``.
 
 A block that fails its crc is reported to the master (fire-and-forget) and
 read from the next replica. The counters ``sc.bytes.read`` and
-``read_block.bytes`` say which path served the bytes.
+``read.zero_copy_bytes`` (the reference's names) say which path served
+the bytes.
 
 Left out (ROADMAP A3b): the shared-memory side channel (a worker's offer
 is ignored and the fd path taken), erasure-coded reads and holes (a file
@@ -162,8 +167,7 @@ class FsReader:
         path = None
         if self.short_circuit and lb.locs:
             loc = self._pick_loc(lb)
-            if self.fs.client_host in (loc.hostname, loc.ip_addr) or \
-                    loc.ip_addr in ("127.0.0.1", "localhost"):
+            if self.fs.is_local(loc):
                 try:
                     conn = await self.pool.get(self._addr(loc))
                     rep = await conn.call(RpcCode.GET_BLOCK_INFO,
@@ -268,95 +272,112 @@ class FsReader:
 
     # ---------------- reads ----------------
 
-    async def read(self, n: int = -1) -> bytes:
+    async def read(self, n: int = -1) -> bytearray:
         """Up to ``n`` bytes from the cursor (the rest of the file when
-        negative); the cursor moves past them."""
+        negative), in one buffer each block range is read into; the
+        cursor moves past them."""
         n = self.len - self.pos if n < 0 else min(n, self.len - self.pos)
-        out = bytearray()
-        while len(out) < n:
-            got = await self._read_some(self.pos, n - len(out))
-            if not got:
-                break
-            out += got
-            self.pos += len(got)
-        return bytes(out)
+        out = await self._read_into_new(self.pos, n)
+        self.pos += len(out)
+        return out
 
-    async def read_all(self) -> bytes:
+    async def read_all(self) -> bytearray:
         self.seek(0)
         return await self.read(self.len)
 
-    async def pread(self, offset: int, n: int) -> bytes:
+    async def pread(self, offset: int, n: int) -> bytearray:
         """``n`` bytes at ``offset``, the cursor left where it is."""
-        out = bytearray()
-        while len(out) < n and offset + len(out) < self.len:
-            got = await self._read_some(offset + len(out), n - len(out))
-            if not got:
-                break
-            out += got
-        return bytes(out)
+        return await self._read_into_new(
+            offset, max(0, min(n, self.len - offset)))
 
-    async def _read_some(self, offset: int, n: int) -> bytes:
-        """Bytes at ``offset`` from one block (at most ``n``)."""
-        located = self._locate(offset)
-        if located is None:
-            if offset < self.len:
-                raise NotImplementedError(
-                    f"{self.path}: hole at {offset} (the file was resized "
-                    f"past its last block); the port reads no holes yet "
-                    f"(ROADMAP A3b)")
-            return b""
-        lb, block_off = located
-        self._check_not_ec(lb)
-        n = min(n, lb.block.len - block_off)
-        fd = await self._local_fd(lb)
-        if fd is not None:
-            data = os.pread(fd, n, block_off)
-            if self.verify and block_off == 0 \
-                    and len(data) == lb.block.len \
-                    and not self._sc_verify_ok(lb, data):
-                pass                  # bad local bytes: read remotely
-            elif len(data) < n:
-                self._drop_local(lb.block.id)   # the probe went stale
-            else:
-                self._count("sc.bytes.read", len(data))
-                return data
+    async def _read_into_new(self, offset: int, n: int) -> bytearray:
+        out = bytearray(n)
+        view = memoryview(out)
+        try:
+            got = await self._read_into(offset, view)
+        finally:
+            view.release()        # the bytearray cannot shrink while viewed
+        if got < n:
+            del out[got:]
+        return out
+
+    async def _read_into(self, offset: int, out: memoryview) -> int:
+        """Fill ``out`` from ``offset``, block range by block range; each
+        lands in ``out`` once: a preadv from the block file when the block
+        is on this host, else READ_BLOCK received straight into ``out``
+        (``_readinto_remote``). Returns the bytes filled (short at the end
+        of the file or where a worker served none). A whole block is held
+        to its crc on either path (:665-738)."""
+        filled = 0
+        while filled < len(out):
+            pos = offset + filled
+            located = self._locate(pos)
+            if located is None:
+                if pos < self.len:
+                    raise NotImplementedError(
+                        f"{self.path}: hole at {pos} (the file was resized "
+                        f"past its last block); the port reads no holes "
+                        f"yet (ROADMAP A3b)")
+                break
+            lb, block_off = located
+            self._check_not_ec(lb)
+            seg = out[filled:filled + min(len(out) - filled,
+                                          lb.block.len - block_off)]
+            fd = await self._local_fd(lb)
+            if fd is not None:
+                got = os.preadv(fd, [seg], block_off)
+                if self.verify and block_off == 0 \
+                        and got == lb.block.len \
+                        and not self._sc_verify_ok(lb, seg):
+                    fd = None             # bad local bytes: read remotely
+                elif got < len(seg):
+                    self._drop_local(lb.block.id)   # the probe went stale
+                    fd = None
+                else:
+                    self._count("sc.bytes.read", got)
+            if fd is None:
+                got = await self._readinto_remote(lb, block_off, seg)
+                if got <= 0:
+                    break
+            filled += got
+        return filled
+
+    async def _readinto_remote(self, lb: LocatedBlock, block_off: int,
+                               sink: memoryview) -> int:
+        """READ_BLOCK of ``len(sink)`` bytes at ``block_off`` of the block,
+        streamed in ``chunk_size`` frames straight into ``sink``
+        (``Connection.call_readinto``), from each replica in turn, local
+        first; a whole block is held to the crc on the EOF frame
+        (:905-950). Each attempt fills ``sink`` from its start."""
         last: Exception | None = None
         first = self._pick_loc(lb)
         for loc in [first] + [x for x in lb.locs if x is not first]:
             try:
-                return await self._read_from(loc, lb, block_off, n)
+                eof: dict = {}
+                conn = await self.pool.get(self._addr(loc))
+                got = await conn.call_readinto(
+                    RpcCode.READ_BLOCK, sink, header={
+                        "block_id": lb.block.id, "offset": block_off,
+                        "len": len(sink), "chunk_size": self.chunk_size},
+                    eof_header=eof)
+                if self.verify and block_off == 0 \
+                        and got == lb.block.len \
+                        and eof.get("block_crc32") is not None:
+                    have = _block_crc(eof.get("block_crc_algo", ""),
+                                      sink[:got])
+                    if have is not None and have != eof["block_crc32"]:
+                        self._flag_corrupt(lb, loc)
+                        raise err.AbnormalData(
+                            f"block {lb.block.id} from {self._addr(loc)} "
+                            f"failed checksum verification")
+                self._count("read.zero_copy_bytes", got)
+                return got
             except err.CurvineError as e:
                 log.warning("read block %d from %s failed (%s), trying "
                             "the next replica", lb.block.id,
                             self._addr(loc), e)
                 last = e
         raise last or err.BlockNotFound(f"block {lb.block.id} unreadable")
-
-    async def _read_from(self, loc, lb: LocatedBlock, offset: int,
-                         n: int) -> bytes:
-        """READ_BLOCK of ``n`` bytes at ``offset`` of the block from one
-        worker, streamed in ``chunk_size`` frames; a whole block is held
-        to the crc on the EOF frame."""
-        out = bytearray()
-        eof: dict = {}
-        conn = await self.pool.get(self._addr(loc))
-        async for m in conn.call_stream(RpcCode.READ_BLOCK, header={
-                "block_id": lb.block.id, "offset": offset, "len": n,
-                "chunk_size": self.chunk_size}):
-            if len(m.data):
-                out += m.data
-            if m.is_eof and m.header:
-                eof = m.header
-        if self.verify and offset == 0 and len(out) == lb.block.len \
-                and eof.get("block_crc32") is not None:
-            have = _block_crc(eof.get("block_crc_algo", ""), out)
-            if have is not None and have != eof["block_crc32"]:
-                self._flag_corrupt(lb, loc)
-                raise err.AbnormalData(f"block {lb.block.id} from "
-                                       f"{self._addr(loc)} failed checksum "
-                                       f"verification")
-        self._count("read_block.bytes", len(out))
-        return bytes(out)
 
     async def close(self) -> None:
         for fd, _path in self._local_fds.values():

@@ -5,9 +5,11 @@ Own copy of the parts of ``curvine_tpu/client/unified.py`` (:28-72,
 ``CurvineClient`` with ``meta`` (the ``FsClient``), ``create``, ``open``,
 ``write_all``, ``read_all`` and ``advise`` (the master's rolling
 prefetch window), over one connection pool to the workers. The readers
-and writers it opens share ``counters``: ``sc.bytes.read`` (short
-circuit), ``read_block.bytes`` (READ_BLOCK), ``write.bytes`` and
-``advise.rpcs``.
+and writers it opens share ``counters``: ``sc.bytes.read`` and
+``sc.bytes.written`` (short circuit), ``read.zero_copy_bytes``
+(READ_BLOCK into the caller's buffer), ``write.bytes`` (all bytes
+written), ``sc.write.fallbacks`` (blocks that went over WRITE_BLOCK with
+the short circuit on) and ``advise.rpcs``.
 
 Left out (ROADMAP A3): the worker circuit breaker, the metadata cache,
 tracing, the metrics flush to the master, tenants, appends, batched
@@ -51,7 +53,9 @@ class CurvineClient:
         cc = self.conf.client
         await self.meta.create_file(path, overwrite=overwrite)
         return FsWriter(self.meta, path, self.pool,
-                        block_size=cc.block_size, counters=self.counters)
+                        block_size=cc.block_size,
+                        short_circuit=cc.short_circuit,
+                        counters=self.counters)
 
     async def open(self, path: str) -> FsReader:
         return self._reader(path, await self.meta.get_block_locations(path))

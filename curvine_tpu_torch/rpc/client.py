@@ -5,14 +5,17 @@ socket calls (``sock_recv_into``, ``sock_sendall``). One connection
 multiplexes concurrent requests by ``req_id``; a read loop routes each
 response frame, a streamed response's CHUNK frames and its EOF, to its
 waiter; an upload streams CHUNK frames and an EOF and awaits the ack.
+``call_readinto`` (:314-346) registers the caller's buffer as the
+request's sink: the read loop receives each chunk's payload straight
+into it, and only the EOF (its trailer merged into ``eof_header``) or an
+error reaches the waiter.
 
-Left out (ROADMAP A3, speed work for later): the transport's
+Left out (ROADMAP A3b, speed work for later): the transport's
 ``CoalescedWriter`` (frames are written one ``sock_sendall`` at a time
 under a lock), ``BulkDecoder``'s many-frames-per-recv decoding (one
-buffered reader instead), the io_uring ``RingRecv``, the
-``RegisteredBuffers`` pool and ``call_readinto``'s receive straight into
-the caller's buffer; and the deadline, trace and tenant headers, the
-client fault hook and the server-push receiver."""
+buffered reader instead), the io_uring ``RingRecv`` and the
+``RegisteredBuffers`` pool; and the deadline, trace and tenant headers,
+the client fault hook and the server-push receiver."""
 
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ import itertools
 import logging
 import random
 import socket
+from dataclasses import dataclass
 from typing import Any, AsyncIterator
 
 from curvine_tpu_torch.common.errors import (ConnectError, CurvineError,
@@ -85,6 +89,15 @@ class _Recv:
             k += got
 
 
+@dataclass
+class _Sink:
+    """The caller's buffer of a ``call_readinto``: chunk payloads land in
+    ``view`` at ``filled``."""
+
+    view: memoryview
+    filled: int = 0
+
+
 class Connection:
     """One TCP connection; multiplexes concurrent requests by req_id."""
 
@@ -94,6 +107,7 @@ class Connection:
         self._sock: socket.socket | None = None
         self._loop: asyncio.AbstractEventLoop | None = None
         self._waiters: dict[int, asyncio.Queue] = {}
+        self._sinks: dict[int, _Sink] = {}
         self._reader_task: asyncio.Task | None = None
         self._send_lock = asyncio.Lock()
         self.closed = False
@@ -125,7 +139,19 @@ class Connection:
                     parse_envelope(await rx.exactly(ENVELOPE_MAX))
                 header = decode_header(await rx.exactly(hdr_len)) \
                     if hdr_len else {}
-                data = await rx.exactly(data_len) if data_len else b""
+                sink = self._sinks.get(req_id)
+                data = b""
+                if sink is not None and status == 0 and \
+                        sink.filled + data_len <= len(sink.view):
+                    # the payload goes straight into the caller's buffer;
+                    # a chunk frame then has nothing left to deliver
+                    await rx.into(sink.view[sink.filled:
+                                            sink.filled + data_len])
+                    sink.filled += data_len
+                    if flags & Flags.CHUNK:
+                        continue
+                elif data_len:
+                    data = await rx.exactly(data_len)
                 q = self._waiters.get(req_id)
                 if q is None:
                     log.debug("drop frame without a waiter: req_id=%d code"
@@ -185,6 +211,7 @@ class Connection:
 
     def unregister(self, req_id: int) -> None:
         self._waiters.pop(req_id, None)
+        self._sinks.pop(req_id, None)
 
     async def _next(self, q: asyncio.Queue, code: int) -> Message:
         try:
@@ -220,6 +247,34 @@ class Connection:
                 yield rep
                 if rep.is_eof:
                     return
+        finally:
+            self.unregister(req_id)
+
+    async def call_readinto(self, code: int, sink: memoryview,
+                            header: dict,
+                            eof_header: dict | None = None) -> int:
+        """Unary request → a stream whose chunk payloads are received
+        straight into ``sink``; returns the bytes filled. The EOF frame's
+        header (the server's trailer, e.g. the block's commit-time crc)
+        is merged into ``eof_header`` when given. A payload that would
+        overrun ``sink`` is delivered as a frame and copied in up to its
+        end."""
+        req_id = next(_req_ids)
+        q = self.register(req_id)
+        state = self._sinks[req_id] = _Sink(view=sink)
+        try:
+            await self.send(Message(code=int(code), req_id=req_id,
+                                    header=dict(header)))
+            while True:
+                rep = await self._next(q, code)
+                if len(rep.data):
+                    n = min(len(rep.data), len(sink) - state.filled)
+                    sink[state.filled:state.filled + n] = rep.data[:n]
+                    state.filled += n
+                if rep.is_eof:
+                    if eof_header is not None and rep.header:
+                        eof_header.update(rep.header)
+                    return state.filled
         finally:
             self.unregister(req_id)
 

@@ -1,9 +1,10 @@
 """RPC operation codes the port's cache client sends.
 
 Own copy of the numbers of ``curvine_tpu/rpc/codes.py::RpcCode`` that the
-client's read path and the writes of its loader use: the master's
-namespace and block calls and the worker's block calls. The numbers are
-the wire's and must not change."""
+client's read path and its writer use: the master's namespace and block
+calls and the worker's block calls, the short-circuit write's grant,
+commit and abort among them. The numbers are the wire's and must not
+change."""
 
 from __future__ import annotations
 
@@ -27,3 +28,8 @@ class RpcCode(enum.IntEnum):
     WRITE_BLOCK = 80
     READ_BLOCK = 81
     GET_BLOCK_INFO = 85
+    # short-circuit write of a co-located block: the worker grants a temp
+    # block file, the client writes it and commits (or aborts) it
+    SC_WRITE_OPEN = 86
+    SC_WRITE_COMMIT = 87
+    SC_WRITE_ABORT = 88

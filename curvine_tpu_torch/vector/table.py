@@ -9,9 +9,10 @@ matrix product and a top-k over it, and an IVF index
 
 The client is the constructor's argument, as in the JAX package, and the
 port imports none: it calls ``open(path)`` (a reader with ``len``,
-``read_all()`` and ``mmap_view()``), ``write_all``, ``meta.mkdir`` and
-``meta.delete``. ``client.posix.PosixClient`` offers those over a
-directory; the cache's own client offers them too. Errors of either are
+``read_all()``, ``mmap_view()`` and ``close()``), ``write_all``,
+``meta.mkdir`` and ``meta.delete``. ``client.posix.PosixClient`` offers
+those over a directory; the port's ``CurvineClient`` offers them over
+the cache. Errors of either are
 told apart by their wire code (``errors.code_of``).
 
 Layout under `<path>/` (the JAX package's, byte for byte):
@@ -53,6 +54,15 @@ def _scan(q: torch.Tensor, v: torch.Tensor, ids: torch.Tensor, metric: str,
     scores = torch.where(ids[None, :] < 0, float("-inf"), scores)
     s, dense = _topk(scores, min(k, scores.shape[1]))
     return s, ids[dense]                # dense idx -> global row id
+
+
+async def _read_file(client, path: str):
+    """The whole of one file; the reader is closed after."""
+    reader = await client.open(path)
+    try:
+        return await reader.read_all()
+    finally:
+        await reader.close()
 
 
 def _is_not_found(e: BaseException) -> bool:
@@ -100,9 +110,8 @@ class VectorTable:
 
     @staticmethod
     async def open(client, path: str) -> "VectorTable":
-        raw = await (await client.open(f"{path.rstrip('/')}/schema.json")
-                     ).read_all()
-        s = json.loads(raw)
+        s = json.loads(await _read_file(
+            client, f"{path.rstrip('/')}/schema.json"))
         return VectorTable(client, path, s["dim"], s["columns"],
                            s["row_groups"], version=s.get("version", 0),
                            rows=s.get("rows"))
@@ -120,8 +129,8 @@ class VectorTable:
     async def _load_deletes(self) -> set[int]:
         if self._deletes is None:
             try:
-                raw = await (await self.client.open(
-                    f"{self.path}/deletes.bin")).read_all()
+                raw = await _read_file(self.client,
+                                       f"{self.path}/deletes.bin")
                 self._deletes = set(
                     np.frombuffer(raw, dtype=np.int64).tolist())
             except Exception as e:
@@ -178,9 +187,12 @@ class VectorTable:
 
     async def read_group(self, rg: int) -> tuple[np.ndarray, dict]:
         reader = await self.client.open(f"{self.path}/rg-{rg:05d}.vec")
-        view = await reader.mmap_view(0, reader.len)
-        if view is None:
-            view = np.frombuffer(await reader.read_all(), dtype=np.uint8)
+        try:
+            view = await reader.mmap_view(0, reader.len)
+            if view is None:
+                view = np.frombuffer(await reader.read_all(), dtype=np.uint8)
+        finally:
+            await reader.close()
         n = int(view[:8].view(np.int64)[0])
         off = 8
         vec_bytes = n * self.dim * 4
@@ -381,8 +393,7 @@ class VectorTable:
         if self._index is not None or self._index_missing:
             return self._index
         try:
-            raw = await (await self.client.open(
-                f"{self.path}/index.ivf")).read_all()
+            raw = await _read_file(self.client, f"{self.path}/index.ivf")
         except Exception as e:
             if not _is_not_found(e):
                 raise

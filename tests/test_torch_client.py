@@ -291,9 +291,9 @@ async def test_bytes_cross_between_the_jax_and_port_clients(size):
                 == ["/x/jax.bin", "/x/port.bin"]
             one_block = size <= mc.conf.client.block_size
             assert pc.counters["sc.bytes.read"] == 2 * size * (1 + one_block)
-            assert pc_rb.counters["read_block.bytes"] == \
+            assert pc_rb.counters["read.zero_copy_bytes"] == \
                 2 * size + 2 * len(data[size // 2:size // 2 + 100])
-            assert "read_block.bytes" not in pc.counters
+            assert "read.zero_copy_bytes" not in pc.counters
         finally:
             await pc.close()
             await pc_rb.close()
@@ -364,7 +364,7 @@ async def test_reads_fail_over_to_the_next_replica():
             await mc.kill_worker(next(i for i, w in enumerate(mc.workers)
                                       if w.worker_id == first))
             assert head + await r.read() == data
-            assert pc.counters["read_block.bytes"] == len(data)
+            assert pc.counters["read.zero_copy_bytes"] == len(data)
             await r.close()
             assert await pc.read_all("/rep.bin") == data     # a new reader
             await mc.kill_worker(next(i for i, w in enumerate(mc.workers)

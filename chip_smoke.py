@@ -23,18 +23,40 @@ Phases, each raising on a fault (the exit code is then non-zero):
 4. feed: 8 int32 token shards of 64 MiB, files under a POSIX directory,
    through ``PosixTrainFeed`` at batch 32 x seq 8192, depth 2, over the
    whole epoch; every device batch must equal the host tokens;
-4b. client: a one-worker cache started as its own process
-   (``scripts/card_cluster.py``: the JAX package's master and worker, a
-   mem tier on the same tmpfs, the port's codec in place of
-   ``msgpack``), 8 new shards of 64 MiB written through the port's
-   ``CurvineClient`` (``write_token_shards``, one block each) and
+4b. client: a cache of the JAX package's master, started alone as its
+   own process (``scripts/card_cluster.py --workers 0``, the port's codec
+   in place of ``msgpack``), and the port's own worker
+   (``curvine_tpu_torch.worker.server.WorkerServer``, in this process on a
+   thread with its own event loop: a mem tier on the same tmpfs, a 4 GiB
+   device tier-0, 64 MiB blocks), which must be the master's only live
+   worker, here and at the end of the run; every later phase's cluster
+   traffic goes through it. 8 new shards of 64 MiB written through the
+   port's ``CurvineClient`` (``write_token_shards``, one block each) and
    streamed through the client-backed ``GpuTrainFeed`` (short-circuit
    ``mmap_view``, prefetch advice to the master) at phase 4's batch;
    every device batch must equal the host tokens, and some bytes must
    come by short circuit; rates beside phase 4's, stage shares, bytes by
    each path, advise RPCs, write GiB/s (by short circuit); then one
    shard read twice through READ_BLOCK (received into the caller's
-   buffer) with the short circuit off, byte-equal;
+   buffer) with the short circuit off, byte-equal; then the shards are
+   deleted;
+4c. worker: the device tier-0 through the port's worker: 16 hot and 16
+   cold files of one 64 MiB block written through the port's client by
+   short circuit, one more with a byte of its block file flipped after
+   the commit. Until the hot set is pinned, the hot set is read once
+   through the client (its read-heat reports) and one promote cycle runs
+   (at most 256 MiB a cycle, each pin verified by K1 on the card): 4
+   cycles, 16 pins, every hot block and no cold one in the tier, K1
+   launches equal to the pins, the corrupt block refused, counted and
+   reported to the master; a cold block whose device copy is flipped after
+   its H2D copy refused by K1 (one launch), counted and reported; autopin
+   GiB/s beside phase 3's and each pin's split (map, media crc, host
+   hash, H2D, K1); every pinned tensor equal to its file on the card; a
+   tier-0 hit (``hbm_get`` and a device-to-device copy of the block)
+   against the short-circuit read staged to the card, median of 16; HBM_PIN and
+   HBM_UNPIN over the port's connection, the master's view of one
+   ``hbm:0`` of 4 GiB between; a deleted file's device copy gone within
+   10 heartbeats;
 5. flash: the four K3 kernels (forward, di, dK/dV, dQ) on the card against
    their plain PyTorch versions, element by element and row by row
    (``flash_errors``), at the flagship's attention shape
@@ -88,15 +110,17 @@ Phases, each raising on a fault (the exit code is then non-zero):
    client's ``meta.delete``.
 
 The kernel launch counts are set to 0 just before phase 3 and read just
-after phase 4 (K1), again just before the two passes of phase 6 and read
+after phase 4 (K1), again just before phase 4c's promote cycles and read
+just after them (K1), again just before the two passes of phase 6 and read
 just after them (K3), again just before phase 6b and read just after it
 (K3's forward, twice a layer for the two losses, and no backward
 kernel), and just before phase 7's ``query_many`` and read just after it
 (K2, which must equal the ADC stages the search issued). The kernels
-line gives phase 6's K3 counts.
-The cluster is stopped, and the data directory removed, however the
-run ends. Prints each phase's numbers, the card's name
-and power limit, one JSON line of kernels, and last the line
+line gives K1's two counts summed (each held to its pins, the refused
+device copies included) and phase 6's K3 counts. The port's worker and
+the cluster are stopped, and the data directory removed, however the
+run ends. Prints each phase's numbers, the card's name and power limit,
+one JSON line of kernels, and last the line
 ``{"ok": true, "device": {...}}``. Exits non-zero, and prints no result,
 where no CUDA device is visible or the port is not importable."""
 
@@ -156,6 +180,16 @@ CKPT_PATH, CKPT_BYTES = "/ckpt/flagship", 2 * GiB
 CLUSTER_TIER_BYTES = SHARDS * SHARD_BYTES + CKPT_BYTES \
     + VEC_ROWS * VEC_DIM * 4 + GiB
 CLUSTER_START_S = 300
+# the worker phase: a hot set and as many cold files of one 64 MiB block,
+# and one more whose file is corrupted before its pin
+WORKER_HOT = WORKER_COLD = 16
+WORKER_PHASE_BYTES = (WORKER_HOT + WORKER_COLD + 1) * BLOCK
+# the port's worker: its mem tier holds the cluster's data and the worker
+# phase's; its device tier-0 is phase 3's size; heat of one read pass
+# through the client is 2 (the open's probe and the read's report)
+WORKER_TIER_BYTES = CLUSTER_TIER_BYTES + WORKER_PHASE_BYTES
+WORKER_MIN_READS = 2
+WORKER_HEARTBEAT_MS = 1000
 
 
 def log(msg: str) -> None:
@@ -538,19 +572,19 @@ def phase_feed(rng: np.random.Generator, dev: torch.device, root: str
 
 # ------------------------------------------------------------ the cluster
 
-def start_cluster(root: str, tier_bytes: int):
-    """``scripts/card_cluster.py`` in its own process: a one-worker cache
-    (the JAX package's master and worker) with a mem tier of
-    ``tier_bytes`` under ``root``, its control plane on the port's codec
-    (``rpc/wirepack.py`` standing in for ``msgpack``). Returns the
-    process and its JSON line (master address, codec, native helpers);
-    raises when the line does not come within CLUSTER_START_S."""
+def start_cluster(root: str):
+    """``scripts/card_cluster.py --workers 0`` in its own process: the JAX
+    package's master alone, its control plane on the port's codec
+    (``rpc/wirepack.py`` standing in for ``msgpack``); the port's worker
+    (``PortWorker``) registers with it. Returns the process and its JSON
+    line (master address, codec, native helpers); raises when the line
+    does not come within CLUSTER_START_S."""
     import select
     err = open(os.path.join(root, "cluster.err"), "wb")
     proc = subprocess.Popen(
         [sys.executable, os.path.join(HERE, "scripts", "card_cluster.py"),
-         "--base-dir", os.path.join(root, "cluster"),
-         "--tier-bytes", str(tier_bytes), "--codec", "port"],
+         "--base-dir", os.path.join(root, "cluster"), "--codec", "port",
+         "--workers", "0"],
         cwd=HERE, stdout=subprocess.PIPE, stderr=err)
     err.close()
     ready, _, _ = select.select([proc.stdout], [], [], CLUSTER_START_S)
@@ -562,13 +596,9 @@ def start_cluster(root: str, tier_bytes: int):
         raise RuntimeError(f"the cluster did not start (exit "
                            f"{proc.returncode}):\n{tail}")
     info = json.loads(line)
-    log(f"client: cluster pid {info['pid']} serves at {info['master']}, "
+    log(f"client: master pid {info['pid']} serves at {info['master']}, "
         f"codec {info['codec']}, the package's C++ helpers "
-        f"{'loaded' if info['native'] else 'MISSING'}")
-    if not info["native"]:
-        stop_cluster(proc)
-        raise RuntimeError("the cluster's C++ helpers did not build: its "
-                           "worker would hash 64 MiB blocks in Python")
+        f"{'loaded' if info['native'] else 'missing'}")
     return proc, info
 
 
@@ -581,6 +611,81 @@ def stop_cluster(proc) -> None:
             proc.kill()
             proc.wait()
     proc.stdout.close()
+
+
+class PortWorker:
+    """The port's ``WorkerServer`` in this process, on a thread with its
+    own event loop (the phases' clients run their own loops and reach it
+    over loopback TCP, and the worker phase takes device tensors from
+    ``worker.hbm``): a mem tier of ``tier_bytes`` under ``root``, a device
+    tier-0 of TIER_BYTES on ``dev``, 64 MiB blocks, no periodic promote
+    cycle (the worker phase runs its cycles itself)."""
+
+    def __init__(self, master: str, root: str, tier_bytes: int,
+                 dev: torch.device):
+        import threading
+        from curvine_tpu_torch.common.conf import ClusterConf, TierConf
+        from curvine_tpu_torch.worker.server import WorkerServer
+        conf = ClusterConf()
+        conf.client.master_addrs = [master]
+        conf.client.block_size = BLOCK
+        wc = conf.worker
+        wc.hostname, wc.rpc_port = "127.0.0.1", 0
+        wc.heartbeat_ms = WORKER_HEARTBEAT_MS
+        wc.promote_interval_ms = 0
+        wc.promote_min_reads = WORKER_MIN_READS
+        wc.tiers = [TierConf(storage_type="mem",
+                             dir=os.path.join(root, "worker", "mem"),
+                             capacity=tier_bytes)]
+        wc.hbm_capacity = TIER_BYTES
+        self.conf = conf
+        self.worker = WorkerServer(conf, devices=[dev])
+        self.loop = asyncio.new_event_loop()
+        self.thread = threading.Thread(target=self.loop.run_forever,
+                                       name="port-worker", daemon=True)
+        self.thread.start()
+        self.call(self.worker.start())
+
+    def call(self, coro, timeout: float = 600):
+        """Run ``coro`` on the worker's loop and return its result."""
+        return asyncio.run_coroutine_threadsafe(coro, self.loop).result(
+            timeout)
+
+    def stop(self) -> None:
+        try:
+            self.call(self.worker.stop(), timeout=120)
+        finally:
+            self.loop.call_soon_threadsafe(self.loop.stop)
+            self.thread.join(timeout=60)
+            if not self.thread.is_alive():
+                self.loop.close()
+
+
+async def live_workers(client) -> list[dict]:
+    """The master's live workers (GET_MASTER_INFO), as wire dicts."""
+    from curvine_tpu_torch.rpc.codes import RpcCode
+    rep = await client.meta.call(RpcCode.GET_MASTER_INFO, {})
+    return rep["info"]["live_workers"]
+
+
+def await_port_worker(master: str, pw: PortWorker, timeout: float = 60
+                      ) -> None:
+    """Wait until the master lists exactly one live worker, the port's;
+    raises otherwise."""
+    async def run():
+        async with port_client(master) as c:
+            t = time.perf_counter()
+            while True:
+                live = await live_workers(c)
+                if live or time.perf_counter() - t > timeout:
+                    return live
+                await asyncio.sleep(0.1)
+
+    live = asyncio.run(run())
+    ids = [w["address"]["worker_id"] for w in live]
+    if ids != [pw.worker.worker_id]:
+        raise AssertionError(f"the master's live workers are {ids}, not the "
+                             f"port's worker {pw.worker.worker_id} alone")
 
 
 def port_client(master: str, **client):
@@ -620,6 +725,9 @@ def phase_client(rng: np.random.Generator, dev: torch.device, master: str,
                 raws.append(await c.read_all(paths[0]))
                 rb_s.append(time.perf_counter() - t)
             rb_counters = dict(c.counters)
+            # the shards are the hottest blocks the worker holds: gone,
+            # they leave the worker phase's promote cycles to its own
+            await c.meta.delete("/ds/feed", recursive=True)
         return paths, write_s, written, fed, feed.profiler, counters, raws, \
             rb_s, rb_counters
 
@@ -673,6 +781,326 @@ def phase_client(rng: np.random.Generator, dev: torch.device, master: str,
         raise AssertionError(f"client: {res['sc_bytes_written']} of "
                              f"{tokens.nbytes} bytes written by short "
                              f"circuit to a worker on this host")
+    return res
+
+
+# ------------------------------------------------------------------ worker
+
+def _timed(fn, into: list):
+    """``fn`` with each call's seconds appended to ``into``."""
+    def timed(*a, **kw):
+        t = time.perf_counter()
+        try:
+            return fn(*a, **kw)
+        finally:
+            into.append(time.perf_counter() - t)
+    return timed
+
+
+def phase_worker(rng: np.random.Generator, dev: torch.device, master: str,
+                 pw: PortWorker, promote_gibs: float) -> dict:
+    """The device tier-0 through the port's worker: 16 hot and 16 cold
+    files of one 64 MiB block written through the port's client by short
+    circuit, and one more whose block file gets one byte flipped after its
+    commit. Until the hot set is pinned: the hot set read once through the
+    client, then one promote cycle (at most 256 MiB pinned a cycle, each
+    pin verified by K1 on the card). Then a device copy flipped after its
+    H2D copy, refused by K1; the pinned tensors against the files; a
+    tier-0 hit against the short-circuit read staged to the card;
+    HBM_PIN / HBM_UNPIN over the port's connection with the master's view
+    between, the refused corrupt block, and a delete's device copy gone
+    within 10 heartbeats."""
+    from curvine_tpu_torch.gpu import cuda_ops
+    from curvine_tpu_torch.gpu.ingest import DeviceCopier
+    from curvine_tpu_torch.rpc.client import Connection
+    from curvine_tpu_torch.rpc.codes import RpcCode
+    from curvine_tpu_torch.rpc.frame import pack
+    from curvine_tpu_torch.worker import promote, server
+    w = pw.worker
+    hot = [f"/worker/hot-{i:02d}" for i in range(WORKER_HOT)]
+    cold = [f"/worker/cold-{i:02d}" for i in range(WORKER_COLD)]
+    bad = "/worker/corrupt"
+    res = {}
+    # the client phase's shards, deleted at its end, leave on a heartbeat
+    for _ in range(10):
+        if not w.store.hot_blocks(WORKER_MIN_READS):
+            break
+        pw.call(w.heartbeat_once())
+    else:
+        raise AssertionError(f"worker: blocks already hot before the phase: "
+                             f"{w.store.hot_blocks(WORKER_MIN_READS)[:4]}")
+
+    async def setup():
+        async with port_client(master) as c:
+            ids = {}
+            t = time.perf_counter()
+            for p in hot + cold + [bad]:
+                await c.write_all(p, rng.integers(0, 1 << 64, BLOCK // 8,
+                                                  dtype=np.uint64))
+                fb = await c.meta.get_block_locations(p)
+                ids[p] = fb.block_locs[0].block.id
+            return ids, time.perf_counter() - t, dict(c.counters)
+
+    ids, write_s, wrote = asyncio.run(setup())
+    n_files = len(ids)
+    if wrote.get("sc.bytes.written") != n_files * BLOCK:
+        raise AssertionError(f"worker: {wrote} for {n_files} blocks")
+    # one byte of the corrupt block's file, after its commit, before a pin
+    bad_id = ids[bad]
+    with open(w.store.get(bad_id, touch=False).path, "r+b") as f:
+        f.seek(BLOCK // 3)
+        b = f.read(1)
+        f.seek(BLOCK // 3)
+        f.write(bytes([b[0] ^ 0x40]))
+
+    async def heat_pass(first: bool) -> None:
+        async with port_client(master) as c:
+            for p in hot:
+                await c.read_all(p)
+            if first:
+                # heat for the corrupt block as a client reports it, above
+                # the hot set's so the first cycle tries it first
+                conn = await Connection(w.addr).connect()
+                try:
+                    await conn.call(RpcCode.SC_READ_REPORT, data=pack(
+                        {"block_reads": {bad_id: WORKER_MIN_READS + 1}}))
+                finally:
+                    await conn.close()
+
+    # each pin's split, timed inside promote_block: the map, the media
+    # crc, the host hash, H2D (the put, then its stream synchronised), K1
+    # (the launch and the result's read)
+    split = {"map": [], "media_crc": [], "host_hash": [], "h2d": [],
+             "k1": []}
+    real = {n: getattr(promote, n) for n in
+            ("map_block", "crc_update", "block_checksum",
+             "block_checksum_host")}
+    real_put = w.hbm.put
+
+    def h2d_put(block_id, data, device=None):
+        t = time.perf_counter()
+        out = real_put(block_id, data, device)
+        torch.cuda.current_stream(out.device).synchronize()
+        split["h2d"].append(time.perf_counter() - t)
+        return out
+
+    promote.map_block = _timed(real["map_block"], split["map"])
+    promote.crc_update = _timed(real["crc_update"], split["media_crc"])
+    promote.block_checksum_host = _timed(real["block_checksum_host"],
+                                         split["host_hash"])
+    promote.block_checksum = _timed(real["block_checksum"], split["k1"])
+    w.hbm.put = h2d_put
+    hot_ids = [ids[p] for p in hot]
+    cycle_s, read_s = [], []
+    try:
+        cuda_ops.block_checksum.launches = 0
+        while not all(w.hbm_holds(b) for b in hot_ids) and len(cycle_s) < 8:
+            t = time.perf_counter()
+            asyncio.run(heat_pass(not cycle_s))
+            read_s.append(time.perf_counter() - t)
+            t = time.perf_counter()
+            pw.call(w._promote_once())
+            cycle_s.append(time.perf_counter() - t)
+        launches = cuda_ops.block_checksum.launches
+    finally:
+        for n, fn in real.items():
+            setattr(promote, n, fn)
+        del w.hbm.put
+    counters = dict(w.metrics.counters)
+    pins = counters.get("blocks.hbm_pinned", 0)
+    pinned_bytes = pins * BLOCK
+    res.update(files=n_files, write_s=write_s,
+               write_gibs=n_files * BLOCK / GiB / write_s, cycles=len(cycle_s),
+               cycle_s=cycle_s, read_pass_s=read_s, pins=pins,
+               pinned_bytes=pinned_bytes, k1_launches=launches,
+               autopin_gibs=pinned_bytes / GiB / sum(cycle_s),
+               promote_gibs=promote_gibs,
+               corrupt=counters.get("blocks.corrupt", 0),
+               corrupt_reported=counters.get("blocks.corrupt_reported", 0),
+               split_ms={k: [x * 1e3 for x in v] for k, v in split.items()},
+               split_median_ms={k: statistics.median(v) * 1e3
+                                for k, v in split.items() if v})
+    log(f"worker: wrote {n_files} blocks of 64 MiB through the port's "
+        f"client in {write_s:.3f}s ({res['write_gibs']:.3f} GiB/s, all by "
+        f"short circuit); {len(cycle_s)} promote cycles pinned {pins} "
+        f"blocks ({pinned_bytes / GiB:.2f} GiB) in {sum(cycle_s):.3f}s: "
+        f"autopin_gibs {res['autopin_gibs']:.3f} against phase 3's "
+        f"promote_gibs {promote_gibs:.3f} on this machine; K1 launches "
+        f"{launches}; read passes {sum(read_s):.3f}s")
+    sm = res["split_median_ms"]
+    log(f"worker: a pin's split, median ms: map {sm['map']:.3f}, media crc "
+        f"{sm['media_crc']:.2f}, host hash {sm['host_hash']:.2f}, H2D "
+        f"{sm['h2d']:.2f}, K1 {sm['k1']:.3f}")
+    missing = [b for b in hot_ids if not w.hbm_holds(b)]
+    cold_pinned = [ids[p] for p in cold if w.hbm_holds(ids[p])]
+    if missing or cold_pinned or pins != WORKER_HOT \
+            or len(cycle_s) != -(-WORKER_HOT * BLOCK // server.PIN_BUDGET):
+        raise AssertionError(f"worker: {len(cycle_s)} cycles, {pins} pins, "
+                             f"hot missing {missing}, cold pinned "
+                             f"{cold_pinned}")
+    if launches != pins or len(split["k1"]) != pins:
+        raise AssertionError(f"worker: {launches} K1 launches for {pins} "
+                             f"pins")
+    if w.hbm_holds(bad_id) or res["corrupt"] != 1 \
+            or res["corrupt_reported"] != 1:
+        raise AssertionError(f"worker: the corrupt block: in the tier "
+                             f"{w.hbm_holds(bad_id)}, counted "
+                             f"{res['corrupt']}, reported "
+                             f"{res['corrupt_reported']}")
+    log(f"worker: every hot block in the tier-0, no cold one; the corrupt "
+        f"block refused by its media crc, counted (blocks.corrupt "
+        f"{res['corrupt']}) and reported to the master")
+
+    # a good media copy whose device copy diverges after the H2D copy:
+    # refused by K1 on the card, on the worker's own promotion
+    flip_id = ids[cold[1]]
+
+    def flip_put(block_id, data, device=None):
+        out = real_put(block_id, data, device)
+        if block_id == flip_id:
+            out[BLOCK // 5] ^= 0x01
+        return out
+
+    w.hbm.put = flip_put
+    try:
+        cuda_ops.block_checksum.launches = 0
+        flip_pinned = pw.call(w._autopin_block(flip_id))
+        flip_launches = cuda_ops.block_checksum.launches
+    finally:
+        del w.hbm.put
+    after = dict(w.metrics.counters)
+    if flip_pinned or flip_launches != 1 or w.hbm_holds(flip_id) \
+            or after.get("blocks.corrupt") != res["corrupt"] + 1 \
+            or after.get("blocks.corrupt_reported") != \
+            res["corrupt_reported"] + 1 \
+            or after.get("blocks.hbm_pinned") != pins:
+        raise AssertionError(f"worker: the diverging device copy: pinned "
+                             f"{flip_pinned} bytes, K1 launches "
+                             f"{flip_launches}, in the tier "
+                             f"{w.hbm_holds(flip_id)}, counters {after}")
+    res.update(k1_refused_launches=flip_launches,
+               k1_launches=launches + flip_launches)
+    log(f"worker: a device copy flipped after its H2D copy refused by K1 "
+        f"({flip_launches} launch), counted (blocks.corrupt "
+        f"{after['blocks.corrupt']}) and reported; not pinned")
+
+    # the pinned tensors against the files, on the card, as integers
+    for bid in hot_ids:
+        got = w.hbm_get(bid)
+        ref = torch.from_numpy(np.fromfile(
+            w.store.get(bid, touch=False).path, dtype=np.uint8)).to(dev)
+        if not torch.equal(got.view(torch.int64), ref.view(torch.int64)):
+            raise AssertionError(f"worker: block {bid}: device bytes differ")
+    del ref
+
+    # a tier-0 hit against the short-circuit read staged to the card
+    hit_bid, hit_path = hot_ids[0], hot[0]
+
+    dst = torch.empty(BLOCK, dtype=torch.uint8, device=dev)
+
+    def hit(use: bool) -> float:
+        """The tier's lookup alone, or with a first use that moves every
+        byte: a device-to-device copy of the block."""
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got = w.hbm_get(hit_bid)
+        if use:
+            dst.copy_(got)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    async def staged():
+        copier = DeviceCopier(dev)
+        fetch, stage = [], []
+        async with port_client(master) as c:
+            r = await c.open(hit_path)
+            try:
+                for _ in range(16):
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    view = await r.mmap_view(0, BLOCK)
+                    t1 = time.perf_counter()
+                    out = copier.deliver(copier.transfer(view))
+                    torch.cuda.synchronize()
+                    fetch.append(t1 - t)
+                    stage.append(time.perf_counter() - t1)
+            finally:
+                await r.close()
+        return fetch, stage, out
+
+    lookups = [hit(False) for _ in range(16)]
+    hits = [hit(True) for _ in range(16)]
+    if not torch.equal(dst.view(torch.int64),
+                       w.hbm_get(hit_bid).view(torch.int64)):
+        raise AssertionError("worker: the tier-0 hit's copy differs")
+    fetch, stage, out = asyncio.run(staged())
+    if not torch.equal(out.view(torch.int64),
+                       w.hbm_get(hit_bid).view(torch.int64)):
+        raise AssertionError("worker: the staged block differs from the "
+                             "tier-0's")
+    del out, dst
+    res.update(hit_ms=statistics.median(hits) * 1e3,
+               lookup_ms=statistics.median(lookups) * 1e3,
+               cache_fetch_ms=statistics.median(fetch) * 1e3,
+               host_to_hbm_ms=statistics.median(stage) * 1e3,
+               staged_ms=statistics.median(
+                   [a + b for a, b in zip(fetch, stage)]) * 1e3)
+    log(f"worker: a 64 MiB block from the tier-0 in {res['hit_ms']:.4f} ms "
+        f"(hbm_get and a device-to-device copy of the block, median of 16; "
+        f"the lookup alone {res['lookup_ms']:.4f} ms) against "
+        f"{res['staged_ms']:.3f} ms by short circuit and staging "
+        f"(cache_fetch {res['cache_fetch_ms']:.3f} + host_to_hbm "
+        f"{res['host_to_hbm_ms']:.3f})")
+
+    async def rpc_and_master():
+        cold_id = ids[cold[0]]
+        conn = await Connection(w.addr).connect()
+        try:
+            rep = (await conn.call(RpcCode.HBM_PIN, data=pack(
+                {"block_id": cold_id}))).header
+            if rep["len"] != BLOCK or rep["holders"] != [0] \
+                    or not w.hbm_holds(cold_id):
+                raise AssertionError(f"worker: HBM_PIN answered {rep}")
+            await asyncio.wrap_future(asyncio.run_coroutine_threadsafe(
+                w.heartbeat_once(), pw.loop))
+            async with port_client(master) as c:
+                live = await live_workers(c)
+            hbm = [s for x in live for s in x["storages"]
+                   if s["storage_type"] == -1]
+            if [x["address"]["worker_id"] for x in live] != [w.worker_id] \
+                    or [(s["dir_id"], s["capacity"]) for s in hbm] != \
+                    [("hbm:0", TIER_BYTES)]:
+                raise AssertionError(f"worker: the master sees {live}")
+            await conn.call(RpcCode.HBM_UNPIN, data=pack(
+                {"block_id": cold_id}))
+            if w.hbm_holds(cold_id):
+                raise AssertionError("worker: HBM_UNPIN left the copy")
+            return hbm[0]
+        finally:
+            await conn.close()
+
+    res["master_hbm_storage"] = asyncio.run(rpc_and_master())
+    log(f"worker: HBM_PIN of a cold block over the port's connection: len "
+        f"{BLOCK}, holders [0]; the master lists the port's worker alone, "
+        f"with {res['master_hbm_storage']}; HBM_UNPIN dropped the copy")
+
+    async def delete():
+        async with port_client(master) as c:
+            await c.meta.delete(hot[1])
+        for k in range(1, 11):
+            await asyncio.wrap_future(asyncio.run_coroutine_threadsafe(
+                w.heartbeat_once(), pw.loop))
+            if not w.hbm_holds(hot_ids[1]):
+                return k
+        return None
+
+    beats = asyncio.run(delete())
+    if beats is None or w.store.contains(hot_ids[1]):
+        raise AssertionError("worker: a deleted block's device copy stayed "
+                             "10 heartbeats")
+    res["delete_heartbeats"] = beats
+    log(f"worker: {hot[1]} deleted through the port's client; its device "
+        f"copy gone after {beats} heartbeat(s)")
     return res
 
 
@@ -1720,21 +2148,28 @@ def main() -> int:
     results = {"card": card, "seed": args.seed}
     results["build"] = phase_build()
     results["kernel"] = phase_kernel(rng, dev)
-    need = N_BLOCKS * BLOCK + SHARDS * SHARD_BYTES + CLUSTER_TIER_BYTES
+    need = N_BLOCKS * BLOCK + SHARDS * SHARD_BYTES + WORKER_TIER_BYTES
     root = pick_data_dir(need)
     log(f"main: data under {root} (needs {need / GiB:.2f} GiB and 1 GiB "
         f"spare: {N_BLOCKS} blocks and {SHARDS} POSIX shards of 64 MiB, "
-        f"the cluster's mem tier of {CLUSTER_TIER_BYTES / GiB:.2f} GiB)")
-    cluster = None
+        f"the port's worker's mem tier of {WORKER_TIER_BYTES / GiB:.2f} "
+        f"GiB)")
+    cluster = pw = None
     try:
         cuda_ops.block_checksum.launches = 0
         results["main"] = phase_main(rng, dev, root)
         results["feed"] = phase_feed(rng, dev, root)
         launches = cuda_ops.block_checksum.launches
-        cluster, info = start_cluster(root, CLUSTER_TIER_BYTES)
+        cluster, info = start_cluster(root)
         results["cluster"] = info
+        pw = PortWorker(info["master"], root, WORKER_TIER_BYTES, dev)
+        await_port_worker(info["master"], pw)
+        log(f"client: the port's worker {pw.worker.worker_id} serves at "
+            f"{pw.worker.addr}, the master's only live worker")
         results["client"] = phase_client(rng, dev, info["master"],
                                          results["feed"])
+        results["worker"] = phase_worker(rng, dev, info["master"], pw,
+                                         results["main"]["promote_gibs"])
         results["flash"] = phase_flash(dev, args.seed)
         results["train"], params = phase_train(
             dev, info["master"], args.seed, results["flash"])
@@ -1744,19 +2179,37 @@ def main() -> int:
         del params
         torch.cuda.empty_cache()
         results["vector"] = phase_vector(dev, info["master"], args.seed)
+        # every phase's cluster traffic went through the port's worker
+        await_port_worker(info["master"], pw)
+        m = pw.worker.metrics
+        results["port_worker"] = {
+            "worker_id": pw.worker.worker_id, "counters": dict(m.counters),
+            "rpcs": {k: v.count for k, v in m.histograms.items()}}
+        log(f"worker: the port's worker {pw.worker.worker_id} served the "
+            f"run: {results['port_worker']['rpcs']}; bytes.written "
+            f"{m.counters.get('bytes.written', 0):,}, bytes.read (READ_BLOCK)"
+            f" {m.counters.get('bytes.read', 0):,}")
+        if not m.counters.get("bytes.read") or \
+                not m.counters.get("bytes.written"):
+            raise AssertionError("the port's worker served no READ_BLOCK or "
+                                 "no write")
     finally:
+        if pw is not None:
+            pw.stop()
         if cluster is not None:
             stop_cluster(cluster)
         shutil.rmtree(root, ignore_errors=True)
     if launches != results["main"]["pins"]:
         raise AssertionError(f"{launches} kernel launches for "
                              f"{results['main']['pins']} pins")
+    wk = results["worker"]
     k = results["kernel"]
     kernels = [{
         "name": "block_checksum", "route": "cuda",
         "source": "curvine_tpu_torch/csrc/checksum.cu",
         "replaces": "curvine_tpu/tpu/pallas_ops.py:27",
-        "launches": launches, "max_abs_err": k["max_abs_err"],
+        "launches": launches + wk["k1_launches"],
+        "max_abs_err": k["max_abs_err"],
         "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": "bytes", "library_ms": None}]
     replaces = {"flash_fwd": ":758", "flash_bwd_di": ":273",

@@ -27,14 +27,21 @@ read from the next replica. The counters ``sc.bytes.read`` and
 ``read.zero_copy_bytes`` (the reference's names) say which path served
 the bytes.
 
+Short-circuit reads bypass the worker, so their heat is reported back
+(``_note_sc_read``, ``_flush_sc_reads``; :138-143, :565-600, :1330-1333):
+per-block read counts, sent in SC_READ_REPORT to the worker that granted
+the block every 512 reads and on ``close``. The worker's promotion scan
+then counts reads, not opens. The reply's shared-memory warm-cache offer
+is ignored.
+
 Left out (ROADMAP A3b): the shared-memory side channel (a worker's offer
 is ignored and the fd path taken), erasure-coded reads and holes (a file
 resized past its last block) (both raise ``NotImplementedError``),
 short-circuit reads of a bdev tier's leased extents (its blocks are read
 through READ_BLOCK), the location refresh after every replica failed
 (the read raises), the sequential prefetch window, parallel
-``read_range``, ``pread_view``, ``chunks``, the read-heat reports
-(SC_READ_REPORT), the worker circuit breaker, deadlines and tracing."""
+``read_range``, ``pread_view``, ``chunks``, the worker circuit breaker,
+deadlines and tracing."""
 
 from __future__ import annotations
 
@@ -89,6 +96,12 @@ class FsReader:
         self._local_fds: dict[int, tuple[int, str]] = {}
         # block id -> (crc, algo) from GET_BLOCK_INFO
         self._block_crc: dict[int, tuple[int, str]] = {}
+        # short-circuit reads per block since the last report, and the
+        # address of the worker that granted each block
+        self._sc_reads: dict[int, int] = {}
+        self._sc_addr: dict[int, str] = {}
+        self._sc_pending = 0
+        self._sc_flush_task: asyncio.Task | None = None
         self._tasks: set[asyncio.Task] = set()
 
     def _count(self, key: str, n: int) -> None:
@@ -169,7 +182,8 @@ class FsReader:
             loc = self._pick_loc(lb)
             if self.fs.is_local(loc):
                 try:
-                    conn = await self.pool.get(self._addr(loc))
+                    addr = self._addr(loc)
+                    conn = await self.pool.get(addr)
                     rep = await conn.call(RpcCode.GET_BLOCK_INFO,
                                           data=pack({"block_id": bid}))
                     info = rep.header or unpack(rep.data) or {}
@@ -180,6 +194,7 @@ class FsReader:
                     if p and os.path.exists(p) and not info.get("offset") \
                             and not info.get("lease_ms"):
                         path = p
+                        self._sc_addr[bid] = addr
                 except err.CurvineError as e:
                     log.debug("short-circuit probe of block %d failed: %s",
                               bid, e)
@@ -226,6 +241,35 @@ class FsReader:
         self._tasks.add(t)
         t.add_done_callback(self._tasks.discard)
 
+    # ---------------- short-circuit read accounting ----------------
+
+    def _note_sc_read(self, block_id: int, nbytes: int) -> None:
+        self._count("sc.bytes.read", nbytes)
+        self._sc_reads[block_id] = self._sc_reads.get(block_id, 0) + 1
+        self._sc_pending += 1
+        if self._sc_pending >= 512 and (self._sc_flush_task is None
+                                        or self._sc_flush_task.done()):
+            self._sc_flush_task = asyncio.ensure_future(
+                self._flush_sc_reads())
+
+    async def _flush_sc_reads(self) -> None:
+        """Report the per-block short-circuit read counts to the workers
+        that granted the blocks (heat only: a failed report is logged)."""
+        reads, self._sc_reads = self._sc_reads, {}
+        self._sc_pending = 0
+        by_addr: dict[str, dict[int, int]] = {}
+        for bid, n in reads.items():
+            addr = self._sc_addr.get(bid)
+            if addr is not None:
+                by_addr.setdefault(addr, {})[bid] = n
+        for addr, block_reads in by_addr.items():
+            try:
+                conn = await self.pool.get(addr)
+                await conn.call(RpcCode.SC_READ_REPORT,
+                                data=pack({"block_reads": block_reads}))
+            except err.CurvineError as e:
+                log.debug("sc read report to %s failed: %s", addr, e)
+
     def _sc_verify_ok(self, lb: LocatedBlock, data) -> bool:
         """A whole block read through the short circuit against its
         commit-time crc. On a mismatch the replica is reported and the
@@ -267,7 +311,7 @@ class FsReader:
         if self.verify and block_off == 0 and n == lb.block.len \
                 and not self._sc_verify_ok(lb, buf):
             return None
-        self._count("sc.bytes.read", n)
+        self._note_sc_read(lb.block.id, n)
         return buf
 
     # ---------------- reads ----------------
@@ -334,7 +378,7 @@ class FsReader:
                     self._drop_local(lb.block.id)   # the probe went stale
                     fd = None
                 else:
-                    self._count("sc.bytes.read", got)
+                    self._note_sc_read(lb.block.id, got)
             if fd is None:
                 got = await self._readinto_remote(lb, block_off, seg)
                 if got <= 0:
@@ -380,6 +424,13 @@ class FsReader:
         raise last or err.BlockNotFound(f"block {lb.block.id} unreadable")
 
     async def close(self) -> None:
+        # drain the flush in flight, then report what is left below the
+        # batch of 512: no read count is dropped at close
+        t, self._sc_flush_task = self._sc_flush_task, None
+        if t is not None:
+            await asyncio.gather(t, return_exceptions=True)
+        if self._sc_reads:
+            await self._flush_sc_reads()
         for fd, _path in self._local_fds.values():
             os.close(fd)
         self._local_fds.clear()

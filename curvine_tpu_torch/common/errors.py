@@ -2,7 +2,7 @@
 
 Own copy of ``curvine_tpu/common/errors.py``: ``ErrorCode`` with the same
 numbers, its retryable set, ``CurvineError.from_wire`` and the classes the
-port's data path, vector path and cache client raise or receive. A
+port's data path, vector path, cache client and worker raise or receive. A
 class's ``code`` is its wire code, so an error crosses the RPC boundary
 unchanged, and ``code_of`` reads that code from an error of any client
 that carries one. Codes without a class here arrive as a plain
@@ -100,6 +100,9 @@ FileAlreadyExists = _make("FileAlreadyExists", ErrorCode.FILE_ALREADY_EXISTS)
 InvalidArgument = _make("InvalidArgument", ErrorCode.INVALID_ARGUMENT)
 BlockNotFound = _make("BlockNotFound", ErrorCode.BLOCK_NOT_FOUND)
 NoAvailableWorker = _make("NoAvailableWorker", ErrorCode.NO_AVAILABLE_WORKER)
+CapacityExceeded = _make("CapacityExceeded", ErrorCode.CAPACITY_EXCEEDED)
+Unsupported = _make("Unsupported", ErrorCode.UNSUPPORTED)
+WorkerDraining = _make("WorkerDraining", ErrorCode.DRAINING)
 NotLeader = _make("NotLeader", ErrorCode.NOT_LEADER)
 RpcTimeout = _make("RpcTimeout", ErrorCode.TIMEOUT)
 AbnormalData = _make("AbnormalData", ErrorCode.ABNORMAL_DATA)
@@ -112,8 +115,9 @@ Uncompleted = _make("Uncompleted", ErrorCode.UNCOMPLETED)
 _CODE_TO_CLASS: dict[ErrorCode, type[CurvineError]] = {
     c.code: c for c in [
         FileNotFound, FileAlreadyExists, InvalidArgument, BlockNotFound,
-        NoAvailableWorker, NotLeader, RpcTimeout, AbnormalData,
-        PermissionDenied, ConnectError, Uncompleted]}
+        NoAvailableWorker, CapacityExceeded, Unsupported, WorkerDraining,
+        NotLeader, RpcTimeout, AbnormalData, PermissionDenied, ConnectError,
+        Uncompleted]}
 
 
 def code_of(e: BaseException) -> int | None:

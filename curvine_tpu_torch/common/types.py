@@ -1,19 +1,27 @@
-"""The wire types the port's cache client decodes and sends.
+"""The wire types the port's cache client and worker decode and send.
 
-Own copy of ``curvine_tpu/common/types.py:84-316``, field for field and
-with the same defaults: ``FileStatus`` (with its ``StoragePolicy``),
-``WorkerAddress``, ``ExtendedBlock``, ``BlockLocation``, ``LocatedBlock``,
-``FileBlocks`` and ``CommitBlock``, and the enums their fields hold. Each
-round-trips through a plain dict (``to_wire`` / ``from_wire``); a field
-missing from the dict keeps its default, so a peer that adds fields stays
-readable."""
+Own copy of ``curvine_tpu/common/types.py:16-316``, field for field and
+with the same defaults: ``now_ms``, ``FileStatus`` (with its
+``StoragePolicy``), ``WorkerAddress``, ``StorageInfo`` and ``WorkerInfo``
+(the worker's heartbeat body, as the JAX master's heartbeat handler
+decodes it), ``ExtendedBlock``, ``BlockLocation``, ``LocatedBlock``,
+``FileBlocks`` and ``CommitBlock``, and the enums their fields hold
+(``BlockState`` and ``WorkerState`` among them). Each round-trips through
+a plain dict (``to_wire`` / ``from_wire``); a field missing from the dict
+keeps its default, so a peer that adds fields stays readable. Left out:
+the job, task, mount, lock and master-info types."""
 
 from __future__ import annotations
 
 import dataclasses
 import enum
+import time
 from dataclasses import dataclass, field
 from typing import Any
+
+
+def now_ms() -> int:
+    return int(time.time() * 1000)
 
 
 class StorageType(enum.IntEnum):
@@ -44,6 +52,18 @@ class StorageState(enum.IntEnum):
     CV = 1
     UFS = 2
     BOTH = 3
+
+
+class BlockState(enum.IntEnum):
+    TEMP = 0        # being written
+    COMMITTED = 1
+
+
+class WorkerState(enum.IntEnum):
+    LIVE = 0
+    LOST = 1
+    DECOMMISSIONING = 2
+    DECOMMISSIONED = 3
 
 
 def _to_wire(v: Any) -> Any:
@@ -135,6 +155,40 @@ class WorkerAddress(Wire):
     ip_addr: str = ""
     rpc_port: int = 0
     web_port: int = 0
+
+
+@dataclass
+class StorageInfo(Wire):
+    """Capacity of one worker dir (or one device of the tier-0)."""
+
+    storage_type: StorageType = StorageType.MEM
+    dir_id: str = ""
+    capacity: int = 0
+    available: int = 0
+    block_num: int = 0
+    health: str = "healthy"
+
+    _nested = {"storage_type": StorageType}
+
+
+@dataclass
+class WorkerInfo(Wire):
+    address: WorkerAddress = field(default_factory=WorkerAddress)
+    state: WorkerState = WorkerState.LIVE
+    storages: list[StorageInfo] = field(default_factory=list)
+    last_heartbeat_ms: int = 0
+    ici_coords: list[int] = field(default_factory=list)
+
+    _nested = {"address": WorkerAddress, "state": WorkerState,
+               "storages": (StorageInfo,)}
+
+    @property
+    def capacity(self) -> int:
+        return sum(s.capacity for s in self.storages)
+
+    @property
+    def available(self) -> int:
+        return sum(s.available for s in self.storages)
 
 
 @dataclass(frozen=True)

@@ -19,6 +19,7 @@ and m = sum (w[i] ^ ((i mod 128) + TILE_WORDS * (i // TILE_WORDS))).
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import numpy as np
 import torch
@@ -32,6 +33,8 @@ LANE = 128
 TILE_WORDS = 64 * 8 * LANE          # 65,536 words: one TPU grid step
 _MASK = 0xFFFFFFFF
 _HOST_CHUNK_TILES = 16              # 4 MiB of words per numpy pass
+# the launch count is bumped from the worker's pin threads and the caller's
+_launch_lock = threading.Lock()
 
 
 def _combine(s: int, m: int) -> int:
@@ -99,7 +102,14 @@ def launch(t: torch.Tensor, out: torch.Tensor) -> None:
     if rc != 0:
         raise RuntimeError(f"block_checksum kernel launch failed: CUDA "
                            f"error {rc}")
-    block_checksum.launches += 1
+    _count_launch()
+
+
+def _count_launch() -> None:
+    """Add one to ``block_checksum.launches``, under a lock: launches come
+    from more than one thread (a worker's promotions run on threads)."""
+    with _launch_lock:
+        block_checksum.launches += 1
 
 
 block_checksum.launches = 0

@@ -1,4 +1,4 @@
-"""Wire framing, client side.
+"""Wire framing.
 
 Own copy of ``curvine_tpu/rpc/frame.py:1-231``: the frame
 ``[u32 len][fixed][header][data]`` with the fixed block ``u8 version |
@@ -6,10 +6,10 @@ u16 code | u64 req_id | u8 status | u8 flags | u32 header_len``, the
 header a msgpack map (through the port's ``wirepack``) and the data raw
 bytes, never copied into the header. ``Message.check`` is the decoding
 side of ``error_for``: it raises the error a response carries, with its
-backoff and leader hints. Left out: the server's ``response_for`` and
-``error_for``, the coalesced writer's ``encode_into`` and the deadline
-and trace context a server reads from a request (the port sends
-neither; the server accepts their absence)."""
+backoff and leader hints; ``response_for`` and ``error_for`` (:156-179)
+build a server's replies. Left out: the coalesced writer's
+``encode_into`` and the deadline and trace context a server reads from
+a request (the port sends neither, and its server ignores them)."""
 
 from __future__ import annotations
 
@@ -88,6 +88,34 @@ class Message:
         if len(self.data):
             out.append(self.data)
         return out
+
+
+def response_for(req: Message, header: dict | None = None,
+                 data: bytes | memoryview = b"",
+                 flags: int = Flags.RESPONSE) -> Message:
+    return Message(code=req.code, req_id=req.req_id, status=STATUS_OK,
+                   flags=flags, header=header or {}, data=data)
+
+
+def error_for(req: Message, e: Exception) -> Message:
+    """The error reply to ``req``: a ``CurvineError``'s code and hints, any
+    other exception as an IO error naming its type."""
+    if isinstance(e, CurvineError):
+        code, msg = int(e.code), str(e)
+    else:
+        code, msg = int(ErrorCode.IO), f"{type(e).__name__}: {e}"
+    header = {"error_code": code, "error": msg}
+    ra = getattr(e, "retry_after_ms", None)
+    if ra is not None:
+        header["retry_after_ms"] = int(ra)
+    hint = getattr(e, "leader_hint", None)
+    if hint:
+        header["leader_hint"] = str(hint)
+    members = getattr(e, "members", None)
+    if members:
+        header["members"] = list(members)
+    return Message(code=req.code, req_id=req.req_id, status=STATUS_ERROR,
+                   flags=Flags.RESPONSE | Flags.EOF, header=header)
 
 
 def parse_envelope(prefix) -> tuple[int, int, int, int, int, int]:

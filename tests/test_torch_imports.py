@@ -45,8 +45,13 @@ required = {"curvine_tpu_torch.gpu.attention", "curvine_tpu_torch.gpu.flash",
             "curvine_tpu_torch.client.fs_client",
             "curvine_tpu_torch.client.reader",
             "curvine_tpu_torch.client.writer",
-            "curvine_tpu_torch.client.unified"}
-sys.exit(1 if bad or mapped or len(names) < 38 or required - set(names)
+            "curvine_tpu_torch.client.unified",
+            "curvine_tpu_torch.common.executor",
+            "curvine_tpu_torch.rpc.server",
+            "curvine_tpu_torch.worker.storage",
+            "curvine_tpu_torch.worker.server",
+            "curvine_tpu_torch.worker.__main__"}
+sys.exit(1 if bad or mapped or len(names) < 43 or required - set(names)
          else 0)
 """
 

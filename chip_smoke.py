@@ -23,9 +23,10 @@ Phases, each raising on a fault (the exit code is then non-zero):
 4. feed: 8 int32 token shards of 64 MiB, files under a POSIX directory,
    through ``PosixTrainFeed`` at batch 32 x seq 8192, depth 2, over the
    whole epoch; every device batch must equal the host tokens;
-4b. client: a cache of the JAX package's master, started alone as its
-   own process (``scripts/card_cluster.py --workers 0``, the port's codec
-   in place of ``msgpack``), and the port's own worker
+4b. client: a cache of the port's master, started as its own process
+   (``python -m curvine_tpu_torch.master``: a journal under the data
+   directory, this process's user as its superuser; it must load no
+   module of JAX or of the JAX package), and the port's own worker
    (``curvine_tpu_torch.worker.server.WorkerServer``, in this process on a
    thread with its own event loop: a mem tier on the same tmpfs, a 4 GiB
    device tier-0, 64 MiB blocks), which must be the master's only live
@@ -107,7 +108,15 @@ Phases, each raising on a fault (the exit code is then non-zero):
    and the PQ search of 64 queries with K2 against the same search with
    its ADC stage taken by the plain version (ids and scores equal); last,
    a small table compacted, its old row group deleted through the
-   client's ``meta.delete``.
+   client's ``meta.delete``;
+8. master: the port's master's count and p50 of each RPC code, then the
+   master stopped and started again on its journal (its recovery timed);
+   every file the run left (the train shards, the checkpoint's 99 tensors
+   and manifest, the worker phase's files, the vector table) listed again
+   with the same length and blocks, each block located once the port's
+   worker has sent the full report the restarted master asks for; the
+   master lists that worker alone; one checkpoint tensor of several
+   blocks read back through the port's client bit for bit.
 
 The kernel launch counts are set to 0 just before phase 3 and read just
 after phase 4 (K1), again just before phase 4c's promote cycles and read
@@ -118,8 +127,9 @@ kernel), and just before phase 7's ``query_many`` and read just after it
 (K2, which must equal the ADC stages the search issued). The kernels
 line gives K1's two counts summed (each held to its pins, the refused
 device copies included) and phase 6's K3 counts. The port's worker and
-the cluster are stopped, and the data directory removed, however the
-run ends. Prints each phase's numbers, the card's name and power limit,
+master are stopped, and the data directory removed, however the run
+ends. No process of the run loads a module of JAX or of the JAX
+package. Prints each phase's numbers, the card's name and power limit,
 one JSON line of kernels, and last the line
 ``{"ok": true, "device": {...}}``. Exits non-zero, and prints no result,
 where no CUDA device is visible or the port is not importable."""
@@ -179,7 +189,7 @@ CKPT_PATH, CKPT_BYTES = "/ckpt/flagship", 2 * GiB
 # block being written, which the worker reserves at its full size)
 CLUSTER_TIER_BYTES = SHARDS * SHARD_BYTES + CKPT_BYTES \
     + VEC_ROWS * VEC_DIM * 4 + GiB
-CLUSTER_START_S = 300
+MASTER_START_S = 60
 # the worker phase: a hot set and as many cold files of one 64 MiB block,
 # and one more whose file is corrupted before its pin
 WORKER_HOT = WORKER_COLD = 16
@@ -572,37 +582,66 @@ def phase_feed(rng: np.random.Generator, dev: torch.device, root: str
 
 # ------------------------------------------------------------ the cluster
 
-def start_cluster(root: str):
-    """``scripts/card_cluster.py --workers 0`` in its own process: the JAX
-    package's master alone, its control plane on the port's codec
-    (``rpc/wirepack.py`` standing in for ``msgpack``); the port's worker
-    (``PortWorker``) registers with it. Returns the process and its JSON
-    line (master address, codec, native helpers); raises when the line
-    does not come within CLUSTER_START_S."""
+def master_conf(root: str, port: int = 0) -> str:
+    """The cluster's TOML file for the port's master: the loopback
+    ``port`` (0: the master binds a free one and prints it; a restart is
+    given that one, so the worker and the client find it again), its
+    journal under ``root``, the JAX cluster's lost timeout and heartbeat
+    check, and this process's user as the superuser (the port's client
+    names the OS user)."""
+    from curvine_tpu_torch.client.fs_client import _os_user
+    path = os.path.join(root, "cluster.toml")
+    with open(path, "w") as f:
+        f.write(f"""[master]
+hostname = "127.0.0.1"
+rpc_port = {port}
+journal_dir = "{os.path.join(root, 'cluster', 'journal')}"
+worker_lost_timeout_ms = 30000
+heartbeat_check_ms = 200
+superuser = "{_os_user()}"
+""")
+    return path
+
+
+def start_master(root: str, conf: str, n: int = 0):
+    """``python -m curvine_tpu_torch.master --conf conf`` in its own
+    process, its counts written to ``root/master<n>.json`` when it stops.
+    Returns the process and its JSON line (address, pid, ``jax_free``,
+    ``recover_s``) with ``start_s``, the seconds from the launch to the
+    line; raises when the line does not come within MASTER_START_S or
+    the master loaded a module of JAX or of the JAX package."""
     import select
-    err = open(os.path.join(root, "cluster.err"), "wb")
+    err = open(os.path.join(root, f"master{n}.err"), "wb")
+    t = time.perf_counter()
     proc = subprocess.Popen(
-        [sys.executable, os.path.join(HERE, "scripts", "card_cluster.py"),
-         "--base-dir", os.path.join(root, "cluster"), "--codec", "port",
-         "--workers", "0"],
+        [sys.executable, "-m", "curvine_tpu_torch.master", "--conf", conf,
+         "--metrics-out", os.path.join(root, f"master{n}.json")],
         cwd=HERE, stdout=subprocess.PIPE, stderr=err)
     err.close()
-    ready, _, _ = select.select([proc.stdout], [], [], CLUSTER_START_S)
+    ready, _, _ = select.select([proc.stdout], [], [], MASTER_START_S)
     line = proc.stdout.readline() if ready else b""
     if not line:
-        stop_cluster(proc)
-        with open(os.path.join(root, "cluster.err"), "rb") as f:
+        stop_master(proc)
+        with open(os.path.join(root, f"master{n}.err"), "rb") as f:
             tail = f.read()[-4000:].decode(errors="replace")
-        raise RuntimeError(f"the cluster did not start (exit "
+        raise RuntimeError(f"the port's master did not start (exit "
                            f"{proc.returncode}):\n{tail}")
     info = json.loads(line)
-    log(f"client: master pid {info['pid']} serves at {info['master']}, "
-        f"codec {info['codec']}, the package's C++ helpers "
-        f"{'loaded' if info['native'] else 'missing'}")
+    info["start_s"] = time.perf_counter() - t
+    log(f"master: the port's master (pid {info['pid']}) serves at "
+        f"{info['addr']}, {info['start_s']:.3f}s after its launch "
+        f"(construction to serving, journal replay and bind, "
+        f"{info['recover_s']:.3f}s of it); modules of "
+        f"JAX or the JAX package loaded there: "
+        f"{'none' if info['jax_free'] else 'SOME'}")
+    if info["jax_free"] is not True:
+        stop_master(proc)
+        raise AssertionError("the port's master loaded a module of JAX or "
+                             "of the JAX package")
     return proc, info
 
 
-def stop_cluster(proc) -> None:
+def stop_master(proc) -> None:
     if proc.poll() is None:
         proc.terminate()
         try:
@@ -1644,7 +1683,7 @@ def _int_view(t: torch.Tensor) -> torch.Tensor:
 
 
 def phase_ckpt(dev: torch.device, master: str, seed: int, params: dict,
-               link_gibs: float) -> dict:
+               link_gibs: float) -> tuple[dict, tuple[str, np.ndarray]]:
     """The flagship's parameters as the train phase left them, saved
     through the port's client into the cluster (every byte by short
     circuit: the worker is on this host) and loaded back onto the card
@@ -1652,7 +1691,9 @@ def phase_ckpt(dev: torch.device, master: str, seed: int, params: dict,
     with it off (READ_BLOCK into the caller's buffer, the path of a host
     without a worker). Each load bit-equal to the saved tensors on the
     card; one forward loss of a train batch from the loaded parameters
-    equal to the saved ones' (K3's forward, counted here)."""
+    equal to the saved ones' (K3's forward, counted here). Returns the
+    numbers, and the path and host bytes of the first saved tensor that
+    spans more than one block (the master phase reads it back)."""
     from curvine_tpu_torch.gpu import broadcast, flash, ingest, model as tm
     cfg = _flagship()
     saved = tm.leaves(params)
@@ -1794,7 +1835,11 @@ def phase_ckpt(dev: torch.device, master: str, seed: int, params: dict,
                     "flash_bwd_dkv": 0, "flash_bwd_dq": 0}:
         raise AssertionError(f"ckpt: K3 launches {launches} for two "
                              f"forward losses of {cfg.n_layers} layers")
-    return res
+    i = next(i for i, t in enumerate(saved) if t.nbytes > BLOCK)
+    probe = (f"{CKPT_PATH}/t{i:05d}.bin",
+             saved[i].detach().cpu().contiguous().reshape(-1)
+             .view(torch.uint8).numpy())
+    return res, probe
 
 
 # ------------------------------------------------------------------ vector
@@ -2126,6 +2171,121 @@ def phase_vector(dev: torch.device, master: str, seed: int) -> dict:
     return res
 
 
+# ------------------------------------------------------------------ master
+
+async def namespace(c, path: str = "/") -> dict:
+    """Every file under ``path``: its length, whether it is complete, its
+    blocks (id, length) and whether each block has a live location."""
+    out = {}
+    for st in await c.meta.list_status(path):
+        if st.is_dir:
+            out.update(await namespace(c, st.path))
+            continue
+        fb = await c.meta.get_block_locations(st.path)
+        out[st.path] = {
+            "len": st.len, "complete": st.is_complete,
+            "blocks": [[lb.block.id, lb.block.len] for lb in fb.block_locs],
+            "located": all(lb.locs for lb in fb.block_locs)}
+    return out
+
+
+def journal_files(conf: str) -> dict:
+    import tomllib
+    with open(conf, "rb") as f:
+        jdir = tomllib.load(f)["master"]["journal_dir"]
+    names = os.listdir(jdir)
+    size = {n: os.path.getsize(os.path.join(jdir, n)) for n in names}
+    return {"segments": sum(n.startswith("edits-") for n in names),
+            "segment_bytes": sum(b for n, b in size.items()
+                                 if n.startswith("edits-")),
+            "snapshots": sum(n.startswith("snapshot-") for n in names),
+            "snapshot_bytes": sum(b for n, b in size.items()
+                                  if n.startswith("snapshot-"))}
+
+
+def phase_master(root: str, conf: str, cluster: dict, pw: PortWorker,
+                 probe: tuple[str, np.ndarray]) -> dict:
+    """The port's master as the run left it: its per-code RPC counts and
+    p50s, then a stop and a restart on the same journal (recovery timed),
+    every file of the run listed again with the same length and blocks
+    once the port's worker has sent the report the restarted master asks
+    for (``report_now``), and one checkpoint tensor read back bit for bit
+    through the port's client. ``cluster["proc"]`` is the master's
+    process, replaced by the restarted one's."""
+    master = cluster["info"]["addr"]
+
+    async def walk() -> dict:
+        async with port_client(master) as c:
+            return await namespace(c)
+
+    before = asyncio.run(walk())
+    if not before or not all(f["located"] and f["complete"]
+                             for f in before.values()):
+        raise AssertionError("master: the run left no file, or a file "
+                             "incomplete or with a block nowhere")
+    t = time.perf_counter()
+    stop_master(cluster["proc"])
+    stop_s = time.perf_counter() - t
+    with open(os.path.join(root, "master0.json")) as f:
+        stats = json.load(f)
+    files = journal_files(conf)
+    cluster["proc"], info = start_master(root, conf, 1)
+    t = time.perf_counter()
+    while True:
+        after = asyncio.run(walk())
+        located = all(f["located"] for f in after.values())
+        if located or time.perf_counter() - t > 120:
+            break
+        time.sleep(0.1)
+    rejoin_s = time.perf_counter() - t
+    strip = {p: {k: v for k, v in f.items() if k != "located"}
+             for p, f in before.items()}
+    if {p: {k: v for k, v in f.items() if k != "located"}
+            for p, f in after.items()} != strip or not located:
+        diff = sorted(p for p in set(before) | set(after)
+                      if before.get(p) != after.get(p))
+        raise AssertionError(f"master: after the restart {len(after)} files "
+                             f"of {len(before)}, {len(diff)} differ or lack a "
+                             f"location: {diff[:5]}")
+    await_port_worker(master, pw)
+
+    async def read_probe():
+        async with port_client(master) as c:
+            t = time.perf_counter()
+            raw = await c.read_all(probe[0])
+            return raw, time.perf_counter() - t
+
+    raw, probe_s = asyncio.run(read_probe())
+    if not np.array_equal(np.frombuffer(raw, dtype=np.uint8), probe[1]):
+        raise AssertionError(f"master: {probe[0]} read after the restart "
+                             f"differs from the saved tensor")
+    n_blocks = sum(len(f["blocks"]) for f in before.values())
+    res = {"start_s": cluster["info"]["start_s"],
+           "start_recover_s": cluster["info"]["recover_s"],
+           "stop_s": stop_s, "restart_s": info["start_s"],
+           "recover_s": info["recover_s"], "rejoin_s": rejoin_s,
+           "journal_seq": stats["journal_seq"], "groups": stats["groups"],
+           "entries": stats["entries"], **files,
+           "files": len(before), "blocks": n_blocks,
+           "probe": probe[0], "probe_bytes": int(probe[1].nbytes),
+           "probe_read_s": probe_s, "rpc": stats["rpc"],
+           "counters": stats["counters"], "gauges": stats["gauges"]}
+    log(f"master: before its stop the port's master served "
+        + ", ".join(f"{k} {v['count']} (p50 {v['p50_ms']:.3f} ms)"
+                    for k, v in stats["rpc"].items()))
+    log(f"master: journal of {res['journal_seq']} entries "
+        f"({res['entries']} in {res['groups']} group commits), "
+        f"{res['segments']} segments of {res['segment_bytes']:,} bytes and "
+        f"{res['snapshots']} snapshots of {res['snapshot_bytes']:,} bytes; "
+        f"stopped in {stop_s:.3f}s, back in {res['restart_s']:.3f}s "
+        f"(construction to serving {res['recover_s']:.3f}s); every one of "
+        f"{len(before)} files ({n_blocks} blocks) listed again with the same "
+        f"length and blocks, each located {rejoin_s:.3f}s after the restart "
+        f"(the worker's report); {probe[0]} ({res['probe_bytes']:,} bytes) "
+        f"read back bit for bit in {probe_s:.3f}s")
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2160,27 +2320,32 @@ def main() -> int:
         results["main"] = phase_main(rng, dev, root)
         results["feed"] = phase_feed(rng, dev, root)
         launches = cuda_ops.block_checksum.launches
-        cluster, info = start_cluster(root)
-        results["cluster"] = info
-        pw = PortWorker(info["master"], root, WORKER_TIER_BYTES, dev)
-        await_port_worker(info["master"], pw)
+        conf = master_conf(root)
+        cluster = {"proc": None}
+        cluster["proc"], info = start_master(root, conf)
+        cluster["info"] = results["cluster"] = info
+        master_conf(root, int(info["addr"].rsplit(":", 1)[1]))
+        pw = PortWorker(info["addr"], root, WORKER_TIER_BYTES, dev)
+        await_port_worker(info["addr"], pw)
         log(f"client: the port's worker {pw.worker.worker_id} serves at "
             f"{pw.worker.addr}, the master's only live worker")
-        results["client"] = phase_client(rng, dev, info["master"],
+        results["client"] = phase_client(rng, dev, info["addr"],
                                          results["feed"])
-        results["worker"] = phase_worker(rng, dev, info["master"], pw,
+        results["worker"] = phase_worker(rng, dev, info["addr"], pw,
                                          results["main"]["promote_gibs"])
         results["flash"] = phase_flash(dev, args.seed)
         results["train"], params = phase_train(
-            dev, info["master"], args.seed, results["flash"])
+            dev, info["addr"], args.seed, results["flash"])
         log(f"train: mfu {results['train']['mfu']:.4f} on {card}")
-        results["ckpt"] = phase_ckpt(dev, info["master"], args.seed, params,
-                                     results["main"]["link_gibs"])
+        results["ckpt"], probe = phase_ckpt(dev, info["addr"], args.seed,
+                                            params,
+                                            results["main"]["link_gibs"])
         del params
         torch.cuda.empty_cache()
-        results["vector"] = phase_vector(dev, info["master"], args.seed)
+        results["vector"] = phase_vector(dev, info["addr"], args.seed)
+        results["master"] = phase_master(root, conf, cluster, pw, probe)
         # every phase's cluster traffic went through the port's worker
-        await_port_worker(info["master"], pw)
+        await_port_worker(info["addr"], pw)
         m = pw.worker.metrics
         results["port_worker"] = {
             "worker_id": pw.worker.worker_id, "counters": dict(m.counters),
@@ -2196,9 +2361,16 @@ def main() -> int:
     finally:
         if pw is not None:
             pw.stop()
-        if cluster is not None:
-            stop_cluster(cluster)
+        if cluster is not None and cluster["proc"] is not None:
+            stop_master(cluster["proc"])
         shutil.rmtree(root, ignore_errors=True)
+    from curvine_tpu_torch.master.__main__ import jax_free
+    if not jax_free():
+        raise AssertionError("this process loaded a module of JAX or of the "
+                             "JAX package")
+    log("main: no process of this run (this one, where the port's worker "
+        "runs, and the port's master, twice) loaded a module of JAX or of "
+        "the JAX package")
     if launches != results["main"]["pins"]:
         raise AssertionError(f"{launches} kernel launches for "
                              f"{results['main']['pins']} pins")

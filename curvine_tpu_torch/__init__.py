@@ -19,4 +19,7 @@ which the train step of ``gpu.model`` runs on a CUDA device.
 ``rpc`` and ``client`` are the port's own cache client (its wire codec
 ``rpc.wirepack`` stands in for ``msgpack``), which ``gpu.loader``'s
 ``GpuTrainFeed`` reads shards through, ``gpu.broadcast`` saves and loads
-checkpoints through, and ``vector``'s tables live on."""
+checkpoints through, and ``vector``'s tables live on; ``worker`` and
+``master`` are the port's own cache worker and master (the master's
+journal in ``common/journal.py``), so a cluster runs without the JAX
+package."""

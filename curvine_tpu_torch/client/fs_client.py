@@ -3,16 +3,17 @@
 Own copy of ``curvine_tpu/client/fs_client.py``: ``FsClient.call`` with
 its retry and NOT_LEADER redirect (:121-170) and the namespace and block
 calls the cache client's read path and the loader's writes need (:211-410,
-:584): ``mkdir``, ``create_file``, ``file_status``, ``list_status``,
-``delete``, ``meta_batch``, ``add_block``, ``complete_file``,
-``get_block_locations`` and ``prefetch_window``. Every mutation carries
+:584): ``mkdir``, ``create_file``, ``exists``, ``file_status``,
+``list_status``, ``rename``, ``delete``, ``meta_batch``, ``add_block``,
+``complete_file``, ``get_block_locations``, ``master_info`` and
+``prefetch_window``. Every mutation carries
 (client_id, call_id) for the master's retry cache, and every request the
 OS user and its groups for the master's ACL checks.
 
 Left out (ROADMAP A3): the metadata lease cache and its invalidation
 pushes, the native fast metadata port (every call goes to the master's
 RPC port, which answers them all), tracing, and the other calls (mounts,
-jobs, locks, raft membership, renames, attributes)."""
+jobs, locks, raft membership, attributes)."""
 
 from __future__ import annotations
 
@@ -23,7 +24,8 @@ import uuid
 from curvine_tpu_torch.common import errors as err
 from curvine_tpu_torch.common.conf import REPLICAS, ClusterConf
 from curvine_tpu_torch.common.types import (CommitBlock, FileBlocks,
-                                            FileStatus, LocatedBlock)
+                                            FileStatus, LocatedBlock,
+                                            MasterInfo)
 from curvine_tpu_torch.rpc.client import (Connection, ConnectionPool,
                                           RetryPolicy)
 from curvine_tpu_torch.rpc.codes import RpcCode
@@ -141,6 +143,9 @@ class FsClient:
             mutate=True)
         return FileStatus.from_wire(rep["status"])
 
+    async def exists(self, path: str) -> bool:
+        return (await self.call(RpcCode.EXISTS, {"path": path}))["exists"]
+
     async def file_status(self, path: str) -> FileStatus:
         rep = await self.call(RpcCode.FILE_STATUS, {"path": path})
         return FileStatus.from_wire(rep["status"])
@@ -148,6 +153,15 @@ class FsClient:
     async def list_status(self, path: str) -> list[FileStatus]:
         rep = await self.call(RpcCode.LIST_STATUS, {"path": path})
         return [FileStatus.from_wire(s) for s in rep["statuses"]]
+
+    async def rename(self, src: str, dst: str) -> bool:
+        rep = await self.call(RpcCode.RENAME, {"src": src, "dst": dst},
+                              mutate=True)
+        return rep["result"]
+
+    async def master_info(self) -> MasterInfo:
+        rep = await self.call(RpcCode.GET_MASTER_INFO, {})
+        return MasterInfo.from_wire(rep["info"])
 
     async def delete(self, path: str, recursive: bool = False) -> None:
         await self.call(RpcCode.DELETE,

@@ -1,12 +1,29 @@
-"""Client and worker configuration.
+"""Master, client and worker configuration.
 
-Own copy of the fields of ``curvine_tpu/common/conf.py:127-306``
-(``TierConf``, ``WorkerConf``, ``ClientConf``) that the port's cache
-client and worker read, with the same defaults, inside a ``ClusterConf``
-that holds them; ``ClusterConf.load`` reads the ``[client]`` and
-``[worker]`` tables of the cluster's TOML file, ``[[worker.tiers]]``
-included (other tables and unknown keys are ignored, so the cluster's
-own file loads as is).
+Own copy of the fields of ``curvine_tpu/common/conf.py:23-306``
+(``MasterConf``, ``TierConf``, ``WorkerConf``, ``ClientConf``) that the
+port's master, cache client and worker read, with the same names and
+defaults, inside a ``ClusterConf`` that holds them; ``ClusterConf.load``
+reads the ``[master]``, ``[client]`` and ``[worker]`` tables of the
+cluster's TOML file, ``[[worker.tiers]]`` included (other tables and
+unknown keys are ignored, so the cluster's own file loads as is).
+
+The master keeps its namespace in memory, made durable by the journal
+and its snapshots: the reference's ``meta_store = "mem"``. Its default
+there is ``"kv"``; here a file that asks for ``"kv"`` is refused, since
+the log-structured KV store is not ported yet (ROADMAP A3d). The
+master's fields that name a feature the port's master does not have are
+constants (``MASTER_FIXED``), at the value it implements: raft and its
+membership knobs, the sharded namespace, the native fast metadata port
+(the reference's default is on), ACLs beyond the superuser gate
+(``acl_enabled`` stays on), the UFS backup, the TTL scanner, the read
+leases, the audit log, the dir watchdog, replication pulls and the ICI
+mesh shape; and ``block_placement_policy`` takes every policy but
+``"ici"``. A file that sets one of them otherwise is refused by name.
+The KV store's ``meta_dir``, ``meta_engine`` and ``meta_cache_inodes``,
+``fast_port``, ``web_port`` and ``worker_heartbeat_ms`` are ignored, as
+the reference's master ignores them with the mem store, the fast port
+off and no web server.
 
 The reference's ``user``, ``groups``, ``replicas``, ``storage_type``,
 ``write_chunk_size``, ``conn_retry_max`` and ``conn_retry_base_ms`` are
@@ -20,7 +37,7 @@ the shared-memory reads and their warm cache, the disk-fault thresholds,
 the device-path transfer (``ici_transfer``, off until ROADMAP A10; the
 reference's default is on) and the QoS tenant specs. A file that sets
 one of them to anything but the value the port implements is refused.
-Left out: the master, fuse, gateway, obs, rpc and ec sections, the
+Left out: the fuse, gateway, obs, rpc and ec sections, the
 worker's scrub, task and web-server fields, the client's breaker,
 deadline, meta-cache, tracing, tenant, replay-buffer, read-ahead and
 prefetch-window fields, and the ``CURVINE_*`` environment overrides."""
@@ -47,6 +64,20 @@ FIXED = {"user": "", "groups": [], "replicas": REPLICAS,
          "conn_retry_base_ms": CONN_RETRY_BASE_MS}
 
 
+# the master's branches the port does not have, at the value it implements
+MASTER_FIXED = {
+    "fast_meta": False, "meta_lease_ms": 3_000, "meta_lease_dirs": 4_096,
+    "acl_enabled": True, "audit_log": False, "watchdog_stall_ms": 10_000,
+    "ufs_backup_uri": "", "ufs_backup_interval_s": 300, "meta_shards": 1,
+    "shard_backend": "process", "shard_dir_cache": 65_536,
+    "raft_peers": [], "raft_node_id": 1, "raft_promote_lag": 64,
+    "raft_snapshot_chunk_mb": 4, "raft_transfer_timeout_ms": 5_000,
+    "raft_learner": False, "replication_pull_budget_ms": 20_000,
+    "ttl_check_ms": 1_000, "ttl_bucket_ms": 1_000, "min_replication": 1,
+    "ici_mesh_shape": []}
+PLACEMENTS = ("local", "random", "robin", "weighted", "load")
+
+
 # the worker's branches the port does not have, at the value it implements
 WORKER_FIXED = {"ici_transfer": False, "shm_reads": False,
                 "shm_warm_cap_mb": 0, "direct_io": False,
@@ -56,6 +87,27 @@ WORKER_FIXED = {"ici_transfer": False, "shm_reads": False,
                 "disk_evac_batch": 256}
 TIER_FIXED = {"layout": "file", "queue_depth": 0}
 QOS_FIXED = {"tenants": []}
+
+
+@dataclass
+class MasterConf:
+    hostname: str = "127.0.0.1"
+    rpc_port: int = 8995
+    journal_dir: str = "data/journal"
+    journal_fsync: bool = False
+    # group commit: an idle mutation commits at once; under load the
+    # group lingers up to journal_group_commit_ms, at most
+    # journal_group_max entries
+    journal_group_commit_ms: float = 1.0
+    journal_group_max: int = 1024
+    snapshot_interval_entries: int = 100_000
+    worker_lost_timeout_ms: int = 30_000
+    heartbeat_check_ms: int = 1_000
+    block_placement_policy: str = "local"   # local|random|robin|weighted|load
+    retry_cache_size: int = 100_000
+    retry_cache_ttl_ms: int = 600_000
+    superuser: str = "root"
+    supergroup: str = "supergroup"
 
 
 @dataclass
@@ -124,16 +176,33 @@ def _apply(obj, table: dict) -> None:
 
 @dataclass
 class ClusterConf:
+    master: MasterConf = field(default_factory=MasterConf)
     client: ClientConf = field(default_factory=ClientConf)
     worker: WorkerConf = field(default_factory=WorkerConf)
 
     @staticmethod
     def load(path: str) -> "ClusterConf":
-        """The ``[client]`` and ``[worker]`` tables of the TOML file at
-        ``path``."""
+        """The ``[master]``, ``[client]`` and ``[worker]`` tables of the
+        TOML file at ``path``."""
         with open(path, "rb") as f:
             data = tomllib.load(f)
         conf = ClusterConf()
+        master = data.get("master") or {}
+        item = "master (ROADMAP A3d)"
+        _check(path, "master", master, MASTER_FIXED, item)
+        if master.get("meta_store", "mem") != "mem":
+            raise ValueError(
+                f"{path}: master.meta_store = {master['meta_store']!r}: the "
+                f"port's master keeps its namespace in memory (\"mem\", "
+                f"journal and snapshots); the KV metadata store is not "
+                f"ported yet (ROADMAP A3d)")
+        policy = master.get("block_placement_policy", "local")
+        if policy not in PLACEMENTS:
+            raise ValueError(
+                f"{path}: master.block_placement_policy = {policy!r}: the "
+                f"port's {item} takes only {list(PLACEMENTS)}; \"ici\" "
+                f"waits for the mesh (ROADMAP A8, A10)")
+        _apply(conf.master, master)
         client = data.get("client") or {}
         _check(path, "client", client, FIXED, "client (ROADMAP A3b)")
         _apply(conf.client, client)

@@ -2,7 +2,8 @@
 
 Own copy of ``curvine_tpu/common/errors.py``: ``ErrorCode`` with the same
 numbers, its retryable set, ``CurvineError.from_wire`` and the classes the
-port's data path, vector path, cache client and worker raise or receive. A
+port's data path, vector path, cache client, worker and master raise or
+receive. A
 class's ``code`` is its wire code, so an error crosses the RPC boundary
 unchanged, and ``code_of`` reads that code from an error of any client
 that carries one. Codes without a class here arrive as a plain
@@ -97,7 +98,12 @@ def _make(name: str, code: ErrorCode) -> type[CurvineError]:
 
 FileNotFound = _make("FileNotFound", ErrorCode.FILE_NOT_FOUND)
 FileAlreadyExists = _make("FileAlreadyExists", ErrorCode.FILE_ALREADY_EXISTS)
+DirNotEmpty = _make("DirNotEmpty", ErrorCode.DIR_NOT_EMPTY)
+NotADirectory = _make("NotADirectory", ErrorCode.NOT_A_DIRECTORY)
+IsADirectory = _make("IsADirectory", ErrorCode.IS_A_DIRECTORY)
+InvalidPath = _make("InvalidPath", ErrorCode.INVALID_PATH)
 InvalidArgument = _make("InvalidArgument", ErrorCode.INVALID_ARGUMENT)
+LeaseConflict = _make("LeaseConflict", ErrorCode.LEASE_CONFLICT)
 BlockNotFound = _make("BlockNotFound", ErrorCode.BLOCK_NOT_FOUND)
 NoAvailableWorker = _make("NoAvailableWorker", ErrorCode.NO_AVAILABLE_WORKER)
 CapacityExceeded = _make("CapacityExceeded", ErrorCode.CAPACITY_EXCEEDED)
@@ -114,10 +120,11 @@ Uncompleted = _make("Uncompleted", ErrorCode.UNCOMPLETED)
 
 _CODE_TO_CLASS: dict[ErrorCode, type[CurvineError]] = {
     c.code: c for c in [
-        FileNotFound, FileAlreadyExists, InvalidArgument, BlockNotFound,
-        NoAvailableWorker, CapacityExceeded, Unsupported, WorkerDraining,
-        NotLeader, RpcTimeout, AbnormalData, PermissionDenied, ConnectError,
-        Uncompleted]}
+        FileNotFound, FileAlreadyExists, DirNotEmpty, NotADirectory,
+        IsADirectory, InvalidPath, InvalidArgument, LeaseConflict,
+        BlockNotFound, NoAvailableWorker, CapacityExceeded,
+        Unsupported, WorkerDraining, NotLeader, RpcTimeout, AbnormalData,
+        PermissionDenied, ConnectError, Uncompleted]}
 
 
 def code_of(e: BaseException) -> int | None:

@@ -1,15 +1,17 @@
-"""The wire types the port's cache client and worker decode and send.
+"""The wire types the port's cache client, worker and master decode and
+send.
 
-Own copy of ``curvine_tpu/common/types.py:16-316``, field for field and
+Own copy of ``curvine_tpu/common/types.py:16-331``, field for field and
 with the same defaults: ``now_ms``, ``FileStatus`` (with its
 ``StoragePolicy``), ``WorkerAddress``, ``StorageInfo`` and ``WorkerInfo``
 (the worker's heartbeat body, as the JAX master's heartbeat handler
 decodes it), ``ExtendedBlock``, ``BlockLocation``, ``LocatedBlock``,
-``FileBlocks`` and ``CommitBlock``, and the enums their fields hold
+``FileBlocks``, ``CommitBlock`` and ``MasterInfo`` (GET_MASTER_INFO's
+reply), and the enums their fields hold
 (``BlockState`` and ``WorkerState`` among them). Each round-trips through
 a plain dict (``to_wire`` / ``from_wire``); a field missing from the dict
 keeps its default, so a peer that adds fields stays readable. Left out:
-the job, task, mount, lock and master-info types."""
+the job, task, mount and lock types."""
 
 from __future__ import annotations
 
@@ -238,3 +240,21 @@ class CommitBlock(Wire):
     storage_type: StorageType = StorageType.MEM
 
     _nested = {"storage_type": StorageType}
+
+
+@dataclass
+class MasterInfo(Wire):
+    active_master: str = ""
+    # the native metadata read plane's address; the port's master serves
+    # none and leaves it empty
+    fast_addr: str = ""
+    journal_nodes: list[str] = field(default_factory=list)
+    inode_num: int = 0
+    block_num: int = 0
+    capacity: int = 0
+    available: int = 0
+    fs_used: int = 0
+    live_workers: list[WorkerInfo] = field(default_factory=list)
+    lost_workers: list[WorkerInfo] = field(default_factory=list)
+
+    _nested = {"live_workers": (WorkerInfo,), "lost_workers": (WorkerInfo,)}

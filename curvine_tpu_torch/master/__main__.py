@@ -1,0 +1,87 @@
+"""Run the port's cache master until SIGTERM or SIGINT.
+
+    python -m curvine_tpu_torch.master --conf FILE [--metrics-out FILE]
+
+The counterpart of ``curvine_tpu/cli/main.py:796-807`` (``cmd_master``),
+without the web server: the ``[master]`` table of the cluster's TOML
+file (``common/conf.py``) configures one ``MasterServer``, which
+recovers its namespace from the journal under ``journal_dir`` and then
+serves. Once it serves, prints one JSON line, ``{"addr": "host:port",
+"pid": N, "jax_free": true or false, "recover_s": s}``: ``jax_free``
+says that no module named ``jax*``, ``curvine_tpu`` or ``curvine_tpu.*``
+is loaded in this process, and ``recover_s`` is the
+seconds from the server's construction to serving (journal replay
+included). With ``--metrics-out``, once stopped it writes there what it
+counted (``stats``)."""
+
+from __future__ import annotations
+
+import argparse
+import asyncio
+import json
+import logging
+import os
+import signal
+import sys
+import time
+
+from curvine_tpu_torch.common.conf import ClusterConf
+from curvine_tpu_torch.master.server import MasterServer
+
+
+def jax_free() -> bool:
+    """No module named ``jax*`` (``jaxlib`` too), ``curvine_tpu`` or
+    ``curvine_tpu.*`` is loaded."""
+    return not any(k.startswith(("jax", "curvine_tpu."))
+                   or k == "curvine_tpu" for k in sys.modules)
+
+
+def stats(master: MasterServer) -> dict:
+    """The master's counters and gauges, each code's ``rpc.<name>``
+    histogram as its count and p50 and p99 in ms, the journal's last seq,
+    and the group commit's groups and entries."""
+    m = master.metrics
+    return {"rpc": {name[len("rpc."):]: {
+                "count": h.count, "p50_ms": 1e3 * h.quantile(0.5),
+                "p99_ms": 1e3 * h.quantile(0.99)}
+                for name, h in sorted(m.histograms.items())
+                if name.startswith("rpc.")},
+            "counters": dict(m.counters), "gauges": dict(m.gauges),
+            "journal_seq": master.fs.journal.seq,
+            "groups": master.fs.committer.groups,
+            "entries": master.fs.committer.entries}
+
+
+async def serve(conf: ClusterConf, metrics_out: str | None = None) -> None:
+    t = time.perf_counter()
+    master = MasterServer(conf)
+    stop = asyncio.Event()
+    loop = asyncio.get_running_loop()
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        loop.add_signal_handler(sig, stop.set)
+    await master.start()
+    try:
+        print(json.dumps({"addr": master.addr, "pid": os.getpid(),
+                          "jax_free": jax_free(),
+                          "recover_s": time.perf_counter() - t}), flush=True)
+        await stop.wait()
+    finally:
+        await master.stop()
+        if metrics_out:
+            with open(metrics_out, "w") as f:
+                json.dump(stats(master), f)
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--conf", required=True, help="the cluster's TOML file")
+    ap.add_argument("--metrics-out", default=None,
+                    help="write the master's counts here as JSON once it "
+                         "stops")
+    args = ap.parse_args()
+    logging.basicConfig(level=logging.INFO)
+    asyncio.run(serve(ClusterConf.load(args.conf), args.metrics_out))
+
+
+if __name__ == "__main__":
+    main()

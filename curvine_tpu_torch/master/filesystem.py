@@ -1,0 +1,602 @@
+"""MasterFilesystem: the namespace and the block management core.
+
+A carve of ``curvine_tpu/master/filesystem.py`` on the mem store. Every
+mutation is journaled before it is applied (``_log``, :166-214) and
+applied by an ``_apply_<op>`` (:374-382), so a restart reaches the same
+state by replaying the journal after the newest snapshot (``recover``,
+``checkpoint``, ``_snapshot_state`` and ``_load_snapshot``, :112-162,
+:274-372). The entries and snapshots are the reference's, field for
+field, and either package's master reopens the other's.
+
+Served: ``mkdir``, ``create_file``, ``exists``, ``file_status``,
+``list_status``, ``rename``, ``delete`` (with ``_free_blocks`` and the
+pending deletes the next heartbeat hands each worker), ``add_block``
+(with ``commit_blocks``, ``exclude_workers`` and ``abandon_block``),
+``complete_file`` and ``get_block_locations``; and the worker plane:
+``worker_heartbeat`` (``delete_blocks`` and ``report_now``; ``draining``
+never, as no worker is decommissioned: DECOMMISSION_WORKER is refused),
+``worker_block_report``, ``recover_stale_leases``, ``check_lost_workers``
+and ``master_info`` (:1206-1314).
+
+The port applies the journal ops ``mkdir``, ``create``, ``delete``,
+``rename``, ``alloc_block``, ``commit_blocks``, ``complete`` and the raft
+leader's ``noop``. Any other op (the reference's ``set_incomplete``,
+``set_attr``, ``symlink``, ``link``, ``resize``, ``free``, ``ec_*``,
+``tx_*``, ``mount_*``, ``job_*``, ``worker_deco``, ``raft_conf``), and a
+snapshot that holds jobs, EC stripes, decommissions, mounts or a raft
+config, stops recovery with ``UnportedJournalOp``, which names it:
+skipping it would drop state silently. Left out: the KV store, the raft
+hooks, EC stripes, the mount write guard, the two-phase transactions of
+the sharded namespace, and the audit log (ROADMAP A3d)."""
+
+from __future__ import annotations
+
+import logging
+
+from curvine_tpu_torch.common import errors as err
+from curvine_tpu_torch.common.journal import GroupCommitter, Journal
+from curvine_tpu_torch.common.types import (CommitBlock, ExtendedBlock,
+                                            FileBlocks, FileStatus, FileType,
+                                            LocatedBlock, MasterInfo,
+                                            StoragePolicy, StorageType,
+                                            WorkerInfo, WorkerState, now_ms)
+from curvine_tpu_torch.master.block_map import BlockMap
+from curvine_tpu_torch.master.inode import ROOT_ID, Inode, InodeTree
+from curvine_tpu_torch.master.placement import create_policy
+from curvine_tpu_torch.master.store import MemMetaStore
+from curvine_tpu_torch.master.worker_map import WorkerMap
+
+log = logging.getLogger(__name__)
+
+# the default storage policy in wire form (copied into each entry: journal
+# args never share mutable state)
+_DEFAULT_POLICY_WIRE = StoragePolicy().to_wire()
+# snapshot sections of the reference's features the port does not have
+_UNPORTED_SNAPSHOT_KEYS = ("jobs", "ec", "deco", "mounts", "raft_conf")
+
+
+class UnportedJournalOp(RuntimeError):
+    """A journal entry or snapshot section that the port's master does
+    not apply. Not a ``CurvineError``: recovery skips those (an op that
+    failed when it was first applied fails the same way on replay), and
+    must stop on this one."""
+
+
+class MasterFilesystem:
+    def __init__(self, journal: Journal | None = None,
+                 placement: str = "local", lost_timeout_ms: int = 30_000,
+                 snapshot_interval: int = 100_000):
+        self.store = MemMetaStore()
+        self.tree = InodeTree(self.store)
+        self.blocks = BlockMap(self.store)
+        self.workers = WorkerMap(lost_timeout_ms=lost_timeout_ms)
+        self.journal = journal
+        self.snapshot_interval = snapshot_interval
+        self._entries_since_snapshot = 0
+        self.policy = create_policy(placement)
+        # worker_id -> block ids to delete (handed out by its heartbeat)
+        self.pending_deletes: dict[int, set[int]] = {}
+        # inode ids of files open for writing; None until the first lease
+        # recovery after a start builds it by one scan
+        self.open_files: set[int] | None = None
+        # set by MasterServer: _log then journals unflushed and the RPC
+        # handler awaits committer.sync() before it replies
+        self.committer: GroupCommitter | None = None
+
+    # ==================== journal plumbing ====================
+
+    def recover(self) -> None:
+        if self.journal is None:
+            return
+        snap, entries = self.journal.recover()
+        if snap is not None:
+            self._load_snapshot(snap)
+        for _seq, op, args, _term in entries:
+            try:
+                self._apply(op, args)
+            except err.CurvineError as e:
+                log.warning("journal replay: %s(%s) -> %s", op, args, e)
+        if snap is not None or entries:
+            log.info("recovered namespace: %d inodes, %d blocks, seq=%d",
+                     self.tree.count(), self.blocks.count(), self.journal.seq)
+
+    def _log(self, op: str, args: dict):
+        """Journal, then apply: a failed append never leaves the state
+        ahead of the log. With a committer the append is unflushed and
+        the committer flushes the group; validate, journal and apply are
+        one synchronous stretch on the loop, so later ops see the
+        state at once."""
+        grouped = self.committer is not None and self.committer.accepting
+        seq = None
+        if self.journal is not None:
+            seq = self.journal.append(op, args, flush=not grouped)
+        try:
+            result = self._apply(op, args)
+        finally:
+            if grouped:
+                self.committer.note()
+        if seq is not None:
+            self._entries_since_snapshot += 1
+            if self._entries_since_snapshot >= self.snapshot_interval:
+                self.checkpoint()
+        return result
+
+    def flush_group(self) -> None:
+        """Commit any open journal group inline."""
+        if self.committer is not None:
+            self.committer.flush_sync()
+
+    def checkpoint(self) -> None:
+        if self.journal is None:
+            return
+        self.journal.write_snapshot(self._snapshot_state())
+        self._entries_since_snapshot = 0
+
+    def _snapshot_state(self) -> dict:
+        """The whole namespace, as the reference's mem-store snapshot."""
+        self.flush_group()
+        ch_map: dict[int, dict[str, int]] = {}
+        for pid, name, cid in self.store.iter_children_all():
+            ch_map.setdefault(pid, {})[name] = cid
+        inodes = []
+        for node in self.store.iter_inodes():
+            inodes.append({
+                "id": node.id, "name": node.name, "ft": int(node.file_type),
+                "pid": node.parent_id, "mtime": node.mtime, "atime": node.atime,
+                "owner": node.owner, "group": node.group, "mode": node.mode,
+                "xattr": node.x_attr, "sp": node.storage_policy.to_wire(),
+                "nlink": node.nlink, "len": node.len, "bs": node.block_size,
+                "rep": node.replicas, "blocks": node.blocks,
+                "done": node.is_complete, "target": node.target,
+                "dir": node.is_dir,
+                # explicit entries: a hard-linked inode has a second
+                # (parent, name) that (pid, name) cannot carry
+                "ch": ch_map.get(node.id, {}) if node.is_dir else None,
+            })
+        blocks = [(bid, length, iid, rep)
+                  for bid, (length, iid, rep) in self.store.iter_blocks()]
+        return {"next_id": self.store.get_counter("next_id", ROOT_ID + 1),
+                "next_block_id": self.store.get_counter("next_block_id", 1),
+                "inodes": inodes, "blocks": blocks,
+                "jobs": [], "ec": [], "deco": []}
+
+    def _load_snapshot(self, snap: dict) -> None:
+        held = [k for k in _UNPORTED_SNAPSHOT_KEYS if snap.get(k)]
+        if held:
+            raise UnportedJournalOp(
+                f"the snapshot holds {held}, which the port's master does "
+                f"not apply (ROADMAP A3d)")
+        self.store.clear()
+        self.open_files = None       # rebuilt lazily from the new state
+        have_entries = any(d.get("ch") is not None for d in snap["inodes"])
+        for d in snap["inodes"]:
+            ch = d.get("ch") if have_entries else None
+            node = Inode(
+                id=d["id"], name=d["name"], file_type=FileType(d["ft"]),
+                parent_id=d["pid"], mtime=d["mtime"], atime=d["atime"],
+                owner=d["owner"], group=d["group"], mode=d["mode"],
+                x_attr=d["xattr"] or {},
+                storage_policy=StoragePolicy.from_wire(d["sp"]),
+                nlink=d["nlink"], len=d["len"], block_size=d["bs"],
+                replicas=d["rep"], blocks=list(d["blocks"]),
+                is_complete=d["done"], target=d.get("target"),
+                children_num=len(ch) if ch is not None else 0)
+            self.store.put(node)
+            if ch is not None:
+                for name, cid in ch.items():
+                    self.store.child_put(node.id, str(name), cid)
+        if not have_entries:
+            # an older snapshot: the entries come from (parent_id, name)
+            counts: dict[int, int] = {}
+            for d in snap["inodes"]:
+                if d["pid"]:
+                    self.store.child_put(d["pid"], d["name"], d["id"])
+                    counts[d["pid"]] = counts.get(d["pid"], 0) + 1
+            for pid, n in counts.items():
+                parent = self.store.get(pid)
+                if parent is not None:
+                    parent.children_num = n
+        self.store.set_counter("next_id", snap["next_id"])
+        self.store.set_counter("next_block_id", snap["next_block_id"])
+        for bid, blen, iid, rep in snap["blocks"]:
+            self.store.block_put(bid, blen, iid, rep)
+
+    def _apply(self, op: str, args: dict):
+        fn = getattr(self, f"_apply_{op}", None)
+        if fn is None:
+            raise UnportedJournalOp(
+                f"journal op {op!r} is not applied by the port's master "
+                f"(ROADMAP A3d); args {args}")
+        return fn(**args)
+
+    def _apply_noop(self) -> None:
+        """A raft leader's term-opening entry."""
+
+    # ==================== namespace ops ====================
+
+    def mkdir(self, path: str, create_parent: bool = True, mode: int = 0o755,
+              owner: str = "root", group: str = "root",
+              x_attr: dict | None = None) -> FileStatus:
+        node = self.tree.resolve(path)
+        if node is not None:
+            if node.is_dir:
+                return node.to_status(path)
+            raise err.FileAlreadyExists(f"{path} exists and is a file")
+        self.tree.check_parent_dirs(path)
+        parent, _ = self.tree.resolve_parent(path)
+        if parent is None and not create_parent:
+            raise err.FileNotFound(f"parent of {path} not found")
+        return self._log("mkdir", dict(path=path, create_parent=create_parent,
+                                       mode=mode, owner=owner, group=group,
+                                       x_attr=x_attr or {}))
+
+    def _apply_mkdir(self, path: str, create_parent: bool, mode: int,
+                     owner: str, group: str, x_attr: dict) -> FileStatus:
+        node, _ = self.tree.mkdirs(path, mode=mode, owner=owner, group=group,
+                                   create_parent=create_parent, x_attr=x_attr)
+        return node.to_status(path)
+
+    def create_file(self, path: str, overwrite: bool = False,
+                    create_parent: bool = True, replicas: int = 1,
+                    block_size: int = 64 * 1024 * 1024, mode: int = 0o644,
+                    owner: str = "root", group: str = "root",
+                    client_name: str = "", x_attr: dict | None = None,
+                    storage_policy: dict | None = None,
+                    file_type: int = int(FileType.FILE)) -> FileStatus:
+        parent, _name, existing = self.tree.walk_parent(path)
+        if existing is not None:
+            if existing.is_dir:
+                raise err.IsADirectory(path)
+            if not overwrite:
+                raise err.FileAlreadyExists(path)
+        if parent is None and not create_parent:
+            raise err.FileNotFound(f"parent of {path} not found")
+        return self._log("create", dict(
+            path=path, overwrite=overwrite, create_parent=create_parent,
+            replicas=replicas, block_size=block_size, mode=mode,
+            owner=owner, group=group, client_name=client_name,
+            x_attr=x_attr or {},
+            storage_policy=storage_policy or dict(_DEFAULT_POLICY_WIRE),
+            file_type=file_type))
+
+    def _apply_create(self, path: str, overwrite: bool, create_parent: bool,
+                      replicas: int, block_size: int, mode: int, owner: str,
+                      group: str, client_name: str, x_attr: dict,
+                      storage_policy: dict, file_type: int) -> FileStatus:
+        parent, name, existing = self.tree.walk_parent(path)
+        if existing is not None:
+            self._delete_inode(existing, recursive=False, parent=parent,
+                               name=name)
+        if parent is None:
+            parent, _ = self.tree.mkdirs("/".join(path.split("/")[:-1]) or "/")
+        if not parent.is_dir:
+            raise err.NotADirectory(self.tree.path_of(parent))
+        ts = now_ms()
+        node = Inode(id=self.tree._alloc_id(), name=name,
+                     file_type=FileType(file_type), parent_id=parent.id,
+                     mtime=ts, atime=ts, owner=owner, group=group,
+                     mode=mode, x_attr=dict(x_attr),
+                     storage_policy=StoragePolicy.from_wire(storage_policy),
+                     replicas=replicas, block_size=block_size,
+                     is_complete=False, client_name=client_name)
+        self.tree.add_child(parent, node)
+        if self.open_files is not None:
+            self.open_files.add(node.id)
+        return node.to_status(path)
+
+    def exists(self, path: str) -> bool:
+        return self.tree.resolve(path) is not None
+
+    def file_status(self, path: str) -> FileStatus:
+        node = self.tree.resolve(path)
+        if node is None:
+            raise err.FileNotFound(path)
+        return node.to_status(path)
+
+    def list_status(self, path: str) -> list[FileStatus]:
+        node = self.tree.resolve(path)
+        if node is None:
+            raise err.FileNotFound(path)
+        if not node.is_dir:
+            return [node.to_status(path)]
+        base = path.rstrip("/")
+        return [child.to_status(f"{base}/{name}")
+                for name, child in self.tree.children(node)]
+
+    def rename(self, src: str, dst: str) -> bool:
+        s = self.tree.resolve(src)
+        if s is None:
+            raise err.FileNotFound(src)
+        if src == "/" or dst.startswith(src.rstrip("/") + "/"):
+            raise err.InvalidArgument(f"cannot rename {src} into itself")
+        d = self.tree.resolve(dst)
+        if d is not None:
+            if d.is_dir and d.children_num:
+                raise err.DirNotEmpty(dst)
+            if d.is_dir != s.is_dir:
+                raise (err.IsADirectory if d.is_dir else err.NotADirectory)(dst)
+        self.tree.check_parent_dirs(dst)
+        return self._log("rename", dict(src=src, dst=dst))
+
+    def _apply_rename(self, src: str, dst: str) -> bool:
+        s = self.tree.resolve(src)
+        if s is None:
+            raise err.FileNotFound(src)
+        d = self.tree.resolve(dst)
+        if d is not None:
+            p, n = self.tree.resolve_parent(dst)
+            self._delete_inode(d, recursive=False, parent=p, name=n)
+        new_parent, new_name = self.tree.resolve_parent(dst)
+        if new_parent is None or not new_parent.is_dir:
+            raise err.FileNotFound(f"parent of {dst} not found")
+        # move the directory entry (the path's tail, which for a hard
+        # link can differ from s.name)
+        old_parent, old_name = self.tree.resolve_parent(src)
+        self.store.child_remove(old_parent.id, old_name)
+        old_parent.children_num = max(0, old_parent.children_num - 1)
+        old_parent.mtime = now_ms()
+        self.tree.save(old_parent)
+        s.name = new_name
+        new_parent = self.tree.get(new_parent.id)
+        s.parent_id = new_parent.id
+        self.tree.save(s)
+        self.store.child_put(new_parent.id, new_name, s.id)
+        new_parent.children_num += 1
+        new_parent.mtime = now_ms()
+        self.tree.save(new_parent)
+        return True
+
+    def delete(self, path: str, recursive: bool = False) -> None:
+        node = self.tree.resolve(path)
+        if node is None:
+            raise err.FileNotFound(path)
+        if node.is_dir and node.children_num and not recursive:
+            raise err.DirNotEmpty(path)
+        if node.id == ROOT_ID:
+            raise err.InvalidArgument("cannot delete root")
+        self._log("delete", dict(path=path, recursive=recursive))
+
+    def _apply_delete(self, path: str, recursive: bool) -> None:
+        node = self.tree.resolve(path)
+        if node is None:
+            raise err.FileNotFound(path)
+        parent, name = self.tree.resolve_parent(path)
+        self._delete_inode(node, recursive, parent=parent, name=name)
+
+    def _delete_inode(self, node: Inode, recursive: bool,
+                      parent: Inode | None = None,
+                      name: str | None = None) -> None:
+        """``name`` is the directory entry removed (for a hard-linked
+        inode it can differ from ``node.name``)."""
+        if node.is_dir and node.children_num:
+            if not recursive:
+                raise err.DirNotEmpty(self.tree.path_of(node))
+            for child_name, child in self.tree.children(node):
+                self._delete_inode(child, recursive=True,
+                                   parent=node, name=child_name)
+        if parent is None:
+            parent = self.tree.get(node.parent_id)
+        if parent is not None:
+            removed = self.tree.remove_child(parent, name or node.name)
+            if removed is not None and removed.nlink <= 0:
+                self._free_blocks(removed)
+                if self.open_files is not None:
+                    self.open_files.discard(removed.id)
+
+    def _free_blocks(self, node: Inode) -> None:
+        """Drop the node's blocks; each holder deletes its replica at its
+        next heartbeat. The inode is not saved (it left the store)."""
+        for bid in node.blocks:
+            meta = self.blocks.remove_block(bid)
+            if meta:
+                for wid in meta.locs:
+                    self.pending_deletes.setdefault(wid, set()).add(bid)
+        node.blocks = []
+
+    # ==================== block ops ====================
+
+    def add_block(self, path: str, client_host: str = "",
+                  exclude_workers: list[int] | None = None,
+                  commit_blocks: list[CommitBlock] | None = None,
+                  storage_type: StorageType = StorageType.MEM,
+                  abandon_block: int | None = None) -> LocatedBlock:
+        node = self._file_or_raise(path)
+        if node.is_complete:
+            raise err.LeaseConflict(f"{path} is not open for writing")
+        self._commit(node, commit_blocks)
+        chosen = self.policy.choose(
+            self.workers.live_workers(), max(1, node.replicas),
+            client_host=client_host, exclude=set(exclude_workers or []),
+            needed=node.block_size, min_count=1)
+        args = dict(inode_id=node.id)
+        # abandonBlock: a writer retrying a failed block open drops its
+        # previous allocation in the same entry, if it is the trailing,
+        # never-committed block
+        if abandon_block is not None and node.blocks \
+                and node.blocks[-1] == abandon_block:
+            meta = self.blocks.get(abandon_block)
+            if meta is None or meta.len == 0:
+                args["abandon"] = abandon_block
+        block_id = self._log("alloc_block", args)
+        block = ExtendedBlock(id=block_id, len=0, storage_type=storage_type,
+                              file_type=node.file_type)
+        node = self.tree.get(node.id)
+        off = sum(meta.len for b in node.blocks[:-1]
+                  if (meta := self.blocks.get(b)) is not None)
+        return LocatedBlock(block=block, offset=off,
+                            locs=[w.address for w in chosen],
+                            storage_types=[storage_type] * len(chosen))
+
+    def _apply_alloc_block(self, inode_id: int,
+                           abandon: int | None = None) -> int:
+        node = self._inode_or_raise(inode_id)
+        if abandon is not None and node.blocks \
+                and node.blocks[-1] == abandon:
+            node.blocks.pop()
+            self.blocks.remove_block(abandon)
+        block_id = self.tree.alloc_block_id()
+        node.blocks.append(block_id)
+        node.mtime = now_ms()      # the writer's liveness, for lease recovery
+        self.tree.save(node)
+        # a placeholder: a report of this block in flight is no orphan
+        if self.store.block_get(block_id) is None:
+            self.store.block_put(block_id, 0, inode_id, node.replicas)
+        return block_id
+
+    def complete_file(self, path: str, length: int,
+                      commit_blocks: list[CommitBlock] | None = None,
+                      only_flush: bool = False) -> bool:
+        node = self._file_or_raise(path)
+        self._commit(node, commit_blocks)
+        if not only_flush:
+            self._log("complete", dict(path=path, length=length))
+        return True
+
+    def _apply_complete(self, path: str, length: int) -> None:
+        node = self._file_or_raise(path)
+        node.len = length
+        node.is_complete = True
+        node.mtime = now_ms()
+        node.client_name = ""
+        self.tree.save(node)
+        if self.open_files is not None:
+            self.open_files.discard(node.id)
+
+    def _commit(self, node: Inode, commit_blocks: list[CommitBlock] | None
+                ) -> None:
+        """Journal the blocks' lengths (durable), then register their
+        replicas (runtime, rebuilt from reports after a restart)."""
+        if not commit_blocks:
+            return
+        self._log("commit_blocks", dict(
+            inode_id=node.id,
+            commits=[[cb.block_id, cb.block_len] for cb in commit_blocks]))
+        for cb in commit_blocks:
+            for wid in cb.worker_ids:
+                self.blocks.add_replica(cb.block_id, wid, cb.storage_type)
+
+    def _apply_commit_blocks(self, inode_id: int, commits: list) -> None:
+        node = self.tree.get(inode_id)
+        replicas = node.replicas if node is not None else 1
+        for bid, blen in commits:
+            durable = self.store.block_get(bid)
+            if durable is None:
+                self.store.block_put(bid, blen, inode_id, replicas)
+            else:
+                old_len, iid, rep = durable
+                self.store.block_put(bid, max(old_len, blen),
+                                     iid or inode_id, rep)
+
+    def get_block_locations(self, path: str) -> FileBlocks:
+        node = self._file_or_raise(path)
+        out = []
+        off = 0
+        for bid in node.blocks:
+            meta = self.blocks.get(bid)
+            if meta is None:
+                continue
+            locs, sts = [], []
+            for wid, loc in meta.locs.items():
+                w = self.workers.workers.get(wid)
+                if w is not None and w.state == WorkerState.LIVE:
+                    locs.append(w.address)
+                    sts.append(loc.storage_type)
+            out.append(LocatedBlock(
+                block=ExtendedBlock(id=bid, len=meta.len,
+                                    storage_type=sts[0] if sts
+                                    else StorageType.MEM,
+                                    file_type=node.file_type),
+                offset=off, locs=locs, storage_types=sts))
+            off += meta.len
+        return FileBlocks(status=node.to_status(path), block_locs=out)
+
+    # ==================== worker plane ====================
+
+    def worker_heartbeat(self, info_wire: dict) -> dict:
+        info = WorkerInfo.from_wire(info_wire)
+        w = self.workers.heartbeat(info.address, info.storages,
+                                   info.ici_coords)
+        wid = info.address.worker_id
+        cmds = {"delete_blocks": list(self.pending_deletes.pop(wid, set()))}
+        if w.state == WorkerState.LIVE \
+                and not self.workers.has_current_report(wid):
+            # no full report since the worker (re)registered, or since
+            # this master started: ask for one now, reads need locations
+            cmds["report_now"] = True
+        return cmds
+
+    def worker_block_report(self, worker_id: int, held: dict,
+                            storage_types: dict,
+                            incremental: bool = False) -> dict:
+        held = {int(k): int(v) for k, v in held.items()}
+        storage_types = {int(k): int(v) for k, v in storage_types.items()}
+        orphans = self.blocks.apply_report(worker_id, held, storage_types,
+                                           incremental=incremental)
+        if not incremental:
+            self.workers.mark_reported(worker_id)
+        return {"delete_blocks": orphans}
+
+    def recover_stale_leases(self, lease_timeout_ms: int = 300_000) -> int:
+        """Finish the files abandoned mid-write (a dead client, no
+        complete): complete one at its committed length, or delete it
+        when nothing was committed."""
+        deadline = now_ms() - lease_timeout_ms
+        recovered = 0
+        if self.open_files is None:
+            self.open_files = {n.id for n in self.tree.iter_files()
+                               if not n.is_complete}
+        for inode_id in list(self.open_files):
+            node = self.tree.get(inode_id)
+            if node is None or node.is_dir or node.is_complete:
+                self.open_files.discard(inode_id)
+                continue
+            if node.mtime >= deadline:
+                continue
+            path = self.tree.path_of(node)
+            committed = sum(m.len for b in node.blocks
+                            if (m := self.blocks.get(b)) is not None)
+            try:
+                if committed > 0:
+                    self._log("complete", dict(path=path, length=committed))
+                    log.warning("lease recovery: completed %s at %d bytes",
+                                path, committed)
+                else:
+                    self._log("delete", dict(path=path, recursive=False))
+                    log.warning("lease recovery: removed empty stale %s",
+                                path)
+                recovered += 1
+            except err.CurvineError as e:
+                log.warning("lease recovery of %s failed: %s", path, e)
+        return recovered
+
+    def check_lost_workers(self) -> list[WorkerInfo]:
+        """Mark the workers whose heartbeat expired LOST and drop their
+        replicas (repair waits for the replication manager)."""
+        newly_lost = self.workers.check_lost()
+        for w in newly_lost:
+            self.blocks.worker_lost(w.address.worker_id)
+        return newly_lost
+
+    def master_info(self, addr: str = "") -> MasterInfo:
+        cap, avail = self.workers.capacity()
+        return MasterInfo(
+            active_master=addr, inode_num=self.tree.count(),
+            block_num=self.blocks.count(), capacity=cap, available=avail,
+            fs_used=cap - avail, live_workers=self.workers.live_workers(),
+            lost_workers=self.workers.lost_workers())
+
+    # ==================== helpers ====================
+
+    def _file_or_raise(self, path: str) -> Inode:
+        node = self.tree.resolve(path)
+        if node is None:
+            raise err.FileNotFound(path)
+        if node.is_dir:
+            raise err.IsADirectory(path)
+        return node
+
+    def _inode_or_raise(self, inode_id: int) -> Inode:
+        node = self.tree.get(inode_id)
+        if node is None:
+            raise err.FileNotFound(f"inode {inode_id}")
+        return node

@@ -1,0 +1,318 @@
+"""The master's RPC server: codes → ``MasterFilesystem``.
+
+A carve of ``curvine_tpu/master/server.py``. The namespace has one
+writer: every handler runs on the server's event loop, so mutations are
+serialised without locks. Every request's path fields are normalised
+first (``_norm_req``, :486-495: ``.`` and ``..`` resolved, a path out
+of the root refused). A mutation (``_h``, :497-534) is deduplicated by
+the client's ``(client_id, call_id)`` in the retry cache, and its reply
+leaves only after the group commit has flushed its journal entry.
+
+Served: MKDIR, DELETE, CREATE_FILE, OPEN_FILE, FILE_STATUS, LIST_STATUS,
+EXISTS, RENAME, ADD_BLOCK, COMPLETE_FILE, GET_BLOCK_LOCATIONS,
+GET_MASTER_INFO and META_BATCH (mkdir, create and delete items, each
+failing alone, :1142-1163); and the worker plane: WORKER_HEARTBEAT (its
+``hbm_blocks`` and ``evac_blocks`` taken and counted, its ``metrics``
+summed into the ``bytes.read`` and ``bytes.written`` gauges),
+WORKER_BLOCK_REPORT, and REPORT_UNDER_REPLICATED_BLOCKS, which records
+and counts the replicas reported corrupt (``corrupt_reports``,
+``blocks.reported_corrupt``) and answers ``confirm_live`` (:1230-1273);
+the block map keeps a reported replica, as the reference's does until
+its replication manager has repaired the block. The periodic
+``heartbeat-check`` (lost workers) and ``lease-recovery`` ticks run on
+the ``ScheduledExecutor``. Every request is timed into the
+``rpc.<code name>`` histograms of ``metrics``.
+
+Every request must come from the superuser (``acl.SuperuserGate``).
+Every other code the reference's master registers (:340-410,
+``rpc/codes.py::MASTER_REFUSED``) is answered UNSUPPORTED by name:
+mounts, jobs and PREFETCH_WINDOW (a client's prefetch advice is refused
+here; cached files need none), locks, quotas, raft, shards, EC, batches
+other than META_BATCH, attributes, links, appends, metrics reports,
+spans and health. Read leases, the fast metadata port and UFS mounts are
+not served: a read's reply carries no ``lease`` token and
+``master_info`` no ``fast_addr``, so a client caches nothing (ROADMAP
+A3d)."""
+
+from __future__ import annotations
+
+import logging
+
+from curvine_tpu_torch.common import errors as err
+from curvine_tpu_torch.common.conf import ClusterConf
+from curvine_tpu_torch.common.executor import ScheduledExecutor
+from curvine_tpu_torch.common.journal import GroupCommitter, Journal
+from curvine_tpu_torch.common.metrics import MetricsRegistry
+from curvine_tpu_torch.common.path import norm_path
+from curvine_tpu_torch.common.types import CommitBlock
+from curvine_tpu_torch.master.acl import SuperuserGate
+from curvine_tpu_torch.master.filesystem import MasterFilesystem
+from curvine_tpu_torch.master.retry_cache import RetryCache
+from curvine_tpu_torch.rpc.codes import MASTER_REFUSED, RpcCode
+from curvine_tpu_torch.rpc.frame import Message, pack, unpack
+from curvine_tpu_torch.rpc.server import RpcServer, ServerConn
+
+log = logging.getLogger(__name__)
+
+LEASE_RECOVERY_S = 30.0
+
+
+class MasterServer:
+    def __init__(self, conf: ClusterConf | None = None):
+        self.conf = conf or ClusterConf()
+        mc = self.conf.master
+        j = Journal(mc.journal_dir, fsync=mc.journal_fsync)
+        self.fs = MasterFilesystem(
+            journal=j, placement=mc.block_placement_policy,
+            lost_timeout_ms=mc.worker_lost_timeout_ms,
+            snapshot_interval=mc.snapshot_interval_entries)
+        self.metrics = MetricsRegistry("master")
+        self.fs.committer = GroupCommitter(
+            j, window_ms=mc.journal_group_commit_ms,
+            max_entries=mc.journal_group_max)
+        self.acl = SuperuserGate(mc.superuser, mc.supergroup)
+        self.retry_cache = RetryCache(mc.retry_cache_size,
+                                      mc.retry_cache_ttl_ms)
+        self.rpc = RpcServer(mc.hostname, mc.rpc_port, "master")
+        self.rpc.metrics = self.metrics
+        self.executor = ScheduledExecutor("master")
+        # worker_id -> its last heartbeat's byte counters
+        self._worker_counters: dict[int, dict] = {}
+        # block_id -> workers that reported its replica corrupt (None: a
+        # client's report), kept for the replication manager (ROADMAP A3d)
+        self.corrupt_reports: dict[int, set[int | None]] = {}
+        self._register_handlers()
+
+    @property
+    def addr(self) -> str:
+        return self.rpc.addr
+
+    async def start(self) -> None:
+        self.fs.recover()
+        await self.rpc.start()
+        self.executor.submit_periodic(
+            "heartbeat-check", self._heartbeat_tick,
+            self.conf.master.heartbeat_check_ms / 1000)
+        self.executor.submit_periodic("lease-recovery",
+                                      self.fs.recover_stale_leases,
+                                      LEASE_RECOVERY_S)
+        log.info("master started at %s", self.addr)
+
+    def _heartbeat_tick(self) -> None:
+        self.fs.check_lost_workers()
+        self._prune_worker_counters()
+
+    def _prune_worker_counters(self) -> None:
+        """Sum the live workers' byte counters into the gauges; a lost
+        worker's last counters leave them."""
+        live = {w.address.worker_id for w in self.fs.workers.live_workers()}
+        self._worker_counters = {k: v for k, v in
+                                 self._worker_counters.items() if k in live}
+        for name in ("bytes.read", "bytes.written"):
+            self.metrics.gauge(name, sum(
+                c.get(name, 0) for c in self._worker_counters.values()))
+
+    async def stop(self) -> None:
+        await self.executor.stop()
+        await self.rpc.stop()
+        try:
+            self.fs.flush_group()   # the open journal group, if any
+        except Exception as e:  # noqa: BLE001 — a committer already broken
+            log.warning("final group flush failed: %s", e)
+        self.fs.journal.close()
+
+    # ---------------- handlers ----------------
+
+    def _register_handlers(self) -> None:
+        r = self.rpc.register
+        C = RpcCode
+        r(C.MKDIR, self._h(self._mkdir, mutate=True))
+        r(C.DELETE, self._h(self._delete, mutate=True))
+        r(C.CREATE_FILE, self._h(self._create_file, mutate=True))
+        r(C.OPEN_FILE, self._h(self._get_block_locations))
+        r(C.FILE_STATUS, self._h(self._file_status))
+        r(C.LIST_STATUS, self._h(self._list_status))
+        r(C.EXISTS, self._h(self._exists))
+        r(C.RENAME, self._h(self._rename, mutate=True))
+        r(C.ADD_BLOCK, self._h(self._add_block, mutate=True))
+        r(C.COMPLETE_FILE, self._h(self._complete_file, mutate=True))
+        r(C.GET_BLOCK_LOCATIONS, self._h(self._get_block_locations))
+        r(C.GET_MASTER_INFO, self._h(self._master_info))
+        r(C.META_BATCH, self._h(self._meta_batch, mutate=True))
+        r(C.WORKER_HEARTBEAT, self._h(self._worker_heartbeat))
+        r(C.WORKER_BLOCK_REPORT, self._h(self._worker_block_report))
+        r(C.REPORT_UNDER_REPLICATED_BLOCKS,
+          self._h(self._report_under_replicated))
+        for code in MASTER_REFUSED:
+            r(code, self._not_ported)
+
+    async def _not_ported(self, msg: Message, conn: ServerConn):
+        raise err.Unsupported(f"{RpcCode(msg.code).name} is not served by "
+                              f"the port's master (ROADMAP A3d)")
+
+    _PATH_KEYS = ("path", "src", "dst")
+
+    @classmethod
+    def _norm_req(cls, req: dict) -> dict:
+        """Normalise every path field, in batch items too."""
+        for k in cls._PATH_KEYS:
+            v = req.get(k)
+            if isinstance(v, str):
+                req[k] = norm_path(v)
+        for sub in req.get("requests") or []:
+            if isinstance(sub, dict):
+                cls._norm_req(sub)
+        return req
+
+    def _h(self, fn, mutate: bool = False):
+        async def handler(msg: Message, conn: ServerConn):
+            req = self._norm_req(unpack(msg.data) or {})
+            if not mutate:
+                return {}, pack(fn(req))
+            key = (req.get("client_id"), req.get("call_id"))
+            dedup = key[0] is not None and key[1] is not None
+            if dedup:
+                cached = self.retry_cache.get(key)
+                if cached is not None:
+                    return {}, cached
+            rep = fn(req)
+            # acked only after the group holding the entry has flushed
+            await self.fs.committer.sync()
+            data = pack(rep)
+            if dedup:
+                self.retry_cache.put(key, data)
+            return {}, data
+        return handler
+
+    # --- namespace ---
+    def _mkdir(self, q):
+        ctx = self.acl.check(q)
+        st = self.fs.mkdir(q["path"], create_parent=q.get("create_parent", True),
+                           mode=q.get("mode", 0o755),
+                           owner=q.get("owner") or ctx.user,
+                           group=q.get("group") or (ctx.groups[0] if ctx.groups
+                                                    else ctx.user),
+                           x_attr=q.get("x_attr"))
+        return {"status": st.to_wire()}
+
+    def _delete(self, q):
+        self.acl.check(q)
+        self.fs.delete(q["path"], recursive=q.get("recursive", False))
+        return {}
+
+    def _create_file(self, q):
+        ctx = self.acl.check(q)
+        st = self.fs.create_file(
+            q["path"], overwrite=q.get("overwrite", False),
+            create_parent=q.get("create_parent", True),
+            replicas=q.get("replicas", 1),
+            block_size=q.get("block_size", self.conf.client.block_size),
+            mode=q.get("mode", 0o644), owner=q.get("owner") or ctx.user,
+            group=q.get("group") or (ctx.groups[0] if ctx.groups
+                                     else ctx.user),
+            client_name=q.get("client_name", ""),
+            x_attr=q.get("x_attr"), storage_policy=q.get("storage_policy"),
+            file_type=q.get("file_type", 1))
+        return {"status": st.to_wire()}
+
+    def _file_status(self, q):
+        self.acl.check(q)
+        return {"status": self.fs.file_status(q["path"]).to_wire()}
+
+    def _list_status(self, q):
+        self.acl.check(q)
+        return {"statuses": [s.to_wire()
+                             for s in self.fs.list_status(q["path"])]}
+
+    def _exists(self, q):
+        self.acl.check(q)
+        return {"exists": self.fs.exists(q["path"])}
+
+    def _rename(self, q):
+        self.acl.check(q)
+        return {"result": self.fs.rename(q["src"], q["dst"])}
+
+    def _add_block(self, q):
+        self.acl.check(q)
+        lb = self.fs.add_block(
+            q["path"], client_host=q.get("client_host", ""),
+            exclude_workers=q.get("exclude_workers"),
+            commit_blocks=[CommitBlock.from_wire(c)
+                           for c in q.get("commit_blocks", [])],
+            abandon_block=q.get("abandon_block"))
+        return {"block": lb.to_wire()}
+
+    def _complete_file(self, q):
+        self.acl.check(q)
+        ok = self.fs.complete_file(
+            q["path"], q.get("len", 0),
+            commit_blocks=[CommitBlock.from_wire(c)
+                           for c in q.get("commit_blocks", [])],
+            only_flush=q.get("only_flush", False))
+        return {"result": ok}
+
+    def _get_block_locations(self, q):
+        self.acl.check(q)
+        return {"file_blocks": self.fs.get_block_locations(q["path"]).to_wire()}
+
+    def _master_info(self, q):
+        return {"info": self.fs.master_info(self.addr).to_wire()}
+
+    def _meta_batch(self, q):
+        """mkdir, create and delete items in one round trip; an item's
+        error comes back as {"error", "error_code"} in its place. The
+        batch's identity is stamped onto every item."""
+        ops = {"mkdir": self._mkdir, "create": self._create_file,
+               "delete": self._delete}
+        ident = {k: q[k] for k in ("user", "groups", "client_name",
+                                   "client_id") if k in q}
+        out = []
+        for r in q["requests"]:
+            r = {**r, **ident}
+            fn = ops.get(r.get("op"))
+            try:
+                if fn is None:
+                    raise err.InvalidArgument(
+                        f"meta_batch: unknown op {r.get('op')!r}")
+                out.append(fn(r))
+            except err.CurvineError as e:
+                out.append({"error": str(e), "error_code": int(e.code)})
+        return {"responses": out}
+
+    # --- worker plane ---
+    def _worker_heartbeat(self, q):
+        cmds = self.fs.worker_heartbeat(q["info"])
+        self.metrics.gauge("workers.live",
+                           len(self.fs.workers.live_workers()))
+        # soft state of the replication manager's device hints and
+        # evacuations (ROADMAP A3d): counted, not acted on
+        self.metrics.inc("heartbeat.hbm_blocks", len(q.get("hbm_blocks") or ()))
+        self.metrics.inc("heartbeat.evac_blocks",
+                         len(q.get("evac_blocks") or ()))
+        wm = q.get("metrics")
+        if wm:
+            self._worker_counters[q["info"]["address"]["worker_id"]] = wm
+            self._prune_worker_counters()
+        return cmds
+
+    def _worker_block_report(self, q):
+        return self.fs.worker_block_report(
+            q["worker_id"], q.get("blocks", {}), q.get("storage_types", {}),
+            incremental=q.get("incremental", False))
+
+    def _report_under_replicated(self, q):
+        """A worker's (or a client's) report of corrupt replicas: kept
+        for the replication manager; the replica still counts, as in the
+        reference until the block is repaired."""
+        wid = q.get("worker_id")
+        bids = [int(b) for b in q.get("block_ids", [])]
+        for bid in bids:
+            self.corrupt_reports.setdefault(bid, set()).add(wid)
+        self.metrics.inc("blocks.reported_corrupt", len(bids))
+        out = {"success": True}
+        confirm = q.get("confirm_live")
+        if confirm is not None:
+            live = {w.address.worker_id
+                    for w in self.fs.workers.live_workers()}
+            out["live"] = [w for w in confirm if w in live]
+        return out

@@ -1,0 +1,92 @@
+"""The master's metadata store: inodes, directory entries, block meta.
+
+Own copy of ``MemMetaStore`` (``curvine_tpu/master/store.py:43-250``):
+everything in dicts, made durable by the journal and its snapshots. Left
+out: ``KvMetaStore`` and its KV engine (``common/kvstore.py``,
+``kvnative``; ROADMAP A3d), and the mount, job, EC stripe, two-phase
+transaction and decommission tables of the features the port's master
+does not have; the store's KV transaction surface (``commit_applied``,
+``stage_entry``, ``rollback``), a no-op in RAM, goes with them."""
+
+from __future__ import annotations
+
+
+class MemMetaStore:
+    kind = "mem"
+
+    def __init__(self) -> None:
+        self.inodes: dict[int, object] = {}
+        self.children: dict[int, dict[str, int]] = {}
+        self.blocks: dict[int, tuple[int, int, int]] = {}
+        self.counters: dict[str, int] = {}
+
+    # inodes
+    def get(self, inode_id: int):
+        return self.inodes.get(inode_id)
+
+    def put(self, inode) -> None:
+        self.inodes[inode.id] = inode
+
+    def remove(self, inode_id: int) -> None:
+        self.inodes.pop(inode_id, None)
+        self.children.pop(inode_id, None)
+
+    def iter_inodes(self):
+        return iter(list(self.inodes.values()))
+
+    def inode_count(self) -> int:
+        return len(self.inodes)
+
+    # directory entries
+    def child_get(self, parent_id: int, name: str) -> int | None:
+        return self.children.get(parent_id, {}).get(name)
+
+    def child_put(self, parent_id: int, name: str, child_id: int) -> None:
+        self.children.setdefault(parent_id, {})[name] = child_id
+
+    def child_remove(self, parent_id: int, name: str) -> None:
+        self.children.get(parent_id, {}).pop(name, None)
+
+    def children_of(self, parent_id: int) -> list[tuple[str, int]]:
+        return sorted(self.children.get(parent_id, {}).items())
+
+    def iter_children_all(self):
+        for pid, entries in list(self.children.items()):
+            for name, cid in entries.items():
+                yield pid, name, cid
+
+    # durable block meta: (len, inode_id, replicas)
+    def block_get(self, block_id: int) -> tuple[int, int, int] | None:
+        return self.blocks.get(block_id)
+
+    def block_put(self, block_id: int, length: int, inode_id: int,
+                  replicas: int) -> None:
+        self.blocks[block_id] = (length, inode_id, replicas)
+
+    def block_remove(self, block_id: int) -> None:
+        self.blocks.pop(block_id, None)
+
+    def iter_blocks(self):
+        return iter(list(self.blocks.items()))
+
+    def block_count(self) -> int:
+        return len(self.blocks)
+
+    # counters
+    def get_counter(self, name: str, default: int = 0) -> int:
+        return self.counters.get(name, default)
+
+    def set_counter(self, name: str, value: int) -> None:
+        self.counters[name] = value
+
+    def bump_counter(self, name: str, delta: int, default: int = 0) -> int:
+        """Add ``delta`` and return the value before."""
+        cur = self.counters.get(name, default)
+        self.counters[name] = cur + delta
+        return cur
+
+    def clear(self) -> None:
+        self.inodes.clear()
+        self.children.clear()
+        self.blocks.clear()
+        self.counters.clear()

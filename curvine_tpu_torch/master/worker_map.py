@@ -1,0 +1,84 @@
+"""Worker registry and liveness.
+
+Own copy of ``curvine_tpu/master/worker_map.py``: a heartbeat registers
+a worker (or brings a LOST one back), ``check_lost`` marks those whose
+heartbeat is older than ``lost_timeout_ms`` LOST, and a worker's view in
+the block map counts only once a full block report has come since it
+registered or came back (``has_current_report``). Left out: the
+decommission intents and their DECOMMISSIONING and DECOMMISSIONED states
+(DECOMMISSION_WORKER is refused)."""
+
+from __future__ import annotations
+
+import logging
+
+from curvine_tpu_torch.common.types import (StorageInfo, WorkerAddress,
+                                            WorkerInfo, WorkerState, now_ms)
+
+log = logging.getLogger(__name__)
+
+
+class WorkerMap:
+    def __init__(self, lost_timeout_ms: int = 30_000):
+        self.workers: dict[int, WorkerInfo] = {}
+        self.lost_timeout_ms = lost_timeout_ms
+        # per worker: its last block report and its last registration or
+        # return from LOST
+        self.report_ms: dict[int, int] = {}
+        self.return_ms: dict[int, int] = {}
+
+    def heartbeat(self, address: WorkerAddress, storages: list[StorageInfo],
+                  ici_coords: list[int] | None = None) -> WorkerInfo:
+        info = self.workers.get(address.worker_id)
+        if info is None:
+            info = WorkerInfo(address=address)
+            self.workers[address.worker_id] = info
+            self.return_ms[address.worker_id] = now_ms()
+            log.info("worker registered: %s", address)
+        info.address = address
+        info.storages = storages
+        info.last_heartbeat_ms = now_ms()
+        if ici_coords is not None:
+            info.ici_coords = list(ici_coords)
+        if info.state == WorkerState.LOST:
+            # its replicas were dropped at LOST: nothing it holds counts
+            # until its next full report
+            self.return_ms[address.worker_id] = now_ms()
+            log.info("worker %d back alive", address.worker_id)
+        info.state = WorkerState.LIVE
+        return info
+
+    def mark_reported(self, worker_id: int) -> None:
+        self.report_ms[worker_id] = now_ms()
+
+    def has_current_report(self, worker_id: int) -> bool:
+        """A full block report has come since the worker registered or
+        came back from LOST."""
+        return self.report_ms.get(worker_id, 0) \
+            > self.return_ms.get(worker_id, 0)
+
+    def live_workers(self) -> list[WorkerInfo]:
+        return [w for w in self.workers.values() if w.state == WorkerState.LIVE]
+
+    def lost_workers(self) -> list[WorkerInfo]:
+        return [w for w in self.workers.values() if w.state == WorkerState.LOST]
+
+    def check_lost(self) -> list[WorkerInfo]:
+        """Mark the workers whose heartbeat expired; returns those newly
+        lost."""
+        deadline = now_ms() - self.lost_timeout_ms
+        newly_lost = []
+        for w in self.workers.values():
+            if w.state == WorkerState.LIVE and w.last_heartbeat_ms < deadline:
+                w.state = WorkerState.LOST
+                newly_lost.append(w)
+                log.warning("worker %d lost (no heartbeat for %dms)",
+                            w.address.worker_id, self.lost_timeout_ms)
+        return newly_lost
+
+    def capacity(self) -> tuple[int, int]:
+        cap = avail = 0
+        for w in self.live_workers():
+            cap += w.capacity
+            avail += w.available
+        return cap, avail

@@ -1,4 +1,5 @@
-"""RPC operation codes the port's cache client and worker send and serve.
+"""RPC operation codes the port's cache client, worker and master send
+and serve.
 
 Own copy of the numbers of ``curvine_tpu/rpc/codes.py::RpcCode`` that the
 client's read path and its writer use (the master's namespace and block
@@ -8,8 +9,10 @@ sends to the master: its heartbeat and block report, block deletes,
 short-circuit read reports, the device tier-0's pin and unpin, the
 device-path transfer it refuses, the master's info for checks of the
 master's view, and the calls the worker refuses by name (the master's
-replication jobs and tasks, batched small writes). The numbers are the
-wire's and must not change."""
+replication jobs and tasks, batched small writes); and those the port's
+master serves (the namespace, block and worker-plane calls) or refuses
+by name (``MASTER_REFUSED``: every other code the reference's master
+registers). The numbers are the wire's and must not change."""
 
 from __future__ import annotations
 
@@ -21,18 +24,59 @@ class RpcCode(enum.IntEnum):
     MKDIR = 2
     DELETE = 3
     CREATE_FILE = 4
+    OPEN_FILE = 5
+    APPEND_FILE = 6
     FILE_STATUS = 7
     LIST_STATUS = 8
+    EXISTS = 9
+    RENAME = 10
     ADD_BLOCK = 11
     COMPLETE_FILE = 12
     GET_BLOCK_LOCATIONS = 13
     GET_MASTER_INFO = 14
+    SET_ATTR = 15
+    SYMLINK = 16
+    LINK = 17
+    RESIZE_FILE = 18
+    ASSIGN_WORKER = 19
+    GET_LOCK = 20
+    SET_LOCK = 21
+    LIST_LOCK = 22
+    CREATE_FILES_BATCH = 23
+    ADD_BLOCKS_BATCH = 24
+    COMPLETE_FILES_BATCH = 25
+    FREE = 26
+    LIST_OPTIONS = 27
+    CONTENT_SUMMARY = 28
     META_BATCH = 29
+    MOUNT = 30
+    UNMOUNT = 31
+    UPDATE_MOUNT = 32
+    GET_MOUNT_TABLE = 33
+    GET_MOUNT_INFO = 34
+    SUBMIT_JOB = 35
+    GET_JOB_STATUS = 36
+    CANCEL_JOB = 37
+    REPORT_TASK = 38
+    METRICS_REPORT = 60
+    CLUSTER_HEALTH = 61
+    GET_SPANS = 62
+    SHARD_TX = 70
+    SHARD_TX_LIST = 71
+    SHARD_STATS = 72
+    SHARD_TABLE = 73
+    TENANT_STATS = 74
     PREFETCH_WINDOW = 75
+    RAFT_MEMBER_CHANGE = 97
+    RAFT_TRANSFER = 98
     # worker → master
     WORKER_HEARTBEAT = 40
     WORKER_BLOCK_REPORT = 41
+    REPORT_BLOCK_REPLICATION_RESULT = 43
+    REQUEST_REPLACEMENT_WORKER = 44
     REPORT_UNDER_REPLICATED_BLOCKS = 45
+    DECOMMISSION_WORKER = 46
+    EC_COMMIT_STRIPE = 47
     # master → worker
     SUBMIT_TASK = 39
     SUBMIT_BLOCK_REPLICATION_JOB = 42
@@ -53,3 +97,22 @@ class RpcCode(enum.IntEnum):
     HBM_PIN = 100
     HBM_UNPIN = 101
     ICI_TRANSFER = 103
+
+
+# the codes the reference's master registers (curvine_tpu/master/
+# server.py:340-410) that the port's master answers UNSUPPORTED, by name
+MASTER_REFUSED = (
+    RpcCode.APPEND_FILE, RpcCode.SET_ATTR, RpcCode.SYMLINK, RpcCode.LINK,
+    RpcCode.RESIZE_FILE, RpcCode.FREE, RpcCode.CREATE_FILES_BATCH,
+    RpcCode.ADD_BLOCKS_BATCH, RpcCode.COMPLETE_FILES_BATCH,
+    RpcCode.LIST_OPTIONS, RpcCode.CONTENT_SUMMARY, RpcCode.GET_LOCK,
+    RpcCode.SET_LOCK, RpcCode.LIST_LOCK, RpcCode.ASSIGN_WORKER,
+    RpcCode.METRICS_REPORT, RpcCode.CLUSTER_HEALTH, RpcCode.GET_SPANS,
+    RpcCode.REQUEST_REPLACEMENT_WORKER,
+    RpcCode.REPORT_BLOCK_REPLICATION_RESULT, RpcCode.EC_COMMIT_STRIPE,
+    RpcCode.DECOMMISSION_WORKER, RpcCode.MOUNT, RpcCode.UNMOUNT,
+    RpcCode.UPDATE_MOUNT, RpcCode.GET_MOUNT_TABLE, RpcCode.GET_MOUNT_INFO,
+    RpcCode.SUBMIT_JOB, RpcCode.GET_JOB_STATUS, RpcCode.CANCEL_JOB,
+    RpcCode.PREFETCH_WINDOW, RpcCode.REPORT_TASK, RpcCode.SHARD_TX,
+    RpcCode.SHARD_TX_LIST, RpcCode.SHARD_STATS, RpcCode.SHARD_TABLE,
+    RpcCode.TENANT_STATS, RpcCode.RAFT_MEMBER_CHANGE, RpcCode.RAFT_TRANSFER)

@@ -50,8 +50,20 @@ required = {"curvine_tpu_torch.gpu.attention", "curvine_tpu_torch.gpu.flash",
             "curvine_tpu_torch.rpc.server",
             "curvine_tpu_torch.worker.storage",
             "curvine_tpu_torch.worker.server",
-            "curvine_tpu_torch.worker.__main__"}
-sys.exit(1 if bad or mapped or len(names) < 43 or required - set(names)
+            "curvine_tpu_torch.worker.__main__",
+            "curvine_tpu_torch.common.path",
+            "curvine_tpu_torch.common.journal",
+            "curvine_tpu_torch.master.store",
+            "curvine_tpu_torch.master.inode",
+            "curvine_tpu_torch.master.block_map",
+            "curvine_tpu_torch.master.worker_map",
+            "curvine_tpu_torch.master.placement",
+            "curvine_tpu_torch.master.retry_cache",
+            "curvine_tpu_torch.master.acl",
+            "curvine_tpu_torch.master.filesystem",
+            "curvine_tpu_torch.master.server",
+            "curvine_tpu_torch.master.__main__"}
+sys.exit(1 if bad or mapped or len(names) < 57 or required - set(names)
          else 0)
 """
 

@@ -93,6 +93,17 @@ Phases, each raising on a fault (the exit code is then non-zero):
    integer views, and the loss of one train batch from the loaded
    parameters equal to the saved ones' (K3's forward); save and load
    GiB/s beside phase 3's ``link_gibs``, the pinned ring's staging time;
+6c. mesh: an NCCL world of this process alone (``multihost.initialize``)
+   and a (1, 1) ``("data", "model")`` mesh on the card; phase 6's initial
+   parameters (the same seed) placed by ``shard_params``, a fresh AdamW,
+   and phase 6's cache-fed steps through ``GpuTrainFeed(mesh=...)`` and
+   synthetic steps, in the same order: every batch a DTensor laid out by
+   ``batch_spec``, K3's four kernels launched once a layer a step (under
+   ``local_map``, on the local heads), every loss equal to phase 6's bit
+   for bit; ``train_step_ms``, ``mfu``, ``ingest_overlap_ratio``, peak
+   memory and device busy over two profiled steps beside phase 6's; then
+   dryrun_multichip's MoE config (experts sharded over ``ep``) two steps
+   on a (1, 1) ``("data", "ep")`` mesh and without one, equal losses;
 7. vector: K2, the ADC scan, on the card against its plain version, bit
    for bit, at four shapes (the path's own among them) with planted
    out-of-range codes, both code layouts; its time at the path's shape
@@ -123,12 +134,14 @@ after phase 4 (K1), again just before phase 4c's promote cycles and read
 just after them (K1), again just before the two passes of phase 6 and read
 just after them (K3), again just before phase 6b and read just after it
 (K3's forward, twice a layer for the two losses, and no backward
-kernel), and just before phase 7's ``query_many`` and read just after it
-(K2, which must equal the ADC stages the search issued). The kernels
-line gives K1's two counts summed (each held to its pins, the refused
-device copies included) and phase 6's K3 counts. The port's worker and
-master are stopped, and the data directory removed, however the run
-ends. No process of the run loads a module of JAX or of the JAX
+kernel), again just before the two passes of phase 6c and read just
+after them (K3), and just before phase 7's ``query_many`` and read just
+after it (K2, which must equal the ADC stages the search issued). The
+kernels line gives K1's two counts summed (each held to its pins, the
+refused device copies included) and phase 6's and 6c's K3 counts
+summed. The port's worker and master are stopped, the process group
+destroyed, and the data directory removed, however the run ends. No
+process of the run loads a module of JAX or of the JAX
 package. Prints each phase's numbers, the card's name and power limit,
 one JSON line of kernels, and last the line
 ``{"ok": true, "device": {...}}``. Exits non-zero, and prints no result,
@@ -138,6 +151,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import gc
 import json
 import math
 import os
@@ -1412,11 +1426,54 @@ def train_tokens(cfg, seed: int) -> np.ndarray:
         dtype=np.int32)
 
 
+async def timed_steps(step, params, batches, check=None):
+    """bench.py:1777-1791: batch k+1's fetch and copy overlap step k (the
+    step returns once its work is queued); one sync a step. ``check`` is
+    called on each batch before its step."""
+    times, losses = [], []
+    nxt = await anext(batches, None)
+    while nxt is not None:
+        if check is not None:
+            check(nxt)
+        t = time.perf_counter()
+        loss = step(params, nxt)
+        nxt = await anext(batches, None)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        losses.append(loss)
+    return times, [float(x) for x in losses]
+
+
+async def repeat(tok, n):
+    for _ in range(n):
+        yield tok
+
+
+def synthetic_batch(cfg, seed: int, dev: torch.device) -> torch.Tensor:
+    """The fixed batch of the synthetic steps."""
+    return torch.from_numpy(np.random.default_rng(seed + 5).integers(
+        0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ), dtype=np.int32)).to(dev)
+
+
+def profiled_steps(step, params, tok) -> tuple[object, float, list, float]:
+    """Two steps under the profiler: the profile, wall seconds, the
+    device's work and its busy microseconds (``device_work``)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(2):
+            step(params, tok)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t
+    kern, busy_us = device_work(prof)
+    return prof, wall_s, kern, busy_us
+
+
 def phase_train(dev: torch.device, master: str, seed: int, flash_res: dict
                 ) -> tuple[dict, dict]:
     """The flagship trained on the card; returns its numbers and its
     parameters as the steps left them."""
-    from torch.profiler import ProfilerActivity, profile
     from curvine_tpu_torch.gpu import flash, model as tm
     from curvine_tpu_torch.gpu.loader import GpuTrainFeed, write_token_shards
     cfg = _flagship()
@@ -1446,39 +1503,21 @@ def phase_train(dev: torch.device, master: str, seed: int, flash_res: dict
     if n_params != expect:
         raise AssertionError(f"{n_params} parameters, {expect} expected")
 
-    async def timed_steps(batches):
-        """bench.py:1777-1791: batch k+1's fetch and copy overlap step k
-        (the step returns once its work is queued); one sync a step."""
-        times, losses = [], []
-        nxt = await anext(batches, None)
-        while nxt is not None:
-            t = time.perf_counter()
-            loss = step(params, nxt)
-            nxt = await anext(batches, None)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t)
-            losses.append(loss)
-        return times, [float(x) for x in losses]
-
     async def cache_fed():
         async with port_client(master) as c:
             feed = GpuTrainFeed(c, "/ds/train", B, L, depth=2, device=dev)
-            return feed.profiler, await timed_steps(feed.prefetcher), \
+            return feed.profiler, await timed_steps(
+                step, params, feed.prefetcher), \
                 c.counters.get("sc.bytes.read", 0)
 
-    async def synthetic(tok, n):
-        for _ in range(n):
-            yield tok
-
-    tok0 = torch.from_numpy(np.random.default_rng(seed + 5).integers(
-        0, cfg.vocab, (B, L), dtype=np.int32)).to(dev)
+    tok0 = synthetic_batch(cfg, seed, dev)
     kernels = [getattr(flash, n) for n in K3_NAMES]
     for fn in kernels:
         fn.launches = 0
     feed_prof, (cache_times, cache_losses), sc_bytes = asyncio.run(
         cache_fed())
-    synth_times, synth_losses = asyncio.run(timed_steps(synthetic(tok0,
-                                                                  steps)))
+    synth_times, synth_losses = asyncio.run(timed_steps(
+        step, params, repeat(tok0, steps)))
     launches = {fn.__name__: fn.launches for fn in kernels}
     peak = torch.cuda.max_memory_allocated(dev)
     n_steps = len(cache_times) + len(synth_times)
@@ -1531,14 +1570,7 @@ def phase_train(dev: torch.device, master: str, seed: int, flash_res: dict
         f"{fractions.get('host_to_hbm', 0.0):.3f}")
 
     # where the step goes: two synthetic steps under the profiler
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        for _ in range(2):
-            step(params, tok0)
-        torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t
-    kern, busy_us = device_work(prof)
+    prof, wall_s, kern, busy_us = profiled_steps(step, params, tok0)
     k3_us = sum(e.time_range.elapsed_us() for e in kern
                 if "flash_" in e.name)
     res["profile"] = {"wall_ms": wall_s * 1e3, "device_busy_ms": busy_us / 1e3,
@@ -1840,6 +1872,176 @@ def phase_ckpt(dev: torch.device, master: str, seed: int, params: dict,
              saved[i].detach().cpu().contiguous().reshape(-1)
              .view(torch.uint8).numpy())
     return res, probe
+
+
+# -------------------------------------------------------------------- mesh
+
+def _moe_config():
+    from curvine_tpu_torch.gpu.model import ModelConfig
+    # __graft_entry__.py:182-184, dryrun_multichip's data x ep pass
+    return ModelConfig(vocab=512, d_model=64, n_heads=4, n_layers=1, d_ff=64,
+                       max_seq=64, dtype="float32", moe_experts=4)
+
+
+def phase_mesh(dev: torch.device, master: str, seed: int, train: dict
+               ) -> dict:
+    """The flagship trained through a (1, 1) ``("data", "model")`` mesh
+    over an NCCL world of one: phase 6's initial parameters (the same
+    seed) placed by ``shard_params``, a fresh AdamW, phase 6's cache-fed
+    steps through ``GpuTrainFeed(mesh=...)`` in the same order and its
+    synthetic steps on the same batch. Every batch must be a DTensor laid
+    out by ``batch_spec``, K3's four kernels must launch once a layer a
+    step (under ``local_map``, on the local heads), and the losses must
+    equal phase 6's bit for bit: on a mesh of one the local ops are the
+    same. Then dryrun_multichip's MoE config one step on a (1, 1)
+    ``("data", "ep")`` mesh and without one: equal losses."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from curvine_tpu_torch.gpu import flash, model as tm, multihost
+    from curvine_tpu_torch.gpu.ingest import put_sharded
+    from curvine_tpu_torch.gpu.loader import GpuTrainFeed
+    from curvine_tpu_torch.gpu.mesh import make_mesh, placements
+    cfg = _flagship()
+    B, L, steps = TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS
+    t0 = time.perf_counter()
+    multihost.initialize()
+    try:
+        mesh = make_mesh()
+        init_s = time.perf_counter() - t0
+        if dist.get_backend() != "nccl" or mesh.device_type != "cuda" or \
+                tuple(mesh.shape) != (1, 1):
+            raise AssertionError(f"mesh {mesh} over {dist.get_backend()}")
+        log(f"mesh: {mesh.mesh_dim_names} {tuple(mesh.shape)} on "
+            f"{mesh.device_type} over {dist.get_backend()}, world "
+            f"{dist.get_world_size()} (group and mesh in {init_s:.2f}s)")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        params = tm.shard_params(tm.init_params(
+            torch.Generator(device=dev).manual_seed(seed), cfg, dev), mesh)
+        torch.cuda.empty_cache()
+        step = tm.make_train_step(cfg, tm.make_optimizer(params), mesh)
+        want = placements(mesh, tm.batch_spec(mesh))
+        placed = []
+
+        def check(batch):
+            placed.append(isinstance(batch, DTensor)
+                          and list(batch.placements) == want)
+
+        async def cache_fed():
+            async with port_client(master) as c:
+                feed = GpuTrainFeed(c, "/ds/train", B, L, depth=2, mesh=mesh)
+                return feed.profiler, await timed_steps(
+                    step, params, feed.prefetcher, check)
+
+        tok0 = put_sharded(synthetic_batch(cfg, seed, dev).cpu().numpy(),
+                           mesh, tm.batch_spec(mesh))
+        kernels = [getattr(flash, n) for n in K3_NAMES]
+        for fn in kernels:
+            fn.launches = 0
+        feed_prof, (cache_times, cache_losses) = asyncio.run(cache_fed())
+        synth_times, synth_losses = asyncio.run(timed_steps(
+            step, params, repeat(tok0, steps), check))
+        launches = {fn.__name__: fn.launches for fn in kernels}
+        peak = torch.cuda.max_memory_allocated(dev)
+        n_steps = len(cache_times) + len(synth_times)
+        if not all(placed) or len(placed) != n_steps:
+            raise AssertionError(f"mesh: {placed.count(False)} of "
+                                 f"{len(placed)} batches not laid out as "
+                                 f"{want}")
+        for name, n in launches.items():
+            if n != cfg.n_layers * n_steps:
+                raise AssertionError(f"mesh: {name} launched {n} times in "
+                                     f"{n_steps} steps of {cfg.n_layers} "
+                                     f"layers")
+        pairs = list(zip(cache_losses + synth_losses,
+                         train["losses_cache_fed"]
+                         + train["losses_synthetic"]))
+        diff = max(abs(a - b) for a, b in pairs)
+        step_s = statistics.median(cache_times[1:])
+        synth_s = statistics.median(synth_times)
+        mfu = 6.0 * train["params"] * B * L / step_s / BF16_FLOP_PER_S
+        fractions = feed_prof.summary()["fractions"]
+        prof, wall_s, kern, busy_us = profiled_steps(step, params, tok0)
+        res = {"mesh": {"axes": list(mesh.mesh_dim_names),
+                        "shape": list(mesh.shape),
+                        "backend": dist.get_backend(), "init_s": init_s},
+               "train_step_ms": step_s * 1e3,
+               "train_step_synth_ms": synth_s * 1e3,
+               "ingest_overlap_ratio": step_s / synth_s, "mfu": mfu,
+               "peak_bytes": peak, "losses_cache_fed": cache_losses,
+               "losses_synthetic": synth_losses, "max_loss_diff": diff,
+               "step_ms_cache_fed": [t * 1e3 for t in cache_times],
+               "step_ms_synthetic": [t * 1e3 for t in synth_times],
+               "launches": launches, "feed_fractions": fractions,
+               "profile": {"wall_ms": wall_s * 1e3,
+                           "device_busy_ms": busy_us / 1e3,
+                           "device_events": len(kern)}}
+        log(f"mesh: {len(cache_times)} cache-fed steps through "
+            f"GpuTrainFeed(mesh=...), every batch a DTensor {want}; K3 "
+            f"launches {launches} in {n_steps} steps")
+        log(f"mesh: losses cache-fed {[round(x, 4) for x in cache_losses]}"
+            f"; synthetic {[round(x, 4) for x in synth_losses]}; largest "
+            f"difference from phase 6's {diff} (bit-equal expected)")
+        busy = busy_us / 1e3 / (wall_s * 1e3)
+        p6 = train["profile"]
+        log(f"mesh: train_step_ms {step_s * 1e3:.2f} (phase 6: "
+            f"{train['train_step_ms']:.2f}) train_step_synth_ms "
+            f"{synth_s * 1e3:.2f} ({train['train_step_synth_ms']:.2f}) "
+            f"ingest_overlap_ratio {step_s / synth_s:.4f} "
+            f"({train['ingest_overlap_ratio']:.4f}) mfu {mfu:.4f} "
+            f"({train['mfu']:.4f}) peak {peak / GiB:.2f} GiB "
+            f"({train['peak_bytes'] / GiB:.2f}); device busy, 2 profiled "
+            f"steps, {busy:.3f} of {wall_s * 1e3:.1f} ms "
+            f"({p6['device_busy_ms'] / p6['wall_ms']:.3f} of "
+            f"{p6['wall_ms']:.1f} ms); feed input_wait "
+            f"{fractions.get('input_wait', 0.0):.3f}")
+        if kern:
+            for line in prof.key_averages().table(
+                    sort_by="self_cpu_time_total", row_limit=10,
+                    max_name_column_width=48).splitlines():
+                log(f"  {line}")
+        del prof, kern, step, params, tok0
+        gc.collect()
+        torch.cuda.empty_cache()
+        if diff != 0.0:
+            raise AssertionError(f"mesh: losses differ from phase 6's by "
+                                 f"up to {diff}: {pairs}")
+        res["moe"] = moe_on_a_mesh(dev, seed)
+        return res
+    finally:
+        multihost.shutdown()
+
+
+def moe_on_a_mesh(dev: torch.device, seed: int) -> dict:
+    """dryrun_multichip's MoE config (experts sharded over ``ep``) two
+    steps on a (1, 1) ``("data", "ep")`` mesh and two without one, from
+    the same parameters: the losses must be equal."""
+    from curvine_tpu_torch.gpu import model as tm
+    from curvine_tpu_torch.gpu.ingest import put_sharded
+    from curvine_tpu_torch.gpu.mesh import make_mesh
+    cfg = _moe_config()
+    mesh = make_mesh(axis_names=("data", "ep"))
+    tokens = np.random.default_rng(seed + 3).integers(0, cfg.vocab, (2, 64),
+                                                      dtype=np.int32)
+    losses = {}
+    for name in ("plain", "mesh"):
+        params = tm.init_params(torch.Generator(device=dev).manual_seed(
+            seed + 2), cfg, dev)
+        m = None if name == "plain" else mesh
+        tok = torch.from_numpy(tokens).to(dev)
+        if m is not None:
+            params = tm.shard_params(params, m)
+            tok = put_sharded(tokens, m, tm.batch_spec(m))
+        step = tm.make_train_step(cfg, tm.make_optimizer(params), m)
+        losses[name] = [float(step(params, tok)) for _ in range(2)]
+    ew1 = [repr(p) for p in params["layers"][0]["ew1"].placements]
+    log(f"mesh: MoE (4 experts, ew1 {ew1} over {mesh.mesh_dim_names}) "
+        f"losses {losses['mesh']} on the mesh, {losses['plain']} without")
+    if losses["mesh"] != losses["plain"] or \
+            ew1 != ["Replicate()", "Shard(dim=0)"] or \
+            not all(map(math.isfinite, losses["mesh"])):
+        raise AssertionError(f"mesh: MoE losses {losses}")
+    return {"losses": losses, "ew1_placements": ew1}
 
 
 # ------------------------------------------------------------------ vector
@@ -2340,8 +2542,13 @@ def main() -> int:
         results["ckpt"], probe = phase_ckpt(dev, info["addr"], args.seed,
                                             params,
                                             results["main"]["link_gibs"])
+        # phase 6's parameters can sit in a reference cycle until the
+        # collector runs: collect it, or they count in the next peak
         del params
+        gc.collect()
         torch.cuda.empty_cache()
+        results["mesh"] = phase_mesh(dev, info["addr"], args.seed,
+                                     results["train"])
         results["vector"] = phase_vector(dev, info["addr"], args.seed)
         results["master"] = phase_master(root, conf, cluster, pw, probe)
         # every phase's cluster traffic went through the port's worker
@@ -2394,7 +2601,8 @@ def main() -> int:
             "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py"
                         + replaces[name] + " (via curvine_tpu/tpu/model.py"
                         ":113)",
-            "launches": results["train"]["launches"][name],
+            "launches": results["train"]["launches"][name]
+                        + results["mesh"]["launches"][name],
             "max_abs_err": f["max_abs_err"], "ms": f["ms"],
             "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"],
             "bound_by": f["bound_by"], "library_ms": f["library_ms"]})

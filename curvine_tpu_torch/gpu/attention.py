@@ -4,8 +4,9 @@ The port's own copy of ``NEG_INF`` and ``dense_attention`` from
 ``curvine_tpu/tpu/ring_attention.py:22,82-90``: the plain path the model
 takes wherever flash attention is not eligible (on the CPU, or for
 shapes the kernel does not tile), and the yardstick the flash kernels
-are tested against. Layout ``[B, H, L, D]``. Ring attention waits for
-the mesh slice."""
+are tested against. Layout ``[B, H, L, D]``. Under a mesh the model calls
+it on each rank's local heads. Ring attention is not ported (ROADMAP
+A11)."""
 
 from __future__ import annotations
 

@@ -1,5 +1,5 @@
-"""Model checkpoints on one device: a parameter tree saved through the
-cache and loaded back onto the card.
+"""Model checkpoints on one device, a parameter tree saved through the
+cache and loaded back onto the card, and parameters placed on a mesh.
 
 Port of the one-device part of ``curvine_tpu/tpu/broadcast.py``:
 ``_tree_skeleton`` and ``_tree_build`` (:30-64), ``save_checkpoint``
@@ -32,9 +32,11 @@ is refused as the reference refuses it; with ``allow_pickle=True`` the
 side file holds a pickled JAX treedef, which only JAX can rebuild, and
 the port, which never imports JAX, raises. ``save_checkpoint`` of a tree
 the skeleton cannot encode raises the skeleton's ``TypeError`` where the
-reference falls back to that pickle. ``broadcast_params``,
-``distribute_checkpoint`` and its schedules need the mesh and the peer
-plane (ROADMAP A8, A9b, A10)."""
+reference falls back to that pickle. ``distribute_checkpoint`` and its
+schedules need the peer plane (ROADMAP A9b, A10).
+
+``broadcast_params`` (:171-181) places a parameter tree onto a
+``gpu/mesh.py`` mesh, each leaf a DTensor."""
 
 from __future__ import annotations
 
@@ -44,12 +46,14 @@ import math
 
 import numpy as np
 import torch
+from torch.distributed.tensor import distribute_tensor
 
 from curvine_tpu_torch.device import default_device
 from curvine_tpu_torch.gpu.ingest import DeviceCopier
+from curvine_tpu_torch.gpu.mesh import placements, tree_map
 
 __all__ = ["save_checkpoint", "load_checkpoint",
-           "distribute_checkpoint_to_device"]
+           "distribute_checkpoint_to_device", "broadcast_params"]
 
 # numpy's dtype names (the manifest's) and the torch dtypes they carry
 _DTYPES = {
@@ -215,3 +219,19 @@ async def distribute_checkpoint_to_device(client, path: str, device=None):
     card, or an error without one; the CPU only when asked for."""
     device = default_device() if device is None else torch.device(device)
     return await load_checkpoint(client, path, placer=DeviceCopier(device))
+
+
+def broadcast_params(params, mesh, spec_tree=None):
+    """Place params onto the mesh, each leaf a DTensor on its device.
+    spec_tree=None → fully replicated (classic model distribution);
+    otherwise each leaf lands laid out by its spec (a ``gpu/mesh.py::P``
+    in a tree of the same structure), never whole on a rank that holds a
+    shard. Every rank of the mesh calls it; rank 0's values are the ones
+    placed. A leaf that requires grad stays one, as a new leaf."""
+    def place(x, spec):
+        return distribute_tensor(x.detach(), mesh, placements(mesh, spec)
+                                 ).requires_grad_(x.requires_grad)
+
+    if spec_tree is None:
+        return tree_map(lambda x: place(x, ()), params)
+    return tree_map(place, params, spec_tree)

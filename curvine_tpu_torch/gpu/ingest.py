@@ -1,9 +1,9 @@
 """Host→device ingest: prefetchers that keep batches in flight on the card.
 
-Port of ``curvine_tpu/tpu/ingest.py:34-184`` (``DevicePrefetcher``,
-``AsyncDevicePrefetcher``), single-device. Where the JAX package calls
-``jax.device_put`` and lets the runtime overlap the copy, the port does it
-by hand:
+Port of ``curvine_tpu/tpu/ingest.py`` (``put_sharded``,
+``DevicePrefetcher``, ``AsyncDevicePrefetcher``). Where the JAX package
+calls ``jax.device_put`` and lets the runtime overlap the copy, the port
+does it by hand:
 
 * each host batch is copied into the next buffer of a ring of pinned
   staging buffers (``PinnedStager``, which the device tier-0 uses too),
@@ -18,8 +18,12 @@ by hand:
 
 At most ``depth + 1`` batches are resident on the device, as in the JAX
 prefetchers. On a CPU device the batch is copied into a fresh tensor.
-``put_sharded`` and the ``mesh``/``spec`` arguments wait for the mesh
-slice of the port."""
+
+With a ``mesh`` (``gpu/mesh.py``), a delivered batch is a DTensor laid
+out by ``spec``: each rank copies the part it holds, which at world size
+1 is the whole batch, and the parts form the global tensor
+(``DTensor.from_local``, the counterpart of
+``jax.make_array_from_process_local_data``)."""
 
 from __future__ import annotations
 
@@ -30,11 +34,13 @@ from typing import AsyncIterator, Iterator
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from curvine_tpu_torch.device import default_device
+from curvine_tpu_torch.gpu.mesh import P, mesh_device, placements
 
 __all__ = ["PinnedStager", "DeviceCopier", "DevicePrefetcher",
-           "AsyncDevicePrefetcher"]
+           "AsyncDevicePrefetcher", "put_sharded"]
 
 STAGE_CHUNK = 16 << 20      # bytes per pinned staging buffer
 STAGE_SLOTS = 4             # buffers in the ring
@@ -85,9 +91,20 @@ class DeviceCopier:
     """Host batch → device tensor through the pinned staging ring on a
     side stream (see the module docstring). ``transfer`` enqueues the
     copy and returns ``(tensor, event)``; ``deliver`` hands the tensor to
-    the current stream."""
+    the current stream, as a DTensor on ``mesh`` laid out by ``spec``
+    (default ``P(first axis)``) where a mesh is given: the batch is then
+    this rank's part, and the device the mesh's."""
 
-    def __init__(self, device=None):
+    def __init__(self, device=None, mesh=None, spec=None):
+        if mesh is not None:
+            if device is not None and torch.device(device) != \
+                    mesh_device(mesh):
+                raise ValueError(f"device {device} is not the mesh's "
+                                 f"{mesh_device(mesh)}")
+            device = mesh_device(mesh)
+            spec = spec if spec is not None else P(mesh.mesh_dim_names[0])
+            self.placements = placements(mesh, spec)
+        self.mesh = mesh
         self.device = torch.device(device) if device is not None \
             else default_device()
         self.cuda = self.device.type == "cuda"
@@ -113,6 +130,9 @@ class DeviceCopier:
             cur = torch.cuda.current_stream(self.device)
             cur.wait_event(ev)
             out.record_stream(cur)
+        if self.mesh is not None:
+            return DTensor.from_local(out, self.mesh, self.placements,
+                                      run_check=False)
         return out
 
     def timed_transfer(self, batch: np.ndarray, profiler):
@@ -125,15 +145,27 @@ class DeviceCopier:
         return item
 
 
+def put_sharded(batch: np.ndarray, mesh, spec: P | None = None):
+    """Place a host batch as a global DTensor sharded over the mesh
+    (``spec`` default ``P(first axis)``): each rank passes its local
+    part, the whole batch at world size 1. Copied through the pinned
+    ring, on the current stream's terms."""
+    copier = DeviceCopier(mesh=mesh, spec=spec)
+    return copier.deliver(copier.transfer(batch))
+
+
 class DevicePrefetcher:
     """Wraps a host-batch iterator; keeps ``depth`` batches in flight on
-    the device so the consumer never waits on the host→device copy."""
+    the device so the consumer never waits on the host→device copy. With
+    a ``mesh``, each batch is this rank's part of a DTensor laid out by
+    ``spec`` (``put_sharded``)."""
 
     def __init__(self, host_batches: Iterator[np.ndarray], depth: int = 2,
-                 device=None, profiler=None):
+                 device=None, profiler=None, mesh=None,
+                 spec: P | None = None):
         self.src = iter(host_batches)
         self.depth = max(1, depth)
-        self.copier = DeviceCopier(device)
+        self.copier = DeviceCopier(device, mesh, spec)
         self.device = self.copier.device
         # optional StepProfiler (obs/profiler.py): host→device dispatch time
         self.profiler = profiler
@@ -160,13 +192,14 @@ class AsyncDevicePrefetcher:
     A background PRODUCER task keeps ``depth`` batches in flight: the host
     fetch and host→device copy of batch k+1 overlap the consumer's
     compute on batch k. Errors from the source surface at the consumer
-    and stay sticky."""
+    and stay sticky. ``mesh`` and ``spec`` as in ``DevicePrefetcher``."""
 
     def __init__(self, host_batches: AsyncIterator[np.ndarray],
-                 depth: int = 2, device=None, profiler=None):
+                 depth: int = 2, device=None, profiler=None, mesh=None,
+                 spec: P | None = None):
         self.src = host_batches
         self.depth = max(1, depth)
-        self.copier = DeviceCopier(device)
+        self.copier = DeviceCopier(device, mesh, spec)
         self.device = self.copier.device
         # optional StepProfiler (obs/profiler.py): attributes each step
         # to host→device transfer, compute_wait (producer blocked on a

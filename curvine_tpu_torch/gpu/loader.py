@@ -1,9 +1,11 @@
 """Token-shard feed for PyTorch training loops on the card.
 
-Port of ``curvine_tpu/tpu/loader.py`` for one device. The batching is the
-JAX package's: a deterministic per-epoch shard order, tokens carried
-across shard boundaries, and ``drop_remainder``. Shards are raw
-little-endian token arrays, one file per shard.
+Port of ``curvine_tpu/tpu/loader.py``. The batching is the JAX
+package's: a deterministic per-epoch shard order, tokens carried across
+shard boundaries, and ``drop_remainder``. Shards are raw little-endian
+token arrays, one file per shard. With a ``mesh``, the feeds deliver
+DTensors laid out by ``model.batch_spec``: the batch over ``data``, the
+sequence over ``seq`` where the mesh has it (loader.py:190-193).
 
 Two sources feed the same batching:
 
@@ -15,7 +17,7 @@ Two sources feed the same batching:
   next epoch's head near the end of each epoch.
   ``write_token_shards`` (:135-166) writes shards through the client
   after one META_BATCH warm-up, and ``GpuTrainFeed`` (:169-199) is
-  ``TpuTrainFeed`` on one device.
+  ``TpuTrainFeed``.
 - ``ShardSource`` reads shard files under a POSIX directory, such as the
   cache's FUSE mount, mapped read-only; ``write_posix_shards`` and
   ``PosixTrainFeed`` are its writer and feed."""
@@ -33,6 +35,7 @@ import numpy as np
 from curvine_tpu_torch.common import errors as err
 from curvine_tpu_torch.common.epoch import epoch_shard_order
 from curvine_tpu_torch.gpu.ingest import AsyncDevicePrefetcher
+from curvine_tpu_torch.gpu.model import batch_spec
 from curvine_tpu_torch.obs.profiler import StepProfiler
 from curvine_tpu_torch.worker.blockfile import map_block
 
@@ -258,18 +261,20 @@ def write_posix_shards(root: str, tokens: np.ndarray, shard_tokens: int,
 
 class _Feed:
     """A batch source → AsyncDevicePrefetcher: the source → device →
-    step pipeline on one device. One StepProfiler threads it:
-    cache_fetch and decode from the source, host_to_hbm, compute_wait and
-    input_wait from the prefetcher; ``feed.profiler.summary()`` answers
-    "where did the step go". ``make_source`` builds the source around
-    that profiler."""
+    step pipeline, on one device or, with ``mesh``, as this rank's part
+    of batches laid out by ``batch_spec(mesh)``. One StepProfiler threads
+    it: cache_fetch and decode from the source, host_to_hbm, compute_wait
+    and input_wait from the prefetcher; ``feed.profiler.summary()``
+    answers "where did the step go". ``make_source`` builds the source
+    around that profiler."""
 
-    def __init__(self, make_source, depth: int, device, profiler):
+    def __init__(self, make_source, depth: int, device, profiler, mesh):
         self.profiler = profiler if profiler is not None else StepProfiler()
         self.source = make_source(self.profiler)
         self.prefetcher = AsyncDevicePrefetcher(
             self.source.batches(), depth=depth, device=device,
-            profiler=self.profiler)
+            profiler=self.profiler, mesh=mesh,
+            spec=None if mesh is None else batch_spec(mesh))
 
     def __aiter__(self):
         return self.prefetcher
@@ -282,11 +287,11 @@ class GpuTrainFeed(_Feed):
     def __init__(self, client, path: str, batch: int, seq_len: int,
                  depth: int = 2, dtype=np.int32, profiler=None,
                  shuffle_seed: int | None = None, prefetch: bool = False,
-                 prefetch_window: int = 8, device=None):
+                 prefetch_window: int = 8, device=None, mesh=None):
         super().__init__(lambda prof: CacheShardSource(
             client, path, batch, seq_len, dtype, shuffle_seed=shuffle_seed,
             profiler=prof, prefetch=prefetch,
-            prefetch_window=prefetch_window), depth, device, profiler)
+            prefetch_window=prefetch_window), depth, device, profiler, mesh)
 
 
 class PosixTrainFeed(_Feed):
@@ -294,7 +299,7 @@ class PosixTrainFeed(_Feed):
 
     def __init__(self, root: str, batch: int, seq_len: int, depth: int = 2,
                  dtype=np.int32, profiler=None,
-                 shuffle_seed: int | None = None, device=None):
+                 shuffle_seed: int | None = None, device=None, mesh=None):
         super().__init__(lambda prof: ShardSource(
             root, batch, seq_len, dtype, shuffle_seed=shuffle_seed,
-            profiler=prof), depth, device, profiler)
+            profiler=prof), depth, device, profiler, mesh)

@@ -1,18 +1,34 @@
 """Training consumer: the decoder-only transformer LM of the JAX package.
 
-Port of ``curvine_tpu/tpu/model.py:30-244`` for one device: the same
-configuration, the same parameter tree (names, shapes, ``x @ w``
-orientation), the same forward pass, chunked cross entropy and AdamW
-step. Parameters are a plain dict of leaf tensors, as JAX's pytree is,
-so a JAX-initialised tree loads one to one (``params_from_jax``).
+Port of ``curvine_tpu/tpu/model.py``: the same configuration, the same
+parameter tree (names, shapes, ``x @ w`` orientation), the same forward
+pass, MoE FFN, chunked cross entropy, AdamW step and mesh shardings.
+Parameters are a plain dict of leaf tensors, as JAX's pytree is, so a
+JAX-initialised tree loads one to one (``params_from_jax``).
 
 Where the JAX package takes the Pallas flash attention on a TPU, the
 port takes K3 (``gpu/flash.py``, CUDA kernels) on a CUDA device; on the
 CPU it takes ``dense_attention``, as the JAX package does off the TPU.
-Not ported yet: the MoE FFN, ring attention and the mesh shardings
-(``model.py:141-156, 247-292``), which wait for the mesh slice.
-``use_ring_attention`` is kept as a field and, as in the JAX package
-without a mesh, changes nothing.
+
+Sharding recipe (Megatron-style TP over the ``model`` axis, experts over
+``ep``; ``_PARAM_SPECS``), on a ``gpu/mesh.py`` mesh: ``shard_params``
+makes each leaf a DTensor laid out by its spec, and the model functions
+take the ``mesh``. Where XLA's sharding propagation chooses the
+activations' layout, DTensor's would choose others (a partial sum on
+``model`` after the embedding, the batch split over ``model``), so the
+activations are pinned to the reference docstring's ``P('data', 'seq',
+None)`` at each block's entry and before each RMSNorm, and the pinned
+tensor is the one used on (by the residual too: a pin beside its
+unpinned input would regroup the sums of the gradient's terms, which on
+a mesh of one would then differ from the unsharded step's in the last
+bit); attention runs under
+``mesh.shard_map`` on each rank's local heads (K3 on a CUDA mesh, as
+without one), and the gradients, partial sums over ``data`` after the
+backward, are reduced once before the optimizer's step, as DDP does.
+Not ported: ring attention and the ``seq`` axis (ROADMAP A11): a mesh
+whose ``seq`` axis is larger than 1 raises. ``use_ring_attention`` is
+kept as a field and, as in the JAX package without such a mesh, changes
+nothing.
 
 The train step differs in form only: PyTorch updates the parameters in
 place and the optimizer carries its state, so ``make_train_step``'s
@@ -26,15 +42,20 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate
 from torch.utils.checkpoint import checkpoint
 
 from curvine_tpu_torch.device import default_device
 from curvine_tpu_torch.gpu.attention import dense_attention
+from curvine_tpu_torch.gpu.broadcast import broadcast_params
 from curvine_tpu_torch.gpu.flash import flash_attention
+from curvine_tpu_torch.gpu.mesh import (P, placements, shard_map,
+                                        tree_map)
 
 __all__ = ["ModelConfig", "init_params", "leaves", "n_params",
            "params_from_jax", "params_to_numpy", "forward_hidden",
-           "forward", "loss_fn", "make_optimizer", "make_train_step"]
+           "forward", "loss_fn", "make_optimizer", "make_train_step",
+           "param_spec_tree", "shard_params", "batch_spec"]
 
 
 @dataclass(frozen=True)
@@ -48,7 +69,7 @@ class ModelConfig:
     dtype: str = "bfloat16"
     use_ring_attention: bool = False
     remat: bool = False        # torch.utils.checkpoint each block
-    moe_experts: int = 0       # >0: MoE FFN (not ported yet: raises)
+    moe_experts: int = 0       # >0: MoE FFN, experts sharded over 'ep'
     # K3 flash attention on a CUDA device (gpu/flash.py). Eligible where
     # head_dim % 128 == 0 and seq % 128 == 0, as in the JAX package; the
     # kernels take head_dim 128 and raise for anything else they see.
@@ -70,18 +91,12 @@ class ModelConfig:
                            d_ff=128, max_seq=128)
 
 
-def _no_moe(cfg: ModelConfig) -> None:
-    if cfg.moe_experts > 0:
-        raise NotImplementedError("the MoE FFN is not ported yet")
-
-
 def init_params(generator: torch.Generator, cfg: ModelConfig,
                 device=None) -> dict:
     """Random parameters, drawn from ``generator`` on its own device and
     placed on ``device`` (``default_device()`` when None: the card, or an
     error without one; the CPU only when asked for): the JAX tree's
     names and shapes, weights N(0, 1/fan_in), norms 1."""
-    _no_moe(cfg)
     dt = cfg.torch_dtype()
     device = default_device() if device is None else torch.device(device)
     D, Fd = cfg.d_model, cfg.d_ff
@@ -98,13 +113,21 @@ def init_params(generator: torch.Generator, cfg: ModelConfig,
     pos = dense(D, (cfg.max_seq, D))
     layers = []
     for _ in range(cfg.n_layers):
-        layers.append({
+        layer = {
             "ln1": ones(D),
             "wq": dense(D, (D, D)), "wk": dense(D, (D, D)),
             "wv": dense(D, (D, D)), "wo": dense(D, (D, D)),
             "ln2": ones(D),
-            "w1": dense(D, (D, Fd)), "w2": dense(Fd, (Fd, D)),
-        })
+        }
+        if cfg.moe_experts > 0:
+            E = cfg.moe_experts
+            layer["router"] = dense(D, (D, E))
+            layer["ew1"] = dense(D, (E, D, Fd))
+            layer["ew2"] = dense(Fd, (E, Fd, D))
+        else:
+            layer["w1"] = dense(D, (D, Fd))
+            layer["w2"] = dense(Fd, (Fd, D))
+        layers.append(layer)
     return {"embed": embed, "pos": pos, "ln_f": ones(D), "layers": layers}
 
 
@@ -152,8 +175,13 @@ def params_from_jax(tree: dict, device=None) -> dict:
 
 def params_to_numpy(params: dict) -> dict:
     """The reverse of ``params_from_jax``: numpy arrays on the host; bf16
-    tensors come back as their uint16 bits (numpy has no bfloat16)."""
+    tensors come back as their uint16 bits (numpy has no bfloat16). A
+    DTensor leaf is gathered whole first (``full_tensor``, a collective
+    every rank of its mesh calls), as ``np.asarray`` gathers a sharded
+    ``jax.Array``."""
     def to_np(t):
+        if isinstance(t, DTensor):
+            t = t.full_tensor()
         t = t.detach().cpu()
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy().view(np.uint16)
@@ -186,48 +214,115 @@ def _flash_eligible(cfg: ModelConfig, L: int, device: torch.device) -> bool:
             and L % 128 == 0)
 
 
-def _attention(x, layer, cfg: ModelConfig):
+def _attend(q, k, v, cfg: ModelConfig):
+    """Causal attention over [B, H, L, hd] plain tensors: K3 where the
+    gate admits it, else dense."""
+    if _flash_eligible(cfg, q.shape[2], q.device):
+        return flash_attention(q.contiguous(), k.contiguous(),
+                               v.contiguous(), causal=True,
+                               sm_scale=1.0 / math.sqrt(q.shape[-1]))
+    return dense_attention(q, k, v, causal=True)
+
+
+def _attention(x, layer, cfg: ModelConfig, mesh=None):
     B, L, D = x.shape
     H, hd = cfg.n_heads, cfg.head_dim
     q = (x @ layer["wq"]).reshape(B, L, H, hd).transpose(1, 2)
     k = (x @ layer["wk"]).reshape(B, L, H, hd).transpose(1, 2)
     v = (x @ layer["wv"]).reshape(B, L, H, hd).transpose(1, 2)
-    if _flash_eligible(cfg, L, x.device):
-        o = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                            causal=True, sm_scale=1.0 / math.sqrt(hd))
+    if mesh is None:
+        o = _attend(q, k, v, cfg)
     else:
-        o = dense_attention(q, k, v, causal=True)
+        # each rank's local heads: [B/data, H/model, L, hd]
+        names = mesh.mesh_dim_names
+        spec = P("data", "model" if "model" in names else None)
+        o = shard_map(lambda q, k, v: _attend(q, k, v, cfg), mesh,
+                      (spec,) * 3, spec)(q, k, v)
     o = o.transpose(1, 2).reshape(B, L, D)
     return o @ layer["wo"]
 
 
-def _block(x, layer, cfg: ModelConfig):
-    _no_moe(cfg)
-    x = x + _attention(_rmsnorm(x, layer["ln1"]), layer, cfg)
+def _moe_ffn(x, layer, cfg: ModelConfig):
+    """Expert-parallel FFN (model.py:141-156): experts sharded over the
+    'ep' mesh axis (weights P('ep', …)); the expert einsums run on each
+    rank's experts and the combine sums over 'ep'. Soft top-2 routing
+    in f32: dense compute, static shapes."""
+    gates = torch.softmax((x @ layer["router"]).float(), dim=-1)
+    # keep the top-2 gates, renormalise (still differentiable)
+    top2 = torch.topk(gates, 2, dim=-1).values[..., -1:]
+    gates = torch.where(gates >= top2, gates, torch.zeros_like(gates))
+    gates = gates / gates.sum(-1, keepdim=True)
+    h = torch.einsum("bld,edf->belf", x, layer["ew1"])
+    h = F.gelu(h, approximate="tanh")
+    y = torch.einsum("belf,efd->beld", h, layer["ew2"])
+    return torch.einsum("beld,ble->bld", y, gates.to(x.dtype))
+
+
+def _act(mesh) -> list:
+    """The activations' [B, L, D] layout, the reference docstring's
+    P('data', 'seq', None)."""
+    return placements(mesh, P(*batch_spec(mesh), None))
+
+
+def _pin(x, mesh):
+    """Under a mesh, ``x`` laid out as the activations are; without one,
+    ``x``."""
+    if mesh is None:
+        return x
+    return x.redistribute(mesh, _act(mesh))
+
+
+def _whole(param, mesh):
+    """A parameter whole on this rank, as a plain tensor, for code that
+    works on this rank's rows (the embedding lookup, the loss): its
+    gradient goes back as a partial sum over 'data', the rows' axis."""
+    return param.redistribute(mesh, [Replicate()] * mesh.ndim).to_local(
+        grad_placements=[Partial() if a == "data" else Replicate()
+                         for a in mesh.mesh_dim_names])
+
+
+def _block(x, layer, cfg: ModelConfig, mesh=None):
+    x = _pin(x, mesh)
+    x = x + _attention(_rmsnorm(x, layer["ln1"]), layer, cfg, mesh)
+    x = _pin(x, mesh)
     h = _rmsnorm(x, layer["ln2"])
-    # jax.nn.gelu defaults to the tanh approximation
-    h = F.gelu(h @ layer["w1"], approximate="tanh") @ layer["w2"]
+    if cfg.moe_experts > 0:
+        h = _moe_ffn(h, layer, cfg)
+    else:
+        # jax.nn.gelu defaults to the tanh approximation
+        h = F.gelu(h @ layer["w1"], approximate="tanh") @ layer["w2"]
     return x + h
 
 
-def forward_hidden(params: dict, tokens: torch.Tensor,
-                   cfg: ModelConfig) -> torch.Tensor:
-    """tokens [B, L] int → final hidden states [B, L, D] (model dtype)."""
+def forward_hidden(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
+                   mesh=None) -> torch.Tensor:
+    """tokens [B, L] int → final hidden states [B, L, D] (model dtype).
+    Under ``mesh``, params and tokens are DTensors on it (``shard_params``,
+    ``batch_spec``)."""
+    _check_mesh(mesh)
     B, L = tokens.shape
-    x = params["embed"][tokens.long()] + params["pos"][:L]
+    if mesh is None:
+        x = params["embed"][tokens.long()] + params["pos"][:L]
+    else:
+        # the lookup on this rank's rows, in plain tensors: its backward
+        # on DTensors (index_put) fails sharding propagation in torch 2.11
+        x = DTensor.from_local(
+            _whole(params["embed"], mesh)[tokens.to_local().long()]
+            + _whole(params["pos"], mesh)[:L], mesh, _act(mesh),
+            run_check=False)
     for layer in params["layers"]:
         if cfg.remat:
-            x = checkpoint(_block, x, layer, cfg, use_reentrant=False)
+            x = checkpoint(_block, x, layer, cfg, mesh, use_reentrant=False)
         else:
-            x = _block(x, layer, cfg)
-    return _rmsnorm(x, params["ln_f"])
+            x = _block(x, layer, cfg, mesh)
+    return _rmsnorm(_pin(x, mesh), params["ln_f"])
 
 
-def forward(params: dict, tokens: torch.Tensor,
-            cfg: ModelConfig) -> torch.Tensor:
+def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
+            mesh=None) -> torch.Tensor:
     """tokens [B, L] int → logits [B, L, V] f32 (a model-dtype matmul,
     cast afterwards)."""
-    x = forward_hidden(params, tokens, cfg)
+    x = forward_hidden(params, tokens, cfg, mesh)
     return (x @ params["embed"].T).float()
 
 
@@ -263,16 +358,42 @@ def _oneshot_ce(x, targets, embed):
     return -logp.gather(1, targets[:, None]).mean()
 
 
-def loss_fn(params: dict, tokens: torch.Tensor,
-            cfg: ModelConfig) -> torch.Tensor:
+def loss_fn(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
+            mesh=None) -> torch.Tensor:
     """Next-token cross entropy; the model runs on all L positions (so
-    flash stays eligible) and the last position predicts nothing."""
-    x = forward_hidden(params, tokens, cfg)
+    flash stays eligible) and the last position predicts nothing. Under
+    ``mesh`` the loss comes back whole on every rank, a plain tensor."""
+    x = forward_hidden(params, tokens, cfg, mesh)
+    embed = params["embed"]
+    if mesh is not None:
+        x, tokens, embed = _local_rows(x, tokens, embed, mesh)
     x = x[:, :-1].reshape(-1, x.shape[-1])
     targets = tokens[:, 1:].reshape(-1).long()
     if cfg.ce_chunk > 0:
-        return _chunked_ce(x, targets, params["embed"], cfg.ce_chunk)
-    return _oneshot_ce(x, targets, params["embed"])
+        loss = _chunked_ce(x, targets, embed, cfg.ce_chunk)
+    else:
+        loss = _oneshot_ce(x, targets, embed)
+    if mesh is None:
+        return loss
+    # the mean of the ranks' means (their rows are equal in number): a
+    # sum over 'data', whose backward hands each rank the loss's gradient
+    names = mesh.mesh_dim_names
+    n_data = mesh.size(names.index("data"))
+    return DTensor.from_local(loss / n_data, mesh, [
+        Partial() if a == "data" else Replicate() for a in names]
+        ).full_tensor()
+
+
+def _local_rows(x, tokens, embed, mesh):
+    """The cross entropy's operands on this rank, as plain tensors: its
+    rows of the hidden states and tokens (the batch over 'data') and the
+    whole embedding. The loss is computed on them by the unsharded code,
+    so its integer indexing never meets DTensor's sharding propagation
+    (the gather's index ops fail it in torch 2.11); the hidden states'
+    gradient goes back laid out as the rows are."""
+    rows = _pin(x, mesh)
+    return (rows.to_local(grad_placements=rows.placements),
+            tokens.to_local(), _whole(embed, mesh))
 
 
 def make_optimizer(params: dict, lr: float = 3e-4) -> torch.optim.AdamW:
@@ -283,16 +404,84 @@ def make_optimizer(params: dict, lr: float = 3e-4) -> torch.optim.AdamW:
                              eps=1e-8, weight_decay=0.01)
 
 
-def make_train_step(cfg: ModelConfig, optimizer: torch.optim.Optimizer):
+def make_train_step(cfg: ModelConfig, optimizer: torch.optim.Optimizer,
+                    mesh=None):
     """A step ``train_step(params, tokens) -> loss``: loss and gradients,
     then one optimizer update of ``params`` in place. The loss is
-    returned without a sync (a 0-d tensor on the parameters' device)."""
+    returned without a sync (a 0-d tensor on the parameters' device).
+    Under ``mesh`` (params from ``shard_params``, tokens laid out by
+    ``batch_spec``), each gradient is reduced to its parameter's layout
+    once, before the update."""
+    _check_mesh(mesh)
 
     def train_step(params: dict, tokens: torch.Tensor) -> torch.Tensor:
         optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn(params, tokens, cfg)
+        loss = loss_fn(params, tokens, cfg, mesh)
         loss.backward()
+        if mesh is not None:
+            for p in leaves(params):
+                if p.grad is not None and p.grad.placements != p.placements:
+                    p.grad = p.grad.redistribute(p.device_mesh,
+                                                 p.placements)
         optimizer.step()
         return loss.detach()
 
     return train_step
+
+
+# ---------------- shardings ----------------
+
+_PARAM_SPECS = {
+    "embed": P(None, "model"),
+    "pos": P(None, None),
+    "ln_f": P(None),
+    "ln1": P(None), "ln2": P(None),
+    "wq": P(None, "model"), "wk": P(None, "model"), "wv": P(None, "model"),
+    "wo": P("model", None),
+    "w1": P(None, "model"), "w2": P("model", None),
+    # MoE: experts sharded over 'ep'
+    "router": P(None, None),
+    "ew1": P("ep", None, None), "ew2": P("ep", None, None),
+}
+
+
+def param_spec_tree(params: dict) -> dict:
+    """Spec tree matching init_params structure."""
+    def spec_of(path_leaf):
+        return _PARAM_SPECS.get(path_leaf, P())
+
+    return {
+        "embed": spec_of("embed"), "pos": spec_of("pos"),
+        "ln_f": spec_of("ln_f"),
+        "layers": [{k: spec_of(k) for k in layer}
+                   for layer in params["layers"]],
+    }
+
+
+def _sanitize(spec: P, mesh) -> P:
+    """Drop axes the mesh doesn't have (e.g. 'ep' on a dp×tp mesh)."""
+    return P(*(a if a in mesh.mesh_dim_names else None for a in spec))
+
+
+def shard_params(params: dict, mesh) -> dict:
+    """Each leaf as a DTensor on ``mesh``, laid out by its spec: a leaf
+    that requires grad stays one (a new leaf)."""
+    specs = tree_map(lambda s: _sanitize(s, mesh), param_spec_tree(params))
+    return broadcast_params(params, mesh, specs)
+
+
+def batch_spec(mesh) -> P:
+    """tokens [B, L]: batch over data, seq over seq (when present)."""
+    seq = "seq" if "seq" in mesh.mesh_dim_names else None
+    return P("data", seq)
+
+
+def _check_mesh(mesh) -> None:
+    """Refuse what the port does not shard: a ``seq`` axis larger than 1
+    (sequence sharding needs ring attention, ROADMAP A11)."""
+    if mesh is None or "seq" not in mesh.mesh_dim_names:
+        return
+    if mesh.size(mesh.mesh_dim_names.index("seq")) > 1:
+        raise NotImplementedError(
+            "a mesh with a 'seq' axis larger than 1 needs ring attention, "
+            "which is not ported (ROADMAP A11)")

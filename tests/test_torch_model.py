@@ -414,10 +414,23 @@ def test_flash_attention_gated_off_cpu():
 
 
 def test_moe_is_not_ported_yet():
-    with pytest.raises(NotImplementedError):
-        tm.init_params(torch.Generator().manual_seed(0),
-                       dataclasses.replace(tm.ModelConfig.tiny(),
-                                           moe_experts=2), CPU)
+    """The name dates from when ``moe_experts > 0`` raised; the MoE FFN is
+    ported now (its parity with JAX: tests/test_torch_mesh.py). Such a
+    config builds the reference's MoE layer (router, ew1, ew2 in place
+    of w1, w2) and runs a finite forward."""
+    cfg = dataclasses.replace(tm.ModelConfig.tiny(), moe_experts=2,
+                              dtype="float32")
+    params = tm.init_params(torch.Generator().manual_seed(0), cfg, CPU)
+    ref = jm.init_params(jax.random.PRNGKey(0), jm.ModelConfig(
+        **dataclasses.asdict(cfg)))
+    for got, want in zip(params["layers"], ref["layers"]):
+        assert sorted(got) == sorted(want)
+        assert all(tuple(got[k].shape) == want[k].shape for k in got)
+    with torch.no_grad():
+        logits = tm.forward(params, torch.zeros((2, 16), dtype=torch.int32),
+                            cfg)
+    assert logits.shape == (2, 16, cfg.vocab)
+    assert bool(torch.isfinite(logits).all())
 
 
 def test_bf16_params_round_trip_bit_for_bit():

@@ -127,17 +127,32 @@ Phases, each raising on a fault (the exit code is then non-zero):
    with the same length and blocks, each block located once the port's
    worker has sent the full report the restarted master asks for; the
    master lists that worker alone; one checkpoint tensor of several
-   blocks read back through the port's client bit for bit.
+   blocks read back through the port's client bit for bit;
+9. ici: the peer-device plane (``gpu/ici_plane.py``) on one card: a
+   master of the phase's own and two more of the port's workers in this
+   process, each with a tier-0 on the card and ICI coordinates. One 64
+   MiB block written to worker A, pinned by A's promote cycle (one K1
+   launch), read from A by READ_BLOCK and moved to worker B by
+   ICI_TRANSFER five times (a copy within the card through the device
+   domain, then D2H, crc32c, write, commit, report, each timed); B's
+   block equal to A's bit for bit with A's commit crc, located on both;
+   after A unpins it, ICI_TRANSFER answers ``success: False`` with one
+   TCP fallback counted. Then bench.py's rail A/B (bench.py:1198-1264)
+   over a ``(1,)`` NCCL mesh: ``broadcast_bytes`` against
+   ``flat_replicate`` of 64 MiB, bit-exact on the card
+   (``ckpt_broadcast_gibs``: with one rank, the chunked host-to-device
+   path).
 
 The kernel launch counts are set to 0 just before phase 3 and read just
 after phase 4 (K1), again just before phase 4c's promote cycles and read
-just after them (K1), again just before the two passes of phase 6 and read
+just after them (K1), again just before phase 9's promote cycle and read
+just after it (K1), again just before the two passes of phase 6 and read
 just after them (K3), again just before phase 6b and read just after it
 (K3's forward, twice a layer for the two losses, and no backward
 kernel), again just before the two passes of phase 6c and read just
 after them (K3), and just before phase 7's ``query_many`` and read just
 after it (K2, which must equal the ADC stages the search issued). The
-kernels line gives K1's two counts summed (each held to its pins, the
+kernels line gives K1's three counts summed (each held to its pins, the
 refused device copies included) and phase 6's and 6c's K3 counts
 summed. The port's worker and master are stopped, the process group
 destroyed, and the data directory removed, however the run ends. No
@@ -151,7 +166,6 @@ from __future__ import annotations
 
 import argparse
 import asyncio
-import gc
 import json
 import math
 import os
@@ -214,6 +228,13 @@ WORKER_PHASE_BYTES = (WORKER_HOT + WORKER_COLD + 1) * BLOCK
 WORKER_TIER_BYTES = CLUSTER_TIER_BYTES + WORKER_PHASE_BYTES
 WORKER_MIN_READS = 2
 WORKER_HEARTBEAT_MS = 1000
+# phase ici: two more of the port's workers under a master of their own,
+# each a mem tier of a few blocks; ICI_TRANSFER of one 64 MiB block timed
+# ICI_REPS times; bench.py's _ici_smoke rail A/B (bench.py:1198-1264): a
+# 64 MiB payload, 2 warm-ups and the best of 3 rounds a rail
+ICI_TIER_BYTES = 4 * BLOCK
+ICI_REPS = 5
+ICI_PAYLOAD, ICI_ROUNDS, ICI_WARMUPS = 64 * MiB, 3, 2
 
 
 def log(msg: str) -> None:
@@ -672,10 +693,11 @@ class PortWorker:
     over loopback TCP, and the worker phase takes device tensors from
     ``worker.hbm``): a mem tier of ``tier_bytes`` under ``root``, a device
     tier-0 of TIER_BYTES on ``dev``, 64 MiB blocks, no periodic promote
-    cycle (the worker phase runs its cycles itself)."""
+    cycle (the worker phase runs its cycles itself), ICI coordinates
+    ``coords``; it joins the device domain of this process."""
 
     def __init__(self, master: str, root: str, tier_bytes: int,
-                 dev: torch.device):
+                 dev: torch.device, coords=()):
         import threading
         from curvine_tpu_torch.common.conf import ClusterConf, TierConf
         from curvine_tpu_torch.worker.server import WorkerServer
@@ -691,6 +713,7 @@ class PortWorker:
                              dir=os.path.join(root, "worker", "mem"),
                              capacity=tier_bytes)]
         wc.hbm_capacity = TIER_BYTES
+        wc.ici_coords = list(coords)
         self.conf = conf
         self.worker = WorkerServer(conf, devices=[dev])
         self.loop = asyncio.new_event_loop()
@@ -2001,7 +2024,6 @@ def phase_mesh(dev: torch.device, master: str, seed: int, train: dict
                     max_name_column_width=48).splitlines():
                 log(f"  {line}")
         del prof, kern, step, params, tok0
-        gc.collect()
         torch.cuda.empty_cache()
         if diff != 0.0:
             raise AssertionError(f"mesh: losses differ from phase 6's by "
@@ -2488,6 +2510,278 @@ def phase_master(root: str, conf: str, cluster: dict, pw: PortWorker,
     return res
 
 
+# ------------------------------------------------------------------ ici
+
+async def _rpc(addr: str, code, body: dict) -> dict:
+    from curvine_tpu_torch.rpc.client import Connection
+    from curvine_tpu_torch.rpc.frame import pack, unpack
+    conn = await Connection(addr).connect()
+    try:
+        rep = await conn.call(code, data=pack(body))
+        return rep.header or unpack(rep.data)
+    finally:
+        await conn.close()
+
+
+def await_live(master: str, ids: list[int], timeout: float = 60) -> None:
+    """Wait until the master lists exactly the workers ``ids``."""
+    async def run():
+        async with port_client(master) as c:
+            t = time.perf_counter()
+            while True:
+                live = sorted(w["address"]["worker_id"]
+                              for w in await live_workers(c))
+                if live == sorted(ids) or time.perf_counter() - t > timeout:
+                    return live
+                await asyncio.sleep(0.1)
+
+    live = asyncio.run(run())
+    if live != sorted(ids):
+        raise AssertionError(f"ici: the master's live workers are {live}, "
+                             f"not {sorted(ids)}")
+
+
+def phase_ici(rng: np.random.Generator, dev: torch.device, root: str
+              ) -> dict:
+    """The peer-device plane on one card: a master of the phase's own and
+    two of the port's workers in this process, A at ICI coordinates
+    (0, 0) and B at (1, 0), each with a tier-0 on the card. A 64 MiB
+    block written to A through the port's client (B not yet started) is
+    pinned by A's promote cycle, K1 verifying the pin; then read from A
+    by READ_BLOCK (short circuit off), and moved to B by ICI_TRANSFER
+    ICI_REPS times (B's copy deleted between), each split into fetch
+    (the peer's tensor through the device domain), D2H, crc32c, write,
+    commit and report. B's block must equal A's file bit for bit, its
+    commit crc A's, and the master must locate the block on both. Then
+    A unpins the block and an ICI_TRANSFER answers ``success: False``
+    with one TCP fallback counted. Last, bench.py's rail A/B over a
+    ``(1,)`` NCCL mesh of this process: ``broadcast_bytes`` against
+    ``flat_replicate`` of 64 MiB, each bit-exact on the card."""
+    from curvine_tpu_torch.gpu import cuda_ops, ici_plane, multihost
+    from curvine_tpu_torch.gpu.mesh import make_mesh
+    from curvine_tpu_torch.rpc.codes import RpcCode
+    from curvine_tpu_torch.worker import server
+    base = os.path.join(root, "ici")
+    os.makedirs(base)
+    conf = master_conf(base)
+    proc, info = start_master(base, conf)
+    master = info["addr"]
+    workers = []
+    path = "/ici/block"
+    res = {"master_start_s": info["start_s"]}
+    try:
+        a = PortWorker(master, os.path.join(base, "a"), ICI_TIER_BYTES, dev,
+                       coords=(0, 0))
+        workers.append(a)
+        await_live(master, [a.worker.worker_id])
+        data = rng.integers(0, 1 << 64, BLOCK // 8, dtype=np.uint64)
+
+        async def write_and_heat():
+            async with port_client(master) as c:
+                await c.write_all(path, data)
+                await c.read_all(path)           # heat 2: probe and read
+                fb = await c.meta.get_block_locations(path)
+                return fb.block_locs[0].block.id
+
+        bid = asyncio.run(write_and_heat())
+        b = PortWorker(master, os.path.join(base, "b"), ICI_TIER_BYTES, dev,
+                       coords=(1, 0))
+        workers.append(b)
+        wa, wb = a.worker, b.worker
+        await_live(master, [wa.worker_id, wb.worker_id])
+        cuda_ops.block_checksum.launches = 0
+        a.call(wa._promote_once())
+        k1 = cuda_ops.block_checksum.launches
+        if not wa.hbm_holds(bid) or k1 != 1:
+            raise AssertionError(f"ici: A's promote cycle pinned the block "
+                                 f"{wa.hbm_holds(bid)} with {k1} K1 "
+                                 f"launches")
+        a_info = wa.store.get(bid, touch=False)
+        pinned = wa.hbm_get(bid)
+        if pinned.device != dev or not torch.equal(
+                pinned.view(torch.int64),
+                torch.from_numpy(data.view(np.int64)).to(dev)):
+            raise AssertionError("ici: A's pinned tensor differs from the "
+                                 "block")
+        del pinned
+
+        async def read_block():
+            async with port_client(master, short_circuit=False) as c:
+                out = []
+                for _ in range(2):
+                    t = time.perf_counter()
+                    raw = await c.read_all(path)
+                    out.append((time.perf_counter() - t, raw))
+                return out, dict(c.counters)
+
+        rb, rb_counters = asyncio.run(read_block())
+        if not all(np.array_equal(np.frombuffer(raw, dtype=np.uint64), data)
+                   for _, raw in rb) or \
+                rb_counters.get("read.zero_copy_bytes") != 2 * BLOCK:
+            raise AssertionError(f"ici: READ_BLOCK from A: {rb_counters}")
+
+        split = {k: [] for k in ("fetch", "d2h", "crc32c", "write",
+                                 "commit", "report")}
+        real = {"fetch": (ici_plane, "fetch_device_block"),
+                "d2h": (server, "_to_host"), "crc32c": (server, "crc_update"),
+                "write": (server, "_write_file"),
+                "commit": (wb.store, "commit"),
+                "report": (wb, "_leader_call")}
+        saved = {k: getattr(o, n) for k, (o, n) in real.items()}
+
+        def timed_async(fn, into):
+            async def timed(*a, **kw):
+                t = time.perf_counter()
+                try:
+                    return await fn(*a, **kw)
+                finally:
+                    into.append(time.perf_counter() - t)
+            return timed
+
+        for k, (o, n) in real.items():
+            setattr(o, n, (timed_async if k == "report" else _timed)(
+                saved[k], split[k]))
+        ask = {"block_id": bid, "source_worker_id": wa.worker_id,
+               "block_len": BLOCK}
+        rpc_s, replies = [], []
+        try:
+            for _ in range(ICI_REPS):
+                if wb.store.contains(bid):
+                    wb._apply_deletes([bid])
+                t = time.perf_counter()
+                replies.append(asyncio.run(_rpc(wb.addr,
+                                                RpcCode.ICI_TRANSFER, ask)))
+                rpc_s.append(time.perf_counter() - t)
+        finally:
+            for k, (o, n) in real.items():
+                if k in ("commit", "report"):
+                    delattr(o, n)
+                else:
+                    setattr(o, n, saved[k])
+        if replies != [{"success": True, "via": "ici"}] * ICI_REPS:
+            raise AssertionError(f"ici: ICI_TRANSFER answered {replies}")
+        b_info = wb.store.get(bid, touch=False)
+        landed = np.fromfile(b_info.path, dtype=np.uint64)
+        if not np.array_equal(landed, data) or b_info.len != BLOCK \
+                or (b_info.crc_algo, b_info.crc32c) != \
+                (a_info.crc_algo, a_info.crc32c):
+            raise AssertionError(
+                f"ici: B's block ({b_info.len} bytes, {b_info.crc_algo} "
+                f"{b_info.crc32c:#x}) against A's ({a_info.crc_algo} "
+                f"{a_info.crc32c:#x}), bytes equal "
+                f"{np.array_equal(landed, data)}")
+
+        async def locations():
+            async with port_client(master) as c:
+                fb = await c.meta.get_block_locations(path)
+                return sorted(x.worker_id for x in fb.block_locs[0].locs)
+
+        where = asyncio.run(locations())
+        if where != sorted([wa.worker_id, wb.worker_id]):
+            raise AssertionError(f"ici: the master locates the block on "
+                                 f"{where}")
+        pulls = wb.metrics.counters.get("ici.peer_pulls", 0)
+        read_a = wa.metrics.counters.get("bytes.read", 0)
+        if pulls != ICI_REPS or read_a != 2 * BLOCK:
+            raise AssertionError(f"ici: {pulls} peer pulls, {read_a} bytes "
+                                 f"read from A (the two READ_BLOCKs only)")
+
+        # the miss: A no longer pins the block
+        asyncio.run(_rpc(wa.addr, RpcCode.HBM_UNPIN, {"block_id": bid}))
+        wb._apply_deletes([bid])
+        before = wb.metrics.counters.get("ici.tcp_fallbacks", 0)
+        miss = asyncio.run(_rpc(wb.addr, RpcCode.ICI_TRANSFER, ask))
+        fallbacks = wb.metrics.counters.get("ici.tcp_fallbacks", 0) - before
+        if miss != {"success": False, "via": ""} or fallbacks != 1 \
+                or wb.store.contains(bid):
+            raise AssertionError(f"ici: after the unpin ICI_TRANSFER "
+                                 f"answered {miss}, {fallbacks} fallbacks")
+    finally:
+        for w in reversed(workers):
+            w.stop()
+        stop_master(proc)
+
+    med = {k: statistics.median(v) for k, v in split.items()}
+    xfer = statistics.median(rpc_s)
+    res.update(
+        block_id=bid, reps=ICI_REPS, k1_launches=k1,
+        transfer_s=rpc_s, transfer_median_s=xfer,
+        transfer_gibs=BLOCK / GiB / xfer,
+        split_ms={k: [x * 1e3 for x in v] for k, v in split.items()},
+        split_median_ms={k: v * 1e3 for k, v in med.items()},
+        split_gibs={k: BLOCK / GiB / v for k, v in med.items()
+                    if k in ("fetch", "d2h", "crc32c", "write")},
+        read_block_s=[t for t, _ in rb],
+        read_block_gibs=BLOCK / GiB / rb[0][0],
+        read_block_again_gibs=BLOCK / GiB / rb[1][0],
+        crc=[a_info.crc_algo, a_info.crc32c], peer_pulls=pulls,
+        miss=miss, tcp_fallbacks=fallbacks)
+    sm = res["split_median_ms"]
+    log(f"ici: a {BLOCK // MiB} MiB block written to worker A "
+        f"({wa.worker_id}, ICI "
+        f"(0, 0)) and pinned by its promote cycle ({k1} K1 launch); "
+        f"READ_BLOCK from A {rb[0][0]:.3f}s ({res['read_block_gibs']:.3f} "
+        f"GiB/s), again {rb[1][0]:.3f}s "
+        f"({res['read_block_again_gibs']:.3f} GiB/s)")
+    log(f"ici: ICI_TRANSFER to worker B ({wb.worker_id}, ICI (1, 0)), "
+        f"{ICI_REPS} times: median {xfer * 1e3:.2f} ms "
+        f"({res['transfer_gibs']:.3f} GiB/s; a copy within one card, not "
+        f"between cards), split median ms: fetch {sm['fetch']:.3f}, D2H "
+        f"{sm['d2h']:.2f}, crc32c {sm['crc32c']:.2f}, write "
+        f"{sm['write']:.2f}, commit {sm['commit']:.3f}, report "
+        f"{sm['report']:.3f}; B's block bit-equal, its commit crc A's "
+        f"({a_info.crc_algo} {a_info.crc32c:#010x}), located on both")
+    log(f"ici: after A's HBM_UNPIN, ICI_TRANSFER answered {miss} "
+        f"(ici.tcp_fallbacks +{fallbacks})")
+
+    # bench.py's rail A/B on a (1,) NCCL mesh of this process: with one
+    # rank, each chunk is a host-to-device copy, not a fan-out
+    payload = rng.integers(0, 256, ICI_PAYLOAD, dtype=np.uint8)
+    want = torch.from_numpy(payload).to(dev)
+    multihost.initialize()
+    try:
+        mesh = make_mesh(axis_names=("x",))
+        if mesh.device_type != "cuda" or tuple(mesh.shape) != (1,):
+            raise AssertionError(f"ici: mesh {mesh}")
+
+        def best(rail) -> tuple[float, object]:
+            times, out = [], None
+            for i in range(ICI_ROUNDS + ICI_WARMUPS):
+                out = None
+                t = time.perf_counter()
+                out = rail(payload, mesh)
+                if i >= ICI_WARMUPS:
+                    times.append(time.perf_counter() - t)
+            return min(times), out
+
+        counters = {}
+        pipe_s, rb_out = best(lambda d, m: ici_plane.broadcast_bytes(
+            d, m, counters=counters))
+        flat_s, flat_out = best(ici_plane.flat_replicate)
+        got = torch.cat([c.to_local() for c in rb_out.chunks])
+        if not torch.equal(got, want) or \
+                not torch.equal(flat_out.to_local(), want) or \
+                got.device != dev:
+            raise AssertionError("ici: a rail's bytes differ on the card")
+        n_chunks = len(rb_out.chunks)
+        del got, rb_out, flat_out, want
+    finally:
+        multihost.shutdown()
+    agg = ICI_PAYLOAD / GiB     # x 1 rank
+    res.update(ckpt_broadcast_gibs=agg / pipe_s,
+               ckpt_broadcast_flat_gibs=agg / flat_s,
+               ckpt_broadcast_speedup=flat_s / pipe_s,
+               broadcast_chunks=n_chunks, broadcast_counters=counters)
+    log(f"ici: {ICI_PAYLOAD // MiB} MiB over a (1,) NCCL mesh, best of "
+        f"{ICI_ROUNDS} after "
+        f"{ICI_WARMUPS} warm-ups: broadcast_bytes ({n_chunks} chunks of 8 "
+        f"MiB) ckpt_broadcast_gibs {res['ckpt_broadcast_gibs']:.3f}, "
+        f"flat_replicate {res['ckpt_broadcast_flat_gibs']:.3f} (speedup "
+        f"{res['ckpt_broadcast_speedup']:.2f}); one rank: the chunked "
+        f"host-to-device path, not a fan-out; bit-exact on the card")
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2510,12 +2804,13 @@ def main() -> int:
     results = {"card": card, "seed": args.seed}
     results["build"] = phase_build()
     results["kernel"] = phase_kernel(rng, dev)
-    need = N_BLOCKS * BLOCK + SHARDS * SHARD_BYTES + WORKER_TIER_BYTES
+    need = N_BLOCKS * BLOCK + SHARDS * SHARD_BYTES + WORKER_TIER_BYTES \
+        + 2 * ICI_TIER_BYTES
     root = pick_data_dir(need)
     log(f"main: data under {root} (needs {need / GiB:.2f} GiB and 1 GiB "
         f"spare: {N_BLOCKS} blocks and {SHARDS} POSIX shards of 64 MiB, "
         f"the port's worker's mem tier of {WORKER_TIER_BYTES / GiB:.2f} "
-        f"GiB)")
+        f"GiB, phase ici's two of {ICI_TIER_BYTES / GiB:.2f} GiB)")
     cluster = pw = None
     try:
         cuda_ops.block_checksum.launches = 0
@@ -2542,15 +2837,19 @@ def main() -> int:
         results["ckpt"], probe = phase_ckpt(dev, info["addr"], args.seed,
                                             params,
                                             results["main"]["link_gibs"])
-        # phase 6's parameters can sit in a reference cycle until the
-        # collector runs: collect it, or they count in the next peak
+        # freed at del, without the collector (ROADMAP C3)
         del params
-        gc.collect()
-        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated(dev)
         results["mesh"] = phase_mesh(dev, info["addr"], args.seed,
                                      results["train"])
+        results["mesh"]["held_before_bytes"] = held
+        log(f"mesh: device memory allocated before the phase "
+            f"{held / GiB:.2f} GiB (phase 6's parameters and optimizer "
+            f"freed at del, no collector run), after it "
+            f"{torch.cuda.memory_allocated(dev) / GiB:.2f} GiB")
         results["vector"] = phase_vector(dev, info["addr"], args.seed)
         results["master"] = phase_master(root, conf, cluster, pw, probe)
+        results["ici"] = phase_ici(rng, dev, root)
         # every phase's cluster traffic went through the port's worker
         await_port_worker(info["addr"], pw)
         m = pw.worker.metrics
@@ -2587,7 +2886,8 @@ def main() -> int:
         "name": "block_checksum", "route": "cuda",
         "source": "curvine_tpu_torch/csrc/checksum.cu",
         "replaces": "curvine_tpu/tpu/pallas_ops.py:27",
-        "launches": launches + wk["k1_launches"],
+        "launches": launches + wk["k1_launches"]
+                    + results["ici"]["k1_launches"],
         "max_abs_err": k["max_abs_err"],
         "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": "bytes", "library_ms": None}]

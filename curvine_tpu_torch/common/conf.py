@@ -33,10 +33,11 @@ that sets one of them to another value is refused, never ignored.
 The worker's fields that name a branch the port's worker does not have
 are constants too (``WORKER_FIXED``, ``TIER_FIXED``, ``QOS_FIXED``): the
 bdev layout and a tier's direct-IO queue depth, the direct-IO engine,
-the shared-memory reads and their warm cache, the disk-fault thresholds,
-the device-path transfer (``ici_transfer``, off until ROADMAP A10; the
-reference's default is on) and the QoS tenant specs. A file that sets
-one of them to anything but the value the port implements is refused.
+the shared-memory reads and their warm cache, the disk-fault thresholds
+and the QoS tenant specs. A file that sets one of them to anything but
+the value the port implements is refused. The device-path transfer
+(``ici_transfer``, on by default, as in the reference) and the bound of
+the tier-0's heartbeat advertisement (``hbm_advertise_max``) are fields.
 Left out: the fuse, gateway, obs, rpc and ec sections, the
 worker's scrub, task and web-server fields, the client's breaker,
 deadline, meta-cache, tracing, tenant, replay-buffer, read-ahead and
@@ -79,7 +80,7 @@ PLACEMENTS = ("local", "random", "robin", "weighted", "load")
 
 
 # the worker's branches the port does not have, at the value it implements
-WORKER_FIXED = {"ici_transfer": False, "shm_reads": False,
+WORKER_FIXED = {"shm_reads": False,
                 "shm_warm_cap_mb": 0, "direct_io": False,
                 "direct_io_engine": "off", "disk_error_threshold": 3,
                 "disk_error_decay_s": 60.0, "disk_probe_interval_s": 5.0,
@@ -137,7 +138,13 @@ class WorkerConf:
     ici_coords: list[int] = field(default_factory=list)
     # the device tier-0 (bytes of device memory for the cache; 0 disables)
     hbm_capacity: int = 0
+    # the peer-device plane (gpu/ici_plane.py): advertise the tier-0's
+    # blocks to peers and land ICI_TRANSFER pulls from a peer's tier-0;
+    # a miss is answered success False (the caller's TCP rail)
+    ici_transfer: bool = True
     hbm_export_cap: int = 128
+    # exported blocks advertised a heartbeat, most recent first
+    hbm_advertise_max: int = 64
     # admission on the mem and device tiers: "s3fifo" or "lru"
     cache_admission: str = "s3fifo"
     cache_ghost_entries: int = 8192

@@ -36,7 +36,10 @@ step takes ``(params, tokens)`` and returns the loss."""
 
 from __future__ import annotations
 
+import importlib
 import math
+import sys
+import threading
 from dataclasses import dataclass
 
 import numpy as np
@@ -56,6 +59,26 @@ __all__ = ["ModelConfig", "init_params", "leaves", "n_params",
            "params_from_jax", "params_to_numpy", "forward_hidden",
            "forward", "loss_fn", "make_optimizer", "make_train_step",
            "param_spec_tree", "shard_params", "batch_spec"]
+
+
+def _import_dynamo() -> None:
+    """Import ``torch._dynamo`` on a thread of its own. torch imports it
+    at the first call of a function it wraps in ``_disable_dynamo`` (an
+    optimizer's ``add_param_group``, DTensor's dispatch), and one of the
+    modules it loads calls ``torch.fx.wrap``, which keeps its own frame
+    in a local: a cycle that holds every frame then on the stack, and
+    their locals (the first optimizer, the parameters being sharded),
+    until the cycle collector runs. Imported first on another thread, the
+    frames held are that thread's, and ``del`` frees what a caller drops
+    (ROADMAP C3)."""
+    if "torch._dynamo" not in sys.modules:
+        t = threading.Thread(target=importlib.import_module,
+                             args=("torch._dynamo",), name="import-dynamo")
+        t.start()
+        t.join()
+
+
+_import_dynamo()
 
 
 @dataclass(frozen=True)
@@ -236,8 +259,15 @@ def _attention(x, layer, cfg: ModelConfig, mesh=None):
         # each rank's local heads: [B/data, H/model, L, hd]
         names = mesh.mesh_dim_names
         spec = P("data", "model" if "model" in names else None)
+        want, got = placements(mesh, spec), list(q.placements)
+        if got != want:
+            # with one head, the reshape leaves the 'model' split on
+            # head_dim: lay q, k, v out by heads, and o back as q was
+            q, k, v = (t.redistribute(mesh, want) for t in (q, k, v))
         o = shard_map(lambda q, k, v: _attend(q, k, v, cfg), mesh,
                       (spec,) * 3, spec)(q, k, v)
+        if got != want:
+            o = o.redistribute(mesh, got)
     o = o.transpose(1, 2).reshape(B, L, D)
     return o @ layer["wo"]
 
@@ -299,15 +329,27 @@ def forward_hidden(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
     """tokens [B, L] int → final hidden states [B, L, D] (model dtype).
     Under ``mesh``, params and tokens are DTensors on it (``shard_params``,
     ``batch_spec``)."""
+    return _hidden(params, tokens, cfg, mesh, _table(params, mesh))
+
+
+def _table(params: dict, mesh) -> torch.Tensor:
+    """The embedding table whole on this rank: the parameter, or under
+    ``mesh`` the table gathered as a plain tensor (``_whole``)."""
+    return params["embed"] if mesh is None else _whole(params["embed"], mesh)
+
+
+def _hidden(params: dict, tokens: torch.Tensor, cfg: ModelConfig, mesh,
+            embed: torch.Tensor) -> torch.Tensor:
+    """``forward_hidden`` with ``embed``, ``_table``'s result."""
     _check_mesh(mesh)
     B, L = tokens.shape
     if mesh is None:
-        x = params["embed"][tokens.long()] + params["pos"][:L]
+        x = embed[tokens.long()] + params["pos"][:L]
     else:
         # the lookup on this rank's rows, in plain tensors: its backward
         # on DTensors (index_put) fails sharding propagation in torch 2.11
         x = DTensor.from_local(
-            _whole(params["embed"], mesh)[tokens.to_local().long()]
+            embed[tokens.to_local().long()]
             + _whole(params["pos"], mesh)[:L], mesh, _act(mesh),
             run_check=False)
     for layer in params["layers"]:
@@ -363,10 +405,13 @@ def loss_fn(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
     """Next-token cross entropy; the model runs on all L positions (so
     flash stays eligible) and the last position predicts nothing. Under
     ``mesh`` the loss comes back whole on every rank, a plain tensor."""
-    x = forward_hidden(params, tokens, cfg, mesh)
-    embed = params["embed"]
+    # under a mesh the table is gathered once a step, shared by the
+    # lookup and the loss: the fewest bytes of the three layouts that
+    # scripts/mesh_embed_bytes.py counts (ROADMAP C4)
+    embed = _table(params, mesh)
+    x = _hidden(params, tokens, cfg, mesh, embed)
     if mesh is not None:
-        x, tokens, embed = _local_rows(x, tokens, embed, mesh)
+        x, tokens = _local_rows(x, tokens, mesh)
     x = x[:, :-1].reshape(-1, x.shape[-1])
     targets = tokens[:, 1:].reshape(-1).long()
     if cfg.ce_chunk > 0:
@@ -384,16 +429,15 @@ def loss_fn(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
         ).full_tensor()
 
 
-def _local_rows(x, tokens, embed, mesh):
+def _local_rows(x, tokens, mesh):
     """The cross entropy's operands on this rank, as plain tensors: its
-    rows of the hidden states and tokens (the batch over 'data') and the
-    whole embedding. The loss is computed on them by the unsharded code,
+    rows of the hidden states and tokens (the batch over 'data'). The
+    loss is computed on them and the whole table by the unsharded code,
     so its integer indexing never meets DTensor's sharding propagation
     (the gather's index ops fail it in torch 2.11); the hidden states'
     gradient goes back laid out as the rows are."""
     rows = _pin(x, mesh)
-    return (rows.to_local(grad_placements=rows.placements),
-            tokens.to_local(), _whole(embed, mesh))
+    return rows.to_local(grad_placements=rows.placements), tokens.to_local()
 
 
 def make_optimizer(params: dict, lr: float = 3e-4) -> torch.optim.AdamW:

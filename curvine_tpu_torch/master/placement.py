@@ -5,8 +5,10 @@ the client's host first, then random), ``random``, ``robin``,
 ``weighted`` (by available bytes) and ``load`` (least loaded first), and
 ``choose``'s pool rules: workers with room first, all of them under
 capacity pressure, fewer than asked when the caller takes
-``min_count``. Left out: ``ici``, the torus-distance policy, which waits
-for the mesh (ROADMAP A8, A10); the conf refuses it."""
+``min_count``; and ``ici_hops``, the torus hop distance (:147-160), which
+``gpu/ici_plane.py::broadcast_schedule`` orders its tree by. Left out:
+``ici``, the torus-distance policy, which waits for replication over the
+device path (ROADMAP A10b); the conf refuses it."""
 
 from __future__ import annotations
 
@@ -108,6 +110,23 @@ class LoadBasedPolicy(PlacementPolicy):
 
 _POLICIES = {p.name: p for p in (RandomPolicy, RobinPolicy, LocalPolicy,
                                  WeightedPolicy, LoadBasedPolicy)}
+
+
+def ici_hops(a: list[int], b: list[int], mesh_shape: list[int] | None = None
+             ) -> int:
+    """Torus hop distance between two ICI coordinates: per axis, the
+    shorter way round where ``mesh_shape`` gives the axis, else the plain
+    difference. Unknown or mismatched coordinates are very far (1 << 16),
+    so known-near workers win."""
+    if not a or not b or len(a) != len(b):
+        return 1 << 16
+    total = 0
+    for i, (x, y) in enumerate(zip(a, b)):
+        d = abs(x - y)
+        if mesh_shape and i < len(mesh_shape) and mesh_shape[i] > 0:
+            d = min(d, mesh_shape[i] - d)
+        total += d
+    return total
 
 
 def create_policy(name: str) -> PlacementPolicy:

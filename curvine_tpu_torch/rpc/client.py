@@ -355,12 +355,20 @@ class ConnectionPool:
         try:
             async with self._lock:
                 conns = self._conns.setdefault(addr, [])
+                conns[:] = [c for c in conns if not c.closed]
                 if len(conns) < self.size:
                     conns.append(conn)
-                return conn
+                    return conn
+                # others filled the pool meanwhile: a connection outside
+                # it would never be closed, and its read loop, cancelled
+                # when the event loop ends, would keep the caller's frames
+                i = self._rr[addr] = (self._rr.get(addr, -1) + 1) % len(conns)
+                spare, conn = conn, conns[i]
         except asyncio.CancelledError:
             await conn.close()
             raise
+        await spare.close()
+        return conn
 
     async def _dial(self, addr: str, attempts: int = 3) -> Connection:
         last: ConnectError | None = None

@@ -8,12 +8,17 @@ A carve of ``curvine_tpu/worker/server.py``:
   ``hbm_capacity`` bytes on ``device.local_devices()`` or on the devices
   the caller passes (CPU devices in the tests);
 - ``start``/``stop`` (:241-311) with the heartbeat, block report,
-  eviction and promote duties on a ``ScheduledExecutor``;
+  eviction and promote duties on a ``ScheduledExecutor``; with a tier-0
+  and ``ici_transfer`` on, the worker joins the device domain at start
+  (``gpu/ici_plane.py::register_endpoint``, its ``ici_coords``) and
+  leaves it at stop;
 - ``_info`` (:354-376), one HBM ``StorageInfo`` per device
-  (``hbm:<id>``), and ``_cache_metrics`` (:378-419), the tier and HBM
-  keys;
-- ``heartbeat_once`` (:421-531): ``export_metrics`` of the tier-0, the
-  master's ``delete_blocks`` applied to the store and the tier-0,
+  (``hbm:<id>``), and ``_cache_metrics`` (:378-419), the tier, HBM and
+  ``ici.*`` keys;
+- ``heartbeat_once`` (:421-531): ``export_metrics`` of the tier-0 and
+  its exports advertised (``hbm_blocks``, the ``hbm_advertise_max`` most
+  recent), the master's ``delete_blocks`` applied to the store and the
+  tier-0,
   ``report_now``, ``draining``, and the back-off when no master answers;
   ``block_report_once`` (:533-554), ``_evict_once`` (:556-574);
 - ``_promote_once`` (:576-613): the heat snapshot taken before the host
@@ -28,10 +33,15 @@ A carve of ``curvine_tpu/worker/server.py``:
 - the handlers (:752-768): WRITE_BLOCK (:776-925), READ_BLOCK
   (:962-1102, the file path: ``sendfile``, or ``preadv`` with a crc when
   the reader asks to ``verify``), DELETE_BLOCK, GET_BLOCK_INFO (with the
-  commit crc, never an shm or ``hbm`` offer), SC_WRITE_OPEN, _COMMIT and
-  _ABORT, SC_READ_REPORT (heat only), HBM_PIN and HBM_UNPIN; and
-  ICI_TRANSFER, which answers as the reference's worker does with
-  ``ici_transfer`` off: ``success: False``.
+  commit crc and, for a block the tier-0 exports, the ``hbm`` offer:
+  worker id, ICI coordinates and the export entry; never an shm offer),
+  SC_WRITE_OPEN, _COMMIT and _ABORT, SC_READ_REPORT (heat only), HBM_PIN
+  and HBM_UNPIN; and ICI_TRANSFER with ``_ici_land`` (:1412-1475): the
+  block fetched from the named peer's tier-0 in this process, copied to
+  the host, its length checked, then crc32c'd, written, committed and
+  reported to the master like a TCP pull (``ici.peer_pulls``); a miss
+  answers ``success: False`` and counts ``ici.tcp_fallbacks``, and the
+  caller keeps its TCP rail.
 
 Where the reference falls back, this worker does not: an HBM tier asked
 for on a machine without a CUDA device (and no devices passed) raises,
@@ -46,14 +56,16 @@ the put and K1 only (the media crc and the host hash run outside it),
 and K1's result read ends the pin, so a tensor a consumer can see is
 whole. In-process consumers, on any thread, take tensors with
 ``hbm_get`` (a consumer on another stream that keeps a tensor past a
-drop calls ``record_stream``).
+drop calls ``record_stream``); the device domain reaches the tier through
+``hbm_get`` too, so a peer's fetch never races a promotion or a drop, and
+a landing copies the block to the host before it lets the tensor go.
 
 Not ported (ROADMAP A3c): the bdev layout and direct IO (refused by the
 conf), the shared-memory channel (never offered), scrub and the disk
 health machinery (every dir reports healthy), the master's replication
 jobs and its load, prefetch and EC tasks and WRITE_BLOCKS_BATCH (each
-refused by name with UNSUPPORTED), QoS, tracing, the web server, and
-``_ici_land`` (A10)."""
+refused by name with UNSUPPORTED; the replication pull with its
+device-path hint is ROADMAP A10b's), QoS, tracing and the web server."""
 
 from __future__ import annotations
 
@@ -63,6 +75,7 @@ import logging
 import os
 import threading
 import time
+import types
 import zlib
 
 import numpy as np
@@ -75,6 +88,7 @@ from curvine_tpu_torch.common.metrics import MetricsRegistry
 from curvine_tpu_torch.common.types import (BlockState, StorageInfo,
                                             StorageType, WorkerAddress,
                                             WorkerInfo, now_ms)
+from curvine_tpu_torch.gpu import ici_plane
 from curvine_tpu_torch.gpu.hbm import MultiHbmTier, export_metrics
 from curvine_tpu_torch.rpc.client import Connection, ConnectionPool
 from curvine_tpu_torch.rpc.codes import RpcCode
@@ -94,6 +108,21 @@ PIN_BUDGET = 256 << 20          # device bytes pinned per promote cycle
 
 def worker_id_for(hostname: str, port: int) -> int:
     return zlib.crc32(f"{hostname}:{port}".encode()) & 0x7FFFFFFF
+
+
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    """A device block's bytes in new host memory. A copy into pageable
+    memory returns when it is done, so the tier may drop the tensor after
+    it; a CPU tier's tensor is copied too, so that the landing owns its
+    bytes."""
+    flat = t.detach().reshape(-1).view(torch.uint8)
+    return flat.numpy().copy() if flat.device.type == "cpu" \
+        else flat.cpu().numpy()
+
+
+def _write_file(path: str, buf: np.ndarray) -> None:
+    with open(path, "wb") as f:
+        f.write(memoryview(buf))
 
 
 def _integrity_header(info) -> dict:
@@ -164,6 +193,12 @@ class WorkerServer:
         self.worker_id = worker_id_for(self.conf.worker.hostname,
                                        self.rpc.port)
         wc = self.conf.worker
+        if self.hbm is not None and wc.ici_transfer:
+            # join the device domain: peers in this process pull pinned
+            # blocks from the tier-0, through its lock (hbm_get)
+            ici_plane.register_endpoint(
+                self.worker_id, types.SimpleNamespace(get=self.hbm_get),
+                wc.ici_coords)
         self.executor.submit_periodic("heartbeat", self.heartbeat_once,
                                       wc.heartbeat_ms / 1000,
                                       initial_delay_s=0.0)
@@ -180,6 +215,8 @@ class WorkerServer:
         log.info("worker %d started at %s", self.worker_id, self.addr)
 
     async def stop(self) -> None:
+        if self.hbm is not None:
+            ici_plane.unregister_endpoint(self.worker_id)
         await self.executor.stop()
         for t in self._bg:
             t.cancel()
@@ -303,6 +340,11 @@ class WorkerServer:
             for k in ("hits", "misses", "spills", "ghost_hits",
                       "scan_evicted"):
                 out[f"cache.hbm.{k}"] = st.get(k, 0)
+            # the device plane: the exports, and device-path landings
+            # against misses left to the TCP rail
+            out["ici.hbm_exports"] = st.get("exports", 0)
+            for k in ("ici.peer_pulls", "ici.tcp_fallbacks"):
+                out[k] = self.metrics.counters.get(k, 0)
         return out
 
     def _heartbeat_body(self) -> bytes:
@@ -315,7 +357,15 @@ class WorkerServer:
         wm.update(cm)
         for name, v in cm.items():
             self.metrics.gauge(name, v)
-        return pack({"info": self._info().to_wire(), "metrics": wm})
+        body = {"info": self._info().to_wire(), "metrics": wm}
+        if self.hbm is not None and self.conf.worker.ici_transfer:
+            # the tier-0's most recent exports, re-sent (or cleared) every
+            # beat: the master's soft state for device-path hints
+            with self._hbm_lock:
+                body["hbm_blocks"] = [
+                    e["block_id"] for e in self.hbm.exports.snapshot(
+                        limit=self.conf.worker.hbm_advertise_max)]
+        return pack(body)
 
     def _apply_deletes(self, block_ids) -> None:
         for bid in block_ids:
@@ -678,7 +728,20 @@ class WorkerServer:
         if info.crc32c is not None:
             rep["crc32"] = info.crc32c
             rep["crc_algo"] = info.crc_algo
+        if self.hbm is not None and self.conf.worker.ici_transfer:
+            e = await asyncio.to_thread(self._hbm_export, q["block_id"])
+            if e is not None:
+                # the tier-0 holds it: a consumer in the device domain can
+                # take the device tensor from this worker instead of bytes
+                rep["hbm"] = {"worker_id": self.worker_id,
+                              "ici_coords": list(
+                                  self.conf.worker.ici_coords or []),
+                              **e}
         return rep
+
+    def _hbm_export(self, block_id: int) -> dict | None:
+        with self._hbm_lock:
+            return self.hbm.exports.get(block_id)
 
     async def _sc_read_report(self, msg: Message, conn: ServerConn):
         """A short-circuit client's per-block read counts: the store sees
@@ -727,13 +790,58 @@ class WorkerServer:
             await asyncio.to_thread(self._hbm_drop, [q["block_id"]])
         return {}
 
+    async def _ici_land(self, block_id: int, hint: dict,
+                        block_len: int) -> bool:
+        """Land one replica over the device path: the peer's pinned
+        tensor fetched through the device domain (``gpu/ici_plane.py``),
+        copied to the host, and committed as a TCP pull's bytes are: the
+        crc32c of the landed bytes, the write, the commit and an
+        incremental block report. False (the peer not reachable this way,
+        the block gone from its tier, a length that no longer matches)
+        asks for the TCP fallback; only a local landing fault raises."""
+        arr = await asyncio.to_thread(ici_plane.fetch_device_block,
+                                      int(hint.get("worker_id", -1)),
+                                      block_id)
+        if arr is None:
+            return False
+        buf = await asyncio.to_thread(_to_host, arr)
+        del arr
+        if block_len and buf.nbytes != block_len:
+            return False        # the advertisement outlived the block
+        info = self.store.create_temp(block_id, size_hint=buf.nbytes)
+        crc = await asyncio.to_thread(crc_update, "crc32c", buf)
+        await asyncio.to_thread(_write_file, info.path, buf)
+        await asyncio.to_thread(self.store.commit, block_id, buf.nbytes,
+                                checksum=crc, checksum_algo="crc32c")
+        await self._leader_call(RpcCode.WORKER_BLOCK_REPORT, pack({
+            "worker_id": self.worker_id,
+            "blocks": {block_id: buf.nbytes},
+            "storage_types": {block_id: int(info.tier.storage_type)},
+            "incremental": True}))
+        return True
+
     async def _ici_transfer(self, msg: Message, conn: ServerConn):
-        """The device-path pull from a peer's tier-0 waits for ROADMAP
-        A10 (``ici_transfer`` is fixed off): a block not held here is
-        answered ``success: False``, as the reference answers with the
-        option off, and the caller keeps its TCP rail."""
+        """ICI_TRANSFER: land ``block_id`` from the tier-0 of the worker
+        ``source_worker_id`` over the device path. A miss answers
+        ``success: False`` without raising, and the caller keeps its TCP
+        rail."""
         q = unpack(msg.data) or {}
-        if self.store.contains(q["block_id"]):
+        block_id = q["block_id"]
+        if self.store.contains(block_id):
             return {"success": True, "via": "local"}
-        return {"success": False, "via": "",
-                "message": "ici transfer disabled"}
+        if not self.conf.worker.ici_transfer:
+            return {"success": False, "via": "",
+                    "message": "ici transfer disabled"}
+        landed = False
+        try:
+            landed = await self._ici_land(
+                block_id, {"worker_id": q.get("source_worker_id", -1)},
+                q.get("block_len", 0))
+        except Exception as e:  # noqa: BLE001 — the TCP rail takes over
+            log.debug("ici transfer of block %d failed: %s", block_id, e)
+            self.store.delete(block_id)
+        if landed:
+            self.metrics.inc("ici.peer_pulls")
+            return {"success": True, "via": "ici"}
+        self.metrics.inc("ici.tcp_fallbacks")
+        return {"success": False, "via": ""}

@@ -297,7 +297,9 @@ def test_moe_ffn_and_init_match_jax(one_torch_thread):
                                    atol=1e-5 * float(np.abs(want).max()))
 
 
-@pytest.mark.parametrize("cfg", [TINY32, MOE], ids=["dense", "moe"])
+@pytest.mark.parametrize("cfg", [TINY32, MOE,
+                                 dataclasses.replace(TINY32, n_heads=1)],
+                         ids=["dense", "moe", "one_head"])
 def test_one_rank_mesh_step_equals_no_mesh(world, one_torch_thread, cfg):
     """Under a (1, 1) mesh, two train steps give the unsharded step's
     losses and parameters bit for bit (the local ops are the same, and

@@ -241,11 +241,12 @@ async def test_errors_cross_the_wire_with_the_reference_codes(tmp_path):
                          RpcCode.WRITE_BLOCKS_BATCH):
                 with pytest.raises(perr.Unsupported, match=code.name):
                     await pconn.call(code, data=pack({}))
-            # the device-path transfer waits for ROADMAP A10
+            # the device-path transfer, on by default: no peer is named,
+            # so it misses and the caller keeps its TCP rail
             rep = await pconn.call(RpcCode.ICI_TRANSFER,
                                    data=pack({"block_id": 987654}))
-            assert rep.header == {"success": False, "via": "",
-                                  "message": "ici transfer disabled"}
+            assert rep.header == {"success": False, "via": ""}
+            assert w.metrics.counters["ici.tcp_fallbacks"] == 1
             await jc.write_all("/held.bin", b"h" * 10)
             bid = await _block_id(jc, "/held.bin")
             rep = await pconn.call(RpcCode.ICI_TRANSFER,
@@ -768,7 +769,6 @@ def test_an_hbm_tier_without_a_cuda_device_raises(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("table", [
-    "[worker]\nici_transfer = true",
     "[worker]\nshm_reads = true",
     "[worker]\ndirect_io_engine = \"uring\"",
     "[worker]\ndisk_error_threshold = 5",
@@ -820,7 +820,7 @@ master_addrs = ["127.0.0.1:18995"]
     for k in ("block_report_interval_ms", "io_chunk_size",
               "eviction_high_water", "eviction_low_water",
               "promote_interval_ms", "promote_min_reads", "hbm_export_cap",
-              "cache_admission", "cache_ghost_entries", "cache_small_ratio"):
+              "ici_transfer", "hbm_advertise_max", "cache_admission", "cache_ghost_entries", "cache_small_ratio"):
         assert getattr(ClusterConf().worker, k) == getattr(jw, k), k
 
 

@@ -93,6 +93,12 @@ Phases, each raising on a fault (the exit code is then non-zero):
    integer views, and the loss of one train batch from the loaded
    parameters equal to the saved ones' (K3's forward); save and load
    GiB/s beside phase 3's ``link_gibs``, the pinned ring's staging time;
+   then every block of the checkpoint pinned into the port's worker's
+   tier-0 by HBM_PIN (no K1) and the checkpoint distributed over a
+   ``(1,)`` NCCL mesh by ``distribute_checkpoint``, ``"tree"`` (every
+   block from the tier-0: ``ici.peer_pulls`` equal to the blocks, no
+   byte by short circuit or READ_BLOCK) and ``"flat"``, each leaf
+   replicated and bit-equal on the card; the blocks unpinned after;
 6c. mesh: an NCCL world of this process alone (``multihost.initialize``)
    and a (1, 1) ``("data", "model")`` mesh on the card; phase 6's initial
    parameters (the same seed) placed by ``shard_params``, a fresh AdamW,
@@ -141,18 +147,34 @@ Phases, each raising on a fault (the exit code is then non-zero):
    over a ``(1,)`` NCCL mesh: ``broadcast_bytes`` against
    ``flat_replicate`` of 64 MiB, bit-exact on the card
    (``ckpt_broadcast_gibs``: with one rank, the chunked host-to-device
-   path).
+   path);
+10. replicate: blocks kept at their replica count, on one card: a master
+   of the phase's own (``block_placement_policy = "ici"``, a lost timeout
+   of 3 s) and three of the port's workers in this process, A, B and C at
+   ICI (0, 0), (1, 0) and (2, 0), each with a tier-0 on the card. Two
+   files of four 64 MiB blocks written with two replicas (every block on
+   A and C, each replica's block file equal to the bytes); A's promote
+   cycle pins the first (four K1 launches), a byte
+   of one block's media copy on C is flipped and C's promote cycle
+   refuses and reports it, and the master's evacuation lands it on B
+   from A's tier-0 by the ICI hint (one peer pull, no fallback, no byte
+   read from A), retires C's copy and has it deleted; then the first file
+   deleted, C stopped, and the second file's blocks pulled by B from A by
+   READ_BLOCK (no hint); every block back at two replicas and read bit
+   for bit; times from the report and from the loss, each path's GiB/s
+   and split, and the master's ``replication.*`` counters.
 
 The kernel launch counts are set to 0 just before phase 3 and read just
 after phase 4 (K1), again just before phase 4c's promote cycles and read
 just after them (K1), again just before phase 9's promote cycle and read
+just after it (K1), again just before phase 10's promote cycle and read
 just after it (K1), again just before the two passes of phase 6 and read
 just after them (K3), again just before phase 6b and read just after it
 (K3's forward, twice a layer for the two losses, and no backward
 kernel), again just before the two passes of phase 6c and read just
 after them (K3), and just before phase 7's ``query_many`` and read just
 after it (K2, which must equal the ADC stages the search issued). The
-kernels line gives K1's three counts summed (each held to its pins, the
+kernels line gives K1's four counts summed (each held to its pins, the
 refused device copies included) and phase 6's and 6c's K3 counts
 summed. The port's worker and master are stopped, the process group
 destroyed, and the data directory removed, however the run ends. No
@@ -234,6 +256,13 @@ WORKER_HEARTBEAT_MS = 1000
 # 64 MiB payload, 2 warm-ups and the best of 3 rounds a rail
 ICI_TIER_BYTES = 4 * BLOCK
 ICI_REPS = 5
+# phase replicate: three of the port's workers under a master of their own
+# (the ici placement, a lost timeout of a few seconds); two files of
+# REP_BLOCKS blocks, two replicas each; a mem tier holds both files'
+# replicas, the healed ones and the blocks being written
+REP_BLOCKS = 4
+REP_TIER_BYTES = 16 * BLOCK
+REP_LOST_MS = 3_000
 ICI_PAYLOAD, ICI_ROUNDS, ICI_WARMUPS = 64 * MiB, 3, 2
 
 
@@ -617,13 +646,15 @@ def phase_feed(rng: np.random.Generator, dev: torch.device, root: str
 
 # ------------------------------------------------------------ the cluster
 
-def master_conf(root: str, port: int = 0) -> str:
+def master_conf(root: str, port: int = 0, lost_ms: int = 30_000,
+                policy: str = "local") -> str:
     """The cluster's TOML file for the port's master: the loopback
     ``port`` (0: the master binds a free one and prints it; a restart is
     given that one, so the worker and the client find it again), its
-    journal under ``root``, the JAX cluster's lost timeout and heartbeat
-    check, and this process's user as the superuser (the port's client
-    names the OS user)."""
+    journal under ``root``, the lost timeout (the JAX cluster's by
+    default), the heartbeat check, the placement ``policy`` and this
+    process's user as the superuser (the port's client names the OS
+    user)."""
     from curvine_tpu_torch.client.fs_client import _os_user
     path = os.path.join(root, "cluster.toml")
     with open(path, "w") as f:
@@ -631,8 +662,9 @@ def master_conf(root: str, port: int = 0) -> str:
 hostname = "127.0.0.1"
 rpc_port = {port}
 journal_dir = "{os.path.join(root, 'cluster', 'journal')}"
-worker_lost_timeout_ms = 30000
+worker_lost_timeout_ms = {lost_ms}
 heartbeat_check_ms = 200
+block_placement_policy = "{policy}"
 superuser = "{_os_user()}"
 """)
     return path
@@ -764,11 +796,14 @@ def await_port_worker(master: str, pw: PortWorker, timeout: float = 60
                              f"port's worker {pw.worker.worker_id} alone")
 
 
-def port_client(master: str, **client):
+def port_client(master: str, coords=(), **client):
+    """The port's client of ``master``; its writes are placed near ICI
+    ``coords``."""
     from curvine_tpu_torch.client.unified import CurvineClient
     from curvine_tpu_torch.common.conf import ClusterConf
     conf = ClusterConf()
     conf.client.master_addrs = [master]
+    conf.worker.ici_coords = list(coords)
     for k, v in client.items():
         setattr(conf.client, k, v)
     return CurvineClient(conf)
@@ -1738,7 +1773,8 @@ def _int_view(t: torch.Tensor) -> torch.Tensor:
 
 
 def phase_ckpt(dev: torch.device, master: str, seed: int, params: dict,
-               link_gibs: float) -> tuple[dict, tuple[str, np.ndarray]]:
+               link_gibs: float, pw: "PortWorker"
+               ) -> tuple[dict, tuple[str, np.ndarray]]:
     """The flagship's parameters as the train phase left them, saved
     through the port's client into the cluster (every byte by short
     circuit: the worker is on this host) and loaded back onto the card
@@ -1746,9 +1782,10 @@ def phase_ckpt(dev: torch.device, master: str, seed: int, params: dict,
     with it off (READ_BLOCK into the caller's buffer, the path of a host
     without a worker). Each load bit-equal to the saved tensors on the
     card; one forward loss of a train batch from the loaded parameters
-    equal to the saved ones' (K3's forward, counted here). Returns the
-    numbers, and the path and host bytes of the first saved tensor that
-    spans more than one block (the master phase reads it back)."""
+    equal to the saved ones' (K3's forward, counted here). Then
+    ``ckpt_on_a_mesh``. Returns the numbers, and the path and host bytes
+    of the first saved tensor that spans more than one block (the master
+    phase reads it back)."""
     from curvine_tpu_torch.gpu import broadcast, flash, ingest, model as tm
     cfg = _flagship()
     saved = tm.leaves(params)
@@ -1890,11 +1927,109 @@ def phase_ckpt(dev: torch.device, master: str, seed: int, params: dict,
                     "flash_bwd_dkv": 0, "flash_bwd_dq": 0}:
         raise AssertionError(f"ckpt: K3 launches {launches} for two "
                              f"forward losses of {cfg.n_layers} layers")
+    res["mesh"] = ckpt_on_a_mesh(dev, master, pw, saved, nbytes, sc_s)
     i = next(i for i, t in enumerate(saved) if t.nbytes > BLOCK)
     probe = (f"{CKPT_PATH}/t{i:05d}.bin",
              saved[i].detach().cpu().contiguous().reshape(-1)
              .view(torch.uint8).numpy())
     return res, probe
+
+
+def ckpt_on_a_mesh(dev: torch.device, master: str, pw: "PortWorker",
+                   saved: list, nbytes: int, sc_s: float) -> dict:
+    """The checkpoint distributed over a ``(1,)`` NCCL mesh with
+    ``distribute_checkpoint``: every block of its files (the manifest's
+    too) pinned into the port's worker's tier-0 by HBM_PIN (no K1, as in
+    the reference), then the ``"tree"`` schedule, which must take every
+    block from the tier-0 (``ici.peer_pulls`` equal to the blocks, no
+    byte by short circuit or READ_BLOCK), and the ``"flat"`` one; each
+    leaf replicated and bit-equal to the saved tensor on the card. The
+    blocks are unpinned after, so the mesh phase's memory is what it
+    was."""
+    from curvine_tpu_torch.gpu import broadcast, multihost
+    from curvine_tpu_torch.gpu import model as tm
+    from curvine_tpu_torch.gpu.mesh import make_mesh
+    from curvine_tpu_torch.rpc.client import Connection
+    from curvine_tpu_torch.rpc.codes import RpcCode
+    from curvine_tpu_torch.rpc.frame import pack
+
+    async def blocks():
+        async with port_client(master) as c:
+            out = []
+            for st in await c.meta.list_status(CKPT_PATH):
+                fb = await c.meta.get_block_locations(
+                    f"{CKPT_PATH}/{st.name}")
+                out += [lb.block.id for lb in fb.block_locs]
+            return out
+
+    async def pin(code, ids):
+        conn = await Connection(pw.worker.addr).connect()
+        try:
+            for bid in ids:
+                await conn.call(code, data=pack({"block_id": bid}))
+        finally:
+            await conn.close()
+
+    ids = asyncio.run(blocks())
+    t = time.perf_counter()
+    asyncio.run(pin(RpcCode.HBM_PIN, ids))
+    pin_s = time.perf_counter() - t
+
+    def check(name: str, got: dict) -> None:
+        back = tm.leaves(got)
+        bad = [i for i, (a, b) in enumerate(zip(saved, back))
+               if str(b.placements) != "(Replicate(),)"
+               or a.dtype != b.dtype or a.shape != b.shape
+               or b.to_local().device != dev
+               or not torch.equal(_int_view(a), _int_view(b.to_local()))]
+        if len(back) != len(saved) or bad:
+            raise AssertionError(f"ckpt: {name} on the mesh: {len(back)} "
+                                 f"tensors, {len(bad)} not bit-equal "
+                                 f"({bad[:5]})")
+
+    async def load(schedule: str):
+        async with port_client(master) as c:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            got = await broadcast.distribute_checkpoint(
+                c, CKPT_PATH, mesh, schedule=schedule)
+            torch.cuda.synchronize()
+            return got, time.perf_counter() - t, dict(c.counters)
+
+    res = {"blocks": len(ids), "pin_s": pin_s,
+           "pin_gibs": nbytes / GiB / pin_s}
+    multihost.initialize()
+    try:
+        mesh = make_mesh(axis_names=("x",))
+        if mesh.device_type != "cuda" or tuple(mesh.shape) != (1,):
+            raise AssertionError(f"ckpt: mesh {mesh}")
+        for schedule in ("tree", "flat"):
+            got, secs, counters = asyncio.run(load(schedule))
+            check(schedule, got)
+            del got
+            res[schedule] = {"s": secs, "gibs": nbytes / GiB / secs,
+                             "counters": counters}
+    finally:
+        multihost.shutdown()
+        asyncio.run(pin(RpcCode.HBM_UNPIN, ids))
+    tc = res["tree"]["counters"]
+    log(f"ckpt: {len(ids)} blocks of the checkpoint pinned into the port's "
+        f"worker's tier-0 by HBM_PIN in {pin_s:.3f}s "
+        f"({res['pin_gibs']:.3f} GiB/s, no K1); distribute_checkpoint on a "
+        f"(1,) NCCL mesh: tree {res['tree']['s']:.3f}s "
+        f"({res['tree']['gibs']:.3f} GiB/s; ici.peer_pulls "
+        f"{tc.get('ici.peer_pulls', 0)}, {tc.get('ici.peer_pull_bytes', 0):,}"
+        f" bytes from the tier-0, {tc.get('sc.bytes.read', 0)} by short "
+        f"circuit, {tc.get('read.zero_copy_bytes', 0)} by READ_BLOCK), flat "
+        f"{res['flat']['s']:.3f}s ({res['flat']['gibs']:.3f} GiB/s), "
+        f"against the short-circuit load's {nbytes / GiB / sc_s:.3f}; every "
+        f"leaf replicated and bit-equal on the card on both")
+    if tc.get("ici.peer_pulls") != len(ids) or tc.get("sc.bytes.read", 0) \
+            or tc.get("read.zero_copy_bytes", 0) \
+            or tc.get("ici.tcp_fallbacks", 0):
+        raise AssertionError(f"ckpt: the tree load's counters {tc} for "
+                             f"{len(ids)} pinned blocks")
+    return res
 
 
 # -------------------------------------------------------------------- mesh
@@ -2523,7 +2658,8 @@ async def _rpc(addr: str, code, body: dict) -> dict:
         await conn.close()
 
 
-def await_live(master: str, ids: list[int], timeout: float = 60) -> None:
+def await_live(master: str, ids: list[int], timeout: float = 60,
+               phase: str = "ici") -> None:
     """Wait until the master lists exactly the workers ``ids``."""
     async def run():
         async with port_client(master) as c:
@@ -2537,8 +2673,8 @@ def await_live(master: str, ids: list[int], timeout: float = 60) -> None:
 
     live = asyncio.run(run())
     if live != sorted(ids):
-        raise AssertionError(f"ici: the master's live workers are {live}, "
-                             f"not {sorted(ids)}")
+        raise AssertionError(f"{phase}: the master's live workers are "
+                             f"{live}, not {sorted(ids)}")
 
 
 def phase_ici(rng: np.random.Generator, dev: torch.device, root: str
@@ -2782,6 +2918,317 @@ def phase_ici(rng: np.random.Generator, dev: torch.device, root: str
     return res
 
 
+def _block_locs(master: str, path: str) -> list[tuple[int, list[int]]]:
+    """Each block of ``path`` and the workers the master locates it on,
+    in the master's order."""
+    async def run():
+        async with port_client(master) as c:
+            fb = await c.meta.get_block_locations(path)
+            return [(lb.block.id, [x.worker_id for x in lb.locs])
+                    for lb in fb.block_locs]
+    return asyncio.run(run())
+
+
+def _poll(pred, timeout: float, what: str, step: float = 0.02) -> float:
+    """Seconds until ``pred()`` holds; raises after ``timeout``."""
+    t = time.perf_counter()
+    while not pred():
+        if time.perf_counter() - t > timeout:
+            raise AssertionError(f"replicate: never {what} in {timeout}s")
+        time.sleep(step)
+    return time.perf_counter() - t
+
+
+def phase_replicate(rng: np.random.Generator, dev: torch.device, root: str
+                    ) -> dict:
+    """Blocks kept at their replica count, on one card: a master of the
+    phase's own (``block_placement_policy = "ici"``, a lost timeout of
+    REP_LOST_MS) and three of the port's workers in this process, A, B
+    and C at ICI (0, 0), (1, 0) and (2, 0), each with a tier-0 on the
+    card. (a) ``/rep/hot`` and ``/rep/cold``, REP_BLOCKS blocks each,
+    written with two replicas through the port's client (placed from
+    (0, 0): on A, then the farthest, C), every replica's block file
+    equal to the bytes and ``/rep/hot`` read back through the client.
+    (b) A's promote cycle pins ``/rep/hot`` (one K1 launch a pin) and a
+    heartbeat advertises the pins; a byte of one block's media copy on C
+    is flipped and C's promote cycle refuses the block and reports it;
+    the master evacuates it: B lands it from A's tier-0 by the ICI hint
+    (one peer pull, no fallback, no READ_BLOCK byte from A), the copy
+    on C is retired and deleted within two heartbeats after, and B's
+    file equals the block. (c)
+    ``/rep/hot`` deleted, C stopped: the master marks it lost and B
+    pulls each of ``/rep/cold``'s blocks from A by READ_BLOCK (no hint:
+    A pinned none of them); every block back on two live workers and the
+    file bit for bit. The master's ``replication.*`` counters come from
+    its ``--metrics-out`` file, written when it stops."""
+    from curvine_tpu_torch.gpu import cuda_ops, ici_plane
+    from curvine_tpu_torch.rpc.codes import RpcCode
+    from curvine_tpu_torch.worker import server
+    base = os.path.join(root, "replicate")
+    os.makedirs(base)
+    conf = master_conf(base, lost_ms=REP_LOST_MS, policy="ici")
+    proc, info = start_master(base, conf)
+    master = info["addr"]
+    workers = {}
+    res = {"master_start_s": info["start_s"], "lost_timeout_ms": REP_LOST_MS}
+    hot = rng.integers(0, 1 << 64, REP_BLOCKS * BLOCK // 8, dtype=np.uint64)
+    cold = rng.integers(0, 1 << 64, REP_BLOCKS * BLOCK // 8, dtype=np.uint64)
+    try:
+        for name, coords in (("a", (0, 0)), ("b", (1, 0)), ("c", (2, 0))):
+            workers[name] = PortWorker(master, os.path.join(base, name),
+                                       REP_TIER_BYTES, dev, coords=coords)
+        a, b, cw = workers["a"], workers["b"], workers["c"]
+        wa, wb, wc = a.worker, b.worker, cw.worker
+        await_live(master, [wa.worker_id, wb.worker_id, wc.worker_id],
+                   phase="replicate")
+
+        # (a) the replicated write
+        async def write():
+            async with port_client(master, coords=(0, 0)) as c:
+                t = time.perf_counter()
+                await c.write_all("/rep/hot", hot, replicas=2)
+                await c.write_all("/rep/cold", cold, replicas=2)
+                secs = time.perf_counter() - t
+                back = np.frombuffer(await c.read_all("/rep/hot"),
+                                     dtype=np.uint64)
+                return secs, dict(c.counters), np.array_equal(back, hot)
+
+        write_s, wrote, hot_ok = asyncio.run(write())
+        placed = {p: _block_locs(master, p) for p in ("/rep/hot",
+                                                      "/rep/cold")}
+        want = [wa.worker_id, wc.worker_id]
+        # every replica's block file against the file's bytes: a read
+        # through the client would heat /rep/cold on A before its pins
+        step = BLOCK // 8
+        replicas_ok = all(
+            np.array_equal(np.fromfile(w.store.get(bid, touch=False).path,
+                                       dtype=np.uint64),
+                           data[i * step:(i + 1) * step])
+            for p, data in (("/rep/hot", hot), ("/rep/cold", cold))
+            for i, (bid, _) in enumerate(placed[p]) for w in (wa, wc))
+        if any(ids != want for locs in placed.values() for _, ids in locs) \
+                or any(len(locs) != REP_BLOCKS for locs in placed.values()) \
+                or not hot_ok or not replicas_ok \
+                or wrote.get("sc.bytes.written", 0):
+            raise AssertionError(f"replicate: the write placed {placed} "
+                                 f"(want every block on {want}), /rep/hot "
+                                 f"read back {hot_ok}, every replica's "
+                                 f"block file equal {replicas_ok}, "
+                                 f"counters {wrote}")
+        res.update(write_s=write_s,
+                   write_gibs=2 * REP_BLOCKS * BLOCK / GiB / write_s)
+        log(f"replicate: /rep/hot and /rep/cold, {REP_BLOCKS} blocks of "
+            f"{BLOCK // MiB} MiB each, written with two replicas in "
+            f"{write_s:.3f}s ({res['write_gibs']:.3f} GiB/s of file bytes, "
+            f"each byte to two workers over WRITE_BLOCK); every block on "
+            f"A ({wa.worker_id}, ICI (0, 0)) and C ({wc.worker_id}, (2, 0)),"
+            f" as the ici policy places from (0, 0); /rep/hot read back and "
+            f"every replica's block file bit-equal")
+
+        # (b) a corrupt replica healed over the device path
+        cuda_ops.block_checksum.launches = 0
+        a.call(wa._promote_once())
+        k1 = cuda_ops.block_checksum.launches
+        hot_ids = [bid for bid, _ in placed["/rep/hot"]]
+        if k1 != REP_BLOCKS or not all(wa.hbm_holds(x) for x in hot_ids):
+            raise AssertionError(f"replicate: A's promote cycle pinned "
+                                 f"{[wa.hbm_holds(x) for x in hot_ids]} "
+                                 f"with {k1} K1 launches")
+        a.call(wa.heartbeat_once())
+        bid = hot_ids[0]
+        c_path = wc.store.get(bid, touch=False).path
+        with open(c_path, "r+b") as f:
+            f.seek(BLOCK // 2)
+            byte = f.read(1)
+            f.seek(BLOCK // 2)
+            f.write(bytes([byte[0] ^ 0x20]))
+        read_a = wa.metrics.counters.get("bytes.read", 0)
+        split = {k: [] for k in ("fetch", "d2h", "crc32c", "write")}
+        real = {"fetch": (ici_plane, "fetch_device_block"),
+                "d2h": (server, "_to_host"), "crc32c": (server, "crc_update"),
+                "write": (server, "_write_file")}
+        saved = {k: getattr(o, n) for k, (o, n) in real.items()}
+        land = []
+
+        def timed_async(fn, into):
+            async def timed(*args, **kw):
+                t = time.perf_counter()
+                try:
+                    return await fn(*args, **kw)
+                finally:
+                    into.append(time.perf_counter() - t)
+            return timed
+
+        for k, (o, n) in real.items():
+            setattr(o, n, _timed(saved[k], split[k]))
+        wb._ici_land = timed_async(wb._ici_land, land)
+        try:
+            t0 = time.perf_counter()
+            refused = cw.call(wc._autopin_block(bid))
+            reported_s = time.perf_counter() - t0
+
+            def located(want: list[int]):
+                return lambda: sorted(dict(_block_locs(
+                    master, "/rep/hot"))[bid]) == sorted(want)
+            # healed: B's copy located beside A's (C's flagged one still
+            # listed); retired: C's dropped, which the master does at the
+            # dispatch after the landing, its next scan
+            heal_s = reported_s + _poll(
+                located([wa.worker_id, wb.worker_id, wc.worker_id]), 30,
+                "healed /rep/hot")
+            retire_s = heal_s + _poll(located([wa.worker_id, wb.worker_id]),
+                                      30, "retired C's copy")
+            gone_s = retire_s + _poll(lambda: not wc.store.contains(bid),
+                                      30, "deleted C's corrupt copy")
+        finally:
+            for k, (o, n) in real.items():
+                setattr(o, n, saved[k])
+            del wb._ici_land
+        landed = np.fromfile(wb.store.get(bid, touch=False).path,
+                             dtype=np.uint64)
+        pulls = wb.metrics.counters.get("ici.peer_pulls", 0)
+        fallbacks = wb.metrics.counters.get("ici.tcp_fallbacks", 0)
+        read_a_delta = wa.metrics.counters.get("bytes.read", 0) - read_a
+
+        async def read_hot():
+            async with port_client(master) as c:
+                return np.frombuffer(await c.read_all("/rep/hot"),
+                                     dtype=np.uint64)
+
+        # the retired copy goes at C's next heartbeat after the retire
+        late = gone_s - retire_s > 2 * WORKER_HEARTBEAT_MS / 1000
+        if refused != 0 or wc.metrics.counters.get("blocks.corrupt") != 1 \
+                or late \
+                or wc.metrics.counters.get("blocks.corrupt_reported") != 1 \
+                or pulls != 1 or fallbacks != 0 or read_a_delta \
+                or len(land) != 1 \
+                or not np.array_equal(landed, hot[:BLOCK // 8]) \
+                or not np.array_equal(asyncio.run(read_hot()), hot):
+            raise AssertionError(
+                f"replicate (b): refused {refused}, C's counters "
+                f"{wc.metrics.counters}, B's peer pulls {pulls} and "
+                f"fallbacks {fallbacks}, {read_a_delta} bytes read from A, "
+                f"C's copy deleted {gone_s - retire_s:.3f}s after its retire "
+                f"(two heartbeats allowed), {len(land)} landings, B's block "
+                f"equal "
+                f"{np.array_equal(landed, hot[:BLOCK // 8])}")
+        med = {k: statistics.median(v) for k, v in split.items()}
+        res["device"] = dict(
+            block_id=bid, k1_launches=k1, reported_s=reported_s,
+            healed_s=heal_s, retired_s=retire_s, corrupt_deleted_s=gone_s,
+            land_s=land[0],
+            land_gibs=BLOCK / GiB / land[0], peer_pulls=pulls,
+            tcp_fallbacks=fallbacks, a_bytes_read=read_a_delta,
+            split_ms={k: v * 1e3 for k, v in med.items()},
+            split_gibs={k: BLOCK / GiB / v for k, v in med.items()})
+        d = res["device"]
+        sm = d["split_ms"]
+        log(f"replicate (b): A pinned /rep/hot ({k1} K1 launches); C "
+            f"refused block {bid} (a flipped byte of its media copy) and "
+            f"reported it in {reported_s:.3f}s; the master evacuated it: B "
+            f"landed it from A's tier-0 by the ICI hint in "
+            f"{land[0] * 1e3:.2f} ms ({d['land_gibs']:.3f} GiB/s; fetch "
+            f"{sm['fetch']:.3f}, D2H {sm['d2h']:.2f}, crc32c "
+            f"{sm['crc32c']:.2f}, write {sm['write']:.2f} ms), {pulls} peer "
+            f"pull, {fallbacks} fallbacks, {read_a_delta} bytes read from "
+            f"A; healed {heal_s:.3f}s after the start of C's promote "
+            f"cycle, C's copy retired at {retire_s:.3f}s (the master's "
+            f"next scan) and deleted at {gone_s:.3f}s; B's block and "
+            f"/rep/hot bit-equal")
+
+        # (c) a lost holder healed by TCP
+        async def delete_hot():
+            async with port_client(master) as c:
+                await c.meta.delete("/rep/hot")
+        asyncio.run(delete_hot())
+        _poll(lambda: not any(w.worker.store.contains(x)
+                              for w in workers.values() for x in hot_ids),
+              30, "deleted /rep/hot", step=0.05)
+        split = {k: [] for k in ("pull", "crc32c", "write")}
+        real = {"crc32c": (server, "crc_update"),
+                "write": (server, "_append")}
+        saved = {k: getattr(o, n) for k, (o, n) in real.items()}
+        for k, (o, n) in real.items():
+            setattr(o, n, _timed(saved[k], split[k]))
+        wb._tcp_pull = timed_async(wb._tcp_pull, split["pull"])
+        before = {k: wb.metrics.counters.get(k, 0)
+                  for k in ("ici.peer_pulls", "ici.tcp_fallbacks")}
+        read_a = wa.metrics.counters.get("bytes.read", 0)
+        cold_ids = [x for x, _ in placed["/rep/cold"]]
+        try:
+            t0 = time.perf_counter()
+            cw.stop()
+            del workers["c"]
+
+            def lost() -> bool:
+                async def run():
+                    async with port_client(master) as c:
+                        return await live_workers(c)
+                return wc.worker_id not in [
+                    w["address"]["worker_id"] for w in asyncio.run(run())]
+            lost_s = _poll(lost, 30, "marked C lost", step=0.05)
+
+            def cold_healed() -> bool:
+                return all(sorted(ids) == sorted([wa.worker_id, wb.worker_id])
+                           for _, ids in _block_locs(master, "/rep/cold"))
+            heal_s = lost_s + _poll(cold_healed, 60, "healed /rep/cold")
+        finally:
+            for k, (o, n) in real.items():
+                setattr(o, n, saved[k])
+            del wb._tcp_pull
+
+        async def read_cold():
+            async with port_client(master) as c:
+                return np.frombuffer(await c.read_all("/rep/cold"),
+                                     dtype=np.uint64)
+
+        after = {k: wb.metrics.counters.get(k, 0) for k in before}
+        streamed = wa.metrics.counters.get("bytes.read", 0) - read_a
+        if after != before or len(split["pull"]) != REP_BLOCKS \
+                or streamed < REP_BLOCKS * BLOCK \
+                or not np.array_equal(asyncio.run(read_cold()), cold) \
+                or not all(wb.store.contains(x) for x in cold_ids):
+            raise AssertionError(
+                f"replicate (c): B's counters {before} -> {after}, "
+                f"{len(split['pull'])} pulls, {streamed} bytes streamed "
+                f"from A")
+        crc_s = sum(split["crc32c"])
+        write_s = sum(split["write"])
+        pull_s = sum(split["pull"])
+        res["tcp"] = dict(
+            blocks=REP_BLOCKS, lost_s=lost_s, healed_s=heal_s,
+            pull_s=split["pull"], pull_gibs=REP_BLOCKS * BLOCK / GiB / pull_s,
+            stream_ms=(pull_s - crc_s - write_s) * 1e3 / REP_BLOCKS,
+            crc32c_ms=crc_s * 1e3 / REP_BLOCKS,
+            write_ms=write_s * 1e3 / REP_BLOCKS, a_bytes_read=streamed)
+        tc = res["tcp"]
+        log(f"replicate (c): C stopped; the master marked it lost after "
+            f"{lost_s:.3f}s (lost timeout {REP_LOST_MS} ms) and B pulled "
+            f"/rep/cold's {REP_BLOCKS} blocks from A by READ_BLOCK, no "
+            f"hint: {tc['pull_gibs']:.3f} GiB/s over the pulls (a block: "
+            f"stream {tc['stream_ms']:.2f}, crc32c {tc['crc32c_ms']:.2f}, "
+            f"write {tc['write_ms']:.2f} ms); healed {heal_s:.3f}s after "
+            f"the stop; /rep/cold bit-equal on A and B")
+    finally:
+        for w in reversed(list(workers.values())):
+            w.stop()
+        stop_master(proc)
+    with open(os.path.join(base, "master0.json")) as f:
+        counters = json.load(f)["counters"]
+    rep = {k[len("replication."):]: v for k, v in counters.items()
+           if k.startswith("replication.")}
+    res["master_counters"] = rep
+    log(f"replicate: the master's counters {rep}")
+    if (rep.get("ici_hinted"), rep.get("ici_transfers"),
+            rep.get("evacuates"), rep.get("replicates")) != \
+            (1, 1, 1, REP_BLOCKS):
+        raise AssertionError(f"replicate: the master counted {rep}: one "
+                             f"hinted pull, one over the device path, one "
+                             f"evacuation, {REP_BLOCKS} replicates wanted")
+    res["k1_launches"] = k1
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2805,12 +3252,13 @@ def main() -> int:
     results["build"] = phase_build()
     results["kernel"] = phase_kernel(rng, dev)
     need = N_BLOCKS * BLOCK + SHARDS * SHARD_BYTES + WORKER_TIER_BYTES \
-        + 2 * ICI_TIER_BYTES
+        + 2 * ICI_TIER_BYTES + 3 * REP_TIER_BYTES
     root = pick_data_dir(need)
     log(f"main: data under {root} (needs {need / GiB:.2f} GiB and 1 GiB "
         f"spare: {N_BLOCKS} blocks and {SHARDS} POSIX shards of 64 MiB, "
         f"the port's worker's mem tier of {WORKER_TIER_BYTES / GiB:.2f} "
-        f"GiB, phase ici's two of {ICI_TIER_BYTES / GiB:.2f} GiB)")
+        f"GiB, phase ici's two of {ICI_TIER_BYTES / GiB:.2f} GiB, phase "
+        f"replicate's three of {REP_TIER_BYTES / GiB:.2f} GiB)")
     cluster = pw = None
     try:
         cuda_ops.block_checksum.launches = 0
@@ -2836,7 +3284,7 @@ def main() -> int:
         log(f"train: mfu {results['train']['mfu']:.4f} on {card}")
         results["ckpt"], probe = phase_ckpt(dev, info["addr"], args.seed,
                                             params,
-                                            results["main"]["link_gibs"])
+                                            results["main"]["link_gibs"], pw)
         # freed at del, without the collector (ROADMAP C3)
         del params
         held = torch.cuda.memory_allocated(dev)
@@ -2850,6 +3298,7 @@ def main() -> int:
         results["vector"] = phase_vector(dev, info["addr"], args.seed)
         results["master"] = phase_master(root, conf, cluster, pw, probe)
         results["ici"] = phase_ici(rng, dev, root)
+        results["replicate"] = phase_replicate(rng, dev, root)
         # every phase's cluster traffic went through the port's worker
         await_port_worker(info["addr"], pw)
         m = pw.worker.metrics
@@ -2874,9 +3323,10 @@ def main() -> int:
     if not jax_free():
         raise AssertionError("this process loaded a module of JAX or of the "
                              "JAX package")
-    log("main: no process of this run (this one, where the port's worker "
-        "runs, and the port's master, twice) loaded a module of JAX or of "
-        "the JAX package")
+    log("main: no process of this run (this one, where the port's workers "
+        "run, and each of the port's masters it started: the cluster's "
+        "twice, phase ici's and phase replicate's) loaded a module of JAX "
+        "or of the JAX package")
     if launches != results["main"]["pins"]:
         raise AssertionError(f"{launches} kernel launches for "
                              f"{results['main']['pins']} pins")
@@ -2887,7 +3337,8 @@ def main() -> int:
         "source": "curvine_tpu_torch/csrc/checksum.cu",
         "replaces": "curvine_tpu/tpu/pallas_ops.py:27",
         "launches": launches + wk["k1_launches"]
-                    + results["ici"]["k1_launches"],
+                    + results["ici"]["k1_launches"]
+                    + results["replicate"]["k1_launches"],
         "max_abs_err": k["max_abs_err"],
         "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": "bytes", "library_ms": None}]

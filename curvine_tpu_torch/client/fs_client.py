@@ -22,7 +22,7 @@ import socket
 import uuid
 
 from curvine_tpu_torch.common import errors as err
-from curvine_tpu_torch.common.conf import REPLICAS, ClusterConf
+from curvine_tpu_torch.common.conf import ClusterConf
 from curvine_tpu_torch.common.types import (CommitBlock, FileBlocks,
                                             FileStatus, LocatedBlock,
                                             MasterInfo)
@@ -134,11 +134,13 @@ class FsClient:
             "path": path, "create_parent": True}, mutate=True)
         return FileStatus.from_wire(rep["status"])
 
-    async def create_file(self, path: str, overwrite: bool = False
-                          ) -> FileStatus:
+    async def create_file(self, path: str, overwrite: bool = False,
+                          replicas: int | None = None) -> FileStatus:
+        """A new file of ``replicas`` replicas (the conf's when None)."""
         cc = self.conf.client
         rep = await self.call(RpcCode.CREATE_FILE, {
-            "path": path, "overwrite": overwrite, "replicas": REPLICAS,
+            "path": path, "overwrite": overwrite,
+            "replicas": cc.replicas if replicas is None else replicas,
             "block_size": cc.block_size, "client_name": self.client_id},
             mutate=True)
         return FileStatus.from_wire(rep["status"])
@@ -176,7 +178,7 @@ class FsClient:
         for r in requests:
             r = dict(r)
             if r.get("op") == "create":
-                r.setdefault("replicas", REPLICAS)
+                r.setdefault("replicas", self.conf.client.replicas)
                 r.setdefault("block_size", self.conf.client.block_size)
                 r.setdefault("client_name", self.client_id)
             reqs.append(r)
@@ -188,11 +190,14 @@ class FsClient:
 
     async def add_block(self, path: str,
                         commit_blocks: list[CommitBlock] | None = None,
+                        exclude_workers: list[int] | None = None,
+                        ici_coords: list[int] | None = None,
                         abandon_block: int | None = None) -> LocatedBlock:
         rep = await self.call(RpcCode.ADD_BLOCK, {
             "path": path, "client_host": self.client_host,
             "commit_blocks": [c.to_wire() for c in commit_blocks or []],
-            "exclude_workers": [], "ici_coords": [],
+            "exclude_workers": exclude_workers or [],
+            "ici_coords": ici_coords or [],
             "abandon_block": abandon_block}, mutate=True)
         return LocatedBlock.from_wire(rep["block"])
 

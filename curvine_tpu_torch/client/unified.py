@@ -4,12 +4,15 @@ Own copy of the parts of ``curvine_tpu/client/unified.py`` (:28-72,
 :134-201, :398-406) that the cache feed and its writer call:
 ``CurvineClient`` with ``meta`` (the ``FsClient``), ``create``, ``open``,
 ``write_all``, ``read_all`` and ``advise`` (the master's rolling
-prefetch window), over one connection pool to the workers. The readers
+prefetch window), over one connection pool to the workers. ``create``
+and ``write_all`` take ``replicas`` (:137-158), and the writer fans each
+block out to that many workers. The readers
 and writers it opens share ``counters``: ``sc.bytes.read`` and
 ``sc.bytes.written`` (short circuit), ``read.zero_copy_bytes``
 (READ_BLOCK into the caller's buffer), ``write.bytes`` (all bytes
 written), ``sc.write.fallbacks`` (blocks that went over WRITE_BLOCK with
-the short circuit on) and ``advise.rpcs``.
+the short circuit on), ``write.replica_failover`` (legs dropped),
+``write.degraded_commits`` and ``advise.rpcs``.
 
 Left out (ROADMAP A3): the worker circuit breaker, the metadata cache,
 tracing, the metrics flush to the master, tenants, appends, batched
@@ -47,15 +50,20 @@ class CurvineClient:
     async def __aexit__(self, *exc) -> None:
         await self.close()
 
-    async def create(self, path: str, overwrite: bool = False) -> FsWriter:
-        """A new file, its block size from the client's conf: one
-        replica, on the mem tier."""
+    async def create(self, path: str, overwrite: bool = False,
+                     replicas: int | None = None) -> FsWriter:
+        """A new file of ``replicas`` replicas (the conf's when None) on
+        the mem tier, its block size from the client's conf; the writer
+        places blocks near the conf's ``worker.ici_coords``."""
         cc = self.conf.client
-        await self.meta.create_file(path, overwrite=overwrite)
+        await self.meta.create_file(path, overwrite=overwrite,
+                                    replicas=replicas)
         return FsWriter(self.meta, path, self.pool,
                         block_size=cc.block_size,
                         short_circuit=cc.short_circuit,
-                        counters=self.counters)
+                        counters=self.counters,
+                        ici_coords=list(self.conf.worker.ici_coords) or None,
+                        min_replicas=cc.write_min_replicas)
 
     async def open(self, path: str) -> FsReader:
         return self._reader(path, await self.meta.get_block_locations(path))
@@ -67,8 +75,8 @@ class CurvineClient:
                         short_circuit=cc.short_circuit,
                         counters=self.counters, verify=cc.read_verify)
 
-    async def write_all(self, path: str, data) -> None:
-        async with await self.create(path, overwrite=True) as w:
+    async def write_all(self, path: str, data, **kw) -> None:
+        async with await self.create(path, overwrite=True, **kw) as w:
             await w.write(data)
 
     async def read_all(self, path: str) -> bytes:

@@ -1,38 +1,45 @@
-"""File writer: the short-circuit write of a co-located block, WRITE_BLOCK
-streams otherwise.
+"""File writer: one upload leg per replica, the short-circuit write of a
+co-located single-replica block.
 
-Own copy of the path of ``curvine_tpu/client/writer.py`` (:152-678) that
-a write of one replica takes: ``write`` cuts the caller's bytes into
-chunks (whole chunks go out of the caller's buffer uncopied, a partial
-one is held until it fills), ``_next_block`` asks the master for a block
-(the sealed blocks' commits ride on that call, and a retryable refusal
-is retried for up to 90 s, abandoning the refused block),
-``_open_block`` opens the block, ``_send_chunk`` writes a chunk and
-chains the block's crc32c (the port's ``csrc/crc32c.cc``),
-``_seal_block`` and ``_finish_block`` end it with the crc and keep the
-commit, and ``close`` completes the file at the master. Files have one
-replica on the mem tier (``common/conf.py``), so a block has one
-location: a block placed on more raises.
+Own copy of ``curvine_tpu/client/writer.py`` (:152-678) without its
+replay buffer. ``write`` cuts the caller's bytes into chunks (whole
+chunks go out of the caller's buffer uncopied, a partial one is held
+until it fills), ``_next_block`` asks the master for a block (the sealed
+blocks' commits ride on that call; the writer's ``ici_coords`` steer the
+``ici`` placement; a retryable refusal is retried for up to 90 s,
+abandoning the refused block and excluding the workers this stream saw
+fail), ``_open_block`` opens one WRITE_BLOCK upload leg per location
+(:427-463), ``_send_chunk`` chains the block's crc32c (the port's
+``csrc/crc32c.cc``) and sends each chunk to every leg at once (:197-270),
+``_seal_block`` and ``_finish_block`` end every leg with the crc and
+keep the commit of the legs that acked (:492-611), and ``close``
+completes the file at the master.
+
+A leg that fails mid-block is dropped (``_drop_replicas``, :271-296):
+its upload is aborted, the failure counted (``write.replica_failover``)
+and reported to the master for healing (``_report_lost_replica``,
+:136-150, REPORT_UNDER_REPLICATED_BLOCKS with its worker id), and the
+block streams on while at least ``min_replicas`` legs survive. A leg
+that fails its finish leaves a degraded commit on the survivors
+(``write.degraded_commits``), after the master confirms they are live.
+Below ``min_replicas``, and when the one leg of a single-replica block
+fails, the port raises: the reference's replay buffer and re-placement
+of the block (:297-403) are ROADMAP A3e's, and ``abort`` drops the open
+block.
 
 The short circuit (:437-438, :464-488, :539-552): when
-``short_circuit`` is on and the block's worker is on this host, the
-worker grants a temp block file (SC_WRITE_OPEN, which answers with its
-path), the writer writes the caller's bytes straight into it (no socket,
-no chunking, one crc pass) and commits it with its length and crc
-(SC_WRITE_COMMIT); ``abort`` sends SC_WRITE_ABORT, which drops the temp
-file. A worker that refuses the grant (a bdev tier, a draining worker)
-or a location off this host sends the block over WRITE_BLOCK, and the
-counter ``sc.write.fallbacks`` counts such blocks. Bytes written by short
-circuit count as ``sc.bytes.written`` (the reference's name), all bytes
-as ``write.bytes``.
-
-Left out (ROADMAP A3b): writes of more than one replica and their
-recovery (:271-403: the fan-out legs, the replay buffer, dropping a
-failed leg, re-placing a lost block). Where the reference abandons a
-block whose short-circuit write hit an ``OSError`` and replays it, or
-re-places a block whose upload failed, the port raises: a failed block
-fails the write, and ``abort`` drops the open block. Also left out:
-``hflush``, the circuit breaker and tracing."""
+``short_circuit`` is on and a block of one replica is placed on a worker
+on this host, the worker grants a temp block file (SC_WRITE_OPEN, which
+answers with its path), the writer writes the caller's bytes straight
+into it (no socket, no chunking, one crc pass) and commits it with its
+length and crc (SC_WRITE_COMMIT); ``abort`` sends SC_WRITE_ABORT, which
+drops the temp file. A worker that refuses the grant (a bdev tier, a
+draining worker) or a location off this host sends the block over
+WRITE_BLOCK, and the counter ``sc.write.fallbacks`` counts such blocks.
+Bytes written by short circuit count as ``sc.bytes.written`` (the
+reference's name), all bytes as ``write.bytes``. Also left out:
+``hflush``, the circuit breaker (the workers this stream saw fail stand
+in for its exclusions) and tracing."""
 
 from __future__ import annotations
 
@@ -53,11 +60,17 @@ log = logging.getLogger(__name__)
 
 OPEN_DEADLINE_S = 90.0
 
+# the failures of one upload leg that dropping it absorbs: transport and
+# worker errors, timeouts; anything else propagates
+_UPLOAD_EXC = (err.CurvineError, OSError, asyncio.TimeoutError)
+
 
 class FsWriter:
     def __init__(self, fs_client, path: str, pool: ConnectionPool,
                  block_size: int, chunk_size: int = WRITE_CHUNK_SIZE,
-                 short_circuit: bool = True, counters: dict | None = None):
+                 short_circuit: bool = True, counters: dict | None = None,
+                 ici_coords: list[int] | None = None,
+                 min_replicas: int = 1):
         self.fs = fs_client
         self.path = path
         self.pool = pool
@@ -65,10 +78,15 @@ class FsWriter:
         self.chunk_size = chunk_size
         self.short_circuit = short_circuit
         self.counters = counters if counters is not None else {}
+        self.ici_coords = ici_coords
+        self.min_replicas = max(1, min_replicas)
         self.pos = 0
         self._buf = bytearray()
         self._block: LocatedBlock | None = None
-        self._upload = None
+        # one upload per live leg and its location, in lockstep (legs are
+        # dropped mid-block, so block.locs no longer lines up)
+        self._uploads: list = []
+        self._upload_locs: list = []
         # the open block's short-circuit grant: its temp file, the
         # connection that granted it and the worker's id
         self._sc_file = None
@@ -79,6 +97,10 @@ class FsWriter:
         self._crc_algo = ALGO_CRC32C
         self._commits: list[CommitBlock] = []
         self._closed = False
+        # workers this stream saw fail: kept out of its later placements
+        self._failed_workers: set[int] = set()
+        # reports of lost legs in flight, awaited at close
+        self._reports: set[asyncio.Task] = set()
 
     @staticmethod
     def _addr(loc) -> str:
@@ -86,6 +108,27 @@ class FsWriter:
 
     def _count(self, key: str, n: int = 1) -> None:
         self.counters[key] = self.counters.get(key, 0) + n
+
+    def _note_leg_failed(self, loc, worker_id: int, cause) -> None:
+        self._failed_workers.add(worker_id)
+        self._count("write.replica_failover")
+        log.warning("write %s: replica %s (worker %d) lost mid-block: %s",
+                    self.path, self._addr(loc), worker_id, cause)
+
+    def _report_lost_replica(self, block_id: int, worker_id: int) -> None:
+        """Tell the master, in the background, that the block lost its
+        replica on ``worker_id``, so it re-replicates the block once the
+        commit lands."""
+        async def report():
+            try:
+                await self.fs.call(
+                    RpcCode.REPORT_UNDER_REPLICATED_BLOCKS,
+                    {"block_ids": [block_id], "worker_id": worker_id})
+            except Exception as e:  # noqa: BLE001 — the scan heals it too
+                log.debug("under-replication report failed: %s", e)
+        t = asyncio.ensure_future(report())
+        self._reports.add(t)
+        t.add_done_callback(self._reports.discard)
 
     async def write(self, data) -> int:
         if self._closed:
@@ -129,16 +172,62 @@ class FsWriter:
         return total
 
     async def _send_chunk(self, chunk) -> None:
-        self._block_crc = crc_update(self._crc_algo, chunk, self._block_crc)
+        crc = crc_update(self._crc_algo, chunk, self._block_crc)
         if self._sc_file is not None:
             # an OSError here (EIO, ENOSPC on the worker's media) fails
             # the write: the reference re-places and replays the block
             self._sc_file.write(chunk)
+            self._block_crc = crc
+            self._block_written += len(chunk)
             self._count("sc.bytes.written", len(chunk))
+            self._count("write.bytes", len(chunk))
+            return
+        self._block_crc = crc
+        if len(self._uploads) == 1:
+            try:
+                await self._uploads[0].send_chunk(chunk)
+                results: list = [None]
+            except _UPLOAD_EXC as e:
+                results = [e]
         else:
-            await self._upload.send_chunk(chunk)
+            # every leg at once, each with its own result: a failed leg
+            # is dropped without sinking the others
+            results = await asyncio.gather(
+                *(up.send_chunk(chunk) for up in self._uploads),
+                return_exceptions=True)
+        for r in results:
+            if isinstance(r, BaseException) and \
+                    not isinstance(r, _UPLOAD_EXC):
+                raise r
+        failed = [i for i, r in enumerate(results)
+                  if isinstance(r, BaseException)]
+        if failed:
+            await self._drop_replicas(failed, results[failed[0]])
         self._block_written += len(chunk)
         self._count("write.bytes", len(chunk))
+
+    async def _drop_replicas(self, failed: list[int], cause) -> None:
+        """Drop the legs that failed mid-chunk (each aborted, counted and
+        reported to the master) and stream on while at least
+        ``min_replicas`` survive; below that, raise ``cause``."""
+        bid = self._block.block.id
+        for i in failed:
+            loc = self._upload_locs[i]
+            self._note_leg_failed(loc, loc.worker_id, cause)
+            try:
+                await self._uploads[i].abort()
+            except (err.CurvineError, OSError):
+                pass
+            self._report_lost_replica(bid, loc.worker_id)
+        keep = [i for i in range(len(self._uploads)) if i not in set(failed)]
+        self._uploads = [self._uploads[i] for i in keep]
+        self._upload_locs = [self._upload_locs[i] for i in keep]
+        if len(self._uploads) < self.min_replicas:
+            # the reference re-places the block and replays it from its
+            # replay buffer (ROADMAP A3e)
+            raise cause
+        log.info("write %s: continuing block %d on %d surviving "
+                 "replica(s)", self.path, bid, len(self._uploads))
 
     async def _flush_chunk(self) -> None:
         if not self._buf:
@@ -152,18 +241,24 @@ class FsWriter:
 
     async def _next_block(self) -> None:
         """Allocate and open the next block. A retryable refusal (a
-        worker's CapacityPending while space clears after a restart)
-        backs off and asks again, abandoning the refused block, until the
-        deadline; the commits ride only the first request."""
+        worker's CapacityPending while space clears after a restart, a
+        worker that cannot be reached) backs off and asks again,
+        abandoning the refused block and excluding the workers this
+        stream saw fail, until the deadline; the commits ride only the
+        first request. Exclusions that leave no worker are dropped."""
         loop = asyncio.get_running_loop()
         commits, self._commits = self._commits, []
         deadline = loop.time() + OPEN_DEADLINE_S
         abandon = None
         delay = 0.4
+        use_exclude = True
         while True:
+            exclude = sorted(self._failed_workers) if use_exclude else []
             try:
                 self._block = await self.fs.add_block(
-                    self.path, commit_blocks=commits, abandon_block=abandon)
+                    self.path, commit_blocks=commits,
+                    exclude_workers=exclude or None,
+                    ici_coords=self.ici_coords, abandon_block=abandon)
                 commits = []
                 await self._open_block()
                 return
@@ -172,6 +267,9 @@ class FsWriter:
                 if self._block is not None:
                     abandon = self._block.block.id
                     self._block = None
+                if exclude and e.code == err.ErrorCode.NO_AVAILABLE_WORKER:
+                    use_exclude = False
+                    continue
                 if not e.retryable or loop.time() >= deadline:
                     raise
                 sleep = delay * (0.5 + random.random() / 2)
@@ -183,21 +281,27 @@ class FsWriter:
         locs = self._block.locs
         if not locs:
             raise err.NoAvailableWorker(f"no locations for {self.path}")
-        if len(locs) != 1:
-            raise NotImplementedError(
-                f"block {self._block.block.id} placed on {len(locs)} "
-                f"workers: the port writes one replica (ROADMAP A3b)")
         self._block_written = 0
         self._block_crc = 0
-        if self.short_circuit:
+        self._uploads = []
+        self._upload_locs = []
+        if self.short_circuit and len(locs) == 1:
             if await self._try_short_circuit(locs[0]):
                 return
             self._count("sc.write.fallbacks")
-        conn = await self.pool.get(self._addr(locs[0]))
-        self._upload = await conn.open_upload(RpcCode.WRITE_BLOCK, header={
-            "block_id": self._block.block.id,
-            "storage_type": int(StorageType.MEM),
-            "algo": self._crc_algo, "len_hint": self.block_size})
+        for loc in locs:
+            try:
+                conn = await self.pool.get(self._addr(loc))
+                up = await conn.open_upload(RpcCode.WRITE_BLOCK, header={
+                    "block_id": self._block.block.id,
+                    "storage_type": int(StorageType.MEM),
+                    "algo": self._crc_algo, "len_hint": self.block_size})
+            except err.CurvineError:
+                # the next placement leaves this worker out
+                self._failed_workers.add(loc.worker_id)
+                raise
+            self._uploads.append(up)
+            self._upload_locs.append(loc)
 
     async def _try_short_circuit(self, loc) -> bool:
         """A temp-file grant for the open block from its worker when the
@@ -227,8 +331,8 @@ class FsWriter:
             return False
 
     async def _abort_upload(self) -> None:
-        """Drop the open block's stream: the short-circuit grant (the
-        worker deletes its temp file) or the WRITE_BLOCK upload."""
+        """Drop the open block's streams: the short-circuit grant (the
+        worker deletes its temp file) or every WRITE_BLOCK upload."""
         if self._sc_file is not None:
             self._sc_file.close()
             self._sc_file = None
@@ -240,25 +344,33 @@ class FsWriter:
             except err.CurvineError as e:
                 log.debug("short-circuit abort of block %d: %s",
                           self._block.block.id, e)
-        if self._upload is not None:
-            await self._upload.abort()
-            self._upload = None
+        for up in self._uploads:
+            try:
+                await up.abort()
+            except (err.CurvineError, OSError):
+                pass        # one dead leg must not skip the others
+        self._uploads = []
+        self._upload_locs = []
 
     async def _seal_block(self) -> None:
         if self._block is None:
             return
         await self._flush_chunk()
-        worker_id = await self._finish_block()
+        worker_ids = await self._finish_block()
         self._commits.append(CommitBlock(
             block_id=self._block.block.id, block_len=self._block_written,
-            worker_ids=[worker_id], storage_type=StorageType.MEM))
+            worker_ids=worker_ids, storage_type=StorageType.MEM))
         self._block = None
-        self._upload = None
+        self._uploads = []
+        self._upload_locs = []
 
-    async def _finish_block(self) -> int:
+    async def _finish_block(self) -> list[int]:
         """End the block with its crc: SC_WRITE_COMMIT of the temp file
-        with its length, or the upload's EOF. The worker's answer names
-        the worker id the commit lists."""
+        with its length, or every leg's EOF at once. Returns the worker
+        ids the commit lists: those whose finish was acked and that the
+        master still holds live. A leg lost at its finish leaves a
+        degraded commit on at least ``min_replicas`` survivors, and is
+        reported; fewer raise."""
         if self._sc_file is not None:
             self._sc_file.close()
             self._sc_file = None
@@ -268,11 +380,57 @@ class FsWriter:
                     "len": self._block_written,
                     "crc32": self._block_crc, "algo": self._crc_algo}))
             self._sc_conn = None
-            return (unpack(rep.data) or {}).get("worker_id",
-                                                self._sc_worker_id)
-        ack = await self._upload.finish(header={"crc32": self._block_crc,
-                                                "algo": self._crc_algo})
-        return ack.header.get("worker_id", self._block.locs[0].worker_id)
+            return [(unpack(rep.data) or {}).get("worker_id",
+                                                 self._sc_worker_id)]
+        acks = await asyncio.gather(
+            *(up.finish(header={"crc32": self._block_crc,
+                                "algo": self._crc_algo})
+              for up in self._uploads),
+            return_exceptions=True)
+        survivors: list[tuple[int, object]] = []
+        lost: list = []
+        cause = None
+        for ack, loc in zip(acks, self._upload_locs):
+            if isinstance(ack, BaseException):
+                if not isinstance(ack, _UPLOAD_EXC):
+                    raise ack
+                lost.append(loc)
+                cause = cause or ack
+            else:
+                survivors.append((ack.header.get("worker_id",
+                                                 loc.worker_id), loc))
+        if not lost:
+            return [wid for wid, _ in survivors]
+        for loc in lost:
+            self._note_leg_failed(loc, loc.worker_id, cause)
+        if survivors:
+            # a survivor may have died between its ack and this commit:
+            # the master confirms which it still holds live, on the
+            # report that flags the lost replica
+            bid = self._block.block.id
+            try:
+                resp = await self.fs.call(
+                    RpcCode.REPORT_UNDER_REPLICATED_BLOCKS,
+                    {"block_ids": [bid], "worker_id": lost[0].worker_id,
+                     "confirm_live": [wid for wid, _ in survivors]})
+                live = set(resp.get("live", ()))
+            except Exception as e:  # noqa: BLE001 — the commit then fails
+                log.debug("degraded-commit liveness check failed: %s", e)
+                live = {wid for wid, _ in survivors}
+            for wid, loc in survivors:
+                if wid not in live:
+                    self._note_leg_failed(loc, wid, cause)
+            survivors = [x for x in survivors if x[0] in live]
+            for loc in lost[1:]:
+                self._report_lost_replica(bid, loc.worker_id)
+        worker_ids = [wid for wid, _ in survivors]
+        if len(worker_ids) < self.min_replicas:
+            raise cause
+        self._count("write.degraded_commits")
+        log.warning("write %s: degraded commit of block %d on %d/%d "
+                    "replicas", self.path, self._block.block.id,
+                    len(worker_ids), len(worker_ids) + len(lost))
+        return worker_ids
 
     async def close(self) -> None:
         if self._closed:
@@ -282,10 +440,12 @@ class FsWriter:
         await self.fs.complete_file(self.path, self.pos,
                                     commit_blocks=commits)
         self._closed = True
+        await asyncio.gather(*self._reports, return_exceptions=True)
 
     async def abort(self) -> None:
         await self._abort_upload()
         self._closed = True
+        await asyncio.gather(*self._reports, return_exceptions=True)
 
     async def __aenter__(self) -> "FsWriter":
         return self

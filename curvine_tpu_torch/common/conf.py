@@ -17,19 +17,28 @@ constants (``MASTER_FIXED``), at the value it implements: raft and its
 membership knobs, the sharded namespace, the native fast metadata port
 (the reference's default is on), ACLs beyond the superuser gate
 (``acl_enabled`` stays on), the UFS backup, the TTL scanner, the read
-leases, the audit log, the dir watchdog, replication pulls and the ICI
-mesh shape; and ``block_placement_policy`` takes every policy but
-``"ici"``. A file that sets one of them otherwise is refused by name.
+leases, the audit log, the dir watchdog and ``min_replication``. A file
+that sets one of them otherwise is refused by name.
+``block_placement_policy`` takes every policy of the reference, ``"ici"``
+(the torus-distance spread) among them; ``ici_mesh_shape`` (the torus
+the hop distance wraps on) and ``replication_pull_budget_ms`` (the
+budget of one pull the replication manager dispatches) are fields.
 The KV store's ``meta_dir``, ``meta_engine`` and ``meta_cache_inodes``,
 ``fast_port``, ``web_port`` and ``worker_heartbeat_ms`` are ignored, as
 the reference's master ignores them with the mem store, the fast port
 off and no web server.
 
-The reference's ``user``, ``groups``, ``replicas``, ``storage_type``,
-``write_chunk_size``, ``conn_retry_max`` and ``conn_retry_base_ms`` are
-constants here, at the reference's defaults (``FIXED``): the OS user,
-one replica (the writer has no replica recovery), the mem tier. A file
-that sets one of them to another value is refused, never ignored.
+The client's ``replicas`` (a file's replica count at CREATE_FILE) and
+``write_min_replicas`` (the fan-out floor: a block keeps streaming on its
+surviving legs while at least that many remain) are fields, with the
+reference's defaults. Below that floor the reference re-places the block
+and replays it from its replay buffer; the port has no replay buffer
+(ROADMAP A3e) and raises instead, as it does when the one leg of a
+single-replica block fails. The reference's ``user``, ``groups``,
+``storage_type``, ``write_chunk_size``, ``conn_retry_max`` and
+``conn_retry_base_ms`` are constants here, at the reference's defaults
+(``FIXED``): the OS user, the mem tier. A file that sets one of them to
+another value is refused, never ignored.
 The worker's fields that name a branch the port's worker does not have
 are constants too (``WORKER_FIXED``, ``TIER_FIXED``, ``QOS_FIXED``): the
 bdev layout and a tier's direct-IO queue depth, the direct-IO engine,
@@ -54,12 +63,11 @@ GB = 1024 * MB
 
 
 # the reference's defaults, which the port does not let a caller change
-REPLICAS = 1
 STORAGE_TYPE = "mem"
 WRITE_CHUNK_SIZE = 4 * MB
 CONN_RETRY_MAX = 3
 CONN_RETRY_BASE_MS = 100
-FIXED = {"user": "", "groups": [], "replicas": REPLICAS,
+FIXED = {"user": "", "groups": [],
          "storage_type": STORAGE_TYPE, "write_chunk_size": WRITE_CHUNK_SIZE,
          "conn_retry_max": CONN_RETRY_MAX,
          "conn_retry_base_ms": CONN_RETRY_BASE_MS}
@@ -73,10 +81,9 @@ MASTER_FIXED = {
     "shard_backend": "process", "shard_dir_cache": 65_536,
     "raft_peers": [], "raft_node_id": 1, "raft_promote_lag": 64,
     "raft_snapshot_chunk_mb": 4, "raft_transfer_timeout_ms": 5_000,
-    "raft_learner": False, "replication_pull_budget_ms": 20_000,
-    "ttl_check_ms": 1_000, "ttl_bucket_ms": 1_000, "min_replication": 1,
-    "ici_mesh_shape": []}
-PLACEMENTS = ("local", "random", "robin", "weighted", "load")
+    "raft_learner": False, "ttl_check_ms": 1_000, "ttl_bucket_ms": 1_000,
+    "min_replication": 1}
+PLACEMENTS = ("local", "random", "robin", "weighted", "load", "ici")
 
 
 # the worker's branches the port does not have, at the value it implements
@@ -104,11 +111,18 @@ class MasterConf:
     snapshot_interval_entries: int = 100_000
     worker_lost_timeout_ms: int = 30_000
     heartbeat_check_ms: int = 1_000
-    block_placement_policy: str = "local"   # local|random|robin|weighted|load
+    block_placement_policy: str = "local"   # local|random|robin|weighted|load|ici
+    # ICI torus shape for the hop distance (e.g. [4, 2]); empty: the
+    # distance falls back to host labels
+    ici_mesh_shape: list[int] = field(default_factory=list)
     retry_cache_size: int = 100_000
     retry_cache_ttl_ms: int = 600_000
     superuser: str = "root"
     supergroup: str = "supergroup"
+    # the budget of one replication pull the master dispatches (the
+    # submit and the destination's stream from the source), carried in
+    # the request header
+    replication_pull_budget_ms: int = 20_000
 
 
 @dataclass
@@ -156,10 +170,14 @@ class ClientConf:
     master_addrs: list[str] = field(
         default_factory=lambda: ["127.0.0.1:8995"])
     block_size: int = 64 * MB
+    replicas: int = 1
     read_chunk_size: int = 4 * MB
     short_circuit: bool = True
     # verify full-block reads against the block's commit-time crc
     read_verify: bool = True
+    # the fan-out floor: a block keeps streaming on its surviving legs
+    # while at least this many remain; below it the write raises
+    write_min_replicas: int = 1
     rpc_timeout_ms: int = 30_000
     conn_pool_size: int = 4
 
@@ -207,8 +225,7 @@ class ClusterConf:
         if policy not in PLACEMENTS:
             raise ValueError(
                 f"{path}: master.block_placement_policy = {policy!r}: the "
-                f"port's {item} takes only {list(PLACEMENTS)}; \"ici\" "
-                f"waits for the mesh (ROADMAP A8, A10)")
+                f"port's {item} takes only {list(PLACEMENTS)}")
         _apply(conf.master, master)
         client = data.get("client") or {}
         _check(path, "client", client, FIXED, "client (ROADMAP A3b)")

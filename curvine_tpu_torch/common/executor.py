@@ -32,6 +32,13 @@ class ScheduledExecutor:
                            initial_delay_s if initial_delay_s is not None
                            else interval_s))
 
+    def submit(self, name: str, coro) -> asyncio.Task:
+        """Track a coroutine under the executor's lifecycle."""
+        self.cancel(name)
+        t = asyncio.ensure_future(coro)
+        self._tasks[name] = t
+        return t
+
     async def _periodic(self, name: str, fn, interval_s: float,
                         initial_delay_s: float) -> None:
         await asyncio.sleep(initial_delay_s)

@@ -32,28 +32,52 @@ is refused as the reference refuses it; with ``allow_pickle=True`` the
 side file holds a pickled JAX treedef, which only JAX can rebuild, and
 the port, which never imports JAX, raises. ``save_checkpoint`` of a tree
 the skeleton cannot encode raises the skeleton's ``TypeError`` where the
-reference falls back to that pickle. ``distribute_checkpoint`` and its
-schedules need the peer plane (ROADMAP A9b, A10).
+reference falls back to that pickle.
 
 ``broadcast_params`` (:171-181) places a parameter tree onto a
-``gpu/mesh.py`` mesh, each leaf a DTensor."""
+``gpu/mesh.py`` mesh, each leaf a DTensor. ``distribute_checkpoint``
+(:292-314) places a whole checkpoint on a mesh, each leaf replicated
+(or laid out by ``spec_tree``, through ``broadcast_params``), by one of
+two schedules with equal bytes:
+
+- ``"tree"`` (``_distribute_tree``, :224-289): a ``broadcast_schedule``
+  over the mesh's ranks, the tensors' reads started largest first (LPT),
+  and each file's bytes sourced from the tier-0 of a worker in this
+  process's device domain (``_hbm_source``, :183-221) when every block
+  of the file is there, all or nothing per file, else from the cache's
+  read path; counted as ``ici.peer_pulls`` and ``ici.peer_pull_bytes``
+  (blocks and bytes taken from a tier-0), ``ici.tcp_fallbacks`` (files
+  that went by the read path) and ``ici.broadcast_bytes``/``_ms``.
+  Where the reference hands back a host view of the peer's block, the
+  port keeps it on the device: the blocks are joined by a copy on the
+  mesh's device, with no host round trip. The manifest is sourced the
+  same way. The leaves are placed in LPT order, the same on every rank,
+  since each placement is a collective;
+- ``"flat"``: ``load_checkpoint`` through a ``DeviceCopier`` onto the
+  mesh's device, then ``broadcast_params``, the A/B baseline."""
 
 from __future__ import annotations
 
 import asyncio
 import json
+import logging
 import math
+import time
 
 import numpy as np
 import torch
 from torch.distributed.tensor import distribute_tensor
 
 from curvine_tpu_torch.device import default_device
+from curvine_tpu_torch.gpu import ici_plane
 from curvine_tpu_torch.gpu.ingest import DeviceCopier
-from curvine_tpu_torch.gpu.mesh import placements, tree_map
+from curvine_tpu_torch.gpu.mesh import mesh_device, placements, tree_map
+
+log = logging.getLogger(__name__)
 
 __all__ = ["save_checkpoint", "load_checkpoint",
-           "distribute_checkpoint_to_device", "broadcast_params"]
+           "distribute_checkpoint_to_device", "broadcast_params",
+           "distribute_checkpoint"]
 
 # numpy's dtype names (the manifest's) and the torch dtypes they carry
 _DTYPES = {
@@ -148,12 +172,16 @@ async def save_checkpoint(client, path: str, params) -> None:
         {"tensors": tensors, "tree": skel}).encode())
 
 
-async def _load_manifest(client, path: str, allow_pickle: bool = False):
-    """A checkpoint's tensor list and tree skeleton. A manifest without
-    the JSON tree needs the legacy pickled treedef: refused unless
-    ``allow_pickle`` (unpickling runs arbitrary code), and then refused
-    all the same, since only JAX rebuilds that treedef."""
-    raw = json.loads(await _read_all(client, f"{path}/manifest.json"))
+async def _load_manifest(client, path: str, allow_pickle: bool = False,
+                         data=None):
+    """A checkpoint's tensor list and tree skeleton, from ``data`` (the
+    manifest's bytes) when given. A manifest without the JSON tree needs
+    the legacy pickled treedef: refused unless ``allow_pickle``
+    (unpickling runs arbitrary code), and then refused all the same,
+    since only JAX rebuilds that treedef."""
+    if data is None:
+        data = await _read_all(client, f"{path}/manifest.json")
+    raw = json.loads(bytes(data))
     if isinstance(raw, list):
         manifest, skel = raw, None
     else:
@@ -235,3 +263,129 @@ def broadcast_params(params, mesh, spec_tree=None):
     if spec_tree is None:
         return tree_map(lambda x: place(x, ()), params)
     return tree_map(place, params, spec_tree)
+
+
+def _count(counters: dict | None, key: str, n) -> None:
+    if counters is not None:
+        counters[key] = counters.get(key, 0) + n
+
+
+async def _hbm_source(client, path: str, counters: dict | None = None,
+                      device=None) -> torch.Tensor | None:
+    """A cached file's bytes from the tier-0 of a worker in this
+    process's device domain, as a new uint8 tensor on ``device`` (the
+    tier's own device when None): every block of the file or None, never
+    a file half from the device and half from the read path, which would
+    wait on the slow half anyway. None counts one ``ici.tcp_fallbacks``;
+    the caller then reads the file."""
+    if not ici_plane.endpoints():
+        return None
+    try:
+        fb = await client.meta.get_block_locations(path)
+    except Exception:            # noqa: BLE001 — any miss: the read path
+        return None
+    if not fb.block_locs:
+        return None
+    parts = []
+    for lb in fb.block_locs:
+        got = None
+        for loc in lb.locs:
+            t = ici_plane.fetch_device_block(loc.worker_id, lb.block.id,
+                                             device=device)
+            if t is not None and t.nbytes == lb.block.len:
+                got = t.reshape(-1).view(torch.uint8)
+                break
+        if got is None:
+            _count(counters, "ici.tcp_fallbacks", 1)
+            return None
+        if got.device.type == "cuda":
+            # the tier may drop its tensor while the join below is queued
+            got.record_stream(torch.cuda.current_stream(got.device))
+        parts.append(got)
+    _count(counters, "ici.peer_pulls", len(parts))
+    _count(counters, "ici.peer_pull_bytes", sum(p.nbytes for p in parts))
+    # a new tensor: the tier keeps its own
+    return torch.cat(parts)
+
+
+async def _distribute_tree(client, path: str, mesh,
+                           allow_pickle: bool = False):
+    """The checkpoint at ``path`` replicated over ``mesh`` by the
+    topology schedule (see the module docstring); bit for bit the flat
+    path's result."""
+    counters = getattr(client, "counters", None)
+    device = mesh_device(mesh)
+    sched = ici_plane.broadcast_schedule(mesh.size())
+    log.debug("broadcast schedule for %s: %d ranks, depth %d", path,
+              mesh.size(), sched.depth())
+    t0 = time.perf_counter()
+    raw = await _hbm_source(client, f"{path}/manifest.json", counters,
+                            device)
+    manifest, skel = await _load_manifest(
+        client, path, allow_pickle,
+        data=None if raw is None else raw.cpu().numpy().tobytes())
+    copier = DeviceCopier(device)
+
+    def size_of(t) -> int:
+        return math.prod(t["shape"]) * _torch_dtype(t["dtype"]).itemsize
+
+    async def fetch(t):
+        name = f"{path}/{t['name']}"
+        got = await _hbm_source(client, name, counters, device)
+        if got is not None:
+            return got, None
+        reader = await client.open(name)
+        try:
+            view = await reader.mmap_view(0, reader.len)
+            if view is None:
+                view = np.frombuffer(await reader.read_all(), dtype=np.uint8)
+            return None, copier.transfer(view)
+        finally:
+            await reader.close()
+
+    lpt = sorted(range(len(manifest)), key=lambda i: -size_of(manifest[i]))
+    tasks = {i: asyncio.ensure_future(fetch(manifest[i])) for i in lpt}
+    rep = placements(mesh, ())
+    flat: list = [None] * len(manifest)
+    try:
+        for i in lpt:
+            t = manifest[i]
+            got, item = await tasks[i]
+            raw = got if got is not None else copier.deliver(item)
+            if raw.nbytes != size_of(t):
+                raise ValueError(f"{path}/{t['name']}: {raw.nbytes} bytes, "
+                                 f"{t['shape']} {t['dtype']} needs "
+                                 f"{size_of(t)}")
+            flat[i] = distribute_tensor(
+                _typed(raw, _torch_dtype(t["dtype"]), t["shape"]), mesh,
+                rep, src_data_rank=0)
+    finally:
+        for task in tasks.values():
+            task.cancel()
+        await asyncio.gather(*tasks.values(), return_exceptions=True)
+    if mesh.device_type == "cuda":
+        torch.cuda.current_stream(device).synchronize()
+    _count(counters, "ici.broadcast_bytes", sum(map(size_of, manifest)))
+    _count(counters, "ici.broadcast_ms",
+           int((time.perf_counter() - t0) * 1000))
+    return _tree_build(skel, flat)
+
+
+async def distribute_checkpoint(client, path: str, mesh, spec_tree=None,
+                                schedule: str = "tree",
+                                allow_pickle: bool = False):
+    """The checkpoint at ``path`` on ``mesh``, each leaf a DTensor:
+    replicated when ``spec_tree`` is None, by the ``"tree"`` schedule
+    (the topology-scheduled path) or ``"flat"`` (``load_checkpoint`` then
+    ``broadcast_params``, kept for A/B); else laid out by ``spec_tree``.
+    Every rank of the mesh calls it; rank 0's bytes are the ones placed.
+    The two schedules give equal bytes."""
+    if schedule not in ("tree", "flat"):
+        raise ValueError(f"schedule {schedule!r}: \"tree\" or \"flat\"")
+    if spec_tree is None and schedule == "tree":
+        return await _distribute_tree(client, path, mesh,
+                                      allow_pickle=allow_pickle)
+    host = await load_checkpoint(client, path,
+                                 placer=DeviceCopier(mesh_device(mesh)),
+                                 allow_pickle=allow_pickle)
+    return broadcast_params(host, mesh, spec_tree)

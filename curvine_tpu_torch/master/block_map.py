@@ -5,9 +5,11 @@ Own copy of ``curvine_tpu/master/block_map.py``: a block's durable meta
 locations are runtime state, rebuilt from the workers' block reports
 after a restart. ``apply_report`` takes a worker's report and returns
 the blocks no file owns (orphans, for the worker to delete);
-``worker_lost`` drops a lost worker's replicas. Left out: the desired-
-replica cache and ``under_replicated`` of the replication manager, which
-is not ported (ROADMAP A3d)."""
+``worker_lost`` drops a lost worker's replicas. The replication manager
+reads the desired-replica cache (``desired``, :49-61, :91-106: set at
+``commit`` and at each block report, else read once from the store by
+``desired_of``), so its scan runs on memory, and ``under_replicated``
+(:98-106): the located blocks with fewer replicas than desired."""
 
 from __future__ import annotations
 
@@ -33,6 +35,9 @@ class BlockMap:
         self.locs: dict[int, dict[int, BlockLocation]] = {}
         # worker_id -> its block ids (for loss handling)
         self.worker_blocks: dict[int, set[int]] = {}
+        # block_id -> desired replicas, so the under-replication scan
+        # reads no store
+        self.desired: dict[int, int] = {}
 
     def get(self, block_id: int) -> BlockMeta | None:
         durable = self.store.block_get(block_id)
@@ -42,6 +47,20 @@ class BlockMap:
         return BlockMeta(block_id=block_id, len=length, inode_id=inode_id,
                          replicas=replicas,
                          locs=self.locs.get(block_id, {}))
+
+    def commit(self, block_id: int, length: int, worker_id: int,
+               storage_type: StorageType, inode_id: int = 0,
+               replicas: int = 1) -> None:
+        durable = self.store.block_get(block_id)
+        if durable is None:
+            self.store.block_put(block_id, length, inode_id, replicas)
+            self.desired[block_id] = replicas
+        else:
+            old_len, old_iid, old_rep = durable
+            self.store.block_put(block_id, max(old_len, length),
+                                 inode_id or old_iid, old_rep)
+            self.desired[block_id] = old_rep
+        self.add_replica(block_id, worker_id, storage_type)
 
     def add_replica(self, block_id: int, worker_id: int,
                     storage_type: StorageType) -> None:
@@ -54,6 +73,7 @@ class BlockMap:
         if meta is None:
             return None
         self.store.block_remove(block_id)
+        self.desired.pop(block_id, None)
         for wid in self.locs.pop(block_id, {}):
             self.worker_blocks.get(wid, set()).discard(block_id)
         return meta
@@ -69,6 +89,24 @@ class BlockMap:
             self.locs.get(bid, {}).pop(worker_id, None)
         return affected
 
+    def desired_of(self, block_id: int) -> int:
+        d = self.desired.get(block_id)
+        if d is None:
+            durable = self.store.block_get(block_id)
+            d = self.desired[block_id] = durable[2] if durable else 1
+        return d
+
+    def under_replicated(self) -> list[BlockMeta]:
+        out = []
+        for bid, locs in self.locs.items():
+            if not locs:
+                continue
+            if len(locs) < self.desired_of(bid):
+                meta = self.get(bid)
+                if meta is not None:
+                    out.append(meta)
+        return out
+
     def apply_report(self, worker_id: int, held: dict[int, int],
                      storage_types: dict[int, int],
                      incremental: bool = False) -> list[int]:
@@ -83,6 +121,7 @@ class BlockMap:
                 orphans.append(bid)
                 continue
             old_len, iid, rep = durable
+            self.desired[bid] = rep
             if length > old_len:
                 self.store.block_put(bid, length, iid, rep)
             st = StorageType(storage_types.get(bid, int(StorageType.MEM)))

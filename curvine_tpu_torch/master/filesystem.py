@@ -16,7 +16,11 @@ pending deletes the next heartbeat hands each worker), ``add_block``
 ``worker_heartbeat`` (``delete_blocks`` and ``report_now``; ``draining``
 never, as no worker is decommissioned: DECOMMISSION_WORKER is refused),
 ``worker_block_report``, ``recover_stale_leases``, ``check_lost_workers``
-and ``master_info`` (:1206-1314).
+(which hands each newly lost worker's blocks to ``on_worker_lost``, the
+replication manager's hook, :1288-1298) and ``master_info``
+(:1206-1314). The placement policy is built with the conf's ICI mesh
+shape, and ``add_block`` passes the client's ``ici_coords`` to it
+(:49-60, :1053-1067).
 
 The port applies the journal ops ``mkdir``, ``create``, ``delete``,
 ``rename``, ``alloc_block``, ``commit_blocks``, ``complete`` and the raft
@@ -65,7 +69,8 @@ class UnportedJournalOp(RuntimeError):
 class MasterFilesystem:
     def __init__(self, journal: Journal | None = None,
                  placement: str = "local", lost_timeout_ms: int = 30_000,
-                 snapshot_interval: int = 100_000):
+                 snapshot_interval: int = 100_000,
+                 ici_mesh_shape: list[int] | None = None):
         self.store = MemMetaStore()
         self.tree = InodeTree(self.store)
         self.blocks = BlockMap(self.store)
@@ -73,7 +78,8 @@ class MasterFilesystem:
         self.journal = journal
         self.snapshot_interval = snapshot_interval
         self._entries_since_snapshot = 0
-        self.policy = create_policy(placement)
+        self.policy = create_policy(placement,
+                                    mesh_shape=ici_mesh_shape or None)
         # worker_id -> block ids to delete (handed out by its heartbeat)
         self.pending_deletes: dict[int, set[int]] = {}
         # inode ids of files open for writing; None until the first lease
@@ -82,6 +88,8 @@ class MasterFilesystem:
         # set by MasterServer: _log then journals unflushed and the RPC
         # handler awaits committer.sync() before it replies
         self.committer: GroupCommitter | None = None
+        # set by MasterServer: the replication manager's on_worker_lost
+        self.on_worker_lost = None
 
     # ==================== journal plumbing ====================
 
@@ -398,6 +406,7 @@ class MasterFilesystem:
     def add_block(self, path: str, client_host: str = "",
                   exclude_workers: list[int] | None = None,
                   commit_blocks: list[CommitBlock] | None = None,
+                  ici_coords: list[int] | None = None,
                   storage_type: StorageType = StorageType.MEM,
                   abandon_block: int | None = None) -> LocatedBlock:
         node = self._file_or_raise(path)
@@ -407,7 +416,7 @@ class MasterFilesystem:
         chosen = self.policy.choose(
             self.workers.live_workers(), max(1, node.replicas),
             client_host=client_host, exclude=set(exclude_workers or []),
-            needed=node.block_size, min_count=1)
+            needed=node.block_size, ici_coords=ici_coords, min_count=1)
         args = dict(inode_id=node.id)
         # abandonBlock: a writer retrying a failed block open drops its
         # previous allocation in the same entry, if it is the trailing,
@@ -570,11 +579,13 @@ class MasterFilesystem:
         return recovered
 
     def check_lost_workers(self) -> list[WorkerInfo]:
-        """Mark the workers whose heartbeat expired LOST and drop their
-        replicas (repair waits for the replication manager)."""
+        """Mark the workers whose heartbeat expired LOST, drop their
+        replicas and hand the blocks they held to ``on_worker_lost``."""
         newly_lost = self.workers.check_lost()
         for w in newly_lost:
-            self.blocks.worker_lost(w.address.worker_id)
+            affected = self.blocks.worker_lost(w.address.worker_id)
+            if affected and self.on_worker_lost:
+                self.on_worker_lost(w, affected)
         return newly_lost
 
     def master_info(self, addr: str = "") -> MasterInfo:

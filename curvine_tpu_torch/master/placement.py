@@ -2,13 +2,17 @@
 
 Own copy of ``curvine_tpu/master/placement.py``: ``local`` (the default:
 the client's host first, then random), ``random``, ``robin``,
-``weighted`` (by available bytes) and ``load`` (least loaded first), and
-``choose``'s pool rules: workers with room first, all of them under
-capacity pressure, fewer than asked when the caller takes
-``min_count``; and ``ici_hops``, the torus hop distance (:147-160), which
-``gpu/ici_plane.py::broadcast_schedule`` orders its tree by. Left out:
-``ici``, the torus-distance policy, which waits for replication over the
-device path (ROADMAP A10b); the conf refuses it."""
+``weighted`` (by available bytes), ``load`` (least loaded first) and
+``ici`` (``IciPolicy``, :163-201: the first replica nearest the writer,
+the others spread by max-min distance); ``choose``'s pool rules (:54-79):
+workers with room first, all of them under capacity pressure, fewer than
+asked when the caller takes ``min_count``; the distance every policy and
+the replication manager share, ``topology_distance`` (:17-35: torus hops
+where both sides carry ICI coordinates, else the host labels, else
+``UNKNOWN_FAR``) behind the pluggable ``distance_fn`` and
+``worker_distance`` (:41-52); ``ici_hops``, the torus hop distance
+(:147-160), which ``gpu/ici_plane.py::broadcast_schedule`` orders its
+tree by; and ``create_policy`` (:204-210)."""
 
 from __future__ import annotations
 
@@ -17,13 +21,44 @@ import random
 from curvine_tpu_torch.common import errors as err
 from curvine_tpu_torch.common.types import WorkerInfo
 
+# the host-label fallback's tiers: the same host is free, another host
+# far, and nothing known farther still; the order is what matters
+HOST_FAR = 1 << 8
+UNKNOWN_FAR = 1 << 16
+
+
+def topology_distance(a_coords, a_host, b_coords, b_host,
+                      mesh_shape=None) -> int:
+    """Torus hops when both sides carry ICI coordinates of one rank,
+    else 0 on the same host and ``HOST_FAR`` on another, else
+    ``UNKNOWN_FAR``."""
+    if a_coords and b_coords and len(a_coords) == len(b_coords):
+        return ici_hops(list(a_coords), list(b_coords), mesh_shape)
+    if a_host and b_host:
+        return 0 if a_host == b_host else HOST_FAR
+    return UNKNOWN_FAR
+
 
 class PlacementPolicy:
     name = "base"
 
+    def __init__(self, mesh_shape: list[int] | None = None,
+                 distance_fn=None):
+        # distance_fn(a_coords, a_host, b_coords, b_host) -> int; the
+        # default closes over the torus shape
+        self.mesh_shape = mesh_shape
+        self.distance_fn = distance_fn or (
+            lambda ac, ah, bc, bh: topology_distance(
+                ac, ah, bc, bh, self.mesh_shape))
+
+    def worker_distance(self, a: WorkerInfo, b: WorkerInfo) -> int:
+        return self.distance_fn(a.ici_coords, a.address.hostname,
+                                b.ici_coords, b.address.hostname)
+
     def choose(self, workers: list[WorkerInfo], count: int,
                client_host: str = "", exclude: set[int] | None = None,
-               needed: int = 0, min_count: int | None = None,
+               needed: int = 0, ici_coords: list[int] | None = None,
+               min_count: int | None = None,
                ) -> list[WorkerInfo]:
         exclude = exclude or set()
         pool = [w for w in workers
@@ -41,26 +76,28 @@ class PlacementPolicy:
             else:
                 raise err.NoAvailableWorker(
                     f"need {count} workers, have {len(pool)} eligible")
-        return self._pick(pool, count, client_host)
+        return self._pick(pool, count, client_host, ici_coords)
 
-    def _pick(self, pool, count, client_host):
+    def _pick(self, pool, count, client_host, ici_coords):
         raise NotImplementedError
 
 
 class RandomPolicy(PlacementPolicy):
     name = "random"
 
-    def _pick(self, pool, count, client_host):
+    def _pick(self, pool, count, client_host, ici_coords):
         return random.sample(pool, count)
 
 
 class RobinPolicy(PlacementPolicy):
     name = "robin"
 
-    def __init__(self) -> None:
+    def __init__(self, mesh_shape: list[int] | None = None,
+                 distance_fn=None) -> None:
+        super().__init__(mesh_shape, distance_fn)
         self._next = 0
 
-    def _pick(self, pool, count, client_host):
+    def _pick(self, pool, count, client_host, ici_coords):
         pool = sorted(pool, key=lambda w: w.address.worker_id)
         out = [pool[(self._next + i) % len(pool)] for i in range(count)]
         self._next = (self._next + count) % max(1, len(pool))
@@ -72,7 +109,7 @@ class LocalPolicy(PlacementPolicy):
 
     name = "local"
 
-    def _pick(self, pool, count, client_host):
+    def _pick(self, pool, count, client_host, ici_coords):
         local = [w for w in pool
                  if client_host and client_host in
                  (w.address.hostname, w.address.ip_addr)]
@@ -86,7 +123,7 @@ class WeightedPolicy(PlacementPolicy):
 
     name = "weighted"
 
-    def _pick(self, pool, count, client_host):
+    def _pick(self, pool, count, client_host, ici_coords):
         out: list[WorkerInfo] = []
         candidates = list(pool)
         for _ in range(count):
@@ -102,14 +139,10 @@ class LoadBasedPolicy(PlacementPolicy):
 
     name = "load"
 
-    def _pick(self, pool, count, client_host):
+    def _pick(self, pool, count, client_host, ici_coords):
         def load(w: WorkerInfo) -> float:
             return 1.0 - w.available / max(1, w.capacity)
         return sorted(pool, key=load)[:count]
-
-
-_POLICIES = {p.name: p for p in (RandomPolicy, RobinPolicy, LocalPolicy,
-                                 WeightedPolicy, LoadBasedPolicy)}
 
 
 def ici_hops(a: list[int], b: list[int], mesh_shape: list[int] | None = None
@@ -129,9 +162,43 @@ def ici_hops(a: list[int], b: list[int], mesh_shape: list[int] | None = None
     return total
 
 
-def create_policy(name: str) -> PlacementPolicy:
+class IciPolicy(PlacementPolicy):
+    """The first replica nearest the writer (its reads stay on short
+    links), then each further replica the one farthest from those chosen
+    (the largest least distance), so replicas spread over fault domains;
+    ties go to an unused host, then nearness to the writer, then free
+    bytes."""
+
+    name = "ici"
+
+    def _pick(self, pool, count, client_host, ici_coords):
+        to_writer = lambda w: self.distance_fn(          # noqa: E731
+            ici_coords or [], client_host,
+            w.ici_coords, w.address.hostname)
+        ranked = sorted(pool, key=lambda w: (to_writer(w), -w.available))
+        out: list[WorkerInfo] = [ranked[0]]
+        while len(out) < count:
+            chosen_hosts = {o.address.hostname for o in out}
+
+            def spread_key(w):
+                dmin = min(self.worker_distance(w, o) for o in out)
+                return (-dmin,
+                        0 if w.address.hostname not in chosen_hosts else 1,
+                        to_writer(w), -w.available)
+
+            out.append(min((w for w in ranked if w not in out),
+                           key=spread_key))
+        return out
+
+
+_POLICIES = {p.name: p for p in (RandomPolicy, RobinPolicy, LocalPolicy,
+                                 WeightedPolicy, LoadBasedPolicy, IciPolicy)}
+
+
+def create_policy(name: str, mesh_shape: list[int] | None = None,
+                  distance_fn=None) -> PlacementPolicy:
     cls = _POLICIES.get(name)
     if cls is None:
-        raise err.InvalidArgument(f"unknown placement policy {name!r}; the "
-                                  f"port has {sorted(_POLICIES)}")
-    return cls()
+        raise err.InvalidArgument(f"unknown placement policy {name!r}; "
+                                  f"have {sorted(_POLICIES)}")
+    return cls(mesh_shape=mesh_shape, distance_fn=distance_fn)

@@ -1,0 +1,308 @@
+"""Block re-replication: the master keeps every block at its file's
+replica count.
+
+Own copy of ``curvine_tpu/master/replication.py`` without EC and
+without the decommission drain. The master queues the blocks with fewer
+live replicas than desired (a lost worker's, found by the periodic scan,
+or reported corrupt), picks a source holder and a destination worker,
+and asks the destination to pull the block (SUBMIT_BLOCK_REPLICATION_JOB,
+under a budget carried in the request header: ``rpc/deadline.py``).
+Ported:
+
+- the soft state, never journaled, that a restarted master relearns from
+  the workers' heartbeats and reports: ``note_hbm_blocks`` (:73-81, the
+  blocks each worker advertises in its device tier-0, which only ever
+  add a hint to a pull) and ``note_verdicts`` (:83-89);
+- ``_classify`` (:91-110) down to ``evacuate`` (a replica flagged on its
+  worker, moved off by copy first, delete last) and ``replicate``;
+- ``enqueue`` and ``enqueue_evacuation`` (:124-148), ``on_worker_lost``
+  and ``replacement_worker`` (:150-161);
+- ``run`` with its per-block backoff (:163-193) and ``_scan_loop``
+  (:195-209) without its EC and drain sweeps;
+- ``_live_replicas`` (:238-245);
+- ``_replicate`` (:300-405): only LIVE replicas count; the LIVE holders
+  serve first, ordered by ``worker_distance`` to the destination, then
+  the draining ones, then the flagged copy as the last resort; the
+  ``ici`` hint when the source advertises the block in its tier-0; the
+  pull budget; and the ``replication.ici_hinted``, ``replicates`` and
+  ``evacuates`` counters;
+- ``_retire_evacuated`` and ``on_result`` (:515-540, with
+  ``replication.ici_transfers`` for a pull that landed over the device
+  path).
+
+Refused by name where met (ROADMAP A3e): an EC stripe's retirement and a
+cell's reconstruction (``_classify`` raises ``Unsupported`` for a block
+the filesystem's ``ec_stripes`` or ``ec_cells`` name; the port's
+filesystem has neither). Left out: the EC and drain sweeps of the scan,
+the leader gate (the port's master is a single node, without raft) and
+the trace each dispatch opens."""
+
+from __future__ import annotations
+
+import asyncio
+import logging
+
+from curvine_tpu_torch.common import errors as err
+from curvine_tpu_torch.common.types import WorkerInfo, WorkerState
+from curvine_tpu_torch.rpc.client import ConnectionPool
+from curvine_tpu_torch.rpc.codes import RpcCode
+from curvine_tpu_torch.rpc.deadline import Deadline
+from curvine_tpu_torch.rpc.frame import pack
+
+log = logging.getLogger(__name__)
+
+
+class ReplicationManager:
+    def __init__(self, fs, scan_interval_s: float = 5.0,
+                 pull_budget_ms: int = 20_000, metrics=None):
+        self.fs = fs
+        self.metrics = metrics
+        self.scan_interval_s = scan_interval_s
+        # the budget of one dispatched pull (the submit and the
+        # destination's stream from the source), carried in the header
+        self.pull_budget_ms = pull_budget_ms
+        self.pool = ConnectionPool(size=1)
+        self.queue: asyncio.Queue[int] = asyncio.Queue()
+        self._inflight: set[int] = set()
+        self._queued: set[int] = set()
+        # per-block re-enqueue backoff (ms): doubles on each failed
+        # dispatch, cleared when one succeeds
+        self._backoff_ms: dict[int, int] = {}
+        # block_id -> the worker whose replica is flagged (corrupt or on
+        # a quarantined dir): it never counts toward the goal and serves
+        # a pull only as the last resort; once the block is back at its
+        # count elsewhere, the flagged copy is retired
+        self._evac: dict[int, int] = {}
+        # worker_id -> the blocks it advertises in its tier-0 (a hint for
+        # the device path; a stale one costs the destination one fallback)
+        self._hbm_blocks: dict[int, set[int]] = {}
+        # block_id -> "mismatch" | "truncated", from worker reports
+        self._verdicts: dict[int, str] = {}
+
+    def _inc(self, name: str, v: int = 1) -> None:
+        if self.metrics is not None:
+            self.metrics.inc(name, v)
+
+    def note_hbm_blocks(self, worker_id: int, block_ids) -> None:
+        """A heartbeat's advertisement of the worker's tier-0 blocks; it
+        replaces the previous one whole."""
+        if block_ids:
+            self._hbm_blocks[int(worker_id)] = {int(b) for b in block_ids}
+        else:
+            self._hbm_blocks.pop(int(worker_id), None)
+
+    def note_verdicts(self, verdicts: dict[int, str]) -> None:
+        for bid, verdict in verdicts.items():
+            if self._verdicts.get(bid) != verdict:
+                self._inc("replication.verdict.bit_rot"
+                          if verdict == "mismatch"
+                          else "replication.verdict.truncated")
+            self._verdicts[bid] = verdict
+
+    def _classify(self, bid: int) -> str:
+        """The kind of work a queued block needs: ``evacuate`` (a flagged
+        replica moved off its worker) or ``replicate`` (a copy pulled).
+        An EC stripe's block is refused by name."""
+        stripe = getattr(self.fs, "ec_stripes", {}).get(bid)
+        if stripe is not None or bid in getattr(self.fs, "ec_cells", {}):
+            raise err.Unsupported(
+                f"block {bid}: EC stripe retirement and cell "
+                f"reconstruction are not ported (ROADMAP A3e)")
+        if bid in self._evac:
+            return "evacuate"
+        return "replicate"
+
+    async def _dispatch(self, bid: int) -> bool:
+        self._classify(bid)
+        return await self._replicate(bid)   # evacuate shares the pull path
+
+    def enqueue(self, block_ids: list[int]) -> None:
+        for bid in block_ids:
+            if bid not in self._inflight and bid not in self._queued:
+                self._queued.add(bid)
+                self.queue.put_nowait(bid)
+
+    def enqueue_evacuation(self, worker_id: int, block_ids: list[int]) -> None:
+        """Blocks whose replica on ``worker_id`` must move off it, copy
+        first and delete last: the flagged replica stops counting (so the
+        block is re-replicated) but stays as a last-resort source (pulls
+        are checked end to end, so a bad source fails its job), and is
+        retired once the block is back at its count. Idempotent."""
+        fresh = []
+        for bid in block_ids:
+            if self._evac.get(bid) != worker_id:
+                self._evac[bid] = worker_id
+                fresh.append(bid)
+        if fresh:
+            log.info("evacuating %d flagged replicas off worker %d",
+                     len(fresh), worker_id)
+            self.enqueue(fresh)
+
+    def on_worker_lost(self, worker: WorkerInfo, affected: list[int]) -> None:
+        log.info("worker %d lost; %d blocks affected",
+                 worker.address.worker_id, len(affected))
+        self.enqueue(affected)
+
+    def replacement_worker(self, block_id: int, exclude: set[int]
+                           ) -> WorkerInfo:
+        meta = self.fs.blocks.get(block_id)
+        holders = set(meta.locs) if meta else set()
+        chosen = self.fs.policy.choose(
+            self.fs.workers.live_workers(), 1,
+            exclude=exclude | holders, needed=meta.len if meta else 0)
+        return chosen[0]
+
+    async def run(self) -> None:
+        scan = asyncio.ensure_future(self._scan_loop())
+        try:
+            while True:
+                bid = await self.queue.get()
+                self._queued.discard(bid)
+                try:
+                    ok = await self._dispatch(bid)
+                except Exception as e:  # noqa: BLE001 — retried later
+                    log.warning("repair of block %d failed: %s", bid, e)
+                    ok = False
+                if ok:
+                    self._backoff_ms.pop(bid, None)
+                else:
+                    self._requeue_later(bid)
+        finally:
+            scan.cancel()
+            await asyncio.gather(scan, return_exceptions=True)
+
+    def _requeue_later(self, bid: int) -> None:
+        """A dispatch that could not run re-enqueues after a per-block
+        exponential backoff, not in a hot loop."""
+        delay = self._backoff_ms.get(bid, 500)
+        self._backoff_ms[bid] = min(delay * 2, 30_000)
+        asyncio.get_running_loop().call_later(
+            delay / 1000, lambda: self.enqueue([bid]))
+
+    async def _scan_loop(self) -> None:
+        while True:
+            await asyncio.sleep(self.scan_interval_s)
+            under = [m.block_id for m in self.fs.blocks.under_replicated()]
+            if under:
+                log.info("scan: %d under-replicated blocks", len(under))
+                self.enqueue(under)
+            if self._evac:
+                # unresolved evacuations are retried at scan cadence
+                self.enqueue(list(self._evac))
+
+    def _live_replicas(self, block_id: int) -> int:
+        n = 0
+        for wid in self.fs.blocks.locs.get(block_id, {}):
+            w = self.fs.workers.workers.get(wid)
+            if w is not None and w.state == WorkerState.LIVE:
+                n += 1
+        return n
+
+    async def _replicate(self, block_id: int) -> bool:
+        """Dispatch one pull job. True when the block needs nothing more
+        from this dispatch (done, at its count, or deleted); False to
+        re-enqueue with backoff (no source or target now, or the submit
+        failed)."""
+        meta = self.fs.blocks.get(block_id)
+        if meta is None or not meta.locs:
+            self._evac.pop(block_id, None)
+            return True
+        evac_wid = self._evac.get(block_id)
+        if evac_wid is not None and evac_wid not in meta.locs:
+            self._evac.pop(block_id, None)   # the flagged copy is gone
+            evac_wid = None
+        # only LIVE replicas count; LIVE holders serve first, draining
+        # ones after, the flagged copy last
+        serving = []
+        live = 0
+        evac_src = None
+        for wid in meta.locs:
+            w = self.fs.workers.workers.get(wid)
+            if w is None:
+                continue
+            if wid == evac_wid:
+                if w.state in (WorkerState.LIVE,
+                               WorkerState.DECOMMISSIONING):
+                    evac_src = w
+                continue
+            if w.state == WorkerState.LIVE:
+                live += 1
+                serving.insert(0, w)
+            elif w.state == WorkerState.DECOMMISSIONING:
+                serving.append(w)
+        if live >= self.fs.blocks.desired_of(block_id):
+            if evac_wid is not None:
+                self._retire_evacuated(block_id, evac_wid)
+            return True
+        if evac_src is not None:
+            serving.append(evac_src)
+        if not serving:
+            log.debug("block %d has no servable source (holders lost)",
+                      block_id)
+            return False
+        try:
+            dst = self.replacement_worker(block_id, exclude=set())
+        except err.CurvineError as e:
+            log.debug("no replication target for block %d: %s", block_id, e)
+            return False
+        # within the LIVE tier, the holder nearest the destination
+        if live > 1:
+            serving[:live] = sorted(
+                serving[:live],
+                key=lambda w: self.fs.policy.worker_distance(w, dst))
+        src = serving[0]
+        # the device-path hint: the source advertises the block in its
+        # tier-0; the destination falls back to this same TCP pull
+        ici_hint = None
+        if block_id in self._hbm_blocks.get(src.address.worker_id, ()):
+            ici_hint = {"worker_id": src.address.worker_id,
+                        "coords": list(src.ici_coords or [])}
+            self._inc("replication.ici_hinted")
+        self._inflight.add(block_id)
+        try:
+            conn = await self.pool.get(
+                f"{dst.address.ip_addr or dst.address.hostname}:"
+                f"{dst.address.rpc_port}")
+            job = {"block_id": block_id, "block_len": meta.len,
+                   "source": src.address.to_wire()}
+            if ici_hint is not None:
+                job["ici"] = ici_hint
+            await conn.call(
+                RpcCode.SUBMIT_BLOCK_REPLICATION_JOB, data=pack(job),
+                deadline=Deadline.after_ms(self.pull_budget_ms))
+        except err.CurvineError as e:
+            log.warning("replication submit for block %d to worker %d "
+                        "failed: %s", block_id, dst.address.worker_id, e)
+            return False
+        finally:
+            self._inflight.discard(block_id)
+        self._inc("replication.evacuates" if evac_wid is not None
+                  else "replication.replicates")
+        return True
+
+    def _retire_evacuated(self, block_id: int, worker_id: int) -> None:
+        """The block is at its count off the flagged copy: drop that
+        location now; its worker deletes the file at its next
+        heartbeat."""
+        log.info("block %d evacuated off worker %d", block_id, worker_id)
+        self.fs.blocks.remove_replica(block_id, worker_id)
+        self.fs.pending_deletes.setdefault(worker_id, set()).add(block_id)
+        self._evac.pop(block_id, None)
+
+    def on_result(self, block_id: int, worker_id: int, success: bool,
+                  message: str, via: str = "") -> None:
+        if success and via == "ici":
+            self._inc("replication.ici_transfers")
+        if not success:
+            log.warning("repair of %d on worker %d failed: %s",
+                        block_id, worker_id, message)
+            self.enqueue([block_id])
+            return
+        self._verdicts.pop(block_id, None)
+        if block_id in self._evac:
+            # the new copy landed: the next dispatch retires the flagged
+            # one once the count holds
+            self.enqueue([block_id])
+
+    async def close(self) -> None:
+        await self.pool.close()

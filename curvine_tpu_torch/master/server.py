@@ -9,30 +9,35 @@ the client's ``(client_id, call_id)`` in the retry cache, and its reply
 leaves only after the group commit has flushed its journal entry.
 
 Served: MKDIR, DELETE, CREATE_FILE, OPEN_FILE, FILE_STATUS, LIST_STATUS,
-EXISTS, RENAME, ADD_BLOCK, COMPLETE_FILE, GET_BLOCK_LOCATIONS,
-GET_MASTER_INFO and META_BATCH (mkdir, create and delete items, each
-failing alone, :1142-1163); and the worker plane: WORKER_HEARTBEAT (its
-``hbm_blocks`` and ``evac_blocks`` taken and counted, its ``metrics``
-summed into the ``bytes.read`` and ``bytes.written`` gauges),
-WORKER_BLOCK_REPORT, and REPORT_UNDER_REPLICATED_BLOCKS, which records
-and counts the replicas reported corrupt (``corrupt_reports``,
-``blocks.reported_corrupt``) and answers ``confirm_live`` (:1230-1273);
-the block map keeps a reported replica, as the reference's does until
-its replication manager has repaired the block. The periodic
-``heartbeat-check`` (lost workers) and ``lease-recovery`` ticks run on
-the ``ScheduledExecutor``. Every request is timed into the
-``rpc.<code name>`` histograms of ``metrics``.
+EXISTS, RENAME, ADD_BLOCK (with the client's ``ici_coords`` for the
+``ici`` placement), COMPLETE_FILE, GET_BLOCK_LOCATIONS, GET_MASTER_INFO
+and META_BATCH (mkdir, create and delete items, each failing alone,
+:1142-1163); and the worker plane: WORKER_HEARTBEAT (its ``hbm_blocks``
+handed to the replication manager as device-path hints, :1193-1196, its
+``evac_blocks`` to its evacuations, its ``metrics`` summed into the
+``bytes.read`` and ``bytes.written`` gauges), WORKER_BLOCK_REPORT,
+REQUEST_REPLACEMENT_WORKER (:1212-1215), REPORT_BLOCK_REPLICATION_RESULT
+(:1275-1280), and REPORT_UNDER_REPLICATED_BLOCKS (:1230-1273): verdicts
+noted, a replica reported with its ``worker_id`` evacuated (flagged, it
+stops counting and is retired once the block is back at its count), a
+report without one enqueued, and ``confirm_live`` answered. The
+replication manager (``master/replication.py``, :100-103, :258-259) runs
+on the ``ScheduledExecutor`` beside the periodic ``heartbeat-check``
+(lost workers, whose blocks it re-replicates) and ``lease-recovery``
+ticks; ``stop()`` cancels it and closes its connections. Every request
+is timed into the ``rpc.<code name>`` histograms of ``metrics``; the
+``replication.*`` counters are summed there too.
 
 Every request must come from the superuser (``acl.SuperuserGate``).
 Every other code the reference's master registers (:340-410,
 ``rpc/codes.py::MASTER_REFUSED``) is answered UNSUPPORTED by name:
 mounts, jobs and PREFETCH_WINDOW (a client's prefetch advice is refused
-here; cached files need none), locks, quotas, raft, shards, EC, batches
-other than META_BATCH, attributes, links, appends, metrics reports,
-spans and health. Read leases, the fast metadata port and UFS mounts are
-not served: a read's reply carries no ``lease`` token and
-``master_info`` no ``fast_addr``, so a client caches nothing (ROADMAP
-A3d)."""
+here; cached files need none), locks, quotas, raft, shards, EC,
+decommissions, batches other than META_BATCH, attributes, links,
+appends, metrics reports, spans and health. Read leases, the fast
+metadata port and UFS mounts are not served: a read's reply carries no
+``lease`` token and ``master_info`` no ``fast_addr``, so a client caches
+nothing (ROADMAP A3d)."""
 
 from __future__ import annotations
 
@@ -47,6 +52,7 @@ from curvine_tpu_torch.common.path import norm_path
 from curvine_tpu_torch.common.types import CommitBlock
 from curvine_tpu_torch.master.acl import SuperuserGate
 from curvine_tpu_torch.master.filesystem import MasterFilesystem
+from curvine_tpu_torch.master.replication import ReplicationManager
 from curvine_tpu_torch.master.retry_cache import RetryCache
 from curvine_tpu_torch.rpc.codes import MASTER_REFUSED, RpcCode
 from curvine_tpu_torch.rpc.frame import Message, pack, unpack
@@ -65,7 +71,8 @@ class MasterServer:
         self.fs = MasterFilesystem(
             journal=j, placement=mc.block_placement_policy,
             lost_timeout_ms=mc.worker_lost_timeout_ms,
-            snapshot_interval=mc.snapshot_interval_entries)
+            snapshot_interval=mc.snapshot_interval_entries,
+            ici_mesh_shape=mc.ici_mesh_shape or None)
         self.metrics = MetricsRegistry("master")
         self.fs.committer = GroupCommitter(
             j, window_ms=mc.journal_group_commit_ms,
@@ -73,14 +80,15 @@ class MasterServer:
         self.acl = SuperuserGate(mc.superuser, mc.supergroup)
         self.retry_cache = RetryCache(mc.retry_cache_size,
                                       mc.retry_cache_ttl_ms)
+        self.replication = ReplicationManager(
+            self.fs, pull_budget_ms=mc.replication_pull_budget_ms,
+            metrics=self.metrics)
+        self.fs.on_worker_lost = self.replication.on_worker_lost
         self.rpc = RpcServer(mc.hostname, mc.rpc_port, "master")
         self.rpc.metrics = self.metrics
         self.executor = ScheduledExecutor("master")
         # worker_id -> its last heartbeat's byte counters
         self._worker_counters: dict[int, dict] = {}
-        # block_id -> workers that reported its replica corrupt (None: a
-        # client's report), kept for the replication manager (ROADMAP A3d)
-        self.corrupt_reports: dict[int, set[int | None]] = {}
         self._register_handlers()
 
     @property
@@ -96,6 +104,7 @@ class MasterServer:
         self.executor.submit_periodic("lease-recovery",
                                       self.fs.recover_stale_leases,
                                       LEASE_RECOVERY_S)
+        self.executor.submit("replication", self.replication.run())
         log.info("master started at %s", self.addr)
 
     def _heartbeat_tick(self) -> None:
@@ -114,6 +123,7 @@ class MasterServer:
 
     async def stop(self) -> None:
         await self.executor.stop()
+        await self.replication.close()
         await self.rpc.stop()
         try:
             self.fs.flush_group()   # the open journal group, if any
@@ -143,6 +153,9 @@ class MasterServer:
         r(C.WORKER_BLOCK_REPORT, self._h(self._worker_block_report))
         r(C.REPORT_UNDER_REPLICATED_BLOCKS,
           self._h(self._report_under_replicated))
+        r(C.REQUEST_REPLACEMENT_WORKER, self._h(self._replacement_worker))
+        r(C.REPORT_BLOCK_REPLICATION_RESULT,
+          self._h(self._replication_result))
         for code in MASTER_REFUSED:
             r(code, self._not_ported)
 
@@ -239,6 +252,7 @@ class MasterServer:
             exclude_workers=q.get("exclude_workers"),
             commit_blocks=[CommitBlock.from_wire(c)
                            for c in q.get("commit_blocks", [])],
+            ici_coords=q.get("ici_coords"),
             abandon_block=q.get("abandon_block"))
         return {"block": lb.to_wire()}
 
@@ -284,14 +298,17 @@ class MasterServer:
         cmds = self.fs.worker_heartbeat(q["info"])
         self.metrics.gauge("workers.live",
                            len(self.fs.workers.live_workers()))
-        # soft state of the replication manager's device hints and
-        # evacuations (ROADMAP A3d): counted, not acted on
-        self.metrics.inc("heartbeat.hbm_blocks", len(q.get("hbm_blocks") or ()))
-        self.metrics.inc("heartbeat.evac_blocks",
-                         len(q.get("evac_blocks") or ()))
+        wid = q["info"]["address"]["worker_id"]
+        evac = q.get("evac_blocks")
+        if evac:
+            # the worker repeats the set every beat until it drains
+            self.replication.enqueue_evacuation(wid, [int(b) for b in evac])
+        # the tier-0's advertisement, refreshed (or cleared) every beat
+        self.replication.note_hbm_blocks(
+            wid, [int(b) for b in q.get("hbm_blocks") or []])
         wm = q.get("metrics")
         if wm:
-            self._worker_counters[q["info"]["address"]["worker_id"]] = wm
+            self._worker_counters[wid] = wm
             self._prune_worker_counters()
         return cmds
 
@@ -300,19 +317,40 @@ class MasterServer:
             q["worker_id"], q.get("blocks", {}), q.get("storage_types", {}),
             incremental=q.get("incremental", False))
 
+    def _replacement_worker(self, q):
+        w = self.replication.replacement_worker(
+            q["block_id"], set(q.get("exclude_workers", [])))
+        return {"worker": w.address.to_wire()}
+
     def _report_under_replicated(self, q):
-        """A worker's (or a client's) report of corrupt replicas: kept
-        for the replication manager; the replica still counts, as in the
-        reference until the block is repaired."""
+        """Corrupt or lost replicas, from a worker (with its
+        ``worker_id``) or a client. A worker's replica is flagged, never
+        deleted at once: it stops counting, stays as the last-resort
+        source, and is retired once the block is back at its count."""
         wid = q.get("worker_id")
         bids = [int(b) for b in q.get("block_ids", [])]
-        for bid in bids:
-            self.corrupt_reports.setdefault(bid, set()).add(wid)
+        verdicts = q.get("verdicts")
+        if verdicts:
+            self.replication.note_verdicts(
+                {int(k): v for k, v in verdicts.items()})
+        if wid is not None:
+            self.replication.enqueue_evacuation(wid, bids)
+        else:
+            self.replication.enqueue(bids)
         self.metrics.inc("blocks.reported_corrupt", len(bids))
         out = {"success": True}
+        # a writer about to commit a block on fewer replicas asks which
+        # of them this master still holds LIVE
         confirm = q.get("confirm_live")
         if confirm is not None:
             live = {w.address.worker_id
                     for w in self.fs.workers.live_workers()}
             out["live"] = [w for w in confirm if w in live]
         return out
+
+    def _replication_result(self, q):
+        self.replication.on_result(q["block_id"], q["worker_id"],
+                                   q.get("success", False),
+                                   q.get("message", ""),
+                                   via=q.get("via", ""))
+        return {}

@@ -14,8 +14,11 @@ Left out (ROADMAP A3b, speed work for later): the transport's
 ``CoalescedWriter`` (frames are written one ``sock_sendall`` at a time
 under a lock), ``BulkDecoder``'s many-frames-per-recv decoding (one
 buffered reader instead), the io_uring ``RingRecv`` and the
-``RegisteredBuffers`` pool; and the deadline, trace and tenant headers,
-the client fault hook and the server-push receiver."""
+``RegisteredBuffers`` pool; and the trace and tenant headers, the
+client fault hook and the server-push receiver. ``call`` and
+``call_stream`` take a ``deadline`` (``rpc/deadline.py``), as the
+reference's do (:238-310): its remaining budget is stamped into the
+request header, and each wait for a reply is capped by it."""
 
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ from typing import Any, AsyncIterator
 
 from curvine_tpu_torch.common.errors import (ConnectError, CurvineError,
                                              ErrorCode, RpcTimeout)
+from curvine_tpu_torch.rpc.deadline import Deadline
 from curvine_tpu_torch.rpc.frame import (ENVELOPE_MAX, STATUS_ERROR, Flags,
                                          Message, decode_header,
                                          parse_envelope)
@@ -213,37 +217,55 @@ class Connection:
         self._waiters.pop(req_id, None)
         self._sinks.pop(req_id, None)
 
-    async def _next(self, q: asyncio.Queue, code: int) -> Message:
+    async def _next(self, q: asyncio.Queue, code: int,
+                    deadline: Deadline | None = None) -> Message:
+        wait = deadline.cap(self.timeout) if deadline is not None \
+            else self.timeout
         try:
-            rep: Message = await asyncio.wait_for(q.get(), self.timeout)
+            rep: Message = await asyncio.wait_for(q.get(), wait)
         except asyncio.TimeoutError as e:
             raise RpcTimeout(f"rpc {code} to {self.addr} timed out") from e
         return rep.check()
 
     # ---------------- request patterns ----------------
 
-    async def call(self, code: int, data: bytes | memoryview = b""
-                   ) -> Message:
+    @staticmethod
+    def _stamped(code: int, header: dict | None,
+                 deadline: Deadline | None) -> dict:
+        """The request header with the deadline's remaining budget; a
+        spent budget raises before anything is sent."""
+        header = dict(header or {})
+        if deadline is not None:
+            deadline.check(f"rpc {code}")
+            deadline.stamp(header)
+        return header
+
+    async def call(self, code: int, data: bytes | memoryview = b"",
+                   deadline: Deadline | None = None) -> Message:
         """Unary request (its body in ``data``) → single response."""
         req_id = next(_req_ids)
         q = self.register(req_id)
         try:
             await self.send(Message(code=int(code), req_id=req_id,
+                                    header=self._stamped(code, None,
+                                                         deadline),
                                     data=data))
-            return await self._next(q, code)
+            return await self._next(q, code, deadline)
         finally:
             self.unregister(req_id)
 
-    async def call_stream(self, code: int, header: dict
+    async def call_stream(self, code: int, header: dict,
+                          deadline: Deadline | None = None
                           ) -> AsyncIterator[Message]:
         """Unary request → stream of chunk frames ending with EOF."""
         req_id = next(_req_ids)
         q = self.register(req_id)
         try:
             await self.send(Message(code=int(code), req_id=req_id,
-                                    header=dict(header)))
+                                    header=self._stamped(code, header,
+                                                         deadline)))
             while True:
-                rep = await self._next(q, code)
+                rep = await self._next(q, code, deadline)
                 yield rep
                 if rep.is_eof:
                     return

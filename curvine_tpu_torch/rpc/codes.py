@@ -7,11 +7,12 @@ calls and the worker's block calls, the short-circuit write's grant,
 commit and abort among them), and those the port's worker serves or
 sends to the master: its heartbeat and block report, block deletes,
 short-circuit read reports, the device tier-0's pin and unpin, the
-device-path transfer it refuses, the master's info for checks of the
-master's view, and the calls the worker refuses by name (the master's
-replication jobs and tasks, batched small writes); and those the port's
-master serves (the namespace, block and worker-plane calls) or refuses
-by name (``MASTER_REFUSED``: every other code the reference's master
+device-path transfer, the master's replication jobs and the results it
+reports back, the master's info for checks of the master's view, and
+the calls the worker refuses by name (the master's tasks, batched small
+writes); and those the port's master serves (the namespace, block,
+worker-plane and replication calls) or refuses by name
+(``MASTER_REFUSED``: every other code the reference's master
 registers). The numbers are the wire's and must not change."""
 
 from __future__ import annotations
@@ -108,8 +109,7 @@ MASTER_REFUSED = (
     RpcCode.LIST_OPTIONS, RpcCode.CONTENT_SUMMARY, RpcCode.GET_LOCK,
     RpcCode.SET_LOCK, RpcCode.LIST_LOCK, RpcCode.ASSIGN_WORKER,
     RpcCode.METRICS_REPORT, RpcCode.CLUSTER_HEALTH, RpcCode.GET_SPANS,
-    RpcCode.REQUEST_REPLACEMENT_WORKER,
-    RpcCode.REPORT_BLOCK_REPLICATION_RESULT, RpcCode.EC_COMMIT_STRIPE,
+    RpcCode.EC_COMMIT_STRIPE,
     RpcCode.DECOMMISSION_WORKER, RpcCode.MOUNT, RpcCode.UNMOUNT,
     RpcCode.UPDATE_MOUNT, RpcCode.GET_MOUNT_TABLE, RpcCode.GET_MOUNT_INFO,
     RpcCode.SUBMIT_JOB, RpcCode.GET_JOB_STATUS, RpcCode.CANCEL_JOB,

@@ -7,9 +7,10 @@ header a msgpack map (through the port's ``wirepack``) and the data raw
 bytes, never copied into the header. ``Message.check`` is the decoding
 side of ``error_for``: it raises the error a response carries, with its
 backoff and leader hints; ``response_for`` and ``error_for`` (:156-179)
-build a server's replies. Left out: the coalesced writer's
-``encode_into`` and the deadline and trace context a server reads from
-a request (the port sends neither, and its server ignores them)."""
+build a server's replies. A server sets ``Message.deadline``, never
+sent, from the request's ``deadline_ms`` header (``rpc/deadline.py``).
+Left out: the coalesced writer's ``encode_into`` and the trace context
+a server reads from a request (the port sends none)."""
 
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ from typing import Any
 
 from curvine_tpu_torch.common.errors import CurvineError, ErrorCode
 from curvine_tpu_torch.rpc import wirepack
+from curvine_tpu_torch.rpc.deadline import Deadline
 
 VERSION = 1
 FIXED = struct.Struct(">BHQBBI")
@@ -46,6 +48,9 @@ class Message:
     flags: int = Flags.REQUEST
     header: dict = field(default_factory=dict)
     data: bytes | bytearray | memoryview = b""
+    # server side: the caller's budget, set at dispatch from the header
+    # (never sent)
+    deadline: Deadline | None = None
 
     @property
     def is_response(self) -> bool:

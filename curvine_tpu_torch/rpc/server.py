@@ -23,7 +23,10 @@ Left out: the transport's ``CoalescedWriter`` (each frame is written by
 ``sock_sendall`` under a per-connection lock, a file chunk by
 ``sock_sendfile``) and ``BulkDecoder`` (frames are read through the
 client's buffered reader, ``rpc.client._Recv``), QoS admission, the
-fault hook, the watchdog, deadlines and tracing."""
+fault hook, the watchdog and tracing. A request's deadline budget
+(``rpc/deadline.py``) is restarted on this process's clock at dispatch
+and handed to the handler as ``msg.deadline`` (:393-399); a request
+whose budget is spent fails at once."""
 
 from __future__ import annotations
 
@@ -36,6 +39,7 @@ from typing import Awaitable, Callable
 from curvine_tpu_torch.common.errors import CurvineError
 from curvine_tpu_torch.rpc.client import _Recv
 from curvine_tpu_torch.rpc.codes import RpcCode
+from curvine_tpu_torch.rpc.deadline import Deadline
 from curvine_tpu_torch.rpc.frame import (ENVELOPE_MAX, FIXED, FIXED_LEN,
                                          LEN_PREFIX, VERSION, Flags, Message,
                                          decode_header, error_for,
@@ -284,6 +288,9 @@ class RpcServer:
         handler = self._handlers.get(msg.code)
         t0 = time.perf_counter()
         try:
+            msg.deadline = Deadline.from_header(msg.header)
+            if msg.deadline is not None:
+                msg.deadline.check(f"{self.name} {_code_name(msg.code)}")
             if handler is None:
                 raise CurvineError(f"no handler for code {msg.code}")
             result = await handler(msg, conn)

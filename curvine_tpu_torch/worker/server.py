@@ -41,7 +41,19 @@ A carve of ``curvine_tpu/worker/server.py``:
   the host, its length checked, then crc32c'd, written, committed and
   reported to the master like a TCP pull (``ici.peer_pulls``); a miss
   answers ``success: False`` and counts ``ici.tcp_fallbacks``, and the
-  caller keeps its TCP rail.
+  caller keeps its TCP rail;
+- SUBMIT_BLOCK_REPLICATION_JOB (``_replicate_block``, :1276-1410, without
+  the EC branch :1282-1310, whose job is refused by name): the block
+  lands over the device path first (``_ici_land``) when the master's job
+  carries the ``ici`` hint and ``ici_transfer`` is on; otherwise, or on a
+  miss (one ``ici.tcp_fallbacks``), it is pulled by a READ_BLOCK stream
+  from the source under the job's deadline (``msg.deadline``) into a
+  temp block, each chunk crc32c'd and written (``_append``), the stream
+  held to the job's ``block_len`` (the file layout's counterpart of the
+  reference's extent cap), and its crc checked against the source's EOF
+  ``block_crc32``: a mismatch fails the job, so a corrupt source never
+  spreads. Then the commit, an incremental block report, and
+  REPORT_BLOCK_REPLICATION_RESULT with ``via`` (``"ici"`` or ``""``).
 
 Where the reference falls back, this worker does not: an HBM tier asked
 for on a machine without a CUDA device (and no devices passed) raises,
@@ -62,10 +74,9 @@ a landing copies the block to the host before it lets the tensor go.
 
 Not ported (ROADMAP A3c): the bdev layout and direct IO (refused by the
 conf), the shared-memory channel (never offered), scrub and the disk
-health machinery (every dir reports healthy), the master's replication
-jobs and its load, prefetch and EC tasks and WRITE_BLOCKS_BATCH (each
-refused by name with UNSUPPORTED; the replication pull with its
-device-path hint is ROADMAP A10b's), QoS, tracing and the web server."""
+health machinery (every dir reports healthy), the master's load,
+prefetch and EC tasks and WRITE_BLOCKS_BATCH (each refused by name with
+UNSUPPORTED), QoS, tracing and the web server."""
 
 from __future__ import annotations
 
@@ -95,7 +106,8 @@ from curvine_tpu_torch.rpc.codes import RpcCode
 from curvine_tpu_torch.rpc.frame import (Flags, Message, error_for, pack,
                                          response_for, unpack)
 from curvine_tpu_torch.rpc.server import RpcServer, ServerConn
-from curvine_tpu_torch.worker.blockfile import crc_update, supported
+from curvine_tpu_torch.worker.blockfile import (ALGO_CRC32C, crc_update,
+                                                map_block, supported)
 from curvine_tpu_torch.worker.promote import promote_block
 from curvine_tpu_torch.worker.storage import BlockStore, TierDir
 
@@ -125,6 +137,11 @@ def _write_file(path: str, buf: np.ndarray) -> None:
         f.write(memoryview(buf))
 
 
+def _append(f, data) -> None:
+    """One pulled chunk onto the temp block's file."""
+    f.write(data)
+
+
 def _integrity_header(info) -> dict:
     """The commit-time checksum riding every READ_BLOCK EOF frame."""
     if info.crc32c is None:
@@ -147,6 +164,9 @@ class WorkerServer:
         self.metrics = MetricsRegistry("worker")
         self.rpc.metrics = self.metrics
         self.master_pool = ConnectionPool(
+            size=2, timeout_ms=self.conf.client.rpc_timeout_ms)
+        # streams of replication pulls from peer workers
+        self.peer_pool = ConnectionPool(
             size=2, timeout_ms=self.conf.client.rpc_timeout_ms)
         self.worker_id = 0             # worker_id_for(host, port) at start
         self.chunk_size = wc.io_chunk_size
@@ -224,6 +244,7 @@ class WorkerServer:
         self._bg.clear()
         await self.rpc.stop()
         await self.master_pool.close()
+        await self.peer_pool.close()
 
     # ---------------- the device tier-0 ----------------
 
@@ -547,14 +568,14 @@ class WorkerServer:
         r(RpcCode.HBM_PIN, self._hbm_pin)
         r(RpcCode.HBM_UNPIN, self._hbm_unpin)
         r(RpcCode.ICI_TRANSFER, self._ici_transfer)
-        for code in (RpcCode.SUBMIT_TASK, RpcCode.SUBMIT_BLOCK_REPLICATION_JOB,
-                     RpcCode.WRITE_BLOCKS_BATCH):
+        r(RpcCode.SUBMIT_BLOCK_REPLICATION_JOB, self._replicate_block)
+        for code in (RpcCode.SUBMIT_TASK, RpcCode.WRITE_BLOCKS_BATCH):
             r(code, self._not_ported)
 
     async def _not_ported(self, msg: Message, conn: ServerConn):
-        """The master's load, prefetch and EC tasks, its replication
-        pulls, and batched small-file writes are refused by name: the
-        master marks the task or job failed, a writer sees the error."""
+        """The master's load, prefetch and EC tasks and batched
+        small-file writes are refused by name: the master marks the task
+        failed, a writer sees the error."""
         raise err.Unsupported(f"{RpcCode(msg.code).name} is not ported to "
                               f"this worker (ROADMAP A3c)")
 
@@ -832,16 +853,107 @@ class WorkerServer:
         if not self.conf.worker.ici_transfer:
             return {"success": False, "via": "",
                     "message": "ici transfer disabled"}
+        if await self._try_ici_land(block_id, q.get("source_worker_id", -1),
+                                    q.get("block_len", 0)):
+            return {"success": True, "via": "ici"}
+        return {"success": False, "via": ""}
+
+    async def _try_ici_land(self, block_id: int, source_worker_id: int,
+                            block_len: int) -> bool:
+        """``_ici_land`` from the worker ``source_worker_id``, counted as
+        ``ici.peer_pulls`` or, on a miss or a fault (its temp block
+        dropped), ``ici.tcp_fallbacks``: the caller's TCP rail takes
+        over."""
         landed = False
         try:
             landed = await self._ici_land(
-                block_id, {"worker_id": q.get("source_worker_id", -1)},
-                q.get("block_len", 0))
+                block_id, {"worker_id": source_worker_id}, block_len)
         except Exception as e:  # noqa: BLE001 — the TCP rail takes over
-            log.debug("ici transfer of block %d failed: %s", block_id, e)
+            log.debug("ici landing of block %d failed: %s", block_id, e)
             self.store.delete(block_id)
-        if landed:
-            self.metrics.inc("ici.peer_pulls")
-            return {"success": True, "via": "ici"}
-        self.metrics.inc("ici.tcp_fallbacks")
-        return {"success": False, "via": ""}
+        self.metrics.inc("ici.peer_pulls" if landed else "ici.tcp_fallbacks")
+        return landed
+
+    async def _replicate_block(self, msg: Message, conn: ServerConn):
+        """SUBMIT_BLOCK_REPLICATION_JOB: land a replica of ``block_id``
+        here, from the source's tier-0 over the device path when the job
+        carries the ``ici`` hint, else (or on a miss) by a READ_BLOCK
+        stream from the source; then report the result to the master."""
+        q = unpack(msg.data) or {}
+        block_id = q["block_id"]
+        if q.get("ec") is not None:
+            raise err.Unsupported(
+                f"SUBMIT_BLOCK_REPLICATION_JOB of block {block_id} with "
+                f"ec: EC cell reconstruction is not ported to this worker "
+                f"(ROADMAP A3e)")
+        src = WorkerAddress.from_wire(q["source"])
+        ok, message, via = True, "", ""
+        try:
+            ici = q.get("ici")
+            if not self.store.contains(block_id) and ici is not None \
+                    and self.conf.worker.ici_transfer \
+                    and await self._try_ici_land(
+                        block_id, ici.get("worker_id", -1),
+                        q.get("block_len", 0)):
+                via = "ici"
+            if not self.store.contains(block_id):
+                await self._tcp_pull(block_id, src, q.get("block_len", 0),
+                                     msg.deadline)
+        except Exception as e:  # noqa: BLE001 — reported to the master
+            ok, message = False, str(e)
+            self.store.delete(block_id)
+        try:
+            await self._leader_call(
+                RpcCode.REPORT_BLOCK_REPLICATION_RESULT,
+                pack({"block_id": block_id, "worker_id": self.worker_id,
+                      "success": ok, "message": message, "via": via}))
+        except Exception as e:  # noqa: BLE001 — the scan retries
+            log.warning("replication result report failed: %s", e)
+        return {"success": ok, "message": message, "via": via}
+
+    async def _tcp_pull(self, block_id: int, src: WorkerAddress,
+                        block_len: int, deadline) -> None:
+        """The block streamed from ``src`` by READ_BLOCK into a temp
+        block, crc32c'd as it lands, checked against the source's commit
+        crc, committed and reported to the master."""
+        peer = await self.peer_pool.get(
+            f"{src.ip_addr or src.hostname}:{src.rpc_port}")
+        info = self.store.create_temp(block_id, size_hint=block_len)
+        total = crc = 0
+        src_crc = src_algo = None
+        f = await asyncio.to_thread(open, info.path, "wb")
+        try:
+            async for m in peer.call_stream(
+                    RpcCode.READ_BLOCK, header={"block_id": block_id},
+                    deadline=deadline):
+                if len(m.data):
+                    total += len(m.data)
+                    if block_len and total > block_len:
+                        raise err.CapacityExceeded(
+                            f"replica {block_id} exceeds its "
+                            f"{block_len}B length")
+                    crc = crc_update(ALGO_CRC32C, m.data, crc)
+                    await asyncio.to_thread(_append, f, m.data)
+                if m.is_eof:
+                    h = m.header or {}
+                    src_crc = h.get("block_crc32")
+                    src_algo = h.get("block_crc_algo")
+        finally:
+            await asyncio.to_thread(f.close)
+        if src_crc is not None:
+            got = crc if src_algo == ALGO_CRC32C else (
+                crc_update(src_algo, map_block(info.path, 0, total))
+                if supported(src_algo) else None)
+            if got is not None and got != src_crc:
+                # the source's replica (or the wire) is bad: healing must
+                # never spread it
+                raise err.AbnormalData(
+                    f"replica pull of {block_id} checksum mismatch (got "
+                    f"{got:#010x} want {src_crc:#010x})")
+        await asyncio.to_thread(self.store.commit, block_id, total,
+                                checksum=crc, checksum_algo=ALGO_CRC32C)
+        await self._leader_call(RpcCode.WORKER_BLOCK_REPORT, pack({
+            "worker_id": self.worker_id,
+            "blocks": {block_id: total},
+            "storage_types": {block_id: int(info.tier.storage_type)},
+            "incremental": True}))

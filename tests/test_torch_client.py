@@ -246,7 +246,12 @@ def test_client_conf_mirrors_the_reference_and_loads_toml(tmp_path):
     assert FIXED == {k: ref[k] for k in FIXED}
     p.write_text('[client]\nreplicas = 1\nstorage_type = "mem"\n')
     assert ClusterConf.load(str(p)).client == ClusterConf().client
-    for line in ('replicas = 2', 'storage_type = "ssd"', 'user = "bob"'):
+    # the replica count and the fan-out floor are fields
+    p.write_text('[client]\nreplicas = 3\nwrite_min_replicas = 2\n')
+    cc = ClusterConf.load(str(p)).client
+    assert (cc.replicas, cc.write_min_replicas) == (3, 2)
+    for line in ('write_chunk_size = 1', 'storage_type = "ssd"',
+                 'user = "bob"'):
         p.write_text(f'[client]\n{line}\n')
         with pytest.raises(ValueError, match="ROADMAP A3b"):
             ClusterConf.load(str(p))
@@ -432,15 +437,39 @@ def test_leader_hint_and_member_list_move_the_active_master():
 
 
 def test_writer_refuses_a_block_placed_on_more_than_one_worker():
+    """The short circuit refuses a block of two locations: the writer
+    asks no worker for a grant and opens one WRITE_BLOCK leg per
+    location, in the locations' order."""
     from curvine_tpu_torch.client.writer import FsWriter
     from curvine_tpu_torch.common import types as pt
-    w = FsWriter(None, "/f", None, block_size=MiB)
-    loc = pt.WorkerAddress(worker_id=1, hostname="h", ip_addr="h",
-                           rpc_port=1)
+    opened = []
+
+    class Conn:
+        def __init__(self, addr):
+            self.addr = addr
+
+        async def call(self, code, data=b""):
+            raise AssertionError(f"{code} asked of {self.addr}")
+
+        async def open_upload(self, code, header):
+            opened.append((self.addr, code, header["block_id"]))
+            return object()
+
+    class Pool:
+        async def get(self, addr):
+            return Conn(addr)
+
+    w = FsWriter(None, "/f", Pool(), block_size=MiB, short_circuit=True)
+    locs = [pt.WorkerAddress(worker_id=i, hostname="127.0.0.1",
+                             ip_addr="127.0.0.1", rpc_port=i)
+            for i in (1, 2)]
     w._block = pt.LocatedBlock(block=pt.ExtendedBlock(id=3, len=0),
-                               offset=0, locs=[loc, loc])
-    with pytest.raises(NotImplementedError, match="one replica"):
-        asyncio.run(w._open_block())
+                               offset=0, locs=locs)
+    asyncio.run(w._open_block())
+    assert opened == [("127.0.0.1:1", RpcCode.WRITE_BLOCK, 3),
+                      ("127.0.0.1:2", RpcCode.WRITE_BLOCK, 3)]
+    assert [loc.worker_id for loc in w._upload_locs] == [1, 2]
+    assert w._sc_file is None and len(w._uploads) == 2
 
 
 @pytest.mark.parametrize("seed,drop", [(None, True), (None, False),

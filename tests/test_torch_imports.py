@@ -58,6 +58,8 @@ required = {"curvine_tpu_torch.gpu.attention", "curvine_tpu_torch.gpu.flash",
             "curvine_tpu_torch.master.block_map",
             "curvine_tpu_torch.master.worker_map",
             "curvine_tpu_torch.master.placement",
+            "curvine_tpu_torch.master.replication",
+            "curvine_tpu_torch.rpc.deadline",
             "curvine_tpu_torch.master.retry_cache",
             "curvine_tpu_torch.master.acl",
             "curvine_tpu_torch.master.filesystem",
@@ -66,7 +68,7 @@ required = {"curvine_tpu_torch.gpu.attention", "curvine_tpu_torch.gpu.flash",
             "curvine_tpu_torch.gpu.mesh", "curvine_tpu_torch.gpu.multihost",
             "curvine_tpu_torch.gpu.ici_plane",
             "curvine_tpu_torch.gpu.ici_transfer"}
-sys.exit(1 if bad or mapped or len(names) < 61 or required - set(names)
+sys.exit(1 if bad or mapped or len(names) < 63 or required - set(names)
          else 0)
 """
 

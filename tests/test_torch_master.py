@@ -642,10 +642,48 @@ async def test_refused_code_answers_unsupported_by_name(tmp_path, code):
             await conn.close()
 
 
+@pytest.mark.parametrize("code", [RpcCode.REQUEST_REPLACEMENT_WORKER,
+                                  RpcCode.REPORT_BLOCK_REPLICATION_RESULT],
+                         ids=lambda c: c.name)
+async def test_replication_code_is_served(tmp_path, code):
+    """The two codes taken out of MASTER_REFUSED are served: a
+    replacement worker off the block's holders, and a pull's result
+    handed to the replication manager."""
+    async with _cluster(tmp_path, workers=2) as (m, ws, conf):
+        c = _client(conf)
+        await c.write_all("/r.bin", b"r" * 100)
+        fb = await c.meta.get_block_locations("/r.bin")
+        await c.close()
+        bid, holder = fb.block_locs[0].block.id, fb.block_locs[0].locs[0]
+        other = next(w.worker_id for w in ws
+                     if w.worker_id != holder.worker_id)
+        conn = await Connection(m.addr).connect()
+        try:
+            if code == RpcCode.REQUEST_REPLACEMENT_WORKER:
+                rep = unpack((await conn.call(code, data=pack(
+                    {"block_id": bid}))).data)
+                assert rep["worker"]["worker_id"] == other
+                with pytest.raises(err.NoAvailableWorker):
+                    await conn.call(code, data=pack(
+                        {"block_id": bid, "exclude_workers": [other]}))
+            else:
+                rep = await conn.call(code, data=pack({
+                    "block_id": bid, "worker_id": other, "success": True,
+                    "via": "ici"}))
+                assert unpack(rep.data) == {}
+                assert m.metrics.counters["replication.ici_transfers"] == 1
+                await conn.call(code, data=pack({
+                    "block_id": bid, "worker_id": other, "success": False,
+                    "message": "boom"}))
+        finally:
+            await conn.close()
+
+
 @pytest.mark.parametrize("key", sorted(MASTER_FIXED) + [
     "meta_store", "block_placement_policy"])
 def test_fixed_master_field_is_refused(tmp_path, key):
-    other = {"meta_store": "kv", "block_placement_policy": "ici"}.get(key)
+    other = {"meta_store": "kv",
+             "block_placement_policy": "nearest"}.get(key)
     if other is None:
         v = MASTER_FIXED[key]
         other = (not v if isinstance(v, bool) else ["x"] if isinstance(v, list)
@@ -661,6 +699,33 @@ def test_fixed_master_field_is_refused(tmp_path, key):
         (1234, "alice", 5)
 
 
+@pytest.mark.parametrize("key,value", [("replication_pull_budget_ms", 1234),
+                                       ("ici_mesh_shape", [4, 2])])
+def test_replication_master_field_is_honoured(tmp_path, key, value):
+    """The fields taken out of MASTER_FIXED load and reach the master:
+    the replication manager's pull budget, the placement's torus."""
+    f = tmp_path / "c.toml"
+    f.write_text(f"[master]\njournal_dir = \"{tmp_path / 'journal'}\"\n"
+                 f"block_placement_policy = \"ici\"\n"
+                 f"{key} = {json.dumps(value)}\n")
+    conf = ClusterConf.load(str(f))
+    assert getattr(conf.master, key) == value
+    m = MasterServer(conf)
+    try:
+        got = {"replication_pull_budget_ms": m.replication.pull_budget_ms,
+               "ici_mesh_shape": m.fs.policy.mesh_shape}[key]
+        assert got == value and m.fs.policy.name == "ici"
+        if key == "ici_mesh_shape":     # the 4-axis wraps: 0 -> 3 is 1 hop
+            a, b = _worker_wire(1), _worker_wire(2)
+            a["ici_coords"], b["ici_coords"] = [0, 0], [3, 0]
+            m.fs.worker_heartbeat(a)
+            m.fs.worker_heartbeat(b)
+            ws = m.fs.workers.workers
+            assert m.fs.policy.worker_distance(ws[1], ws[2]) == 1
+    finally:
+        m.fs.journal.close()
+
+
 # worker id -> (hostname, capacity, available): worker 1 is the least
 # loaded (all of its GiB free), worker 2 has the most bytes free (half of
 # its TiB), worker 3 sits on the client's host
@@ -670,7 +735,7 @@ PLACEMENT_WORKERS = {1: ("h1", 1 << 30, 1 << 30),
 
 
 @pytest.mark.parametrize("policy", ["local", "random", "robin", "weighted",
-                                    "load"])
+                                    "load", "ici"])
 def test_placement_policy_chosen_through_the_conf(tmp_path, policy):
     """Each ``block_placement_policy`` the port takes, set in the TOML
     file, picks the workers its rule names for 30 one-replica blocks."""
@@ -694,7 +759,7 @@ def test_placement_policy_chosen_through_the_conf(tmp_path, policy):
         m.fs.journal.close()
     assert all(len(p) == 1 for p in picks)
     picks = [p[0] for p in picks]
-    if policy == "local":
+    if policy in ("local", "ici"):    # ici: the writer's host is nearest
         assert set(picks) == {3}
     elif policy == "random":
         assert set(picks) == {1, 2, 3}
@@ -771,6 +836,12 @@ def test_stale_leases_recovered_on_an_injected_clock(monkeypatch):
 
 async def test_heartbeat_fields_and_corrupt_reports(tmp_path):
     async with _cluster(tmp_path, workers=0) as (m, _ws, conf):
+        # what the replication manager is handed (unknown blocks leave
+        # its evacuations at once, so the calls are recorded)
+        evacuated = []
+        real = m.replication.enqueue_evacuation
+        m.replication.enqueue_evacuation = lambda wid, bids: (
+            evacuated.append((wid, list(bids))), real(wid, bids))
         conn = await Connection(m.addr).connect()
         try:
             rep = await conn.call(RpcCode.WORKER_HEARTBEAT, data=pack({
@@ -785,7 +856,10 @@ async def test_heartbeat_fields_and_corrupt_reports(tmp_path):
                                              "block_ids": [11, 12],
                                              "confirm_live": [WID, 8]}))
             assert unpack(rep.data) == {"success": True, "live": [WID]}
-            assert m.corrupt_reports == {11: {WID}, 12: {WID}}
+            # the heartbeat's tier-0 advertisement and the reported
+            # replicas are the replication manager's soft state
+            assert m.replication._hbm_blocks == {WID: {1, 2}}
+            assert evacuated == [(WID, [3]), (WID, [11, 12])]
             assert m.metrics.counters["blocks.reported_corrupt"] == 2
         finally:
             await conn.close()

@@ -236,11 +236,14 @@ async def test_errors_cross_the_wire_with_the_reference_codes(tmp_path):
                                  data=pack({"block_id": 1}))
             with pytest.raises(perr.CurvineError, match="no handler"):
                 await pconn.call(RpcCode.MKDIR, data=pack({}))
-            for code in (RpcCode.SUBMIT_TASK,
-                         RpcCode.SUBMIT_BLOCK_REPLICATION_JOB,
-                         RpcCode.WRITE_BLOCKS_BATCH):
+            for code in (RpcCode.SUBMIT_TASK, RpcCode.WRITE_BLOCKS_BATCH):
                 with pytest.raises(perr.Unsupported, match=code.name):
                     await pconn.call(code, data=pack({}))
+            # replication jobs are served, but not an EC cell's rebuild
+            with pytest.raises(perr.Unsupported,
+                               match="SUBMIT_BLOCK_REPLICATION_JOB.*ec"):
+                await pconn.call(RpcCode.SUBMIT_BLOCK_REPLICATION_JOB,
+                                 data=pack({"block_id": 5, "ec": {}}))
             # the device-path transfer, on by default: no peer is named,
             # so it misses and the caller keeps its TCP rail
             rep = await pconn.call(RpcCode.ICI_TRANSFER,

@@ -61,8 +61,9 @@ Phases, each raising on a fault (the exit code is then non-zero):
 5. flash: the four K3 kernels (forward, di, dK/dV, dQ) on the card against
    their plain PyTorch versions, element by element and row by row
    (``flash_errors``), at the flagship's attention shape
-   [16, 20, 1024, 128] bf16, causal, and at [1, 2, 128, 128],
-   [2, 4, 2048, 128] and [3, 5, 384, 128]; each kernel's time at the
+   [16, 20, 1024, 128] bf16, causal, at phase pipeline's microbatch
+   [8, 20, 1024, 128], and at [1, 2, 128, 128], [2, 4, 2048, 128] and
+   [3, 5, 384, 128]; each kernel's time at the
    flagship's shape (CUDA events, median of 20, L2 flushed) beside its
    bound, the plain version's and ``scaled_dot_product_attention``'s
    (di's: ``torch.linalg.vecdot(o, do)``, the library's formula; each a
@@ -110,6 +111,26 @@ Phases, each raising on a fault (the exit code is then non-zero):
    memory and device busy over two profiled steps beside phase 6's; then
    dryrun_multichip's MoE config (experts sharded over ``ep``) two steps
    on a (1, 1) ``("data", "ep")`` mesh and without one, equal losses;
+6d. pipeline: the flagship through ``gpu/pipeline.py`` on a ``(1,)``
+   ``("pp",)`` NCCL mesh: phase 6's initial parameters stacked and placed
+   by ``shard_stacked``; ``pipeline_forward``'s logits on phase 6's
+   synthetic batch against the unsharded ``forward``'s, then three steps
+   of ``pipeline_loss`` (full f32 logits) at batch 16 x 1024 in 2
+   microbatches, its backward and AdamW: K3's four kernels launched once
+   a layer a microbatch a step (the stages call ``_block``); the
+   unsharded model's three steps with the same loss after, each loss and
+   every gradient leaf against the pipeline's (``PIPE_*`` limits);
+6e. ring: the flagship with ``use_ring_attention`` on a (1, 1, 1)
+   ``("data", "model", "seq")`` NCCL mesh, phase 6's initial parameters,
+   a fresh AdamW, three steps on phase 6's synthetic batch through the
+   ring of ``gpu/attention.py`` (plain torch, as the reference's XLA
+   blocks): K3 launched no time, the losses within ``RING_LOSS_ABS`` of
+   the unsharded K3 steps' from the same parameters, step times and
+   peak memory; before the steps, the ring's attention output at the
+   first layer within ``RING_ATTN_ABS`` of f32 dense attention, and a
+   ring without its causal mask (a planted fault) outside it. On one
+   card ``pp`` and ``seq`` have one rank: the shifts are local copies,
+   and no NCCL send runs;
 7. vector: K2, the ADC scan, on the card against its plain version, bit
    for bit, at four shapes (the path's own among them) with planted
    out-of-range codes, both code layouts; its time at the path's shape
@@ -172,11 +193,13 @@ just after it (K1), again just before the two passes of phase 6 and read
 just after them (K3), again just before phase 6b and read just after it
 (K3's forward, twice a layer for the two losses, and no backward
 kernel), again just before the two passes of phase 6c and read just
-after them (K3), and just before phase 7's ``query_many`` and read just
-after it (K2, which must equal the ADC stages the search issued). The
-kernels line gives K1's four counts summed (each held to its pins, the
-refused device copies included) and phase 6's and 6c's K3 counts
-summed. The port's worker and master are stopped, the process group
+after them (K3), again just before phase 6d's three pipeline steps and
+read just after them (K3), again just before phase 6e's three ring
+steps and read just after them (K3: none), and just before phase 7's
+``query_many`` and read just after it (K2, which must equal the ADC
+stages the search issued). The kernels line gives K1's four counts
+summed (each held to its pins, the refused device copies included) and
+phase 6's, 6c's and 6d's K3 counts summed. The port's worker and master are stopped, the process group
 destroyed, and the data directory removed, however the run ends. No
 process of the run loads a module of JAX or of the JAX
 package. Prints each phase's numbers, the card's name and power limit,
@@ -215,11 +238,14 @@ SIZES = [1, 3, 4, 262143, 262144, 262145, MiB + 13, BLOCK, BLOCK + 1]
 SHARDS = 8
 SHARD_BYTES = 64 * MiB
 BATCH, SEQ = 32, 8192
-# the flagship's first; [3, 5, 384, 128] has an odd B*H and three
-# 128-row tiles, so diagonal tiles and partial walks run in every kernel
-FLASH_SHAPES = [(16, 20, 1024, 128), (1, 2, 128, 128), (2, 4, 2048, 128),
-                (3, 5, 384, 128)]
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 16, 1024, 8
+PIPE_MICROBATCHES = 2              # phase pipeline's microbatches
+# the flagship's first, then phase pipeline's microbatch; [3, 5, 384,
+# 128] has an odd B*H and three 128-row tiles, so diagonal tiles and
+# partial walks run in every kernel
+FLASH_SHAPES = [(TRAIN_BATCH, 20, TRAIN_SEQ, 128),
+                (TRAIN_BATCH // PIPE_MICROBATCHES, 20, TRAIN_SEQ, 128),
+                (1, 2, 128, 128), (2, 4, 2048, 128), (3, 5, 384, 128)]
 CHECK_BATCH = 2                    # the full-width agreement check
 # bench.py:1581-1693, the headline ANN configuration (docs/ann-serving.md)
 VEC_ROWS, VEC_DIM, VEC_CENTERS, VEC_SIGMA = 500_000, 256, 1024, 0.25
@@ -2201,6 +2227,261 @@ def moe_on_a_mesh(dev: torch.device, seed: int) -> dict:
     return {"losses": losses, "ew1_placements": ew1}
 
 
+# ------------------------------------------------------ pipeline and ring
+
+# Each limit sits about 10x above the reading of a sound run (NVIDIA
+# H100 80GB HBM3; PERF.md §5): the pipeline's loss 1.87e-5 relative,
+# its gradients 1 - cosine 5.3e-5, its logits bit-equal; the ring's
+# losses 2.73e-4 from K3's.
+PIPE_STEPS = 3
+PIPE_LOSS_REL = 2e-4         # the pipeline's loss against the unsharded one
+PIPE_LOGIT_ULPS = 1          # its logits, in bf16 ulps of the largest
+PIPE_GRAD_COS = 0.9995       # each gradient leaf
+RING_STEPS = 3
+RING_LOSS_ABS = 3e-3         # the ring's losses against K3's (s in bf16)
+RING_ATTN_ABS = 0.25         # its attention output against f32 dense
+
+
+def _one_rank_mesh(axes: tuple) -> object:
+    """A mesh of this process alone over an NCCL world of one on the
+    card, every axis of size 1."""
+    import torch.distributed as dist
+    from curvine_tpu_torch.gpu import multihost
+    from curvine_tpu_torch.gpu.mesh import make_mesh
+    multihost.initialize()
+    mesh = make_mesh(axis_names=axes, shape=(1,) * len(axes))
+    if dist.get_backend() != "nccl" or mesh.device_type != "cuda":
+        raise AssertionError(f"mesh {mesh} over {dist.get_backend()}")
+    return mesh
+
+
+def _cosines(a: list, b: list) -> list[float]:
+    return [torch.nn.functional.cosine_similarity(
+        x.float().flatten(), y.float().flatten(), dim=0).item()
+        for x, y in zip(a, b)]
+
+
+def phase_pipeline(dev: torch.device, seed: int) -> dict:
+    """The flagship through ``gpu/pipeline.py`` on a ``(1,)`` ``("pp",)``
+    NCCL mesh: phase 6's initial parameters stacked (``stack_layers``) and
+    placed (``shard_stacked``), the logits of ``pipeline_forward`` on the
+    synthetic batch against the unsharded ``forward``'s, then
+    ``pipeline_loss`` (full f32 logits) and its backward at batch 16 x
+    1024 in 2 microbatches with an AdamW update, three steps; K3's four
+    kernels must launch once a layer a microbatch a step. Then the
+    unsharded model takes the same three steps with the same loss: each
+    loss and every gradient leaf against the pipeline's."""
+    from curvine_tpu_torch.gpu import flash, model as tm, multihost
+    from curvine_tpu_torch.gpu import pipeline as pl
+    cfg = _flagship()
+    M = PIPE_MICROBATCHES
+    mesh = _one_rank_mesh(("pp",))
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        params = tm.init_params(torch.Generator(device=dev).manual_seed(seed),
+                                cfg, dev)
+        stacked = pl.shard_stacked(pl.stack_layers(params), mesh)
+        tok = synthetic_batch(cfg, seed, dev)
+        with torch.no_grad():
+            got = pl.pipeline_forward(stacked, tok, cfg, mesh, M)
+            want = tm.forward(params, tok, cfg)
+            logit_err = (got - want).abs().max().item()
+            logit_cos = _cosines([got], [want])[0]
+            # the logits are bf16 products cast to f32: one ulp of the
+            # largest is 2^(e - 7) for a largest in [2^e, 2^(e + 1))
+            logit_lim = PIPE_LOGIT_ULPS * 2.0 ** (math.floor(math.log2(
+                want.abs().max().item())) - 7)
+            del got, want
+        kernels = [getattr(flash, n) for n in K3_NAMES]
+        opt = tm.make_optimizer(stacked)
+        for fn in kernels:
+            fn.launches = 0
+        losses, grads, times = [], [], []
+        for _ in range(PIPE_STEPS):
+            t = time.perf_counter()
+            opt.zero_grad(set_to_none=True)
+            loss = pl.pipeline_loss(stacked, tok, cfg, mesh, M)
+            loss.backward()
+            opt.step()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            losses.append(loss.item())
+            grads.append([p.grad.to_local() for p in tm.leaves(stacked)])
+        launches = {fn.__name__: fn.launches for fn in kernels}
+        peak = torch.cuda.max_memory_allocated(dev)
+        want_n = cfg.n_layers * M * PIPE_STEPS
+        for name, n in launches.items():
+            if n != want_n:
+                raise AssertionError(f"pipeline: {name} launched {n} times, "
+                                     f"{want_n} expected")
+        del opt, stacked
+        opt = tm.make_optimizer(params)
+        ref_losses, ref_times, cos = [], [], []
+        for step in range(PIPE_STEPS):
+            t = time.perf_counter()
+            opt.zero_grad(set_to_none=True)
+            loss = pl.next_token_nll(tm.forward(params, tok, cfg), tok)
+            loss.backward()
+            opt.step()
+            torch.cuda.synchronize()
+            ref_times.append(time.perf_counter() - t)
+            ref_losses.append(loss.item())
+            # the pipeline's stacked leaves hold the layers in order
+            ref = tm.leaves({
+                **{k: params[k].grad for k in ("embed", "pos", "ln_f")},
+                "layers": {k: torch.stack([layer[k].grad
+                                           for layer in params["layers"]])
+                           for k in params["layers"][0]}})
+            cos.append(_cosines(grads[step], ref))
+            del ref
+        del opt, params, grads
+        torch.cuda.empty_cache()
+    finally:
+        multihost.shutdown()
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)]
+    worst = min(min(c) for c in cos)
+    res = {"microbatches": M, "steps": PIPE_STEPS, "losses": losses,
+           "losses_unsharded": ref_losses, "loss_rel_diff": rel,
+           "logit_max_abs_err": logit_err, "logit_limit": logit_lim,
+           "logit_cosine": logit_cos,
+           "grad_cosines": cos, "min_grad_cosine": worst,
+           "step_ms": [t * 1e3 for t in times],
+           "step_ms_unsharded": [t * 1e3 for t in ref_times],
+           "peak_bytes": peak, "launches": launches}
+    log(f"pipeline: the flagship's {cfg.n_layers} layers stacked and split "
+        f"over a (1,) ('pp',) NCCL mesh, batch {TRAIN_BATCH}x{TRAIN_SEQ} in "
+        f"{M} microbatches: logits against the unsharded forward max abs "
+        f"{logit_err:.4g} (limit {logit_lim:.4g}, {PIPE_LOGIT_ULPS} bf16 "
+        f"ulp of the largest), cosine {logit_cos:.6f}")
+    log(f"pipeline: losses {[round(x, 5) for x in losses]}, unsharded "
+        f"{[round(x, 5) for x in ref_losses]} (rel diff max {max(rel):.2e},"
+        f" limit {PIPE_LOSS_REL}); gradient cosine min {worst:.6f} over "
+        f"{len(cos[0])} leaves x {PIPE_STEPS} steps (limit {PIPE_GRAD_COS})")
+    log(f"pipeline: step ms {[round(t * 1e3, 2) for t in times]} (unsharded,"
+        f" the same loss: {[round(t * 1e3, 2) for t in ref_times]}); peak "
+        f"{peak / GiB:.2f} GiB; K3 launches {launches} ({cfg.n_layers} "
+        f"layers x {M} microbatches x {PIPE_STEPS} steps)")
+    if not (logit_err <= logit_lim and max(rel) <= PIPE_LOSS_REL
+            and worst >= PIPE_GRAD_COS
+            and all(map(math.isfinite, losses))):
+        raise AssertionError(f"pipeline: logits {logit_err}, loss rel "
+                             f"{rel}, gradient cosine {worst}")
+    return res
+
+
+def _ring_attention_errors(params: dict, tok: torch.Tensor, cfg,
+                           mesh) -> dict:
+    """The first layer's q, k, v of ``tok`` under ``params`` (placed on
+    the one-rank ``mesh``) through ``ring_attention_sharded``, causal,
+    and through K3, each against ``dense_attention`` of the same q, k, v
+    in f32; and the ring without its causal mask, a planted fault that
+    ``RING_ATTN_ABS`` must refuse. Max abs errors."""
+    from torch.distributed.tensor import DTensor
+    from curvine_tpu_torch.gpu import model as tm
+    from curvine_tpu_torch.gpu.attention import (dense_attention,
+                                                 ring_attention_sharded,
+                                                 ring_spec)
+    from curvine_tpu_torch.gpu.flash import flash_attention
+    from curvine_tpu_torch.gpu.mesh import placements
+    local = {k: params[k].to_local() for k in ("embed", "pos")}
+    layer = {k: v.to_local() for k, v in params["layers"][0].items()}
+    B, L = tok.shape
+    with torch.no_grad():
+        x = tm._rmsnorm(local["embed"][tok.long()] + local["pos"][:L],
+                        layer["ln1"])
+        q, k, v = ((x @ layer[w]).reshape(B, L, cfg.n_heads, cfg.head_dim)
+                   .transpose(1, 2).contiguous() for w in ("wq", "wk", "wv"))
+        want = dense_attention(q.float(), k.float(), v.float())
+        lay = placements(mesh, ring_spec(mesh))
+        qd, kd, vd = (DTensor.from_local(t, mesh, lay) for t in (q, k, v))
+        errs = {}
+        for name, causal in (("ring", True), ("ring_not_causal", False)):
+            got = ring_attention_sharded(qd, kd, vd, mesh, causal=causal)
+            errs[name] = (got.to_local().float() - want).abs().max().item()
+        got = flash_attention(q, k, v, causal=True,
+                              sm_scale=1.0 / math.sqrt(cfg.head_dim))
+        errs["k3"] = (got.float() - want).abs().max().item()
+        errs["max_abs_ref"] = want.abs().max().item()
+    return errs
+
+
+def phase_ring(dev: torch.device, seed: int) -> dict:
+    """The flagship with ``use_ring_attention`` on a (1, 1, 1)
+    ``("data", "model", "seq")`` NCCL mesh: phase 6's initial parameters,
+    a fresh AdamW, three steps on phase 6's synthetic batch through the
+    ring (plain torch: scores, m and s in bf16, as the reference keeps
+    them), with K3 launched no time. First the unsharded model with K3
+    takes the same three steps from the same parameters: the ring's
+    losses must be within ``RING_LOSS_ABS`` of them. Before the steps,
+    the ring's attention output at the first layer must be within
+    ``RING_ATTN_ABS`` of f32 dense attention, and a ring without its
+    causal mask must not (``_ring_attention_errors``)."""
+    import dataclasses
+    from curvine_tpu_torch.gpu import flash, model as tm, multihost
+    from curvine_tpu_torch.gpu.ingest import put_sharded
+    cfg = dataclasses.replace(_flagship(), use_ring_attention=True)
+    tok = synthetic_batch(cfg, seed, dev)
+    params = tm.init_params(torch.Generator(device=dev).manual_seed(seed),
+                            cfg, dev)
+    step = tm.make_train_step(_flagship(), tm.make_optimizer(params))
+    k3_losses, k3_times = [], []
+    for _ in range(RING_STEPS):
+        t = time.perf_counter()
+        k3_losses.append(float(step(params, tok)))
+        k3_times.append(time.perf_counter() - t)
+    del step, params
+    torch.cuda.empty_cache()
+    mesh = _one_rank_mesh(("data", "model", "seq"))
+    try:
+        torch.cuda.reset_peak_memory_stats(dev)
+        params = tm.shard_params(tm.init_params(
+            torch.Generator(device=dev).manual_seed(seed), cfg, dev), mesh)
+        attn = _ring_attention_errors(params, tok, cfg, mesh)
+        torch.cuda.empty_cache()
+        step = tm.make_train_step(cfg, tm.make_optimizer(params), mesh)
+        tok = put_sharded(tok.cpu().numpy(), mesh, tm.batch_spec(mesh))
+        kernels = [getattr(flash, n) for n in K3_NAMES]
+        for fn in kernels:
+            fn.launches = 0
+        losses, times = [], []
+        for _ in range(RING_STEPS):
+            t = time.perf_counter()
+            losses.append(float(step(params, tok)))
+            times.append(time.perf_counter() - t)
+        launches = {fn.__name__: fn.launches for fn in kernels}
+        peak = torch.cuda.max_memory_allocated(dev)
+        del step, params, tok
+        torch.cuda.empty_cache()
+    finally:
+        multihost.shutdown()
+    diff = [abs(a - b) for a, b in zip(losses, k3_losses)]
+    res = {"steps": RING_STEPS, "losses": losses, "losses_k3": k3_losses,
+           "loss_abs_diff": diff, "step_ms": [t * 1e3 for t in times],
+           "step_ms_k3": [t * 1e3 for t in k3_times],
+           "attention_max_abs_err": attn, "peak_bytes": peak,
+           "launches": launches}
+    log(f"ring: the first layer's attention against f32 dense (|ref| max "
+        f"{attn['max_abs_ref']:.4g}): the ring max abs {attn['ring']:.4g} "
+        f"(limit {RING_ATTN_ABS}), K3 {attn['k3']:.4g}; the ring without "
+        f"its causal mask {attn['ring_not_causal']:.4g}, which the limit "
+        f"must refuse")
+    log(f"ring: the flagship with ring attention on a (1, 1, 1) ('data', "
+        f"'model', 'seq') NCCL mesh, batch {TRAIN_BATCH}x{TRAIN_SEQ}: "
+        f"losses {[round(x, 5) for x in losses]}, K3 unsharded "
+        f"{[round(x, 5) for x in k3_losses]} (abs diff max {max(diff):.4g},"
+        f" limit {RING_LOSS_ABS}); step ms "
+        f"{[round(t * 1e3, 2) for t in times]} (K3 unsharded "
+        f"{[round(t * 1e3, 2) for t in k3_times]}); peak {peak / GiB:.2f} "
+        f"GiB; K3 launches {launches}")
+    if any(launches.values()) or max(diff) > RING_LOSS_ABS or \
+            not all(map(math.isfinite, losses)) or \
+            not attn["ring"] <= RING_ATTN_ABS < attn["ring_not_causal"]:
+        raise AssertionError(f"ring: losses {losses} against {k3_losses}, "
+                             f"attention {attn}, K3 launches {launches}")
+    return res
+
+
 # ------------------------------------------------------------------ vector
 
 def pq_case(gen: torch.Generator, dev: torch.device, q: int, w: int, m: int,
@@ -3006,7 +3287,10 @@ def phase_replicate(rng: np.random.Generator, dev: torch.device, root: str
                            data[i * step:(i + 1) * step])
             for p, data in (("/rep/hot", hot), ("/rep/cold", cold))
             for i, (bid, _) in enumerate(placed[p]) for w in (wa, wc))
-        if any(ids != want for locs in placed.values() for _, ids in locs) \
+        # the master lists a block's holders in the order it learned of
+        # them (the commit, or a holder's report before it): a set
+        if any(sorted(ids) != sorted(want) for locs in placed.values()
+               for _, ids in locs) \
                 or any(len(locs) != REP_BLOCKS for locs in placed.values()) \
                 or not hot_ok or not replicas_ok \
                 or wrote.get("sc.bytes.written", 0):
@@ -3295,6 +3579,8 @@ def main() -> int:
             f"{held / GiB:.2f} GiB (phase 6's parameters and optimizer "
             f"freed at del, no collector run), after it "
             f"{torch.cuda.memory_allocated(dev) / GiB:.2f} GiB")
+        results["pipeline"] = phase_pipeline(dev, args.seed)
+        results["ring"] = phase_ring(dev, args.seed)
         results["vector"] = phase_vector(dev, info["addr"], args.seed)
         results["master"] = phase_master(root, conf, cluster, pw, probe)
         results["ici"] = phase_ici(rng, dev, root)
@@ -3353,7 +3639,8 @@ def main() -> int:
                         + replaces[name] + " (via curvine_tpu/tpu/model.py"
                         ":113)",
             "launches": results["train"]["launches"][name]
-                        + results["mesh"]["launches"][name],
+                        + results["mesh"]["launches"][name]
+                        + results["pipeline"]["launches"][name],
             "max_abs_err": f["max_abs_err"], "ms": f["ms"],
             "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"],
             "bound_by": f["bound_by"], "library_ms": f["library_ms"]})

@@ -14,12 +14,12 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-import torch.distributed as dist
 from torch.distributed.tensor import (DTensor, Replicate, Shard,
                                       distribute_tensor)
 
 from curvine_tpu_torch.gpu.ici_plane import to_device
-from curvine_tpu_torch.gpu.mesh import P, mesh_device, placements
+from curvine_tpu_torch.gpu.mesh import (P, mesh_device, placements,
+                                        send_recv)
 
 __all__ = ["replicate_to_devices", "scatter_block", "gather_block",
            "broadcast_block", "ring_shift", "reshard_stripes",
@@ -82,22 +82,7 @@ def ring_shift(sharded: DTensor, mesh, axis: str | None = None,
     want = placements(mesh, P(axis))
     if list(sharded.placements) != want:
         sharded = sharded.redistribute(mesh, want)
-    local = sharded.to_local()
-    group = mesh.get_group(axis)
-    n = dist.get_world_size(group)
-    if steps % n == 0:
-        out = local.clone()
-    else:
-        k = mesh.get_local_rank(axis)
-        out = torch.empty_like(local)
-        ops = [dist.P2POp(dist.isend, local.contiguous(),
-                          dist.get_global_rank(group, (k + steps) % n),
-                          group),
-               dist.P2POp(dist.irecv, out,
-                          dist.get_global_rank(group, (k - steps) % n),
-                          group)]
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
+    out = send_recv(sharded.to_local(), mesh.get_group(axis), steps)
     return DTensor.from_local(out, mesh, want, run_check=False)
 
 

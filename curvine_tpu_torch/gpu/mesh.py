@@ -7,15 +7,19 @@ rank; tensors on it are DTensors. The axes are the reference's:
 
   data  — batch (DP): gradients all-reduced over this axis
   model — hidden/heads (TP): matmul-sharded, activations all-gathered
-  seq   — sequence (SP): ring attention, not ported (ROADMAP A11)
+  seq   — sequence (SP): ring attention (``gpu/attention.py``)
   ep    — experts of the MoE FFN
+  pp    — pipeline stages (``gpu/pipeline.py``)
 
 A partition spec is written as in JAX, ``P(None, "model")``: for each
 tensor dim, the mesh axis it is split over, or None. ``placements``
 turns it into DTensor placements, one per mesh axis: ``Shard(dim)`` on
 the axis a dim names, ``Replicate()`` on the others. ``shard_map`` (the
 counterpart of ``shard_map_compat``) runs a function on each rank's
-local shards, through ``local_map``."""
+local shards, through ``local_map``; inside it, ``ppermute`` (the
+counterpart of ``jax.lax.ppermute`` with the ring permutation
+``(i, (i + 1) % n)``) shifts a local tensor along a mesh axis, with its
+gradient shifted back."""
 
 from __future__ import annotations
 
@@ -27,9 +31,9 @@ from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
-__all__ = ["P", "placements", "tree_map", "shard_map", "factor_mesh",
-           "make_mesh", "mesh_device", "replicated", "batch_sharding",
-           "IciTopology"]
+__all__ = ["P", "placements", "tree_map", "shard_map", "ppermute",
+           "send_recv", "factor_mesh", "make_mesh", "mesh_device",
+           "replicated", "batch_sharding", "IciTopology"]
 
 
 class P(tuple):
@@ -86,6 +90,55 @@ def shard_map(fn, mesh: DeviceMesh, in_specs, out_specs):
                      in_placements=tuple(placements(mesh, s)
                                          for s in in_specs),
                      device_mesh=mesh)
+
+
+def send_recv(local: torch.Tensor, group, steps: int) -> torch.Tensor:
+    """``local`` sent ``steps`` ranks ahead on ``group`` (a ring) and the
+    tensor of the rank ``steps`` behind received, as a new tensor. A
+    shift by a multiple of the group's size (every shift on a one-rank
+    group) is a local copy: no send to self. Every rank of the group
+    calls it."""
+    n = dist.get_world_size(group)
+    if steps % n == 0:
+        return local.clone()
+    k = dist.get_rank(group)
+    local = local.contiguous()
+    out = torch.empty_like(local)
+    ops = [dist.P2POp(dist.isend, local,
+                      dist.get_global_rank(group, (k + steps) % n), group),
+           dist.P2POp(dist.irecv, out,
+                      dist.get_global_rank(group, (k - steps) % n), group)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return out
+
+
+class _Shift(torch.autograd.Function):
+    """``send_recv`` with a gradient: the backward shifts the incoming
+    gradient the other way (the transpose of a permutation)."""
+
+    @staticmethod
+    def forward(ctx, x, group, steps):
+        ctx.group, ctx.steps = group, steps
+        return send_recv(x, group, steps)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return send_recv(grad, ctx.group, -ctx.steps), None, None
+
+
+def ppermute(x: torch.Tensor, mesh: DeviceMesh, axis: str,
+             steps: int = 1) -> torch.Tensor:
+    """This rank's local tensor ``x`` (inside ``shard_map``) sent
+    ``steps`` ranks ahead along ``axis`` and the one ``steps`` behind
+    received: ``jax.lax.ppermute(x, axis, [(i, (i + steps) % n)])``.
+    Differentiable: the gradient goes back ``steps`` ranks behind. Every
+    rank of the axis calls it at the same point of its program, forward
+    and backward; the autograd engine runs the backward's shifts in one
+    order on every rank when the ranks' graphs have one structure, so a
+    caller builds the same graph on every rank and selects values with
+    masks, not with branches on its rank (``gpu/pipeline.py``)."""
+    return _Shift.apply(x, mesh.get_group(axis), steps)
 
 
 def factor_mesh(n: int, axes: int = 2) -> tuple[int, ...]:

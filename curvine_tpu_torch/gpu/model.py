@@ -23,12 +23,16 @@ unpinned input would regroup the sums of the gradient's terms, which on
 a mesh of one would then differ from the unsharded step's in the last
 bit); attention runs under
 ``mesh.shard_map`` on each rank's local heads (K3 on a CUDA mesh, as
-without one), and the gradients, partial sums over ``data`` after the
-backward, are reduced once before the optimizer's step, as DDP does.
-Not ported: ring attention and the ``seq`` axis (ROADMAP A11): a mesh
-whose ``seq`` axis is larger than 1 raises. ``use_ring_attention`` is
-kept as a field and, as in the JAX package without such a mesh, changes
-nothing.
+without one), and the gradients, partial sums over ``data`` and ``seq``
+after the backward, are reduced once before the optimizer's step, as
+DDP does. The sequence may be split over a ``seq`` axis: with
+``use_ring_attention`` and a mesh that has ``seq`` (even of one rank),
+attention is the ring of ``gpu/attention.py`` over it, as in the
+reference; otherwise q, k and v are gathered over ``seq`` first (as XLA
+does for the reference) and each rank attends its heads over the whole
+sequence. A rank adds the positions of its own part of the sequence,
+and the loss pairs its last position with the next ``seq`` rank's first
+token.
 
 The train step differs in form only: PyTorch updates the parameters in
 place and the optimizer carries its state, so ``make_train_step``'s
@@ -36,6 +40,7 @@ step takes ``(params, tokens)`` and returns the loss."""
 
 from __future__ import annotations
 
+import functools
 import importlib
 import math
 import sys
@@ -49,10 +54,12 @@ from torch.distributed.tensor import DTensor, Partial, Replicate
 from torch.utils.checkpoint import checkpoint
 
 from curvine_tpu_torch.device import default_device
-from curvine_tpu_torch.gpu.attention import dense_attention
+from curvine_tpu_torch.gpu.attention import (dense_attention,
+                                             ring_attention_sharded,
+                                             ring_spec)
 from curvine_tpu_torch.gpu.broadcast import broadcast_params
 from curvine_tpu_torch.gpu.flash import flash_attention
-from curvine_tpu_torch.gpu.mesh import (P, placements, shard_map,
+from curvine_tpu_torch.gpu.mesh import (P, placements, ppermute, shard_map,
                                         tree_map)
 
 __all__ = ["ModelConfig", "init_params", "leaves", "n_params",
@@ -155,15 +162,17 @@ def init_params(generator: torch.Generator, cfg: ModelConfig,
 
 
 def leaves(params: dict) -> list[torch.Tensor]:
-    """The tensors in ``jax.tree.leaves`` order (dict keys sorted)."""
+    """The tensors in ``jax.tree.leaves`` order (dict keys sorted); the
+    layers a list of dicts, or one dict of stacked leaves
+    (``gpu/pipeline.py::stack_layers``)."""
     out = []
     for key in sorted(params):
         val = params[key]
-        if key == "layers":
-            for layer in val:
-                out.extend(layer[k] for k in sorted(layer))
-        else:
+        if key != "layers":
             out.append(val)
+            continue
+        for layer in [val] if isinstance(val, dict) else val:
+            out.extend(layer[k] for k in sorted(layer))
     return out
 
 
@@ -247,29 +256,52 @@ def _attend(q, k, v, cfg: ModelConfig):
     return dense_attention(q, k, v, causal=True)
 
 
+def _mm(x, w, mesh):
+    """``x @ w`` for activations [B, L, K] and a weight [K, N]. Under a
+    mesh with a 'seq' axis, as a product batched over B (the weight
+    expanded, not copied): DTensor flattens B and L for the plain
+    product, and with L split over 'seq' (even a 'seq' of one rank) torch
+    2.11 refuses the flatten ("Attempted to flatten multiple dimensions,
+    with dimension 1 being sharded") and torch 2.13 takes minutes to
+    propagate its strided layout. The values are the same; the expanded
+    weight's gradient is summed over B in the backward."""
+    if mesh is None or "seq" not in mesh.mesh_dim_names:
+        return x @ w
+    return torch.bmm(x, w.expand(x.shape[0], *w.shape))
+
+
 def _attention(x, layer, cfg: ModelConfig, mesh=None):
     B, L, D = x.shape
     H, hd = cfg.n_heads, cfg.head_dim
-    q = (x @ layer["wq"]).reshape(B, L, H, hd).transpose(1, 2)
-    k = (x @ layer["wk"]).reshape(B, L, H, hd).transpose(1, 2)
-    v = (x @ layer["wv"]).reshape(B, L, H, hd).transpose(1, 2)
+    q = _mm(x, layer["wq"], mesh).reshape(B, L, H, hd).transpose(1, 2)
+    k = _mm(x, layer["wk"], mesh).reshape(B, L, H, hd).transpose(1, 2)
+    v = _mm(x, layer["wv"], mesh).reshape(B, L, H, hd).transpose(1, 2)
     if mesh is None:
         o = _attend(q, k, v, cfg)
     else:
-        # each rank's local heads: [B/data, H/model, L, hd]
         names = mesh.mesh_dim_names
-        spec = P("data", "model" if "model" in names else None)
+        if cfg.use_ring_attention and "seq" in names:
+            # each rank's rows and heads, its part of the sequence
+            spec = ring_spec(mesh)
+            attend = functools.partial(ring_attention_sharded, mesh=mesh)
+        else:
+            # each rank's local heads over the whole sequence:
+            # [B/data, H/model, L, hd]
+            spec = P("data", "model" if "model" in names else None)
+            attend = shard_map(functools.partial(_attend, cfg=cfg), mesh,
+                               (spec,) * 3, spec)
         want, got = placements(mesh, spec), list(q.placements)
         if got != want:
             # with one head, the reshape leaves the 'model' split on
-            # head_dim: lay q, k, v out by heads, and o back as q was
+            # head_dim; without the ring, a 'seq' split must be gathered:
+            # lay q, k, v out as the attention takes them, and o back as
+            # q was
             q, k, v = (t.redistribute(mesh, want) for t in (q, k, v))
-        o = shard_map(lambda q, k, v: _attend(q, k, v, cfg), mesh,
-                      (spec,) * 3, spec)(q, k, v)
+        o = attend(q, k, v)
         if got != want:
             o = o.redistribute(mesh, got)
     o = o.transpose(1, 2).reshape(B, L, D)
-    return o @ layer["wo"]
+    return _mm(o, layer["wo"], mesh)
 
 
 def _moe_ffn(x, layer, cfg: ModelConfig):
@@ -302,13 +334,29 @@ def _pin(x, mesh):
     return x.redistribute(mesh, _act(mesh))
 
 
+def _rows_partial(mesh) -> list:
+    """Partial sums over the axes that split the rows and the sequence
+    ('data', 'seq'), replicated over the others."""
+    return [Partial() if a in ("data", "seq") else Replicate()
+            for a in mesh.mesh_dim_names]
+
+
 def _whole(param, mesh):
     """A parameter whole on this rank, as a plain tensor, for code that
     works on this rank's rows (the embedding lookup, the loss): its
-    gradient goes back as a partial sum over 'data', the rows' axis."""
+    gradient goes back as a partial sum over 'data' and 'seq', the axes
+    of the rows and the positions."""
     return param.redistribute(mesh, [Replicate()] * mesh.ndim).to_local(
-        grad_placements=[Partial() if a == "data" else Replicate()
-                         for a in mesh.mesh_dim_names])
+        grad_placements=_rows_partial(mesh))
+
+
+def _seq(mesh) -> tuple[int, int]:
+    """The size of the mesh's 'seq' axis and this rank's coordinate on
+    it: (1, 0) without one."""
+    names = mesh.mesh_dim_names
+    if "seq" not in names:
+        return 1, 0
+    return mesh.size(names.index("seq")), mesh.get_local_rank("seq")
 
 
 def _block(x, layer, cfg: ModelConfig, mesh=None):
@@ -320,7 +368,8 @@ def _block(x, layer, cfg: ModelConfig, mesh=None):
         h = _moe_ffn(h, layer, cfg)
     else:
         # jax.nn.gelu defaults to the tanh approximation
-        h = F.gelu(h @ layer["w1"], approximate="tanh") @ layer["w2"]
+        h = _mm(F.gelu(_mm(h, layer["w1"], mesh), approximate="tanh"),
+                layer["w2"], mesh)
     return x + h
 
 
@@ -341,17 +390,22 @@ def _table(params: dict, mesh) -> torch.Tensor:
 def _hidden(params: dict, tokens: torch.Tensor, cfg: ModelConfig, mesh,
             embed: torch.Tensor) -> torch.Tensor:
     """``forward_hidden`` with ``embed``, ``_table``'s result."""
-    _check_mesh(mesh)
     B, L = tokens.shape
     if mesh is None:
         x = embed[tokens.long()] + params["pos"][:L]
     else:
-        # the lookup on this rank's rows, in plain tensors: its backward
-        # on DTensors (index_put) fails sharding propagation in torch 2.11
+        n_seq, k = _seq(mesh)
+        if L % n_seq:
+            raise ValueError(f"a sequence of {L} does not split evenly "
+                             f"over a 'seq' axis of {n_seq}")
+        # the lookup on this rank's rows and positions, in plain tensors:
+        # its backward on DTensors (index_put) fails sharding propagation
+        # in torch 2.11
+        n = L // n_seq
         x = DTensor.from_local(
             embed[tokens.to_local().long()]
-            + _whole(params["pos"], mesh)[:L], mesh, _act(mesh),
-            run_check=False)
+            + _whole(params["pos"], mesh)[k * n:(k + 1) * n], mesh,
+            _act(mesh), run_check=False)
     for layer in params["layers"]:
         if cfg.remat:
             x = checkpoint(_block, x, layer, cfg, mesh, use_reentrant=False)
@@ -404,29 +458,33 @@ def loss_fn(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
             mesh=None) -> torch.Tensor:
     """Next-token cross entropy; the model runs on all L positions (so
     flash stays eligible) and the last position predicts nothing. Under
-    ``mesh`` the loss comes back whole on every rank, a plain tensor."""
+    ``mesh`` the loss comes back whole on every rank, a plain tensor:
+    each rank's mean over its own positions, weighted by its share of
+    the B·(L-1) of the batch, summed over 'data' and 'seq'."""
     # under a mesh the table is gathered once a step, shared by the
     # lookup and the loss: the fewest bytes of the three layouts that
     # scripts/mesh_embed_bytes.py counts (ROADMAP C4)
     embed = _table(params, mesh)
     x = _hidden(params, tokens, cfg, mesh, embed)
-    if mesh is not None:
-        x, tokens = _local_rows(x, tokens, mesh)
-    x = x[:, :-1].reshape(-1, x.shape[-1])
-    targets = tokens[:, 1:].reshape(-1).long()
+    B, L = tokens.shape
+    if mesh is None:
+        x, targets = x[:, :-1], tokens[:, 1:]
+    else:
+        x, targets = _next_tokens(*_local_rows(x, tokens, mesh), mesh)
+    x = x.reshape(-1, x.shape[-1])
+    targets = targets.reshape(-1).long()
     if cfg.ce_chunk > 0:
         loss = _chunked_ce(x, targets, embed, cfg.ce_chunk)
     else:
         loss = _oneshot_ce(x, targets, embed)
     if mesh is None:
         return loss
-    # the mean of the ranks' means (their rows are equal in number): a
-    # sum over 'data', whose backward hands each rank the loss's gradient
-    names = mesh.mesh_dim_names
-    n_data = mesh.size(names.index("data"))
-    return DTensor.from_local(loss / n_data, mesh, [
-        Partial() if a == "data" else Replicate() for a in names]
-        ).full_tensor()
+    # a sum over 'data' and 'seq' of the ranks' means, each weighted by
+    # its share of the global count (1.0 on a mesh of one: the loss is
+    # the unsharded one's, bit for bit); its backward hands each rank
+    # the loss's gradient
+    return DTensor.from_local(loss * (x.shape[0] / (B * (L - 1))), mesh,
+                              _rows_partial(mesh)).full_tensor()
 
 
 def _local_rows(x, tokens, mesh):
@@ -438,6 +496,21 @@ def _local_rows(x, tokens, mesh):
     gradient goes back laid out as the rows are."""
     rows = _pin(x, mesh)
     return rows.to_local(grad_placements=rows.placements), tokens.to_local()
+
+
+def _next_tokens(x, tokens, mesh):
+    """This rank's hidden states [b, n, D] and tokens [b, n] paired with
+    the tokens they predict. With the sequence over 'seq', a part's last
+    position predicts the next part's first token, a halo of integers
+    received from the next 'seq' rank (no gradient); the sequence's last
+    position predicts nothing and is dropped, as without a mesh."""
+    n_seq, k = _seq(mesh)
+    if n_seq == 1:
+        return x[:, :-1], tokens[:, 1:]
+    halo = ppermute(tokens[:, :1], mesh, "seq", -1)
+    if k == n_seq - 1:
+        return x[:, :-1], tokens[:, 1:]
+    return x, torch.cat([tokens[:, 1:], halo], dim=1)
 
 
 def make_optimizer(params: dict, lr: float = 3e-4) -> torch.optim.AdamW:
@@ -456,7 +529,6 @@ def make_train_step(cfg: ModelConfig, optimizer: torch.optim.Optimizer,
     Under ``mesh`` (params from ``shard_params``, tokens laid out by
     ``batch_spec``), each gradient is reduced to its parameter's layout
     once, before the update."""
-    _check_mesh(mesh)
 
     def train_step(params: dict, tokens: torch.Tensor) -> torch.Tensor:
         optimizer.zero_grad(set_to_none=True)
@@ -519,13 +591,3 @@ def batch_spec(mesh) -> P:
     seq = "seq" if "seq" in mesh.mesh_dim_names else None
     return P("data", seq)
 
-
-def _check_mesh(mesh) -> None:
-    """Refuse what the port does not shard: a ``seq`` axis larger than 1
-    (sequence sharding needs ring attention, ROADMAP A11)."""
-    if mesh is None or "seq" not in mesh.mesh_dim_names:
-        return
-    if mesh.size(mesh.mesh_dim_names.index("seq")) > 1:
-        raise NotImplementedError(
-            "a mesh with a 'seq' axis larger than 1 needs ring attention, "
-            "which is not ported (ROADMAP A11)")

@@ -67,8 +67,9 @@ required = {"curvine_tpu_torch.gpu.attention", "curvine_tpu_torch.gpu.flash",
             "curvine_tpu_torch.master.__main__",
             "curvine_tpu_torch.gpu.mesh", "curvine_tpu_torch.gpu.multihost",
             "curvine_tpu_torch.gpu.ici_plane",
-            "curvine_tpu_torch.gpu.ici_transfer"}
-sys.exit(1 if bad or mapped or len(names) < 63 or required - set(names)
+            "curvine_tpu_torch.gpu.ici_transfer",
+            "curvine_tpu_torch.gpu.pipeline"}
+sys.exit(1 if bad or mapped or len(names) < 64 or required - set(names)
          else 0)
 """
 

@@ -40,6 +40,9 @@ from curvine_tpu.common.conf import ClusterConf as JaxConf
 from curvine_tpu.common.conf import TierConf as JaxTierConf
 from curvine_tpu.common.journal import Journal as JaxJournal
 from curvine_tpu.common.types import CommitBlock as JaxCommitBlock
+from curvine_tpu.master import filesystem as jax_fs_mod
+from curvine_tpu.master import inode as jax_inode
+from curvine_tpu.master import worker_map as jax_worker_map
 from curvine_tpu.master.filesystem import MasterFilesystem as JaxFs
 from curvine_tpu.master.store import MemMetaStore as JaxMemStore
 from curvine_tpu.worker import WorkerServer as JaxWorker
@@ -51,6 +54,7 @@ from curvine_tpu_torch.common.types import (CommitBlock, StorageInfo,
                                             StorageType, WorkerAddress,
                                             WorkerState)
 from curvine_tpu_torch.master import filesystem as port_fs
+from curvine_tpu_torch.master import inode as port_inode
 from curvine_tpu_torch.master import worker_map as port_worker_map
 from curvine_tpu_torch.master.filesystem import (MasterFilesystem,
                                                  UnportedJournalOp)
@@ -334,11 +338,28 @@ def _masked(v):
     return v
 
 
+def _one_clock(monkeypatch) -> None:
+    """Both packages' master modules read one counter as ``now_ms``,
+    stepping by 1 ms at each call. On the wall clock, a worker's
+    registration and its full report could fall in one millisecond in
+    one package (``report_ms > return_ms`` false: it is asked for a
+    report) and in two in the other, whatever the ops."""
+    tick = iter(range(1, 1 << 62))
+
+    def now_ms() -> int:
+        return next(tick)
+
+    for mod in (jax_worker_map, jax_fs_mod, jax_inode, port_worker_map,
+                port_fs, port_inode):
+        monkeypatch.setattr(mod, "now_ms", now_ms)
+
+
 class _Both:
     """One op on both packages' filesystems: the same reply (masked) or
-    the same error code."""
+    the same error code. Both read one clock (``_one_clock``)."""
 
-    def __init__(self, root):
+    def __init__(self, root, monkeypatch):
+        _one_clock(monkeypatch)
         self.jax = JaxFs(journal=JaxJournal(str(root / "jax")),
                          store=JaxMemStore())
         self.port = MasterFilesystem(journal=Journal(str(root / "port")))
@@ -425,8 +446,8 @@ def _namespace(fs) -> dict:
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
-def test_seeded_ops_equal_in_both_packages(tmp_path, seed):
-    both = _Both(tmp_path)
+def test_seeded_ops_equal_in_both_packages(tmp_path, monkeypatch, seed):
+    both = _Both(tmp_path, monkeypatch)
     _drive(both, seed, 120)
     assert _namespace(both.jax) == _namespace(both.port)
     # the journals are the same bytes, file for file (no entry carries a
@@ -442,12 +463,13 @@ def test_seeded_ops_equal_in_both_packages(tmp_path, seed):
 
 
 @pytest.mark.parametrize("writer", ["jax", "port"])
-def test_journal_and_snapshot_reopen_in_the_other_package(tmp_path, writer):
+def test_journal_and_snapshot_reopen_in_the_other_package(tmp_path,
+                                                         monkeypatch, writer):
     """A journal and snapshot directory written by either package's
     master recovers in the other to the namespace its own package
     recovers (replica locations, and block lengths that only a worker's
     report raised, are runtime state: they come back with the reports)."""
-    both = _Both(tmp_path)
+    both = _Both(tmp_path, monkeypatch)
     _drive(both, 5, 120)
     wrote = both.jax if writer == "jax" else both.port
     wrote.journal.close()

@@ -34,7 +34,9 @@ Phases, each raising on a fault (the exit code is then non-zero):
    traffic goes through it. 8 new shards of 64 MiB written through the
    port's ``CurvineClient`` (``write_token_shards``, one block each) and
    streamed through the client-backed ``GpuTrainFeed`` (short-circuit
-   ``mmap_view``, prefetch advice to the master) at phase 4's batch;
+   ``mmap_view``, prefetch advice to the master, which plans prefetch
+   jobs whose tasks cost the port's worker one probe each: the shards
+   are cached) at phase 4's batch;
    every device batch must equal the host tokens, and some bytes must
    come by short circuit; rates beside phase 4's, stage shares, bytes by
    each path, advise RPCs, write GiB/s (by short circuit); then one
@@ -84,7 +86,33 @@ Phases, each raising on a fault (the exit code is then non-zero):
    asked for, one layer forward at L 128: the gate admits it as the
    reference's does, and the kernels' argument check must refuse it
    before any launch (they take bf16 only), never dense in its place;
-6b. ckpt: the flagship's parameters as phase 6 left them (99 tensors,
+6a. ufs: a dataset in a ``file://`` under-store (8 token shards of 64
+   MiB under ``<data dir>/ufs/train``, ids below the flagship's vocab,
+   and 4 more under ``ufs/next``), mounted read-only (``/ufs/train``,
+   ``/ufs/next``; ``/ufs/out`` rw) through the port's client; before any
+   load LIST_STATUS gives the 8 names in state UFS, FILE_STATUS and
+   EXISTS answer for an uncached shard, a user's CREATE_FILE is refused
+   by the read-only guard, and ``read_all`` of an uncached shard equals
+   its file and leaves no cached copy. SUBMIT_JOB ``load`` of
+   ``/ufs/train``, polled until COMPLETED: 8 tasks, each COMPLETED on the
+   port's worker (SUBMIT_TASK), every shard's block located there and
+   equal to its file; the load's GiB/s, time to the first task and a
+   task's split (UFS read, cache write). The loaded blocks read up to
+   ``WORKER_MIN_READS`` and pinned by promote cycles, each pin verified
+   by K1 (launches equal to the pins). ``GpuTrainFeed`` over the loaded
+   dataset at phase 4's batch with a prefetch window of 4 (its advice
+   now served: the prefetch jobs and their tasks counted, none failed),
+   beside phase client's rates; then three flagship steps with phase 6's
+   parameters and AdamW at batch 16 x 1024 on the loaded tokens (each
+   batch equal to the under-store's tokens in the epoch order, finite
+   losses, K3's four kernels 36 launches each). PREFETCH_WINDOW on the
+   uncached ``/ufs/next`` (cursor 0, window 4): its 4 shards cached in
+   the epoch order, each task's ``loaded_len`` 64 MiB; one 64 MiB file
+   under ``/ufs/out`` exported by SUBMIT_JOB ``export``, the ``file://``
+   object byte-equal. Last the phase's cached files are deleted (their
+   device copies gone), ``/ufs/next`` unmounted and the under-store
+   removed; the mounts and job records stay for phase 8;
+6b. ckpt: the flagship's parameters as phase ufs left them (99 tensors,
    1.92 GiB of bf16) saved with ``save_checkpoint`` through the port's
    client into the cluster, every byte by short circuit (SC_WRITE_OPEN:
    the worker is on this host), then loaded onto the card with
@@ -152,7 +180,8 @@ Phases, each raising on a fault (the exit code is then non-zero):
    every file the run left (the train shards, the checkpoint's 99 tensors
    and manifest, the worker phase's files, the vector table) listed again
    with the same length and blocks, each block located once the port's
-   worker has sent the full report the restarted master asks for; the
+   worker has sent the full report the restarted master asks for; phase
+   ufs's mount table and job records the same after the restart; the
    master lists that worker alone; one checkpoint tensor of several
    blocks read back through the port's client bit for bit;
 9. ici: the peer-device plane (``gpu/ici_plane.py``) on one card: a
@@ -189,7 +218,9 @@ The kernel launch counts are set to 0 just before phase 3 and read just
 after phase 4 (K1), again just before phase 4c's promote cycles and read
 just after them (K1), again just before phase 9's promote cycle and read
 just after it (K1), again just before phase 10's promote cycle and read
-just after it (K1), again just before the two passes of phase 6 and read
+just after it (K1), again just before phase 6a's promote cycles and read
+just after them (K1), again just before the two passes of phase 6 and read
+just after them (K3), again just before phase 6a's three steps and read
 just after them (K3), again just before phase 6b and read just after it
 (K3's forward, twice a layer for the two losses, and no backward
 kernel), again just before the two passes of phase 6c and read just
@@ -197,10 +228,10 @@ after them (K3), again just before phase 6d's three pipeline steps and
 read just after them (K3), again just before phase 6e's three ring
 steps and read just after them (K3: none), and just before phase 7's
 ``query_many`` and read just after it (K2, which must equal the ADC
-stages the search issued). The kernels line gives K1's four counts
+stages the search issued). The kernels line gives K1's five counts
 summed (each held to its pins, the refused device copies included) and
-phase 6's, 6c's and 6d's K3 counts summed. The port's worker and master are stopped, the process group
-destroyed, and the data directory removed, however the run ends. No
+phase 6's, 6a's, 6c's and 6d's K3 counts summed. The port's worker and
+master are stopped, the process group destroyed, and the data directory removed, however the run ends. No
 process of the run loads a module of JAX or of the JAX
 package. Prints each phase's numbers, the card's name and power limit,
 one JSON line of kernels, and last the line
@@ -270,10 +301,21 @@ MASTER_START_S = 60
 # and one more whose file is corrupted before its pin
 WORKER_HOT = WORKER_COLD = 16
 WORKER_PHASE_BYTES = (WORKER_HOT + WORKER_COLD + 1) * BLOCK
-# the port's worker: its mem tier holds the cluster's data and the worker
-# phase's; its device tier-0 is phase 3's size; heat of one read pass
-# through the client is 2 (the open's probe and the read's report)
-WORKER_TIER_BYTES = CLUSTER_TIER_BYTES + WORKER_PHASE_BYTES
+# phase ufs: an under-store (file://) of phase feed's dataset shape and 4
+# more shards, token ids below the flagship's vocab; a prefetch window of
+# 4; three flagship steps on the loaded tokens; one 64 MiB file exported.
+# Its cached copies, and the under-store's files, take UFS_PHASE_BYTES
+UFS_NEXT_SHARDS = 4
+UFS_WINDOW = 4
+UFS_STEPS = 3
+UFS_VOCAB = 32_000
+UFS_PHASE_BYTES = (SHARDS + UFS_NEXT_SHARDS + 1) * SHARD_BYTES
+# the port's worker: its mem tier holds the cluster's data, the worker
+# phase's and phase ufs's; its device tier-0 is phase 3's size; heat of
+# one read pass through the client is 2 (the open's probe and the read's
+# report)
+WORKER_TIER_BYTES = CLUSTER_TIER_BYTES + WORKER_PHASE_BYTES \
+    + UFS_PHASE_BYTES
 WORKER_MIN_READS = 2
 WORKER_HEARTBEAT_MS = 1000
 # phase ici: two more of the port's workers under a master of their own,
@@ -1555,9 +1597,9 @@ def profiled_steps(step, params, tok) -> tuple[object, float, list, float]:
 
 
 def phase_train(dev: torch.device, master: str, seed: int, flash_res: dict
-                ) -> tuple[dict, dict]:
-    """The flagship trained on the card; returns its numbers and its
-    parameters as the steps left them."""
+                ) -> tuple[dict, dict, object]:
+    """The flagship trained on the card; returns its numbers, its
+    parameters as the steps left them and its step (with its AdamW)."""
     from curvine_tpu_torch.gpu import flash, model as tm
     from curvine_tpu_torch.gpu.loader import GpuTrainFeed, write_token_shards
     cfg = _flagship()
@@ -1783,10 +1825,481 @@ def phase_train(dev: torch.device, master: str, seed: int, flash_res: dict
     del seen
     for p in leaves:
         p.grad = None
-    del grads_k, grads_p, leaves, opt, step
+    del grads_k, grads_p, leaves, opt
     torch.cuda.empty_cache()
     res["flash_gate"] = flash_gate_check(dev, seed)
-    return res, params
+    return res, params, step
+
+
+# ------------------------------------------------------------------- ufs
+
+def ufs_tokens(seed: int, n_shards: int, salt: int) -> np.ndarray:
+    """``n_shards`` shards of int32 token ids below the flagship's vocab,
+    made from ``seed`` (``salt`` tells the datasets apart)."""
+    return np.random.default_rng((seed, salt)).integers(
+        0, UFS_VOCAB, n_shards * SHARD_BYTES // 4, dtype=np.int32)
+
+
+def _task_recorder(w, into: list):
+    """``w._run_load_task`` wrapped: each task's kind, job, path, end
+    state, bytes, and its start and end on the host clock."""
+    real = w._run_load_task
+
+    async def run(task):
+        t = time.perf_counter()
+        await real(task)
+        into.append({"kind": task.kind, "job_id": task.job_id,
+                     "path": task.path, "state": int(task.state),
+                     "loaded_len": task.loaded_len, "message": task.message,
+                     "start": t, "end": time.perf_counter()})
+    return run
+
+
+async def _job_done(c, job_id: str, timeout: float, rolling: bool = False):
+    """Poll GET_JOB_STATUS every 20 ms until the job is finished (or, for
+    a rolling prefetch window, until every planned task is); returns the
+    job and the seconds waited."""
+    from curvine_tpu_torch.common.types import JobState
+    t = time.perf_counter()
+    while True:
+        job = await c.meta.job_status(job_id)
+        done = job.state in (JobState.COMPLETED, JobState.FAILED,
+                             JobState.CANCELLED)
+        if rolling and job.tasks and all(
+                x.state in (JobState.COMPLETED, JobState.FAILED)
+                for x in job.tasks):
+            done = True
+        if done or time.perf_counter() - t > timeout:
+            return job, time.perf_counter() - t
+        await asyncio.sleep(0.02)
+
+
+def phase_ufs(dev: torch.device, master: str, pw: "PortWorker", root: str,
+              seed: int, params: dict, step, client_res: dict) -> dict:
+    """A dataset in a ``file://`` under-store, mounted read-only, loaded
+    by a job into the port's cluster, pinned into the tier-0 (K1) and fed
+    to the flagship (K3); a cold prefetch window and an export; the
+    phase's files deleted at the end, its mounts and jobs left in the
+    master's journal for phase master's restart."""
+    from curvine_tpu_torch.client import writer as writer_mod
+    from curvine_tpu_torch.common import errors as cerr
+    from curvine_tpu_torch.common.types import JobState, StorageState
+    from curvine_tpu_torch.gpu import cuda_ops, flash
+    from curvine_tpu_torch.gpu.loader import GpuTrainFeed, write_posix_shards
+    from curvine_tpu_torch.ufs import local as local_ufs
+    w = pw.worker
+    res = {}
+    base = os.path.join(root, "ufs")
+    t = time.perf_counter()
+    tokens = ufs_tokens(seed, SHARDS, 0x75667331)
+    nxt_tokens = ufs_tokens(seed, UFS_NEXT_SHARDS, 0x6e657874)
+    train_files = write_posix_shards(os.path.join(base, "train"), tokens,
+                                     SHARD_BYTES // 4)
+    next_files = write_posix_shards(os.path.join(base, "next"), nxt_tokens,
+                                    SHARD_BYTES // 4)
+    os.makedirs(os.path.join(base, "out"))
+    names = [os.path.basename(f) for f in train_files]
+    train = [f"/ufs/train/{n}" for n in names]
+    res["ufs_write_s"] = time.perf_counter() - t
+    log(f"ufs: an under-store of {SHARDS} + {UFS_NEXT_SHARDS} token shards "
+        f"of {SHARD_BYTES // MiB} MiB (ids below {UFS_VOCAB:,}, from seed "
+        f"{seed}) under file://{base}, made in {res['ufs_write_s']:.3f}s")
+
+    async def mount_and_meta():
+        async with port_client(master) as c:
+            for d, mode in (("train", "r"), ("next", "r"), ("out", "rw")):
+                await c.meta.mount(f"/ufs/{d}",
+                                   f"file://{os.path.join(base, d)}",
+                                   access_mode=mode)
+            table = [m.to_wire() for m in await c.meta.mount_table()]
+            ls = await c.meta.list_status("/ufs/train")
+            st = await c.meta.file_status(train[3])
+            ex = (await c.meta.exists(train[3]),
+                  await c.meta.exists("/ufs/train/none.bin"))
+            try:
+                await c.meta.create_file("/ufs/train/user.bin")
+                refused = ""
+            except cerr.Unsupported as e:
+                refused = str(e)
+            t = time.perf_counter()
+            raw = await c.read_all(train[5])
+            read_s = time.perf_counter() - t
+            try:
+                await c.meta.get_block_locations(train[5])
+                left = True
+            except cerr.FileNotFound:
+                left = False
+            return table, ls, st, ex, refused, raw, read_s, left
+
+    table, ls, st, ex, refused, raw, read_s, left = asyncio.run(
+        mount_and_meta())
+    if [m["cv_path"] for m in table] != ["/ufs/next", "/ufs/out",
+                                        "/ufs/train"] \
+            or [m["access_mode"] for m in table] != ["r", "rw", "r"]:
+        raise AssertionError(f"ufs: the mount table is {table}")
+    if [x.name for x in ls] != names or any(
+            x.storage_policy.state != StorageState.UFS
+            or x.len != SHARD_BYTES for x in ls):
+        raise AssertionError(f"ufs: LIST_STATUS of /ufs/train gave "
+                             f"{[(x.name, x.len) for x in ls]}")
+    if st.len != SHARD_BYTES or st.storage_policy.state != StorageState.UFS \
+            or ex != (True, False):
+        raise AssertionError(f"ufs: FILE_STATUS {st}, EXISTS {ex}")
+    if "read-only mount" not in refused:
+        raise AssertionError(f"ufs: a user's CREATE_FILE under the read-only "
+                             f"mount was not refused ({refused!r})")
+    shard_tokens = SHARD_BYTES // 4
+    if not np.array_equal(np.frombuffer(raw, dtype=np.int32),
+                          tokens[5 * shard_tokens:6 * shard_tokens]) or left:
+        raise AssertionError(f"ufs: read_all of the uncached {train[5]} "
+                             f"differs from its file, or left a cached copy "
+                             f"({left})")
+    del raw
+    res.update(mounts=table, uncached_read_s=read_s,
+               uncached_read_gibs=SHARD_BYTES / GiB / read_s)
+    log(f"ufs: mounted /ufs/train and /ufs/next read-only, /ufs/out rw; "
+        f"before any load LIST_STATUS of /ufs/train gave the {SHARDS} names "
+        f"in state UFS, FILE_STATUS and EXISTS answered for an uncached "
+        f"shard, a user's CREATE_FILE was refused ({refused}); read_all of "
+        f"an uncached shard through its mount, byte-equal, in {read_s:.3f}s "
+        f"({res['uncached_read_gibs']:.3f} GiB/s), no cached copy left")
+
+    # the load: every task's run on the worker, and its UFS reads and
+    # cache writes, timed
+    tasks: list[dict] = []
+    split = {"ufs_read": {}, "cache_write": {}}
+    real_read, real_write = local_ufs.LocalUfs.read, writer_mod.FsWriter.write
+
+    async def timed_read(self, uri, *a, **kw):
+        gen = real_read(self, uri, *a, **kw)
+        path = "/ufs/train/" + uri.rsplit("/", 1)[-1]
+        while True:
+            t0 = time.perf_counter()
+            try:
+                chunk = await anext(gen)
+            except StopAsyncIteration:
+                break
+            finally:
+                split["ufs_read"][path] = split["ufs_read"].get(path, 0.0) \
+                    + time.perf_counter() - t0
+            yield chunk
+
+    async def timed_write(self, data):
+        t0 = time.perf_counter()
+        try:
+            return await real_write(self, data)
+        finally:
+            split["cache_write"][self.path] = \
+                split["cache_write"].get(self.path, 0.0) \
+                + time.perf_counter() - t0
+
+    async def load():
+        async with port_client(master) as c:
+            t = time.perf_counter()
+            job_id = await c.meta.submit_load("/ufs/train")
+            job, wait_s = await _job_done(c, job_id, 300)
+            return t, job, wait_s
+
+    w._run_load_task = _task_recorder(w, tasks)
+    local_ufs.LocalUfs.read, writer_mod.FsWriter.write = timed_read, \
+        timed_write
+    try:
+        t_submit, job, load_s = asyncio.run(load())
+    finally:
+        local_ufs.LocalUfs.read, writer_mod.FsWriter.write = real_read, \
+            real_write
+    if job.state != JobState.COMPLETED or len(job.tasks) != SHARDS or any(
+            x.state != JobState.COMPLETED or x.worker_id != w.worker_id
+            or x.loaded_len != SHARD_BYTES for x in job.tasks) \
+            or sorted(x.path for x in job.tasks) != train:
+        raise AssertionError(f"ufs: the load job {job.state!r} "
+                             f"({job.message}), tasks "
+                             f"{[(x.path, x.state, x.loaded_len) for x in job.tasks]}")
+    loads = [x for x in tasks if x["kind"] == "load"]
+    per_task = [x["end"] - x["start"] for x in loads]
+    reads = [split["ufs_read"].get(x["path"], 0.0) for x in loads]
+    writes = [split["cache_write"].get(x["path"], 0.0) for x in loads]
+    res["load"] = {
+        "job_id": job.job_id, "s": load_s,
+        "gibs": SHARDS * SHARD_BYTES / GiB / load_s,
+        "first_task_start_s": min(x["start"] for x in loads) - t_submit,
+        "first_task_done_s": min(x["end"] for x in loads) - t_submit,
+        "task_s_median": statistics.median(per_task),
+        "task_ufs_read_s_median": statistics.median(reads),
+        "task_cache_write_s_median": statistics.median(writes),
+        "task_other_s_median": statistics.median(
+            [a - b - c for a, b, c in zip(per_task, reads, writes)]),
+        "tasks": len(loads)}
+    ld = res["load"]
+    log(f"ufs: SUBMIT_JOB load /ufs/train: COMPLETED in {load_s:.3f}s "
+        f"(polled every 20 ms), {SHARDS} tasks each COMPLETED on the port's "
+        f"worker {w.worker_id}, {ld['gibs']:.3f} GiB/s from the UFS to the "
+        f"cache; the first task started {ld['first_task_start_s']:.3f}s and "
+        f"ended {ld['first_task_done_s']:.3f}s after the submit; a task "
+        f"(median, {w.conf.worker.task_parallelism} at once) "
+        f"{ld['task_s_median']:.3f}s: UFS read {ld['task_ufs_read_s_median']:.3f}s"
+        f", cache write {ld['task_cache_write_s_median']:.3f}s, the rest "
+        f"(create, commit, report) {ld['task_other_s_median']:.3f}s")
+
+    async def check_cached():
+        async with port_client(master) as c:
+            ids = {}
+            for i, p in enumerate(train):
+                fb = await c.meta.get_block_locations(p)
+                if len(fb.block_locs) != 1 or [
+                        x.worker_id for x in fb.block_locs[0].locs] != \
+                        [w.worker_id] or fb.status.storage_policy.ufs_mtime < 1:
+                    raise AssertionError(f"ufs: {p} is cached as {fb}")
+                ids[p] = fb.block_locs[0].block.id
+                got = await c.read_all(p)
+                if not np.array_equal(np.frombuffer(got, dtype=np.int32),
+                                      tokens[i * shard_tokens:
+                                             (i + 1) * shard_tokens]):
+                    raise AssertionError(f"ufs: {p} differs from its file")
+            return ids, dict(c.counters)
+
+    ids, counters = asyncio.run(check_cached())
+    log(f"ufs: every shard's one block located on the port's worker, its "
+        f"policy carrying the UFS mtime, and equal to its file byte for byte "
+        f"({counters.get('sc.bytes.read', 0):,} bytes read back by short "
+        f"circuit)")
+
+    # the tier-0: the loaded blocks made hot by reads up to
+    # WORKER_MIN_READS, then promote cycles, each pin verified by K1
+    ufs_ids = list(ids.values())
+    pins0 = w.metrics.counters.get("blocks.hbm_pinned", 0)
+
+    async def heat():
+        async with port_client(master) as c:
+            for p in train:
+                await c.read_all(p)
+
+    cycles = []
+    cuda_ops.block_checksum.launches = 0
+    while not all(w.hbm_holds(b) for b in ufs_ids) and len(cycles) < 8:
+        asyncio.run(heat())
+        t = time.perf_counter()
+        pw.call(w._promote_once())
+        cycles.append(time.perf_counter() - t)
+    k1 = cuda_ops.block_checksum.launches
+    pins = w.metrics.counters.get("blocks.hbm_pinned", 0) - pins0
+    missing = [b for b in ufs_ids if not w.hbm_holds(b)]
+    if missing or k1 != pins:
+        raise AssertionError(f"ufs: {len(cycles)} promote cycles, {pins} "
+                             f"pins, {k1} K1 launches, loaded blocks not "
+                             f"pinned {missing}")
+    for p in train[:2]:
+        got = w.hbm_get(ids[p])
+        ref = torch.from_numpy(tokens[train.index(p) * shard_tokens:
+                                      (train.index(p) + 1) * shard_tokens]
+                               ).to(dev)
+        if not torch.equal(got.view(torch.int32), ref):
+            raise AssertionError(f"ufs: {p}'s pinned block differs")
+    del got, ref
+    res.update(k1_launches=k1, pins=pins, pin_cycles=len(cycles),
+               pin_cycle_s=cycles)
+    log(f"ufs: {len(cycles)} promote cycles pinned {pins} blocks ({SHARDS} "
+        f"of them the loaded shards'), each verified by K1 on the card: "
+        f"{k1} launches; two pinned shards equal to the under-store's tokens "
+        f"on the card")
+
+    # the feed at phase feed's batch, advising the window, then three
+    # flagship steps on the loaded tokens
+    expect = torch.from_numpy(tokens).to(dev)
+
+    async def feed():
+        async with port_client(master) as c:
+            replies = []
+            real_advise = c.advise
+
+            async def advise(*a, **kw):
+                replies.append(await real_advise(*a, **kw))
+                return replies[-1]
+
+            c.advise = advise
+            f = GpuTrainFeed(c, "/ufs/train", BATCH, SEQ, prefetch=True,
+                             prefetch_window=UFS_WINDOW, device=dev)
+            fed = await drive_feed(f, expect, dev)
+            # the window's tasks run after the advice: wait for them
+            pjobs = {}
+            for jid in sorted({r["job_id"] for r in replies}):
+                pjobs[jid] = (await _job_done(c, jid, 60, rolling=True))[0]
+            return fed, f.profiler, c.counters.get("advise.rpcs", 0), pjobs
+
+    tasks.clear()
+    (n, bad, secs), prof, advise, pjobs = asyncio.run(feed())
+    if n != tokens.size // (BATCH * SEQ) or bad:
+        raise AssertionError(f"ufs: the feed gave {n} batches, {bad} tokens "
+                             f"differ from the under-store's")
+    fres = feed_stats("ufs", n, secs, prof)
+    del expect
+    planned = sum(len(j.tasks) for j in pjobs.values())
+    t = time.perf_counter()
+    while len(tasks) < planned and time.perf_counter() - t < 10:
+        time.sleep(0.02)      # the worker records a task after its report
+    failed = [x for j in pjobs.values() for x in j.tasks
+              if x.state != JobState.COMPLETED]
+    if advise < SHARDS or {j.epoch for j in pjobs.values()} != {0, 1} \
+            or failed or len(tasks) != planned \
+            or any(x["kind"] != "prefetch" for x in tasks):
+        raise AssertionError(f"ufs: {advise} advise RPCs, prefetch jobs "
+                             f"{[(j.epoch, j.state, len(j.tasks)) for j in pjobs.values()]}"
+                             f", {len(tasks)} tasks run of {planned}, not "
+                             f"completed {failed}")
+    fres.update(advise_rpcs=advise, prefetch_jobs=len(pjobs),
+                prefetch_tasks=len(tasks),
+                prefetch_loaded_bytes=sum(x["loaded_len"] for x in tasks),
+                input_wait=fres["fractions"].get("input_wait", 0.0),
+                client_batches_per_s=client_res["batches_per_s"],
+                client_input_wait=client_res["fractions"].get("input_wait",
+                                                               0.0))
+    res["feed"] = fres
+    log(f"ufs: the loaded dataset through GpuTrainFeed (prefetch window "
+        f"{UFS_WINDOW}): {fres['batches_per_s']:.1f} batches/s, input_wait "
+        f"share {fres['input_wait']:.3f}, against phase client's "
+        f"{fres['client_batches_per_s']:.1f} batches/s and "
+        f"{fres['client_input_wait']:.3f}; {advise} advise RPCs served: "
+        f"{len(pjobs)} prefetch jobs ("
+        + ", ".join(f"epoch {j.epoch} {JobState(j.state).name} "
+                    f"{len(j.tasks)} tasks" for j in pjobs.values())
+        + f"), {len(tasks)} tasks on the port's worker, each COMPLETED, "
+        f"{fres['prefetch_loaded_bytes']} bytes loaded (every shard cached)")
+    if fres["prefetch_loaded_bytes"]:
+        raise AssertionError("ufs: a prefetch task of a cached shard loaded "
+                             "bytes")
+
+    cfg = _flagship()
+    kernels = [getattr(flash, nm) for nm in K3_NAMES]
+    first = tokens[:TRAIN_BATCH * TRAIN_SEQ * UFS_STEPS].reshape(
+        UFS_STEPS, TRAIN_BATCH, TRAIN_SEQ)
+    seen = []
+
+    def check(b):
+        seen.append(bool(torch.equal(b, torch.from_numpy(
+            first[len(seen)]).to(dev))))
+
+    async def train_steps():
+        async with port_client(master) as c:
+            f = GpuTrainFeed(c, "/ufs/train", TRAIN_BATCH, TRAIN_SEQ,
+                             depth=2, device=dev)
+
+            async def take():
+                for _ in range(UFS_STEPS):
+                    yield await anext(f.prefetcher)
+
+            try:
+                return await timed_steps(step, params, take(), check)
+            finally:
+                await f.prefetcher.aclose()
+
+    for fn in kernels:
+        fn.launches = 0
+    step_s, losses = asyncio.run(train_steps())
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    if seen != [True] * UFS_STEPS or not all(map(math.isfinite, losses)) \
+            or set(launches.values()) != {cfg.n_layers * UFS_STEPS}:
+        raise AssertionError(f"ufs: batches equal to the under-store's "
+                             f"tokens {seen}, losses {losses}, K3 launches "
+                             f"{launches}")
+    res["train"] = {"losses": losses, "step_ms": [x * 1e3 for x in step_s],
+                    "launches": launches}
+    res["launches"] = launches
+    log(f"ufs: {UFS_STEPS} flagship steps (phase 6's parameters and AdamW) "
+        f"at {TRAIN_BATCH}x{TRAIN_SEQ} on the loaded tokens, each batch "
+        f"equal to the under-store's tokens in the epoch order: losses "
+        f"{[round(x, 4) for x in losses]}, step ms "
+        f"{[round(x * 1e3, 2) for x in step_s]}; K3 launches {launches}")
+
+    # a cold prefetch window over /ufs/next
+    async def cold():
+        async with port_client(master) as c:
+            t = time.perf_counter()
+            rep = await c.advise("/ufs/next", cursor=0, window=UFS_WINDOW)
+            job, _ = await _job_done(c, rep["job_id"], 300)
+            secs = time.perf_counter() - t
+            same = []
+            for i, x in enumerate(job.tasks):
+                got = await c.read_all(x.path)
+                same.append(np.array_equal(
+                    np.frombuffer(got, dtype=np.int32),
+                    nxt_tokens[i * shard_tokens:(i + 1) * shard_tokens]))
+            return job, secs, same
+
+    job, cold_s, same = asyncio.run(cold())
+    want = [f"/ufs/next/{os.path.basename(f)}" for f in next_files]
+    if job.state != JobState.COMPLETED or [x.path for x in job.tasks] != \
+            want or any(x.loaded_len != SHARD_BYTES for x in job.tasks) \
+            or same != [True] * UFS_NEXT_SHARDS:
+        raise AssertionError(f"ufs: the cold window {job.state!r}, tasks "
+                             f"{[(x.path, x.loaded_len) for x in job.tasks]}"
+                             f", equal {same}")
+    res["prefetch"] = {"job_id": job.job_id, "s": cold_s,
+                       "gibs": UFS_NEXT_SHARDS * SHARD_BYTES / GiB / cold_s}
+    log(f"ufs: PREFETCH_WINDOW on the uncached /ufs/next at cursor 0, window "
+        f"{UFS_WINDOW}: its {UFS_NEXT_SHARDS} shards in the epoch order "
+        f"cached in {cold_s:.3f}s ({res['prefetch']['gibs']:.3f} GiB/s), "
+        f"each task's loaded_len {SHARD_BYTES}, each equal to its file")
+
+    # an export through /ufs/out
+    out = np.random.default_rng((seed, 0x6f7574)).integers(
+        0, 1 << 63, SHARD_BYTES // 8, dtype=np.int64)
+
+    async def export():
+        async with port_client(master) as c:
+            await c.write_all("/ufs/out/export.bin", out)
+            t = time.perf_counter()
+            job_id = await c.meta.submit_export("/ufs/out")
+            job, _ = await _job_done(c, job_id, 300)
+            return job, time.perf_counter() - t
+
+    job, exp_s = asyncio.run(export())
+    on_disk = np.fromfile(os.path.join(base, "out", "export.bin"),
+                          dtype=np.int64)
+    if job.state != JobState.COMPLETED or not np.array_equal(on_disk, out):
+        raise AssertionError(f"ufs: the export {job.state!r} ({job.message})"
+                             f", the file:// object equal "
+                             f"{np.array_equal(on_disk, out)}")
+    del on_disk
+    res["export"] = {"job_id": job.job_id, "s": exp_s,
+                     "gibs": SHARD_BYTES / GiB / exp_s}
+    log(f"ufs: SUBMIT_JOB export /ufs/out: {SHARD_BYTES // MiB} MiB written "
+        f"out in {exp_s:.3f}s ({res['export']['gibs']:.3f} GiB/s), the "
+        f"file:// object equal byte for byte")
+
+    del w._run_load_task
+
+    # the phase's files go; its mounts and jobs stay for phase master
+    async def cleanup():
+        async with port_client(master) as c:
+            for jid, j in pjobs.items():
+                if j.state in (JobState.PENDING, JobState.RUNNING):
+                    await c.meta.cancel_job(jid)
+            for d in ("/ufs/train", "/ufs/next"):
+                await c.meta.update_mount(d, access_mode="rw")
+            await c.meta.delete("/ufs", recursive=True)
+            await c.meta.umount("/ufs/next")
+            table = [m.to_wire() for m in await c.meta.mount_table()]
+            jobs = {jid: (await c.meta.job_status(jid)).to_wire()
+                    for jid in [res["load"]["job_id"], *pjobs,
+                                res["prefetch"]["job_id"],
+                                res["export"]["job_id"]]}
+            return table, jobs
+
+    res["mounts_after"], res["jobs"] = asyncio.run(cleanup())
+    shutil.rmtree(base)
+    for k in range(1, 11):
+        pw.call(w.heartbeat_once())
+        if not any(w.hbm_holds(b) for b in ufs_ids):
+            break
+    else:
+        raise AssertionError("ufs: the deleted shards' device copies stayed "
+                             "10 heartbeats")
+    states = {j["kind"] + ":" + j["job_id"][:6]: JobState(j["state"]).name
+              for j in res["jobs"].values()}
+    log(f"ufs: the phase's files deleted (device copies gone after {k} "
+        f"heartbeat(s)), /ufs/next unmounted; the master keeps the mounts "
+        f"{[m['cv_path'] for m in res['mounts_after']]} and the jobs {states}")
+    return res
 
 
 # ------------------------------------------------------------ checkpoint
@@ -1801,7 +2314,7 @@ def _int_view(t: torch.Tensor) -> torch.Tensor:
 def phase_ckpt(dev: torch.device, master: str, seed: int, params: dict,
                link_gibs: float, pw: "PortWorker"
                ) -> tuple[dict, tuple[str, np.ndarray]]:
-    """The flagship's parameters as the train phase left them, saved
+    """The flagship's parameters as phases train and ufs left them, saved
     through the port's client into the cluster (every byte by short
     circuit: the worker is on this host) and loaded back onto the card
     twice with ``distribute_checkpoint_to_device``: by short circuit, and
@@ -2844,12 +3357,14 @@ def journal_files(conf: str) -> dict:
 
 
 def phase_master(root: str, conf: str, cluster: dict, pw: PortWorker,
-                 probe: tuple[str, np.ndarray]) -> dict:
+                 probe: tuple[str, np.ndarray], ufs: dict) -> dict:
     """The port's master as the run left it: its per-code RPC counts and
     p50s, then a stop and a restart on the same journal (recovery timed),
     every file of the run listed again with the same length and blocks
     once the port's worker has sent the report the restarted master asks
-    for (``report_now``), and one checkpoint tensor read back bit for bit
+    for (``report_now``), phase ufs's mount table and job records the
+    same after the restart (the journal's ``mount_*`` and ``job_*``
+    entries replayed), and one checkpoint tensor read back bit for bit
     through the port's client. ``cluster["proc"]`` is the master's
     process, replaced by the restarted one's."""
     master = cluster["info"]["addr"]
@@ -2858,11 +3373,22 @@ def phase_master(root: str, conf: str, cluster: dict, pw: PortWorker,
         async with port_client(master) as c:
             return await namespace(c)
 
+    async def mounts_and_jobs() -> tuple[list, dict]:
+        async with port_client(master) as c:
+            table = [m.to_wire() for m in await c.meta.mount_table()]
+            jobs = {}
+            for jid in ufs["jobs"]:
+                wire = (await c.meta.job_status(jid)).to_wire()
+                wire.pop("tasks")          # never journaled
+                jobs[jid] = wire
+            return table, jobs
+
     before = asyncio.run(walk())
     if not before or not all(f["located"] and f["complete"]
                              for f in before.values()):
         raise AssertionError("master: the run left no file, or a file "
                              "incomplete or with a block nowhere")
+    mj_before = asyncio.run(mounts_and_jobs())
     t = time.perf_counter()
     stop_master(cluster["proc"])
     stop_s = time.perf_counter() - t
@@ -2888,6 +3414,11 @@ def phase_master(root: str, conf: str, cluster: dict, pw: PortWorker,
                              f"of {len(before)}, {len(diff)} differ or lack a "
                              f"location: {diff[:5]}")
     await_port_worker(master, pw)
+    mj_after = asyncio.run(mounts_and_jobs())
+    if mj_after != mj_before or not mj_before[0] \
+            or len(mj_before[1]) != len(ufs["jobs"]):
+        raise AssertionError(f"master: phase ufs's mounts and jobs before "
+                             f"the restart {mj_before}, after {mj_after}")
 
     async def read_probe():
         async with port_client(master) as c:
@@ -2907,6 +3438,7 @@ def phase_master(root: str, conf: str, cluster: dict, pw: PortWorker,
            "journal_seq": stats["journal_seq"], "groups": stats["groups"],
            "entries": stats["entries"], **files,
            "files": len(before), "blocks": n_blocks,
+           "mounts": len(mj_before[0]), "jobs": len(mj_before[1]),
            "probe": probe[0], "probe_bytes": int(probe[1].nbytes),
            "probe_read_s": probe_s, "rpc": stats["rpc"],
            "counters": stats["counters"], "gauges": stats["gauges"]}
@@ -2921,8 +3453,10 @@ def phase_master(root: str, conf: str, cluster: dict, pw: PortWorker,
         f"(construction to serving {res['recover_s']:.3f}s); every one of "
         f"{len(before)} files ({n_blocks} blocks) listed again with the same "
         f"length and blocks, each located {rejoin_s:.3f}s after the restart "
-        f"(the worker's report); {probe[0]} ({res['probe_bytes']:,} bytes) "
-        f"read back bit for bit in {probe_s:.3f}s")
+        f"(the worker's report); phase ufs's {res['mounts']} mounts and "
+        f"{res['jobs']} job records the same after the restart; {probe[0]} "
+        f"({res['probe_bytes']:,} bytes) read back bit for bit in "
+        f"{probe_s:.3f}s")
     return res
 
 
@@ -3536,13 +4070,14 @@ def main() -> int:
     results["build"] = phase_build()
     results["kernel"] = phase_kernel(rng, dev)
     need = N_BLOCKS * BLOCK + SHARDS * SHARD_BYTES + WORKER_TIER_BYTES \
-        + 2 * ICI_TIER_BYTES + 3 * REP_TIER_BYTES
+        + 2 * ICI_TIER_BYTES + 3 * REP_TIER_BYTES + UFS_PHASE_BYTES
     root = pick_data_dir(need)
     log(f"main: data under {root} (needs {need / GiB:.2f} GiB and 1 GiB "
         f"spare: {N_BLOCKS} blocks and {SHARDS} POSIX shards of 64 MiB, "
         f"the port's worker's mem tier of {WORKER_TIER_BYTES / GiB:.2f} "
         f"GiB, phase ici's two of {ICI_TIER_BYTES / GiB:.2f} GiB, phase "
-        f"replicate's three of {REP_TIER_BYTES / GiB:.2f} GiB)")
+        f"replicate's three of {REP_TIER_BYTES / GiB:.2f} GiB, phase ufs's "
+        f"under-store of {UFS_PHASE_BYTES / GiB:.2f} GiB)")
     cluster = pw = None
     try:
         cuda_ops.block_checksum.launches = 0
@@ -3563,9 +4098,12 @@ def main() -> int:
         results["worker"] = phase_worker(rng, dev, info["addr"], pw,
                                          results["main"]["promote_gibs"])
         results["flash"] = phase_flash(dev, args.seed)
-        results["train"], params = phase_train(
+        results["train"], params, step = phase_train(
             dev, info["addr"], args.seed, results["flash"])
         log(f"train: mfu {results['train']['mfu']:.4f} on {card}")
+        results["ufs"] = phase_ufs(dev, info["addr"], pw, root, args.seed,
+                                   params, step, results["client"])
+        del step
         results["ckpt"], probe = phase_ckpt(dev, info["addr"], args.seed,
                                             params,
                                             results["main"]["link_gibs"], pw)
@@ -3582,7 +4120,8 @@ def main() -> int:
         results["pipeline"] = phase_pipeline(dev, args.seed)
         results["ring"] = phase_ring(dev, args.seed)
         results["vector"] = phase_vector(dev, info["addr"], args.seed)
-        results["master"] = phase_master(root, conf, cluster, pw, probe)
+        results["master"] = phase_master(root, conf, cluster, pw, probe,
+                                         results["ufs"])
         results["ici"] = phase_ici(rng, dev, root)
         results["replicate"] = phase_replicate(rng, dev, root)
         # every phase's cluster traffic went through the port's worker
@@ -3624,7 +4163,8 @@ def main() -> int:
         "replaces": "curvine_tpu/tpu/pallas_ops.py:27",
         "launches": launches + wk["k1_launches"]
                     + results["ici"]["k1_launches"]
-                    + results["replicate"]["k1_launches"],
+                    + results["replicate"]["k1_launches"]
+                    + results["ufs"]["k1_launches"],
         "max_abs_err": k["max_abs_err"],
         "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": "bytes", "library_ms": None}]
@@ -3639,6 +4179,7 @@ def main() -> int:
                         + replaces[name] + " (via curvine_tpu/tpu/model.py"
                         ":113)",
             "launches": results["train"]["launches"][name]
+                        + results["ufs"]["launches"][name]
                         + results["mesh"]["launches"][name]
                         + results["pipeline"]["launches"][name],
             "max_abs_err": f["max_abs_err"], "ms": f["ms"],

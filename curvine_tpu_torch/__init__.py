@@ -22,4 +22,7 @@ which the train step of ``gpu.model`` runs on a CUDA device.
 checkpoints through, and ``vector``'s tables live on; ``worker`` and
 ``master`` are the port's own cache worker and master (the master's
 journal in ``common/journal.py``), so a cluster runs without the JAX
-package."""
+package; ``ufs`` holds the under-filesystems (``file://``, ``mem://``)
+behind the master's mounts (``master/mount.py``) and its cache-warming
+jobs (``master/jobs.py``: load, export and the rolling prefetch
+window), which the worker runs."""

@@ -3,17 +3,21 @@
 Own copy of ``curvine_tpu/client/fs_client.py``: ``FsClient.call`` with
 its retry and NOT_LEADER redirect (:121-170) and the namespace and block
 calls the cache client's read path and the loader's writes need (:211-410,
-:584): ``mkdir``, ``create_file``, ``exists``, ``file_status``,
-``list_status``, ``rename``, ``delete``, ``meta_batch``, ``add_block``,
-``complete_file``, ``get_block_locations``, ``master_info`` and
-``prefetch_window``. Every mutation carries
+:584): ``mkdir``, ``create_file`` (with ``block_size`` and
+``storage_policy``), ``exists``, ``file_status``, ``list_status``,
+``rename``, ``delete``, ``meta_batch``, ``add_block``, ``complete_file``,
+``get_block_locations``, ``master_info`` and ``prefetch_window``; and
+the mount and job calls (:533-603): ``mount``, ``umount``,
+``update_mount``, ``mount_table``, ``get_mount_info``, ``submit_job``,
+``submit_load``, ``submit_export``, ``job_status`` and ``cancel_job``.
+Every mutation carries
 (client_id, call_id) for the master's retry cache, and every request the
 OS user and its groups for the master's ACL checks.
 
 Left out (ROADMAP A3): the metadata lease cache and its invalidation
 pushes, the native fast metadata port (every call goes to the master's
-RPC port, which answers them all), tracing, and the other calls (mounts,
-jobs, locks, raft membership, attributes)."""
+RPC port, which answers them all), tracing, and the other calls (locks,
+raft membership, attributes)."""
 
 from __future__ import annotations
 
@@ -24,8 +28,8 @@ import uuid
 from curvine_tpu_torch.common import errors as err
 from curvine_tpu_torch.common.conf import ClusterConf
 from curvine_tpu_torch.common.types import (CommitBlock, FileBlocks,
-                                            FileStatus, LocatedBlock,
-                                            MasterInfo)
+                                            FileStatus, JobInfo, LocatedBlock,
+                                            MasterInfo, MountInfo)
 from curvine_tpu_torch.rpc.client import (Connection, ConnectionPool,
                                           RetryPolicy)
 from curvine_tpu_torch.rpc.codes import RpcCode
@@ -135,14 +139,20 @@ class FsClient:
         return FileStatus.from_wire(rep["status"])
 
     async def create_file(self, path: str, overwrite: bool = False,
-                          replicas: int | None = None) -> FileStatus:
-        """A new file of ``replicas`` replicas (the conf's when None)."""
+                          replicas: int | None = None,
+                          block_size: int | None = None,
+                          storage_policy: dict | None = None) -> FileStatus:
+        """A new file of ``replicas`` replicas and blocks of
+        ``block_size`` (the conf's when None); ``storage_policy`` in wire
+        form, the master's default when None."""
         cc = self.conf.client
-        rep = await self.call(RpcCode.CREATE_FILE, {
-            "path": path, "overwrite": overwrite,
-            "replicas": cc.replicas if replicas is None else replicas,
-            "block_size": cc.block_size, "client_name": self.client_id},
-            mutate=True)
+        req = {"path": path, "overwrite": overwrite,
+               "replicas": cc.replicas if replicas is None else replicas,
+               "block_size": block_size or cc.block_size,
+               "client_name": self.client_id}
+        if storage_policy:
+            req["storage_policy"] = storage_policy
+        rep = await self.call(RpcCode.CREATE_FILE, req, mutate=True)
         return FileStatus.from_wire(rep["status"])
 
     async def exists(self, path: str) -> bool:
@@ -224,3 +234,64 @@ class FsClient:
         return await self.call(RpcCode.PREFETCH_WINDOW, {
             "path": path, "cursor": int(cursor), "window": int(window),
             "epoch": int(epoch), "seed": int(seed)}, mutate=True)
+
+    # ---------------- mounts and jobs ----------------
+
+    async def mount(self, cv_path: str, ufs_path: str,
+                    properties: dict | None = None, auto_cache: bool = False,
+                    write_type: int = 0, ttl_ms: int = 0, ttl_action: int = 0,
+                    storage_type: str = "", block_size: int = 0,
+                    replicas: int = 0, access_mode: str = "rw") -> MountInfo:
+        rep = await self.call(RpcCode.MOUNT, {
+            "cv_path": cv_path, "ufs_path": ufs_path,
+            "properties": properties or {}, "auto_cache": auto_cache,
+            "write_type": write_type, "ttl_ms": ttl_ms,
+            "ttl_action": ttl_action, "storage_type": storage_type,
+            "block_size": block_size, "replicas": replicas,
+            "access_mode": access_mode}, mutate=True)
+        return MountInfo.from_wire(rep["mount"])
+
+    async def umount(self, cv_path: str) -> None:
+        await self.call(RpcCode.UNMOUNT, {"cv_path": cv_path}, mutate=True)
+
+    async def update_mount(self, cv_path: str,
+                           properties: dict | None = None,
+                           auto_cache: bool | None = None,
+                           ttl_ms: int | None = None,
+                           ttl_action: int | None = None,
+                           access_mode: str | None = None) -> MountInfo:
+        rep = await self.call(RpcCode.UPDATE_MOUNT, {
+            "cv_path": cv_path, "properties": properties,
+            "auto_cache": auto_cache, "ttl_ms": ttl_ms,
+            "ttl_action": ttl_action, "access_mode": access_mode},
+            mutate=True)
+        return MountInfo.from_wire(rep["mount"])
+
+    async def mount_table(self) -> list[MountInfo]:
+        rep = await self.call(RpcCode.GET_MOUNT_TABLE, {})
+        return [MountInfo.from_wire(m) for m in rep["mounts"]]
+
+    async def get_mount_info(self, path: str) -> MountInfo | None:
+        rep = await self.call(RpcCode.GET_MOUNT_INFO, {"path": path})
+        return MountInfo.from_wire(rep["mount"]) if rep.get("mount") else None
+
+    async def submit_job(self, kind: str, path: str, recursive: bool = True,
+                         replicas: int = 1) -> str:
+        rep = await self.call(RpcCode.SUBMIT_JOB, {
+            "kind": kind, "path": path, "recursive": recursive,
+            "replicas": replicas}, mutate=True)
+        return rep["job_id"]
+
+    async def submit_load(self, path: str, recursive: bool = True,
+                          replicas: int = 1) -> str:
+        return await self.submit_job("load", path, recursive, replicas)
+
+    async def submit_export(self, path: str, recursive: bool = True) -> str:
+        return await self.submit_job("export", path, recursive)
+
+    async def job_status(self, job_id: str) -> JobInfo:
+        rep = await self.call(RpcCode.GET_JOB_STATUS, {"job_id": job_id})
+        return JobInfo.from_wire(rep["job"])
+
+    async def cancel_job(self, job_id: str) -> None:
+        await self.call(RpcCode.CANCEL_JOB, {"job_id": job_id}, mutate=True)

@@ -3,133 +3,27 @@
 The JAX package's ``VectorTable`` takes a ``CurvineClient`` and calls four
 things of it: ``open(path)`` (a reader with ``len``, ``read_all()`` and
 ``mmap_view()``), ``write_all(path, data)``, ``meta.mkdir(path)`` and
-``meta.delete(path)``. The port has no RPC client yet (ROADMAP A3), so
-``PosixClient`` offers exactly those calls over a root directory, such as
-the cache's FUSE mount, and the port's ``VectorTable`` takes either this
-client or any object with the same calls.
+``meta.delete(path)``. ``PosixClient`` offers exactly those calls over a
+root directory, such as the cache's FUSE mount, and the port's
+``VectorTable`` takes either this client, the port's ``CurvineClient``
+or any object with the same calls.
 
-``LocalUfs`` and ``UfsReader`` are own copies of
-``curvine_tpu/ufs/local.py::LocalUfs`` (read, write, mkdir, delete) and
-``curvine_tpu/client/ufs_reader.py::UfsReader``; ``mmap_view`` returns
-None, as the original's does, so readers fall back to ``read_all``. A
-missing file raises ``FileNotFound`` (wire code 2), as the cache's client
-does."""
+The files go through the port's ``file://`` under-filesystem
+(``ufs/local.py::LocalUfs``) and are read through its ``UfsReader``
+(``client/ufs_reader.py``), whose ``mmap_view`` returns None, so readers
+fall back to ``read_all``. A missing file raises ``FileNotFound`` (wire
+code 2), as the cache's client does."""
 
 from __future__ import annotations
 
 import asyncio
 import os
-import shutil
 
+from curvine_tpu_torch.client.ufs_reader import UfsReader
 from curvine_tpu_torch.common import errors as err
+from curvine_tpu_torch.ufs.local import LocalUfs, _fs_path
 
-__all__ = ["PosixClient", "LocalUfs", "UfsReader"]
-
-
-def _fs_path(uri: str) -> str:
-    # file:///a/b -> /a/b (curvine_tpu/ufs/local.py::_fs_path over
-    # ufs/base.py::split_uri)
-    if "://" not in uri:
-        return uri
-    rest = uri.split("://", 1)[1]
-    authority, key = rest.split("/", 1) if "/" in rest else (rest, "")
-    return "/" + key if not authority else f"/{authority}/{key}"
-
-
-class LocalUfs:
-    """file:// store over the local filesystem."""
-
-    async def read(self, uri: str, offset: int = 0, length: int = -1,
-                   chunk_size: int = 1024 * 1024):
-        p = _fs_path(uri)
-        try:
-            f = await asyncio.to_thread(open, p, "rb")
-        except FileNotFoundError as e:
-            raise err.FileNotFound(uri) from e
-        try:
-            if offset:
-                f.seek(offset)
-            remaining = length if length >= 0 else None
-            while True:
-                n = chunk_size if remaining is None else min(chunk_size,
-                                                             remaining)
-                if n == 0:
-                    break
-                chunk = await asyncio.to_thread(f.read, n)
-                if not chunk:
-                    break
-                if remaining is not None:
-                    remaining -= len(chunk)
-                yield chunk
-        finally:
-            f.close()
-
-    async def write(self, uri: str, chunks) -> int:
-        p = _fs_path(uri)
-        os.makedirs(os.path.dirname(p), exist_ok=True)
-        total = 0
-        tmp = p + ".curvine-tmp"
-        f = await asyncio.to_thread(open, tmp, "wb")
-        try:
-            async for chunk in chunks:
-                await asyncio.to_thread(f.write, chunk)
-                total += len(chunk)
-        finally:
-            f.close()
-        os.replace(tmp, p)
-        return total
-
-    async def delete(self, uri: str) -> None:
-        p = _fs_path(uri)
-        try:
-            if os.path.isdir(p):
-                await asyncio.to_thread(shutil.rmtree, p)
-            else:
-                await asyncio.to_thread(os.unlink, p)
-        except FileNotFoundError:
-            pass
-
-    async def mkdir(self, uri: str) -> None:
-        await asyncio.to_thread(os.makedirs, _fs_path(uri), exist_ok=True)
-
-
-class UfsReader:
-    """Reader over one object of a store (FsReader-compatible surface)."""
-
-    def __init__(self, ufs, uri: str, length: int):
-        self.ufs = ufs
-        self.uri = uri
-        self.len = length
-        self.pos = 0
-
-    def seek(self, pos: int) -> None:
-        self.pos = max(0, min(pos, self.len))
-
-    async def read(self, n: int = -1) -> bytes:
-        if n < 0:
-            n = self.len - self.pos
-        data = await self.pread(self.pos, n)
-        self.pos += len(data)
-        return data
-
-    async def read_all(self) -> bytes:
-        self.seek(0)
-        return await self.read(self.len)
-
-    async def pread(self, offset: int, n: int) -> bytes:
-        n = max(0, min(n, self.len - offset))
-        if n == 0:
-            return b""
-        out = bytearray()
-        async for chunk in self.ufs.read(self.uri, offset=offset, length=n):
-            out += chunk
-        return bytes(out)
-
-    async def mmap_view(self, offset: int, n: int):
-        return None      # no local block files to map
-
-    async def close(self) -> None:
-        pass             # holds no handle between reads
+__all__ = ["PosixClient"]
 
 
 class _Meta:

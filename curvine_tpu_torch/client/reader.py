@@ -14,6 +14,8 @@ feed reads through:
   a fresh buffer, the whole block verified against its crc when
   ``verify`` is set (``_sc_verify_ok``, :538; crc32c through the port's
   ``csrc/crc32c.cc``), None when the range is not short-circuit readable;
+- ``chunks`` (:1264-1294), the whole file in sequential chunks, without
+  the reference's read-ahead;
 - ``read``, ``read_all`` and ``pread`` (:605-646) over the positional
   core ``_read_into`` (:665-738): one buffer for the whole range, each
   block range landing in it once, by a preadv from the local block file
@@ -40,7 +42,8 @@ resized past its last block) (both raise ``NotImplementedError``),
 short-circuit reads of a bdev tier's leased extents (its blocks are read
 through READ_BLOCK), the location refresh after every replica failed
 (the read raises), the sequential prefetch window, parallel
-``read_range``, ``pread_view``, ``chunks``, the worker circuit breaker,
+``read_range``, ``pread_view``, ``chunks``' read-ahead, the worker
+circuit breaker,
 deadlines and tracing."""
 
 from __future__ import annotations
@@ -333,6 +336,18 @@ class FsReader:
         """``n`` bytes at ``offset``, the cursor left where it is."""
         return await self._read_into_new(
             offset, max(0, min(n, self.len - offset)))
+
+    async def chunks(self, chunk_size: int | None = None):
+        """The whole file as a stream of sequential chunks of
+        ``chunk_size`` (the reader's when None), each read when the
+        consumer asks for it; the export's source."""
+        chunk_size = chunk_size or self.chunk_size
+        self.seek(0)
+        while self.pos < self.len:
+            data = await self.read(chunk_size)
+            if not data:
+                break
+            yield data
 
     async def _read_into_new(self, offset: int, n: int) -> bytearray:
         out = bytearray(n)

@@ -1,12 +1,16 @@
-"""The port's cache client.
+"""The port's cache client, with the UFS behind its mounts.
 
 Own copy of the parts of ``curvine_tpu/client/unified.py`` (:28-72,
-:134-201, :398-406) that the cache feed and its writer call:
-``CurvineClient`` with ``meta`` (the ``FsClient``), ``create``, ``open``,
-``write_all``, ``read_all`` and ``advise`` (the master's rolling
-prefetch window), over one connection pool to the workers. ``create``
-and ``write_all`` take ``replicas`` (:137-158), and the writer fans each
-block out to that many workers. The readers
+:134-201, :261-434) that the cache feed, its writer and the master's
+tasks call: ``CurvineClient`` with ``meta`` (the ``FsClient``),
+``create``, ``open``, ``write_all``, ``read_all`` (the reference's
+``unified_read``) and ``advise`` (the master's rolling prefetch window),
+over one connection pool to the workers; and the UFS side:
+``unified_open``, ``load_from_ufs`` (the worker side of a load task),
+``prefetch`` (of a prefetch task) and ``export_to_ufs`` (of an export
+task). ``create`` and ``write_all`` take ``replicas`` (:137-158), and the
+writer fans each block out to that many workers; ``create`` also takes
+``block_size`` and ``storage_policy``. The readers
 and writers it opens share ``counters``: ``sc.bytes.read`` and
 ``sc.bytes.written`` (short circuit), ``read.zero_copy_bytes``
 (READ_BLOCK into the caller's buffer), ``write.bytes`` (all bytes
@@ -14,21 +18,63 @@ written), ``sc.write.fallbacks`` (blocks that went over WRITE_BLOCK with
 the short circuit on), ``write.replica_failover`` (legs dropped),
 ``write.degraded_commits`` and ``advise.rpcs``.
 
-Left out (ROADMAP A3): the worker circuit breaker, the metadata cache,
-tracing, the metrics flush to the master, tenants, appends, batched
-small-file writes, and the UFS side (fallback reads through a mount,
-loads, exports, write-through): ``read_all`` reads cached files only and
-raises for a file that is not complete or has a block with no live
-location."""
+``read_all`` reads a cached file (complete, every block located) through
+the cache; any other file under a mount comes from the UFS through it,
+and is cached when the mount's ``auto_cache`` is set. A file under no
+mount keeps the cache's error (``FileNotFound``, ``Uncompleted``, or
+``BlockNotFound`` for a block with no live location), where the
+reference raises ``MountNotFound``. A load creates the cached copy with
+the UFS object's mtime in its storage policy (at least 1: the mark of a
+cache-warming create, which a read-only mount lets through), the
+mount's ``ttl_ms`` and ``ttl_action`` (kept in the policy; the TTL
+scanner is not ported, ``MASTER_FIXED``), and the mount's ``replicas``
+and ``block_size`` where it sets them; a mount whose ``storage_type``
+names a tier other than mem is refused at load by name, since the
+client writes the mem tier only (``common/conf.py``, ``FIXED``).
+
+Left out (ROADMAP A3e): the ``FallbackReader`` (a cached read that goes
+on from the UFS after every replica is lost mid-stream; ``unified_open``
+returns the cache's reader), ``write_through`` (``WriteType.FS``), the
+worker circuit breaker, the metadata cache, tracing, the metrics flush
+to the master, tenants, appends, batched small-file writes and
+``content_summary``."""
 
 from __future__ import annotations
 
-from curvine_tpu_torch.common import errors as err
-from curvine_tpu_torch.common.conf import ClusterConf
+import logging
+
 from curvine_tpu_torch.client.fs_client import FsClient
 from curvine_tpu_torch.client.reader import FsReader
+from curvine_tpu_torch.client.ufs_reader import UfsReader
 from curvine_tpu_torch.client.writer import FsWriter
+from curvine_tpu_torch.common import errors as err
+from curvine_tpu_torch.common.conf import ClusterConf
+from curvine_tpu_torch.common.types import (FileBlocks, StoragePolicy,
+                                            StorageState, TtlAction)
 from curvine_tpu_torch.rpc.client import ConnectionPool
+from curvine_tpu_torch.ufs.base import create_ufs
+
+log = logging.getLogger(__name__)
+
+
+def _located(fb: FileBlocks) -> bool:
+    """Every block of the file has a live location, and the file is not
+    one whose cached copy was freed (state UFS)."""
+    if fb.status.storage_policy.state == StorageState.UFS:
+        return False
+    return all(lb.locs or lb.ec is not None for lb in fb.block_locs)
+
+
+def _uncached(path: str, fb: FileBlocks) -> err.CurvineError | None:
+    """Why ``fb``'s file cannot be read from the cache, or None."""
+    if not fb.status.is_complete:
+        return err.Uncompleted(f"{path} is still being written")
+    if fb.status.len and not _located(fb):
+        missing = [lb.block.id for lb in fb.block_locs
+                   if not lb.locs and lb.ec is None]
+        return err.BlockNotFound(f"{path}: blocks {missing} have no live "
+                                 f"location")
+    return None
 
 
 class CurvineClient:
@@ -51,15 +97,20 @@ class CurvineClient:
         await self.close()
 
     async def create(self, path: str, overwrite: bool = False,
-                     replicas: int | None = None) -> FsWriter:
-        """A new file of ``replicas`` replicas (the conf's when None) on
-        the mem tier, its block size from the client's conf; the writer
-        places blocks near the conf's ``worker.ici_coords``."""
+                     replicas: int | None = None,
+                     block_size: int | None = None,
+                     storage_policy: dict | None = None) -> FsWriter:
+        """A new file of ``replicas`` replicas and blocks of
+        ``block_size`` (the conf's when None) on the mem tier, with
+        ``storage_policy`` (wire form; the master's default when None);
+        the writer places blocks near the conf's ``worker.ici_coords``."""
         cc = self.conf.client
+        block_size = block_size or cc.block_size
         await self.meta.create_file(path, overwrite=overwrite,
-                                    replicas=replicas)
+                                    replicas=replicas, block_size=block_size,
+                                    storage_policy=storage_policy)
         return FsWriter(self.meta, path, self.pool,
-                        block_size=cc.block_size,
+                        block_size=block_size,
                         short_circuit=cc.short_circuit,
                         counters=self.counters,
                         ici_coords=list(self.conf.worker.ici_coords) or None,
@@ -80,20 +131,31 @@ class CurvineClient:
             await w.write(data)
 
     async def read_all(self, path: str) -> bytes:
-        """The whole of a cached file."""
-        fb = await self.meta.get_block_locations(path)
-        if not fb.status.is_complete:
-            raise err.Uncompleted(f"{path} is still being written")
-        missing = [lb.block.id for lb in fb.block_locs
-                   if not lb.locs and lb.ec is None]
-        if missing:
-            raise err.BlockNotFound(f"{path}: blocks {missing} have no live "
-                                    f"location (UFS fallback is not ported)")
-        r = self._reader(path, fb)
+        """The whole file: from the cache when it is cached there, else
+        through its mount from the UFS."""
         try:
-            return await r.read_all()
-        finally:
-            await r.close()
+            fb = await self.meta.get_block_locations(path)
+        except err.FileNotFound as e:
+            why = e
+        else:
+            why = _uncached(path, fb)
+            if why is None:
+                r = self._reader(path, fb)
+                try:
+                    return await r.read_all()
+                finally:
+                    await r.close()
+        mount = await self.meta.get_mount_info(path)
+        if mount is None:
+            raise why
+        mount, ufs, uri = self._ufs_of(mount, path)
+        data = await ufs.read_all(uri)
+        if mount.auto_cache:
+            try:
+                await self.write_all(path, data)
+            except err.CurvineError as e:
+                log.debug("auto-cache of %s failed: %s", path, e)
+        return data
 
     async def advise(self, path: str, cursor: int = 0, window: int = 8,
                      epoch: int = 0, seed: int = 0) -> dict:
@@ -104,3 +166,93 @@ class CurvineClient:
         return await self.meta.prefetch_window(path, cursor=cursor,
                                                window=window, epoch=epoch,
                                                seed=seed)
+
+    # ---------------- the UFS side ----------------
+
+    @staticmethod
+    def _ufs_of(mount, path: str):
+        return mount, create_ufs(mount.ufs_path,
+                                 properties=mount.properties), \
+            mount.ufs_uri(path)
+
+    async def _ufs_for(self, path: str):
+        """(mount, its UFS, the object's uri) of ``path``."""
+        mount = await self.meta.get_mount_info(path)
+        if mount is None:
+            raise err.MountNotFound(f"no mount covers {path}")
+        return self._ufs_of(mount, path)
+
+    async def unified_open(self, path: str):
+        """A reader of ``path``: the cache's where its blocks are
+        located, else a ``UfsReader`` streaming the mounted object."""
+        st = await self.meta.file_status(path)
+        try:
+            fb = await self.meta.get_block_locations(path)
+        except err.FileNotFound:
+            fb = None           # a UFS object only: no inode yet
+        if fb is not None and (st.len == 0 or _located(fb)):
+            return self._reader(path, fb)
+        _mount, ufs, uri = await self._ufs_for(path)
+        return UfsReader(ufs, uri, st.len)
+
+    async def load_from_ufs(self, path: str,
+                            replicas: int | None = None) -> int:
+        """Warm one file, UFS to cache (the worker side of a load task),
+        under the mount's caching policy; returns the bytes loaded."""
+        mount, ufs, uri = await self._ufs_for(path)
+        if mount.storage_type and mount.storage_type != "mem":
+            raise err.Unsupported(
+                f"mount {mount.cv_path}: storage_type "
+                f"{mount.storage_type!r} is not ported; the port's client "
+                f"writes the mem tier only")
+        st = await ufs.stat(uri)
+        if st is None:
+            raise err.FileNotFound(uri)
+        sp = StoragePolicy(
+            # at least 1: a UFS that reports mtime 0 still marks this
+            # create as a cache-warming load (the read-only exemption)
+            ufs_mtime=max(int(st.mtime or 0), 1),
+            ttl_ms=mount.ttl_ms or 0,
+            ttl_action=TtlAction(int(mount.ttl_action or 0)))
+        w = await self.create(
+            path, overwrite=True,
+            replicas=replicas if replicas is not None
+            else (mount.replicas or None),
+            block_size=mount.block_size or None,
+            storage_policy=sp.to_wire())
+        total = 0
+        try:
+            async for chunk in ufs.read(uri):
+                await w.write(chunk)
+                total += len(chunk)
+            await w.close()
+        except Exception:
+            await w.abort()
+            raise
+        return total
+
+    async def prefetch(self, path: str) -> int:
+        """Warm one file ahead of a read cursor (the worker side of a
+        prefetch task): a cached file costs one metadata probe; an
+        uncached file under a mount loads from the UFS. Advisory: a file
+        under no mount is skipped (0), never an error."""
+        try:
+            fb = await self.meta.get_block_locations(path)
+            if _uncached(path, fb) is None:
+                return 0               # already warm
+        except err.FileNotFound:
+            pass
+        try:
+            return await self.load_from_ufs(path)
+        except err.MountNotFound:
+            return 0
+
+    async def export_to_ufs(self, path: str) -> int:
+        """Write one cached file out to its mounted UFS location (the
+        worker side of an export task); returns its length."""
+        _mount, ufs, uri = await self._ufs_for(path)
+        r = await self.open(path)
+        try:
+            return await ufs.write(uri, r.chunks())
+        finally:
+            await r.close()

@@ -45,10 +45,11 @@ bdev layout and a tier's direct-IO queue depth, the direct-IO engine,
 the shared-memory reads and their warm cache, the disk-fault thresholds
 and the QoS tenant specs. A file that sets one of them to anything but
 the value the port implements is refused. The device-path transfer
-(``ici_transfer``, on by default, as in the reference) and the bound of
-the tier-0's heartbeat advertisement (``hbm_advertise_max``) are fields.
+(``ici_transfer``, on by default, as in the reference), the bound of
+the tier-0's heartbeat advertisement (``hbm_advertise_max``) and the
+tasks a worker runs at once (``task_parallelism``, :168) are fields.
 Left out: the fuse, gateway, obs, rpc and ec sections, the
-worker's scrub, task and web-server fields, the client's breaker,
+worker's scrub and web-server fields, the client's breaker,
 deadline, meta-cache, tracing, tenant, replay-buffer, read-ahead and
 prefetch-window fields, and the ``CURVINE_*`` environment overrides."""
 
@@ -163,6 +164,8 @@ class WorkerConf:
     cache_admission: str = "s3fifo"
     cache_ghost_entries: int = 8192
     cache_small_ratio: float = 0.1
+    # the master's load, export and prefetch tasks run at once
+    task_parallelism: int = 4
 
 
 @dataclass

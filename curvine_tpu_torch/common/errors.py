@@ -2,8 +2,8 @@
 
 Own copy of ``curvine_tpu/common/errors.py``: ``ErrorCode`` with the same
 numbers, its retryable set, ``CurvineError.from_wire`` and the classes the
-port's data path, vector path, cache client, worker and master raise or
-receive. A
+port's data path, vector path, cache client, worker, master and
+under-filesystems raise or receive. A
 class's ``code`` is its wire code, so an error crosses the RPC boundary
 unchanged, and ``code_of`` reads that code from an error of any client
 that carries one. Codes without a class here arrive as a plain
@@ -117,6 +117,9 @@ AbnormalData.__doc__ = ("Bytes failed an integrity check (media crc, "
 PermissionDenied = _make("PermissionDenied", ErrorCode.PERMISSION_DENIED)
 ConnectError = _make("ConnectError", ErrorCode.CONNECT)
 Uncompleted = _make("Uncompleted", ErrorCode.UNCOMPLETED)
+UfsError = _make("UfsError", ErrorCode.UFS_ERROR)
+MountNotFound = _make("MountNotFound", ErrorCode.MOUNT_NOT_FOUND)
+JobNotFound = _make("JobNotFound", ErrorCode.JOB_NOT_FOUND)
 
 _CODE_TO_CLASS: dict[ErrorCode, type[CurvineError]] = {
     c.code: c for c in [
@@ -124,7 +127,8 @@ _CODE_TO_CLASS: dict[ErrorCode, type[CurvineError]] = {
         IsADirectory, InvalidPath, InvalidArgument, LeaseConflict,
         BlockNotFound, NoAvailableWorker, CapacityExceeded,
         Unsupported, WorkerDraining, NotLeader, RpcTimeout, AbnormalData,
-        PermissionDenied, ConnectError, Uncompleted]}
+        PermissionDenied, ConnectError, Uncompleted, UfsError,
+        MountNotFound, JobNotFound]}
 
 
 def code_of(e: BaseException) -> int | None:

@@ -7,11 +7,13 @@ with the same defaults: ``now_ms``, ``FileStatus`` (with its
 (the worker's heartbeat body, as the JAX master's heartbeat handler
 decodes it), ``ExtendedBlock``, ``BlockLocation``, ``LocatedBlock``,
 ``FileBlocks``, ``CommitBlock`` and ``MasterInfo`` (GET_MASTER_INFO's
-reply), and the enums their fields hold
-(``BlockState`` and ``WorkerState`` among them). Each round-trips through
+reply), ``MountInfo``, ``TaskInfo`` and ``JobInfo`` (:333-400, the mount
+table's and the job manager's records, journaled), and the enums their
+fields hold (``BlockState``, ``WorkerState``, ``WriteType`` and
+``JobState`` among them). Each round-trips through
 a plain dict (``to_wire`` / ``from_wire``); a field missing from the dict
 keeps its default, so a peer that adds fields stays readable. Left out:
-the job, task, mount and lock types."""
+the lock and attribute types."""
 
 from __future__ import annotations
 
@@ -41,6 +43,11 @@ class TtlAction(enum.IntEnum):
     FREE = 2
 
 
+class WriteType(enum.IntEnum):
+    CACHE = 0       # the cache only
+    FS = 1          # through to the UFS (not ported: ROADMAP A3e)
+
+
 class FileType(enum.IntEnum):
     DIR = 0
     FILE = 1
@@ -66,6 +73,14 @@ class WorkerState(enum.IntEnum):
     LOST = 1
     DECOMMISSIONING = 2
     DECOMMISSIONED = 3
+
+
+class JobState(enum.IntEnum):
+    PENDING = 0
+    RUNNING = 1
+    COMPLETED = 2
+    FAILED = 3
+    CANCELLED = 4
 
 
 def _to_wire(v: Any) -> Any:
@@ -258,3 +273,75 @@ class MasterInfo(Wire):
     lost_workers: list[WorkerInfo] = field(default_factory=list)
 
     _nested = {"live_workers": (WorkerInfo,), "lost_workers": (WorkerInfo,)}
+
+
+@dataclass
+class MountInfo(Wire):
+    """A cache subtree bound to a UFS URI, with its caching policy: the
+    TTL given to cached copies, the storage, block size and replica
+    defaults of loads (0 or "" for the client's), and the access mode
+    (``"r"`` refuses user mutations under the mount; cache-warming loads
+    pass)."""
+
+    mount_id: int = 0
+    cv_path: str = ""
+    ufs_path: str = ""
+    properties: dict = field(default_factory=dict)
+    auto_cache: bool = False
+    write_type: WriteType = WriteType.CACHE
+    ttl_ms: int = 0
+    ttl_action: TtlAction = TtlAction.NONE
+    storage_type: str = ""
+    block_size: int = 0
+    replicas: int = 0
+    access_mode: str = "rw"
+
+    _nested = {"write_type": WriteType, "ttl_action": TtlAction}
+
+    def ufs_uri(self, path: str) -> str:
+        """The UFS URI of ``path``, a cache path under this mount."""
+        rel = path[len(self.cv_path):] if self.cv_path != "/" else path
+        return self.ufs_path + rel
+
+
+@dataclass
+class TaskInfo(Wire):
+    task_id: str = ""
+    job_id: str = ""
+    worker_id: int = 0
+    path: str = ""
+    # load (UFS to cache), export (cache to UFS), prefetch, ec_convert
+    kind: str = "load"
+    state: JobState = JobState.PENDING
+    message: str = ""
+    total_len: int = 0
+    loaded_len: int = 0
+    attempts: int = 0
+    # a kind's own plan (ec_convert's stripes); never journaled
+    payload: dict = field(default_factory=dict)
+
+    _nested = {"state": JobState}
+
+
+@dataclass
+class JobInfo(Wire):
+    job_id: str = ""
+    kind: str = "load"
+    path: str = ""
+    state: JobState = JobState.PENDING
+    message: str = ""
+    create_ms: int = 0
+    finish_ms: int = 0
+    tasks: list[TaskInfo] = field(default_factory=list)
+    # planning parameters, journaled so a restarted master re-plans
+    recursive: bool = True
+    replicas: int = 1
+    # a prefetch window's bounds and the (seed, epoch) its shard order
+    # is computed from; never the file list
+    cursor: int = 0
+    window: int = 0
+    epoch: int = 0
+    seed: int = 0
+    total_files: int = 0
+
+    _nested = {"state": JobState, "tasks": (TaskInfo,)}

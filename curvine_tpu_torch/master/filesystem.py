@@ -8,7 +8,8 @@ state by replaying the journal after the newest snapshot (``recover``,
 :274-372). The entries and snapshots are the reference's, field for
 field, and either package's master reopens the other's.
 
-Served: ``mkdir``, ``create_file``, ``exists``, ``file_status``,
+Served: ``mkdir``, ``create_file`` (with the caller's ``block_size`` and
+``storage_policy``), ``exists``, ``file_status``,
 ``list_status``, ``rename``, ``delete`` (with ``_free_blocks`` and the
 pending deletes the next heartbeat hands each worker), ``add_block``
 (with ``commit_blocks``, ``exclude_workers`` and ``abandon_block``),
@@ -20,18 +21,24 @@ never, as no worker is decommissioned: DECOMMISSION_WORKER is refused),
 replication manager's hook, :1288-1298) and ``master_info``
 (:1206-1314). The placement policy is built with the conf's ICI mesh
 shape, and ``add_block`` passes the client's ``ici_coords`` to it
-(:49-60, :1053-1067).
+(:49-60, :1053-1067). Every write op is refused under a read-only mount
+(``_mount_write_guard``, :1316-1341; recursive delete and rename also
+when a read-only mount lies under the path); a create whose storage
+policy carries ``ufs_mtime`` is a cache-warming load, which passes.
 
 The port applies the journal ops ``mkdir``, ``create``, ``delete``,
-``rename``, ``alloc_block``, ``commit_blocks``, ``complete`` and the raft
-leader's ``noop``. Any other op (the reference's ``set_incomplete``,
-``set_attr``, ``symlink``, ``link``, ``resize``, ``free``, ``ec_*``,
-``tx_*``, ``mount_*``, ``job_*``, ``worker_deco``, ``raft_conf``), and a
-snapshot that holds jobs, EC stripes, decommissions, mounts or a raft
-config, stops recovery with ``UnportedJournalOp``, which names it:
+``rename``, ``alloc_block``, ``commit_blocks``, ``complete``, the raft
+leader's ``noop``, ``job_put`` and ``job_del`` (:413-420), and, once the
+server's ``MountManager`` (``master/mount.py``) has attached its hooks,
+``mount_add``, ``mount_remove`` and ``mount_update``; a snapshot's
+``jobs`` and ``mounts`` sections are saved and loaded. Any other op (the
+reference's ``set_incomplete``, ``set_attr``, ``symlink``, ``link``,
+``resize``, ``free``, ``ec_*``, ``tx_*``, ``worker_deco``,
+``raft_conf``), and a snapshot that holds EC stripes, decommissions or a
+raft config, stops recovery with ``UnportedJournalOp``, which names it:
 skipping it would drop state silently. Left out: the KV store, the raft
-hooks, EC stripes, the mount write guard, the two-phase transactions of
-the sharded namespace, and the audit log (ROADMAP A3d)."""
+hooks, EC stripes, the two-phase transactions of the sharded namespace,
+and the audit log (ROADMAP A3d)."""
 
 from __future__ import annotations
 
@@ -56,7 +63,7 @@ log = logging.getLogger(__name__)
 # args never share mutable state)
 _DEFAULT_POLICY_WIRE = StoragePolicy().to_wire()
 # snapshot sections of the reference's features the port does not have
-_UNPORTED_SNAPSHOT_KEYS = ("jobs", "ec", "deco", "mounts", "raft_conf")
+_UNPORTED_SNAPSHOT_KEYS = ("ec", "deco", "raft_conf")
 
 
 class UnportedJournalOp(RuntimeError):
@@ -90,6 +97,8 @@ class MasterFilesystem:
         self.committer: GroupCommitter | None = None
         # set by MasterServer: the replication manager's on_worker_lost
         self.on_worker_lost = None
+        # set by MasterServer: the mount table (master/mount.py)
+        self.mounts = None
 
     # ==================== journal plumbing ====================
 
@@ -163,13 +172,18 @@ class MasterFilesystem:
             })
         blocks = [(bid, length, iid, rep)
                   for bid, (length, iid, rep) in self.store.iter_blocks()]
-        return {"next_id": self.store.get_counter("next_id", ROOT_ID + 1),
-                "next_block_id": self.store.get_counter("next_block_id", 1),
-                "inodes": inodes, "blocks": blocks,
-                "jobs": [], "ec": [], "deco": []}
+        state = {"next_id": self.store.get_counter("next_id", ROOT_ID + 1),
+                 "next_block_id": self.store.get_counter("next_block_id", 1),
+                 "inodes": inodes, "blocks": blocks,
+                 "jobs": list(self.store.iter_jobs()), "ec": [], "deco": []}
+        if self.mounts is not None:
+            state["mounts"] = self.mounts.snapshot_state()
+        return state
 
     def _load_snapshot(self, snap: dict) -> None:
         held = [k for k in _UNPORTED_SNAPSHOT_KEYS if snap.get(k)]
+        if snap.get("mounts") and self.mounts is None:
+            held.append("mounts")
         if held:
             raise UnportedJournalOp(
                 f"the snapshot holds {held}, which the port's master does "
@@ -208,6 +222,10 @@ class MasterFilesystem:
         self.store.set_counter("next_block_id", snap["next_block_id"])
         for bid, blen, iid, rep in snap["blocks"]:
             self.store.block_put(bid, blen, iid, rep)
+        for wire in snap.get("jobs", []):
+            self.store.job_put(wire["job_id"], wire)
+        if self.mounts is not None and "mounts" in snap:
+            self.mounts.load_snapshot_state(snap["mounts"])
 
     def _apply(self, op: str, args: dict):
         fn = getattr(self, f"_apply_{op}", None)
@@ -220,11 +238,19 @@ class MasterFilesystem:
     def _apply_noop(self) -> None:
         """A raft leader's term-opening entry."""
 
+    def _apply_job_put(self, job: dict) -> None:
+        """A job's record, for its resume after a restart."""
+        self.store.job_put(job["job_id"], job)
+
+    def _apply_job_del(self, job_id: str) -> None:
+        self.store.job_remove(job_id)
+
     # ==================== namespace ops ====================
 
     def mkdir(self, path: str, create_parent: bool = True, mode: int = 0o755,
               owner: str = "root", group: str = "root",
               x_attr: dict | None = None) -> FileStatus:
+        self._mount_write_guard(path)
         node = self.tree.resolve(path)
         if node is not None:
             if node.is_dir:
@@ -251,6 +277,10 @@ class MasterFilesystem:
                     client_name: str = "", x_attr: dict | None = None,
                     storage_policy: dict | None = None,
                     file_type: int = int(FileType.FILE)) -> FileStatus:
+        # a cache-warming load carries the ufs_mtime it saw; such creates
+        # pass a read-only mount
+        caching = bool((storage_policy or {}).get("ufs_mtime"))
+        self._mount_write_guard(path, caching=caching)
         parent, _name, existing = self.tree.walk_parent(path)
         if existing is not None:
             if existing.is_dir:
@@ -312,6 +342,8 @@ class MasterFilesystem:
                 for name, child in self.tree.children(node)]
 
     def rename(self, src: str, dst: str) -> bool:
+        self._mount_write_guard(src, subtree=True)
+        self._mount_write_guard(dst)
         s = self.tree.resolve(src)
         if s is None:
             raise err.FileNotFound(src)
@@ -355,6 +387,7 @@ class MasterFilesystem:
         return True
 
     def delete(self, path: str, recursive: bool = False) -> None:
+        self._mount_write_guard(path, subtree=recursive)
         node = self.tree.resolve(path)
         if node is None:
             raise err.FileNotFound(path)
@@ -597,6 +630,28 @@ class MasterFilesystem:
             lost_workers=self.workers.lost_workers())
 
     # ==================== helpers ====================
+
+    def _mount_write_guard(self, path: str, caching: bool = False,
+                           subtree: bool = False) -> None:
+        """A write under a read-only mount is refused, here on the master
+        so every client meets it. A cache-warming load passes (its create
+        carries ``ufs_mtime``: a marker the client sets, not an
+        authorisation). ``subtree`` ops (a recursive delete, a rename of
+        an ancestor) are refused when a read-only mount lies anywhere
+        under the path too."""
+        if self.mounts is None or caching:
+            return
+        m = self.mounts.get_mount(path)
+        if m is not None and m.access_mode == "r":
+            raise err.Unsupported(
+                f"write on read-only mount {m.cv_path}: {path}")
+        if subtree:
+            prefix = path.rstrip("/") + "/"
+            for info in self.mounts.table():
+                if info.access_mode == "r" and \
+                        info.cv_path.startswith(prefix):
+                    raise err.Unsupported(
+                        f"{path} contains read-only mount {info.cv_path}")
 
     def _file_or_raise(self, path: str) -> Inode:
         node = self.tree.resolve(path)

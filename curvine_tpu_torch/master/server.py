@@ -8,11 +8,19 @@ of the root refused). A mutation (``_h``, :497-534) is deduplicated by
 the client's ``(client_id, call_id)`` in the retry cache, and its reply
 leaves only after the group commit has flushed its journal entry.
 
-Served: MKDIR, DELETE, CREATE_FILE, OPEN_FILE, FILE_STATUS, LIST_STATUS,
-EXISTS, RENAME, ADD_BLOCK (with the client's ``ici_coords`` for the
-``ici`` placement), COMPLETE_FILE, GET_BLOCK_LOCATIONS, GET_MASTER_INFO
-and META_BATCH (mkdir, create and delete items, each failing alone,
-:1142-1163); and the worker plane: WORKER_HEARTBEAT (its ``hbm_blocks``
+Served: MKDIR, DELETE, CREATE_FILE, OPEN_FILE, FILE_STATUS, LIST_STATUS
+and EXISTS (each falling back to the mount's UFS for a path the cache
+does not hold, :672-764: LIST_STATUS merges the cached entries over the
+UFS entries and sorts them by name), RENAME, ADD_BLOCK (with the
+client's ``ici_coords`` for the ``ici`` placement), COMPLETE_FILE,
+GET_BLOCK_LOCATIONS, GET_MASTER_INFO and META_BATCH (mkdir, create and
+delete items, each failing alone, :1142-1163); the mount table (MOUNT,
+UNMOUNT, UPDATE_MOUNT, GET_MOUNT_TABLE, GET_MOUNT_INFO;
+``master/mount.py``) and the job manager (SUBMIT_JOB, GET_JOB_STATUS,
+CANCEL_JOB, PREFETCH_WINDOW, and REPORT_TASK from the workers;
+``master/jobs.py``), :1293-1355, MOUNT, UNMOUNT, UPDATE_MOUNT,
+SUBMIT_JOB, CANCEL_JOB and PREFETCH_WINDOW deduplicated as mutations;
+and the worker plane: WORKER_HEARTBEAT (its ``hbm_blocks``
 handed to the replication manager as device-path hints, :1193-1196, its
 ``evac_blocks`` to its evacuations, its ``metrics`` summed into the
 ``bytes.read`` and ``bytes.written`` gauges), WORKER_BLOCK_REPORT,
@@ -20,27 +28,30 @@ REQUEST_REPLACEMENT_WORKER (:1212-1215), REPORT_BLOCK_REPLICATION_RESULT
 (:1275-1280), and REPORT_UNDER_REPLICATED_BLOCKS (:1230-1273): verdicts
 noted, a replica reported with its ``worker_id`` evacuated (flagged, it
 stops counting and is retired once the block is back at its count), a
-report without one enqueued, and ``confirm_live`` answered. The
-replication manager (``master/replication.py``, :100-103, :258-259) runs
-on the ``ScheduledExecutor`` beside the periodic ``heartbeat-check``
-(lost workers, whose blocks it re-replicates) and ``lease-recovery``
-ticks; ``stop()`` cancels it and closes its connections. Every request
-is timed into the ``rpc.<code name>`` histograms of ``metrics``; the
-``replication.*`` counters are summed there too.
+report without one enqueued, and ``confirm_live`` answered. At start
+the mount table is rebuilt from the store after the journal's recovery
+(:202). The replication manager (``master/replication.py``, :100-103,
+:258-259) and the job manager's dispatch (which recovers the journaled
+jobs first, :260) run on the ``ScheduledExecutor`` beside the periodic
+``heartbeat-check`` (lost workers, whose blocks it re-replicates) and
+``lease-recovery`` ticks; ``stop()`` cancels them and closes their
+connections. Every request is timed into the ``rpc.<code name>``
+histograms of ``metrics``; the ``replication.*`` counters are summed
+there too.
 
-Every request must come from the superuser (``acl.SuperuserGate``).
-Every other code the reference's master registers (:340-410,
-``rpc/codes.py::MASTER_REFUSED``) is answered UNSUPPORTED by name:
-mounts, jobs and PREFETCH_WINDOW (a client's prefetch advice is refused
-here; cached files need none), locks, quotas, raft, shards, EC,
-decommissions, batches other than META_BATCH, attributes, links,
-appends, metrics reports, spans and health. Read leases, the fast
-metadata port and UFS mounts are not served: a read's reply carries no
-``lease`` token and ``master_info`` no ``fast_addr``, so a client caches
-nothing (ROADMAP A3d)."""
+Every request but a worker's must come from the superuser
+(``acl.SuperuserGate``). Every other code the reference's master
+registers (:340-410, ``rpc/codes.py::MASTER_REFUSED``) is answered
+UNSUPPORTED by name: locks, quotas, raft, shards, EC, decommissions,
+batches other than META_BATCH, attributes, links, appends, metrics
+reports, spans and health. Read leases and the fast metadata port are
+not served: a read's reply carries no ``lease`` token and
+``master_info`` no ``fast_addr``, so a client caches nothing (ROADMAP
+A3d)."""
 
 from __future__ import annotations
 
+import inspect
 import logging
 
 from curvine_tpu_torch.common import errors as err
@@ -52,6 +63,8 @@ from curvine_tpu_torch.common.path import norm_path
 from curvine_tpu_torch.common.types import CommitBlock
 from curvine_tpu_torch.master.acl import SuperuserGate
 from curvine_tpu_torch.master.filesystem import MasterFilesystem
+from curvine_tpu_torch.master.jobs import JobManager
+from curvine_tpu_torch.master.mount import MountManager
 from curvine_tpu_torch.master.replication import ReplicationManager
 from curvine_tpu_torch.master.retry_cache import RetryCache
 from curvine_tpu_torch.rpc.codes import MASTER_REFUSED, RpcCode
@@ -84,6 +97,9 @@ class MasterServer:
             self.fs, pull_budget_ms=mc.replication_pull_budget_ms,
             metrics=self.metrics)
         self.fs.on_worker_lost = self.replication.on_worker_lost
+        self.mounts = MountManager(self.fs)
+        self.fs.mounts = self.mounts
+        self.jobs = JobManager(self.fs, self.mounts)
         self.rpc = RpcServer(mc.hostname, mc.rpc_port, "master")
         self.rpc.metrics = self.metrics
         self.executor = ScheduledExecutor("master")
@@ -97,6 +113,7 @@ class MasterServer:
 
     async def start(self) -> None:
         self.fs.recover()
+        self.mounts.load_from_store()
         await self.rpc.start()
         self.executor.submit_periodic(
             "heartbeat-check", self._heartbeat_tick,
@@ -105,6 +122,7 @@ class MasterServer:
                                       self.fs.recover_stale_leases,
                                       LEASE_RECOVERY_S)
         self.executor.submit("replication", self.replication.run())
+        self.executor.submit("jobs", self.jobs.run())
         log.info("master started at %s", self.addr)
 
     def _heartbeat_tick(self) -> None:
@@ -124,6 +142,7 @@ class MasterServer:
     async def stop(self) -> None:
         await self.executor.stop()
         await self.replication.close()
+        await self.jobs.close()
         await self.rpc.stop()
         try:
             self.fs.flush_group()   # the open journal group, if any
@@ -156,6 +175,16 @@ class MasterServer:
         r(C.REQUEST_REPLACEMENT_WORKER, self._h(self._replacement_worker))
         r(C.REPORT_BLOCK_REPLICATION_RESULT,
           self._h(self._replication_result))
+        r(C.MOUNT, self._h(self._mount, mutate=True))
+        r(C.UNMOUNT, self._h(self._umount, mutate=True))
+        r(C.UPDATE_MOUNT, self._h(self._update_mount, mutate=True))
+        r(C.GET_MOUNT_TABLE, self._h(self._mount_table))
+        r(C.GET_MOUNT_INFO, self._h(self._mount_info))
+        r(C.SUBMIT_JOB, self._h(self._submit_job, mutate=True))
+        r(C.GET_JOB_STATUS, self._h(self._job_status))
+        r(C.CANCEL_JOB, self._h(self._cancel_job, mutate=True))
+        r(C.PREFETCH_WINDOW, self._h(self._prefetch_window, mutate=True))
+        r(C.REPORT_TASK, self._h(self._report_task))
         for code in MASTER_REFUSED:
             r(code, self._not_ported)
 
@@ -163,7 +192,7 @@ class MasterServer:
         raise err.Unsupported(f"{RpcCode(msg.code).name} is not served by "
                               f"the port's master (ROADMAP A3d)")
 
-    _PATH_KEYS = ("path", "src", "dst")
+    _PATH_KEYS = ("path", "src", "dst", "cv_path")
 
     @classmethod
     def _norm_req(cls, req: dict) -> dict:
@@ -178,17 +207,23 @@ class MasterServer:
         return req
 
     def _h(self, fn, mutate: bool = False):
+        async def call(req):
+            rep = fn(req)
+            if inspect.isawaitable(rep):
+                rep = await rep
+            return rep
+
         async def handler(msg: Message, conn: ServerConn):
             req = self._norm_req(unpack(msg.data) or {})
             if not mutate:
-                return {}, pack(fn(req))
+                return {}, pack(await call(req))
             key = (req.get("client_id"), req.get("call_id"))
             dedup = key[0] is not None and key[1] is not None
             if dedup:
                 cached = self.retry_cache.get(key)
                 if cached is not None:
                     return {}, cached
-            rep = fn(req)
+            rep = await call(req)
             # acked only after the group holding the entry has flushed
             await self.fs.committer.sync()
             data = pack(rep)
@@ -228,18 +263,29 @@ class MasterServer:
             file_type=q.get("file_type", 1))
         return {"status": st.to_wire()}
 
-    def _file_status(self, q):
+    async def _file_status(self, q):
         self.acl.check(q)
-        return {"status": self.fs.file_status(q["path"]).to_wire()}
+        try:
+            return {"status": self.fs.file_status(q["path"]).to_wire()}
+        except err.FileNotFound:
+            st = await self.mounts.ufs_status(q["path"])
+            if st is None:
+                raise
+            return {"status": st.to_wire()}
 
-    def _list_status(self, q):
+    async def _list_status(self, q):
+        """The cached entries merged over the mount's UFS listing: UFS
+        objects show before they are ever cached."""
         self.acl.check(q)
-        return {"statuses": [s.to_wire()
-                             for s in self.fs.list_status(q["path"])]}
+        return {"statuses": [s.to_wire() for s in
+                             await self.mounts.list_merged(q["path"])]}
 
-    def _exists(self, q):
+    async def _exists(self, q):
         self.acl.check(q)
-        return {"exists": self.fs.exists(q["path"])}
+        if self.fs.exists(q["path"]):
+            return {"exists": True}
+        return {"exists": await self.mounts.ufs_status(q["path"])
+                is not None}
 
     def _rename(self, q):
         self.acl.check(q)
@@ -353,4 +399,77 @@ class MasterServer:
                                    q.get("success", False),
                                    q.get("message", ""),
                                    via=q.get("via", ""))
+        return {}
+
+    # --- mounts ---
+    def _mount(self, q):
+        self.acl.check(q)
+        info = self.mounts.mount(q["cv_path"], q["ufs_path"],
+                                 properties=q.get("properties"),
+                                 auto_cache=q.get("auto_cache", False),
+                                 write_type=q.get("write_type", 0),
+                                 ttl_ms=q.get("ttl_ms", 0),
+                                 ttl_action=q.get("ttl_action", 0),
+                                 storage_type=q.get("storage_type", ""),
+                                 block_size=q.get("block_size", 0),
+                                 replicas=q.get("replicas", 0),
+                                 access_mode=q.get("access_mode", "rw"))
+        return {"mount": info.to_wire()}
+
+    def _umount(self, q):
+        self.acl.check(q)
+        self.mounts.umount(q["cv_path"])
+        return {}
+
+    def _update_mount(self, q):
+        self.acl.check(q)
+        info = self.mounts.update(q["cv_path"], properties=q.get("properties"),
+                                  auto_cache=q.get("auto_cache"),
+                                  ttl_ms=q.get("ttl_ms"),
+                                  ttl_action=q.get("ttl_action"),
+                                  access_mode=q.get("access_mode"))
+        return {"mount": info.to_wire()}
+
+    def _mount_table(self, q):
+        self.acl.check(q)
+        return {"mounts": [m.to_wire() for m in self.mounts.table()]}
+
+    def _mount_info(self, q):
+        self.acl.check(q)
+        m = self.mounts.get_mount(q["path"])
+        return {"mount": m.to_wire() if m else None}
+
+    # --- jobs ---
+    def _submit_job(self, q):
+        self.acl.check(q)
+        job = self.jobs.submit(q.get("kind", "load"), q["path"],
+                               recursive=q.get("recursive", True),
+                               replicas=q.get("replicas", 1))
+        return {"job_id": job.job_id}
+
+    def _prefetch_window(self, q):
+        """A reader's cursor in the (seed, epoch) order of ``path``'s
+        shards: the job manager keeps a rolling window warm ahead."""
+        self.acl.check(q)
+        job = self.jobs.advise_prefetch(
+            q["path"], cursor=int(q.get("cursor", 0)),
+            window=int(q.get("window", 8)), epoch=int(q.get("epoch", 0)),
+            seed=int(q.get("seed", 0)))
+        return {"job_id": job.job_id, "state": int(job.state),
+                "cursor": job.cursor, "window": job.window,
+                "planned": getattr(job, "_next", 0),
+                "total": job.total_files}
+
+    def _job_status(self, q):
+        self.acl.check(q)
+        return {"job": self.jobs.status(q["job_id"]).to_wire()}
+
+    def _cancel_job(self, q):
+        self.acl.check(q)
+        self.jobs.cancel(q["job_id"])
+        return {}
+
+    def _report_task(self, q):
+        """A worker's report of one task (the worker plane: no user)."""
+        self.jobs.report_task(q["task"])
         return {}

@@ -1,12 +1,13 @@
 """The master's metadata store: inodes, directory entries, block meta.
 
 Own copy of ``MemMetaStore`` (``curvine_tpu/master/store.py:43-250``):
-everything in dicts, made durable by the journal and its snapshots. Left
-out: ``KvMetaStore`` and its KV engine (``common/kvstore.py``,
-``kvnative``; ROADMAP A3d), and the mount, job, EC stripe, two-phase
-transaction and decommission tables of the features the port's master
-does not have; the store's KV transaction surface (``commit_applied``,
-``stage_entry``, ``rollback``), a no-op in RAM, goes with them."""
+everything in dicts, made durable by the journal and its snapshots, with
+the mount table's and the job manager's records (:112-130). Left out:
+``KvMetaStore`` and its KV engine (``common/kvstore.py``, ``kvnative``;
+ROADMAP A3d), and the EC stripe, two-phase transaction and decommission
+tables of the features the port's master does not have; the store's KV
+transaction surface (``commit_applied``, ``stage_entry``, ``rollback``),
+a no-op in RAM, goes with them."""
 
 from __future__ import annotations
 
@@ -19,6 +20,8 @@ class MemMetaStore:
         self.children: dict[int, dict[str, int]] = {}
         self.blocks: dict[int, tuple[int, int, int]] = {}
         self.counters: dict[str, int] = {}
+        self.mounts_tbl: dict[str, dict] = {}
+        self.jobs_tbl: dict[str, dict] = {}
 
     # inodes
     def get(self, inode_id: int):
@@ -72,6 +75,26 @@ class MemMetaStore:
     def block_count(self) -> int:
         return len(self.blocks)
 
+    # mount table records
+    def mount_put(self, cv_path: str, wire: dict) -> None:
+        self.mounts_tbl[cv_path] = wire
+
+    def mount_remove(self, cv_path: str) -> None:
+        self.mounts_tbl.pop(cv_path, None)
+
+    def iter_mounts(self):
+        return iter(list(self.mounts_tbl.values()))
+
+    # job records (journaled, so a restart resumes interrupted jobs)
+    def job_put(self, job_id: str, wire: dict) -> None:
+        self.jobs_tbl[job_id] = wire
+
+    def job_remove(self, job_id: str) -> None:
+        self.jobs_tbl.pop(job_id, None)
+
+    def iter_jobs(self):
+        return iter(list(self.jobs_tbl.values()))
+
     # counters
     def get_counter(self, name: str, default: int = 0) -> int:
         return self.counters.get(name, default)
@@ -90,3 +113,5 @@ class MemMetaStore:
         self.children.clear()
         self.blocks.clear()
         self.counters.clear()
+        self.mounts_tbl.clear()
+        self.jobs_tbl.clear()

@@ -8,10 +8,11 @@ commit and abort among them), and those the port's worker serves or
 sends to the master: its heartbeat and block report, block deletes,
 short-circuit read reports, the device tier-0's pin and unpin, the
 device-path transfer, the master's replication jobs and the results it
-reports back, the master's info for checks of the master's view, and
-the calls the worker refuses by name (the master's tasks, batched small
-writes); and those the port's master serves (the namespace, block,
-worker-plane and replication calls) or refuses by name
+reports back, the master's load, export and prefetch tasks and their
+reports, the master's info for checks of the master's view, and the
+call the worker refuses by name (batched small writes); and those the
+port's master serves (the namespace, block, worker-plane, replication,
+mount, job and prefetch-window calls) or refuses by name
 (``MASTER_REFUSED``: every other code the reference's master
 registers). The numbers are the wire's and must not change."""
 
@@ -110,9 +111,6 @@ MASTER_REFUSED = (
     RpcCode.SET_LOCK, RpcCode.LIST_LOCK, RpcCode.ASSIGN_WORKER,
     RpcCode.METRICS_REPORT, RpcCode.CLUSTER_HEALTH, RpcCode.GET_SPANS,
     RpcCode.EC_COMMIT_STRIPE,
-    RpcCode.DECOMMISSION_WORKER, RpcCode.MOUNT, RpcCode.UNMOUNT,
-    RpcCode.UPDATE_MOUNT, RpcCode.GET_MOUNT_TABLE, RpcCode.GET_MOUNT_INFO,
-    RpcCode.SUBMIT_JOB, RpcCode.GET_JOB_STATUS, RpcCode.CANCEL_JOB,
-    RpcCode.PREFETCH_WINDOW, RpcCode.REPORT_TASK, RpcCode.SHARD_TX,
+    RpcCode.DECOMMISSION_WORKER, RpcCode.SHARD_TX,
     RpcCode.SHARD_TX_LIST, RpcCode.SHARD_STATS, RpcCode.SHARD_TABLE,
     RpcCode.TENANT_STATS, RpcCode.RAFT_MEMBER_CHANGE, RpcCode.RAFT_TRANSFER)

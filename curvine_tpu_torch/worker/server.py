@@ -42,6 +42,13 @@ A carve of ``curvine_tpu/worker/server.py``:
   reported to the master like a TCP pull (``ici.peer_pulls``); a miss
   answers ``success: False`` and counts ``ici.tcp_fallbacks``, and the
   caller keeps its TCP rail;
+- SUBMIT_TASK (:1514-1550): a load, export or prefetch task of the
+  master's job manager runs in the background under ``_task_sem``
+  (``task_parallelism`` at once) through a client of the port's own
+  (``client/unified.py``: ``load_from_ufs``, ``export_to_ufs``,
+  ``prefetch``), closed when the task ends, and is reported back with
+  this worker's id (REPORT_TASK through ``_leader_call``); an
+  ``ec_convert`` task is refused by name;
 - SUBMIT_BLOCK_REPLICATION_JOB (``_replicate_block``, :1276-1410, without
   the EC branch :1282-1310, whose job is refused by name): the block
   lands over the device path first (``_ici_land``) when the master's job
@@ -74,9 +81,9 @@ a landing copies the block to the host before it lets the tensor go.
 
 Not ported (ROADMAP A3c): the bdev layout and direct IO (refused by the
 conf), the shared-memory channel (never offered), scrub and the disk
-health machinery (every dir reports healthy), the master's load,
-prefetch and EC tasks and WRITE_BLOCKS_BATCH (each refused by name with
-UNSUPPORTED), QoS, tracing and the web server."""
+health machinery (every dir reports healthy), the master's EC tasks and
+WRITE_BLOCKS_BATCH (each refused by name with UNSUPPORTED), QoS, tracing
+and the web server."""
 
 from __future__ import annotations
 
@@ -96,8 +103,9 @@ from curvine_tpu_torch.common import errors as err
 from curvine_tpu_torch.common.conf import ClusterConf
 from curvine_tpu_torch.common.executor import ScheduledExecutor
 from curvine_tpu_torch.common.metrics import MetricsRegistry
-from curvine_tpu_torch.common.types import (BlockState, StorageInfo,
-                                            StorageType, WorkerAddress,
+from curvine_tpu_torch.common.types import (BlockState, JobState,
+                                            StorageInfo, StorageType,
+                                            TaskInfo, WorkerAddress,
                                             WorkerInfo, now_ms)
 from curvine_tpu_torch.gpu import ici_plane
 from curvine_tpu_torch.gpu.hbm import MultiHbmTier, export_metrics
@@ -195,6 +203,8 @@ class WorkerServer:
         self._forced_report_at = 0.0
         # decommission drain: new write streams are refused (retryable)
         self.draining = False
+        # the master's load, export and prefetch tasks running at once
+        self._task_sem = asyncio.Semaphore(wc.task_parallelism)
         self._register_handlers()
 
     @property
@@ -569,15 +579,60 @@ class WorkerServer:
         r(RpcCode.HBM_UNPIN, self._hbm_unpin)
         r(RpcCode.ICI_TRANSFER, self._ici_transfer)
         r(RpcCode.SUBMIT_BLOCK_REPLICATION_JOB, self._replicate_block)
-        for code in (RpcCode.SUBMIT_TASK, RpcCode.WRITE_BLOCKS_BATCH):
-            r(code, self._not_ported)
+        r(RpcCode.SUBMIT_TASK, self._submit_task)
+        r(RpcCode.WRITE_BLOCKS_BATCH, self._not_ported)
 
     async def _not_ported(self, msg: Message, conn: ServerConn):
-        """The master's load, prefetch and EC tasks and batched
-        small-file writes are refused by name: the master marks the task
-        failed, a writer sees the error."""
+        """Batched small-file writes are refused by name: a writer sees
+        the error."""
         raise err.Unsupported(f"{RpcCode(msg.code).name} is not ported to "
                               f"this worker (ROADMAP A3c)")
+
+    # ---------------- the master's tasks ----------------
+
+    async def _submit_task(self, msg: Message, conn: ServerConn):
+        """A load, export or prefetch task, run in the background; its
+        result goes back to the master in REPORT_TASK. An ``ec_convert``
+        task is refused by name: the master marks it failed."""
+        q = unpack(msg.data) or {}
+        task = TaskInfo.from_wire(q["task"])
+        if task.kind not in ("load", "export", "prefetch"):
+            raise err.Unsupported(f"SUBMIT_TASK of kind {task.kind!r} is not "
+                                  f"ported to this worker (ROADMAP A3e)")
+        # tracked so that stop() cancels a task still running
+        self._bg = [t for t in self._bg if not t.done()]
+        self._bg.append(asyncio.ensure_future(self._run_load_task(task)))
+        return {"accepted": True}
+
+    async def _run_load_task(self, task: TaskInfo) -> None:
+        """UFS to cache (load; prefetch when not cached yet) or cache to
+        UFS (export), through a client of the port's own, closed when the
+        task ends."""
+        from curvine_tpu_torch.client.unified import CurvineClient
+        async with self._task_sem:
+            client = CurvineClient(self.conf)
+            try:
+                if task.kind == "export":
+                    n = await client.export_to_ufs(task.path)
+                elif task.kind == "prefetch":
+                    n = await client.prefetch(task.path)
+                else:
+                    n = await client.load_from_ufs(task.path)
+                task.state = JobState.COMPLETED
+                task.loaded_len = n
+            except Exception as e:  # noqa: BLE001 — reported to the master
+                task.state = JobState.FAILED
+                task.message = str(e)
+                log.warning("%s task %s failed: %s", task.kind, task.task_id,
+                            e)
+            finally:
+                task.worker_id = self.worker_id
+                try:
+                    await self._leader_call(RpcCode.REPORT_TASK,
+                                            pack({"task": task.to_wire()}))
+                except Exception as e:  # noqa: BLE001
+                    log.warning("task report failed: %s", e)
+                await client.close()
 
     async def _write_block(self, msg: Message, conn: ServerConn):
         """Chunked upload: the request header {block_id, storage_type,

@@ -68,8 +68,12 @@ required = {"curvine_tpu_torch.gpu.attention", "curvine_tpu_torch.gpu.flash",
             "curvine_tpu_torch.gpu.mesh", "curvine_tpu_torch.gpu.multihost",
             "curvine_tpu_torch.gpu.ici_plane",
             "curvine_tpu_torch.gpu.ici_transfer",
-            "curvine_tpu_torch.gpu.pipeline"}
-sys.exit(1 if bad or mapped or len(names) < 64 or required - set(names)
+            "curvine_tpu_torch.gpu.pipeline",
+            "curvine_tpu_torch.ufs.base", "curvine_tpu_torch.ufs.local",
+            "curvine_tpu_torch.ufs.memory", "curvine_tpu_torch.master.mount",
+            "curvine_tpu_torch.master.jobs",
+            "curvine_tpu_torch.client.ufs_reader"}
+sys.exit(1 if bad or mapped or len(names) < 71 or required - set(names)
          else 0)
 """
 

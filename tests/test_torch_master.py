@@ -23,7 +23,6 @@ placement policy set in the conf picking the workers its rule names,
 and worker loss and lease recovery on an injected clock."""
 
 import asyncio
-import contextlib
 import copy
 import json
 import os
@@ -46,9 +45,8 @@ from curvine_tpu.master import worker_map as jax_worker_map
 from curvine_tpu.master.filesystem import MasterFilesystem as JaxFs
 from curvine_tpu.master.store import MemMetaStore as JaxMemStore
 from curvine_tpu.worker import WorkerServer as JaxWorker
-from curvine_tpu_torch.client.unified import CurvineClient
 from curvine_tpu_torch.common import errors as err
-from curvine_tpu_torch.common.conf import MASTER_FIXED, ClusterConf, TierConf
+from curvine_tpu_torch.common.conf import MASTER_FIXED, ClusterConf
 from curvine_tpu_torch.common.journal import Journal
 from curvine_tpu_torch.common.types import (CommitBlock, StorageInfo,
                                             StorageType, WorkerAddress,
@@ -63,68 +61,11 @@ from curvine_tpu_torch.rpc.client import Connection
 from curvine_tpu_torch.rpc.codes import MASTER_REFUSED, RpcCode
 from curvine_tpu_torch.rpc.frame import pack, unpack
 from curvine_tpu_torch.worker.server import WorkerServer
+from torch_cluster import (BLOCK, MB, _await_live, _client, _cluster,
+                           _master_conf, _worker_conf)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-MB = 1 << 20
-BLOCK = 4 * MB
 WID = 7
-
-
-def _master_conf(tmp_path, **master) -> ClusterConf:
-    conf = ClusterConf()
-    mc = conf.master
-    mc.rpc_port = 0
-    mc.journal_dir = str(tmp_path / "journal")
-    mc.worker_lost_timeout_ms = 30_000
-    mc.heartbeat_check_ms = 200
-    for k, v in master.items():
-        setattr(mc, k, v)
-    conf.client.block_size = BLOCK
-    return conf
-
-
-def _worker_conf(conf: ClusterConf, root: str) -> ClusterConf:
-    wconf = copy.deepcopy(conf)
-    wc = wconf.worker
-    wc.hostname, wc.rpc_port, wc.heartbeat_ms = "127.0.0.1", 0, 200
-    wc.promote_interval_ms = 0
-    wc.tiers = [TierConf(storage_type="mem", dir=os.path.join(root, "mem"),
-                         capacity=64 * MB)]
-    return wconf
-
-
-async def _await_live(m: MasterServer, n: int, timeout: float = 10.0):
-    async def wait():
-        while len(m.fs.workers.live_workers()) < n:
-            await asyncio.sleep(0.02)
-    await asyncio.wait_for(wait(), timeout)
-
-
-@contextlib.asynccontextmanager
-async def _cluster(tmp_path, workers: int = 1, **master):
-    """The port's master and ``workers`` of the port's workers:
-    (master, [workers], the cluster's conf)."""
-    conf = _master_conf(tmp_path, **master)
-    m = MasterServer(conf)
-    await m.start()
-    conf.master.rpc_port = m.rpc.port        # a restart comes back here
-    conf.client.master_addrs = [m.addr]
-    ws = []
-    try:
-        for i in range(workers):
-            w = WorkerServer(_worker_conf(conf, str(tmp_path / f"w{i}")))
-            await w.start()
-            ws.append(w)
-        await _await_live(m, workers)
-        yield m, ws, conf
-    finally:
-        for w in ws:
-            await w.stop()
-        await m.stop()
-
-
-def _client(conf: ClusterConf) -> CurvineClient:
-    return CurvineClient(copy.deepcopy(conf))
 
 
 def _worker_wire(wid: int = WID, avail: int = 1 << 30) -> dict:
@@ -515,8 +456,7 @@ def test_journal_op_the_port_does_not_apply_is_refused(tmp_path, op):
         port.recover()
 
 
-@pytest.mark.parametrize("key", ["jobs", "ec", "deco", "mounts",
-                                 "raft_conf"])
+@pytest.mark.parametrize("key", ["ec", "deco", "raft_conf"])
 def test_snapshot_section_the_port_does_not_apply_is_refused(tmp_path, key):
     fs = JaxFs(journal=JaxJournal(str(tmp_path / "j")), store=JaxMemStore())
     fs.mkdir("/d")
@@ -528,6 +468,50 @@ def test_snapshot_section_the_port_does_not_apply_is_refused(tmp_path, key):
     port = MasterFilesystem(journal=Journal(str(tmp_path / "j")))
     with pytest.raises(UnportedJournalOp, match=key):
         port.recover()
+
+
+@pytest.mark.parametrize("key", ["jobs", "mounts"])
+def test_snapshot_section_of_mounts_and_jobs_is_applied(tmp_path, key):
+    """The two sections the port's master now applies: a JAX master's
+    snapshot with real mount or job records reopens in the port's master
+    (its ``MountManager`` attached, as the server attaches it) with the
+    same records, and the port's next snapshot carries them as the JAX
+    package's does; without a mount table a mounts section is refused."""
+    from curvine_tpu.common.types import JobInfo as JaxJob
+    from curvine_tpu.common.types import JobState as JaxJobState
+    from curvine_tpu.master.mount import MountManager as JaxMounts
+    from curvine_tpu_torch.master.mount import MountManager
+    fs = JaxFs(journal=JaxJournal(str(tmp_path / "j")), store=JaxMemStore())
+    fs.mounts = JaxMounts(fs)
+    if key == "mounts":
+        fs.mounts.mount("/m", "file:///data/m", access_mode="r", replicas=2,
+                        ttl_ms=500, ttl_action=1, properties={"k": "v"})
+        fs.mounts.mount("/n", "mem://bkt")
+    else:
+        for i, state in enumerate((JaxJobState.RUNNING,
+                                   JaxJobState.COMPLETED)):
+            fs._log("job_put", {"job": JaxJob(
+                job_id=f"j{i}", kind="prefetch", path="/ds", state=state,
+                create_ms=10 + i, cursor=3, window=2, epoch=1, seed=9,
+                total_files=6).to_wire()})
+    fs.checkpoint()
+    want = _masked(fs._snapshot_state()[key])
+    fs.journal.close()
+    port = MasterFilesystem(journal=Journal(str(tmp_path / "j")))
+    port.mounts = MountManager(port)
+    port.recover()
+    got = _masked(port._snapshot_state()[key])
+    assert got == want and len(got) == 2
+    if key == "mounts":
+        assert [m.cv_path for m in port.mounts.table()] == ["/m", "/n"]
+        assert port.mounts.resolve("/m/a/b") == (
+            port.mounts.get_mount("/m"), "file:///data/m/a/b")
+        bare = MasterFilesystem(journal=Journal(str(tmp_path / "j")))
+        with pytest.raises(UnportedJournalOp, match="mounts"):
+            bare.recover()
+    else:
+        assert sorted(w["job_id"] for w in port.store.iter_jobs()) == \
+            ["j0", "j1"]
 
 
 async def test_jax_worker_and_client_through_the_port_master(tmp_path):
@@ -662,6 +646,93 @@ async def test_refused_code_answers_unsupported_by_name(tmp_path, code):
                 await conn.call(code, data=pack({"path": "/x"}))
         finally:
             await conn.close()
+
+
+MOUNT_AND_JOB_CODES = (
+    RpcCode.MOUNT, RpcCode.UNMOUNT, RpcCode.UPDATE_MOUNT,
+    RpcCode.GET_MOUNT_TABLE, RpcCode.GET_MOUNT_INFO, RpcCode.SUBMIT_JOB,
+    RpcCode.GET_JOB_STATUS, RpcCode.CANCEL_JOB, RpcCode.PREFETCH_WINDOW,
+    RpcCode.REPORT_TASK)
+
+
+@pytest.mark.parametrize("code", MOUNT_AND_JOB_CODES, ids=lambda c: c.name)
+async def test_mount_and_job_code_is_served(tmp_path, code):
+    """The ten codes taken out of MASTER_REFUSED each get a real answer
+    from the port's master (the mount table, the job manager)."""
+    from curvine_tpu_torch.common.types import JobState, TaskInfo
+    ufs = tmp_path / "u"
+    ufs.mkdir()
+    (ufs / "a.bin").write_bytes(b"a" * 10)
+    async with _cluster(tmp_path, workers=0) as (m, _ws, conf):
+        c = _client(conf)
+        call = c.meta.call
+        try:
+            if code != RpcCode.MOUNT:
+                await c.meta.mount("/m", f"file://{ufs}")
+            if code == RpcCode.MOUNT:
+                rep = await call(code, {"cv_path": "/m",
+                                        "ufs_path": f"file://{ufs}/",
+                                        "access_mode": "r"}, mutate=True)
+                assert rep["mount"]["ufs_path"] == f"file://{ufs}"
+                assert [x.cv_path for x in m.mounts.table()] == ["/m"]
+                assert m.fs.file_status("/m").is_dir
+            elif code == RpcCode.UNMOUNT:
+                assert await call(code, {"cv_path": "/m"}, mutate=True) == {}
+                assert m.mounts.table() == []
+                with pytest.raises(err.MountNotFound):
+                    await call(code, {"cv_path": "/m"}, mutate=True)
+            elif code == RpcCode.UPDATE_MOUNT:
+                rep = await call(code, {"cv_path": "/m", "access_mode": "r",
+                                        "auto_cache": True}, mutate=True)
+                assert (rep["mount"]["access_mode"],
+                        rep["mount"]["auto_cache"]) == ("r", True)
+            elif code == RpcCode.GET_MOUNT_TABLE:
+                rep = await call(code, {})
+                assert [x["cv_path"] for x in rep["mounts"]] == ["/m"]
+            elif code == RpcCode.GET_MOUNT_INFO:
+                rep = await call(code, {"path": "/m/a.bin"})
+                assert rep["mount"]["cv_path"] == "/m"
+                assert (await call(code, {"path": "/x"}))["mount"] is None
+            elif code == RpcCode.SUBMIT_JOB:
+                rep = await call(code, {"kind": "load", "path": "/m"},
+                                 mutate=True)
+                assert m.jobs.jobs[rep["job_id"]].kind == "load"
+                with pytest.raises(err.Unsupported, match="ec_convert"):
+                    await call(code, {"kind": "ec_convert", "path": "/m"},
+                               mutate=True)
+            elif code == RpcCode.GET_JOB_STATUS:
+                jid = await c.meta.submit_load("/m")
+                rep = await call(code, {"job_id": jid})
+                assert (rep["job"]["job_id"], rep["job"]["kind"]) == \
+                    (jid, "load")
+                with pytest.raises(err.JobNotFound):
+                    await call(code, {"job_id": "nope"})
+            elif code == RpcCode.CANCEL_JOB:
+                jid = await c.meta.submit_load("/m")
+                assert await call(code, {"job_id": jid}, mutate=True) == {}
+                assert m.jobs.jobs[jid].state == JobState.CANCELLED
+            elif code == RpcCode.PREFETCH_WINDOW:
+                rep = await call(code, {"path": "/m", "window": 2},
+                                 mutate=True)
+                assert m.jobs._prefetch[("/m", 0)] == rep["job_id"]
+                assert (rep["cursor"], rep["window"]) == (0, 2)
+            else:
+                job = m.jobs.submit("load", "/m")
+                for _ in range(200):
+                    if job.tasks:
+                        break
+                    await asyncio.sleep(0.01)
+                t = job.tasks[0]
+                done = TaskInfo(task_id=t.task_id, job_id=job.job_id,
+                                path=t.path, state=JobState.COMPLETED,
+                                loaded_len=10)
+                assert await call(code, {"task": done.to_wire()}) == {}
+                assert job.state == JobState.COMPLETED
+                done.job_id = "nope"
+                with pytest.raises(err.JobNotFound):
+                    await call(code, {"task": done.to_wire()})
+        finally:
+            await c.close()
 
 
 @pytest.mark.parametrize("code", [RpcCode.REQUEST_REPLACEMENT_WORKER,

@@ -236,9 +236,14 @@ async def test_errors_cross_the_wire_with_the_reference_codes(tmp_path):
                                  data=pack({"block_id": 1}))
             with pytest.raises(perr.CurvineError, match="no handler"):
                 await pconn.call(RpcCode.MKDIR, data=pack({}))
-            for code in (RpcCode.SUBMIT_TASK, RpcCode.WRITE_BLOCKS_BATCH):
-                with pytest.raises(perr.Unsupported, match=code.name):
-                    await pconn.call(code, data=pack({}))
+            with pytest.raises(perr.Unsupported, match="WRITE_BLOCKS_BATCH"):
+                await pconn.call(RpcCode.WRITE_BLOCKS_BATCH, data=pack({}))
+            # the master's tasks are served, but not an EC conversion
+            with pytest.raises(perr.Unsupported,
+                               match="SUBMIT_TASK.*ec_convert"):
+                await pconn.call(RpcCode.SUBMIT_TASK, data=pack({"task": {
+                    "task_id": "t", "job_id": "j", "path": "/x",
+                    "kind": "ec_convert"}}))
             # replication jobs are served, but not an EC cell's rebuild
             with pytest.raises(perr.Unsupported,
                                match="SUBMIT_BLOCK_REPLICATION_JOB.*ec"):

@@ -128,6 +128,28 @@ Phases, each raising on a fault (the exit code is then non-zero):
    block from the tier-0: ``ici.peer_pulls`` equal to the blocks, no
    byte by short circuit or READ_BLOCK) and ``"flat"``, each leaf
    replicated and bit-equal on the card; the blocks unpinned after;
+6f. recover: the client's write recovery, with phase ckpt's parameters
+   still on the card: a master of the phase's own (``ici`` placement, a
+   lost timeout of 3 s) and four of the port's workers in this process,
+   A to D at ICI (0..3, 0), each with a mem tier and a 256 MiB tier-0 on
+   the card; writes from (0, 0). (a) 8 x 64 MiB of tokens written to one
+   file in 16 MiB writes, one replica by short circuit, A stopped 40 MiB
+   into block 1: its SC_WRITE_COMMIT fails and the block is replayed
+   whole onto B; ``hflush`` after block 3, seen by another client; the
+   file equal to its tokens, no block on A, its GiB/s beside the same
+   write with no death. (b) The flagship's parameters saved with two
+   replicas at a floor of two (on B and D), once with no death, then
+   again with D stopped at 1 GiB written: the open block replayed onto
+   B and C, D's earlier blocks healed onto C; the checkpoint loaded onto
+   the card bit for bit and its loss equal to the saved parameters'
+   (K3's forward); the save's GiB/s beside the save with no death and
+   phase ckpt's, the heal's seconds. (c) The replayed blocks read up to
+   the promote threshold and pinned by their holders' promote cycles,
+   K1 verifying each pin, each device copy equal to its file. (d) A
+   fifth worker E; a reader opened on a checkpoint tensor of
+   several blocks (on B and C); C stopped and its blocks healed onto E,
+   B stopped; the open reader's ``read_all`` bit-equal through exactly
+   one location refresh. No error reaches a caller in (a) or (b);
 6c. mesh: an NCCL world of this process alone (``multihost.initialize``)
    and a (1, 1) ``("data", "model")`` mesh on the card; phase 6's initial
    parameters (the same seed) placed by ``shard_params``, a fresh AdamW,
@@ -223,14 +245,16 @@ just after them (K1), again just before the two passes of phase 6 and read
 just after them (K3), again just before phase 6a's three steps and read
 just after them (K3), again just before phase 6b and read just after it
 (K3's forward, twice a layer for the two losses, and no backward
-kernel), again just before the two passes of phase 6c and read just
+kernel), again just before phase 6f's two losses and read just after
+them (K3's forward, as in 6b), again just before phase 6f's promote
+cycles and read just after them (K1), again just before the two passes of phase 6c and read just
 after them (K3), again just before phase 6d's three pipeline steps and
 read just after them (K3), again just before phase 6e's three ring
 steps and read just after them (K3: none), and just before phase 7's
 ``query_many`` and read just after it (K2, which must equal the ADC
-stages the search issued). The kernels line gives K1's five counts
+stages the search issued). The kernels line gives K1's six counts
 summed (each held to its pins, the refused device copies included) and
-phase 6's, 6a's, 6c's and 6d's K3 counts summed. The port's worker and
+phase 6's, 6a's, 6c's, 6d's and 6f's K3 counts summed. The port's worker and
 master are stopped, the process group destroyed, and the data directory removed, however the run ends. No
 process of the run loads a module of JAX or of the JAX
 package. Prints each phase's numbers, the card's name and power limit,
@@ -332,6 +356,20 @@ REP_BLOCKS = 4
 REP_TIER_BYTES = 16 * BLOCK
 REP_LOST_MS = 3_000
 ICI_PAYLOAD, ICI_ROUNDS, ICI_WARMUPS = 64 * MiB, 3, 2
+# phase recover: four of the port's workers under a master of their own
+# (the ici placement, REP_LOST_MS), and a fifth for the refresh; a file of
+# SHARDS token shards written in RECOVER_WRITE pieces, its first block's
+# worker stopped RECOVER_KILL_AT into it; the checkpoint saved with two
+# replicas at a floor of two, a leg's worker stopped once the save has
+# written RECOVER_SAVE_KILL bytes. A mem tier holds every file's
+# replicas; the tier-0s hold the replayed blocks. The phase writes at
+# most RECOVER_PHASE_BYTES to the data directory (files, replays, heals)
+RECOVER_WRITE = 16 * MiB
+RECOVER_KILL_AT = 40 * MiB
+RECOVER_SAVE_KILL = GiB
+RECOVER_TIER_BYTES = CKPT_BYTES + 2 * SHARDS * SHARD_BYTES
+RECOVER_HBM_BYTES = 4 * BLOCK
+RECOVER_PHASE_BYTES = 2 * SHARDS * SHARD_BYTES + 4 * CKPT_BYTES
 
 
 def log(msg: str) -> None:
@@ -792,12 +830,12 @@ class PortWorker:
     own event loop (the phases' clients run their own loops and reach it
     over loopback TCP, and the worker phase takes device tensors from
     ``worker.hbm``): a mem tier of ``tier_bytes`` under ``root``, a device
-    tier-0 of TIER_BYTES on ``dev``, 64 MiB blocks, no periodic promote
+    tier-0 of ``hbm_bytes`` on ``dev``, 64 MiB blocks, no periodic promote
     cycle (the worker phase runs its cycles itself), ICI coordinates
     ``coords``; it joins the device domain of this process."""
 
     def __init__(self, master: str, root: str, tier_bytes: int,
-                 dev: torch.device, coords=()):
+                 dev: torch.device, coords=(), hbm_bytes: int = TIER_BYTES):
         import threading
         from curvine_tpu_torch.common.conf import ClusterConf, TierConf
         from curvine_tpu_torch.worker.server import WorkerServer
@@ -812,7 +850,7 @@ class PortWorker:
         wc.tiers = [TierConf(storage_type="mem",
                              dir=os.path.join(root, "worker", "mem"),
                              capacity=tier_bytes)]
-        wc.hbm_capacity = TIER_BYTES
+        wc.hbm_capacity = hbm_bytes
         wc.ici_coords = list(coords)
         self.conf = conf
         self.worker = WorkerServer(conf, devices=[dev])
@@ -3460,6 +3498,467 @@ def phase_master(root: str, conf: str, cluster: dict, pw: PortWorker,
     return res
 
 
+# ------------------------------------------------------------- recover
+
+class _Tripwire(dict):
+    """A client's counters that call ``fire`` once, on the thread that
+    counts, when ``key`` first reaches ``at``."""
+
+    def __init__(self, key: str, at: int, fire):
+        super().__init__()
+        self.key, self.at, self.fire, self.fired = key, at, fire, False
+
+    def __setitem__(self, k, v) -> None:
+        super().__setitem__(k, v)
+        if k == self.key and v >= self.at and not self.fired:
+            self.fired = True
+            self.fire()
+
+
+def _record_placements(c, into: list) -> None:
+    """``c.meta.add_block`` wrapped: each placed block's time and worker
+    ids appended to ``into``."""
+    real = c.meta.add_block
+
+    async def add_block(path, *a, **kw):
+        lb = await real(path, *a, **kw)
+        into.append((time.perf_counter(), [x.worker_id for x in lb.locs]))
+        return lb
+    c.meta.add_block = add_block
+
+
+def phase_recover(dev: torch.device, root: str, seed: int, params: dict,
+                  ckpt: dict) -> dict:
+    """The client's write recovery on one card: a master of the phase's
+    own (``ici`` placement, a lost timeout of REP_LOST_MS) and four of the
+    port's workers in this process, A to D at ICI (0..3, 0), each with a
+    mem tier under the phase's directory and a small tier-0 on the card;
+    the client writes from (0, 0), so placement is fixed: the nearest
+    worker first, then the farthest. (a) ``/recover/shards``, SHARDS
+    token shards (ids below the flagship's vocab, from ``seed``), one
+    replica, written by short circuit through one ``FsWriter`` in
+    RECOVER_WRITE pieces; RECOVER_KILL_AT into block 1, its worker (A) is
+    stopped. The temp file stays writable, so the death shows at the
+    block's SC_WRITE_COMMIT: the block is abandoned, re-placed on B and
+    replayed whole. After block 3 seals, ``hflush`` journals its commit
+    and a second client's GET_BLOCK_LOCATIONS lists the three blocks
+    before ``close``. ``close`` raises nothing, the file equals its tokens,
+    no block is on A; the write's GiB/s beside the same file written
+    before with no death. (b) Phase ckpt's parameters saved with two
+    replicas at a floor of two (every block on B and D), first with no
+    death (then deleted), then to ``/recover/ckpt``; once that save has
+    written RECOVER_SAVE_KILL bytes, the leg of the open block that holds
+    none of (a)'s blocks (D) is stopped: the surviving leg is below the
+    floor, so the block is replayed onto B and C; D's earlier blocks keep
+    their replica on B and the master heals them onto C. Each block open
+    after the stop is timed, and those placed on D first counted (the
+    master lists D until its lost timeout, and each such open dials it,
+    fails and asks again). The checkpoint loaded onto the card with
+    ``distribute_checkpoint_to_device``, bit for bit equal to the saved
+    tensors, and the loss of one train batch from it equal to the saved
+    parameters' (K3's forward, twice a layer). (c) The earlier reads'
+    heat decayed by the workers' host promotion scans, each replayed
+    block read up to WORKER_MIN_READS through a client, and its holders'
+    promote cycles pin it, K1 verifying each pin; each device copy equal
+    to its block file on the card. (d) A fifth worker E at (4, 0); a
+    reader opened on the checkpoint's first tensor of several blocks
+    (every block on B and C); C stopped and its blocks healed onto E; B
+    stopped; the open reader's ``read_all`` equals the tensor after
+    exactly one more GET_BLOCK_LOCATIONS (the refresh). The phase's files
+    are deleted, its workers and master stopped and its directory
+    removed, however it ends."""
+    from curvine_tpu_torch.client import writer as fswriter
+    from curvine_tpu_torch.gpu import broadcast, cuda_ops, flash
+    from curvine_tpu_torch.gpu import model as tm
+    base = os.path.join(root, "recover")
+    os.makedirs(base)
+    res = {"lost_timeout_ms": REP_LOST_MS}
+    workers: dict[str, PortWorker] = {}
+    proc = None
+    recoveries = []
+    opens = []
+    real_recover = fswriter.FsWriter._recover_block
+    real_next = fswriter.FsWriter._next_block
+
+    async def timed_recover(self, cause):
+        n = len(self._replay) if self._replay is not None else 0
+        t = time.perf_counter()
+        await real_recover(self, cause)
+        recoveries.append({"path": self.path, "bytes": n,
+                           "s": time.perf_counter() - t,
+                           "block": self._block.block.id})
+
+    async def timed_next(self, *a, **kw):
+        t = time.perf_counter()
+        try:
+            return await real_next(self, *a, **kw)
+        finally:
+            opens.append((self.path, t, time.perf_counter() - t))
+
+    def stop(name: str) -> float:
+        """Stop worker ``name``; returns the time it stopped."""
+        workers.pop(name).stop()
+        return time.perf_counter()
+
+    def ids_of(*names) -> list[int]:
+        return [workers[n].worker.worker_id for n in names]
+
+    tokens = ufs_tokens(seed, SHARDS, 0x72656376)
+    raw = memoryview(tokens.view(np.uint8))
+    cfg = _flagship()
+    saved = tm.leaves(params)
+    nbytes = sum(t.nbytes for t in saved)
+    kernels = [getattr(flash, n) for n in K3_NAMES]
+    fswriter.FsWriter._recover_block = timed_recover
+    fswriter.FsWriter._next_block = timed_next
+    try:
+        conf = master_conf(base, lost_ms=REP_LOST_MS, policy="ici")
+        proc, info = start_master(base, conf)
+        master = info["addr"]
+        res["master_start_s"] = info["start_s"]
+        for i, name in enumerate("abcd"):
+            workers[name] = PortWorker(
+                master, os.path.join(base, name), RECOVER_TIER_BYTES, dev,
+                coords=(i, 0), hbm_bytes=RECOVER_HBM_BYTES)
+        names = {workers[n].worker.worker_id: n for n in workers}
+        await_live(master, ids_of(*"abcd"), phase="recover")
+
+        # (a) one replica by short circuit, its worker stopped mid-block
+        cuts = sorted(set(range(0, len(raw) + 1, RECOVER_WRITE))
+                      | {RECOVER_KILL_AT})
+        pieces = list(zip(cuts, cuts[1:]))
+
+        async def write_a():
+            async with port_client(master, coords=(0, 0)) as c, \
+                    port_client(master) as other:
+                t = time.perf_counter()
+                w = await c.create("/recover/clean", replicas=1)
+                for o, e in pieces:
+                    await w.write(raw[o:e])
+                await w.close()
+                clean_s = time.perf_counter() - t
+                await c.meta.delete("/recover/clean")
+                placed = []
+                _record_placements(c, placed)
+                flushed = None
+                t = time.perf_counter()
+                w = await c.create("/recover/shards", replicas=1)
+                for o, e in pieces:
+                    await w.write(raw[o:e])
+                    if e == RECOVER_KILL_AT:
+                        victim = placed[0][1][0]
+                        await asyncio.to_thread(stop, names[victim])
+                    if e == 3 * BLOCK:
+                        await w.hflush()
+                        fb = await other.meta.get_block_locations(
+                            "/recover/shards")
+                        flushed = (fb.status.is_complete,
+                                   [lb.block.len for lb in fb.block_locs])
+                await w.close()
+                shards_s = time.perf_counter() - t
+                back = await c.read_all("/recover/shards")
+                fb = await c.meta.get_block_locations("/recover/shards")
+                locs = [[x.worker_id for x in lb.locs]
+                        for lb in fb.block_locs]
+                return (clean_s, shards_s, victim, flushed, locs,
+                        back == raw, dict(c.counters))
+
+        clean_s, shards_s, victim_a, flushed, locs_a, equal, ca = \
+            asyncio.run(write_a())
+        rec_a = [r for r in recoveries if r["path"] == "/recover/shards"]
+        holders_a = {w for ids in locs_a for w in ids}
+        if names.get(victim_a) != "a" or not equal \
+                or flushed != (False, [BLOCK] * 3) \
+                or victim_a in holders_a or len(locs_a) != SHARDS \
+                or len(rec_a) != 1 or rec_a[0]["bytes"] != BLOCK \
+                or ca.get("write.block_replay_bytes") != BLOCK \
+                or ca.get("write.replica_failover", 0) < 1:
+            raise AssertionError(
+                f"recover (a): victim {victim_a} ({names.get(victim_a)}), "
+                f"file equal {equal}, after hflush {flushed}, blocks on "
+                f"{locs_a}, recoveries {rec_a}, counters {ca}")
+        size = len(raw)
+        res["a"] = dict(
+            bytes=size, victim=victim_a, clean_s=clean_s,
+            clean_gibs=size / GiB / clean_s, write_s=shards_s,
+            write_gibs=size / GiB / shards_s, replay_bytes=rec_a[0]["bytes"],
+            replay_s=rec_a[0]["s"],
+            replica_failover=ca["write.replica_failover"],
+            sc_bytes_written=ca.get("sc.bytes.written", 0),
+            blocks_on=sorted(holders_a))
+        ra = res["a"]
+        log(f"recover (a): /recover/shards, {size // MiB} MiB of tokens in "
+            f"{RECOVER_WRITE // MiB} MiB writes, one replica by short "
+            f"circuit; worker A ({victim_a}) stopped {RECOVER_KILL_AT // MiB} "
+            f"MiB into block 1; its SC_WRITE_COMMIT failed and the block was "
+            f"replayed onto B ({ra['replay_bytes']:,} bytes, the whole "
+            f"block, in {ra['replay_s']:.3f}s); hflush after block 3: "
+            f"another client saw 3 blocks of {BLOCK // MiB} MiB, the file "
+            f"open; close "
+            f"raised nothing: {ra['write_gibs']:.3f} GiB/s against "
+            f"{ra['clean_gibs']:.3f} with no death; the file equal to its "
+            f"tokens, its blocks on {ra['blocks_on']}, none on A; "
+            f"write.replica_failover {ra['replica_failover']}")
+        if holders_a != set(ids_of("b")):
+            raise AssertionError(f"recover (a): blocks on {holders_a}, not "
+                                 f"all on B")
+        await_live(master, ids_of(*"bcd"), phase="recover")
+
+        # (b) the checkpoint at two replicas and a floor of two, a leg's
+        # worker stopped mid-block
+        stopped = {}
+
+        def kill_b():
+            legs = save_placed[-1][1]
+            spare = [x for x in legs if x not in holders_a]
+            stopped["victim"] = spare[0] if spare else None
+            stopped["legs"] = legs
+            if spare:
+                stopped["t"] = stop(names[spare[0]])
+
+        save_placed = []
+
+        async def save_b():
+            async with port_client(master, coords=(0, 0), replicas=2,
+                                   write_min_replicas=2) as c:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                await broadcast.save_checkpoint(c, "/recover/clean", params)
+                clean_s = time.perf_counter() - t
+                await c.meta.delete("/recover/clean", recursive=True)
+                _record_placements(c, save_placed)
+                c.counters = _Tripwire("write.bytes", RECOVER_SAVE_KILL,
+                                       kill_b)
+                t = time.perf_counter()
+                await broadcast.save_checkpoint(c, "/recover/ckpt", params)
+                return clean_s, time.perf_counter() - t, dict(c.counters)
+
+        clean_s, save_s, cb = asyncio.run(save_b())
+        # the save's block opens after the stop, and those that were
+        # placed on the stopped worker first (the master lists it until
+        # its lost timeout; the open dials it, fails and asks again)
+        after = [(t, dt) for p, t, dt in opens
+                 if p.startswith("/recover/ckpt/") and t >= stopped["t"]]
+        dead = [(t, dt) for t, dt in after if any(
+            t <= at <= t + dt and stopped["victim"] in legs
+            for at, legs in save_placed)]
+        rec_b = [r for r in recoveries if r["path"].startswith(
+            "/recover/ckpt/")]
+        victim_b = stopped.get("victim")
+        if names.get(victim_b) != "d" or sorted(stopped["legs"]) != \
+                sorted(ids_of("b") + [victim_b]) or len(rec_b) != 1 \
+                or not cb.get("write.block_replay_bytes"):
+            raise AssertionError(f"recover (b): stopped {stopped} "
+                                 f"({names.get(victim_b)}), recoveries "
+                                 f"{rec_b}, counters {cb}")
+
+        async def ckpt_locs():
+            async with port_client(master) as c:
+                out = {}
+                for st in await c.meta.list_status("/recover/ckpt"):
+                    fb = await c.meta.get_block_locations(st.path)
+                    out[st.path] = [(lb.block.id, sorted(
+                        x.worker_id for x in lb.locs))
+                        for lb in fb.block_locs]
+                return out
+
+        bc = sorted(ids_of("b", "c"))
+        heal_s = time.perf_counter() - stopped["t"] + _poll(
+            lambda: all(ids == bc for locs in asyncio.run(ckpt_locs())
+                        .values() for _, ids in locs),
+            120, "healed /recover/ckpt to B and C", 0.2, "recover")
+        batch = torch.from_numpy(train_tokens(cfg, seed)[
+            :TRAIN_BATCH * TRAIN_SEQ].reshape(TRAIN_BATCH, TRAIN_SEQ)).to(dev)
+
+        async def load_b():
+            async with port_client(master) as c:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                got = await broadcast.distribute_checkpoint_to_device(
+                    c, "/recover/ckpt", dev)
+                torch.cuda.synchronize()
+                return got, time.perf_counter() - t
+
+        loaded, load_s = asyncio.run(load_b())
+        back = tm.leaves(loaded)
+        bad = [i for i, (x, y) in enumerate(zip(saved, back))
+               if x.dtype != y.dtype or x.shape != y.shape
+               or y.device != x.device
+               or not torch.equal(_int_view(x), _int_view(y))]
+        for fn in kernels:
+            fn.launches = 0
+        with torch.no_grad():
+            loss_saved = tm.loss_fn(params, batch, cfg)
+            loss_loaded = tm.loss_fn(loaded, batch, cfg)
+        launches = {fn.__name__: fn.launches for fn in kernels}
+        del loaded, back
+        res["b"] = dict(
+            bytes=nbytes, tensors=len(saved), victim=victim_b,
+            save_s=save_s, save_gibs=nbytes / GiB / save_s,
+            clean_s=clean_s, clean_gibs=nbytes / GiB / clean_s,
+            ckpt_save_gibs=ckpt["save_gibs"],
+            replay_bytes=cb["write.block_replay_bytes"],
+            replay_s=rec_b[0]["s"],
+            replica_failover=cb.get("write.replica_failover", 0),
+            opens_after=len(after), opens_after_s=sum(d for _, d in after),
+            dead_opens=len(dead), dead_opens_s=sum(d for _, d in dead),
+            heal_s=heal_s, load_s=load_s, load_gibs=nbytes / GiB / load_s,
+            loss_saved=loss_saved.item(), loss_loaded=loss_loaded.item())
+        rb = res["b"]
+        log(f"recover (b): phase ckpt's {len(saved)} tensors saved to "
+            f"/recover/ckpt with two replicas at a floor of two (B and D); "
+            f"at {RECOVER_SAVE_KILL / GiB:g} GiB written, D ({victim_b}), "
+            f"a leg of the open block, stopped; the surviving leg below the "
+            f"floor, the block replayed onto B and C ({rb['replay_bytes']:,} "
+            f"bytes in {rb['replay_s']:.3f}s); the save raised nothing: "
+            f"{rb['save_gibs']:.3f} GiB/s against {rb['clean_gibs']:.3f} "
+            f"for the same save with no death and phase ckpt's "
+            f"{rb['ckpt_save_gibs']:.3f} (one replica, short circuit); "
+            f"{rb['dead_opens']} of the {rb['opens_after']} block opens "
+            f"after the stop were placed on D first and took "
+            f"{rb['dead_opens_s']:.3f}s of their {rb['opens_after_s']:.3f}s; "
+            f"every "
+            f"block back at two live replicas (B, C) {heal_s:.3f}s after "
+            f"the stop; loaded onto {dev} in {load_s:.3f}s "
+            f"({rb['load_gibs']:.3f} GiB/s), {len(bad)} tensors not "
+            f"bit-equal; loss saved {rb['loss_saved']!r} loaded "
+            f"{rb['loss_loaded']!r}; K3 launches {launches}")
+        if bad or not torch.equal(loss_saved, loss_loaded) \
+                or not math.isfinite(rb["loss_saved"]) \
+                or launches != {"flash_fwd": 2 * cfg.n_layers,
+                                "flash_bwd_di": 0, "flash_bwd_dkv": 0,
+                                "flash_bwd_dq": 0}:
+            raise AssertionError(f"recover (b): tensors not bit-equal "
+                                 f"{bad[:5]}, losses {rb['loss_saved']} "
+                                 f"{rb['loss_loaded']}, K3 {launches}")
+
+        # (c) the replayed blocks pinned, each pin verified by K1
+        replayed = {r["block"]: r["path"] for r in rec_a + rec_b}
+        for pw_ in workers.values():
+            for _ in range(3):
+                pw_.worker.store.promote_scan(WORKER_MIN_READS)
+
+        async def heat():
+            async with port_client(master) as c:
+                for bid, path in replayed.items():
+                    fb = await c.meta.get_block_locations(path)
+                    lb = next(x for x in fb.block_locs if x.block.id == bid)
+                    r = await c.open(path)
+                    try:
+                        await r.pread(lb.offset, lb.block.len)
+                    finally:
+                        await r.close()
+
+        def holder(bid):
+            return next((pw_.worker for pw_ in workers.values()
+                         if pw_.worker.hbm_holds(bid)), None)
+
+        pins0 = sum(pw_.worker.metrics.counters.get("blocks.hbm_pinned", 0)
+                    for pw_ in workers.values())
+        cuda_ops.block_checksum.launches = 0
+        cycles = 0
+        while any(holder(b) is None for b in replayed) and cycles < 4:
+            asyncio.run(heat())
+            for pw_ in workers.values():
+                pw_.call(pw_.worker._promote_once())
+            cycles += 1
+        k1 = cuda_ops.block_checksum.launches
+        pins = sum(pw_.worker.metrics.counters.get("blocks.hbm_pinned", 0)
+                   for pw_ in workers.values()) - pins0
+        missing = [b for b in replayed if holder(b) is None]
+        if missing or k1 != pins or pins != len(replayed):
+            raise AssertionError(f"recover (c): {cycles} promote cycles, "
+                                 f"{pins} pins, {k1} K1 launches, replayed "
+                                 f"blocks {sorted(replayed)} not pinned "
+                                 f"{missing}")
+        for bid in replayed:
+            w = holder(bid)
+            got = w.hbm_get(bid).reshape(-1).view(torch.uint8)
+            ref = torch.from_numpy(np.fromfile(
+                w.store.get(bid, touch=False).path, dtype=np.uint8)).to(dev)
+            if not torch.equal(got, ref):
+                raise AssertionError(f"recover (c): block {bid}'s device "
+                                     f"copy differs from its file")
+        del got, ref
+        res["c"] = dict(replayed=sorted(replayed), pins=pins,
+                        k1_launches=k1, cycles=cycles)
+        log(f"recover (c): the replayed blocks {sorted(replayed)} read up "
+            f"to {WORKER_MIN_READS} and pinned by their holders' promote "
+            f"cycles ({cycles} a worker): {pins} pins, {k1} K1 launches; "
+            f"each device copy equal to its block file on the card")
+
+        # (d) the reader's location refresh
+        workers["e"] = PortWorker(
+            master, os.path.join(base, "e"), RECOVER_TIER_BYTES, dev,
+            coords=(4, 0), hbm_bytes=RECOVER_HBM_BYTES)
+        names[workers["e"].worker.worker_id] = "e"
+        await_live(master, ids_of("b", "c", "e"), phase="recover")
+        i = next(i for i, t in enumerate(saved) if t.nbytes > BLOCK)
+        path = f"/recover/ckpt/t{i:05d}.bin"
+        want = saved[i].detach().cpu().contiguous().reshape(-1) \
+            .view(torch.uint8).numpy()
+        be = sorted(ids_of("b", "e"))
+
+        async def refresh():
+            async with port_client(master, short_circuit=False) as c:
+                r = await c.open(path)
+                before = [ids for _, ids in (await ckpt_locs())[path]]
+                calls = []
+                real = c.meta.get_block_locations
+
+                async def get_block_locations(p, *a, **kw):
+                    calls.append(p)
+                    return await real(p, *a, **kw)
+                c.meta.get_block_locations = get_block_locations
+                t = await asyncio.to_thread(stop, "c")
+                healed_s = await asyncio.to_thread(
+                    _poll, lambda: all(
+                        sorted(ids) == be
+                        for _, ids in _block_locs(master, path)),
+                    60, f"healed {path} onto E", 0.05, "recover")
+                await asyncio.to_thread(stop, "b")
+                t = time.perf_counter()
+                got = await r.read_all()
+                read_s = time.perf_counter() - t
+                await r.close()
+                return before, calls, healed_s, read_s, \
+                    np.array_equal(np.frombuffer(got, np.uint8), want)
+
+        before, calls, healed_s, read_s, equal = asyncio.run(refresh())
+        res["d"] = dict(path=path, bytes=want.size,
+                        blocks=len(before), healed_s=healed_s,
+                        read_s=read_s, refreshes=len(calls))
+        log(f"recover (d): a reader of {path} ({want.size:,} bytes, "
+            f"{len(before)} blocks, every one on B and C) opened; C stopped "
+            f"and its blocks healed onto E {healed_s:.3f}s after; B stopped; "
+            f"the open reader's read_all took {read_s:.3f}s through "
+            f"{len(calls)} GET_BLOCK_LOCATIONS (the refresh), bit-equal "
+            f"{equal}")
+        if not equal or calls != [path] or \
+                any(ids != bc for ids in before):
+            raise AssertionError(f"recover (d): located {before} at the "
+                                 f"open, refreshes {calls}, equal {equal}")
+    finally:
+        fswriter.FsWriter._recover_block = real_recover
+        fswriter.FsWriter._next_block = real_next
+        try:
+            if proc is not None and proc.poll() is None:
+                async def delete():
+                    async with port_client(master) as c:
+                        await c.meta.delete("/recover", recursive=True)
+                asyncio.run(delete())
+        except Exception as e:  # noqa: BLE001 — the directory goes anyway
+            log(f"recover: deleting /recover failed: {e}")
+        for name in list(workers):
+            stop(name)
+        if proc is not None:
+            stop_master(proc)
+        shutil.rmtree(base, ignore_errors=True)
+    res["k1_launches"] = k1
+    res["launches"] = launches
+    return res
+
+
 # ------------------------------------------------------------------ ici
 
 async def _rpc(addr: str, code, body: dict) -> dict:
@@ -3744,12 +4243,13 @@ def _block_locs(master: str, path: str) -> list[tuple[int, list[int]]]:
     return asyncio.run(run())
 
 
-def _poll(pred, timeout: float, what: str, step: float = 0.02) -> float:
+def _poll(pred, timeout: float, what: str, step: float = 0.02,
+          phase: str = "replicate") -> float:
     """Seconds until ``pred()`` holds; raises after ``timeout``."""
     t = time.perf_counter()
     while not pred():
         if time.perf_counter() - t > timeout:
-            raise AssertionError(f"replicate: never {what} in {timeout}s")
+            raise AssertionError(f"{phase}: never {what} in {timeout}s")
         time.sleep(step)
     return time.perf_counter() - t
 
@@ -4070,14 +4570,17 @@ def main() -> int:
     results["build"] = phase_build()
     results["kernel"] = phase_kernel(rng, dev)
     need = N_BLOCKS * BLOCK + SHARDS * SHARD_BYTES + WORKER_TIER_BYTES \
-        + 2 * ICI_TIER_BYTES + 3 * REP_TIER_BYTES + UFS_PHASE_BYTES
+        + 2 * ICI_TIER_BYTES + 3 * REP_TIER_BYTES + UFS_PHASE_BYTES \
+        + RECOVER_PHASE_BYTES
     root = pick_data_dir(need)
     log(f"main: data under {root} (needs {need / GiB:.2f} GiB and 1 GiB "
         f"spare: {N_BLOCKS} blocks and {SHARDS} POSIX shards of 64 MiB, "
         f"the port's worker's mem tier of {WORKER_TIER_BYTES / GiB:.2f} "
         f"GiB, phase ici's two of {ICI_TIER_BYTES / GiB:.2f} GiB, phase "
         f"replicate's three of {REP_TIER_BYTES / GiB:.2f} GiB, phase ufs's "
-        f"under-store of {UFS_PHASE_BYTES / GiB:.2f} GiB)")
+        f"under-store of {UFS_PHASE_BYTES / GiB:.2f} GiB, phase recover's "
+        f"files, replays and heals, at most "
+        f"{RECOVER_PHASE_BYTES / GiB:.2f} GiB)")
     cluster = pw = None
     try:
         cuda_ops.block_checksum.launches = 0
@@ -4107,6 +4610,8 @@ def main() -> int:
         results["ckpt"], probe = phase_ckpt(dev, info["addr"], args.seed,
                                             params,
                                             results["main"]["link_gibs"], pw)
+        results["recover"] = phase_recover(dev, root, args.seed, params,
+                                           results["ckpt"])
         # freed at del, without the collector (ROADMAP C3)
         del params
         held = torch.cuda.memory_allocated(dev)
@@ -4150,8 +4655,8 @@ def main() -> int:
                              "JAX package")
     log("main: no process of this run (this one, where the port's workers "
         "run, and each of the port's masters it started: the cluster's "
-        "twice, phase ici's and phase replicate's) loaded a module of JAX "
-        "or of the JAX package")
+        "twice, phase recover's, phase ici's and phase replicate's) loaded "
+        "a module of JAX or of the JAX package")
     if launches != results["main"]["pins"]:
         raise AssertionError(f"{launches} kernel launches for "
                              f"{results['main']['pins']} pins")
@@ -4164,7 +4669,8 @@ def main() -> int:
         "launches": launches + wk["k1_launches"]
                     + results["ici"]["k1_launches"]
                     + results["replicate"]["k1_launches"]
-                    + results["ufs"]["k1_launches"],
+                    + results["ufs"]["k1_launches"]
+                    + results["recover"]["k1_launches"],
         "max_abs_err": k["max_abs_err"],
         "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": "bytes", "library_ms": None}]
@@ -4181,7 +4687,8 @@ def main() -> int:
             "launches": results["train"]["launches"][name]
                         + results["ufs"]["launches"][name]
                         + results["mesh"]["launches"][name]
-                        + results["pipeline"]["launches"][name],
+                        + results["pipeline"]["launches"][name]
+                        + results["recover"]["launches"][name],
             "max_abs_err": f["max_abs_err"], "ms": f["ms"],
             "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"],
             "bound_by": f["bound_by"], "library_ms": f["library_ms"]})

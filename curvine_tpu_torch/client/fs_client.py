@@ -12,7 +12,12 @@ the mount and job calls (:533-603): ``mount``, ``umount``,
 ``submit_load``, ``submit_export``, ``job_status`` and ``cancel_job``.
 Every mutation carries
 (client_id, call_id) for the master's retry cache, and every request the
-OS user and its groups for the master's ACL checks.
+conf's ``user`` and ``groups`` for the master's ACL checks (empty, the
+OS user and that user's groups; :80-81). Retryable errors are retried
+with the conf's ``conn_retry_max`` and ``conn_retry_base_ms``
+(:74-75). ``complete_file`` takes ``only_flush``: the writer's
+``hflush`` journals its sealed blocks' commits without completing the
+file.
 
 Left out (ROADMAP A3): the metadata lease cache and its invalidation
 pushes, the native fast metadata port (every call goes to the master's
@@ -72,12 +77,13 @@ class FsClient:
         self._active = 0
         self.pool = ConnectionPool(size=cc.conn_pool_size,
                                    timeout_ms=cc.rpc_timeout_ms)
-        self.retry = RetryPolicy()
+        self.retry = RetryPolicy(max_retries=cc.conn_retry_max,
+                                 base_ms=cc.conn_retry_base_ms)
         self.client_id = uuid.uuid4().hex
         self._call_ids = itertools.count(1)
         self.client_host = socket.gethostname()
-        self.user = _os_user()
-        self.groups = _os_groups(self.user)
+        self.user = cc.user or _os_user()
+        self.groups = list(cc.groups) or _os_groups(self.user)
 
     async def close(self) -> None:
         await self.pool.close()
@@ -212,12 +218,15 @@ class FsClient:
         return LocatedBlock.from_wire(rep["block"])
 
     async def complete_file(self, path: str, length: int,
-                            commit_blocks: list[CommitBlock] | None = None
-                            ) -> bool:
+                            commit_blocks: list[CommitBlock] | None = None,
+                            only_flush: bool = False) -> bool:
+        """Commit ``commit_blocks`` and complete the file at ``length``;
+        with ``only_flush`` the commits are journaled and the file stays
+        open for writing."""
         rep = await self.call(RpcCode.COMPLETE_FILE, {
             "path": path, "len": length,
             "commit_blocks": [c.to_wire() for c in commit_blocks or []],
-            "client_name": self.client_id, "only_flush": False},
+            "client_name": self.client_id, "only_flush": only_flush},
             mutate=True)
         return rep["result"]
 

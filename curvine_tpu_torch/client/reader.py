@@ -25,7 +25,11 @@ feed reads through:
   They return that buffer, a ``bytearray``.
 
 A block that fails its crc is reported to the master (fire-and-forget) and
-read from the next replica. The counters ``sc.bytes.read`` and
+read from the next replica. When every replica of a block range has
+failed, the reader asks the master once for the file's locations again
+and tries the refreshed replicas of the same range, raising the last
+error when they fail too (``_refresh_and_read``, :1213-1231); the
+refreshed locations serve the rest of the file. The counters ``sc.bytes.read`` and
 ``read.zero_copy_bytes`` (the reference's names) say which path served
 the bytes.
 
@@ -40,8 +44,7 @@ Left out (ROADMAP A3b): the shared-memory side channel (a worker's offer
 is ignored and the fd path taken), erasure-coded reads and holes (a file
 resized past its last block) (both raise ``NotImplementedError``),
 short-circuit reads of a bdev tier's leased extents (its blocks are read
-through READ_BLOCK), the location refresh after every replica failed
-(the read raises), the sequential prefetch window, parallel
+through READ_BLOCK), the sequential prefetch window, parallel
 ``read_range``, ``pread_view``, ``chunks``' read-ahead, the worker
 circuit breaker,
 deadlines and tracing."""
@@ -395,7 +398,10 @@ class FsReader:
                 else:
                     self._note_sc_read(lb.block.id, got)
             if fd is None:
-                got = await self._readinto_remote(lb, block_off, seg)
+                try:
+                    got = await self._readinto_remote(lb, block_off, seg)
+                except err.CurvineError as e:
+                    got = await self._refresh_and_read(pos, seg, e)
                 if got <= 0:
                     break
             filled += got
@@ -437,6 +443,25 @@ class FsReader:
                             self._addr(loc), e)
                 last = e
         raise last or err.BlockNotFound(f"block {lb.block.id} unreadable")
+
+    async def _refresh_and_read(self, pos: int, seg: memoryview,
+                                cause: err.CurvineError) -> int:
+        """Every replica of the range at ``pos`` failed with ``cause``:
+        the file's locations asked for once more, and the range read
+        from the refreshed replicas; ``cause`` (or the refreshed
+        replicas' last error) is raised when that fails too."""
+        self.blocks = await self.fs.get_block_locations(self.path)
+        self._block_offs = [lb.offset for lb in self.blocks.block_locs]
+        self._last_block_idx = 0
+        located = self._locate(pos)
+        if located is None or not located[0].locs:
+            raise cause
+        lb, block_off = located
+        try:
+            return await self._readinto_remote(
+                lb, block_off, seg[:lb.block.len - block_off])
+        except err.CurvineError as e:
+            raise e from cause
 
     async def close(self) -> None:
         # drain the flush in flight, then report what is left below the

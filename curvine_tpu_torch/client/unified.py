@@ -10,13 +10,17 @@ over one connection pool to the workers; and the UFS side:
 ``prefetch`` (of a prefetch task) and ``export_to_ufs`` (of an export
 task). ``create`` and ``write_all`` take ``replicas`` (:137-158), and the
 writer fans each block out to that many workers; ``create`` also takes
-``block_size`` and ``storage_policy``. The readers
+``block_size``, ``storage_type`` (a tier's name, the conf's when None;
+``_TIERS``, :24-25) and ``storage_policy``, and hands the writer the
+conf's ``write_chunk_size``, ``write_replay_buffer`` and
+``write_min_replicas``. The readers
 and writers it opens share ``counters``: ``sc.bytes.read`` and
 ``sc.bytes.written`` (short circuit), ``read.zero_copy_bytes``
 (READ_BLOCK into the caller's buffer), ``write.bytes`` (all bytes
 written), ``sc.write.fallbacks`` (blocks that went over WRITE_BLOCK with
 the short circuit on), ``write.replica_failover`` (legs dropped),
-``write.degraded_commits`` and ``advise.rpcs``.
+``write.degraded_commits``, ``write.block_replay_bytes`` (bytes replayed
+into re-placed blocks) and ``advise.rpcs``.
 
 ``read_all`` reads a cached file (complete, every block located) through
 the cache; any other file under a mount comes from the UFS through it,
@@ -27,10 +31,8 @@ reference raises ``MountNotFound``. A load creates the cached copy with
 the UFS object's mtime in its storage policy (at least 1: the mark of a
 cache-warming create, which a read-only mount lets through), the
 mount's ``ttl_ms`` and ``ttl_action`` (kept in the policy; the TTL
-scanner is not ported, ``MASTER_FIXED``), and the mount's ``replicas``
-and ``block_size`` where it sets them; a mount whose ``storage_type``
-names a tier other than mem is refused at load by name, since the
-client writes the mem tier only (``common/conf.py``, ``FIXED``).
+scanner is not ported, ``MASTER_FIXED``), and the mount's ``replicas``,
+``block_size`` and ``storage_type`` where it sets them.
 
 Left out (ROADMAP A3e): the ``FallbackReader`` (a cached read that goes
 on from the UFS after every replica is lost mid-stream; ``unified_open``
@@ -50,11 +52,15 @@ from curvine_tpu_torch.client.writer import FsWriter
 from curvine_tpu_torch.common import errors as err
 from curvine_tpu_torch.common.conf import ClusterConf
 from curvine_tpu_torch.common.types import (FileBlocks, StoragePolicy,
-                                            StorageState, TtlAction)
+                                            StorageState, StorageType,
+                                            TtlAction)
 from curvine_tpu_torch.rpc.client import ConnectionPool
 from curvine_tpu_torch.ufs.base import create_ufs
 
 log = logging.getLogger(__name__)
+
+_TIERS = {"hbm": StorageType.HBM, "mem": StorageType.MEM,
+          "ssd": StorageType.SSD, "hdd": StorageType.HDD}
 
 
 def _located(fb: FileBlocks) -> bool:
@@ -99,11 +105,13 @@ class CurvineClient:
     async def create(self, path: str, overwrite: bool = False,
                      replicas: int | None = None,
                      block_size: int | None = None,
+                     storage_type: str | None = None,
                      storage_policy: dict | None = None) -> FsWriter:
         """A new file of ``replicas`` replicas and blocks of
-        ``block_size`` (the conf's when None) on the mem tier, with
-        ``storage_policy`` (wire form; the master's default when None);
-        the writer places blocks near the conf's ``worker.ici_coords``."""
+        ``block_size`` on the tier ``storage_type`` (each the conf's when
+        None; an unknown tier is mem), with ``storage_policy`` (wire
+        form; the master's default when None); the writer places blocks
+        near the conf's ``worker.ici_coords``."""
         cc = self.conf.client
         block_size = block_size or cc.block_size
         await self.meta.create_file(path, overwrite=overwrite,
@@ -111,9 +119,14 @@ class CurvineClient:
                                     storage_policy=storage_policy)
         return FsWriter(self.meta, path, self.pool,
                         block_size=block_size,
+                        chunk_size=cc.write_chunk_size,
+                        storage_type=_TIERS.get(storage_type
+                                                or cc.storage_type,
+                                                StorageType.MEM),
                         short_circuit=cc.short_circuit,
                         counters=self.counters,
                         ici_coords=list(self.conf.worker.ici_coords) or None,
+                        replay_buffer=cc.write_replay_buffer,
                         min_replicas=cc.write_min_replicas)
 
     async def open(self, path: str) -> FsReader:
@@ -200,11 +213,6 @@ class CurvineClient:
         """Warm one file, UFS to cache (the worker side of a load task),
         under the mount's caching policy; returns the bytes loaded."""
         mount, ufs, uri = await self._ufs_for(path)
-        if mount.storage_type and mount.storage_type != "mem":
-            raise err.Unsupported(
-                f"mount {mount.cv_path}: storage_type "
-                f"{mount.storage_type!r} is not ported; the port's client "
-                f"writes the mem tier only")
         st = await ufs.stat(uri)
         if st is None:
             raise err.FileNotFound(uri)
@@ -219,6 +227,7 @@ class CurvineClient:
             replicas=replicas if replicas is not None
             else (mount.replicas or None),
             block_size=mount.block_size or None,
+            storage_type=mount.storage_type or None,
             storage_policy=sp.to_wire())
         total = 0
         try:

@@ -1,31 +1,45 @@
 """File writer: one upload leg per replica, the short-circuit write of a
-co-located single-replica block.
+co-located single-replica block, and recovery from a worker's death.
 
-Own copy of ``curvine_tpu/client/writer.py`` (:152-678) without its
-replay buffer. ``write`` cuts the caller's bytes into chunks (whole
-chunks go out of the caller's buffer uncopied, a partial one is held
-until it fills), ``_next_block`` asks the master for a block (the sealed
-blocks' commits ride on that call; the writer's ``ici_coords`` steer the
-``ici`` placement; a retryable refusal is retried for up to 90 s,
+Own copy of ``curvine_tpu/client/writer.py`` (:45-686). ``write`` cuts
+the caller's bytes into ``chunk_size`` chunks (whole chunks go out of
+the caller's buffer uncopied, a partial one is held until it fills),
+``_next_block`` asks the master for a block (the sealed blocks' commits
+ride on that call; the writer's ``ici_coords`` steer the ``ici``
+placement; a retryable refusal is retried until a 90 s deadline,
 abandoning the refused block and excluding the workers this stream saw
-fail), ``_open_block`` opens one WRITE_BLOCK upload leg per location
-(:427-463), ``_send_chunk`` chains the block's crc32c (the port's
-``csrc/crc32c.cc``) and sends each chunk to every leg at once (:197-270),
-``_seal_block`` and ``_finish_block`` end every leg with the crc and
-keep the commit of the legs that acked (:492-611), and ``close``
-completes the file at the master.
+fail), ``_open_block`` opens one WRITE_BLOCK upload leg per location on
+the writer's ``storage_type`` (:427-463), ``_send_chunk`` chains the
+block's crc32c (the port's ``csrc/crc32c.cc``) and sends each chunk to
+every leg at once (:197-270), ``_seal_block`` and ``_finish_block`` end
+every leg with the crc and keep the commit of the legs that acked
+(:507-611), and ``close`` completes the file at the master.
 
-A leg that fails mid-block is dropped (``_drop_replicas``, :271-296):
-its upload is aborted, the failure counted (``write.replica_failover``)
-and reported to the master for healing (``_report_lost_replica``,
-:136-150, REPORT_UNDER_REPLICATED_BLOCKS with its worker id), and the
-block streams on while at least ``min_replicas`` legs survive. A leg
-that fails its finish leaves a degraded commit on the survivors
+Recovery (:91-97, :271-403; HDFS pipeline recovery): the replay buffer
+keeps every byte of the open block, appended before each send, until
+the block seals. A leg that fails mid-block is dropped
+(``_drop_replicas``): its upload is aborted, the failure counted
+(``write.replica_failover``) and reported to the master for healing
+(``_report_lost_replica``, :136-150, REPORT_UNDER_REPLICATED_BLOCKS with
+its worker id), and the block streams on while at least
+``min_replicas`` legs survive. Below that, when the one leg of a
+block fails (the short circuit's write on an ``OSError`` of the
+worker's media, or its SC_WRITE_COMMIT), and when a seal's finish
+leaves too few live legs, ``_recover_block`` abandons the block, asks
+for a new one away from the failed workers (``_next_block`` with the
+block to abandon and a 90 s deadline, inside which a cluster with no
+placeable worker is waited out) and replays the buffer into it in
+``chunk_size`` pieces (``write.block_replay_bytes``), re-placing again
+on a further failure until the deadline; the caller's write never sees
+the death. ``_seal_block`` makes three attempts. A leg that fails its
+finish while enough survive leaves a degraded commit on the survivors
 (``write.degraded_commits``), after the master confirms they are live.
-Below ``min_replicas``, and when the one leg of a single-replica block
-fails, the port raises: the reference's replay buffer and re-placement
-of the block (:297-403) are ROADMAP A3e's, and ``abort`` drops the open
-block.
+With ``replay_buffer`` off, a block that loses its last leg (or falls
+below ``min_replicas``) raises the failure, and ``abort`` drops the open
+block. ``hflush`` (:620-641) recovers the open block first when it has
+fewer live legs than ``min(min_replicas, len(locs))``, then journals the
+sealed blocks' commits at the master (COMPLETE_FILE with ``only_flush``)
+and leaves the file open; ``flush`` sends the partial chunk.
 
 The short circuit (:437-438, :464-488, :539-552): when
 ``short_circuit`` is on and a block of one replica is placed on a worker
@@ -37,9 +51,9 @@ drops the temp file. A worker that refuses the grant (a bdev tier, a
 draining worker) or a location off this host sends the block over
 WRITE_BLOCK, and the counter ``sc.write.fallbacks`` counts such blocks.
 Bytes written by short circuit count as ``sc.bytes.written`` (the
-reference's name), all bytes as ``write.bytes``. Also left out:
-``hflush``, the circuit breaker (the workers this stream saw fail stand
-in for its exclusions) and tracing."""
+reference's name), all bytes sent (replays included) as ``write.bytes``.
+Left out: the circuit breaker (``client/health.py``; the workers this
+stream saw fail stand in for its exclusions) and tracing."""
 
 from __future__ import annotations
 
@@ -48,7 +62,7 @@ import logging
 import random
 
 from curvine_tpu_torch.common import errors as err
-from curvine_tpu_torch.common.conf import WRITE_CHUNK_SIZE
+from curvine_tpu_torch.common.conf import MB
 from curvine_tpu_torch.common.types import (CommitBlock, LocatedBlock,
                                             StorageType)
 from curvine_tpu_torch.rpc.client import ConnectionPool
@@ -61,21 +75,23 @@ log = logging.getLogger(__name__)
 OPEN_DEADLINE_S = 90.0
 
 # the failures of one upload leg that dropping it absorbs: transport and
-# worker errors, timeouts; anything else propagates
+# worker errors, media errors, timeouts; anything else propagates
 _UPLOAD_EXC = (err.CurvineError, OSError, asyncio.TimeoutError)
 
 
 class FsWriter:
     def __init__(self, fs_client, path: str, pool: ConnectionPool,
-                 block_size: int, chunk_size: int = WRITE_CHUNK_SIZE,
+                 block_size: int, chunk_size: int = 4 * MB,
+                 storage_type: StorageType = StorageType.MEM,
                  short_circuit: bool = True, counters: dict | None = None,
                  ici_coords: list[int] | None = None,
-                 min_replicas: int = 1):
+                 replay_buffer: bool = True, min_replicas: int = 1):
         self.fs = fs_client
         self.path = path
         self.pool = pool
         self.block_size = block_size
         self.chunk_size = chunk_size
+        self.storage_type = storage_type
         self.short_circuit = short_circuit
         self.counters = counters if counters is not None else {}
         self.ici_coords = ici_coords
@@ -97,6 +113,11 @@ class FsWriter:
         self._crc_algo = ALGO_CRC32C
         self._commits: list[CommitBlock] = []
         self._closed = False
+        # every byte of the open block until it seals (None: off), and
+        # whether a replay of it is being sent
+        self._replay: bytearray | None = bytearray() if replay_buffer \
+            else None
+        self._recovering = False
         # workers this stream saw fail: kept out of its later placements
         self._failed_workers: set[int] = set()
         # reports of lost legs in flight, awaited at close
@@ -114,6 +135,13 @@ class FsWriter:
         self._count("write.replica_failover")
         log.warning("write %s: replica %s (worker %d) lost mid-block: %s",
                     self.path, self._addr(loc), worker_id, cause)
+
+    def _note_sc_failed(self, cause) -> None:
+        """The short-circuit leg of the open block failed."""
+        if self._block.locs:
+            loc = self._block.locs[0]
+            self._note_leg_failed(loc, self._sc_worker_id or loc.worker_id,
+                                  cause)
 
     def _report_lost_replica(self, block_id: int, worker_id: int) -> None:
         """Tell the master, in the background, that the block lost its
@@ -172,11 +200,20 @@ class FsWriter:
         return total
 
     async def _send_chunk(self, chunk) -> None:
+        if self._replay is not None and not self._recovering:
+            # kept before the send: a chunk that fails is part of what a
+            # recovery replays
+            self._replay += chunk
         crc = crc_update(self._crc_algo, chunk, self._block_crc)
         if self._sc_file is not None:
-            # an OSError here (EIO, ENOSPC on the worker's media) fails
-            # the write: the reference re-places and replays the block
-            self._sc_file.write(chunk)
+            try:
+                self._sc_file.write(chunk)
+            except OSError as e:
+                # the worker's media failed (EIO, ENOSPC): the one leg is
+                # gone, and the recovery replays this chunk too
+                self._note_sc_failed(e)
+                await self._recover_block(e)
+                return
             self._block_crc = crc
             self._block_written += len(chunk)
             self._count("sc.bytes.written", len(chunk))
@@ -201,15 +238,16 @@ class FsWriter:
                 raise r
         failed = [i for i, r in enumerate(results)
                   if isinstance(r, BaseException)]
-        if failed:
-            await self._drop_replicas(failed, results[failed[0]])
+        if failed and not await self._drop_replicas(failed,
+                                                    results[failed[0]]):
+            return              # recovered: the replay sent this chunk
         self._block_written += len(chunk)
         self._count("write.bytes", len(chunk))
 
-    async def _drop_replicas(self, failed: list[int], cause) -> None:
+    async def _drop_replicas(self, failed: list[int], cause) -> bool:
         """Drop the legs that failed mid-chunk (each aborted, counted and
-        reported to the master) and stream on while at least
-        ``min_replicas`` survive; below that, raise ``cause``."""
+        reported to the master). True when at least ``min_replicas``
+        survive and stream on; else the block is recovered (False)."""
         bid = self._block.block.id
         for i in failed:
             loc = self._upload_locs[i]
@@ -222,12 +260,51 @@ class FsWriter:
         keep = [i for i in range(len(self._uploads)) if i not in set(failed)]
         self._uploads = [self._uploads[i] for i in keep]
         self._upload_locs = [self._upload_locs[i] for i in keep]
-        if len(self._uploads) < self.min_replicas:
-            # the reference re-places the block and replays it from its
-            # replay buffer (ROADMAP A3e)
+        if len(self._uploads) >= self.min_replicas:
+            log.info("write %s: continuing block %d on %d surviving "
+                     "replica(s)", self.path, bid, len(self._uploads))
+            return True
+        await self._recover_block(cause)
+        return False
+
+    async def _recover_block(self, cause) -> None:
+        """Abandon the open block, ask for another away from the workers
+        that failed, and replay the buffer into it; the stream is then
+        where the caller left it. A further failure re-places again until
+        the 90 s deadline. With the buffer off (or a failure inside a
+        replay) ``cause`` is raised."""
+        if self._recovering or self._replay is None:
             raise cause
-        log.info("write %s: continuing block %d on %d surviving "
-                 "replica(s)", self.path, bid, len(self._uploads))
+        loop = asyncio.get_running_loop()
+        deadline = loop.time() + OPEN_DEADLINE_S
+        replay = bytes(self._replay)
+        log.warning("write %s: block lost its legs (%s); abandoning it and "
+                    "replaying %d bytes", self.path, cause, len(replay))
+        while True:
+            abandon = self._block.block.id if self._block is not None \
+                else None
+            await self._abort_upload()
+            self._block = None
+            await self._next_block(abandon=abandon, deadline=deadline)
+            try:
+                self._recovering = True
+                try:
+                    view = memoryview(replay)
+                    for off in range(0, len(replay), self.chunk_size):
+                        await self._send_chunk(
+                            view[off:off + self.chunk_size])
+                finally:
+                    self._recovering = False
+                self._count("write.block_replay_bytes", len(replay))
+                log.info("write %s: block re-placed as %d, %d bytes "
+                         "replayed", self.path, self._block.block.id,
+                         len(replay))
+                return
+            except _UPLOAD_EXC as e:
+                # the new block failed too (its workers are now excluded)
+                if loop.time() >= deadline:
+                    raise
+                cause = e
 
     async def _flush_chunk(self) -> None:
         if not self._buf:
@@ -239,17 +316,22 @@ class FsWriter:
             chunk.release()       # the bytearray cannot shrink while viewed
         self._buf.clear()
 
-    async def _next_block(self) -> None:
+    async def _next_block(self, abandon: int | None = None,
+                          deadline: float | None = None) -> None:
         """Allocate and open the next block. A retryable refusal (a
         worker's CapacityPending while space clears after a restart, a
         worker that cannot be reached) backs off and asks again,
         abandoning the refused block and excluding the workers this
         stream saw fail, until the deadline; the commits ride only the
-        first request. Exclusions that leave no worker are dropped."""
+        first request. Exclusions that leave no worker are dropped. A
+        recovery passes the block to abandon and its own deadline, and
+        then NO_AVAILABLE_WORKER is waited out too: the caller's bytes
+        sit in the replay buffer."""
         loop = asyncio.get_running_loop()
         commits, self._commits = self._commits, []
-        deadline = loop.time() + OPEN_DEADLINE_S
-        abandon = None
+        recovering = deadline is not None
+        if deadline is None:
+            deadline = loop.time() + OPEN_DEADLINE_S
         delay = 0.4
         use_exclude = True
         while True:
@@ -270,7 +352,10 @@ class FsWriter:
                 if exclude and e.code == err.ErrorCode.NO_AVAILABLE_WORKER:
                     use_exclude = False
                     continue
-                if not e.retryable or loop.time() >= deadline:
+                retryable = e.retryable or (
+                    recovering
+                    and e.code == err.ErrorCode.NO_AVAILABLE_WORKER)
+                if not retryable or loop.time() >= deadline:
                     raise
                 sleep = delay * (0.5 + random.random() / 2)
                 log.debug("block open retry in %.2fs: %s", sleep, e)
@@ -294,7 +379,7 @@ class FsWriter:
                 conn = await self.pool.get(self._addr(loc))
                 up = await conn.open_upload(RpcCode.WRITE_BLOCK, header={
                     "block_id": self._block.block.id,
-                    "storage_type": int(StorageType.MEM),
+                    "storage_type": int(self.storage_type),
                     "algo": self._crc_algo, "len_hint": self.block_size})
             except err.CurvineError:
                 # the next placement leaves this worker out
@@ -314,7 +399,7 @@ class FsWriter:
             conn = await self.pool.get(self._addr(loc))
             rep = await conn.call(RpcCode.SC_WRITE_OPEN, data=pack({
                 "block_id": self._block.block.id,
-                "storage_type": int(StorageType.MEM),
+                "storage_type": int(self.storage_type),
                 "len_hint": self.block_size}))
             body = unpack(rep.data) or {}
             path = body.get("path")
@@ -356,13 +441,24 @@ class FsWriter:
         if self._block is None:
             return
         await self._flush_chunk()
-        worker_ids = await self._finish_block()
+        for attempt in range(3):
+            try:
+                worker_ids = await self._finish_block()
+                break
+            except _UPLOAD_EXC as e:
+                # the finish or the commit lost the block's legs: the
+                # buffer holds all of it now; with it off, e is raised
+                if attempt == 2:
+                    raise
+                await self._recover_block(e)
         self._commits.append(CommitBlock(
             block_id=self._block.block.id, block_len=self._block_written,
-            worker_ids=worker_ids, storage_type=StorageType.MEM))
+            worker_ids=worker_ids, storage_type=self.storage_type))
         self._block = None
         self._uploads = []
         self._upload_locs = []
+        if self._replay is not None:
+            self._replay = bytearray()      # sealed: nothing to replay
 
     async def _finish_block(self) -> list[int]:
         """End the block with its crc: SC_WRITE_COMMIT of the temp file
@@ -370,15 +466,19 @@ class FsWriter:
         ids the commit lists: those whose finish was acked and that the
         master still holds live. A leg lost at its finish leaves a
         degraded commit on at least ``min_replicas`` survivors, and is
-        reported; fewer raise."""
+        reported; fewer raise, for the seal to recover the block."""
         if self._sc_file is not None:
             self._sc_file.close()
             self._sc_file = None
-            rep = await self._sc_conn.call(
-                RpcCode.SC_WRITE_COMMIT, data=pack({
-                    "block_id": self._block.block.id,
-                    "len": self._block_written,
-                    "crc32": self._block_crc, "algo": self._crc_algo}))
+            try:
+                rep = await self._sc_conn.call(
+                    RpcCode.SC_WRITE_COMMIT, data=pack({
+                        "block_id": self._block.block.id,
+                        "len": self._block_written,
+                        "crc32": self._block_crc, "algo": self._crc_algo}))
+            except _UPLOAD_EXC as e:
+                self._note_sc_failed(e)
+                raise
             self._sc_conn = None
             return [(unpack(rep.data) or {}).get("worker_id",
                                                  self._sc_worker_id)]
@@ -431,6 +531,28 @@ class FsWriter:
                     "replicas", self.path, self._block.block.id,
                     len(worker_ids), len(worker_ids) + len(lost))
         return worker_ids
+
+    async def flush(self) -> None:
+        """Send the partial chunk to the open block's legs."""
+        await self._flush_chunk()
+
+    async def hflush(self) -> None:
+        """A durable flush: the partial chunk sent, the open block back at
+        ``min(min_replicas, len(locs))`` live legs (recovered first when
+        fewer remain), and the sealed blocks' commits journaled at the
+        master (COMPLETE_FILE with ``only_flush``); the file stays open
+        for more writes."""
+        await self._flush_chunk()
+        if self._block is not None and self._sc_file is None \
+                and len(self._uploads) < min(self.min_replicas,
+                                             len(self._block.locs)):
+            await self._recover_block(
+                err.ConnectError("hflush below min replicas"))
+        if self._commits:
+            commits, self._commits = self._commits, []
+            await self.fs.complete_file(self.path, self.pos,
+                                        commit_blocks=commits,
+                                        only_flush=True)
 
     async def close(self) -> None:
         if self._closed:

@@ -28,17 +28,17 @@ The KV store's ``meta_dir``, ``meta_engine`` and ``meta_cache_inodes``,
 the reference's master ignores them with the mem store, the fast port
 off and no web server.
 
-The client's ``replicas`` (a file's replica count at CREATE_FILE) and
-``write_min_replicas`` (the fan-out floor: a block keeps streaming on its
-surviving legs while at least that many remain) are fields, with the
-reference's defaults. Below that floor the reference re-places the block
-and replays it from its replay buffer; the port has no replay buffer
-(ROADMAP A3e) and raises instead, as it does when the one leg of a
-single-replica block fails. The reference's ``user``, ``groups``,
-``storage_type``, ``write_chunk_size``, ``conn_retry_max`` and
-``conn_retry_base_ms`` are constants here, at the reference's defaults
-(``FIXED``): the OS user, the mem tier. A file that sets one of them to
-another value is refused, never ignored.
+The client's fields are the reference's, with its defaults: the
+identity sent with every request (``user`` and ``groups``; empty, the
+OS user and that user's groups), a file's replica count at CREATE_FILE
+(``replicas``), the tier its blocks are written to (``storage_type``),
+the writer's chunk (``write_chunk_size``), the metadata retry policy
+(``conn_retry_max``, ``conn_retry_base_ms``), and the writer's
+recovery: ``write_replay_buffer`` keeps the open block's bytes so that
+a block that lost its last leg, or fell below ``write_min_replicas``
+live legs, is re-placed and replayed (off, the failure reaches the
+caller), and the block keeps streaming on its surviving legs while at
+least ``write_min_replicas`` remain.
 The worker's fields that name a branch the port's worker does not have
 are constants too (``WORKER_FIXED``, ``TIER_FIXED``, ``QOS_FIXED``): the
 bdev layout and a tier's direct-IO queue depth, the direct-IO engine,
@@ -50,8 +50,8 @@ the tier-0's heartbeat advertisement (``hbm_advertise_max``) and the
 tasks a worker runs at once (``task_parallelism``, :168) are fields.
 Left out: the fuse, gateway, obs, rpc and ec sections, the
 worker's scrub and web-server fields, the client's breaker,
-deadline, meta-cache, tracing, tenant, replay-buffer, read-ahead and
-prefetch-window fields, and the ``CURVINE_*`` environment overrides."""
+deadline, meta-cache, tracing, tenant, read-ahead and prefetch-window
+fields, and the ``CURVINE_*`` environment overrides."""
 
 from __future__ import annotations
 
@@ -61,17 +61,6 @@ from dataclasses import dataclass, field
 
 MB = 1024 * 1024
 GB = 1024 * MB
-
-
-# the reference's defaults, which the port does not let a caller change
-STORAGE_TYPE = "mem"
-WRITE_CHUNK_SIZE = 4 * MB
-CONN_RETRY_MAX = 3
-CONN_RETRY_BASE_MS = 100
-FIXED = {"user": "", "groups": [],
-         "storage_type": STORAGE_TYPE, "write_chunk_size": WRITE_CHUNK_SIZE,
-         "conn_retry_max": CONN_RETRY_MAX,
-         "conn_retry_base_ms": CONN_RETRY_BASE_MS}
 
 
 # the master's branches the port does not have, at the value it implements
@@ -172,16 +161,28 @@ class WorkerConf:
 class ClientConf:
     master_addrs: list[str] = field(
         default_factory=lambda: ["127.0.0.1:8995"])
+    # the identity sent with every request (empty: the OS user and its
+    # groups)
+    user: str = ""
+    groups: list[str] = field(default_factory=list)
     block_size: int = 64 * MB
     replicas: int = 1
+    write_chunk_size: int = 4 * MB
     read_chunk_size: int = 4 * MB
     short_circuit: bool = True
+    # the tier a file's blocks are written to: hbm|mem|ssd|hdd
+    storage_type: str = "mem"
+    # keep the open block's bytes until it seals, so that a block that
+    # lost its legs is re-placed and replayed; off, the loss surfaces
+    write_replay_buffer: bool = True
     # verify full-block reads against the block's commit-time crc
     read_verify: bool = True
     # the fan-out floor: a block keeps streaming on its surviving legs
-    # while at least this many remain; below it the write raises
+    # while at least this many remain; below it the block is replayed
     write_min_replicas: int = 1
     rpc_timeout_ms: int = 30_000
+    conn_retry_max: int = 3
+    conn_retry_base_ms: int = 100
     conn_pool_size: int = 4
 
 
@@ -230,9 +231,7 @@ class ClusterConf:
                 f"{path}: master.block_placement_policy = {policy!r}: the "
                 f"port's {item} takes only {list(PLACEMENTS)}")
         _apply(conf.master, master)
-        client = data.get("client") or {}
-        _check(path, "client", client, FIXED, "client (ROADMAP A3b)")
-        _apply(conf.client, client)
+        _apply(conf.client, data.get("client") or {})
         worker = data.get("worker") or {}
         item = "worker (ROADMAP A3c)"
         _check(path, "worker", worker, WORKER_FIXED, item)

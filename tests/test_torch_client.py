@@ -225,8 +225,10 @@ def test_error_codes_and_wire_types_mirror_the_reference():
     assert pt.FileBlocks.from_wire(fb.to_wire()).to_wire() == fb.to_wire()
 
 
-def test_client_conf_mirrors_the_reference_and_loads_toml(tmp_path):
+def test_client_conf_mirrors_the_reference_and_loads_toml(tmp_path,
+                                                         monkeypatch):
     from curvine_tpu.common.conf import ClientConf as JConf
+    from curvine_tpu.common.conf import ClusterConf as JClusterConf
     port = dataclasses.asdict(ClusterConf().client)
     ref = dataclasses.asdict(JConf())
     assert port == {k: ref[k] for k in port}
@@ -240,21 +242,26 @@ def test_client_conf_mirrors_the_reference_and_loads_toml(tmp_path):
     assert cc.master_addrs == ["10.0.0.1:8995"]
     assert cc.block_size == 4 * MiB and not cc.short_circuit
     assert cc.rpc_timeout_ms == ref["rpc_timeout_ms"]
-    # what the port holds at the reference's defaults: those values
-    # load, others are refused
-    from curvine_tpu_torch.common.conf import FIXED
-    assert FIXED == {k: ref[k] for k in FIXED}
-    p.write_text('[client]\nreplicas = 1\nstorage_type = "mem"\n')
-    assert ClusterConf.load(str(p)).client == ClusterConf().client
     # the replica count and the fan-out floor are fields
     p.write_text('[client]\nreplicas = 3\nwrite_min_replicas = 2\n')
     cc = ClusterConf.load(str(p)).client
     assert (cc.replicas, cc.write_min_replicas) == (3, 2)
-    for line in ('write_chunk_size = 1', 'storage_type = "ssd"',
-                 'user = "bob"'):
-        p.write_text(f'[client]\n{line}\n')
-        with pytest.raises(ValueError, match="ROADMAP A3b"):
-            ClusterConf.load(str(p))
+    # so are the identity, the tier, the chunk, the retry policy and the
+    # replay buffer, which the reference loads alike
+    six = ("user", "groups", "storage_type", "write_chunk_size",
+           "conn_retry_max", "conn_retry_base_ms", "write_replay_buffer")
+    assert set(six) <= set(port)
+    p.write_text('[client]\nuser = "bob"\ngroups = ["ml", "ops"]\n'
+                 'storage_type = "ssd"\nwrite_chunk_size = 65536\n'
+                 'conn_retry_max = 5\nconn_retry_base_ms = 20\n'
+                 'write_replay_buffer = false\n')
+    for k in [k for k in os.environ if k.startswith("CURVINE_")]:
+        monkeypatch.delenv(k)
+    cc = dataclasses.asdict(ClusterConf.load(str(p)).client)
+    jc = dataclasses.asdict(JClusterConf.load(str(p)).client)
+    assert cc == {k: jc[k] for k in cc}
+    assert [cc[k] for k in six] == ["bob", ["ml", "ops"], "ssd", 65536, 5,
+                                    20, False]
 
 
 # ------------------------------------------------ clients against the cluster

@@ -368,14 +368,14 @@ async def test_finish_death(tmp_path):
 
 
 async def test_finish_death_below_min_replicas_raises(tmp_path):
-    """Where the reference re-places and replays a block that lost legs
-    below ``write_min_replicas``, the port raises, and the open block is
-    dropped: here one leg of two dies at the finish, with a floor of
-    two."""
+    """With the replay buffer off, a block that falls below
+    ``write_min_replicas`` raises and the open block is dropped: here one
+    leg of two dies at the finish, with a floor of two."""
     async with _cluster(tmp_path, 3) as (m, ws, conf):
         cconf = copy.deepcopy(conf)
         cconf.client.short_circuit = False
         cconf.client.write_min_replicas = 2
+        cconf.client.write_replay_buffer = False
         c = CurvineClient(cconf)
         w = await c.create("/low.bin", replicas=2)
         await w.write(_bytes(64 * KB, 36))
@@ -386,6 +386,30 @@ async def test_finish_death_below_min_replicas_raises(tmp_path):
             await w.close()
         await w.abort()
         assert not (await c.meta.file_status("/low.bin")).is_complete
+        await c.close()
+
+
+async def test_finish_death_below_min_replicas_replayed(tmp_path):
+    """One leg of two dies at the finish, with a floor of two: the seal
+    abandons the block, re-places it on two live workers and replays it
+    (the reference's recovery); ``close`` succeeds."""
+    async with _cluster(tmp_path, 3) as (m, ws, conf):
+        cconf = copy.deepcopy(conf)
+        cconf.client.short_circuit = False
+        cconf.client.write_min_replicas = 2
+        c = CurvineClient(cconf)
+        data = _bytes(64 * KB, 36)
+        w = await c.create("/low.bin", replicas=2)
+        await w.write(data)
+        await w._flush_chunk()
+        victim = w._upload_locs[0].worker_id
+        await _by_id(ws, victim).stop()
+        await w.close()
+        assert bytes(await c.read_all("/low.bin")) == data
+        [(bid, ids)] = await _locs(c, "/low.bin")
+        live = {x.worker_id for x in ws if x.worker_id != victim}
+        assert len(ids) == 2 and set(ids) == live, (bid, ids)
+        assert c.counters["write.block_replay_bytes"] == len(data)
         await c.close()
 
 

@@ -553,9 +553,11 @@ async def test_unported_schemes_and_tiers_are_refused_by_name(tmp_path):
         await c.meta.mount("/s3", "s3://bucket/data")
         with pytest.raises(err.UfsError, match="s3 is not ported"):
             await c.meta.file_status("/s3/x")
+        # a mount's tier is no longer refused: the load asks for ssd and
+        # the worker, which has a mem tier only, writes it there
         await c.meta.mount("/ssd", "mem://t", storage_type="ssd")
-        with pytest.raises(err.Unsupported, match="storage_type 'ssd'"):
-            await c.load_from_ufs("/ssd/a.bin")
+        assert await c.load_from_ufs("/ssd/a.bin") == 1
+        assert await c.read_all("/ssd/a.bin") == b"a"
         job_id = await c.meta.submit_load("/s3")
         job = await _wait_state(c, job_id, JobState.FAILED)
         assert "s3 is not ported" in job.message

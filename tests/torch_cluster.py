@@ -64,11 +64,8 @@ class PortCluster:
         self.conf.master.rpc_port = self.master.rpc.port
         self.conf.client.master_addrs = [self.master.addr]
         try:
-            for i in range(self.n_workers):
-                w = WorkerServer(_worker_conf(
-                    self.conf, str(self.tmp_path / f"w{i}")))
-                await w.start()
-                self.workers.append(w)
+            for _ in range(self.n_workers):
+                await self.add_worker(wait=False)
             await _await_live(self.master, self.n_workers)
         except BaseException:
             await self.__aexit__()
@@ -79,8 +76,30 @@ class PortCluster:
         for c in self._clients:
             await c.close()
         for w in self.workers:
-            await w.stop()
+            if w.rpc._lsock is not None:      # not stopped by the test
+                await w.stop()
         await self.master.stop()
+
+    async def add_worker(self, tiers: list[TierConf] | None = None,
+                         wait: bool = True) -> WorkerServer:
+        """One more of the port's workers (a 64 MiB mem tier under its own
+        directory, or ``tiers``), started and, with ``wait``, live at the
+        master."""
+        wconf = _worker_conf(self.conf,
+                             str(self.tmp_path / f"w{len(self.workers)}"))
+        if tiers is not None:
+            wconf.worker.tiers = tiers
+        w = WorkerServer(wconf)
+        await w.start()
+        self.workers.append(w)
+        if wait:
+            async def live():
+                while w.worker_id not in {
+                        x.address.worker_id
+                        for x in self.master.fs.workers.live_workers()}:
+                    await asyncio.sleep(0.02)
+            await asyncio.wait_for(live(), 10.0)
+        return w
 
     def client(self) -> CurvineClient:
         c = _client(self.conf)

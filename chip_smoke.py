@@ -112,6 +112,29 @@ Phases, each raising on a fault (the exit code is then non-zero):
    object byte-equal. Last the phase's cached files are deleted (their
    device copies gone), ``/ufs/next`` unmounted and the under-store
    removed; the mounts and job records stay for phase 8;
+6g. drain: a worker decommissioned under a running feed, with phase
+   ufs's parameters and step: a master of the phase's own (``ici``
+   placement, a lost timeout of 3 s) and three of the port's workers in
+   this process, A, B and C at ICI (0..2, 0), each with a mem tier and a
+   640 MiB tier-0 on the card. (a) 8 token shards of 64 MiB written to
+   ``/drain/train`` at two replicas from (0, 0): every block on A and C.
+   (b) ``GpuTrainFeed`` over them at phase 4's batch, epoch after epoch;
+   4 batches in, DECOMMISSION_WORKER of A (DECOMMISSIONING); while A
+   drains, every batch equal to its tokens and no read raising, a
+   WRITE_BLOCK to A refused with ``WorkerDraining`` once its heartbeat
+   carried the flag, and a small file written at two replicas placed on
+   B and C; A DECOMMISSIONED within 60 s, the feed one more epoch after;
+   every block then on B and C, none located on A, and A's full block
+   report bringing none back; the drain's seconds and GiB/s, B's pulls
+   by the ``ici`` hint and by TCP, the feed's batches/s beside phase
+   client's. (c) The moved blocks read from B (the reading client's
+   board holds C's breaker open) and pinned by B's promote cycles, K1
+   verifying each pin (launches equal to the 8 pins), each device copy
+   equal to its tokens; three flagship steps on batches fed from
+   ``/drain/train``, each equal to its tokens, finite losses, K3's four
+   kernels once a layer a step. (d) A recommissioned (LIVE) and a new
+   file placed on A and C; A decommissioned again and the phase's master
+   restarted on its journal: A DECOMMISSIONING, told to drain;
 6b. ckpt: the flagship's parameters as phase ufs left them (99 tensors,
    1.92 GiB of bf16) saved with ``save_checkpoint`` through the port's
    client into the cluster, every byte by short circuit (SC_WRITE_OPEN:
@@ -149,7 +172,10 @@ Phases, each raising on a fault (the exit code is then non-zero):
    fifth worker E; a reader opened on a checkpoint tensor of
    several blocks (on B and C); C stopped and its blocks healed onto E,
    B stopped; the open reader's ``read_all`` bit-equal through exactly
-   one location refresh. No error reaches a caller in (a) or (b);
+   one location refresh. No error reaches a caller in (a) or (b). The
+   client's circuit breaker is on (the default): in (b) the opens placed
+   on D first are at most its threshold, and once D's breaker opened no
+   placement names D; (d) reads with the breakers' order;
 6c. mesh: an NCCL world of this process alone (``multihost.initialize``)
    and a (1, 1) ``("data", "model")`` mesh on the card; phase 6's initial
    parameters (the same seed) placed by ``shard_params``, a fresh AdamW,
@@ -241,10 +267,12 @@ after phase 4 (K1), again just before phase 4c's promote cycles and read
 just after them (K1), again just before phase 9's promote cycle and read
 just after it (K1), again just before phase 10's promote cycle and read
 just after it (K1), again just before phase 6a's promote cycles and read
-just after them (K1), again just before the two passes of phase 6 and read
-just after them (K3), again just before phase 6a's three steps and read
-just after them (K3), again just before phase 6b and read just after it
-(K3's forward, twice a layer for the two losses, and no backward
+just after them (K1), again just before phase 6g's promote cycles and
+read just after them (K1), again just before the two passes of phase 6
+and read just after them (K3), again just before phase 6a's three steps
+and read just after them (K3), again just before phase 6g's three steps
+and read just after them (K3), again just before phase 6b and read just
+after it (K3's forward, twice a layer for the two losses, and no backward
 kernel), again just before phase 6f's two losses and read just after
 them (K3's forward, as in 6b), again just before phase 6f's promote
 cycles and read just after them (K1), again just before the two passes of phase 6c and read just
@@ -252,15 +280,16 @@ after them (K3), again just before phase 6d's three pipeline steps and
 read just after them (K3), again just before phase 6e's three ring
 steps and read just after them (K3: none), and just before phase 7's
 ``query_many`` and read just after it (K2, which must equal the ADC
-stages the search issued). The kernels line gives K1's six counts
+stages the search issued). The kernels line gives K1's seven counts
 summed (each held to its pins, the refused device copies included) and
-phase 6's, 6a's, 6c's, 6d's and 6f's K3 counts summed. The port's worker and
-master are stopped, the process group destroyed, and the data directory removed, however the run ends. No
-process of the run loads a module of JAX or of the JAX
-package. Prints each phase's numbers, the card's name and power limit,
-one JSON line of kernels, and last the line
-``{"ok": true, "device": {...}}``. Exits non-zero, and prints no result,
-where no CUDA device is visible or the port is not importable."""
+phase 6's, 6a's, 6g's, 6c's, 6d's and 6f's K3 counts summed. The port's
+worker and master are stopped, the process group destroyed, and the
+data directory removed, however the run ends. No process of the run
+loads a module of JAX or of the JAX package. Prints each phase's
+numbers, the card's name and power limit, one JSON line of kernels, and
+last the line ``{"ok": true, "device": {...}}``. Exits non-zero, and
+prints no result, where no CUDA device is visible or the port is not
+importable."""
 
 from __future__ import annotations
 
@@ -370,6 +399,19 @@ RECOVER_SAVE_KILL = GiB
 RECOVER_TIER_BYTES = CKPT_BYTES + 2 * SHARDS * SHARD_BYTES
 RECOVER_HBM_BYTES = 4 * BLOCK
 RECOVER_PHASE_BYTES = 2 * SHARDS * SHARD_BYTES + 4 * CKPT_BYTES
+# phase drain: three of the port's workers under a master of their own
+# (the ici placement, REP_LOST_MS); phase feed's shape at two replicas,
+# the first worker decommissioned DRAIN_DECO_AFTER batches into a feed
+# and drained within DRAIN_LIMIT_S; a mem tier holds a worker's share of
+# the shards, the small files and the blocks being written; the new
+# holder's tier-0 holds every drained block. The phase writes at most
+# DRAIN_PHASE_BYTES to the data directory (replicas, pulls, small files)
+DRAIN_DECO_AFTER = 4
+DRAIN_LIMIT_S = 60
+DRAIN_SMALL_BYTES = MiB
+DRAIN_TIER_BYTES = SHARDS * SHARD_BYTES + 4 * BLOCK
+DRAIN_HBM_BYTES = (SHARDS + 2) * BLOCK
+DRAIN_PHASE_BYTES = 3 * SHARDS * SHARD_BYTES + 4 * DRAIN_SMALL_BYTES
 
 
 def log(msg: str) -> None:
@@ -3568,6 +3610,7 @@ def phase_recover(dev: torch.device, root: str, seed: int, params: dict,
     are deleted, its workers and master stopped and its directory
     removed, however it ends."""
     from curvine_tpu_torch.client import writer as fswriter
+    from curvine_tpu_torch.common.conf import ClientConf
     from curvine_tpu_torch.gpu import broadcast, cuda_ops, flash
     from curvine_tpu_torch.gpu import model as tm
     base = os.path.join(root, "recover")
@@ -3717,6 +3760,24 @@ def phase_recover(dev: torch.device, root: str, seed: int, params: dict,
                 stopped["t"] = stop(names[spare[0]])
 
         save_placed = []
+        breaker = {}
+
+        def note_breaker(c) -> None:
+            """``c.health.fail`` wrapped: when the stopped worker's
+            breaker opens, and after how many failures."""
+            from curvine_tpu_torch.client.health import OPEN
+            real = c.health.fail
+            fails = []
+
+            def fail(addr, worker_id=None):
+                real(addr, worker_id=worker_id)
+                if worker_id is None or worker_id != stopped.get("victim"):
+                    return
+                fails.append(time.perf_counter())
+                if "t" not in breaker and c.health.state(addr) == OPEN:
+                    breaker["t"] = fails[-1]
+                    breaker["fails"] = len(fails)
+            c.health.fail = fail
 
         async def save_b():
             async with port_client(master, coords=(0, 0), replicas=2,
@@ -3727,6 +3788,7 @@ def phase_recover(dev: torch.device, root: str, seed: int, params: dict,
                 clean_s = time.perf_counter() - t
                 await c.meta.delete("/recover/clean", recursive=True)
                 _record_placements(c, save_placed)
+                note_breaker(c)
                 c.counters = _Tripwire("write.bytes", RECOVER_SAVE_KILL,
                                        kill_b)
                 t = time.perf_counter()
@@ -3745,12 +3807,22 @@ def phase_recover(dev: torch.device, root: str, seed: int, params: dict,
         rec_b = [r for r in recoveries if r["path"].startswith(
             "/recover/ckpt/")]
         victim_b = stopped.get("victim")
+        # with the breaker: once D's opened, no placement names D
+        named_after = [at - stopped["t"] for at, legs in save_placed
+                       if "t" in breaker and at > breaker["t"]
+                       and victim_b in legs]
+        threshold = ClientConf().breaker_fail_threshold
         if names.get(victim_b) != "d" or sorted(stopped["legs"]) != \
                 sorted(ids_of("b") + [victim_b]) or len(rec_b) != 1 \
-                or not cb.get("write.block_replay_bytes"):
+                or not cb.get("write.block_replay_bytes") or named_after \
+                or len(dead) > threshold:
             raise AssertionError(f"recover (b): stopped {stopped} "
                                  f"({names.get(victim_b)}), recoveries "
-                                 f"{rec_b}, counters {cb}")
+                                 f"{rec_b}, counters {cb}, D's breaker "
+                                 f"{breaker}, {len(dead)} opens placed on D "
+                                 f"first, placements naming D after its "
+                                 f"breaker opened (s after the stop) "
+                                 f"{named_after}")
 
         async def ckpt_locs():
             async with port_client(master) as c:
@@ -3802,6 +3874,9 @@ def phase_recover(dev: torch.device, root: str, seed: int, params: dict,
             replica_failover=cb.get("write.replica_failover", 0),
             opens_after=len(after), opens_after_s=sum(d for _, d in after),
             dead_opens=len(dead), dead_opens_s=sum(d for _, d in dead),
+            breaker_open_s=(breaker["t"] - stopped["t"] if breaker
+                            else None),
+            breaker_fails=breaker.get("fails"),
             heal_s=heal_s, load_s=load_s, load_gibs=nbytes / GiB / load_s,
             loss_saved=loss_saved.item(), loss_loaded=loss_loaded.item())
         rb = res["b"]
@@ -3817,9 +3892,13 @@ def phase_recover(dev: torch.device, root: str, seed: int, params: dict,
             f"{rb['dead_opens']} of the {rb['opens_after']} block opens "
             f"after the stop were placed on D first and took "
             f"{rb['dead_opens_s']:.3f}s of their {rb['opens_after_s']:.3f}s; "
-            f"every "
-            f"block back at two live replicas (B, C) {heal_s:.3f}s after "
-            f"the stop; loaded onto {dev} in {load_s:.3f}s "
+            + (f"D's breaker opened {rb['breaker_open_s']:.3f}s after the "
+               f"stop, after {rb['breaker_fails']} failures noted against "
+               f"it, and no later open named D; "
+               if rb["breaker_open_s"] is not None
+               else "D's breaker never opened; ")
+            + f"every block back at two live replicas (B, C) {heal_s:.3f}s "
+            f"after the stop; loaded onto {dev} in {load_s:.3f}s "
             f"({rb['load_gibs']:.3f} GiB/s), {len(bad)} tensors not "
             f"bit-equal; loss saved {rb['loss_saved']!r} loaded "
             f"{rb['loss_loaded']!r}; K3 launches {launches}")
@@ -3921,19 +4000,25 @@ def phase_recover(dev: torch.device, root: str, seed: int, params: dict,
                 got = await r.read_all()
                 read_s = time.perf_counter() - t
                 await r.close()
+                board = {names.get(v["worker_id"]): (v["state"],
+                                                     v["failures"])
+                         for v in c.health.snapshot().values()}
                 return before, calls, healed_s, read_s, \
-                    np.array_equal(np.frombuffer(got, np.uint8), want)
+                    np.array_equal(np.frombuffer(got, np.uint8), want), board
 
-        before, calls, healed_s, read_s, equal = asyncio.run(refresh())
+        before, calls, healed_s, read_s, equal, board = \
+            asyncio.run(refresh())
         res["d"] = dict(path=path, bytes=want.size,
                         blocks=len(before), healed_s=healed_s,
-                        read_s=read_s, refreshes=len(calls))
+                        read_s=read_s, refreshes=len(calls),
+                        breakers=board)
         log(f"recover (d): a reader of {path} ({want.size:,} bytes, "
             f"{len(before)} blocks, every one on B and C) opened; C stopped "
             f"and its blocks healed onto E {healed_s:.3f}s after; B stopped; "
             f"the open reader's read_all took {read_s:.3f}s through "
             f"{len(calls)} GET_BLOCK_LOCATIONS (the refresh), bit-equal "
-            f"{equal}")
+            f"{equal}; the reader's breakers after it (state, failures) "
+            f"{board}")
         if not equal or calls != [path] or \
                 any(ids != bc for ids in before):
             raise AssertionError(f"recover (d): located {before} at the "
@@ -4547,6 +4632,422 @@ def phase_replicate(rng: np.random.Generator, dev: torch.device, root: str
     return res
 
 
+# ---------------------------------------------------------------- drain
+
+def phase_drain(dev: torch.device, root: str, seed: int, params: dict, step,
+                client_res: dict) -> dict:
+    """A worker decommissioned under a running feed, on one card: a master
+    of the phase's own (``ici`` placement, REP_LOST_MS) and three of the
+    port's workers in this process, A, B and C at ICI (0, 0), (1, 0) and
+    (2, 0), each with a mem tier and a tier-0 on the card. (a) SHARDS
+    token shards of 64 MiB (ids below the flagship's vocab, from
+    ``seed``) written to ``/drain/train`` at two replicas from (0, 0):
+    every block on A and C. (b) ``GpuTrainFeed`` over it at phase feed's
+    batch, epoch after epoch; after DRAIN_DECO_AFTER batches A is
+    decommissioned (DECOMMISSIONING). While A drains, every batch must
+    equal its tokens and no read may raise; once A has the master's
+    ``draining`` flag a WRITE_BLOCK to it is refused with
+    ``WorkerDraining``, and a small file written at two replicas lands on
+    B and C. The feed runs one more epoch after A is DECOMMISSIONED
+    (within DRAIN_LIMIT_S); then every block is on B and C, the master
+    names A for none, and a full block report from A brings none back;
+    the drain's seconds and GiB/s, the pulls that took the ``ici`` hint
+    and those by TCP, the feed's batches/s against phase client's. (c)
+    The moved blocks read from B (the reading client's board holds C's
+    breaker open, so its reads and its short circuit go to B first) up to
+    WORKER_MIN_READS and pinned by B's promote cycles, K1 verifying each
+    pin (launches equal to the pins), each device copy equal to its
+    tokens; three flagship steps (phase ufs's parameters and step) on
+    batches fed from ``/drain/train``: each batch equal to its tokens,
+    finite losses, K3's four kernels once a layer a step. (d) A
+    recommissioned (LIVE), a new file at two replicas placed on A again;
+    A decommissioned again and the master restarted on the phase's
+    journal: A DECOMMISSIONING there, and told to drain. The phase's
+    files are deleted, its workers and master stopped and its directory
+    removed, however it ends."""
+    from curvine_tpu_torch.common import errors as cerr
+    from curvine_tpu_torch.common.types import StorageType, WorkerState
+    from curvine_tpu_torch.gpu import cuda_ops, flash
+    from curvine_tpu_torch.gpu.loader import GpuTrainFeed, write_token_shards
+    from curvine_tpu_torch.rpc.client import Connection
+    from curvine_tpu_torch.rpc.codes import RpcCode
+    base = os.path.join(root, "drain")
+    os.makedirs(base)
+    res = {"lost_timeout_ms": REP_LOST_MS}
+    workers: dict[str, PortWorker] = {}
+    proc = None
+    master = None
+    DECO, DONE, LIVE = (int(WorkerState.DECOMMISSIONING),
+                        int(WorkerState.DECOMMISSIONED),
+                        int(WorkerState.LIVE))
+    tokens = ufs_tokens(seed, SHARDS, 0x6472616e)
+    shard_tokens = SHARD_BYTES // 4
+    small = np.random.default_rng(seed + 7).integers(
+        0, 256, DRAIN_SMALL_BYTES, dtype=np.uint8)
+    kernels = [getattr(flash, nm) for nm in K3_NAMES]
+    cfg = _flagship()
+    pulls = {"tcp": [], "ici": 0}
+
+    def states(info) -> dict[int, int]:
+        return {w.address.worker_id: int(w.state)
+                for w in info.live_workers + info.lost_workers}
+
+    try:
+        conf = master_conf(base, lost_ms=REP_LOST_MS, policy="ici")
+        proc, info = start_master(base, conf)
+        master = info["addr"]
+        master_conf(base, int(master.rsplit(":", 1)[1]), lost_ms=REP_LOST_MS,
+                    policy="ici")
+        res["master_start_s"] = info["start_s"]
+        for i, name in enumerate("abc"):
+            workers[name] = PortWorker(
+                master, os.path.join(base, name), DRAIN_TIER_BYTES, dev,
+                coords=(i, 0), hbm_bytes=DRAIN_HBM_BYTES)
+        wa, wb, wc = (workers[n].worker for n in "abc")
+        A, B, C = wa.worker_id, wb.worker_id, wc.worker_id
+        await_live(master, [A, B, C], phase="drain")
+
+        # (a) phase feed's shape at two replicas, from (0, 0)
+        async def write():
+            async with port_client(master, coords=(0, 0), replicas=2) as c:
+                t = time.perf_counter()
+                paths = await write_token_shards(c, "/drain/train", tokens,
+                                                 shard_tokens)
+                return paths, time.perf_counter() - t, dict(c.counters)
+
+        paths, write_s, wrote = asyncio.run(write())
+        placed = {p: _block_locs(master, p) for p in paths}
+        if len(paths) != SHARDS or any(
+                len(locs) != 1 or sorted(locs[0][1]) != sorted([A, C])
+                for locs in placed.values()):
+            raise AssertionError(f"drain (a): {len(paths)} shards placed "
+                                 f"{placed}, not each one block on A and C")
+        moved = {p: locs[0][0] for p, locs in placed.items()}
+        res["a"] = dict(bytes=tokens.nbytes, write_s=write_s,
+                        write_gibs=tokens.nbytes / GiB / write_s,
+                        write_bytes=wrote.get("write.bytes", 0))
+        log(f"drain (a): /drain/train, {SHARDS} shards of "
+            f"{SHARD_BYTES // MiB} MiB of tokens, written at two replicas "
+            f"from (0, 0) in {write_s:.3f}s ({res['a']['write_gibs']:.3f} "
+            f"GiB/s of file bytes); every block on A ({A}) and C ({C})")
+
+        # (b) A decommissioned under a running feed; B's pulls counted
+        real_pull = wb._tcp_pull
+        real_land = wb._try_ici_land
+
+        async def tcp_pull(*a, **kw):
+            t = time.perf_counter()
+            await real_pull(*a, **kw)
+            pulls["tcp"].append(time.perf_counter() - t)
+
+        async def ici_land(*a, **kw):
+            landed = await real_land(*a, **kw)
+            pulls["ici"] += bool(landed)
+            return landed
+
+        wb._tcp_pull, wb._try_ici_land = tcp_pull, ici_land
+        expect = torch.from_numpy(tokens).to(dev)
+        per_batch = BATCH * SEQ
+        n_epoch = tokens.size // per_batch
+
+        async def drain():
+            async with port_client(master, coords=(0, 0)) as c:
+                ev, side = {}, {}
+
+                async def watch():
+                    while True:
+                        st = states(await c.meta.master_info())
+                        if st.get(A) == DONE:
+                            ev["flip"] = time.perf_counter()
+                            return
+                        await asyncio.sleep(0.05)
+
+                async def refusals():
+                    t = time.perf_counter()
+                    while not wa.draining:
+                        if time.perf_counter() - t > 10:
+                            raise AssertionError("drain (b): A never had "
+                                                 "the draining flag")
+                        await asyncio.sleep(0.02)
+                    side["flag_s"] = time.perf_counter() - ev["deco"]
+                    # a connection of its own: a refused upload leaves
+                    # none of the feed's pooled ones mid-stream
+                    conn = await Connection(wa.addr).connect()
+                    try:
+                        up = await conn.open_upload(
+                            RpcCode.WRITE_BLOCK, header={
+                                "block_id": 987_654_321,
+                                "storage_type": int(StorageType.MEM),
+                                "algo": "crc32c", "len_hint": BLOCK})
+                        await up.finish(header={"crc32": 0,
+                                                "algo": "crc32c"})
+                        side["refused"] = None
+                    except cerr.WorkerDraining as e:
+                        side["refused"] = type(e).__name__
+                    finally:
+                        await conn.close()
+                    await c.write_all("/drain/small", small, replicas=2)
+                    fb = await c.meta.get_block_locations("/drain/small")
+                    side["small_on"] = sorted(
+                        {x.worker_id for lb in fb.block_locs
+                         for x in lb.locs})
+                    side["small_done"] = "flip" not in ev
+
+                epochs, tasks = [], []
+                while True:
+                    after = "flip" in ev
+                    f = GpuTrainFeed(c, "/drain/train", BATCH, SEQ,
+                                     device=dev)
+                    bad = torch.zeros((), dtype=torch.int64, device=dev)
+                    n = 0
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    async for b in f:
+                        ref = expect[n * per_batch:(n + 1) * per_batch]
+                        bad += (b != ref.view(BATCH, SEQ)).sum()
+                        n += 1
+                        if not epochs and n == DRAIN_DECO_AFTER:
+                            ev["deco"] = time.perf_counter()
+                            ev["deco_state"] = \
+                                await c.meta.decommission_worker(A)
+                            tasks = [asyncio.ensure_future(watch()),
+                                     asyncio.ensure_future(refusals())]
+                    torch.cuda.synchronize()
+                    epochs.append(dict(batches=n, bad=int(bad), start=t,
+                                       s=time.perf_counter() - t,
+                                       after_flip=after))
+                    if after or time.perf_counter() - ev["deco"] \
+                            > DRAIN_LIMIT_S:
+                        break
+                for x in tasks:
+                    if not x.done():
+                        x.cancel()
+                await asyncio.gather(*tasks, return_exceptions=True)
+                for x in tasks:
+                    if not x.cancelled() and x.exception() is not None:
+                        raise x.exception()
+                return ev, side, epochs, dict(c.counters)
+
+        try:
+            ev, side, epochs, fed = asyncio.run(drain())
+        finally:
+            wb._tcp_pull, wb._try_ici_land = real_pull, real_land
+        del expect
+        if "flip" not in ev:
+            raise AssertionError(f"drain (b): A not DECOMMISSIONED within "
+                                 f"{DRAIN_LIMIT_S}s of its decommission")
+        drain_s = ev["flip"] - ev["deco"]
+        during = [e for e in epochs if e["start"] < ev["flip"]]
+        batches = sum(e["batches"] for e in during)
+        secs = sum(e["s"] for e in during)
+        locs = {p: _block_locs(master, p) for p in paths}
+        workers["a"].call(wa.block_report_once())
+        after_report = {p: _block_locs(master, p) for p in paths}
+        bc = sorted([B, C])
+        if ev["deco_state"] != DECO or any(
+                e["batches"] != n_epoch or e["bad"] for e in epochs) \
+                or not epochs[-1]["after_flip"] \
+                or side.get("refused") != "WorkerDraining" \
+                or side.get("small_on") != bc or not side["small_done"] \
+                or any(sorted(x[0][1]) != bc for x in locs.values()) \
+                or after_report != locs or len(pulls["tcp"]) \
+                + pulls["ici"] != SHARDS:
+            raise AssertionError(
+                f"drain (b): decommission answered {ev['deco_state']}, "
+                f"epochs {epochs} ({n_epoch} batches each), side checks "
+                f"{side}, blocks after the flip {locs}, after A's report "
+                f"{after_report}, pulls {pulls}")
+        res["b"] = dict(
+            deco_state=ev["deco_state"], drain_s=drain_s,
+            drain_gibs=SHARDS * SHARD_BYTES / GiB / drain_s,
+            flag_s=side["flag_s"], small_on=side["small_on"],
+            small_during_drain=side["small_done"],
+            epochs=len(epochs), epochs_during=len(during),
+            batches_per_s=batches / secs,
+            gibs=batches * per_batch * 4 / GiB / secs,
+            client_batches_per_s=client_res["batches_per_s"],
+            sc_bytes=fed.get("sc.bytes.read", 0),
+            read_block_bytes=fed.get("read.zero_copy_bytes", 0),
+            tcp_pulls=len(pulls["tcp"]), ici_pulls=pulls["ici"],
+            tcp_pull_s=pulls["tcp"],
+            tcp_pull_gibs=(len(pulls["tcp"]) * SHARD_BYTES / GiB
+                           / sum(pulls["tcp"])) if pulls["tcp"] else None)
+        rb = res["b"]
+        log(f"drain (b): GpuTrainFeed over /drain/train, {len(epochs)} "
+            f"epochs of {n_epoch} batches, every batch equal to its tokens; "
+            f"A decommissioned after {DRAIN_DECO_AFTER} batches "
+            f"(DECOMMISSIONING), had the draining flag "
+            f"{rb['flag_s']:.3f}s later and refused a WRITE_BLOCK "
+            f"({side['refused']}); /drain/small, written meanwhile at two "
+            f"replicas, on {rb['small_on']} (B, C); A DECOMMISSIONED "
+            f"{drain_s:.3f}s after its decommission "
+            f"({rb['drain_gibs']:.3f} GiB/s of drained replicas); B pulled "
+            f"{rb['tcp_pulls']} blocks by TCP and {rb['ici_pulls']} by the "
+            f"ici hint"
+            + (f" ({rb['tcp_pull_gibs']:.3f} GiB/s over the pulls)"
+               if rb["tcp_pull_gibs"] else "")
+            + f"; the feed during the drain {rb['batches_per_s']:.1f} "
+            f"batches/s against phase client's "
+            f"{rb['client_batches_per_s']:.1f}; one more epoch after the "
+            f"flip; every block on B and C, none on A, and A's full block "
+            f"report brought none back")
+
+        # (c) the moved blocks pinned by B (K1), then three flagship steps
+        pins0 = wb.metrics.counters.get("blocks.hbm_pinned", 0)
+
+        async def heat(todo):
+            async with port_client(master) as c:
+                for _ in range(c.conf.client.breaker_fail_threshold):
+                    c.health.fail(wc.addr, worker_id=C)
+                for p in todo:
+                    r = await c.open(p)
+                    try:
+                        await r.read_all()
+                    finally:
+                        await r.close()
+                return dict(c.counters)
+
+        cuda_ops.block_checksum.launches = 0
+        cycles = 0
+        heated = {}
+        while not all(wb.hbm_holds(b) for b in moved.values()) \
+                and cycles < 6:
+            todo = [p for p, b in moved.items() if not wb.hbm_holds(b)]
+            got = asyncio.run(heat(todo))
+            for k, v in got.items():
+                heated[k] = heated.get(k, 0) + v
+            workers["b"].call(wb._promote_once())
+            cycles += 1
+        k1 = cuda_ops.block_checksum.launches
+        pins = wb.metrics.counters.get("blocks.hbm_pinned", 0) - pins0
+        missing = [b for b in moved.values() if not wb.hbm_holds(b)]
+        if missing or k1 != pins or pins != SHARDS \
+                or heated.get("read.zero_copy_bytes", 0):
+            raise AssertionError(f"drain (c): {cycles} promote cycles on B, "
+                                 f"{pins} pins, {k1} K1 launches, blocks not "
+                                 f"pinned {missing}, heat reads {heated}")
+        for i, p in enumerate(paths):
+            got = wb.hbm_get(moved[p]).reshape(-1).view(torch.int32)
+            ref = torch.from_numpy(
+                tokens[i * shard_tokens:(i + 1) * shard_tokens]).to(dev)
+            if not torch.equal(got, ref):
+                raise AssertionError(f"drain (c): {p}'s device copy on B "
+                                     f"differs from its tokens")
+        del got, ref
+        first = tokens[:TRAIN_BATCH * TRAIN_SEQ * UFS_STEPS].reshape(
+            UFS_STEPS, TRAIN_BATCH, TRAIN_SEQ)
+        seen = []
+
+        def check(b):
+            seen.append(bool(torch.equal(b, torch.from_numpy(
+                first[len(seen)]).to(dev))))
+
+        async def train_steps():
+            async with port_client(master) as c:
+                f = GpuTrainFeed(c, "/drain/train", TRAIN_BATCH, TRAIN_SEQ,
+                                 depth=2, device=dev)
+
+                async def take():
+                    for _ in range(UFS_STEPS):
+                        yield await anext(f.prefetcher)
+
+                try:
+                    return await timed_steps(step, params, take(), check)
+                finally:
+                    await f.prefetcher.aclose()
+
+        for fn in kernels:
+            fn.launches = 0
+        step_s, losses = asyncio.run(train_steps())
+        launches = {fn.__name__: fn.launches for fn in kernels}
+        if seen != [True] * UFS_STEPS or not all(map(math.isfinite, losses)) \
+                or set(launches.values()) != {cfg.n_layers * UFS_STEPS}:
+            raise AssertionError(f"drain (c): batches equal to their tokens "
+                                 f"{seen}, losses {losses}, K3 launches "
+                                 f"{launches}")
+        res["c"] = dict(pins=pins, k1_launches=k1, cycles=cycles,
+                        heat_sc_bytes=heated.get("sc.bytes.read", 0),
+                        losses=losses, step_ms=[x * 1e3 for x in step_s],
+                        launches=launches)
+        log(f"drain (c): the {SHARDS} moved blocks read from B (C's "
+            f"breaker held open in the reading client: "
+            f"{res['c']['heat_sc_bytes']:,} bytes by short circuit from B, "
+            f"none by READ_BLOCK) and pinned by B's promote cycles "
+            f"({cycles}): {pins} pins, {k1} K1 launches, each device copy "
+            f"equal to its tokens; {UFS_STEPS} flagship steps (phase ufs's "
+            f"parameters and AdamW) at {TRAIN_BATCH}x{TRAIN_SEQ} on "
+            f"batches fed from B and C, each equal to its tokens: losses "
+            f"{[round(x, 4) for x in losses]}, step ms "
+            f"{[round(x * 1e3, 2) for x in step_s]}; K3 launches "
+            f"{launches}")
+
+        # (d) A back to LIVE; the intent across a master restart
+        async def recommission():
+            async with port_client(master, coords=(0, 0)) as c:
+                st = await c.meta.decommission_worker(A, on=False)
+                t = time.perf_counter()
+                while wa.draining and time.perf_counter() - t < 10:
+                    await asyncio.sleep(0.02)
+                await c.write_all("/drain/back", small, replicas=2)
+                fb = await c.meta.get_block_locations("/drain/back")
+                back_on = sorted({x.worker_id for lb in fb.block_locs
+                                  for x in lb.locs})
+                again = await c.meta.decommission_worker(A)
+                return st, back_on, again
+
+        st, back_on, again = asyncio.run(recommission())
+        stop_master(proc)
+        with open(os.path.join(base, "master0.json")) as f:
+            counters = json.load(f)["counters"]
+        res["master_counters"] = {
+            k[len("replication."):]: v for k, v in counters.items()
+            if k.startswith("replication.")}
+        proc, info = start_master(base, conf, 1)
+
+        def listed():
+            async def run():
+                async with port_client(master) as c:
+                    return states(await c.meta.master_info())
+            return asyncio.run(run())
+
+        _poll(lambda: set(listed()) == {A, B, C}, 30,
+              "listed A, B and C after the restart", 0.1, "drain")
+        after = listed()
+        _poll(lambda: wa.draining, 10, "told A to drain after the restart",
+              0.05, "drain")
+        if st != LIVE or back_on != sorted([A, C]) or again != DECO \
+                or after != {A: DECO, B: LIVE, C: LIVE}:
+            raise AssertionError(f"drain (d): recommission answered {st}, "
+                                 f"/drain/back on {back_on}, decommission "
+                                 f"again {again}, states after the restart "
+                                 f"{after}")
+        res["d"] = dict(recommission_state=st, back_on=back_on,
+                        restart_s=info["start_s"], after_restart=after)
+        log(f"drain (d): A recommissioned (LIVE); /drain/back at two "
+            f"replicas placed on A and C again; A decommissioned again and "
+            f"the master restarted on the phase's journal in "
+            f"{info['start_s']:.3f}s: A DECOMMISSIONING there, and told to "
+            f"drain; the first master's replication counters "
+            f"{res['master_counters']}")
+    finally:
+        try:
+            if proc is not None and proc.poll() is None:
+                async def delete():
+                    async with port_client(master) as c:
+                        await c.meta.delete("/drain", recursive=True)
+                asyncio.run(delete())
+        except Exception as e:  # noqa: BLE001 — the directory goes anyway
+            log(f"drain: deleting /drain failed: {e}")
+        for name in list(workers):
+            workers.pop(name).stop()
+        if proc is not None:
+            stop_master(proc)
+        shutil.rmtree(base, ignore_errors=True)
+    res["k1_launches"] = k1
+    res["launches"] = launches
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4571,7 +5072,7 @@ def main() -> int:
     results["kernel"] = phase_kernel(rng, dev)
     need = N_BLOCKS * BLOCK + SHARDS * SHARD_BYTES + WORKER_TIER_BYTES \
         + 2 * ICI_TIER_BYTES + 3 * REP_TIER_BYTES + UFS_PHASE_BYTES \
-        + RECOVER_PHASE_BYTES
+        + RECOVER_PHASE_BYTES + DRAIN_PHASE_BYTES
     root = pick_data_dir(need)
     log(f"main: data under {root} (needs {need / GiB:.2f} GiB and 1 GiB "
         f"spare: {N_BLOCKS} blocks and {SHARDS} POSIX shards of 64 MiB, "
@@ -4580,7 +5081,8 @@ def main() -> int:
         f"replicate's three of {REP_TIER_BYTES / GiB:.2f} GiB, phase ufs's "
         f"under-store of {UFS_PHASE_BYTES / GiB:.2f} GiB, phase recover's "
         f"files, replays and heals, at most "
-        f"{RECOVER_PHASE_BYTES / GiB:.2f} GiB)")
+        f"{RECOVER_PHASE_BYTES / GiB:.2f} GiB, phase drain's replicas and "
+        f"pulls, at most {DRAIN_PHASE_BYTES / GiB:.2f} GiB)")
     cluster = pw = None
     try:
         cuda_ops.block_checksum.launches = 0
@@ -4606,6 +5108,8 @@ def main() -> int:
         log(f"train: mfu {results['train']['mfu']:.4f} on {card}")
         results["ufs"] = phase_ufs(dev, info["addr"], pw, root, args.seed,
                                    params, step, results["client"])
+        results["drain"] = phase_drain(dev, root, args.seed, params, step,
+                                       results["client"])
         del step
         results["ckpt"], probe = phase_ckpt(dev, info["addr"], args.seed,
                                             params,
@@ -4655,8 +5159,8 @@ def main() -> int:
                              "JAX package")
     log("main: no process of this run (this one, where the port's workers "
         "run, and each of the port's masters it started: the cluster's "
-        "twice, phase recover's, phase ici's and phase replicate's) loaded "
-        "a module of JAX or of the JAX package")
+        "twice, phase drain's twice, phase recover's, phase ici's and "
+        "phase replicate's) loaded a module of JAX or of the JAX package")
     if launches != results["main"]["pins"]:
         raise AssertionError(f"{launches} kernel launches for "
                              f"{results['main']['pins']} pins")
@@ -4670,6 +5174,7 @@ def main() -> int:
                     + results["ici"]["k1_launches"]
                     + results["replicate"]["k1_launches"]
                     + results["ufs"]["k1_launches"]
+                    + results["drain"]["k1_launches"]
                     + results["recover"]["k1_launches"],
         "max_abs_err": k["max_abs_err"],
         "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
@@ -4686,6 +5191,7 @@ def main() -> int:
                         ":113)",
             "launches": results["train"]["launches"][name]
                         + results["ufs"]["launches"][name]
+                        + results["drain"]["launches"][name]
                         + results["mesh"]["launches"][name]
                         + results["pipeline"]["launches"][name]
                         + results["recover"]["launches"][name],

@@ -6,8 +6,9 @@ calls the cache client's read path and the loader's writes need (:211-410,
 :584): ``mkdir``, ``create_file`` (with ``block_size`` and
 ``storage_policy``), ``exists``, ``file_status``, ``list_status``,
 ``rename``, ``delete``, ``meta_batch``, ``add_block``, ``complete_file``,
-``get_block_locations``, ``master_info`` and ``prefetch_window``; and
-the mount and job calls (:533-603): ``mount``, ``umount``,
+``get_block_locations``, ``master_info``, ``prefetch_window`` and
+``decommission_worker`` (:517-524, which answers the worker's state);
+and the mount and job calls (:533-603): ``mount``, ``umount``,
 ``update_mount``, ``mount_table``, ``get_mount_info``, ``submit_job``,
 ``submit_load``, ``submit_export``, ``job_status`` and ``cancel_job``.
 Every mutation carries
@@ -233,6 +234,16 @@ class FsClient:
     async def get_block_locations(self, path: str) -> FileBlocks:
         rep = await self.call(RpcCode.GET_BLOCK_LOCATIONS, {"path": path})
         return FileBlocks.from_wire(rep["file_blocks"])
+
+    async def decommission_worker(self, worker_id: int,
+                                  on: bool = True) -> int:
+        """Drain a worker (no new blocks; its replicas copied to LIVE
+        workers; DECOMMISSIONED once drained) or, with ``on`` False,
+        put it back to LIVE; returns its state (``WorkerState``)."""
+        rep = await self.call(RpcCode.DECOMMISSION_WORKER,
+                              {"worker_id": worker_id, "on": on},
+                              mutate=True)
+        return rep["state"]
 
     async def prefetch_window(self, path: str, cursor: int = 0,
                               window: int = 8, epoch: int = 0,

@@ -4,8 +4,10 @@ otherwise.
 Own copy of the parts of ``curvine_tpu/client/reader.py`` that the cache
 feed reads through:
 
-- locating a block (``_locate``, :191-215) and choosing its replica,
-  local first (``_pick_loc``, :217-225);
+- locating a block (``_locate``, :191-215) and ordering its replicas:
+  local first (``_pick_loc``, :217-225), then by the client's circuit
+  breakers (``_failover_locs``, :228-236; ``client/health.py``), whose
+  open ones go last but are never dropped;
 - the short-circuit probe: GET_BLOCK_INFO to the worker that holds the
   block on this host, which answers with the block file's path and its
   commit-time crc (``_local_path``, ``_fd_for``, ``_local_fd``; :301-365,
@@ -22,7 +24,9 @@ feed reads through:
   or by READ_BLOCK received straight into it (``_readinto_remote``,
   :905-950, over ``Connection.call_readinto``) from each replica in
   turn; a whole block is verified against the crc its EOF frame carries.
-  They return that buffer, a ``bytearray``.
+  Each attempt reports its outcome to the breakers, ``ok`` or ``fail``
+  with the location's ``worker_id`` (:936-945). They return that
+  buffer, a ``bytearray``.
 
 A block that fails its crc is reported to the master (fire-and-forget) and
 read from the next replica. When every replica of a block range has
@@ -38,16 +42,19 @@ Short-circuit reads bypass the worker, so their heat is reported back
 per-block read counts, sent in SC_READ_REPORT to the worker that granted
 the block every 512 reads and on ``close``. The worker's promotion scan
 then counts reads, not opens. The reply's shared-memory warm-cache offer
-is ignored.
+is ignored. The short circuit probes the first replica of the breaker's
+order that is on this host, and skips a holder whose breaker is open
+(as the reference's cell reads do, :1035-1045): its block is then read
+through READ_BLOCK from the next replica, and probed again once the
+breaker lets it by.
 
 Left out (ROADMAP A3b): the shared-memory side channel (a worker's offer
 is ignored and the fd path taken), erasure-coded reads and holes (a file
 resized past its last block) (both raise ``NotImplementedError``),
 short-circuit reads of a bdev tier's leased extents (its blocks are read
 through READ_BLOCK), the sequential prefetch window, parallel
-``read_range``, ``pread_view``, ``chunks``' read-ahead, the worker
-circuit breaker,
-deadlines and tracing."""
+``read_range``, ``pread_view``, ``chunks``' read-ahead, deadlines and
+tracing."""
 
 from __future__ import annotations
 
@@ -58,6 +65,7 @@ import os
 
 import numpy as np
 
+from curvine_tpu_torch.client.health import OPEN
 from curvine_tpu_torch.common import errors as err
 from curvine_tpu_torch.common.types import FileBlocks, LocatedBlock
 from curvine_tpu_torch.rpc.client import ConnectionPool
@@ -83,7 +91,7 @@ class FsReader:
     def __init__(self, fs_client, path: str, file_blocks: FileBlocks,
                  pool: ConnectionPool, chunk_size: int = 4 * 1024 * 1024,
                  short_circuit: bool = True, counters: dict | None = None,
-                 verify: bool = True):
+                 health=None, verify: bool = True):
         self.fs = fs_client
         self.path = path
         self.blocks = file_blocks
@@ -92,6 +100,8 @@ class FsReader:
         self.short_circuit = short_circuit
         self.verify = verify
         self.counters = counters if counters is not None else {}
+        # the client's shared WorkerHealth board (None: no breakers)
+        self.health = health
         self.pos = 0
         self.len = file_blocks.status.len
         self._block_offs = [lb.offset for lb in file_blocks.block_locs]
@@ -103,9 +113,9 @@ class FsReader:
         # block id -> (crc, algo) from GET_BLOCK_INFO
         self._block_crc: dict[int, tuple[int, str]] = {}
         # short-circuit reads per block since the last report, and the
-        # address of the worker that granted each block
+        # location of the worker that granted each block
         self._sc_reads: dict[int, int] = {}
-        self._sc_addr: dict[int, str] = {}
+        self._sc_loc: dict[int, object] = {}
         self._sc_pending = 0
         self._sc_flush_task: asyncio.Task | None = None
         self._tasks: set[asyncio.Task] = set()
@@ -155,6 +165,15 @@ class FsReader:
     def _addr(loc) -> str:
         return f"{loc.ip_addr or loc.hostname}:{loc.rpc_port}"
 
+    def _failover_locs(self, lb: LocatedBlock) -> list:
+        """The replicas in the order to try them: local first, then by
+        the breakers (open ones last, none dropped)."""
+        first = self._pick_loc(lb)
+        locs = [first] + [x for x in lb.locs if x is not first]
+        if self.health is not None:
+            locs = self.health.order(locs, key=self._addr)
+        return locs
+
     @staticmethod
     def _check_not_ec(lb: LocatedBlock) -> None:
         if lb.ec is not None and not lb.locs:
@@ -185,8 +204,12 @@ class FsReader:
             return self._local_paths[bid]
         path = None
         if self.short_circuit and lb.locs:
-            loc = self._pick_loc(lb)
-            if self.fs.is_local(loc):
+            loc = next((x for x in self._failover_locs(lb)
+                        if self.fs.is_local(x)), None)
+            if loc is not None and self.health is not None \
+                    and self.health.state(self._addr(loc)) == OPEN:
+                return None      # not cached: probed again once it heals
+            if loc is not None:
                 try:
                     addr = self._addr(loc)
                     conn = await self.pool.get(addr)
@@ -200,7 +223,7 @@ class FsReader:
                     if p and os.path.exists(p) and not info.get("offset") \
                             and not info.get("lease_ms"):
                         path = p
-                        self._sc_addr[bid] = addr
+                        self._sc_loc[bid] = loc
                 except err.CurvineError as e:
                     log.debug("short-circuit probe of block %d failed: %s",
                               bid, e)
@@ -265,9 +288,9 @@ class FsReader:
         self._sc_pending = 0
         by_addr: dict[str, dict[int, int]] = {}
         for bid, n in reads.items():
-            addr = self._sc_addr.get(bid)
-            if addr is not None:
-                by_addr.setdefault(addr, {})[bid] = n
+            loc = self._sc_loc.get(bid)
+            if loc is not None:
+                by_addr.setdefault(self._addr(loc), {})[bid] = n
         for addr, block_reads in by_addr.items():
             try:
                 conn = await self.pool.get(addr)
@@ -288,7 +311,7 @@ class FsReader:
         got = _block_crc(algo, data)
         if got is None or got == want:
             return True
-        self._flag_corrupt(lb, self._pick_loc(lb))
+        self._flag_corrupt(lb, self._sc_loc[lb.block.id])
         self._drop_local(lb.block.id)
         self._local_paths[lb.block.id] = None
         return False
@@ -413,13 +436,14 @@ class FsReader:
         streamed in ``chunk_size`` frames straight into ``sink``
         (``Connection.call_readinto``), from each replica in turn, local
         first; a whole block is held to the crc on the EOF frame
-        (:905-950). Each attempt fills ``sink`` from its start."""
+        (:905-950). Each attempt fills ``sink`` from its start and
+        reports its outcome to the breakers."""
         last: Exception | None = None
-        first = self._pick_loc(lb)
-        for loc in [first] + [x for x in lb.locs if x is not first]:
+        for loc in self._failover_locs(lb):
+            addr = self._addr(loc)
             try:
                 eof: dict = {}
-                conn = await self.pool.get(self._addr(loc))
+                conn = await self.pool.get(addr)
                 got = await conn.call_readinto(
                     RpcCode.READ_BLOCK, sink, header={
                         "block_id": lb.block.id, "offset": block_off,
@@ -433,14 +457,17 @@ class FsReader:
                     if have is not None and have != eof["block_crc32"]:
                         self._flag_corrupt(lb, loc)
                         raise err.AbnormalData(
-                            f"block {lb.block.id} from {self._addr(loc)} "
-                            f"failed checksum verification")
+                            f"block {lb.block.id} from {addr} failed "
+                            f"checksum verification")
+                if self.health is not None:
+                    self.health.ok(addr)
                 self._count("read.zero_copy_bytes", got)
                 return got
             except err.CurvineError as e:
+                if self.health is not None:
+                    self.health.fail(addr, worker_id=loc.worker_id)
                 log.warning("read block %d from %s failed (%s), trying "
-                            "the next replica", lb.block.id,
-                            self._addr(loc), e)
+                            "the next replica", lb.block.id, addr, e)
                 last = e
         raise last or err.BlockNotFound(f"block {lb.block.id} unreadable")
 

@@ -13,14 +13,18 @@ writer fans each block out to that many workers; ``create`` also takes
 ``block_size``, ``storage_type`` (a tier's name, the conf's when None;
 ``_TIERS``, :24-25) and ``storage_policy``, and hands the writer the
 conf's ``write_chunk_size``, ``write_replay_buffer`` and
-``write_min_replicas``. The readers
-and writers it opens share ``counters``: ``sc.bytes.read`` and
-``sc.bytes.written`` (short circuit), ``read.zero_copy_bytes``
-(READ_BLOCK into the caller's buffer), ``write.bytes`` (all bytes
-written), ``sc.write.fallbacks`` (blocks that went over WRITE_BLOCK with
-the short circuit on), ``write.replica_failover`` (legs dropped),
-``write.degraded_commits``, ``write.block_replay_bytes`` (bytes replayed
-into re-placed blocks) and ``advise.rpcs``.
+``write_min_replicas``. The readers and writers it opens share one
+``WorkerHealth`` board (``client/health.py``, :37-47, built when the
+conf's ``breaker_enabled`` is on, with its threshold, open and decay
+times): a reader tries the workers behind open breakers last, and a
+writer's ADD_BLOCK excludes them. They share ``counters`` too:
+``sc.bytes.read`` and ``sc.bytes.written`` (short circuit),
+``read.zero_copy_bytes`` (READ_BLOCK into the caller's buffer),
+``write.bytes`` (all bytes written), ``sc.write.fallbacks`` (blocks
+that went over WRITE_BLOCK with the short circuit on),
+``write.replica_failover`` (legs dropped), ``write.degraded_commits``,
+``write.block_replay_bytes`` (bytes replayed into re-placed blocks) and
+``advise.rpcs``.
 
 ``read_all`` reads a cached file (complete, every block located) through
 the cache; any other file under a mount comes from the UFS through it,
@@ -37,15 +41,15 @@ scanner is not ported, ``MASTER_FIXED``), and the mount's ``replicas``,
 Left out (ROADMAP A3e): the ``FallbackReader`` (a cached read that goes
 on from the UFS after every replica is lost mid-stream; ``unified_open``
 returns the cache's reader), ``write_through`` (``WriteType.FS``), the
-worker circuit breaker, the metadata cache, tracing, the metrics flush
-to the master, tenants, appends, batched small-file writes and
-``content_summary``."""
+metadata cache, tracing, the metrics flush to the master, tenants,
+appends, batched small-file writes and ``content_summary``."""
 
 from __future__ import annotations
 
 import logging
 
 from curvine_tpu_torch.client.fs_client import FsClient
+from curvine_tpu_torch.client.health import WorkerHealth
 from curvine_tpu_torch.client.reader import FsReader
 from curvine_tpu_torch.client.ufs_reader import UfsReader
 from curvine_tpu_torch.client.writer import FsWriter
@@ -91,6 +95,14 @@ class CurvineClient:
         self.pool = ConnectionPool(size=cc.conn_pool_size,
                                    timeout_ms=cc.rpc_timeout_ms)
         self.counters: dict[str, int] = {}
+        # per-worker circuit breakers, shared by every reader and writer
+        # of this client: a dead worker is learned once
+        self.health = None
+        if cc.breaker_enabled:
+            self.health = WorkerHealth(
+                fail_threshold=cc.breaker_fail_threshold,
+                open_s=cc.breaker_open_ms / 1000.0,
+                decay_s=cc.breaker_decay_ms / 1000.0)
 
     async def close(self) -> None:
         await self.meta.close()
@@ -124,7 +136,7 @@ class CurvineClient:
                                                 or cc.storage_type,
                                                 StorageType.MEM),
                         short_circuit=cc.short_circuit,
-                        counters=self.counters,
+                        counters=self.counters, health=self.health,
                         ici_coords=list(self.conf.worker.ici_coords) or None,
                         replay_buffer=cc.write_replay_buffer,
                         min_replicas=cc.write_min_replicas)
@@ -137,7 +149,8 @@ class CurvineClient:
         return FsReader(self.meta, path, fb, self.pool,
                         chunk_size=cc.read_chunk_size,
                         short_circuit=cc.short_circuit,
-                        counters=self.counters, verify=cc.read_verify)
+                        counters=self.counters, health=self.health,
+                        verify=cc.read_verify)
 
     async def write_all(self, path: str, data, **kw) -> None:
         async with await self.create(path, overwrite=True, **kw) as w:

@@ -8,10 +8,11 @@ the caller's buffer uncopied, a partial one is held until it fills),
 ride on that call; the writer's ``ici_coords`` steer the ``ici``
 placement; a retryable refusal is retried until a 90 s deadline,
 abandoning the refused block and excluding the workers this stream saw
-fail), ``_open_block`` opens one WRITE_BLOCK upload leg per location on
-the writer's ``storage_type`` (:427-463), ``_send_chunk`` chains the
-block's crc32c (the port's ``csrc/crc32c.cc``) and sends each chunk to
-every leg at once (:197-270), ``_seal_block`` and ``_finish_block`` end
+fail and those behind the client's open breakers), ``_open_block``
+opens one WRITE_BLOCK upload leg per location on the writer's
+``storage_type`` (:427-463), ``_send_chunk`` chains the block's crc32c
+(the port's ``csrc/crc32c.cc``) and sends each chunk to every leg at
+once (:197-270), ``_seal_block`` and ``_finish_block`` end
 every leg with the crc and keep the commit of the legs that acked
 (:507-611), and ``close`` completes the file at the master.
 
@@ -52,8 +53,14 @@ draining worker) or a location off this host sends the block over
 WRITE_BLOCK, and the counter ``sc.write.fallbacks`` counts such blocks.
 Bytes written by short circuit count as ``sc.bytes.written`` (the
 reference's name), all bytes sent (replays included) as ``write.bytes``.
-Left out: the circuit breaker (``client/health.py``; the workers this
-stream saw fail stand in for its exclusions) and tracing."""
+
+The circuit breaker (:119-125, :364-390, :454-459): the client's shared
+``WorkerHealth`` board (``client/health.py``) hears of every leg lost
+mid-block and every refused or acked open, with the worker's id, and
+ADD_BLOCK excludes the workers behind open breakers beside this
+stream's own failures; when that exclusion leaves placement nothing
+(NO_AVAILABLE_WORKER) the request goes again without it: an open
+breaker beats no worker. Left out: tracing."""
 
 from __future__ import annotations
 
@@ -85,7 +92,8 @@ class FsWriter:
                  storage_type: StorageType = StorageType.MEM,
                  short_circuit: bool = True, counters: dict | None = None,
                  ici_coords: list[int] | None = None,
-                 replay_buffer: bool = True, min_replicas: int = 1):
+                 replay_buffer: bool = True, min_replicas: int = 1,
+                 health=None):
         self.fs = fs_client
         self.path = path
         self.pool = pool
@@ -96,6 +104,8 @@ class FsWriter:
         self.counters = counters if counters is not None else {}
         self.ici_coords = ici_coords
         self.min_replicas = max(1, min_replicas)
+        # the client's shared WorkerHealth board (None: no breakers)
+        self.health = health
         self.pos = 0
         self._buf = bytearray()
         self._block: LocatedBlock | None = None
@@ -131,6 +141,8 @@ class FsWriter:
         self.counters[key] = self.counters.get(key, 0) + n
 
     def _note_leg_failed(self, loc, worker_id: int, cause) -> None:
+        if self.health is not None:
+            self.health.fail(self._addr(loc), worker_id=worker_id)
         self._failed_workers.add(worker_id)
         self._count("write.replica_failover")
         log.warning("write %s: replica %s (worker %d) lost mid-block: %s",
@@ -322,8 +334,9 @@ class FsWriter:
         worker's CapacityPending while space clears after a restart, a
         worker that cannot be reached) backs off and asks again,
         abandoning the refused block and excluding the workers this
-        stream saw fail, until the deadline; the commits ride only the
-        first request. Exclusions that leave no worker are dropped. A
+        stream saw fail and those behind open breakers, until the
+        deadline; the commits ride only the first request. Exclusions
+        that leave no worker are dropped. A
         recovery passes the block to abandon and its own deadline, and
         then NO_AVAILABLE_WORKER is waited out too: the caller's bytes
         sit in the replay buffer."""
@@ -335,7 +348,10 @@ class FsWriter:
         delay = 0.4
         use_exclude = True
         while True:
-            exclude = sorted(self._failed_workers) if use_exclude else []
+            excl = set(self._failed_workers)
+            if self.health is not None:
+                excl |= self.health.open_worker_ids()
+            exclude = sorted(excl) if use_exclude else []
             try:
                 self._block = await self.fs.add_block(
                     self.path, commit_blocks=commits,
@@ -375,16 +391,22 @@ class FsWriter:
                 return
             self._count("sc.write.fallbacks")
         for loc in locs:
+            addr = self._addr(loc)
             try:
-                conn = await self.pool.get(self._addr(loc))
+                conn = await self.pool.get(addr)
                 up = await conn.open_upload(RpcCode.WRITE_BLOCK, header={
                     "block_id": self._block.block.id,
                     "storage_type": int(self.storage_type),
                     "algo": self._crc_algo, "len_hint": self.block_size})
             except err.CurvineError:
-                # the next placement leaves this worker out
+                # the next placement leaves this worker out, and so do
+                # the next files' once its breaker opens
                 self._failed_workers.add(loc.worker_id)
+                if self.health is not None:
+                    self.health.fail(addr, worker_id=loc.worker_id)
                 raise
+            if self.health is not None:
+                self.health.ok(addr)
             self._uploads.append(up)
             self._upload_locs.append(loc)
 

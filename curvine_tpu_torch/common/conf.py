@@ -38,7 +38,10 @@ recovery: ``write_replay_buffer`` keeps the open block's bytes so that
 a block that lost its last leg, or fell below ``write_min_replicas``
 live legs, is re-placed and replayed (off, the failure reaches the
 caller), and the block keeps streaming on its surviving legs while at
-least ``write_min_replicas`` remain.
+least ``write_min_replicas`` remain; and the per-worker circuit
+breakers of ``client/health.py`` (``breaker_enabled``, on by default as
+in the reference, ``breaker_fail_threshold``, ``breaker_open_ms`` and
+``breaker_decay_ms``, :281-290).
 The worker's fields that name a branch the port's worker does not have
 are constants too (``WORKER_FIXED``, ``TIER_FIXED``, ``QOS_FIXED``): the
 bdev layout and a tier's direct-IO queue depth, the direct-IO engine,
@@ -49,8 +52,8 @@ the value the port implements is refused. The device-path transfer
 the tier-0's heartbeat advertisement (``hbm_advertise_max``) and the
 tasks a worker runs at once (``task_parallelism``, :168) are fields.
 Left out: the fuse, gateway, obs, rpc and ec sections, the
-worker's scrub and web-server fields, the client's breaker,
-deadline, meta-cache, tracing, tenant, read-ahead and prefetch-window
+worker's scrub and web-server fields, the client's deadline,
+meta-cache, tracing, tenant, read-ahead and prefetch-window
 fields, and the ``CURVINE_*`` environment overrides."""
 
 from __future__ import annotations
@@ -184,6 +187,15 @@ class ClientConf:
     conn_retry_max: int = 3
     conn_retry_base_ms: int = 100
     conn_pool_size: int = 4
+    # per-worker circuit breakers (client/health.py): after
+    # breaker_fail_threshold failures in a row against one worker its
+    # breaker opens for breaker_open_ms (reads try it last, placements
+    # exclude it), then half-opens for one probe; counts decay after
+    # breaker_decay_ms without a failure
+    breaker_enabled: bool = True
+    breaker_fail_threshold: int = 3
+    breaker_open_ms: int = 5_000
+    breaker_decay_ms: int = 30_000
 
 
 def _check(path: str, section: str, table: dict, fixed: dict,

@@ -105,6 +105,7 @@ InvalidPath = _make("InvalidPath", ErrorCode.INVALID_PATH)
 InvalidArgument = _make("InvalidArgument", ErrorCode.INVALID_ARGUMENT)
 LeaseConflict = _make("LeaseConflict", ErrorCode.LEASE_CONFLICT)
 BlockNotFound = _make("BlockNotFound", ErrorCode.BLOCK_NOT_FOUND)
+WorkerNotFound = _make("WorkerNotFound", ErrorCode.WORKER_NOT_FOUND)
 NoAvailableWorker = _make("NoAvailableWorker", ErrorCode.NO_AVAILABLE_WORKER)
 CapacityExceeded = _make("CapacityExceeded", ErrorCode.CAPACITY_EXCEEDED)
 Unsupported = _make("Unsupported", ErrorCode.UNSUPPORTED)
@@ -125,7 +126,7 @@ _CODE_TO_CLASS: dict[ErrorCode, type[CurvineError]] = {
     c.code: c for c in [
         FileNotFound, FileAlreadyExists, DirNotEmpty, NotADirectory,
         IsADirectory, InvalidPath, InvalidArgument, LeaseConflict,
-        BlockNotFound, NoAvailableWorker, CapacityExceeded,
+        BlockNotFound, WorkerNotFound, NoAvailableWorker, CapacityExceeded,
         Unsupported, WorkerDraining, NotLeader, RpcTimeout, AbnormalData,
         PermissionDenied, ConnectError, Uncompleted, UfsError,
         MountNotFound, JobNotFound]}

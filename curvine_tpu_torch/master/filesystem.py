@@ -14,29 +14,38 @@ Served: ``mkdir``, ``create_file`` (with the caller's ``block_size`` and
 pending deletes the next heartbeat hands each worker), ``add_block``
 (with ``commit_blocks``, ``exclude_workers`` and ``abandon_block``),
 ``complete_file`` and ``get_block_locations``; and the worker plane:
-``worker_heartbeat`` (``delete_blocks`` and ``report_now``; ``draining``
-never, as no worker is decommissioned: DECOMMISSION_WORKER is refused),
-``worker_block_report``, ``recover_stale_leases``, ``check_lost_workers``
-(which hands each newly lost worker's blocks to ``on_worker_lost``, the
-replication manager's hook, :1288-1298) and ``master_info``
-(:1206-1314). The placement policy is built with the conf's ICI mesh
-shape, and ``add_block`` passes the client's ``ici_coords`` to it
-(:49-60, :1053-1067). Every write op is refused under a read-only mount
-(``_mount_write_guard``, :1316-1341; recursive delete and rename also
-when a read-only mount lies under the path); a create whose storage
-policy carries ``ufs_mtime`` is a cache-warming load, which passes.
+``worker_heartbeat`` (``delete_blocks``, ``report_now``, and
+``draining`` to a DECOMMISSIONING worker, which then refuses new write
+streams, :1205-1227), ``worker_block_report`` (a DECOMMISSIONED
+worker's report is ignored: its copies were dropped at the drain's end,
+:1232-1236), ``recover_stale_leases``, ``check_lost_workers`` (which
+hands each newly lost worker's blocks to ``on_worker_lost``, the
+replication manager's hook, :1288-1298) and ``master_info`` (the
+serving workers, LIVE and draining, as the live list; the LOST and the
+DECOMMISSIONED as the lost list, :1300-1314). ``get_block_locations``
+lists the LIVE and the DECOMMISSIONING replicas (:1168, :1197): a
+draining worker serves reads until the drain ends. The decommission
+intent is journaled (``decommission_worker``, ``worker_deco``,
+:395-410) and kept in the snapshot's ``deco`` section. The placement
+policy is built with the conf's ICI mesh shape, and ``add_block``
+passes the client's ``ici_coords`` to it (:49-60, :1053-1067). Every
+write op is refused under a read-only mount (``_mount_write_guard``,
+:1316-1341; recursive delete and rename also when a read-only mount
+lies under the path); a create whose storage policy carries
+``ufs_mtime`` is a cache-warming load, which passes.
 
 The port applies the journal ops ``mkdir``, ``create``, ``delete``,
 ``rename``, ``alloc_block``, ``commit_blocks``, ``complete``, the raft
-leader's ``noop``, ``job_put`` and ``job_del`` (:413-420), and, once the
-server's ``MountManager`` (``master/mount.py``) has attached its hooks,
-``mount_add``, ``mount_remove`` and ``mount_update``; a snapshot's
-``jobs`` and ``mounts`` sections are saved and loaded. Any other op (the
+leader's ``noop``, ``job_put``, ``job_del`` and ``worker_deco``
+(:405-420), and, once the server's ``MountManager``
+(``master/mount.py``) has attached its hooks, ``mount_add``,
+``mount_remove`` and ``mount_update``; a snapshot's ``jobs``,
+``mounts`` and ``deco`` sections are saved and loaded. Any other op (the
 reference's ``set_incomplete``, ``set_attr``, ``symlink``, ``link``,
-``resize``, ``free``, ``ec_*``, ``tx_*``, ``worker_deco``,
-``raft_conf``), and a snapshot that holds EC stripes, decommissions or a
-raft config, stops recovery with ``UnportedJournalOp``, which names it:
-skipping it would drop state silently. Left out: the KV store, the raft
+``resize``, ``free``, ``ec_*``, ``tx_*``, ``raft_conf``), and a snapshot
+that holds EC stripes or a raft config, stops recovery with
+``UnportedJournalOp``, which names it: skipping it would drop state
+silently. Left out: the KV store, the raft
 hooks, EC stripes, the two-phase transactions of the sharded namespace,
 and the audit log (ROADMAP A3d)."""
 
@@ -63,7 +72,7 @@ log = logging.getLogger(__name__)
 # args never share mutable state)
 _DEFAULT_POLICY_WIRE = StoragePolicy().to_wire()
 # snapshot sections of the reference's features the port does not have
-_UNPORTED_SNAPSHOT_KEYS = ("ec", "deco", "raft_conf")
+_UNPORTED_SNAPSHOT_KEYS = ("ec", "raft_conf")
 
 
 class UnportedJournalOp(RuntimeError):
@@ -175,7 +184,8 @@ class MasterFilesystem:
         state = {"next_id": self.store.get_counter("next_id", ROOT_ID + 1),
                  "next_block_id": self.store.get_counter("next_block_id", 1),
                  "inodes": inodes, "blocks": blocks,
-                 "jobs": list(self.store.iter_jobs()), "ec": [], "deco": []}
+                 "jobs": list(self.store.iter_jobs()), "ec": [],
+                 "deco": sorted(self.workers.deco_ids)}
         if self.mounts is not None:
             state["mounts"] = self.mounts.snapshot_state()
         return state
@@ -224,6 +234,9 @@ class MasterFilesystem:
             self.store.block_put(bid, blen, iid, rep)
         for wire in snap.get("jobs", []):
             self.store.job_put(wire["job_id"], wire)
+        self.workers.deco_ids = set(snap.get("deco", []))
+        for wid in self.workers.deco_ids:
+            self.store.deco_put(wid)
         if self.mounts is not None and "mounts" in snap:
             self.mounts.load_snapshot_state(snap["mounts"])
 
@@ -237,6 +250,23 @@ class MasterFilesystem:
 
     def _apply_noop(self) -> None:
         """A raft leader's term-opening entry."""
+
+    def decommission_worker(self, worker_id: int, on: bool = True) -> None:
+        """The journaled decommission intent (off: recommission). A
+        worker re-registers by its heartbeats, so the intent cannot live
+        in the worker map alone. Recommission takes an absent worker
+        too: an intent for a worker long gone must be clearable."""
+        if on:
+            self.workers.get(worker_id)      # raises WorkerNotFound
+        self._log("worker_deco", dict(worker_id=worker_id, on=on))
+
+    def _apply_worker_deco(self, worker_id: int, on: bool) -> None:
+        if on:
+            self.store.deco_put(worker_id)
+            self.workers.decommission(worker_id)
+        else:
+            self.store.deco_remove(worker_id)
+            self.workers.recommission(worker_id)
 
     def _apply_job_put(self, job: dict) -> None:
         """A job's record, for its resume after a restart."""
@@ -540,7 +570,9 @@ class MasterFilesystem:
             locs, sts = [], []
             for wid, loc in meta.locs.items():
                 w = self.workers.workers.get(wid)
-                if w is not None and w.state == WorkerState.LIVE:
+                # a draining worker's replicas serve until the drain ends
+                if w is not None and w.state in (
+                        WorkerState.LIVE, WorkerState.DECOMMISSIONING):
                     locs.append(w.address)
                     sts.append(loc.storage_type)
             out.append(LocatedBlock(
@@ -560,16 +592,25 @@ class MasterFilesystem:
                                    info.ici_coords)
         wid = info.address.worker_id
         cmds = {"delete_blocks": list(self.pending_deletes.pop(wid, set()))}
-        if w.state == WorkerState.LIVE \
+        if w.state in (WorkerState.LIVE, WorkerState.DECOMMISSIONING) \
                 and not self.workers.has_current_report(wid):
             # no full report since the worker (re)registered, or since
             # this master started: ask for one now, reads need locations
             cmds["report_now"] = True
+        if w.state == WorkerState.DECOMMISSIONING:
+            # the worker refuses new write streams (in-flight ones end),
+            # so no fresh upload races the drain
+            cmds["draining"] = True
         return cmds
 
     def worker_block_report(self, worker_id: int, held: dict,
                             storage_types: dict,
                             incremental: bool = False) -> dict:
+        w = self.workers.workers.get(worker_id)
+        if w is not None and w.state == WorkerState.DECOMMISSIONED:
+            # its copies were dropped from the block map when the drain
+            # ended: a report must not make them count again
+            return {"delete_blocks": []}
         held = {int(k): int(v) for k, v in held.items()}
         storage_types = {int(k): int(v) for k, v in storage_types.items()}
         orphans = self.blocks.apply_report(worker_id, held, storage_types,
@@ -626,8 +667,13 @@ class MasterFilesystem:
         return MasterInfo(
             active_master=addr, inode_num=self.tree.count(),
             block_num=self.blocks.count(), capacity=cap, available=avail,
-            fs_used=cap - avail, live_workers=self.workers.live_workers(),
-            lost_workers=self.workers.lost_workers())
+            fs_used=cap - avail,
+            # draining workers still serve and report: they are listed
+            # live (their state says the rest); drained ones ride the
+            # lost list, the safe-to-remove signal
+            live_workers=self.workers.serving_workers(),
+            lost_workers=(self.workers.lost_workers()
+                          + self.workers.retired_workers()))
 
     # ==================== helpers ====================
 

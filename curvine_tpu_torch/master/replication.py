@@ -1,10 +1,10 @@
 """Block re-replication: the master keeps every block at its file's
 replica count.
 
-Own copy of ``curvine_tpu/master/replication.py`` without EC and
-without the decommission drain. The master queues the blocks with fewer
-live replicas than desired (a lost worker's, found by the periodic scan,
-or reported corrupt), picks a source holder and a destination worker,
+Own copy of ``curvine_tpu/master/replication.py`` without EC. The
+master queues the blocks with fewer live replicas than desired (a lost
+worker's, found by the periodic scan, a draining worker's, or reported
+corrupt), picks a source holder and a destination worker,
 and asks the destination to pull the block (SUBMIT_BLOCK_REPLICATION_JOB,
 under a budget carried in the request header: ``rpc/deadline.py``).
 Ported:
@@ -18,8 +18,16 @@ Ported:
 - ``enqueue`` and ``enqueue_evacuation`` (:124-148), ``on_worker_lost``
   and ``replacement_worker`` (:150-161);
 - ``run`` with its per-block backoff (:163-193) and ``_scan_loop``
-  (:195-209) without its EC and drain sweeps;
+  (:195-209) without its EC sweep;
 - ``_live_replicas`` (:238-245);
+- ``_drain_scan`` (:247-298), the decommission drain, run by the scan
+  after the under-replication sweep: each block a DECOMMISSIONING worker
+  holds needs its count on LIVE workers; once none is short, the worker
+  flips to DECOMMISSIONED and its replicas leave the block map. Its
+  three guards: no flip before a full block report newer than the
+  worker's registration or return from LOST; a block that no LIVE
+  non-holder can take counts as satisfied while it keeps one LIVE
+  replica; a block with no LIVE replica always holds the flip back;
 - ``_replicate`` (:300-405): only LIVE replicas count; the LIVE holders
   serve first, ordered by ``worker_distance`` to the destination, then
   the draining ones, then the flagged copy as the last resort; the
@@ -33,8 +41,8 @@ Ported:
 Refused by name where met (ROADMAP A3e): an EC stripe's retirement and a
 cell's reconstruction (``_classify`` raises ``Unsupported`` for a block
 the filesystem's ``ec_stripes`` or ``ec_cells`` name; the port's
-filesystem has neither). Left out: the EC and drain sweeps of the scan,
-the leader gate (the port's master is a single node, without raft) and
+filesystem has neither). Left out: the EC sweep of the scan, the
+leader gate (the port's master is a single node, without raft) and
 the trace each dispatch opens."""
 
 from __future__ import annotations
@@ -189,6 +197,7 @@ class ReplicationManager:
             if self._evac:
                 # unresolved evacuations are retried at scan cadence
                 self.enqueue(list(self._evac))
+            self._drain_scan()
 
     def _live_replicas(self, block_id: int) -> int:
         n = 0
@@ -197,6 +206,46 @@ class ReplicationManager:
             if w is not None and w.state == WorkerState.LIVE:
                 n += 1
         return n
+
+    def _drain_scan(self) -> None:
+        """The decommission drain: a DECOMMISSIONING worker's blocks are
+        enqueued until each has its count on LIVE workers, then the
+        worker flips to DECOMMISSIONED and its replicas are dropped from
+        the block map (stale locations would mask a later shortfall). A
+        block no LIVE non-holder can take (too few workers) counts as
+        satisfied while it keeps one LIVE replica; none LIVE always
+        holds the flip back: it would lose the only copy."""
+        live_ids = {w.address.worker_id
+                    for w in self.fs.workers.live_workers()}
+        for w in self.fs.workers.decommissioning_workers():
+            wid = w.address.worker_id
+            if not self.fs.workers.has_current_report(wid):
+                # no full report since it (re)registered or came back:
+                # the block map does not know what it holds
+                continue
+            pending, capped = [], 0
+            for bid in self.fs.blocks.worker_blocks.get(wid, set()):
+                live = self._live_replicas(bid)
+                if live >= self.fs.blocks.desired_of(bid):
+                    continue
+                holders = set(self.fs.blocks.locs.get(bid, {}))
+                if live >= 1 and not (live_ids - holders):
+                    capped += 1      # no target could raise the count
+                    continue
+                pending.append(bid)
+            if pending:
+                log.info("drain: worker %d has %d blocks to re-replicate",
+                         wid, len(pending))
+                self.enqueue(pending)
+                continue
+            w.state = WorkerState.DECOMMISSIONED
+            self.fs.blocks.worker_lost(wid)
+            if capped:
+                log.warning("worker %d drained: DECOMMISSIONED, but %d "
+                            "blocks stay under-replicated (too few LIVE "
+                            "workers for their counts)", wid, capped)
+            else:
+                log.info("worker %d fully drained: DECOMMISSIONED", wid)
 
     async def _replicate(self, block_id: int) -> bool:
         """Dispatch one pull job. True when the block needs nothing more

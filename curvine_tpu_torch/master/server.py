@@ -28,22 +28,26 @@ REQUEST_REPLACEMENT_WORKER (:1212-1215), REPORT_BLOCK_REPLICATION_RESULT
 (:1275-1280), and REPORT_UNDER_REPLICATED_BLOCKS (:1230-1273): verdicts
 noted, a replica reported with its ``worker_id`` evacuated (flagged, it
 stops counting and is retired once the block is back at its count), a
-report without one enqueued, and ``confirm_live`` answered. At start
-the mount table is rebuilt from the store after the journal's recovery
-(:202). The replication manager (``master/replication.py``, :100-103,
-:258-259) and the job manager's dispatch (which recovers the journaled
-jobs first, :260) run on the ``ScheduledExecutor`` beside the periodic
-``heartbeat-check`` (lost workers, whose blocks it re-replicates) and
-``lease-recovery`` ticks; ``stop()`` cancels them and closes their
-connections. Every request is timed into the ``rpc.<code name>``
-histograms of ``metrics``; the ``replication.*`` counters are summed
-there too.
+report without one enqueued, and ``confirm_live`` answered; and
+DECOMMISSION_WORKER (:1217-1229): the superuser's journaled intent, on
+or off, answered with the worker's state (-1 for a worker the master
+has not seen). At start the mount table is rebuilt from the store after
+the journal's recovery, and the store's decommission intents are put
+back into the worker map (:202-205). The replication manager
+(``master/replication.py``, :100-103, :258-259: the re-replication
+queue, its scan and the decommission drain) and the job manager's
+dispatch (which recovers the journaled jobs first, :260) run on the
+``ScheduledExecutor`` beside the periodic ``heartbeat-check`` (lost
+workers, whose blocks it re-replicates) and ``lease-recovery`` ticks;
+``stop()`` cancels them and closes their connections. Every request is
+timed into the ``rpc.<code name>`` histograms of ``metrics``; the
+``replication.*`` counters are summed there too.
 
 Every request but a worker's must come from the superuser
 (``acl.SuperuserGate``). Every other code the reference's master
 registers (:340-410, ``rpc/codes.py::MASTER_REFUSED``) is answered
-UNSUPPORTED by name: locks, quotas, raft, shards, EC, decommissions,
-batches other than META_BATCH, attributes, links, appends, metrics
+UNSUPPORTED by name: locks, quotas, raft, shards, EC, batches other
+than META_BATCH, attributes, links, appends, metrics
 reports, spans and health. Read leases and the fast metadata port are
 not served: a read's reply carries no ``lease`` token and
 ``master_info`` no ``fast_addr``, so a client caches nothing (ROADMAP
@@ -114,6 +118,8 @@ class MasterServer:
     async def start(self) -> None:
         self.fs.recover()
         self.mounts.load_from_store()
+        # the durable decommission intents
+        self.fs.workers.deco_ids |= set(self.fs.store.iter_deco())
         await self.rpc.start()
         self.executor.submit_periodic(
             "heartbeat-check", self._heartbeat_tick,
@@ -130,9 +136,11 @@ class MasterServer:
         self._prune_worker_counters()
 
     def _prune_worker_counters(self) -> None:
-        """Sum the live workers' byte counters into the gauges; a lost
+        """Sum the serving workers' byte counters into the gauges (a
+        draining worker still serves and reports); a lost or drained
         worker's last counters leave them."""
-        live = {w.address.worker_id for w in self.fs.workers.live_workers()}
+        live = {w.address.worker_id
+                for w in self.fs.workers.serving_workers()}
         self._worker_counters = {k: v for k, v in
                                  self._worker_counters.items() if k in live}
         for name in ("bytes.read", "bytes.written"):
@@ -175,6 +183,8 @@ class MasterServer:
         r(C.REQUEST_REPLACEMENT_WORKER, self._h(self._replacement_worker))
         r(C.REPORT_BLOCK_REPLICATION_RESULT,
           self._h(self._replication_result))
+        r(C.DECOMMISSION_WORKER, self._h(self._decommission_worker,
+                                         mutate=True))
         r(C.MOUNT, self._h(self._mount, mutate=True))
         r(C.UNMOUNT, self._h(self._umount, mutate=True))
         r(C.UPDATE_MOUNT, self._h(self._update_mount, mutate=True))
@@ -367,6 +377,14 @@ class MasterServer:
         w = self.replication.replacement_worker(
             q["block_id"], set(q.get("exclude_workers", [])))
         return {"worker": w.address.to_wire()}
+
+    def _decommission_worker(self, q):
+        """Decommission (``on``) or recommission a worker: a journaled
+        intent, the superuser's only."""
+        self.acl.check(q)
+        self.fs.decommission_worker(q["worker_id"], on=q.get("on", True))
+        w = self.fs.workers.workers.get(q["worker_id"])
+        return {"state": int(w.state) if w is not None else -1}
 
     def _report_under_replicated(self, q):
         """Corrupt or lost replicas, from a worker (with its

@@ -2,10 +2,11 @@
 
 Own copy of ``MemMetaStore`` (``curvine_tpu/master/store.py:43-250``):
 everything in dicts, made durable by the journal and its snapshots, with
-the mount table's and the job manager's records (:112-130). Left out:
-``KvMetaStore`` and its KV engine (``common/kvstore.py``, ``kvnative``;
-ROADMAP A3d), and the EC stripe, two-phase transaction and decommission
-tables of the features the port's master does not have; the store's KV
+the mount table's and the job manager's records (:112-130) and the
+workers' decommission intents (:160-168). Left out: ``KvMetaStore`` and
+its KV engine (``common/kvstore.py``, ``kvnative``; ROADMAP A3d), and
+the EC stripe and two-phase transaction tables of the features the
+port's master does not have; the store's KV
 transaction surface (``commit_applied``, ``stage_entry``, ``rollback``),
 a no-op in RAM, goes with them."""
 
@@ -22,6 +23,7 @@ class MemMetaStore:
         self.counters: dict[str, int] = {}
         self.mounts_tbl: dict[str, dict] = {}
         self.jobs_tbl: dict[str, dict] = {}
+        self.deco_tbl: set[int] = set()
 
     # inodes
     def get(self, inode_id: int):
@@ -95,6 +97,16 @@ class MemMetaStore:
     def iter_jobs(self):
         return iter(list(self.jobs_tbl.values()))
 
+    # worker decommission intents
+    def deco_put(self, worker_id: int) -> None:
+        self.deco_tbl.add(worker_id)
+
+    def deco_remove(self, worker_id: int) -> None:
+        self.deco_tbl.discard(worker_id)
+
+    def iter_deco(self):
+        return iter(sorted(self.deco_tbl))
+
     # counters
     def get_counter(self, name: str, default: int = 0) -> int:
         return self.counters.get(name, default)
@@ -115,3 +127,4 @@ class MemMetaStore:
         self.counters.clear()
         self.mounts_tbl.clear()
         self.jobs_tbl.clear()
+        self.deco_tbl.clear()

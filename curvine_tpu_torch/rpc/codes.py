@@ -110,7 +110,6 @@ MASTER_REFUSED = (
     RpcCode.LIST_OPTIONS, RpcCode.CONTENT_SUMMARY, RpcCode.GET_LOCK,
     RpcCode.SET_LOCK, RpcCode.LIST_LOCK, RpcCode.ASSIGN_WORKER,
     RpcCode.METRICS_REPORT, RpcCode.CLUSTER_HEALTH, RpcCode.GET_SPANS,
-    RpcCode.EC_COMMIT_STRIPE,
-    RpcCode.DECOMMISSION_WORKER, RpcCode.SHARD_TX,
+    RpcCode.EC_COMMIT_STRIPE, RpcCode.SHARD_TX,
     RpcCode.SHARD_TX_LIST, RpcCode.SHARD_STATS, RpcCode.SHARD_TABLE,
     RpcCode.TENANT_STATS, RpcCode.RAFT_MEMBER_CHANGE, RpcCode.RAFT_TRANSFER)

@@ -456,13 +456,12 @@ def test_journal_op_the_port_does_not_apply_is_refused(tmp_path, op):
         port.recover()
 
 
-@pytest.mark.parametrize("key", ["ec", "deco", "raft_conf"])
+@pytest.mark.parametrize("key", ["ec", "raft_conf"])
 def test_snapshot_section_the_port_does_not_apply_is_refused(tmp_path, key):
     fs = JaxFs(journal=JaxJournal(str(tmp_path / "j")), store=JaxMemStore())
     fs.mkdir("/d")
     state = fs._snapshot_state()
-    state[key] = {"raft_conf": {"ver": 1}, "deco": [7]}.get(
-        key, [{"job_id": "j1"}])
+    state[key] = {"raft_conf": {"ver": 1}}.get(key, [{"job_id": "j1"}])
     fs.journal.write_snapshot(state)
     fs.journal.close()
     port = MasterFilesystem(journal=Journal(str(tmp_path / "j")))
@@ -470,13 +469,14 @@ def test_snapshot_section_the_port_does_not_apply_is_refused(tmp_path, key):
         port.recover()
 
 
-@pytest.mark.parametrize("key", ["jobs", "mounts"])
+@pytest.mark.parametrize("key", ["jobs", "mounts", "deco"])
 def test_snapshot_section_of_mounts_and_jobs_is_applied(tmp_path, key):
-    """The two sections the port's master now applies: a JAX master's
-    snapshot with real mount or job records reopens in the port's master
-    (its ``MountManager`` attached, as the server attaches it) with the
-    same records, and the port's next snapshot carries them as the JAX
-    package's does; without a mount table a mounts section is refused."""
+    """The sections the port's master now applies: a JAX master's
+    snapshot with real mount or job records, or decommission intents,
+    reopens in the port's master (its ``MountManager`` attached, as the
+    server attaches it) with the same records, and the port's next
+    snapshot carries them as the JAX package's does; without a mount
+    table a mounts section is refused."""
     from curvine_tpu.common.types import JobInfo as JaxJob
     from curvine_tpu.common.types import JobState as JaxJobState
     from curvine_tpu.master.mount import MountManager as JaxMounts
@@ -487,6 +487,9 @@ def test_snapshot_section_of_mounts_and_jobs_is_applied(tmp_path, key):
         fs.mounts.mount("/m", "file:///data/m", access_mode="r", replicas=2,
                         ttl_ms=500, ttl_action=1, properties={"k": "v"})
         fs.mounts.mount("/n", "mem://bkt")
+    elif key == "deco":
+        for wid in (9, 7):
+            fs._log("worker_deco", {"worker_id": wid, "on": True})
     else:
         for i, state in enumerate((JaxJobState.RUNNING,
                                    JaxJobState.COMPLETED)):
@@ -509,6 +512,9 @@ def test_snapshot_section_of_mounts_and_jobs_is_applied(tmp_path, key):
         bare = MasterFilesystem(journal=Journal(str(tmp_path / "j")))
         with pytest.raises(UnportedJournalOp, match="mounts"):
             bare.recover()
+    elif key == "deco":
+        assert port.workers.deco_ids == {7, 9}
+        assert list(port.store.iter_deco()) == [7, 9]
     else:
         assert sorted(w["job_id"] for w in port.store.iter_jobs()) == \
             ["j0", "j1"]
@@ -644,6 +650,32 @@ async def test_refused_code_answers_unsupported_by_name(tmp_path, code):
         try:
             with pytest.raises(err.Unsupported, match=code.name):
                 await conn.call(code, data=pack({"path": "/x"}))
+        finally:
+            await conn.close()
+
+
+async def test_decommission_code_is_served(tmp_path):
+    """DECOMMISSION_WORKER left MASTER_REFUSED: on a raw connection it
+    answers the worker's state, journals the intent, and names an unknown
+    worker WorkerNotFound."""
+    assert RpcCode.DECOMMISSION_WORKER not in MASTER_REFUSED
+    async with _cluster(tmp_path, workers=1) as (m, ws, conf):
+        wid = ws[0].worker_id
+        conn = await Connection(m.addr).connect()
+        try:
+            rep = unpack((await conn.call(
+                RpcCode.DECOMMISSION_WORKER,
+                data=pack({"worker_id": wid}))).data)
+            assert rep == {"state": int(WorkerState.DECOMMISSIONING)}
+            assert list(m.fs.store.iter_deco()) == [wid]
+            rep = unpack((await conn.call(
+                RpcCode.DECOMMISSION_WORKER,
+                data=pack({"worker_id": wid, "on": False}))).data)
+            assert rep == {"state": int(WorkerState.LIVE)}
+            assert list(m.fs.store.iter_deco()) == []
+            with pytest.raises(err.WorkerNotFound):
+                await conn.call(RpcCode.DECOMMISSION_WORKER,
+                                data=pack({"worker_id": 999_999}))
         finally:
             await conn.close()
 

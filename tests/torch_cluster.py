@@ -39,8 +39,10 @@ def _worker_conf(conf: ClusterConf, root: str) -> ClusterConf:
 
 
 async def _await_live(m: MasterServer, n: int, timeout: float = 10.0):
+    """Wait until the master lists ``n`` serving workers (LIVE, or
+    draining: a decommission intent outlives a master restart)."""
     async def wait():
-        while len(m.fs.workers.live_workers()) < n:
+        while len(m.fs.workers.serving_workers()) < n:
             await asyncio.sleep(0.02)
     await asyncio.wait_for(wait(), timeout)
 

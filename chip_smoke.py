@@ -6,7 +6,8 @@
 Phases, each raising on a fault (the exit code is then non-zero):
 
 1. build: compile every source of the port, all at once: the CUDA ones
-   with ``nvcc`` (sm_90a), the host C++ one (crc32c) with ``c++``; each
+   with ``nvcc`` (sm_90a), the host C++ ones (crc32c, the GF(256) loop
+   of the erasure codec) with ``c++``; each
    kernel's registers, spills and stack as ptxas reports them;
 2. kernel: ``block_checksum`` on the card against its plain PyTorch
    version and the host hash at sizes from 1 byte to 64 MiB + 1, a bit
@@ -135,6 +136,30 @@ Phases, each raising on a fault (the exit code is then non-zero):
    kernels once a layer a step. (d) A recommissioned (LIVE) and a new
    file placed on A and C; A decommissioned again and the phase's master
    restarted on its journal: A DECOMMISSIONING, told to drain;
+6h. ec: erasure coding, with phase ufs's parameters and step: a master
+   of the phase's own (the ``local`` placement, a lost timeout of 3 s)
+   and four of the port's workers in this process, A to D, each with a
+   mem tier and a 320 MiB tier-0 on the card. (a) 8 token shards of 64
+   MiB written to ``/ec/train`` at two replicas. (b) SET_ATTR's ``ec``
+   (rs-2-1) and an ``ec_convert`` job: COMPLETED, every block striped
+   into three 32 MiB cells on three distinct workers with its replicas
+   retired, within 60 s; the conversion's seconds and GiB/s, a stripe's
+   pull, encode, placement and commit, and the port's codec on the host
+   (64 MiB at rs-2-1 and rs-6-3, native and table, bit-exact). (c) One
+   epoch of ``GpuTrainFeed`` at phase 4's batch over the stripes: every
+   batch equal to its tokens, no degraded read. (d) The holder of block
+   0's cell 0 stopped; one epoch, every batch equal to its tokens,
+   degraded reads counted. (e) Every cell back on a live holder within
+   60 s of the stop; one epoch with no degraded read. (f) The rebuilt
+   cells read twice through the client and pinned by their holders'
+   promote cycles, K1 verifying each pin (launches equal to the pins),
+   each device copy equal to the port's encoding of its shard; three
+   flagship steps on batches fed from the stripes, each equal to its
+   tokens, finite losses, K3's four kernels once a layer a step. (g)
+   ``/ec/train`` deleted: no block left in the master, none in the
+   workers' stores after their heartbeats; the master's
+   ``ec.stripes_committed`` (8), ``ec.degraded_reads`` and
+   ``replication.reconstructs`` read after its stop;
 6b. ckpt: the flagship's parameters as phase ufs left them (99 tensors,
    1.92 GiB of bf16) saved with ``save_checkpoint`` through the port's
    client into the cluster, every byte by short circuit (SC_WRITE_OPEN:
@@ -271,7 +296,9 @@ just after them (K1), again just before phase 6g's promote cycles and
 read just after them (K1), again just before the two passes of phase 6
 and read just after them (K3), again just before phase 6a's three steps
 and read just after them (K3), again just before phase 6g's three steps
-and read just after them (K3), again just before phase 6b and read just
+and read just after them (K3), again just before phase 6h's promote
+cycles and read just after them (K1), again just before phase 6h's three
+steps and read just after them (K3), again just before phase 6b and read just
 after it (K3's forward, twice a layer for the two losses, and no backward
 kernel), again just before phase 6f's two losses and read just after
 them (K3's forward, as in 6b), again just before phase 6f's promote
@@ -280,9 +307,9 @@ after them (K3), again just before phase 6d's three pipeline steps and
 read just after them (K3), again just before phase 6e's three ring
 steps and read just after them (K3: none), and just before phase 7's
 ``query_many`` and read just after it (K2, which must equal the ADC
-stages the search issued). The kernels line gives K1's seven counts
+stages the search issued). The kernels line gives K1's eight counts
 summed (each held to its pins, the refused device copies included) and
-phase 6's, 6a's, 6g's, 6c's, 6d's and 6f's K3 counts summed. The port's
+phase 6's, 6a's, 6g's, 6h's, 6c's, 6d's and 6f's K3 counts summed. The port's
 worker and master are stopped, the process group destroyed, and the
 data directory removed, however the run ends. No process of the run
 loads a module of JAX or of the JAX package. Prints each phase's
@@ -412,6 +439,19 @@ DRAIN_SMALL_BYTES = MiB
 DRAIN_TIER_BYTES = SHARDS * SHARD_BYTES + 4 * BLOCK
 DRAIN_HBM_BYTES = (SHARDS + 2) * BLOCK
 DRAIN_PHASE_BYTES = 3 * SHARDS * SHARD_BYTES + 4 * DRAIN_SMALL_BYTES
+# phase ec: four of the port's workers under a master of their own (the
+# local placement, REP_LOST_MS); phase feed's shape at two replicas,
+# converted to EC_PROFILE stripes (three cells of 32 MiB a block, on
+# three distinct workers), then a holder stopped and its cells rebuilt,
+# each within EC_LIMIT_S. A mem tier holds a worker's share of the
+# replicas, the cells and the rebuilt cells; a tier-0 holds its rebuilt
+# cells. The phase writes at most EC_PHASE_BYTES to the data directory
+# (1 GiB of replicas, 768 MiB of cells, at most 256 MiB rebuilt)
+EC_PROFILE = "rs-2-1"
+EC_LIMIT_S = 60
+EC_TIER_BYTES = 2 * SHARDS * SHARD_BYTES + 2 * BLOCK
+EC_HBM_BYTES = (SHARDS + 2) * BLOCK // 2
+EC_PHASE_BYTES = 4 * SHARDS * SHARD_BYTES
 
 
 def log(msg: str) -> None:
@@ -5048,6 +5088,503 @@ def phase_drain(dev: torch.device, root: str, seed: int, params: dict, step,
     return res
 
 
+def _ec_codec_times(tokens: np.ndarray) -> dict:
+    """The port's codec on this host's CPU: one 64 MiB block encoded at
+    rs-2-1 and rs-6-3, and decoded with m data cells lost, through the
+    native routine (``csrc/gf256.cc``) and the table path; each pair
+    bit-exact."""
+    from curvine_tpu_torch.common import ec
+    block = tokens[:SHARD_BYTES // 4].view(np.uint8)
+    out = {"native_ssse3": ec.native_hw()}
+    for name in ("rs-2-1", "rs-6-3"):
+        prof = ec.ECProfile.parse(name)
+        cells, cs = ec.split(block, prof.k)
+        row = {"cell_size": cs}
+        coded = {}
+        for native in (True, False):
+            t = time.perf_counter()
+            parity = ec.encode(prof, cells, use_native=native)
+            enc_s = time.perf_counter() - t
+            lost = [None] * prof.m + list(cells[prof.m:]) + parity
+            t = time.perf_counter()
+            data = ec.decode(prof, lost, use_native=native)
+            dec_s = time.perf_counter() - t
+            key = "native" if native else "table"
+            row[f"encode_{key}_s"] = enc_s
+            row[f"decode_{key}_s"] = dec_s
+            row[f"encode_{key}_gibs"] = block.nbytes / GiB / enc_s
+            row[f"decode_{key}_gibs"] = block.nbytes / GiB / dec_s
+            coded[key] = (parity, data)
+        if any(not np.array_equal(a, b) for a, b in
+               zip(coded["native"][0] + coded["native"][1],
+                   coded["table"][0] + coded["table"][1])) \
+                or ec.join(coded["native"][1], block.nbytes) \
+                != block.tobytes():
+            raise AssertionError(f"ec (b): the codec's native and table "
+                                 f"paths differ at {name}")
+        out[name] = row
+    return out
+
+
+def phase_ec(dev: torch.device, root: str, seed: int, params: dict, step,
+             client_res: dict) -> dict:
+    """Erasure coding on one card: a master of the phase's own (the
+    ``local`` placement, REP_LOST_MS) and four of the port's workers in
+    this process, A to D, each with a mem tier and a tier-0 on the card.
+    (a) SHARDS token shards of 64 MiB (ids below the flagship's vocab,
+    from ``seed``) written to ``/ec/train`` at two replicas. (b)
+    SET_ATTR's ``ec`` = EC_PROFILE on the file's directory and an
+    ``ec_convert`` job: COMPLETED, every block then striped (three cells
+    on three distinct workers) with its replicas retired, within
+    EC_LIMIT_S; the conversion's seconds and GiB/s, a stripe's split into
+    its pull, encode, placement and commit (those calls timed in the
+    workers), and the codec's host timings (``_ec_codec_times``). (c)
+    One epoch of ``GpuTrainFeed`` at phase feed's batch: every batch
+    equal to its tokens, no degraded read. (d) The worker holding cell 0
+    of block 0 stopped (``stop()``); one more epoch: every batch equal to
+    its tokens, no read raising, degraded reads counted. (e) Every cell
+    back on a live holder off the stopped worker within EC_LIMIT_S (the
+    seconds from the stop); one more epoch, every batch equal to its
+    tokens and no more degraded reads. (f) The rebuilt cells read
+    WORKER_MIN_READS times through the client (a data cell by ``pread``
+    of its range, a parity cell, which no intact read touches, by the
+    reader's cell read; the other cells' heat first decayed by three
+    host scans a worker) and pinned by their new
+    holders' promote cycles, K1 verifying each pin (launches equal to the
+    pins, pins equal to the rebuilt cells), each device copy equal to the
+    cell the port's codec computes from the shard's tokens on the host;
+    three flagship steps (phase ufs's parameters and step) on batches fed
+    from ``/ec/train``: each equal to its tokens, finite losses, K3's
+    four kernels once a layer a step. (g) ``/ec/train`` deleted: the
+    master then holds no block (GET_MASTER_INFO), and after the next
+    heartbeats no live worker's store holds one of its blocks or cells.
+    The master's ``ec.*`` and ``replication.*`` counters are read after
+    its stop: ``ec.stripes_committed`` equal to SHARDS, and
+    ``ec.degraded_reads`` and ``replication.reconstructs`` above 0. The
+    phase's files are deleted, its workers and master stopped and its
+    directory removed, however it ends."""
+    from curvine_tpu_torch.common import ec
+    from curvine_tpu_torch.common.types import JobState, SetAttrOpts
+    from curvine_tpu_torch.gpu import cuda_ops, flash
+    from curvine_tpu_torch.gpu.loader import GpuTrainFeed, write_token_shards
+    base = os.path.join(root, "ec")
+    os.makedirs(base)
+    res = {"lost_timeout_ms": REP_LOST_MS, "profile": EC_PROFILE}
+    workers: dict[str, PortWorker] = {}
+    proc = None
+    master = None
+    deleted = False
+    tokens = ufs_tokens(seed, SHARDS, 0x6563)
+    shard_tokens = SHARD_BYTES // 4
+    kernels = [getattr(flash, nm) for nm in K3_NAMES]
+    cfg = _flagship()
+    prof = ec.ECProfile.parse(EC_PROFILE)
+    per_batch = BATCH * SEQ
+    n_epoch = tokens.size // per_batch
+
+    def layout() -> dict[str, object]:
+        """Each shard's located block (one a shard), by path."""
+        async def run():
+            async with port_client(master) as c:
+                out = {}
+                for st in await c.meta.list_status("/ec/train"):
+                    fb = await c.meta.get_block_locations(st.path)
+                    out[st.path] = fb.block_locs
+                return out
+        return asyncio.run(run())
+
+    def epoch(what: str) -> dict:
+        """One epoch of GpuTrainFeed over /ec/train at phase feed's
+        batch: its batches, the ones unequal to their tokens, seconds and
+        the client's counters."""
+        expect = torch.from_numpy(tokens).to(dev)
+
+        async def run():
+            async with port_client(master) as c:
+                f = GpuTrainFeed(c, "/ec/train", BATCH, SEQ, device=dev)
+                bad = torch.zeros((), dtype=torch.int64, device=dev)
+                n = 0
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                async for b in f:
+                    ref = expect[n * per_batch:(n + 1) * per_batch]
+                    bad += (b != ref.view(BATCH, SEQ)).sum()
+                    n += 1
+                torch.cuda.synchronize()
+                s = time.perf_counter() - t
+                return dict(batches=n, bad=int(bad), s=s,
+                            batches_per_s=n / s,
+                            gibs=n * per_batch * 4 / GiB / s,
+                            counters=dict(c.counters))
+        out = asyncio.run(run())
+        if out["batches"] != n_epoch or out["bad"]:
+            raise AssertionError(f"ec ({what}): {out['batches']} batches of "
+                                 f"{n_epoch}, {out['bad']} tokens unequal")
+        return out
+
+    try:
+        conf = master_conf(base, lost_ms=REP_LOST_MS)
+        proc, info = start_master(base, conf)
+        master = info["addr"]
+        master_conf(base, int(master.rsplit(":", 1)[1]), lost_ms=REP_LOST_MS)
+        res["master_start_s"] = info["start_s"]
+        for i, name in enumerate("abcd"):
+            workers[name] = PortWorker(
+                master, os.path.join(base, name), EC_TIER_BYTES, dev,
+                coords=(i, 0), hbm_bytes=EC_HBM_BYTES)
+        by_id = {pw.worker.worker_id: pw for pw in workers.values()}
+        await_live(master, list(by_id), phase="ec")
+
+        # (a) phase feed's shape at two replicas
+        async def write():
+            async with port_client(master, replicas=2) as c:
+                t = time.perf_counter()
+                paths = await write_token_shards(c, "/ec/train", tokens,
+                                                 shard_tokens)
+                return paths, time.perf_counter() - t
+        paths, write_s = asyncio.run(write())
+        before = layout()
+        if len(paths) != SHARDS or any(
+                len(lbs) != 1 or len(lbs[0].locs) != 2
+                for lbs in before.values()):
+            raise AssertionError(f"ec (a): {len(paths)} shards, located "
+                                 f"{before}")
+        res["a"] = dict(bytes=tokens.nbytes, write_s=write_s,
+                        write_gibs=tokens.nbytes / GiB / write_s)
+        log(f"ec (a): /ec/train, {SHARDS} shards of {SHARD_BYTES // MiB} "
+            f"MiB of tokens, written at two replicas in {write_s:.3f}s "
+            f"({res['a']['write_gibs']:.3f} GiB/s of file bytes)")
+
+        # (b) SET_ATTR's ec, then the ec_convert job; its calls timed
+        split: dict[str, list[float]] = {k: [] for k in
+                                         ("pull", "encode", "place",
+                                          "commit")}
+
+        def timed(name, fn):
+            async def run(*a, **kw):
+                t = time.perf_counter()
+                try:
+                    return await fn(*a, **kw)
+                finally:
+                    split[name].append(time.perf_counter() - t)
+            return run
+
+        real_encode = ec.encode
+
+        def encode(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return real_encode(*a, **kw)
+            finally:
+                split["encode"].append(time.perf_counter() - t)
+
+        for pw in workers.values():
+            w = pw.worker
+            w._pull_any = timed("pull", w._pull_any)
+            w._place_cells = timed("place", w._place_cells)
+            w._commit_stripe = timed("commit", w._commit_stripe)
+        ec.encode = encode
+
+        async def convert():
+            async with port_client(master) as c:
+                t = time.perf_counter()
+                await c.meta.set_attr("/ec/train", SetAttrOpts(ec=EC_PROFILE))
+                for p in paths:
+                    await c.meta.set_attr(p, SetAttrOpts(ec=EC_PROFILE))
+                job_id = await c.meta.submit_job("ec_convert", "/ec/train")
+                job, _ = await _job_done(c, job_id, EC_LIMIT_S)
+                job_s = time.perf_counter() - t
+                while time.perf_counter() - t < EC_LIMIT_S:
+                    fbs = [await c.meta.get_block_locations(p) for p in paths]
+                    if all(lb.ec is not None and not lb.locs
+                           for fb in fbs for lb in fb.block_locs):
+                        break
+                    await asyncio.sleep(0.05)
+                return job, job_s, time.perf_counter() - t
+        try:
+            job, job_s, convert_s = asyncio.run(convert())
+        finally:
+            ec.encode = real_encode
+            for pw in workers.values():
+                for name in ("_pull_any", "_place_cells", "_commit_stripe"):
+                    pw.worker.__dict__.pop(name, None)
+        after = layout()
+        cells = {}                 # path -> [(cell id, [holder ids])]
+        for p, lbs in after.items():
+            lb = lbs[0]
+            if lb.ec is None or lb.locs or lb.ec["profile"] != EC_PROFILE \
+                    or len(lb.ec["cells"]) != prof.k + prof.m:
+                raise AssertionError(f"ec (b): {p} not striped at "
+                                     f"{EC_PROFILE} with its replicas "
+                                     f"retired: {lb}")
+            cells[p] = [(cl["block_id"],
+                         [a["worker_id"] for a in cl["locs"]])
+                        for cl in lb.ec["cells"]]
+            holders = [h[0] for _c, h in cells[p] if len(h) == 1]
+            if len(holders) != prof.k + prof.m \
+                    or len(set(holders)) != len(holders):
+                raise AssertionError(f"ec (b): {p}'s cells on {cells[p]}, "
+                                     f"not one each on distinct workers")
+        if job.state != JobState.COMPLETED or any(
+                len(v) != SHARDS for v in split.values()):
+            raise AssertionError(f"ec (b): the job ended {job.state.name} "
+                                 f"({job.message!r}); timed calls "
+                                 f"{ {k: len(v) for k, v in split.items()} }")
+        codec = _ec_codec_times(tokens)
+        res["b"] = dict(
+            job_s=job_s, convert_s=convert_s,
+            convert_gibs=tokens.nbytes / GiB / convert_s,
+            cell_size=after[paths[0]][0].ec["cell_size"],
+            stripe_ms={k: [x * 1e3 for x in v] for k, v in split.items()},
+            stripe_ms_median={k: float(np.median(v)) * 1e3
+                              for k, v in split.items()},
+            codec=codec)
+        rb = res["b"]
+        log(f"ec (b): SET_ATTR ec={EC_PROFILE} and an ec_convert job over "
+            f"/ec/train: COMPLETED in {job_s:.3f}s, every block striped "
+            f"(cells of {rb['cell_size']:,} bytes on three distinct workers) "
+            f"and its replicas retired {convert_s:.3f}s after the SET_ATTR "
+            f"({rb['convert_gibs']:.3f} GiB/s of blocks); a stripe's median "
+            f"ms: " + ", ".join(f"{k} {v:.2f}" for k, v in
+                                rb["stripe_ms_median"].items())
+            + f"; the codec on the host ({SHARD_BYTES // MiB} MiB, "
+            f"SSSE3 {codec['native_ssse3']}): "
+            + "; ".join(
+                f"{n} encode {codec[n]['encode_native_gibs']:.3f} GiB/s "
+                f"native, {codec[n]['encode_table_gibs']:.3f} table, decode "
+                f"of {ec.ECProfile.parse(n).m} lost data cells "
+                f"{codec[n]['decode_native_gibs']:.3f} native, "
+                f"{codec[n]['decode_table_gibs']:.3f} table"
+                for n in ("rs-2-1", "rs-6-3"))
+            + ", bit-exact")
+
+        # (c) the intact feed
+        c_ep = epoch("c")
+        if c_ep["counters"].get("read.ec_degraded", 0) \
+                or c_ep["counters"].get("sc.bytes.read", 0):
+            raise AssertionError(f"ec (c): degraded or short-circuit reads "
+                                 f"in the intact epoch: {c_ep['counters']}")
+        res["c"] = dict(batches_per_s=c_ep["batches_per_s"],
+                        gibs=c_ep["gibs"], s=c_ep["s"],
+                        client_batches_per_s=client_res["batches_per_s"],
+                        read_block_bytes=c_ep["counters"].get(
+                            "read.zero_copy_bytes", 0))
+        log(f"ec (c): one epoch of GpuTrainFeed over the stripes, "
+            f"{n_epoch} batches, each equal to its tokens, no degraded "
+            f"read: {c_ep['batches_per_s']:.2f} batches/s "
+            f"({c_ep['gibs']:.3f} GiB/s) against phase client's "
+            f"{client_res['batches_per_s']:.2f}")
+
+        # (d) the holder of block 0's cell 0 stopped; a degraded epoch
+        victim = cells[paths[0]][0][1][0]
+        vname = next(n for n, pw in workers.items()
+                     if pw.worker.worker_id == victim)
+        lost = {p: [i for i, (_c, h) in enumerate(cl) if victim in h]
+                for p, cl in cells.items()}
+        stop_t = time.perf_counter()
+        workers.pop(vname).stop()
+        d_ep = epoch("d")
+        degraded = d_ep["counters"].get("read.ec_degraded", 0)
+        if not degraded:
+            raise AssertionError(f"ec (d): no degraded read with worker "
+                                 f"{victim} stopped: {d_ep['counters']}")
+        res["d"] = dict(victim=victim, batches_per_s=d_ep["batches_per_s"],
+                        gibs=d_ep["gibs"], s=d_ep["s"],
+                        degraded_reads=degraded,
+                        lost_cells=sum(map(len, lost.values())))
+        log(f"ec (d): worker {vname.upper()} ({victim}), holder of "
+            f"{res['d']['lost_cells']} cells, stopped; one epoch, every "
+            f"batch equal to its tokens, {degraded} degraded reads: "
+            f"{d_ep['batches_per_s']:.2f} batches/s ({d_ep['gibs']:.3f} "
+            f"GiB/s)")
+
+        # (e) healed: every cell on a live holder off the stopped worker
+        def healed() -> bool:
+            now = layout()
+            return all(lb.ec is not None and all(
+                any(a["worker_id"] != victim for a in cl["locs"])
+                for cl in lb.ec["cells"])
+                for lbs in now.values() for lb in lbs)
+
+        _poll(healed, EC_LIMIT_S, "every cell live off the stopped worker",
+              0.1, "ec")
+        heal_s = time.perf_counter() - stop_t
+        healed_cells = {}         # cell id -> (path, index, new holder)
+        for p, lbs in layout().items():
+            for i in lost[p]:
+                cl = lbs[0].ec["cells"][i]
+                healed_cells[cl["block_id"]] = (p, i, cl["locs"][0]
+                                                ["worker_id"])
+        e_ep = epoch("e")
+        more = e_ep["counters"].get("read.ec_degraded", 0)
+        if more:
+            raise AssertionError(f"ec (e): {more} degraded reads after the "
+                                 f"heal")
+        res["e"] = dict(heal_s=heal_s, rebuilt=len(healed_cells),
+                        batches_per_s=e_ep["batches_per_s"],
+                        gibs=e_ep["gibs"], s=e_ep["s"])
+        log(f"ec (e): every cell back on a live holder {heal_s:.3f}s after "
+            f"the stop ({len(healed_cells)} cells rebuilt); one epoch, "
+            f"every batch equal to its tokens, no degraded read: "
+            f"{e_ep['batches_per_s']:.2f} batches/s")
+
+        # (f) the rebuilt cells pinned by their holders (K1), then steps
+        for pw in workers.values():
+            for _ in range(3):
+                pw.worker.store.promote_scan(WORKER_MIN_READS)
+
+        async def heat():
+            async with port_client(master) as c:
+                for cid, (p, i, _h) in healed_cells.items():
+                    r = await c.open(p)
+                    try:
+                        lb = r.blocks.block_locs[0]
+                        e = lb.ec
+                        if i < prof.k:
+                            # a data cell: the client's pread of its
+                            # range, which the intact path reads from it
+                            off = i * e["cell_size"]
+                            n = min(e["cell_size"], e["block_len"] - off)
+                            got = await r.pread(lb.offset + off, n)
+                            if len(got) != n:
+                                raise AssertionError(
+                                    f"ec (f): pread of cell {cid} gave "
+                                    f"{len(got)} of {n} bytes")
+                        else:
+                            # a parity cell: no read of the file touches
+                            # it while the stripe is intact, so the
+                            # reader's cell read is called directly
+                            buf = bytearray(e["cell_size"])
+                            await r._read_cell(e, e["cells"][i], 0,
+                                               memoryview(buf))
+                    finally:
+                        await r.close()
+        holders = {by_id[h] for _p, _i, h in healed_cells.values()}
+        pins0 = sum(pw.worker.metrics.counters.get("blocks.hbm_pinned", 0)
+                    for pw in holders)
+        for _ in range(WORKER_MIN_READS):
+            asyncio.run(heat())
+        cuda_ops.block_checksum.launches = 0
+        for pw in holders:
+            pw.call(pw.worker._promote_once())
+        k1 = cuda_ops.block_checksum.launches
+        pins = sum(pw.worker.metrics.counters.get("blocks.hbm_pinned", 0)
+                   for pw in holders) - pins0
+        missing = [cid for cid, (_p, _i, h) in healed_cells.items()
+                   if not by_id[h].worker.hbm_holds(cid)]
+        if missing or k1 != pins or pins != len(healed_cells):
+            raise AssertionError(f"ec (f): {pins} pins, {k1} K1 launches, "
+                                 f"rebuilt cells {sorted(healed_cells)} not "
+                                 f"pinned {missing}")
+        for cid, (p, i, h) in healed_cells.items():
+            shard = paths.index(p)
+            block = tokens[shard * shard_tokens:(shard + 1) * shard_tokens]
+            data, _ = ec.split(block.view(np.uint8), prof.k)
+            want = data[i] if i < prof.k else ec.encode(prof, data)[i - prof.k]
+            got = by_id[h].worker.hbm_get(cid).reshape(-1).view(torch.uint8)
+            if not torch.equal(got, torch.from_numpy(want).to(dev)):
+                raise AssertionError(f"ec (f): cell {cid} ({p}, index {i}) "
+                                     f"on {h} differs from its encoding")
+        del got
+        first = tokens[:TRAIN_BATCH * TRAIN_SEQ * UFS_STEPS].reshape(
+            UFS_STEPS, TRAIN_BATCH, TRAIN_SEQ)
+        seen = []
+
+        def check(b):
+            seen.append(bool(torch.equal(b, torch.from_numpy(
+                first[len(seen)]).to(dev))))
+
+        async def train_steps():
+            async with port_client(master) as c:
+                f = GpuTrainFeed(c, "/ec/train", TRAIN_BATCH, TRAIN_SEQ,
+                                 depth=2, device=dev)
+
+                async def take():
+                    for _ in range(UFS_STEPS):
+                        yield await anext(f.prefetcher)
+
+                try:
+                    return await timed_steps(step, params, take(), check)
+                finally:
+                    await f.prefetcher.aclose()
+
+        for fn in kernels:
+            fn.launches = 0
+        step_s, losses = asyncio.run(train_steps())
+        launches = {fn.__name__: fn.launches for fn in kernels}
+        if seen != [True] * UFS_STEPS or not all(map(math.isfinite, losses)) \
+                or set(launches.values()) != {cfg.n_layers * UFS_STEPS}:
+            raise AssertionError(f"ec (f): batches equal to their tokens "
+                                 f"{seen}, losses {losses}, K3 launches "
+                                 f"{launches}")
+        res["f"] = dict(pins=pins, k1_launches=k1, losses=losses,
+                        step_ms=[x * 1e3 for x in step_s],
+                        launches=launches)
+        log(f"ec (f): the {len(healed_cells)} rebuilt cells read "
+            f"{WORKER_MIN_READS} times through the client and pinned by "
+            f"their holders' promote cycles: {pins} pins, {k1} K1 launches, "
+            f"each device copy equal to the port's encoding of its shard; "
+            f"{UFS_STEPS} flagship steps at {TRAIN_BATCH}x{TRAIN_SEQ} on "
+            f"batches fed from the stripes, each equal to its tokens: "
+            f"losses {[round(x, 4) for x in losses]}, step ms "
+            f"{[round(x * 1e3, 2) for x in step_s]}; K3 launches "
+            f"{launches}")
+
+        # (g) deleted: no block left in the master or the workers' stores
+        ids = {cid for cl in cells.values() for cid, _h in cl} \
+            | set(healed_cells) | {lbs[0].block.id for lbs in
+                                   before.values()}
+
+        async def delete():
+            async with port_client(master) as c:
+                await c.meta.delete("/ec", recursive=True)
+                rep = await c.meta.master_info()
+                return rep.block_num
+        block_num = asyncio.run(delete())
+        deleted = True
+        left = _poll(lambda: not any(pw.worker.store.contains(b)
+                                     for pw in workers.values()
+                                     for b in ids),
+                     10 * WORKER_HEARTBEAT_MS / 1000,
+                     "the stores freed of /ec/train's blocks and cells",
+                     0.05, "ec")
+        if block_num:
+            raise AssertionError(f"ec (g): the master holds {block_num} "
+                                 f"blocks after the delete")
+        res["g"] = dict(block_num=block_num, stores_freed_s=left)
+        log(f"ec (g): /ec/train deleted: the master holds {block_num} "
+            f"blocks, and the live workers' stores none of its "
+            f"{len(ids)} blocks and cells {left:.3f}s later")
+        stop_master(proc)
+        with open(os.path.join(base, "master0.json")) as f:
+            counters = json.load(f)["counters"]
+        res["master_counters"] = {k: v for k, v in counters.items()
+                                  if k.startswith(("ec.", "replication."))}
+        mc = res["master_counters"]
+        if mc.get("ec.stripes_committed") != SHARDS \
+                or not mc.get("ec.degraded_reads") \
+                or not mc.get("replication.reconstructs"):
+            raise AssertionError(f"ec: the master's counters {mc}")
+        log(f"ec: the master's counters {mc}")
+    finally:
+        try:
+            if not deleted and proc is not None and proc.poll() is None:
+                async def delete():
+                    async with port_client(master) as c:
+                        await c.meta.delete("/ec", recursive=True)
+                asyncio.run(delete())
+        except Exception as e:  # noqa: BLE001 — the directory goes anyway
+            log(f"ec: deleting /ec failed: {e}")
+        for name in list(workers):
+            workers.pop(name).stop()
+        if proc is not None:
+            stop_master(proc)
+        shutil.rmtree(base, ignore_errors=True)
+    res["k1_launches"] = k1
+    res["launches"] = launches
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5072,7 +5609,7 @@ def main() -> int:
     results["kernel"] = phase_kernel(rng, dev)
     need = N_BLOCKS * BLOCK + SHARDS * SHARD_BYTES + WORKER_TIER_BYTES \
         + 2 * ICI_TIER_BYTES + 3 * REP_TIER_BYTES + UFS_PHASE_BYTES \
-        + RECOVER_PHASE_BYTES + DRAIN_PHASE_BYTES
+        + RECOVER_PHASE_BYTES + DRAIN_PHASE_BYTES + EC_PHASE_BYTES
     root = pick_data_dir(need)
     log(f"main: data under {root} (needs {need / GiB:.2f} GiB and 1 GiB "
         f"spare: {N_BLOCKS} blocks and {SHARDS} POSIX shards of 64 MiB, "
@@ -5082,7 +5619,9 @@ def main() -> int:
         f"under-store of {UFS_PHASE_BYTES / GiB:.2f} GiB, phase recover's "
         f"files, replays and heals, at most "
         f"{RECOVER_PHASE_BYTES / GiB:.2f} GiB, phase drain's replicas and "
-        f"pulls, at most {DRAIN_PHASE_BYTES / GiB:.2f} GiB)")
+        f"pulls, at most {DRAIN_PHASE_BYTES / GiB:.2f} GiB, phase ec's "
+        f"replicas, cells and rebuilt cells, at most "
+        f"{EC_PHASE_BYTES / GiB:.2f} GiB)")
     cluster = pw = None
     try:
         cuda_ops.block_checksum.launches = 0
@@ -5110,6 +5649,8 @@ def main() -> int:
                                    params, step, results["client"])
         results["drain"] = phase_drain(dev, root, args.seed, params, step,
                                        results["client"])
+        results["ec"] = phase_ec(dev, root, args.seed, params, step,
+                                 results["client"])
         del step
         results["ckpt"], probe = phase_ckpt(dev, info["addr"], args.seed,
                                             params,
@@ -5159,8 +5700,9 @@ def main() -> int:
                              "JAX package")
     log("main: no process of this run (this one, where the port's workers "
         "run, and each of the port's masters it started: the cluster's "
-        "twice, phase drain's twice, phase recover's, phase ici's and "
-        "phase replicate's) loaded a module of JAX or of the JAX package")
+        "twice, phase drain's twice, phase ec's, phase recover's, phase "
+        "ici's and phase replicate's) loaded a module of JAX or of the JAX "
+        "package")
     if launches != results["main"]["pins"]:
         raise AssertionError(f"{launches} kernel launches for "
                              f"{results['main']['pins']} pins")
@@ -5175,6 +5717,7 @@ def main() -> int:
                     + results["replicate"]["k1_launches"]
                     + results["ufs"]["k1_launches"]
                     + results["drain"]["k1_launches"]
+                    + results["ec"]["k1_launches"]
                     + results["recover"]["k1_launches"],
         "max_abs_err": k["max_abs_err"],
         "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
@@ -5192,6 +5735,7 @@ def main() -> int:
             "launches": results["train"]["launches"][name]
                         + results["ufs"]["launches"][name]
                         + results["drain"]["launches"][name]
+                        + results["ec"]["launches"][name]
                         + results["mesh"]["launches"][name]
                         + results["pipeline"]["launches"][name]
                         + results["recover"]["launches"][name],

@@ -5,7 +5,8 @@ its retry and NOT_LEADER redirect (:121-170) and the namespace and block
 calls the cache client's read path and the loader's writes need (:211-410,
 :584): ``mkdir``, ``create_file`` (with ``block_size`` and
 ``storage_policy``), ``exists``, ``file_status``, ``list_status``,
-``rename``, ``delete``, ``meta_batch``, ``add_block``, ``complete_file``,
+``rename``, ``set_attr`` (:345), ``delete``, ``meta_batch``,
+``add_block``, ``complete_file``,
 ``get_block_locations``, ``master_info``, ``prefetch_window`` and
 ``decommission_worker`` (:517-524, which answers the worker's state);
 and the mount and job calls (:533-603): ``mount``, ``umount``,
@@ -23,7 +24,7 @@ file.
 Left out (ROADMAP A3): the metadata lease cache and its invalidation
 pushes, the native fast metadata port (every call goes to the master's
 RPC port, which answers them all), tracing, and the other calls (locks,
-raft membership, attributes)."""
+raft membership, links)."""
 
 from __future__ import annotations
 
@@ -35,7 +36,8 @@ from curvine_tpu_torch.common import errors as err
 from curvine_tpu_torch.common.conf import ClusterConf
 from curvine_tpu_torch.common.types import (CommitBlock, FileBlocks,
                                             FileStatus, JobInfo, LocatedBlock,
-                                            MasterInfo, MountInfo)
+                                            MasterInfo, MountInfo,
+                                            SetAttrOpts)
 from curvine_tpu_torch.rpc.client import (Connection, ConnectionPool,
                                           RetryPolicy)
 from curvine_tpu_torch.rpc.codes import RpcCode
@@ -202,6 +204,12 @@ class FsClient:
         rep = await self.call(RpcCode.META_BATCH, {"requests": reqs},
                               mutate=True)
         return rep["responses"]
+
+    async def set_attr(self, path: str, opts: SetAttrOpts) -> None:
+        """Owner, group, mode, replicas, TTL fields, times, xattrs or the
+        ``ec`` storage class of ``path``; a None field stays as it is."""
+        await self.call(RpcCode.SET_ATTR,
+                        {"path": path, "opts": opts.to_wire()}, mutate=True)
 
     # ---------------- blocks ----------------
 

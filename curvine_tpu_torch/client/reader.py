@@ -28,6 +28,19 @@ feed reads through:
   with the location's ``worker_id`` (:936-945). They return that
   buffer, a ``bytearray``.
 
+An erasure-coded block (``_ec_active``: its stripe committed and its
+replicas retired) is read through its cells (``_read_ec``,
+:1054-1097): intact, each covered data cell's range lands in the buffer
+by READ_BLOCK (``_read_cell``: a cell is a block of its own, read with
+the same failover, breakers and crc check); when a covering cell has no
+holder that the breakers let by (``_cell_live``), or a read of one
+fails, the same range of any k cells is read and decoded by the port's
+codec (``_read_ec_degraded``, :1099-1144; ``read.ec_degraded``), and
+the lost cells are reported to the master, fire-and-forget, so their
+rebuild starts at once. Cells are never read by the short circuit, and
+``mmap_view`` answers None for a striped block (the reference's probe
+skips stripes, :316): the caller reads through ``read_all``.
+
 A block that fails its crc is reported to the master (fire-and-forget) and
 read from the next replica. When every replica of a block range has
 failed, the reader asks the master once for the file's locations again
@@ -49,8 +62,8 @@ through READ_BLOCK from the next replica, and probed again once the
 breaker lets it by.
 
 Left out (ROADMAP A3b): the shared-memory side channel (a worker's offer
-is ignored and the fd path taken), erasure-coded reads and holes (a file
-resized past its last block) (both raise ``NotImplementedError``),
+is ignored and the fd path taken), holes (a file resized past its last
+block; they raise ``NotImplementedError``),
 short-circuit reads of a bdev tier's leased extents (its blocks are read
 through READ_BLOCK), the sequential prefetch window, parallel
 ``read_range``, ``pread_view``, ``chunks``' read-ahead, deadlines and
@@ -66,8 +79,10 @@ import os
 import numpy as np
 
 from curvine_tpu_torch.client.health import OPEN
+from curvine_tpu_torch.common import ec as eclib
 from curvine_tpu_torch.common import errors as err
-from curvine_tpu_torch.common.types import FileBlocks, LocatedBlock
+from curvine_tpu_torch.common.types import (ExtendedBlock, FileBlocks,
+                                            LocatedBlock, WorkerAddress)
 from curvine_tpu_torch.rpc.client import ConnectionPool
 from curvine_tpu_torch.rpc.codes import RpcCode
 from curvine_tpu_torch.rpc.frame import pack, unpack
@@ -174,12 +189,119 @@ class FsReader:
             locs = self.health.order(locs, key=self._addr)
         return locs
 
+    # ---------------- erasure-coded reads ----------------
+
     @staticmethod
-    def _check_not_ec(lb: LocatedBlock) -> None:
-        if lb.ec is not None and not lb.locs:
-            raise NotImplementedError(
-                f"block {lb.block.id} is erasure-coded: the port reads no "
-                f"stripe cells yet (ROADMAP A3)")
+    def _ec_active(lb: LocatedBlock) -> bool:
+        """A committed stripe whose replicas are retired: reads go to
+        its cells. While replicas remain (mid-conversion) they serve."""
+        return lb.ec is not None and not lb.locs
+
+    def _cell_live(self, cell: dict) -> bool:
+        """Whether a cell has a holder the breakers let by: a dead holder
+        would cost every read its failure, so a cell behind open breakers
+        counts as lost (the breaker half-opens in time, and the intact
+        path comes back by itself)."""
+        if not cell["locs"]:
+            return False
+        if self.health is None:
+            return True
+        return any(self.health.allow(
+            f"{a.get('ip_addr') or a.get('hostname')}:{a.get('rpc_port')}")
+            for a in cell["locs"])
+
+    async def _read_cell(self, ec: dict, cell: dict, off: int,
+                         sink: memoryview) -> int:
+        """``len(sink)`` bytes at ``off`` of one stripe cell, read into
+        ``sink`` as a block's are (``_readinto_remote``): failover over
+        its holders, the breakers, and the crc of a whole cell."""
+        clb = LocatedBlock(
+            block=ExtendedBlock(id=cell["block_id"], len=ec["cell_size"]),
+            locs=[WorkerAddress.from_wire(a) for a in cell["locs"]])
+        if not clb.locs:
+            raise err.BlockNotFound(
+                f"cell {cell['block_id']} has no live locations")
+        return await self._readinto_remote(clb, off, sink)
+
+    async def _read_ec(self, lb: LocatedBlock, block_off: int,
+                       out: memoryview) -> int:
+        """Fill ``out`` from ``block_off`` of a striped block; returns the
+        bytes filled. Data cell j holds the block's bytes [j * cell_size,
+        (j + 1) * cell_size): intact, each covered cell's range lands in
+        ``out`` with no decode; degraded, the same range of any k cells
+        (parity too) decodes just that range (the codec works byte by
+        byte). The tail's padding never reaches the caller."""
+        ec = lb.ec
+        cs = ec["cell_size"]
+        n = min(len(out), ec.get("block_len", lb.block.len) - block_off)
+        if n <= 0:
+            return 0
+        a, b = block_off, block_off + n
+        spans = [(j, max(a - j * cs, 0), min(b - j * cs, cs))
+                 for j in range(a // cs, (b - 1) // cs + 1)]
+        cells = ec["cells"]
+        if all(self._cell_live(cells[j]) for j, _s, _e in spans):
+            got = await asyncio.gather(
+                *(self._read_cell(ec, cells[j], s,
+                                  out[j * cs + s - a:j * cs + e - a])
+                  for j, s, e in spans), return_exceptions=True)
+            for g in got:
+                if isinstance(g, BaseException) \
+                        and not isinstance(g, err.CurvineError):
+                    raise g
+            if all(g == e - s for g, (_j, s, e) in zip(got, spans)):
+                return n
+            # a holder died mid-read: degrade
+        await self._read_ec_degraded(ec, spans, a, out)
+        return n
+
+    async def _read_ec_degraded(self, ec: dict, spans: list, a: int,
+                                out: memoryview) -> None:
+        prof = eclib.ECProfile.parse(ec["profile"])
+        cs = ec["cell_size"]
+        cells = ec["cells"]
+        lo = min(s for _j, s, _e in spans)
+        hi = max(e for _j, _s, e in spans)
+        slots: list[np.ndarray | None] = [None] * (prof.k + prof.m)
+        lost: list[int] = []
+        got = 0
+        for idx, cell in enumerate(cells):
+            if got >= prof.k:
+                break
+            if not self._cell_live(cell):
+                lost.append(cell["block_id"])
+                continue
+            buf = np.empty(hi - lo, dtype=np.uint8)
+            try:
+                n = await self._read_cell(ec, cell, lo, memoryview(buf))
+            except err.CurvineError:
+                lost.append(cell["block_id"])
+                continue
+            if n != hi - lo:
+                lost.append(cell["block_id"])
+                continue
+            slots[idx] = buf
+            got += 1
+        if got < prof.k:
+            raise err.BlockNotFound(
+                f"block {cells[0]['block_id']}: only {got}/{prof.k} stripe "
+                f"cells readable: the stripe is lost")
+        data_cells = await asyncio.to_thread(eclib.decode, prof, slots)
+        self._count("read.ec_degraded", 1)
+        if lost:
+            # tell the master which cells are gone, so that their rebuild
+            # starts now and not at its next scan
+            async def report(ids=tuple(lost)):
+                try:
+                    await self.fs.call(RpcCode.REPORT_UNDER_REPLICATED_BLOCKS,
+                                       {"block_ids": list(ids)})
+                except err.CurvineError as e:
+                    log.debug("lost-cell report failed: %s", e)
+            t = asyncio.ensure_future(report())
+            self._tasks.add(t)
+            t.add_done_callback(self._tasks.discard)
+        for j, s, e in spans:
+            out[j * cs + s - a:j * cs + e - a] = data_cells[j][s - lo:e - lo]
 
     # ---------------- short circuit ----------------
 
@@ -320,14 +442,13 @@ class FsReader:
         """``n`` bytes at ``offset`` of a co-located block as a fresh
         uint8 array: one preadv from the block file (the page cache, or
         the tmpfs of a mem tier). None when the range spans blocks, is
-        not on this host, or fails its crc (the caller then reads
-        through ``read_all``)."""
+        not on this host, is striped, or fails its crc (the caller then
+        reads through ``read_all``)."""
         located = self._locate(offset)
         if located is None:
             return None
         lb, block_off = located
-        self._check_not_ec(lb)
-        if block_off + n > lb.block.len:
+        if self._ec_active(lb) or block_off + n > lb.block.len:
             return None
         fd = await self._local_fd(lb)
         if fd is None:
@@ -405,9 +526,14 @@ class FsReader:
                         f"yet (ROADMAP A3b)")
                 break
             lb, block_off = located
-            self._check_not_ec(lb)
             seg = out[filled:filled + min(len(out) - filled,
                                           lb.block.len - block_off)]
+            if self._ec_active(lb):
+                got = await self._read_ec(lb, block_off, seg)
+                if got <= 0:
+                    break
+                filled += got
+                continue
             fd = await self._local_fd(lb)
             if fd is not None:
                 got = os.preadv(fd, [seg], block_off)

@@ -4,8 +4,8 @@ Own copy of the fields of ``curvine_tpu/common/conf.py:23-306``
 (``MasterConf``, ``TierConf``, ``WorkerConf``, ``ClientConf``) that the
 port's master, cache client and worker read, with the same names and
 defaults, inside a ``ClusterConf`` that holds them; ``ClusterConf.load``
-reads the ``[master]``, ``[client]`` and ``[worker]`` tables of the
-cluster's TOML file, ``[[worker.tiers]]`` included (other tables and
+reads the ``[master]``, ``[client]``, ``[worker]`` and ``[ec]`` tables
+of the cluster's TOML file, ``[[worker.tiers]]`` included (other tables and
 unknown keys are ignored, so the cluster's own file loads as is).
 
 The master keeps its namespace in memory, made durable by the journal
@@ -51,7 +51,13 @@ the value the port implements is refused. The device-path transfer
 (``ici_transfer``, on by default, as in the reference), the bound of
 the tier-0's heartbeat advertisement (``hbm_advertise_max``) and the
 tasks a worker runs at once (``task_parallelism``, :168) are fields.
-Left out: the fuse, gateway, obs, rpc and ec sections, the
+The ``[ec]`` table is the one field of the reference's ``ECConf``
+(:448-470) that anything reads, ``convert_cold_s`` (the age at which a
+file's blocks may be converted). Its other three keys, ``enabled``,
+``profile`` and ``sweep_interval_s``, are read by neither package: they
+are constants (``EC_FIXED``) at the reference's defaults, and a file
+that sets one of them to another value is refused.
+Left out: the fuse, gateway, obs and rpc sections, the
 worker's scrub and web-server fields, the client's deadline,
 meta-cache, tracing, tenant, read-ahead and prefetch-window
 fields, and the ``CURVINE_*`` environment overrides."""
@@ -88,6 +94,7 @@ WORKER_FIXED = {"shm_reads": False,
                 "disk_evac_batch": 256}
 TIER_FIXED = {"layout": "file", "queue_depth": 0}
 QOS_FIXED = {"tenants": []}
+EC_FIXED = {"enabled": True, "profile": "rs-6-3", "sweep_interval_s": 0.0}
 
 
 @dataclass
@@ -216,15 +223,25 @@ def _apply(obj, table: dict) -> None:
 
 
 @dataclass
+class ECConf:
+    """The erasure-coded capacity tier's cluster settings."""
+
+    # a file's blocks are converted once its mtime is this old (0: any
+    # complete file)
+    convert_cold_s: int = 0
+
+
+@dataclass
 class ClusterConf:
     master: MasterConf = field(default_factory=MasterConf)
     client: ClientConf = field(default_factory=ClientConf)
     worker: WorkerConf = field(default_factory=WorkerConf)
+    ec: ECConf = field(default_factory=ECConf)
 
     @staticmethod
     def load(path: str) -> "ClusterConf":
-        """The ``[master]``, ``[client]`` and ``[worker]`` tables of the
-        TOML file at ``path``."""
+        """The ``[master]``, ``[client]``, ``[worker]`` and ``[ec]``
+        tables of the TOML file at ``path``."""
         with open(path, "rb") as f:
             data = tomllib.load(f)
         conf = ClusterConf()
@@ -244,6 +261,9 @@ class ClusterConf:
                 f"port's {item} takes only {list(PLACEMENTS)}")
         _apply(conf.master, master)
         _apply(conf.client, data.get("client") or {})
+        ec = data.get("ec") or {}
+        _check(path, "ec", ec, EC_FIXED, "erasure coding")
+        _apply(conf.ec, ec)
         worker = data.get("worker") or {}
         item = "worker (ROADMAP A3c)"
         _check(path, "worker", worker, WORKER_FIXED, item)

@@ -8,7 +8,8 @@ with the same defaults: ``now_ms``, ``FileStatus`` (with its
 decodes it), ``ExtendedBlock``, ``BlockLocation``, ``LocatedBlock``,
 ``FileBlocks``, ``CommitBlock`` and ``MasterInfo`` (GET_MASTER_INFO's
 reply), ``MountInfo``, ``TaskInfo`` and ``JobInfo`` (:333-400, the mount
-table's and the job manager's records, journaled), and the enums their
+table's and the job manager's records, journaled), ``SetAttrOpts``
+(:400-416, SET_ATTR's body, journaled by ``set_attr``), and the enums their
 fields hold (``BlockState``, ``WorkerState``, ``WriteType`` and
 ``JobState`` among them). Each round-trips through
 a plain dict (``to_wire`` / ``from_wire``); a field missing from the dict
@@ -345,3 +346,22 @@ class JobInfo(Wire):
     total_files: int = 0
 
     _nested = {"state": JobState, "tasks": (TaskInfo,)}
+
+
+@dataclass
+class SetAttrOpts(Wire):
+    """SET_ATTR's fields; None (or empty) leaves a field as it is."""
+
+    replicas: int | None = None
+    owner: str | None = None
+    group: str | None = None
+    mode: int | None = None
+    ttl_ms: int | None = None
+    ttl_action: int | None = None
+    add_x_attr: dict = field(default_factory=dict)
+    remove_x_attr: list[str] = field(default_factory=list)
+    atime: int | None = None
+    mtime: int | None = None
+    # the EC storage class: "" back to replicated, "rs-<k>-<m>" marks
+    # the file for the ec_convert job
+    ec: str | None = None

@@ -109,10 +109,13 @@ class BlockMap:
 
     def apply_report(self, worker_id: int, held: dict[int, int],
                      storage_types: dict[int, int],
-                     incremental: bool = False) -> list[int]:
+                     incremental: bool = False,
+                     keep: set[int] = frozenset()) -> list[int]:
         """A worker's block report, {block_id: len}. Returns the blocks
         it holds that the master does not know (orphans). A full report
-        also retires the replicas the worker no longer holds."""
+        also retires the replicas the worker no longer holds, but for
+        those in ``keep`` (located after the report may have been
+        built)."""
         known = self.worker_blocks.setdefault(worker_id, set())
         orphans = []
         for bid, length in held.items():
@@ -127,7 +130,7 @@ class BlockMap:
             st = StorageType(storage_types.get(bid, int(StorageType.MEM)))
             self.add_replica(bid, worker_id, st)
         if not incremental:
-            for bid in list(known - set(held)):
+            for bid in list(known - set(held) - keep):
                 self.remove_replica(bid, worker_id)
         return orphans
 

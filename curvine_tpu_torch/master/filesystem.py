@@ -34,31 +34,63 @@ write op is refused under a read-only mount (``_mount_write_guard``,
 lies under the path); a create whose storage policy carries
 ``ufs_mtime`` is a cache-warming load, which passes.
 
+``set_attr`` (:779-813) stores SET_ATTR's fields: owner, group, mode,
+replicas, the TTL fields (stored; the TTL scanner that acts on them is
+not ported), atime, mtime, xattrs and the ``ec`` storage class, whose
+profile ``ECProfile.parse`` validates before it is journaled.
+
+Erasure-coded stripes (:78-114, :420-512): a striped block keeps its
+durable record, and its bytes live in k + m cell blocks, each a block of
+its own with its checksum and its holder. ``ec_plan`` journals the
+cells' ids before a byte is written (``_apply_ec_plan`` takes them from
+``tree.alloc_block_id()``, the counter ``alloc_block`` uses, so a replay
+gives the same ids, and frees a previous attempt's cells); the planned
+cells are in the block table, so a worker's report of one is no orphan.
+``ec_commit`` (EC_COMMIT_STRIPE) journals ``ec_put`` at the stripe's
+first commit, registers the cells' holders and retires the block's
+replicas (``retire_stripe_replicas``: runtime only, the deletes ride the
+heartbeats; the replication scan re-runs it until no replica is left).
+Beyond the reference, whose block reports race both (ROADMAP §C, C7), a
+full report does not drop a cell located on its worker since that
+worker's previous full report (by the stripe's commit or by the worker's
+incremental report of a rebuilt cell): the report may have been built
+before the cell landed, and the next one drops it if it is gone. Nor
+does a report locate again a replica that the retire queued for
+deletion: it is deleted again, until a full report no longer lists it.
+``ec_stripes`` and ``ec_cells`` are the runtime index of the store's
+stripe records, rebuilt after recovery and a snapshot's load.
+``get_block_locations`` gives each committed stripe's block its ``ec``
+descriptor (``_ec_descriptor``, :1180-1200: the cells' LIVE and
+DECOMMISSIONING holders); ``_free_blocks`` frees a stripe's cells with
+the block (:733-744).
+
 The port applies the journal ops ``mkdir``, ``create``, ``delete``,
-``rename``, ``alloc_block``, ``commit_blocks``, ``complete``, the raft
-leader's ``noop``, ``job_put``, ``job_del`` and ``worker_deco``
-(:405-420), and, once the server's ``MountManager``
-(``master/mount.py``) has attached its hooks, ``mount_add``,
-``mount_remove`` and ``mount_update``; a snapshot's ``jobs``,
-``mounts`` and ``deco`` sections are saved and loaded. Any other op (the
-reference's ``set_incomplete``, ``set_attr``, ``symlink``, ``link``,
-``resize``, ``free``, ``ec_*``, ``tx_*``, ``raft_conf``), and a snapshot
-that holds EC stripes or a raft config, stops recovery with
+``rename``, ``alloc_block``, ``commit_blocks``, ``complete``,
+``set_attr``, ``ec_plan``, ``ec_put``, the raft leader's ``noop``,
+``job_put``, ``job_del`` and ``worker_deco`` (:405-420), and, once the
+server's ``MountManager`` (``master/mount.py``) has attached its hooks,
+``mount_add``, ``mount_remove`` and ``mount_update``; a snapshot's
+``jobs``, ``ec``, ``mounts`` and ``deco`` sections are saved and
+loaded. Any other op (the reference's ``set_incomplete``, ``symlink``,
+``link``, ``resize``, ``free``, ``tx_*``, ``raft_conf``), and a
+snapshot that holds a raft config, stops recovery with
 ``UnportedJournalOp``, which names it: skipping it would drop state
-silently. Left out: the KV store, the raft
-hooks, EC stripes, the two-phase transactions of the sharded namespace,
-and the audit log (ROADMAP A3d)."""
+silently. Left out: the KV store, the raft hooks, the two-phase
+transactions of the sharded namespace, and the audit log (ROADMAP
+A3d)."""
 
 from __future__ import annotations
 
 import logging
 
 from curvine_tpu_torch.common import errors as err
+from curvine_tpu_torch.common.ec import ECProfile
 from curvine_tpu_torch.common.journal import GroupCommitter, Journal
 from curvine_tpu_torch.common.types import (CommitBlock, ExtendedBlock,
                                             FileBlocks, FileStatus, FileType,
                                             LocatedBlock, MasterInfo,
-                                            StoragePolicy, StorageType,
+                                            SetAttrOpts, StoragePolicy,
+                                            StorageType, TtlAction,
                                             WorkerInfo, WorkerState, now_ms)
 from curvine_tpu_torch.master.block_map import BlockMap
 from curvine_tpu_torch.master.inode import ROOT_ID, Inode, InodeTree
@@ -72,7 +104,7 @@ log = logging.getLogger(__name__)
 # args never share mutable state)
 _DEFAULT_POLICY_WIRE = StoragePolicy().to_wire()
 # snapshot sections of the reference's features the port does not have
-_UNPORTED_SNAPSHOT_KEYS = ("ec", "raft_conf")
+_UNPORTED_SNAPSHOT_KEYS = ("raft_conf",)
 
 
 class UnportedJournalOp(RuntimeError):
@@ -98,6 +130,14 @@ class MasterFilesystem:
                                     mesh_shape=ici_mesh_shape or None)
         # worker_id -> block ids to delete (handed out by its heartbeat)
         self.pending_deletes: dict[int, set[int]] = {}
+        # worker_id -> cells located on it since its last full report (by
+        # a stripe's commit or its own incremental report): that report
+        # may have been built before the cell landed, so it keeps them
+        self._fresh_cells: dict[int, set[int]] = {}
+        # worker_id -> stripe blocks whose replica on it was retired and
+        # which no full report of it has shown gone yet: a report still
+        # listing one does not locate it again, and deletes it again
+        self._retired: dict[int, set[int]] = {}
         # inode ids of files open for writing; None until the first lease
         # recovery after a start builds it by one scan
         self.open_files: set[int] | None = None
@@ -108,11 +148,31 @@ class MasterFilesystem:
         self.on_worker_lost = None
         # set by MasterServer: the mount table (master/mount.py)
         self.mounts = None
+        # the runtime index of the store's stripe records: logical block
+        # id -> stripe, and cell block id -> (logical block id, index)
+        self.ec_stripes: dict[int, dict] = {}
+        self.ec_cells: dict[int, tuple[int, int]] = {}
 
     # ==================== journal plumbing ====================
 
+    def _rebuild_ec_index(self) -> None:
+        self.ec_stripes = {}
+        self.ec_cells = {}
+        for bid, stripe in self.store.iter_ec():
+            self._ec_index(bid, stripe)
+
+    def _ec_index(self, block_id: int, stripe: dict) -> None:
+        old = self.ec_stripes.get(block_id)
+        if old is not None:
+            for cid in old.get("cells", []):
+                self.ec_cells.pop(cid, None)
+        self.ec_stripes[block_id] = stripe
+        for idx, cid in enumerate(stripe.get("cells", [])):
+            self.ec_cells[cid] = (block_id, idx)
+
     def recover(self) -> None:
         if self.journal is None:
+            self._rebuild_ec_index()
             return
         snap, entries = self.journal.recover()
         if snap is not None:
@@ -125,6 +185,7 @@ class MasterFilesystem:
         if snap is not None or entries:
             log.info("recovered namespace: %d inodes, %d blocks, seq=%d",
                      self.tree.count(), self.blocks.count(), self.journal.seq)
+        self._rebuild_ec_index()
 
     def _log(self, op: str, args: dict):
         """Journal, then apply: a failed append never leaves the state
@@ -184,7 +245,8 @@ class MasterFilesystem:
         state = {"next_id": self.store.get_counter("next_id", ROOT_ID + 1),
                  "next_block_id": self.store.get_counter("next_block_id", 1),
                  "inodes": inodes, "blocks": blocks,
-                 "jobs": list(self.store.iter_jobs()), "ec": [],
+                 "jobs": list(self.store.iter_jobs()),
+                 "ec": [[bid, stripe] for bid, stripe in self.store.iter_ec()],
                  "deco": sorted(self.workers.deco_ids)}
         if self.mounts is not None:
             state["mounts"] = self.mounts.snapshot_state()
@@ -234,6 +296,9 @@ class MasterFilesystem:
             self.store.block_put(bid, blen, iid, rep)
         for wire in snap.get("jobs", []):
             self.store.job_put(wire["job_id"], wire)
+        for bid, stripe in snap.get("ec", []):
+            self.store.ec_put(bid, stripe)
+        self._rebuild_ec_index()
         self.workers.deco_ids = set(snap.get("deco", []))
         for wid in self.workers.deco_ids:
             self.store.deco_put(wid)
@@ -274,6 +339,112 @@ class MasterFilesystem:
 
     def _apply_job_del(self, job_id: str) -> None:
         self.store.job_remove(job_id)
+
+    # ==================== erasure-coded stripes ====================
+
+    def ec_plan(self, block_id: int, profile: str, k: int, m: int,
+                cell_size: int) -> list[int]:
+        """Journal a stripe's cells for ``block_id`` before any cell is
+        written; returns their block ids."""
+        if self.store.block_get(block_id) is None:
+            raise err.InvalidArgument(f"ec_plan: unknown block {block_id}")
+        stripe = self.ec_stripes.get(block_id)
+        if stripe is not None and stripe.get("state") == "committed":
+            raise err.InvalidArgument(
+                f"ec_plan: block {block_id} already striped")
+        return self._log("ec_plan", dict(
+            block_id=block_id, profile=profile, n_cells=k + m,
+            cell_size=cell_size))
+
+    def _apply_ec_plan(self, block_id: int, profile: str, n_cells: int,
+                       cell_size: int) -> list[int]:
+        durable = self.store.block_get(block_id)
+        if durable is None:
+            raise err.InvalidArgument(f"ec_plan: unknown block {block_id}")
+        blen, inode_id, _rep = durable
+        # a re-plan (a job resumed after a crash) frees the previous
+        # attempt's cells: abandoned ids never stay in the block table
+        old = self.ec_stripes.get(block_id)
+        if old is not None and old.get("state") != "committed":
+            for cid in old.get("cells", []):
+                meta = self.blocks.remove_block(cid)
+                if meta:
+                    for wid in meta.locs:
+                        self.pending_deletes.setdefault(wid, set()).add(cid)
+        # the ids come from alloc_block's counter, inside the apply, so
+        # a replay of either package's journal gives the same ids
+        cells = [self.tree.alloc_block_id() for _ in range(n_cells)]
+        for cid in cells:
+            self.store.block_put(cid, cell_size, inode_id, 1)
+        stripe = {"profile": profile, "cell_size": cell_size,
+                  "block_len": blen, "cells": cells, "state": "planned"}
+        self.store.ec_put(block_id, stripe)
+        self._ec_index(block_id, stripe)
+        return cells
+
+    def ec_commit(self, block_id: int, cell_locs: list[list[int]]) -> None:
+        """EC_COMMIT_STRIPE: every cell is written. ``cell_locs`` is
+        [[cell_id, worker_id, storage_type], ...]."""
+        stripe = self.ec_stripes.get(block_id)
+        if stripe is None:
+            raise err.InvalidArgument(
+                f"ec_commit: no planned stripe for block {block_id}")
+        known = set(stripe.get("cells", []))
+        for cid, _wid, _st in cell_locs:
+            if cid not in known:
+                raise err.InvalidArgument(
+                    f"ec_commit: cell {cid} not in stripe {block_id}")
+        if stripe.get("state") != "committed":
+            self._log("ec_put", dict(block_id=block_id))
+        # the cells' holders are runtime state (rebuilt by reports)
+        for cid, wid, st in cell_locs:
+            self.blocks.add_replica(cid, wid, StorageType(st))
+            self._fresh_cells.setdefault(wid, set()).add(cid)
+        self.retire_stripe_replicas(block_id)
+
+    def _apply_ec_put(self, block_id: int) -> None:
+        stripe = self.store.ec_get(block_id)
+        if stripe is None:
+            raise err.InvalidArgument(
+                f"ec_put: no planned stripe for block {block_id}")
+        stripe = dict(stripe)
+        stripe["state"] = "committed"
+        self.store.ec_put(block_id, stripe)
+        self._ec_index(block_id, stripe)
+
+    def retire_stripe_replicas(self, block_id: int) -> None:
+        """Drop a committed stripe's replicated copies (runtime only: the
+        deletes ride the holders' heartbeats). The replication scan runs
+        this again until no location is left, so a crash between
+        ``ec_put`` and the deletes strands no replica."""
+        meta = self.blocks.get(block_id)
+        if meta is None:
+            return
+        for wid in list(meta.locs):
+            self.blocks.remove_replica(block_id, wid)
+            self.pending_deletes.setdefault(wid, set()).add(block_id)
+            self._retired.setdefault(wid, set()).add(block_id)
+
+    def _ec_descriptor(self, block_id: int) -> dict | None:
+        """A committed stripe's descriptor for a located block: each
+        cell's id and its serving holders' addresses (wire form). None
+        for a replicated block and for a stripe still being converted
+        (its replicas serve)."""
+        stripe = self.ec_stripes.get(block_id)
+        if stripe is None or stripe.get("state") != "committed":
+            return None
+        cells = []
+        for idx, cid in enumerate(stripe["cells"]):
+            clocs = []
+            for wid in self.blocks.locs.get(cid, {}):
+                w = self.workers.workers.get(wid)
+                if w is not None and w.state in (
+                        WorkerState.LIVE, WorkerState.DECOMMISSIONING):
+                    clocs.append(w.address.to_wire())
+            cells.append({"index": idx, "block_id": cid, "locs": clocs})
+        return {"profile": stripe["profile"],
+                "cell_size": stripe["cell_size"],
+                "block_len": stripe["block_len"], "cells": cells}
 
     # ==================== namespace ops ====================
 
@@ -371,6 +542,42 @@ class MasterFilesystem:
         return [child.to_status(f"{base}/{name}")
                 for name, child in self.tree.children(node)]
 
+    def set_attr(self, path: str, opts: SetAttrOpts) -> None:
+        self._mount_write_guard(path)
+        if self.tree.resolve(path) is None:
+            raise err.FileNotFound(path)
+        if opts.ec:
+            ECProfile.parse(opts.ec)          # validated before journaling
+        self._log("set_attr", dict(path=path, opts=opts.to_wire()))
+
+    def _apply_set_attr(self, path: str, opts: dict) -> None:
+        node = self.tree.resolve(path)
+        if node is None:
+            raise err.FileNotFound(path)
+        o = SetAttrOpts.from_wire(opts)
+        if o.replicas is not None:
+            node.replicas = o.replicas
+        if o.owner is not None:
+            node.owner = o.owner
+        if o.group is not None:
+            node.group = o.group
+        if o.mode is not None:
+            node.mode = o.mode
+        if o.ttl_ms is not None:
+            node.storage_policy.ttl_ms = o.ttl_ms
+        if o.ttl_action is not None:
+            node.storage_policy.ttl_action = TtlAction(o.ttl_action)
+        if o.atime is not None:
+            node.atime = o.atime
+        if o.mtime is not None:
+            node.mtime = o.mtime
+        if o.ec is not None:
+            node.storage_policy.ec = o.ec
+        node.x_attr.update(o.add_x_attr)
+        for k in o.remove_x_attr:
+            node.x_attr.pop(k, None)
+        self.tree.save(node)
+
     def rename(self, src: str, dst: str) -> bool:
         self._mount_write_guard(src, subtree=True)
         self._mount_write_guard(dst)
@@ -455,9 +662,20 @@ class MasterFilesystem:
                     self.open_files.discard(removed.id)
 
     def _free_blocks(self, node: Inode) -> None:
-        """Drop the node's blocks; each holder deletes its replica at its
-        next heartbeat. The inode is not saved (it left the store)."""
+        """Drop the node's blocks, a stripe's cells with its block; each
+        holder deletes its copy at its next heartbeat. The inode is not
+        saved (it left the store)."""
         for bid in node.blocks:
+            stripe = self.ec_stripes.pop(bid, None)
+            if stripe is not None:
+                for cid in stripe.get("cells", []):
+                    self.ec_cells.pop(cid, None)
+                    cmeta = self.blocks.remove_block(cid)
+                    if cmeta:
+                        for wid in cmeta.locs:
+                            self.pending_deletes.setdefault(
+                                wid, set()).add(cid)
+                self.store.ec_remove(bid)
             meta = self.blocks.remove_block(bid)
             if meta:
                 for wid in meta.locs:
@@ -580,7 +798,8 @@ class MasterFilesystem:
                                     storage_type=sts[0] if sts
                                     else StorageType.MEM,
                                     file_type=node.file_type),
-                offset=off, locs=locs, storage_types=sts))
+                offset=off, locs=locs, storage_types=sts,
+                ec=self._ec_descriptor(bid)))
             off += meta.len
         return FileBlocks(status=node.to_status(path), block_locs=out)
 
@@ -613,11 +832,28 @@ class MasterFilesystem:
             return {"delete_blocks": []}
         held = {int(k): int(v) for k, v in held.items()}
         storage_types = {int(k): int(v) for k, v in storage_types.items()}
+        # a report built before a retired replica's delete lists it
+        # still: it is deleted again, not located again
+        retired = self._retired.get(worker_id, set())
+        again = sorted(retired & held.keys())
+        for bid in again:
+            del held[bid]
+        if incremental:
+            self._fresh_cells.setdefault(worker_id, set()).update(
+                b for b in held if b in self.ec_cells)
+            keep: set[int] = set()
+        else:
+            if again:
+                self._retired[worker_id] = set(again)
+            else:
+                self._retired.pop(worker_id, None)
+            keep = self._fresh_cells.pop(worker_id, set())
         orphans = self.blocks.apply_report(worker_id, held, storage_types,
-                                           incremental=incremental)
+                                           incremental=incremental,
+                                           keep=keep)
         if not incremental:
             self.workers.mark_reported(worker_id)
-        return {"delete_blocks": orphans}
+        return {"delete_blocks": orphans + again}
 
     def recover_stale_leases(self, lease_timeout_ms: int = 300_000) -> int:
         """Finish the files abandoned mid-write (a dead client, no

@@ -20,9 +20,16 @@ whose window has not reached the end of its epoch stays RUNNING with
 every task done (``_maybe_finish``); an empty task list during a re-plan
 never reads as done.
 
-Where the port differs: ``ec_convert`` jobs are refused at ``submit``
-with ``Unsupported`` by name, and a recovered one fails with that
-message (EC is a later ROADMAP A3e item); the prefetch planner lists a
+An ``ec_convert`` job (``_plan_ec_convert``, ``_plan_file_stripes``,
+:309-403) walks its path for complete files whose storage policy names
+an EC profile (SET_ATTR's ``ec``), older than ``ec.convert_cold_s``, and
+plans one task a file: for each block not yet striped, the cells' ids
+(journaled by ``fs.ec_plan``), k + m target workers from the placement
+policy (round robin when the cluster has fewer) and the block's live
+holders as sources; the converting worker pulls, encodes, places the
+cells and commits the stripe (``worker/server.py``).
+
+Where the port differs: the prefetch planner lists a
 mounted directory's UFS objects beside its cached files, as LIST_STATUS
 does, where the reference lists the cached namespace only, so a window
 over a mount that nothing has loaded yet plans its objects (the
@@ -38,8 +45,11 @@ import logging
 import uuid
 
 from curvine_tpu_torch.common import errors as err
+from curvine_tpu_torch.common.conf import ECConf
+from curvine_tpu_torch.common.ec import ECProfile
 from curvine_tpu_torch.common.epoch import epoch_shard_order
-from curvine_tpu_torch.common.types import JobInfo, JobState, TaskInfo, now_ms
+from curvine_tpu_torch.common.types import (JobInfo, JobState, TaskInfo,
+                                            WorkerState, now_ms)
 from curvine_tpu_torch.rpc.client import ConnectionPool
 from curvine_tpu_torch.rpc.codes import RpcCode
 from curvine_tpu_torch.rpc.frame import pack
@@ -52,9 +62,10 @@ DISPATCH_ATTEMPTS = 20
 
 
 class JobManager:
-    def __init__(self, fs, mounts):
+    def __init__(self, fs, mounts, ec_conf: ECConf | None = None):
         self.fs = fs
         self.mounts = mounts
+        self.ec_conf = ec_conf or ECConf()
         self.jobs: dict[str, JobInfo] = {}
         self.pool = ConnectionPool(size=1)
         self._pending: asyncio.Queue[TaskInfo] = asyncio.Queue()
@@ -68,10 +79,7 @@ class JobManager:
 
     def submit(self, kind: str, path: str, recursive: bool = True,
                replicas: int = 1) -> JobInfo:
-        if kind == "ec_convert":
-            raise err.Unsupported("ec_convert jobs are not ported to the "
-                                  "port's master (ROADMAP A3e)")
-        if kind not in ("load", "export"):
+        if kind not in ("load", "export", "ec_convert"):
             raise err.Unsupported(f"job kind {kind!r}")
         job = JobInfo(job_id=uuid.uuid4().hex[:16], kind=kind, path=path,
                       state=JobState.PENDING, create_ms=now_ms(),
@@ -85,6 +93,9 @@ class JobManager:
         if job.kind == "load":
             fut = asyncio.ensure_future(
                 self._plan_load(job, job.recursive, job.replicas))
+        elif job.kind == "ec_convert":
+            fut = asyncio.ensure_future(
+                self._plan_ec_convert(job, job.recursive))
         elif job.kind == "prefetch":
             fut = asyncio.ensure_future(self._plan_prefetch(job))
         elif job.kind == "export":
@@ -325,6 +336,92 @@ class JobManager:
         except Exception as e:  # noqa: BLE001 — the job fails with it
             log.warning("load job %s planning failed: %s", job.job_id, e)
             self._fail(job, str(e) or type(e).__name__)
+
+    async def _plan_ec_convert(self, job: JobInfo, recursive: bool) -> None:
+        """One ``ec_convert`` task per complete, cold file under
+        ``job.path`` whose storage policy names an EC profile. Blocks
+        already striped are skipped, so the job is idempotent and a
+        resumed one re-plans only what is left."""
+        try:
+            cold_ms = self.ec_conf.convert_cold_s * 1000
+            files = []
+
+            def walk(path: str) -> None:
+                for st in self.fs.list_status(path):
+                    if st.is_dir:
+                        if recursive:
+                            walk(st.path)
+                    elif st.is_complete and st.storage_policy.ec:
+                        files.append(st)
+
+            st = self.fs.file_status(job.path)
+            if st.is_dir:
+                walk(job.path)
+            elif st.is_complete and st.storage_policy.ec:
+                files.append(st)
+            if job.state != JobState.PENDING:
+                return                # cancelled mid-plan: it stays so
+            now = now_ms()
+            planned = 0
+            for f in files:
+                if cold_ms and f.mtime > now - cold_ms:
+                    continue          # still warm
+                profile = ECProfile.parse(f.storage_policy.ec)
+                plans = self._plan_file_stripes(f, profile)
+                if not plans:
+                    continue
+                task = TaskInfo(task_id=uuid.uuid4().hex[:16],
+                                job_id=job.job_id, path=f.path,
+                                kind="ec_convert", total_len=f.len,
+                                payload={"profile": profile.name,
+                                         "blocks": plans})
+                job.tasks.append(task)
+                await self._pending.put(task)
+                planned += 1
+            job.state = JobState.RUNNING if planned else JobState.COMPLETED
+            if not planned:
+                job.finish_ms = now_ms()
+                self._persist(job)
+        except Exception as e:  # noqa: BLE001 — the job fails with it
+            log.warning("ec_convert job %s planning failed: %s",
+                        job.job_id, e)
+            self._fail(job, str(e) or type(e).__name__)
+
+    def _plan_file_stripes(self, f, profile: ECProfile) -> list[dict]:
+        """The stripe plans of one file's blocks: journal the cells' ids,
+        pick k + m target workers (distinct where the cluster has that
+        many; fewer wrap round robin) and list the block's sources."""
+        node = self.fs.tree.resolve(f.path)
+        if node is None:
+            return []
+        plans = []
+        for bid in node.blocks:
+            stripe = self.fs.ec_stripes.get(bid)
+            if stripe is not None and stripe.get("state") == "committed":
+                continue              # already striped
+            meta = self.fs.blocks.get(bid)
+            if meta is None or meta.len == 0 or not meta.locs:
+                continue              # nothing to stripe, or no source
+            k, m = profile.k, profile.m
+            cell_size = profile.cell_size(meta.len)
+            chosen = self.fs.policy.choose(self.fs.workers.live_workers(),
+                                           k + m, needed=cell_size,
+                                           min_count=1)
+            targets = [chosen[i % len(chosen)] for i in range(k + m)]
+            cell_ids = self.fs.ec_plan(bid, profile.name, k, m, cell_size)
+            sources = []
+            for wid in meta.locs:
+                w = self.fs.workers.workers.get(wid)
+                if w is not None and w.state in (
+                        WorkerState.LIVE, WorkerState.DECOMMISSIONING):
+                    sources.append(w.address.to_wire())
+            plans.append({
+                "block_id": bid, "block_len": meta.len,
+                "cell_size": cell_size, "sources": sources,
+                "cells": [{"index": i, "block_id": cid,
+                           "addr": targets[i].address.to_wire()}
+                          for i, cid in enumerate(cell_ids)]})
+        return plans
 
     async def run(self) -> None:
         """Recover the journaled jobs, then dispatch queued tasks."""

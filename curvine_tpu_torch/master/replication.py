@@ -1,25 +1,34 @@
 """Block re-replication: the master keeps every block at its file's
 replica count.
 
-Own copy of ``curvine_tpu/master/replication.py`` without EC. The
-master queues the blocks with fewer live replicas than desired (a lost
-worker's, found by the periodic scan, a draining worker's, or reported
-corrupt), picks a source holder and a destination worker,
-and asks the destination to pull the block (SUBMIT_BLOCK_REPLICATION_JOB,
-under a budget carried in the request header: ``rpc/deadline.py``).
-Ported:
+Own copy of ``curvine_tpu/master/replication.py``. The master queues
+the blocks with fewer live replicas than desired (a lost worker's, found
+by the periodic scan, a draining worker's, or reported corrupt), picks a
+source holder and a destination worker, and asks the destination to
+pull the block (SUBMIT_BLOCK_REPLICATION_JOB, under a budget carried in
+the request header: ``rpc/deadline.py``); an erasure-coded stripe's
+lost cell is rebuilt instead, by decode, on a destination that pulls k
+sibling cells. Ported:
 
 - the soft state, never journaled, that a restarted master relearns from
   the workers' heartbeats and reports: ``note_hbm_blocks`` (:73-81, the
   blocks each worker advertises in its device tier-0, which only ever
   add a hint to a pull) and ``note_verdicts`` (:83-89);
-- ``_classify`` (:91-110) down to ``evacuate`` (a replica flagged on its
-  worker, moved off by copy first, delete last) and ``replicate``;
+- ``_classify`` (:91-110) with its four kinds: ``retire`` (the block of
+  a committed stripe still holds replicas: they are dropped),
+  ``reconstruct`` (a stripe's cell, whichever way it was queued: a
+  lost holder's, a draining one's or a reported one's; it is rebuilt by
+  decode, never copied), ``evacuate`` (a replica flagged on its worker,
+  moved off by copy first, delete last) and ``replicate``; and
+  ``_dispatch`` (:112-122);
 - ``enqueue`` and ``enqueue_evacuation`` (:124-148), ``on_worker_lost``
   and ``replacement_worker`` (:150-161);
 - ``run`` with its per-block backoff (:163-193) and ``_scan_loop``
-  (:195-209) without its EC sweep;
-- ``_live_replicas`` (:238-245);
+  (:195-209), which runs ``_ec_scan`` (:211-236) before the drain: the
+  committed stripes' cells with no LIVE holder or with a verdict (which
+  ``under_replicated`` cannot see once a lost holder's location is
+  gone), and the stripes whose block still holds replicas;
+- ``_live_replicas`` and ``_live_holder`` (:238-254);
 - ``_drain_scan`` (:247-298), the decommission drain, run by the scan
   after the under-replication sweep: each block a DECOMMISSIONING worker
   holds needs its count on LIVE workers; once none is short, the worker
@@ -34,16 +43,22 @@ Ported:
   ``ici`` hint when the source advertises the block in its tier-0; the
   pull budget; and the ``replication.ici_hinted``, ``replicates`` and
   ``evacuates`` counters;
+- ``_reconstruct`` (:417-513): nothing while the cell has a LIVE holder
+  (a cell on a draining worker has none, so the drain rebuilds it by
+  decode); k sources from the siblings' LIVE holders, never a flagged
+  copy or one with a verdict; the destination off every holder of the
+  stripe, or off the cell's own holders where the cluster is too small;
+  the ``replication.reconstructs`` counter; and the ``retire`` path's
+  ``replication.retires``;
 - ``_retire_evacuated`` and ``on_result`` (:515-540, with
   ``replication.ici_transfers`` for a pull that landed over the device
   path).
 
-Refused by name where met (ROADMAP A3e): an EC stripe's retirement and a
-cell's reconstruction (``_classify`` raises ``Unsupported`` for a block
-the filesystem's ``ec_stripes`` or ``ec_cells`` name; the port's
-filesystem has neither). Left out: the EC sweep of the scan, the
-leader gate (the port's master is a single node, without raft) and
-the trace each dispatch opens."""
+The verdicts ``_reconstruct`` and ``_ec_scan`` read are the ones the
+master has noted (``note_verdicts``); the port's workers run no scrub,
+so nothing sends them one yet. Left out: the leader gate (the port's
+master is a single node, without raft) and the trace each dispatch
+opens."""
 
 from __future__ import annotations
 
@@ -51,6 +66,7 @@ import asyncio
 import logging
 
 from curvine_tpu_torch.common import errors as err
+from curvine_tpu_torch.common.ec import ECProfile
 from curvine_tpu_torch.common.types import WorkerInfo, WorkerState
 from curvine_tpu_torch.rpc.client import ConnectionPool
 from curvine_tpu_torch.rpc.codes import RpcCode
@@ -108,20 +124,30 @@ class ReplicationManager:
             self._verdicts[bid] = verdict
 
     def _classify(self, bid: int) -> str:
-        """The kind of work a queued block needs: ``evacuate`` (a flagged
-        replica moved off its worker) or ``replicate`` (a copy pulled).
-        An EC stripe's block is refused by name."""
-        stripe = getattr(self.fs, "ec_stripes", {}).get(bid)
-        if stripe is not None or bid in getattr(self.fs, "ec_cells", {}):
-            raise err.Unsupported(
-                f"block {bid}: EC stripe retirement and cell "
-                f"reconstruction are not ported (ROADMAP A3e)")
+        """The kind of work a queued block needs: ``retire`` (a committed
+        stripe's block still holds replicas), ``reconstruct`` (a stripe's
+        cell: decoded from its siblings, not copied), ``evacuate`` (a
+        flagged replica moved off its worker) or ``replicate`` (a copy
+        pulled)."""
+        stripe = self.fs.ec_stripes.get(bid)
+        if stripe is not None and stripe.get("state") == "committed":
+            return "retire"
+        if bid in self.fs.ec_cells:
+            return "reconstruct"
         if bid in self._evac:
             return "evacuate"
         return "replicate"
 
     async def _dispatch(self, bid: int) -> bool:
-        self._classify(bid)
+        kind = self._classify(bid)
+        if kind == "retire":
+            meta = self.fs.blocks.get(bid)
+            if meta is not None and meta.locs:
+                self.fs.retire_stripe_replicas(bid)
+                self._inc("replication.retires")
+            return True
+        if kind == "reconstruct":
+            return await self._reconstruct(bid)
         return await self._replicate(bid)   # evacuate shares the pull path
 
     def enqueue(self, block_ids: list[int]) -> None:
@@ -197,7 +223,30 @@ class ReplicationManager:
             if self._evac:
                 # unresolved evacuations are retried at scan cadence
                 self.enqueue(list(self._evac))
+            self._ec_scan()
             self._drain_scan()
+
+    def _ec_scan(self) -> None:
+        """The stripes' sweep: a cell whose only holder was dropped by
+        ``worker_lost`` has no location left, which ``under_replicated``
+        skips, so it surfaces here; so do cells with a verdict, and the
+        committed stripes whose block still holds replicas (retired)."""
+        lost, retire = [], []
+        for bid, stripe in self.fs.ec_stripes.items():
+            if stripe.get("state") != "committed":
+                continue
+            meta = self.fs.blocks.get(bid)
+            if meta is not None and meta.locs:
+                retire.append(bid)
+            for cid in stripe["cells"]:
+                if self._live_replicas(cid) == 0 or cid in self._verdicts:
+                    lost.append(cid)
+        if lost:
+            log.info("ec scan: %d stripe cells need reconstruction",
+                     len(lost))
+            self.enqueue(lost)
+        if retire:
+            self.enqueue(retire)
 
     def _live_replicas(self, block_id: int) -> int:
         n = 0
@@ -206,6 +255,16 @@ class ReplicationManager:
             if w is not None and w.state == WorkerState.LIVE:
                 n += 1
         return n
+
+    def _live_holder(self, block_id: int,
+                     exclude_wid: int | None = None) -> WorkerInfo | None:
+        for wid in self.fs.blocks.locs.get(block_id, {}):
+            if wid == exclude_wid:
+                continue
+            w = self.fs.workers.workers.get(wid)
+            if w is not None and w.state == WorkerState.LIVE:
+                return w
+        return None
 
     def _drain_scan(self) -> None:
         """The decommission drain: a DECOMMISSIONING worker's blocks are
@@ -327,6 +386,92 @@ class ReplicationManager:
             self._inflight.discard(block_id)
         self._inc("replication.evacuates" if evac_wid is not None
                   else "replication.replicates")
+        return True
+
+    async def _reconstruct(self, cell_id: int) -> bool:
+        """Dispatch one cell's rebuild: the destination pulls k LIVE
+        sibling cells (data first) and decodes the cell. True when the
+        cell needs nothing more; False to retry with backoff (fewer than
+        k live siblings, or no destination)."""
+        ref = self.fs.ec_cells.get(cell_id)
+        if ref is None:
+            return True                          # the stripe was freed
+        block_id, cell_index = ref
+        stripe = self.fs.ec_stripes.get(block_id)
+        if stripe is None or stripe.get("state") != "committed":
+            return True                          # still being converted
+        evac_wid = self._evac.get(cell_id)
+        if evac_wid is not None and \
+                evac_wid not in self.fs.blocks.locs.get(cell_id, {}):
+            self._evac.pop(cell_id, None)
+            evac_wid = None
+        # a flagged copy or one with a verdict never counts as healthy:
+        # it is rebuilt by decode even while it serves
+        suspect = evac_wid is not None or cell_id in self._verdicts
+        if not suspect and self._live_holder(cell_id) is not None:
+            return True
+        if suspect and cell_id not in self._verdicts and self._live_holder(
+                cell_id, exclude_wid=evac_wid) is not None:
+            # a clean copy exists elsewhere: only the flag is retired
+            if evac_wid is not None:
+                self._retire_evacuated(cell_id, evac_wid)
+            return True
+        prof = ECProfile.parse(stripe["profile"])
+        sources = []
+        for idx, cid in enumerate(stripe["cells"]):
+            if cid == cell_id or len(sources) >= prof.k:
+                continue
+            if cid in self._verdicts:
+                continue                 # never decode from rotten bytes
+            w = self._live_holder(cid, exclude_wid=self._evac.get(cid))
+            if w is None:
+                continue
+            sources.append({"index": idx, "block_id": cid,
+                            "addr": w.address.to_wire()})
+        if len(sources) < prof.k:
+            log.debug("cell %d of block %d: only %d/%d live sibling "
+                      "cells, cannot rebuild yet",
+                      cell_id, block_id, len(sources), prof.k)
+            return False
+        # off every worker that holds a cell of this stripe; on a
+        # cluster too small for that, off the cell's own holders only
+        exclude = set()
+        for cid in stripe["cells"]:
+            exclude |= set(self.fs.blocks.locs.get(cid, {}))
+        live = self.fs.workers.live_workers()
+        try:
+            dst = self.fs.policy.choose(live, 1, exclude=exclude,
+                                        needed=stripe["cell_size"])[0]
+        except err.CurvineError:
+            try:
+                own = set(self.fs.blocks.locs.get(cell_id, {}))
+                dst = self.fs.policy.choose(live, 1, exclude=own,
+                                            needed=stripe["cell_size"])[0]
+            except err.CurvineError as e:
+                log.debug("no rebuild destination for cell %d: %s",
+                          cell_id, e)
+                return False
+        self._inflight.add(cell_id)
+        try:
+            conn = await self.pool.get(
+                f"{dst.address.ip_addr or dst.address.hostname}:"
+                f"{dst.address.rpc_port}")
+            await conn.call(
+                RpcCode.SUBMIT_BLOCK_REPLICATION_JOB, data=pack({
+                    "block_id": cell_id,
+                    "block_len": stripe["cell_size"],
+                    "ec": {"cell_index": cell_index,
+                           "profile": stripe["profile"],
+                           "cell_size": stripe["cell_size"],
+                           "sources": sources}}),
+                deadline=Deadline.after_ms(self.pull_budget_ms))
+        except err.CurvineError as e:
+            log.warning("rebuild submit for cell %d to worker %d failed: "
+                        "%s", cell_id, dst.address.worker_id, e)
+            return False
+        finally:
+            self._inflight.discard(cell_id)
+        self._inc("replication.reconstructs")
         return True
 
     def _retire_evacuated(self, block_id: int, worker_id: int) -> None:

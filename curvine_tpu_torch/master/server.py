@@ -14,7 +14,10 @@ does not hold, :672-764: LIST_STATUS merges the cached entries over the
 UFS entries and sorts them by name), RENAME, ADD_BLOCK (with the
 client's ``ici_coords`` for the ``ici`` placement), COMPLETE_FILE,
 GET_BLOCK_LOCATIONS, GET_MASTER_INFO and META_BATCH (mkdir, create and
-delete items, each failing alone, :1142-1163); the mount table (MOUNT,
+delete items, each failing alone, :1142-1163), SET_ATTR (:989-996:
+owner, group, mode, replicas, TTL fields, times, xattrs and the ``ec``
+storage class, journaled by ``set_attr``; the TTL fields are stored,
+and nothing acts on them yet); the mount table (MOUNT,
 UNMOUNT, UPDATE_MOUNT, GET_MOUNT_TABLE, GET_MOUNT_INFO;
 ``master/mount.py``) and the job manager (SUBMIT_JOB, GET_JOB_STATUS,
 CANCEL_JOB, PREFETCH_WINDOW, and REPORT_TASK from the workers;
@@ -25,10 +28,13 @@ handed to the replication manager as device-path hints, :1193-1196, its
 ``evac_blocks`` to its evacuations, its ``metrics`` summed into the
 ``bytes.read`` and ``bytes.written`` gauges), WORKER_BLOCK_REPORT,
 REQUEST_REPLACEMENT_WORKER (:1212-1215), REPORT_BLOCK_REPLICATION_RESULT
-(:1275-1280), and REPORT_UNDER_REPLICATED_BLOCKS (:1230-1273): verdicts
+(:1275-1280), REPORT_UNDER_REPLICATED_BLOCKS (:1230-1273): verdicts
 noted, a replica reported with its ``worker_id`` evacuated (flagged, it
 stops counting and is retired once the block is back at its count), a
-report without one enqueued, and ``confirm_live`` answered; and
+report without one enqueued (a client's lost stripe cells behind a
+degraded read, counted as ``ec.degraded_reads``), and ``confirm_live``
+answered; EC_COMMIT_STRIPE (:1282-1290): a converting worker's cells
+registered and the stripe committed (``ec.stripes_committed``); and
 DECOMMISSION_WORKER (:1217-1229): the superuser's journaled intent, on
 or off, answered with the worker's state (-1 for a worker the master
 has not seen). At start the mount table is rebuilt from the store after
@@ -46,9 +52,8 @@ timed into the ``rpc.<code name>`` histograms of ``metrics``; the
 Every request but a worker's must come from the superuser
 (``acl.SuperuserGate``). Every other code the reference's master
 registers (:340-410, ``rpc/codes.py::MASTER_REFUSED``) is answered
-UNSUPPORTED by name: locks, quotas, raft, shards, EC, batches other
-than META_BATCH, attributes, links, appends, metrics
-reports, spans and health. Read leases and the fast metadata port are
+UNSUPPORTED by name: locks, quotas, raft, shards, batches other
+than META_BATCH, links, appends, metrics reports, spans and health. Read leases and the fast metadata port are
 not served: a read's reply carries no ``lease`` token and
 ``master_info`` no ``fast_addr``, so a client caches nothing (ROADMAP
 A3d)."""
@@ -64,7 +69,7 @@ from curvine_tpu_torch.common.executor import ScheduledExecutor
 from curvine_tpu_torch.common.journal import GroupCommitter, Journal
 from curvine_tpu_torch.common.metrics import MetricsRegistry
 from curvine_tpu_torch.common.path import norm_path
-from curvine_tpu_torch.common.types import CommitBlock
+from curvine_tpu_torch.common.types import CommitBlock, SetAttrOpts
 from curvine_tpu_torch.master.acl import SuperuserGate
 from curvine_tpu_torch.master.filesystem import MasterFilesystem
 from curvine_tpu_torch.master.jobs import JobManager
@@ -103,7 +108,7 @@ class MasterServer:
         self.fs.on_worker_lost = self.replication.on_worker_lost
         self.mounts = MountManager(self.fs)
         self.fs.mounts = self.mounts
-        self.jobs = JobManager(self.fs, self.mounts)
+        self.jobs = JobManager(self.fs, self.mounts, self.conf.ec)
         self.rpc = RpcServer(mc.hostname, mc.rpc_port, "master")
         self.rpc.metrics = self.metrics
         self.executor = ScheduledExecutor("master")
@@ -171,6 +176,7 @@ class MasterServer:
         r(C.LIST_STATUS, self._h(self._list_status))
         r(C.EXISTS, self._h(self._exists))
         r(C.RENAME, self._h(self._rename, mutate=True))
+        r(C.SET_ATTR, self._h(self._set_attr, mutate=True))
         r(C.ADD_BLOCK, self._h(self._add_block, mutate=True))
         r(C.COMPLETE_FILE, self._h(self._complete_file, mutate=True))
         r(C.GET_BLOCK_LOCATIONS, self._h(self._get_block_locations))
@@ -185,6 +191,7 @@ class MasterServer:
           self._h(self._replication_result))
         r(C.DECOMMISSION_WORKER, self._h(self._decommission_worker,
                                          mutate=True))
+        r(C.EC_COMMIT_STRIPE, self._h(self._ec_commit_stripe, mutate=True))
         r(C.MOUNT, self._h(self._mount, mutate=True))
         r(C.UNMOUNT, self._h(self._umount, mutate=True))
         r(C.UPDATE_MOUNT, self._h(self._update_mount, mutate=True))
@@ -301,6 +308,13 @@ class MasterServer:
         self.acl.check(q)
         return {"result": self.fs.rename(q["src"], q["dst"])}
 
+    def _set_attr(self, q):
+        """The reference's ``check_set_attr`` passes the superuser; the
+        gate refuses every other caller, as for every op."""
+        self.acl.check(q)
+        self.fs.set_attr(q["path"], SetAttrOpts.from_wire(q.get("opts", {})))
+        return {}
+
     def _add_block(self, q):
         self.acl.check(q)
         lb = self.fs.add_block(
@@ -400,6 +414,11 @@ class MasterServer:
         if wid is not None:
             self.replication.enqueue_evacuation(wid, bids)
         else:
+            # a client's lost stripe cells, behind a degraded read (no
+            # worker to name: the holder is gone)
+            lost = sum(1 for b in bids if b in self.fs.ec_cells)
+            if lost:
+                self.metrics.inc("ec.degraded_reads", lost)
             self.replication.enqueue(bids)
         self.metrics.inc("blocks.reported_corrupt", len(bids))
         out = {"success": True}
@@ -418,6 +437,16 @@ class MasterServer:
                                    q.get("message", ""),
                                    via=q.get("via", ""))
         return {}
+
+    def _ec_commit_stripe(self, q):
+        """A converting worker wrote every cell: the stripe is journaled
+        (at its first commit) and its cells' locations registered; the
+        block's replicas then retire, copy first and delete last."""
+        cells = [[int(c["block_id"]), int(c["worker_id"]),
+                  int(c.get("storage_type", 1))] for c in q.get("cells", [])]
+        self.fs.ec_commit(q["block_id"], cells)
+        self.metrics.inc("ec.stripes_committed")
+        return {"success": True}
 
     # --- mounts ---
     def _mount(self, q):

@@ -2,13 +2,13 @@
 
 Own copy of ``MemMetaStore`` (``curvine_tpu/master/store.py:43-250``):
 everything in dicts, made durable by the journal and its snapshots, with
-the mount table's and the job manager's records (:112-130) and the
-workers' decommission intents (:160-168). Left out: ``KvMetaStore`` and
-its KV engine (``common/kvstore.py``, ``kvnative``; ROADMAP A3d), and
-the EC stripe and two-phase transaction tables of the features the
-port's master does not have; the store's KV
-transaction surface (``commit_applied``, ``stage_entry``, ``rollback``),
-a no-op in RAM, goes with them."""
+the mount table's and the job manager's records (:112-130), the EC
+stripe records (:131-143) and the workers' decommission intents
+(:160-168). Left out: ``KvMetaStore`` and its KV engine
+(``common/kvstore.py``, ``kvnative``; ROADMAP A3d), and the two-phase
+transaction table of the sharded namespace the port's master does not
+have; the store's KV transaction surface (``commit_applied``,
+``stage_entry``, ``rollback``), a no-op in RAM, goes with them."""
 
 from __future__ import annotations
 
@@ -24,6 +24,7 @@ class MemMetaStore:
         self.mounts_tbl: dict[str, dict] = {}
         self.jobs_tbl: dict[str, dict] = {}
         self.deco_tbl: set[int] = set()
+        self.ec_tbl: dict[int, dict] = {}
 
     # inodes
     def get(self, inode_id: int):
@@ -97,6 +98,20 @@ class MemMetaStore:
     def iter_jobs(self):
         return iter(list(self.jobs_tbl.values()))
 
+    # EC stripe records: logical block id -> {"profile", "cell_size",
+    # "block_len", "cells", "state"}
+    def ec_put(self, block_id: int, wire: dict) -> None:
+        self.ec_tbl[block_id] = wire
+
+    def ec_get(self, block_id: int) -> dict | None:
+        return self.ec_tbl.get(block_id)
+
+    def ec_remove(self, block_id: int) -> None:
+        self.ec_tbl.pop(block_id, None)
+
+    def iter_ec(self):
+        return iter(list(self.ec_tbl.items()))
+
     # worker decommission intents
     def deco_put(self, worker_id: int) -> None:
         self.deco_tbl.add(worker_id)
@@ -128,3 +143,4 @@ class MemMetaStore:
         self.mounts_tbl.clear()
         self.jobs_tbl.clear()
         self.deco_tbl.clear()
+        self.ec_tbl.clear()

@@ -104,12 +104,12 @@ class RpcCode(enum.IntEnum):
 # the codes the reference's master registers (curvine_tpu/master/
 # server.py:340-410) that the port's master answers UNSUPPORTED, by name
 MASTER_REFUSED = (
-    RpcCode.APPEND_FILE, RpcCode.SET_ATTR, RpcCode.SYMLINK, RpcCode.LINK,
+    RpcCode.APPEND_FILE, RpcCode.SYMLINK, RpcCode.LINK,
     RpcCode.RESIZE_FILE, RpcCode.FREE, RpcCode.CREATE_FILES_BATCH,
     RpcCode.ADD_BLOCKS_BATCH, RpcCode.COMPLETE_FILES_BATCH,
     RpcCode.LIST_OPTIONS, RpcCode.CONTENT_SUMMARY, RpcCode.GET_LOCK,
     RpcCode.SET_LOCK, RpcCode.LIST_LOCK, RpcCode.ASSIGN_WORKER,
     RpcCode.METRICS_REPORT, RpcCode.CLUSTER_HEALTH, RpcCode.GET_SPANS,
-    RpcCode.EC_COMMIT_STRIPE, RpcCode.SHARD_TX,
+    RpcCode.SHARD_TX,
     RpcCode.SHARD_TX_LIST, RpcCode.SHARD_STATS, RpcCode.SHARD_TABLE,
     RpcCode.TENANT_STATS, RpcCode.RAFT_MEMBER_CHANGE, RpcCode.RAFT_TRANSFER)

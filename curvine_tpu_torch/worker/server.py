@@ -36,7 +36,11 @@ A carve of ``curvine_tpu/worker/server.py``:
   commit crc and, for a block the tier-0 exports, the ``hbm`` offer:
   worker id, ICI coordinates and the export entry; never an shm offer),
   SC_WRITE_OPEN, _COMMIT and _ABORT, SC_READ_REPORT (heat only), HBM_PIN
-  and HBM_UNPIN; and ICI_TRANSFER with ``_ici_land`` (:1412-1475): the
+  and HBM_UNPIN; WRITE_BLOCKS_BATCH (:1103-1136): small blocks in one
+  request, each committed with the checksum its sender computed
+  (``crc32`` and ``algo``), which this worker checks first: a block
+  whose bytes do not match it is refused (the reference commits it
+  unchecked); and ICI_TRANSFER with ``_ici_land`` (:1412-1475): the
   block fetched from the named peer's tier-0 in this process, copied to
   the host, its length checked, then crc32c'd, written, committed and
   reported to the master like a TCP pull (``ici.peer_pulls``); a miss
@@ -48,9 +52,21 @@ A carve of ``curvine_tpu/worker/server.py``:
   (``client/unified.py``: ``load_from_ufs``, ``export_to_ufs``,
   ``prefetch``), closed when the task ends, and is reported back with
   this worker's id (REPORT_TASK through ``_leader_call``); an
-  ``ec_convert`` task is refused by name;
-- SUBMIT_BLOCK_REPLICATION_JOB (``_replicate_block``, :1276-1410, without
-  the EC branch :1282-1310, whose job is refused by name): the block
+  ``ec_convert`` task (``_run_ec_convert_task``, :1552-1690) converts its
+  blocks stripe by stripe (``_convert_one_stripe``): the block pulled
+  whole from one of its holders and checked against its commit crc
+  (``_pull_any``, ``_pull_verified``), split and encoded by the port's
+  codec (``common/ec.py``, through ``csrc/gf256.cc``), the cells landed
+  on their planned workers (``_place_cells``: this worker's own through
+  ``_write_local_cell``, a peer's by WRITE_BLOCKS_BATCH with the
+  sender's crc32c) and the stripe committed on the master
+  (EC_COMMIT_STRIPE, ``_commit_stripe``); one failed stripe fails the
+  task, and the stripes committed before it stay converted;
+- SUBMIT_BLOCK_REPLICATION_JOB (``_replicate_block``, :1276-1410): a job
+  with ``ec`` rebuilds a stripe's cell (:1282-1310, ``_reconstruct_cell``,
+  :1692-1724): k sibling cells pulled and checked, the cell decoded (or
+  re-encoded, for a parity cell), written under a fresh crc32c,
+  committed and reported to the master. Otherwise the block
   lands over the device path first (``_ici_land``) when the master's job
   carries the ``ici`` hint and ``ici_transfer`` is on; otherwise, or on a
   miss (one ``ici.tcp_fallbacks``), it is pulled by a READ_BLOCK stream
@@ -81,9 +97,8 @@ a landing copies the block to the host before it lets the tensor go.
 
 Not ported (ROADMAP A3c): the bdev layout and direct IO (refused by the
 conf), the shared-memory channel (never offered), scrub and the disk
-health machinery (every dir reports healthy), the master's EC tasks and
-WRITE_BLOCKS_BATCH (each refused by name with UNSUPPORTED), QoS, tracing
-and the web server."""
+health machinery (every dir reports healthy), QoS, tracing and the web
+server."""
 
 from __future__ import annotations
 
@@ -99,6 +114,7 @@ import zlib
 import numpy as np
 import torch
 
+from curvine_tpu_torch.common import ec
 from curvine_tpu_torch.common import errors as err
 from curvine_tpu_torch.common.conf import ClusterConf
 from curvine_tpu_torch.common.executor import ScheduledExecutor
@@ -124,6 +140,10 @@ log = logging.getLogger(__name__)
 _TIER_NAMES = {"hbm": StorageType.HBM, "mem": StorageType.MEM,
                "ssd": StorageType.SSD, "hdd": StorageType.HDD}
 PIN_BUDGET = 256 << 20          # device bytes pinned per promote cycle
+# the cells of one WRITE_BLOCKS_BATCH request, in bytes: a request is one
+# frame, at most rpc/frame.py's MAX_FRAME (64 MiB and 1 KiB); a larger
+# cell goes alone
+BATCH_BYTES = 32 << 20
 
 
 def worker_id_for(hostname: str, port: int) -> int:
@@ -580,28 +600,22 @@ class WorkerServer:
         r(RpcCode.ICI_TRANSFER, self._ici_transfer)
         r(RpcCode.SUBMIT_BLOCK_REPLICATION_JOB, self._replicate_block)
         r(RpcCode.SUBMIT_TASK, self._submit_task)
-        r(RpcCode.WRITE_BLOCKS_BATCH, self._not_ported)
-
-    async def _not_ported(self, msg: Message, conn: ServerConn):
-        """Batched small-file writes are refused by name: a writer sees
-        the error."""
-        raise err.Unsupported(f"{RpcCode(msg.code).name} is not ported to "
-                              f"this worker (ROADMAP A3c)")
+        r(RpcCode.WRITE_BLOCKS_BATCH, self._write_blocks_batch)
 
     # ---------------- the master's tasks ----------------
 
     async def _submit_task(self, msg: Message, conn: ServerConn):
-        """A load, export or prefetch task, run in the background; its
-        result goes back to the master in REPORT_TASK. An ``ec_convert``
-        task is refused by name: the master marks it failed."""
+        """A load, export, prefetch or ec_convert task, run in the
+        background; its result goes back to the master in REPORT_TASK."""
         q = unpack(msg.data) or {}
         task = TaskInfo.from_wire(q["task"])
-        if task.kind not in ("load", "export", "prefetch"):
-            raise err.Unsupported(f"SUBMIT_TASK of kind {task.kind!r} is not "
-                                  f"ported to this worker (ROADMAP A3e)")
+        if task.kind not in ("load", "export", "prefetch", "ec_convert"):
+            raise err.Unsupported(f"SUBMIT_TASK of kind {task.kind!r}")
+        run = self._run_ec_convert_task if task.kind == "ec_convert" \
+            else self._run_load_task
         # tracked so that stop() cancels a task still running
         self._bg = [t for t in self._bg if not t.done()]
-        self._bg.append(asyncio.ensure_future(self._run_load_task(task)))
+        self._bg.append(asyncio.ensure_future(run(task)))
         return {"accepted": True}
 
     async def _run_load_task(self, task: TaskInfo) -> None:
@@ -626,13 +640,228 @@ class WorkerServer:
                 log.warning("%s task %s failed: %s", task.kind, task.task_id,
                             e)
             finally:
-                task.worker_id = self.worker_id
-                try:
-                    await self._leader_call(RpcCode.REPORT_TASK,
-                                            pack({"task": task.to_wire()}))
-                except Exception as e:  # noqa: BLE001
-                    log.warning("task report failed: %s", e)
+                await self._report_task(task)
                 await client.close()
+
+    async def _report_task(self, task: TaskInfo) -> None:
+        task.worker_id = self.worker_id
+        try:
+            await self._leader_call(RpcCode.REPORT_TASK,
+                                    pack({"task": task.to_wire()}))
+        except Exception as e:  # noqa: BLE001
+            log.warning("task report failed: %s", e)
+
+    # ---------------- erasure coding ----------------
+
+    async def _pull_verified(self, src: WorkerAddress, block_id: int,
+                             deadline=None) -> bytes:
+        """One whole block (or cell) from a peer into memory, checked
+        against the commit crc on its EOF frame. In memory on purpose:
+        every caller needs the whole cell for the codec."""
+        peer = await self.peer_pool.get(
+            f"{src.ip_addr or src.hostname}:{src.rpc_port}")
+        chunks: list[bytes] = []
+        src_crc = src_algo = None
+        async for m in peer.call_stream(
+                RpcCode.READ_BLOCK, header={"block_id": block_id},
+                deadline=deadline):
+            if len(m.data):
+                chunks.append(bytes(m.data))
+            if m.is_eof:
+                h = m.header or {}
+                src_crc = h.get("block_crc32")
+                src_algo = h.get("block_crc_algo")
+        data = b"".join(chunks)
+        if src_crc is not None and supported(src_algo):
+            if await asyncio.to_thread(crc_update, src_algo, data) != src_crc:
+                raise err.AbnormalData(
+                    f"pull of block {block_id} from worker "
+                    f"{src.worker_id} failed its checksum")
+        return data
+
+    async def _pull_any(self, sources: list[dict], block_id: int,
+                        deadline=None) -> bytes:
+        """The block from the first of ``sources`` that serves it whole."""
+        last: Exception | None = None
+        for wire in sources:
+            try:
+                return await self._pull_verified(
+                    WorkerAddress.from_wire(wire), block_id,
+                    deadline=deadline)
+            except Exception as e:  # noqa: BLE001 — the next holder
+                last = e
+        raise last or err.BlockNotFound(
+            f"no servable source for block {block_id}")
+
+    def _write_local_cell(self, cell_id: int, data) -> int:
+        """Commit one stripe cell into the local store under a fresh
+        crc32c; returns its tier's storage type."""
+        buf = np.frombuffer(data, dtype=np.uint8)
+        info = self.store.create_temp(cell_id, size_hint=buf.nbytes)
+        try:
+            crc = crc_update(ALGO_CRC32C, buf)
+            _write_file(info.path, buf)
+            self.store.commit(cell_id, buf.nbytes, checksum=crc,
+                              checksum_algo=ALGO_CRC32C)
+        except Exception:
+            self.store.delete(cell_id)
+            raise
+        return int(info.tier.storage_type)
+
+    async def _place_cells(self, placed: dict) -> list[dict]:
+        """Land encoded cells on their workers: this worker's commit
+        here, a peer's ride WRITE_BLOCKS_BATCH with the crc32c computed
+        here, so every cell commits checked. ``placed``: (worker id,
+        port) -> (address, [(cell id, bytes), ...]). Returns the cells'
+        entries for EC_COMMIT_STRIPE."""
+        out = []
+        for addr, cells in placed.values():
+            if addr.worker_id == self.worker_id:
+                for cid, data in cells:
+                    st = await asyncio.to_thread(
+                        self._write_local_cell, cid, data)
+                    out.append({"block_id": cid,
+                                "worker_id": self.worker_id,
+                                "storage_type": st})
+                continue
+            peer = await self.peer_pool.get(
+                f"{addr.ip_addr or addr.hostname}:{addr.rpc_port}")
+            batches: list[list] = [[]]
+            size = 0
+            for cid, data in cells:
+                if batches[-1] and size + len(data) > BATCH_BYTES:
+                    batches.append([])
+                    size = 0
+                batches[-1].append((cid, data))
+                size += len(data)
+            for batch in batches:
+                blocks = []
+                for cid, data in batch:
+                    crc = await asyncio.to_thread(crc_update, ALGO_CRC32C,
+                                                  data)
+                    blocks.append({"block_id": cid, "data": data,
+                                   "crc32": crc, "algo": ALGO_CRC32C})
+                rep = await peer.call(RpcCode.WRITE_BLOCKS_BATCH,
+                                      data=pack({"blocks": blocks}))
+                for r in (unpack(rep.data) or {}).get("results", []):
+                    out.append({"block_id": r["block_id"],
+                                "worker_id": r["worker_id"],
+                                "storage_type": r.get("storage_type", 1)})
+        return out
+
+    async def _commit_stripe(self, block_id: int, entries: list[dict]) -> None:
+        """EC_COMMIT_STRIPE: the master switches the block's reads to
+        its cells and retires its replicas."""
+        await self._leader_call(RpcCode.EC_COMMIT_STRIPE, pack({
+            "block_id": block_id, "cells": entries}))
+
+    async def _convert_one_stripe(self, prof: ec.ECProfile,
+                                  plan: dict) -> None:
+        block_id = plan["block_id"]
+        data = await self._pull_any(plan["sources"], block_id)
+        if len(data) != plan["block_len"]:
+            raise err.AbnormalData(
+                f"block {block_id}: pulled {len(data)}B, expected "
+                f"{plan['block_len']}B")
+        cells, _ = await asyncio.to_thread(ec.split, data, prof.k,
+                                           plan["cell_size"])
+        parity = await asyncio.to_thread(ec.encode, prof, cells)
+        coded = cells + parity
+        placed: dict = {}
+        for c in plan["cells"]:
+            addr = WorkerAddress.from_wire(c["addr"])
+            placed.setdefault((addr.worker_id, addr.rpc_port),
+                              (addr, []))[1].append(
+                (c["block_id"], memoryview(coded[c["index"]])))
+        entries = await self._place_cells(placed)
+        await self._commit_stripe(block_id, entries)
+
+    async def _run_ec_convert_task(self, task: TaskInfo) -> None:
+        """Stripe a file's replicated blocks, one stripe at a time. One
+        failed stripe fails the task (a resubmitted job re-plans what is
+        left); the stripes committed before it stay converted."""
+        async with self._task_sem:
+            payload = task.payload or {}
+            done = 0
+            try:
+                prof = ec.ECProfile.parse(payload.get("profile", ""))
+                for plan in payload.get("blocks", []):
+                    await self._convert_one_stripe(prof, plan)
+                    done += 1
+                task.state = JobState.COMPLETED
+            except Exception as e:  # noqa: BLE001 — reported to the master
+                task.state = JobState.FAILED
+                task.message = str(e)
+                log.warning("ec_convert task %s failed after %d stripes: %s",
+                            task.task_id, done, e)
+            task.loaded_len = done
+            await self._report_task(task)
+
+    async def _reconstruct_cell(self, ecq: dict, cell_id: int) -> None:
+        """Rebuild one stripe cell from k sibling cells (decode, or
+        re-encode for a parity cell) and commit it here under a fresh
+        crc32c."""
+        prof = ec.ECProfile.parse(ecq["profile"])
+        cell_size = ecq["cell_size"]
+        slots: list[bytes | None] = [None] * (prof.k + prof.m)
+        got = 0
+        for src in ecq["sources"]:
+            if got >= prof.k:
+                break
+            try:
+                b = await self._pull_verified(
+                    WorkerAddress.from_wire(src["addr"]), src["block_id"])
+            except Exception as e:  # noqa: BLE001 — a source died mid-heal
+                log.debug("cell source %d unavailable: %s",
+                          src["block_id"], e)
+                continue
+            if len(b) != cell_size:
+                continue             # a partial or stale copy: not decoded
+            slots[src["index"]] = b
+            got += 1
+        if got < prof.k:
+            raise err.BlockNotFound(
+                f"cell {cell_id}: only {got}/{prof.k} sibling cells "
+                f"readable")
+        idx = ecq["cell_index"]
+        rebuilt = await asyncio.to_thread(ec.reconstruct, prof, slots, [idx])
+        await asyncio.to_thread(self._write_local_cell, cell_id, rebuilt[idx])
+
+    async def _write_blocks_batch(self, msg: Message, conn: ServerConn):
+        """Small blocks in one request, {"blocks": [{block_id,
+        storage_type, data, crc32, algo}]}: each is checked against the
+        checksum its sender computed, written and committed with it.
+        The results ride the reply's data."""
+        q = unpack(msg.data) or {}
+        results = []
+        for b in q.get("blocks", []):
+            data = b["data"]
+            bid = b["block_id"]
+            info = self.store.create_temp(
+                bid, StorageType(b.get("storage_type", int(StorageType.MEM))),
+                len(data))
+            try:
+                want = b.get("crc32")
+                algo = b.get("algo", "crc32")
+                crc = None
+                if want is not None and supported(algo):
+                    crc = await asyncio.to_thread(crc_update, algo, data)
+                    if crc != want:
+                        raise err.AbnormalData(
+                            f"block {bid} crc mismatch: {crc:#x} != "
+                            f"{want:#x}")
+                await asyncio.to_thread(_write_file, info.path,
+                                        np.frombuffer(data, dtype=np.uint8))
+                await asyncio.to_thread(self.store.commit, bid, len(data),
+                                        checksum=crc, checksum_algo=algo)
+                results.append({"block_id": bid, "len": len(data),
+                                "worker_id": self.worker_id,
+                                "storage_type": int(info.tier.storage_type)})
+            except Exception:
+                self.store.delete(bid)
+                raise
+        self.metrics.inc("bytes.written", sum(r["len"] for r in results))
+        return {}, pack({"results": results})
 
     async def _write_block(self, msg: Message, conn: ServerConn):
         """Chunked upload: the request header {block_id, storage_type,
@@ -937,10 +1166,7 @@ class WorkerServer:
         q = unpack(msg.data) or {}
         block_id = q["block_id"]
         if q.get("ec") is not None:
-            raise err.Unsupported(
-                f"SUBMIT_BLOCK_REPLICATION_JOB of block {block_id} with "
-                f"ec: EC cell reconstruction is not ported to this worker "
-                f"(ROADMAP A3e)")
+            return await self._rebuild_cell(block_id, q["ec"])
         src = WorkerAddress.from_wire(q["source"])
         ok, message, via = True, "", ""
         try:
@@ -965,6 +1191,31 @@ class WorkerServer:
         except Exception as e:  # noqa: BLE001 — the scan retries
             log.warning("replication result report failed: %s", e)
         return {"success": ok, "message": message, "via": via}
+
+    async def _rebuild_cell(self, cell_id: int, ecq: dict) -> dict:
+        """A stripe cell's rebuild job: decoded from its siblings (there
+        may be no copy to pull), reported to the master like a pull."""
+        ok, message = True, ""
+        try:
+            if not self.store.contains(cell_id):
+                await self._reconstruct_cell(ecq, cell_id)
+                info = self.store.get(cell_id, touch=False)
+                await self._leader_call(RpcCode.WORKER_BLOCK_REPORT, pack({
+                    "worker_id": self.worker_id,
+                    "blocks": {cell_id: ecq["cell_size"]},
+                    "storage_types": {cell_id: int(info.tier.storage_type)},
+                    "incremental": True}))
+        except Exception as e:  # noqa: BLE001 — reported to the master
+            ok, message = False, str(e)
+            self.store.delete(cell_id)
+        try:
+            await self._leader_call(
+                RpcCode.REPORT_BLOCK_REPLICATION_RESULT,
+                pack({"block_id": cell_id, "worker_id": self.worker_id,
+                      "success": ok, "message": message}))
+        except Exception as e:  # noqa: BLE001 — the scan retries
+            log.warning("rebuild result report failed: %s", e)
+        return {"success": ok, "message": message}
 
     async def _tcp_pull(self, block_id: int, src: WorkerAddress,
                         block_len: int, deadline) -> None:

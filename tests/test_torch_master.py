@@ -438,9 +438,8 @@ def _paths(fs, path="/") -> list[str]:
 
 
 @pytest.mark.parametrize("op", ["symlink", "link", "resize", "free",
-                                "set_attr", "set_incomplete"])
+                                "set_incomplete"])
 def test_journal_op_the_port_does_not_apply_is_refused(tmp_path, op):
-    from curvine_tpu.common.types import SetAttrOpts
     fs = JaxFs(journal=JaxJournal(str(tmp_path / "j")), store=JaxMemStore())
     fs.create_file("/f")
     fs.complete_file("/f", 0)
@@ -448,7 +447,6 @@ def test_journal_op_the_port_does_not_apply_is_refused(tmp_path, op):
      "link": lambda: fs.link("/f", "/h"),
      "resize": lambda: fs.resize_file("/f", 5),
      "free": lambda: fs.free("/f"),
-     "set_attr": lambda: fs.set_attr("/f", SetAttrOpts(mode=0o600)),
      "set_incomplete": lambda: fs.append_file("/f")}[op]()
     fs.journal.close()
     port = MasterFilesystem(journal=Journal(str(tmp_path / "j")))
@@ -456,7 +454,28 @@ def test_journal_op_the_port_does_not_apply_is_refused(tmp_path, op):
         port.recover()
 
 
-@pytest.mark.parametrize("key", ["ec", "raft_conf"])
+def test_journal_op_set_attr_is_applied(tmp_path):
+    """SET_ATTR's journal op, once refused, is applied: a JAX master's
+    set_attr entries reopen in the port's master to the same status."""
+    from curvine_tpu.common.types import SetAttrOpts
+    fs = JaxFs(journal=JaxJournal(str(tmp_path / "j")), store=JaxMemStore())
+    fs.create_file("/f")
+    fs.complete_file("/f", 0)
+    fs.set_attr("/f", SetAttrOpts(mode=0o600, owner="u", replicas=3,
+                                  add_x_attr={"k": b"v"}, ec="rs-2-1"))
+    fs.set_attr("/f", SetAttrOpts(group="g", remove_x_attr=["k"]))
+    want = _masked(fs.file_status("/f"))
+    fs.journal.close()
+    port = MasterFilesystem(journal=Journal(str(tmp_path / "j")))
+    port.recover()
+    got = _masked(port.file_status("/f"))
+    assert got == want
+    assert (got["mode"], got["owner"], got["group"], got["replicas"],
+            got["x_attr"], got["storage_policy"]["ec"]) == \
+        (0o600, "u", "g", 3, {}, "rs-2-1")
+
+
+@pytest.mark.parametrize("key", ["raft_conf"])
 def test_snapshot_section_the_port_does_not_apply_is_refused(tmp_path, key):
     fs = JaxFs(journal=JaxJournal(str(tmp_path / "j")), store=JaxMemStore())
     fs.mkdir("/d")
@@ -469,7 +488,7 @@ def test_snapshot_section_the_port_does_not_apply_is_refused(tmp_path, key):
         port.recover()
 
 
-@pytest.mark.parametrize("key", ["jobs", "mounts", "deco"])
+@pytest.mark.parametrize("key", ["jobs", "mounts", "deco", "ec"])
 def test_snapshot_section_of_mounts_and_jobs_is_applied(tmp_path, key):
     """The sections the port's master now applies: a JAX master's
     snapshot with real mount or job records, or decommission intents,
@@ -490,6 +509,15 @@ def test_snapshot_section_of_mounts_and_jobs_is_applied(tmp_path, key):
     elif key == "deco":
         for wid in (9, 7):
             fs._log("worker_deco", {"worker_id": wid, "on": True})
+    elif key == "ec":
+        fs.create_file("/f")
+        iid = fs.tree.resolve("/f").id
+        for _ in range(2):
+            bid = fs._log("alloc_block", {"inode_id": iid})
+            fs._log("commit_blocks", {"inode_id": iid,
+                                      "commits": [[bid, 1000]]})
+            fs.ec_plan(bid, "rs-2-1", 2, 1, 500)
+            fs.ec_commit(bid, [])
     else:
         for i, state in enumerate((JaxJobState.RUNNING,
                                    JaxJobState.COMPLETED)):
@@ -515,6 +543,9 @@ def test_snapshot_section_of_mounts_and_jobs_is_applied(tmp_path, key):
     elif key == "deco":
         assert port.workers.deco_ids == {7, 9}
         assert list(port.store.iter_deco()) == [7, 9]
+    elif key == "ec":
+        assert port.ec_stripes == fs.ec_stripes
+        assert port.ec_cells == fs.ec_cells and len(port.ec_cells) == 6
     else:
         assert sorted(w["job_id"] for w in port.store.iter_jobs()) == \
             ["j0", "j1"]
@@ -654,6 +685,48 @@ async def test_refused_code_answers_unsupported_by_name(tmp_path, code):
             await conn.close()
 
 
+@pytest.mark.parametrize("code", [RpcCode.SET_ATTR,
+                                  RpcCode.EC_COMMIT_STRIPE],
+                         ids=lambda c: c.name)
+async def test_attr_and_stripe_code_is_served(tmp_path, code):
+    """SET_ATTR and EC_COMMIT_STRIPE left MASTER_REFUSED: each gets a
+    real answer, journaled, and a bad request its error."""
+    assert code not in MASTER_REFUSED
+    async with _cluster(tmp_path, workers=0) as (m, _ws, conf):
+        c = _client(conf)
+        call = c.meta.call
+        try:
+            await c.meta.create_file("/f")
+            if code == RpcCode.SET_ATTR:
+                assert await call(code, {"path": "/f", "opts": {
+                    "mode": 0o600, "ec": "rs-2-1"}}, mutate=True) == {}
+                st = m.fs.file_status("/f")
+                assert (st.mode, st.storage_policy.ec) == (0o600, "rs-2-1")
+                with pytest.raises(err.InvalidArgument, match="rs-2"):
+                    await call(code, {"path": "/f", "opts": {"ec": "rs-2"}},
+                               mutate=True)
+                with pytest.raises(err.FileNotFound):
+                    await call(code, {"path": "/g", "opts": {}}, mutate=True)
+            else:
+                iid = m.fs.tree.resolve("/f").id
+                bid = m.fs._log("alloc_block", {"inode_id": iid})
+                m.fs._log("commit_blocks", {"inode_id": iid,
+                                            "commits": [[bid, 100]]})
+                cells = m.fs.ec_plan(bid, "rs-2-1", 2, 1, 50)
+                with pytest.raises(err.InvalidArgument, match="not in"):
+                    await call(code, {"block_id": bid, "cells": [
+                        {"block_id": 999_999, "worker_id": 7}]}, mutate=True)
+                rep = await call(code, {"block_id": bid, "cells": [
+                    {"block_id": cid, "worker_id": 7, "storage_type": 1}
+                    for cid in cells]}, mutate=True)
+                assert rep == {"success": True}
+                assert m.fs.ec_stripes[bid]["state"] == "committed"
+                assert set(m.fs.blocks.locs[cells[0]]) == {7}
+                assert m.metrics.counters["ec.stripes_committed"] == 1
+        finally:
+            await c.close()
+
+
 async def test_decommission_code_is_served(tmp_path):
     """DECOMMISSION_WORKER left MASTER_REFUSED: on a raw connection it
     answers the worker's state, journals the intent, and names an unknown
@@ -729,8 +802,11 @@ async def test_mount_and_job_code_is_served(tmp_path, code):
                 rep = await call(code, {"kind": "load", "path": "/m"},
                                  mutate=True)
                 assert m.jobs.jobs[rep["job_id"]].kind == "load"
-                with pytest.raises(err.Unsupported, match="ec_convert"):
-                    await call(code, {"kind": "ec_convert", "path": "/m"},
+                rep = await call(code, {"kind": "ec_convert", "path": "/m"},
+                                 mutate=True)
+                assert m.jobs.jobs[rep["job_id"]].kind == "ec_convert"
+                with pytest.raises(err.Unsupported, match="restore"):
+                    await call(code, {"kind": "restore", "path": "/m"},
                                mutate=True)
             elif code == RpcCode.GET_JOB_STATUS:
                 jid = await c.meta.submit_load("/m")

@@ -364,10 +364,18 @@ async def test_invalid_kind_rejected_at_submit(tmp_path):
         c = mc.client()
         with pytest.raises(err.Unsupported):
             await c.meta.submit_job("restore", "/whatever")
-        with pytest.raises(err.Unsupported, match="ec_convert"):
-            await c.meta.submit_job("ec_convert", "/whatever")
         # nothing half-registered
         assert mc.master.jobs.jobs == {}
+        # an EC conversion is served: over a missing path its planner
+        # fails the job with the path's error
+        jid = await c.meta.submit_job("ec_convert", "/whatever")
+        for _ in range(100):
+            job = await c.meta.job_status(jid)
+            if job.state == JobState.FAILED:
+                break
+            await asyncio.sleep(0.02)
+        assert (job.kind, job.state) == ("ec_convert", JobState.FAILED)
+        assert "/whatever" in job.message
 
 
 async def test_cancel_races_planner_and_sticks(tmp_path):

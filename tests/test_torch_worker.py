@@ -236,19 +236,26 @@ async def test_errors_cross_the_wire_with_the_reference_codes(tmp_path):
                                  data=pack({"block_id": 1}))
             with pytest.raises(perr.CurvineError, match="no handler"):
                 await pconn.call(RpcCode.MKDIR, data=pack({}))
-            with pytest.raises(perr.Unsupported, match="WRITE_BLOCKS_BATCH"):
-                await pconn.call(RpcCode.WRITE_BLOCKS_BATCH, data=pack({}))
-            # the master's tasks are served, but not an EC conversion
-            with pytest.raises(perr.Unsupported,
-                               match="SUBMIT_TASK.*ec_convert"):
+            # batched writes, EC conversions and cell rebuilds are served
+            rep = await pconn.call(RpcCode.WRITE_BLOCKS_BATCH, data=pack({}))
+            assert unpack(rep.data) == {"results": []}
+            rep = await pconn.call(RpcCode.SUBMIT_TASK, data=pack({"task": {
+                "task_id": "t", "job_id": "j", "path": "/x",
+                "kind": "ec_convert"}}))
+            assert rep.header == {"accepted": True}
+            # a rebuild with no readable sibling answers its failure
+            rep = await pconn.call(
+                RpcCode.SUBMIT_BLOCK_REPLICATION_JOB, data=pack({
+                    "block_id": 5, "ec": {"cell_index": 0,
+                                          "profile": "rs-2-1",
+                                          "cell_size": 8, "sources": []}}))
+            assert rep.header["success"] is False
+            assert "0/2 sibling cells" in rep.header["message"]
+            # an unknown task kind is still refused by name
+            with pytest.raises(perr.Unsupported, match="restore"):
                 await pconn.call(RpcCode.SUBMIT_TASK, data=pack({"task": {
                     "task_id": "t", "job_id": "j", "path": "/x",
-                    "kind": "ec_convert"}}))
-            # replication jobs are served, but not an EC cell's rebuild
-            with pytest.raises(perr.Unsupported,
-                               match="SUBMIT_BLOCK_REPLICATION_JOB.*ec"):
-                await pconn.call(RpcCode.SUBMIT_BLOCK_REPLICATION_JOB,
-                                 data=pack({"block_id": 5, "ec": {}}))
+                    "kind": "restore"}}))
             # the device-path transfer, on by default: no peer is named,
             # so it misses and the caller keeps its TCP rail
             rep = await pconn.call(RpcCode.ICI_TRANSFER,

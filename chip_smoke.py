@@ -7,7 +7,8 @@ Phases, each raising on a fault (the exit code is then non-zero):
 
 1. build: compile every source of the port, all at once: the CUDA ones
    with ``nvcc`` (sm_90a), the host C++ ones (crc32c, the GF(256) loop
-   of the erasure codec) with ``c++``; each
+   of the erasure codec, the native engine of the master's KV metadata
+   store) with ``c++``; each
    kernel's registers, spills and stack as ptxas reports them;
 2. kernel: ``block_checksum`` on the card against its plain PyTorch
    version and the host hash at sizes from 1 byte to 64 MiB + 1, a bit
@@ -26,8 +27,10 @@ Phases, each raising on a fault (the exit code is then non-zero):
    whole epoch; every device batch must equal the host tokens;
 4b. client: a cache of the port's master, started as its own process
    (``python -m curvine_tpu_torch.master``: a journal under the data
-   directory, this process's user as its superuser; it must load no
-   module of JAX or of the JAX package), and the port's own worker
+   directory and its namespace in the KV metadata store beside it, on
+   the native engine, as every master of the run; this process's user as
+   its superuser; it must load no module of JAX or of the JAX package),
+   and the port's own worker
    (``curvine_tpu_torch.worker.server.WorkerServer``, in this process on a
    thread with its own event loop: a mem tier on the same tmpfs, a 4 GiB
    device tier-0, 64 MiB blocks), which must be the master's only live
@@ -160,6 +163,27 @@ Phases, each raising on a fault (the exit code is then non-zero):
    workers' stores after their heartbeats; the master's
    ``ec.stripes_committed`` (8), ``ec.degraded_reads`` and
    ``replication.reconstructs`` read after its stop;
+6i. kv: the master's KV metadata store, with phase ufs's parameters and
+   step. (a) 200,000 files in 200 directories (1,000,000 took 184 s to
+   create on the card's host) through ``MasterFilesystem`` over
+   ``KvMetaStore`` (the native engine, an inode cache of 4,096) in this
+   process:
+   creates/s, the resident set's growth at 100,000 files and at 200,000
+   (at most 120 MB), a checkpoint and a restart at each, the last in
+   under 5 s with the same inode count, a stat and a listing of 1,000;
+   the same directory reopened on the Python engine (the same count,
+   1,000 seeded statuses equal); beside it the same files on the mem
+   store (growth, snapshot, restart). (b) A master of the phase's
+   own and two of the port's workers; 8 token shards of 64 MiB written at
+   one replica while a second client writes 4 KiB files, the master
+   killed (SIGKILL) after the 4th shard's commit and started again on its
+   journal and KV directory: no caller error (the clients' retries),
+   every acknowledged create and complete there; the restart's seconds,
+   ``applied_seq`` against the journal's seq, the tail replayed, the
+   seconds until the writers move. (c) One epoch of ``GpuTrainFeed`` over
+   the shards, every batch equal to its tokens; the shards pinned by the
+   promote cycles (K1 launches equal to the pins); three flagship steps
+   on batches taken from the pinned copies (K3 once a layer a step);
 6b. ckpt: the flagship's parameters as phase ufs left them (99 tensors,
    1.92 GiB of bf16) saved with ``save_checkpoint`` through the port's
    client into the cluster, every byte by short circuit (SC_WRITE_OPEN:
@@ -249,7 +273,9 @@ Phases, each raising on a fault (the exit code is then non-zero):
    a small table compacted, its old row group deleted through the
    client's ``meta.delete``;
 8. master: the port's master's count and p50 of each RPC code, then the
-   master stopped and started again on its journal (its recovery timed);
+   master stopped and started again on its journal and KV directory (its
+   recovery timed: ``applied_seq``, the tail replayed, the KV directory's
+   segments and bytes; the native engine before and after);
    every file the run left (the train shards, the checkpoint's 99 tensors
    and manifest, the worker phase's files, the vector table) listed again
    with the same length and blocks, each block located once the port's
@@ -298,6 +324,8 @@ and read just after them (K3), again just before phase 6a's three steps
 and read just after them (K3), again just before phase 6g's three steps
 and read just after them (K3), again just before phase 6h's promote
 cycles and read just after them (K1), again just before phase 6h's three
+steps and read just after them (K3), again just before phase 6i's promote
+cycles and read just after them (K1), again just before phase 6i's three
 steps and read just after them (K3), again just before phase 6b and read just
 after it (K3's forward, twice a layer for the two losses, and no backward
 kernel), again just before phase 6f's two losses and read just after
@@ -307,9 +335,10 @@ after them (K3), again just before phase 6d's three pipeline steps and
 read just after them (K3), again just before phase 6e's three ring
 steps and read just after them (K3: none), and just before phase 7's
 ``query_many`` and read just after it (K2, which must equal the ADC
-stages the search issued). The kernels line gives K1's eight counts
+stages the search issued). The kernels line gives K1's nine counts
 summed (each held to its pins, the refused device copies included) and
-phase 6's, 6a's, 6g's, 6h's, 6c's, 6d's and 6f's K3 counts summed. The port's
+phase 6's, 6a's, 6g's, 6h's, 6i's, 6c's, 6d's and 6f's K3 counts summed.
+The port's
 worker and master are stopped, the process group destroyed, and the
 data directory removed, however the run ends. No process of the run
 loads a module of JAX or of the JAX package. Prints each phase's
@@ -452,6 +481,33 @@ EC_LIMIT_S = 60
 EC_TIER_BYTES = 2 * SHARDS * SHARD_BYTES + 2 * BLOCK
 EC_HBM_BYTES = (SHARDS + 2) * BLOCK // 2
 EC_PHASE_BYTES = 4 * SHARDS * SHARD_BYTES
+# phase kv: (a) KV_FILES files in directories of KV_PER_DIR through a
+# MasterFilesystem over KvMetaStore in this process (an inode cache of
+# KV_CACHE_INODES; the reference's test's bounds: KV_RSS_MB of RSS growth,
+# a restart under KV_RESTART_S; a reading and a restart at KV_FIRST), the
+# same files on the mem store;
+# (b) a master of the phase's own killed after KV_KILL_AFTER of phase
+# feed's shards, with a writer of KV_SMALL-byte files running, its
+# clients retrying KV_RETRY_MAX times; two workers, each able to hold
+# every shard; (c) the shards pinned. The phase writes at most
+# KV_PHASE_BYTES to the data directory (the KV directory and journals of
+# (a), the shards and small files of (b))
+# 1,000,000 took 184.3 s to create on an H100 machine's host (NVIDIA
+# H100 80GB HBM3, 700 W): cut to the reference test's default, which
+# keeps the phase near 90 s
+KV_FILES = 200_000
+KV_PER_DIR = 1_000
+KV_FIRST = 100_000
+KV_CACHE_INODES = 4_096
+KV_RSS_MB = 120
+KV_RESTART_S = 5.0
+KV_STATS = 1_000
+KV_KILL_AFTER = 4
+KV_SMALL = 4 * 1024
+KV_RETRY_MAX = 8
+KV_TIER_BYTES = SHARDS * SHARD_BYTES + 6 * BLOCK
+KV_HBM_BYTES = (SHARDS + 2) * BLOCK
+KV_PHASE_BYTES = 2 * GiB + SHARDS * SHARD_BYTES + 256 * MiB
 
 
 def log(msg: str) -> None:
@@ -839,7 +895,9 @@ def master_conf(root: str, port: int = 0, lost_ms: int = 30_000,
     """The cluster's TOML file for the port's master: the loopback
     ``port`` (0: the master binds a free one and prints it; a restart is
     given that one, so the worker and the client find it again), its
-    journal under ``root``, the lost timeout (the JAX cluster's by
+    journal under ``root`` and its KV metadata store beside it
+    (``<journal_dir>-meta``, the native engine: the reference's default
+    store, and no fallback), the lost timeout (the JAX cluster's by
     default), the heartbeat check, the placement ``policy`` and this
     process's user as the superuser (the port's client names the OS
     user)."""
@@ -854,6 +912,8 @@ worker_lost_timeout_ms = {lost_ms}
 heartbeat_check_ms = 200
 block_placement_policy = "{policy}"
 superuser = "{_os_user()}"
+meta_store = "kv"
+meta_engine = "native"
 """)
     return path
 
@@ -3476,10 +3536,29 @@ def journal_files(conf: str) -> dict:
                                   if n.startswith("snapshot-"))}
 
 
+def kv_files(conf: str) -> dict:
+    """The master's KV directory (``<journal_dir>-meta``): its segments
+    and WAL files, each with their bytes."""
+    import tomllib
+    with open(conf, "rb") as f:
+        kdir = tomllib.load(f)["master"]["journal_dir"] + "-meta"
+    names = os.listdir(kdir)
+    size = {n: os.path.getsize(os.path.join(kdir, n)) for n in names}
+    return {"kv_segments": sum(n.startswith("seg-") for n in names),
+            "kv_segment_bytes": sum(b for n, b in size.items()
+                                    if n.startswith("seg-")),
+            "kv_wals": sum(n.startswith("wal-") for n in names),
+            "kv_wal_bytes": sum(b for n, b in size.items()
+                                if n.startswith("wal-"))}
+
+
 def phase_master(root: str, conf: str, cluster: dict, pw: PortWorker,
                  probe: tuple[str, np.ndarray], ufs: dict) -> dict:
     """The port's master as the run left it: its per-code RPC counts and
-    p50s, then a stop and a restart on the same journal (recovery timed),
+    p50s, then a stop and a restart on the same journal and KV directory
+    (recovery timed: the store opened at its ``applied_seq``, the
+    journal's tail past it replayed; the store's engine must be the
+    native one, and the applied seq the journal's after the restart),
     every file of the run listed again with the same length and blocks
     once the port's worker has sent the report the restarted master asks
     for (``report_now``), phase ufs's mount table and job records the
@@ -3514,8 +3593,18 @@ def phase_master(root: str, conf: str, cluster: dict, pw: PortWorker,
     stop_s = time.perf_counter() - t
     with open(os.path.join(root, "master0.json")) as f:
         stats = json.load(f)
-    files = journal_files(conf)
+    files = journal_files(conf) | kv_files(conf)
     cluster["proc"], info = start_master(root, conf, 1)
+    rec = info["recovery"]
+    if info["store"].get("engine") != "native" \
+            or stats["store"].get("engine") != "native" \
+            or rec["applied_seq"] != info["journal_seq"] \
+            or info["journal_seq"] != stats["journal_seq"]:
+        raise AssertionError(f"master: the store before the stop "
+                             f"{stats['store']}, after the restart "
+                             f"{info['store']}, recovery {rec}, journal "
+                             f"seq {stats['journal_seq']} then "
+                             f"{info['journal_seq']}")
     t = time.perf_counter()
     while True:
         after = asyncio.run(walk())
@@ -3556,7 +3645,8 @@ def phase_master(root: str, conf: str, cluster: dict, pw: PortWorker,
            "stop_s": stop_s, "restart_s": info["start_s"],
            "recover_s": info["recover_s"], "rejoin_s": rejoin_s,
            "journal_seq": stats["journal_seq"], "groups": stats["groups"],
-           "entries": stats["entries"], **files,
+           "entries": stats["entries"], **files, "store": info["store"],
+           "recovery": rec,
            "files": len(before), "blocks": n_blocks,
            "mounts": len(mj_before[0]), "jobs": len(mj_before[1]),
            "probe": probe[0], "probe_bytes": int(probe[1].nbytes),
@@ -3567,10 +3657,16 @@ def phase_master(root: str, conf: str, cluster: dict, pw: PortWorker,
                     for k, v in stats["rpc"].items()))
     log(f"master: journal of {res['journal_seq']} entries "
         f"({res['entries']} in {res['groups']} group commits), "
-        f"{res['segments']} segments of {res['segment_bytes']:,} bytes and "
-        f"{res['snapshots']} snapshots of {res['snapshot_bytes']:,} bytes; "
-        f"stopped in {stop_s:.3f}s, back in {res['restart_s']:.3f}s "
-        f"(construction to serving {res['recover_s']:.3f}s); every one of "
+        f"{res['segments']} segments of {res['segment_bytes']:,} bytes; "
+        f"the namespace in the KV store ({info['store']['engine']} "
+        f"engine, no snapshot: {res['snapshots']}): "
+        f"{res['kv_segments']} segments of {res['kv_segment_bytes']:,} "
+        f"bytes and {res['kv_wals']} WAL files of {res['kv_wal_bytes']:,} "
+        f"bytes after the stop; stopped in {stop_s:.3f}s, back in "
+        f"{res['restart_s']:.3f}s (construction to serving "
+        f"{res['recover_s']:.3f}s: {rec['inodes']} inodes and "
+        f"{rec['blocks']} blocks at applied_seq {rec['applied_seq']}, "
+        f"{rec['replayed']} tail entries replayed); every one of "
         f"{len(before)} files ({n_blocks} blocks) listed again with the same "
         f"length and blocks, each located {rejoin_s:.3f}s after the restart "
         f"(the worker's report); phase ufs's {res['mounts']} mounts and "
@@ -5585,6 +5681,485 @@ def phase_ec(dev: torch.device, root: str, seed: int, params: dict, step,
     return res
 
 
+# ------------------------------------------------------------------ kv
+
+def rss_bytes() -> int:
+    """This process's resident set now (``/proc/self/statm``): the peak
+    (``ru_maxrss``) stays where earlier phases left it."""
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+def rss_baseline() -> int:
+    """``rss_bytes`` after a collection and after the C heap's free pages
+    went back to the system (glibc's ``malloc_trim``), so that what a
+    measured stretch allocates shows as growth, not as a reuse of what
+    earlier phases freed."""
+    import ctypes
+    import gc
+    gc.collect()
+    try:
+        ctypes.CDLL("libc.so.6").malloc_trim(0)
+    except (OSError, AttributeError):
+        pass
+    return rss_bytes()
+
+
+def kv_namespace(base: str, seed: int) -> dict:
+    """Phase kv (a), as ``tests/test_kvstore.py:228-268`` runs it: a
+    ``MasterFilesystem`` over ``KvMetaStore(engine="native",
+    cache_inodes=KV_CACHE_INODES)`` and the port's ``Journal`` under
+    ``base``, KV_FILES empty files in directories of KV_PER_DIR; at
+    KV_FIRST files a checkpoint, a close and a reopen (timed), then the
+    rest. The resident set's growth at KV_FIRST and at KV_FILES, at most
+    KV_RSS_MB; a checkpoint, a close, and a reopen in under KV_RESTART_S
+    with the same inode count, one file's status and one directory's
+    KV_PER_DIR entries; the directory reopened with the Python engine:
+    the same count and KV_STATS seeded statuses equal. Beside it, the
+    same KV_FILES files on the mem store: its growth, its snapshot and
+    its restart (the snapshot loaded, the tail replayed)."""
+    import gc
+
+    from curvine_tpu_torch.common.journal import Journal
+    from curvine_tpu_torch.master.filesystem import MasterFilesystem
+    from curvine_tpu_torch.master.store import KvMetaStore
+    meta, jdir = os.path.join(base, "meta"), os.path.join(base, "journal")
+    n_dirs, first_dirs = KV_FILES // KV_PER_DIR, KV_FIRST // KV_PER_DIR
+
+    def inodes(n: int) -> int:
+        return n + n // KV_PER_DIR + 2          # the files, dirs, / and /big
+
+    def open_fs(engine=None, journal=jdir):
+        """The master over the KV store on ``engine``, or with no engine
+        over the mem store, and the seconds to recover it."""
+        t = time.perf_counter()
+        store = None if engine is None else KvMetaStore(
+            meta, cache_inodes=KV_CACHE_INODES, engine=engine)
+        fs = MasterFilesystem(journal=Journal(journal), store=store)
+        fs.recover()
+        return fs, time.perf_counter() - t
+
+    def create(fs, d0: int, d1: int) -> float:
+        t = time.perf_counter()
+        for d in range(d0, d1):
+            fs.mkdir(f"/big/d{d:05d}")
+            for i in range(KV_PER_DIR):
+                fs.create_file(f"/big/d{d:05d}/f{i:03d}")
+        return time.perf_counter() - t
+
+    def close(fs) -> None:
+        fs.journal.close()
+        fs.store.close()
+
+    rss0 = rss_baseline()
+    fs, _ = open_fs("native")
+    s_first = create(fs, 0, first_dirs)
+    rss_first = (rss_bytes() - rss0) / MiB
+    fs.checkpoint()
+    close(fs)
+    fs, restart_first = open_fs("native")
+    if fs.tree.count() != inodes(KV_FIRST):
+        raise AssertionError(f"kv (a): {fs.tree.count()} inodes after the "
+                             f"reopen at {KV_FIRST} files")
+    s_rest = create(fs, first_dirs, n_dirs)
+    rss_all = (rss_bytes() - rss0) / MiB
+    fs.checkpoint()
+    close(fs)
+    fs, restart_s = open_fs("native")
+    mid = n_dirs // 2
+    st = fs.file_status(f"/big/d{mid:05d}/f123")
+    listed = fs.list_status(f"/big/d{mid:05d}")
+    rng = np.random.default_rng(seed)
+    picks = [f"/big/d{d:05d}/f{i:03d}" for d, i in zip(
+        rng.integers(0, n_dirs, KV_STATS), rng.integers(0, KV_PER_DIR,
+                                                        KV_STATS))]
+    native_stats = [fs.file_status(p).to_wire() for p in picks]
+    count, segments = fs.tree.count(), fs.store.kv.segment_count
+    kv_bytes = sum(os.path.getsize(os.path.join(meta, n))
+                   for n in os.listdir(meta))
+    rec = dict(fs.recovery)
+    close(fs)
+    del fs
+    if rss_first > KV_RSS_MB or rss_all > KV_RSS_MB \
+            or restart_s >= KV_RESTART_S or count != inodes(KV_FILES) \
+            or st.name != "f123" or len(listed) != KV_PER_DIR \
+            or rec["replayed"]:
+        raise AssertionError(
+            f"kv (a): RSS grew {rss_first:.1f} MiB at {KV_FIRST} files and "
+            f"{rss_all:.1f} MiB at {KV_FILES} (at most {KV_RSS_MB}); the "
+            f"restart {restart_s:.3f}s (under {KV_RESTART_S}); {count} "
+            f"inodes of {inodes(KV_FILES)}; {st.name}, {len(listed)} "
+            f"entries listed; recovery {rec}")
+    fs, restart_py = open_fs("python")
+    py_count = fs.tree.count()
+    same = sum(fs.file_status(p).to_wire() == w
+               for p, w in zip(picks, native_stats))
+    close(fs)
+    del fs
+    if py_count != count or same != KV_STATS:
+        raise AssertionError(f"kv (a): the Python engine reads {py_count} "
+                             f"inodes of {count}, {same} of {KV_STATS} "
+                             f"statuses equal")
+    # the mem store at KV_FILES files: snapshot and replay
+    mem_j = os.path.join(base, "mem-journal")
+    rss0 = rss_baseline()
+    fs, _ = open_fs(journal=mem_j)
+    s_mem = create(fs, 0, n_dirs)
+    rss_mem = (rss_bytes() - rss0) / MiB
+    t = time.perf_counter()
+    fs.checkpoint()
+    snapshot_s = time.perf_counter() - t
+    fs.journal.close()
+    del fs
+    gc.collect()
+    fs, restart_mem = open_fs(journal=mem_j)
+    mem_count = fs.tree.count()
+    snapshot_bytes = sum(os.path.getsize(os.path.join(mem_j, n))
+                         for n in os.listdir(mem_j)
+                         if n.startswith("snapshot-"))
+    fs.journal.close()
+    del fs
+    gc.collect()
+    if mem_count != inodes(KV_FILES):
+        raise AssertionError(f"kv (a): the mem store restarted with "
+                             f"{mem_count} inodes of {inodes(KV_FILES)}")
+    shutil.rmtree(base, ignore_errors=True)
+    res = dict(files=KV_FILES, dirs=n_dirs, inodes=count,
+               creates_per_s=KV_FILES / (s_first + s_rest),
+               create_s=s_first + s_rest, rss_first_mib=rss_first,
+               rss_all_mib=rss_all, restart_first_s=restart_first,
+               restart_s=restart_s, restart_python_s=restart_py,
+               segments=segments, kv_bytes=kv_bytes,
+               stats_equal=same, mem=dict(
+                   files=KV_FILES, creates_per_s=KV_FILES / s_mem,
+                   rss_mib=rss_mem, snapshot_s=snapshot_s,
+                   snapshot_bytes=snapshot_bytes, restart_s=restart_mem))
+    log(f"kv (a): {KV_FILES:,} files in {n_dirs:,} directories through "
+        f"MasterFilesystem over KvMetaStore (native engine, an inode cache "
+        f"of {KV_CACHE_INODES:,}) in {res['create_s']:.1f}s "
+        f"({res['creates_per_s']:,.0f} creates/s); RSS +{rss_first:.1f} MiB "
+        f"at {KV_FIRST:,} files and +{rss_all:.1f} MiB at {KV_FILES:,} (at "
+        f"most {KV_RSS_MB}); restarts {restart_first:.3f}s at {KV_FIRST:,} "
+        f"and {restart_s:.3f}s at {KV_FILES:,} (under {KV_RESTART_S}), "
+        f"{count:,} inodes, {segments} segments of {kv_bytes:,} bytes; "
+        f"/big/d{mid:05d}/f123 stated and its directory's {len(listed)} "
+        f"entries listed; the same directory on the Python engine: "
+        f"{py_count:,} inodes, {same} of {KV_STATS} seeded statuses equal, "
+        f"reopened in {restart_py:.3f}s. The mem store at {KV_FILES:,} "
+        f"files: {res['mem']['creates_per_s']:,.0f} creates/s, RSS "
+        f"+{rss_mem:.1f} MiB, a snapshot of {snapshot_bytes:,} bytes in "
+        f"{snapshot_s:.3f}s, a restart (snapshot and replay) in "
+        f"{restart_mem:.3f}s")
+    return res
+
+
+def phase_kv(dev: torch.device, root: str, seed: int, params: dict, step,
+             client_res: dict) -> dict:
+    """The master's KV metadata store on one card, with phase ufs's
+    parameters and step. (a) ``kv_namespace``. (b) A master of the
+    phase's own (``python -m curvine_tpu_torch.master``: the KV store,
+    the native engine) and two of the port's workers in this process,
+    each with a mem tier and a tier-0 on the card. Phase feed's shape, 8
+    token shards of 64 MiB (ids below the flagship's vocab, from
+    ``seed``) at one replica, written one at a time to ``/kv/train``
+    through the port's client while a second client, on a thread and an
+    event loop of its own, writes 4 KiB files (a mkdir every 16) under
+    ``/kv/small``; after the KV_KILL_AFTER-th
+    shard's commit the master gets SIGKILL (no stop, no checkpoint, no
+    memtable flush) and is started again on its journal and KV directory
+    on the same port. Both clients retry up to KV_RETRY_MAX times: no
+    caller may see an error, and every create and complete acknowledged
+    before the kill, and after it, must be there (the small files'
+    lengths, and the bytes of those written before the kill). The
+    restart's seconds, ``applied_seq`` against the journal's seq, the
+    tail entries replayed, and the seconds from the kill until a writer
+    has its next acknowledgement. (c) One epoch of ``GpuTrainFeed`` over
+    the shards at phase feed's batch: every batch equal to its tokens;
+    the shards read through the client up to WORKER_MIN_READS and pinned
+    by their holders' promote cycles, K1 verifying each pin (launches
+    equal to the pins), each device copy equal to its tokens; three
+    flagship steps on batches taken from the pinned copies on the card:
+    each equal to its tokens, finite losses, K3's four kernels once a
+    layer a step. The master's dump after its stop names the native
+    engine. The phase's workers and master are stopped and its directory
+    removed, however it ends."""
+    import signal
+    import threading
+
+    from curvine_tpu_torch.gpu import cuda_ops, flash
+    from curvine_tpu_torch.gpu.loader import GpuTrainFeed
+    base = os.path.join(root, "kv")
+    os.makedirs(base)
+    res = {"a": kv_namespace(os.path.join(base, "a"), seed)}
+    workers: list[PortWorker] = []
+    cluster = {"proc": None}
+    tokens = ufs_tokens(seed, SHARDS, 0x6B76)
+    shard_tokens = SHARD_BYTES // 4
+    kernels = [getattr(flash, nm) for nm in K3_NAMES]
+    cfg = _flagship()
+    paths = [f"/kv/train/shard-{i:05d}.bin" for i in range(SHARDS)]
+
+    def small_bytes(i: int) -> bytes:
+        return (i.to_bytes(4, "little") * (KV_SMALL // 4))
+
+    try:
+        bdir = os.path.join(base, "b")
+        os.makedirs(bdir)
+        conf = master_conf(bdir)
+        cluster["proc"], info = start_master(bdir, conf)
+        master = info["addr"]
+        master_conf(bdir, int(master.rsplit(":", 1)[1]))
+        for i, name in enumerate("ab"):
+            workers.append(PortWorker(
+                master, os.path.join(bdir, name), KV_TIER_BYTES, dev,
+                coords=(i, 0), hbm_bytes=KV_HBM_BYTES))
+        by_id = {pw.worker.worker_id: pw for pw in workers}
+        await_live(master, list(by_id), phase="kv")
+
+        def restart() -> dict:
+            """The killed master reaped, then started again (a thread:
+            the writers' retries run on meanwhile)."""
+            old = cluster["proc"]
+            old.wait()
+            old.stdout.close()
+            cluster["proc"], again = start_master(bdir, conf, 1)
+            return again
+
+        # (path, started, acknowledged) of each small file
+        acked: list[tuple[str, float, float]] = []
+        done = threading.Event()
+        failed: list[BaseException] = []
+
+        def small():
+            """The 4 KiB writer, on a thread and a loop of its own."""
+            async def run():
+                async with port_client(master,
+                                       conn_retry_max=KV_RETRY_MAX) as c:
+                    i = 0
+                    while not done.is_set():
+                        d = f"/kv/small/d{i // 16:04d}"
+                        t = time.perf_counter()
+                        if i % 16 == 0:
+                            await c.meta.mkdir(d)
+                        await c.write_all(f"{d}/f{i:05d}", small_bytes(i))
+                        acked.append((f"{d}/f{i:05d}", t,
+                                      time.perf_counter()))
+                        i += 1
+            try:
+                asyncio.run(run())
+            except BaseException as e:  # noqa: BLE001 — raised below
+                failed.append(e)
+
+        async def writers():
+            kill = {}
+            async with port_client(master, conn_retry_max=KV_RETRY_MAX) \
+                    as c:
+                th = threading.Thread(target=small, name="kv-small")
+                th.start()
+                t0 = time.perf_counter()
+                shard_t = []
+                restarted = None
+                try:
+                    await c.meta.mkdir("/kv/train")
+                    for i, p in enumerate(paths):
+                        await c.write_all(p, tokens[i * shard_tokens:
+                                                    (i + 1) * shard_tokens])
+                        shard_t.append(time.perf_counter())
+                        if i + 1 == KV_KILL_AFTER:
+                            kill["t"] = time.perf_counter()
+                            kill["acked"] = len(acked)
+                            os.kill(cluster["proc"].pid, signal.SIGKILL)
+                            restarted = asyncio.ensure_future(
+                                asyncio.to_thread(restart))
+                finally:
+                    done.set()
+                    await asyncio.to_thread(th.join)
+                if failed:
+                    raise failed[0]
+                again = await restarted
+                return kill, shard_t, t0, again
+        kill, shard_t, t0, again = asyncio.run(writers())
+        master = again["addr"]
+        # the first acknowledgement of a write begun after the kill
+        move_s = min([a for _p, t, a in acked if t > kill["t"]]
+                     + shard_t[KV_KILL_AFTER:KV_KILL_AFTER + 1]) - kill["t"]
+        rec = again["recovery"]
+
+        async def verify():
+            async with port_client(master) as c:
+                t = time.perf_counter()
+                while True:
+                    ns = await namespace(c, "/kv")
+                    if all(f["located"] for f in ns.values()) \
+                            or time.perf_counter() - t > 60:
+                        break
+                    await asyncio.sleep(0.1)
+                before = [p for p, _t, _a in acked[:kill["acked"]]]
+                same = [await c.read_all(p) == small_bytes(
+                    int(p.rsplit("f", 1)[1])) for p in before]
+                return ns, same
+        ns, same = asyncio.run(verify())
+        missing = [p for p, _t, _a in acked
+                   if ns.get(p, {}).get("len") != KV_SMALL
+                   or not ns[p]["complete"]]
+        shards_bad = [p for p in paths
+                      if ns.get(p, {}).get("len") != SHARD_BYTES
+                      or not ns[p]["complete"] or not ns[p]["located"]]
+        if missing or shards_bad or not all(same) or not kill["acked"] \
+                or len(acked) == kill["acked"] \
+                or again["store"].get("engine") != "native" \
+                or rec["applied_seq"] != again["journal_seq"]:
+            raise AssertionError(
+                f"kv (b): {len(missing)} of {len(acked)} acknowledged small "
+                f"files missing or short ({missing[:5]}), shards not "
+                f"complete and located {shards_bad}, {same.count(False)} "
+                f"pre-kill files unequal, {kill['acked']} files before the "
+                f"kill and {len(acked) - kill['acked']} after; the restart "
+                f"{again['store']}, recovery {rec}, journal seq "
+                f"{again['journal_seq']}")
+        res["b"] = dict(
+            shards=SHARDS, write_s=shard_t[-1] - t0,
+            small_files=len(acked), small_before_kill=kill["acked"],
+            restart_s=again["start_s"], recover_s=again["recover_s"],
+            applied_seq=rec["applied_seq"], journal_seq=again["journal_seq"],
+            replayed=rec["replayed"], inodes=rec["inodes"],
+            blocks=rec["blocks"], move_s=move_s,
+            retry_max=KV_RETRY_MAX)
+        rb = res["b"]
+        log(f"kv (b): {SHARDS} shards of {SHARD_BYTES // MiB} MiB written "
+            f"to /kv/train at one replica in {rb['write_s']:.3f}s while "
+            f"{len(acked)} files of {KV_SMALL} bytes were written under "
+            f"/kv/small; the master killed (SIGKILL) after shard "
+            f"{KV_KILL_AFTER}'s commit with {kill['acked']} small files "
+            f"acknowledged, back in {rb['restart_s']:.3f}s (construction to "
+            f"serving {rb['recover_s']:.3f}s: applied_seq "
+            f"{rb['applied_seq'] - rb['replayed']} in the store, "
+            f"{rb['replayed']} tail entries replayed to the journal's seq "
+            f"{rb['journal_seq']}; {rb['inodes']} inodes, {rb['blocks']} "
+            f"blocks); the writers' next acknowledgement {move_s:.3f}s after "
+            f"the kill; no caller saw an error (clients retrying up to "
+            f"{KV_RETRY_MAX} times); every acknowledged create and complete "
+            f"there, the {kill['acked']} files written before the kill "
+            f"equal")
+
+        # (c) the shards fed, pinned (K1) and trained on (K3)
+        expect = torch.from_numpy(tokens).to(dev)
+
+        async def feed():
+            async with port_client(master) as c:
+                f = GpuTrainFeed(c, "/kv/train", BATCH, SEQ, device=dev)
+                return await drive_feed(f, expect, dev)
+        n, bad, feed_s = asyncio.run(feed())
+        del expect
+        n_expect = tokens.size // (BATCH * SEQ)
+        if n != n_expect or bad:
+            raise AssertionError(f"kv (c): {n} batches of {n_expect}, {bad} "
+                                 f"tokens unequal")
+        holder = {p: ns[p]["blocks"][0][0] for p in paths}
+        locs = {}
+
+        async def heat(todo):
+            async with port_client(master) as c:
+                for p in todo:
+                    fb = await c.meta.get_block_locations(p)
+                    locs[p] = fb.block_locs[0].locs[0].worker_id
+                    r = await c.open(p)
+                    try:
+                        await r.read_all()
+                    finally:
+                        await r.close()
+
+        def unpinned() -> list[str]:
+            return [p for p in paths if p not in locs or not
+                    by_id[locs[p]].worker.hbm_holds(holder[p])]
+
+        pins0 = sum(pw.worker.metrics.counters.get("blocks.hbm_pinned", 0)
+                    for pw in workers)
+        cuda_ops.block_checksum.launches = 0
+        cycles = 0
+        while cycles < 6 and unpinned():
+            asyncio.run(heat(unpinned()))
+            for pw in workers:
+                pw.call(pw.worker._promote_once())
+            cycles += 1
+        k1 = cuda_ops.block_checksum.launches
+        pins = sum(pw.worker.metrics.counters.get("blocks.hbm_pinned", 0)
+                   for pw in workers) - pins0
+        if unpinned() or k1 != pins or pins < SHARDS:
+            raise AssertionError(f"kv (c): {cycles} promote cycles, {pins} "
+                                 f"pins, {k1} K1 launches, not pinned "
+                                 f"{unpinned()}")
+        pinned = {}
+        for i, p in enumerate(paths):
+            got = by_id[locs[p]].worker.hbm_get(holder[p]).reshape(
+                -1).view(torch.int32)
+            if not torch.equal(got, torch.from_numpy(
+                    tokens[i * shard_tokens:(i + 1) * shard_tokens]).to(dev)):
+                raise AssertionError(f"kv (c): {p}'s device copy differs "
+                                     f"from its tokens")
+            pinned[p] = got
+        per_step = TRAIN_BATCH * TRAIN_SEQ
+        first = tokens[:per_step * UFS_STEPS].reshape(UFS_STEPS, TRAIN_BATCH,
+                                                      TRAIN_SEQ)
+        seen = []
+
+        def check(b):
+            seen.append(bool(torch.equal(b, torch.from_numpy(
+                first[len(seen)]).to(dev))))
+
+        async def from_tier0():
+            src = pinned[paths[0]]
+            for k in range(UFS_STEPS):
+                yield src[k * per_step:(k + 1) * per_step].view(
+                    TRAIN_BATCH, TRAIN_SEQ)
+
+        for fn in kernels:
+            fn.launches = 0
+        step_s, losses = asyncio.run(timed_steps(step, params, from_tier0(),
+                                                 check))
+        launches = {fn.__name__: fn.launches for fn in kernels}
+        del pinned, got
+        if seen != [True] * UFS_STEPS or not all(map(math.isfinite, losses)) \
+                or set(launches.values()) != {cfg.n_layers * UFS_STEPS}:
+            raise AssertionError(f"kv (c): batches equal to their tokens "
+                                 f"{seen}, losses {losses}, K3 launches "
+                                 f"{launches}")
+        res["c"] = dict(batches=n, feed_s=feed_s, batches_per_s=n / feed_s,
+                        small_pins=pins - SHARDS,
+                        client_batches_per_s=client_res["batches_per_s"],
+                        cycles=cycles, pins=pins, k1_launches=k1,
+                        losses=losses, step_ms=[x * 1e3 for x in step_s],
+                        launches=launches)
+        log(f"kv (c): one epoch of GpuTrainFeed over /kv/train, {n} "
+            f"batches, each equal to its tokens: {n / feed_s:.2f} batches/s "
+            f"against phase client's {client_res['batches_per_s']:.2f}; the "
+            f"{SHARDS} shards pinned by their holders' promote cycles "
+            f"({cycles}): {pins} pins ({pins - SHARDS} of them small files "
+            f"the check read twice), {k1} K1 launches, each shard's device "
+            f"copy equal to its tokens; {UFS_STEPS} flagship steps at "
+            f"{TRAIN_BATCH}x{TRAIN_SEQ} on batches taken from the pinned "
+            f"copy of {paths[0]} on the card, each equal to its tokens: "
+            f"losses {[round(x, 4) for x in losses]}, step ms "
+            f"{[round(x * 1e3, 2) for x in step_s]}; K3 launches {launches}")
+        stop_master(cluster["proc"])
+        with open(os.path.join(bdir, "master1.json")) as f:
+            dump = json.load(f)
+        if dump["store"].get("engine") != "native" \
+                or dump["recovery"] != rec:
+            raise AssertionError(f"kv: the master's dump {dump['store']}, "
+                                 f"recovery {dump['recovery']}")
+        res["master_store"] = dump["store"]
+    finally:
+        for pw in workers:
+            pw.stop()
+        if cluster["proc"] is not None:
+            stop_master(cluster["proc"])
+        shutil.rmtree(base, ignore_errors=True)
+    res["k1_launches"] = k1
+    res["launches"] = launches
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5609,7 +6184,8 @@ def main() -> int:
     results["kernel"] = phase_kernel(rng, dev)
     need = N_BLOCKS * BLOCK + SHARDS * SHARD_BYTES + WORKER_TIER_BYTES \
         + 2 * ICI_TIER_BYTES + 3 * REP_TIER_BYTES + UFS_PHASE_BYTES \
-        + RECOVER_PHASE_BYTES + DRAIN_PHASE_BYTES + EC_PHASE_BYTES
+        + RECOVER_PHASE_BYTES + DRAIN_PHASE_BYTES + EC_PHASE_BYTES \
+        + KV_PHASE_BYTES
     root = pick_data_dir(need)
     log(f"main: data under {root} (needs {need / GiB:.2f} GiB and 1 GiB "
         f"spare: {N_BLOCKS} blocks and {SHARDS} POSIX shards of 64 MiB, "
@@ -5621,7 +6197,8 @@ def main() -> int:
         f"{RECOVER_PHASE_BYTES / GiB:.2f} GiB, phase drain's replicas and "
         f"pulls, at most {DRAIN_PHASE_BYTES / GiB:.2f} GiB, phase ec's "
         f"replicas, cells and rebuilt cells, at most "
-        f"{EC_PHASE_BYTES / GiB:.2f} GiB)")
+        f"{EC_PHASE_BYTES / GiB:.2f} GiB, phase kv's namespace, journals "
+        f"and shards, at most {KV_PHASE_BYTES / GiB:.2f} GiB)")
     cluster = pw = None
     try:
         cuda_ops.block_checksum.launches = 0
@@ -5650,6 +6227,8 @@ def main() -> int:
         results["drain"] = phase_drain(dev, root, args.seed, params, step,
                                        results["client"])
         results["ec"] = phase_ec(dev, root, args.seed, params, step,
+                                 results["client"])
+        results["kv"] = phase_kv(dev, root, args.seed, params, step,
                                  results["client"])
         del step
         results["ckpt"], probe = phase_ckpt(dev, info["addr"], args.seed,
@@ -5700,9 +6279,9 @@ def main() -> int:
                              "JAX package")
     log("main: no process of this run (this one, where the port's workers "
         "run, and each of the port's masters it started: the cluster's "
-        "twice, phase drain's twice, phase ec's, phase recover's, phase "
-        "ici's and phase replicate's) loaded a module of JAX or of the JAX "
-        "package")
+        "twice, phase drain's twice, phase ec's, phase kv's twice, phase "
+        "recover's, phase ici's and phase replicate's) loaded a module of "
+        "JAX or of the JAX package")
     if launches != results["main"]["pins"]:
         raise AssertionError(f"{launches} kernel launches for "
                              f"{results['main']['pins']} pins")
@@ -5718,6 +6297,7 @@ def main() -> int:
                     + results["ufs"]["k1_launches"]
                     + results["drain"]["k1_launches"]
                     + results["ec"]["k1_launches"]
+                    + results["kv"]["k1_launches"]
                     + results["recover"]["k1_launches"],
         "max_abs_err": k["max_abs_err"],
         "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
@@ -5736,6 +6316,7 @@ def main() -> int:
                         + results["ufs"]["launches"][name]
                         + results["drain"]["launches"][name]
                         + results["ec"]["launches"][name]
+                        + results["kv"]["launches"][name]
                         + results["mesh"]["launches"][name]
                         + results["pipeline"]["launches"][name]
                         + results["recover"]["launches"][name],

@@ -8,10 +8,13 @@ reads the ``[master]``, ``[client]``, ``[worker]`` and ``[ec]`` tables
 of the cluster's TOML file, ``[[worker.tiers]]`` included (other tables and
 unknown keys are ignored, so the cluster's own file loads as is).
 
-The master keeps its namespace in memory, made durable by the journal
-and its snapshots: the reference's ``meta_store = "mem"``. Its default
-there is ``"kv"``; here a file that asks for ``"kv"`` is refused, since
-the log-structured KV store is not ported yet (ROADMAP A3d). The
+The master's metadata store is the reference's (:29-37): ``meta_store``
+is ``"kv"`` by default (the log-structured KV store, in ``meta_dir``,
+``""`` meaning ``<journal_dir>-meta``; its engine ``meta_engine``,
+``"auto"``, ``"native"`` or ``"python"``; its inode cache holds the
+reference's default of 65,536 inodes, a constant) or ``"mem"`` (the
+namespace in RAM, made durable by the journal's snapshots); any other
+value of either is refused by name. The
 master's fields that name a feature the port's master does not have are
 constants (``MASTER_FIXED``), at the value it implements: raft and its
 membership knobs, the sharded namespace, the native fast metadata port
@@ -23,10 +26,9 @@ that sets one of them otherwise is refused by name.
 (the torus-distance spread) among them; ``ici_mesh_shape`` (the torus
 the hop distance wraps on) and ``replication_pull_budget_ms`` (the
 budget of one pull the replication manager dispatches) are fields.
-The KV store's ``meta_dir``, ``meta_engine`` and ``meta_cache_inodes``,
 ``fast_port``, ``web_port`` and ``worker_heartbeat_ms`` are ignored, as
-the reference's master ignores them with the mem store, the fast port
-off and no web server.
+the reference's master ignores them with the fast port off and no web
+server.
 
 The client's fields are the reference's, with its defaults: the
 identity sent with every request (``user`` and ``groups``; empty, the
@@ -81,8 +83,10 @@ MASTER_FIXED = {
     "raft_peers": [], "raft_node_id": 1, "raft_promote_lag": 64,
     "raft_snapshot_chunk_mb": 4, "raft_transfer_timeout_ms": 5_000,
     "raft_learner": False, "ttl_check_ms": 1_000, "ttl_bucket_ms": 1_000,
-    "min_replication": 1}
+    "min_replication": 1, "meta_cache_inodes": 65_536}
 PLACEMENTS = ("local", "random", "robin", "weighted", "load", "ici")
+META_STORES = ("kv", "mem")
+META_ENGINES = ("auto", "native", "python")
 
 
 # the worker's branches the port does not have, at the value it implements
@@ -101,6 +105,14 @@ EC_FIXED = {"enabled": True, "profile": "rs-6-3", "sweep_interval_s": 0.0}
 class MasterConf:
     hostname: str = "127.0.0.1"
     rpc_port: int = 8995
+    # the metadata store: "kv" (the log-structured KV store, which may
+    # outgrow RAM; a restart replays the journal's tail) or "mem" (dicts,
+    # snapshot and replay); its directory ("": <journal_dir>-meta)
+    meta_dir: str = ""
+    meta_store: str = "kv"
+    # the KV engine: "auto" (the native one when its library builds),
+    # "native" (that one or an error) or "python"; the same files
+    meta_engine: str = "auto"
     journal_dir: str = "data/journal"
     journal_fsync: bool = False
     # group commit: an idle mutation commits at once; under load the
@@ -248,12 +260,12 @@ class ClusterConf:
         master = data.get("master") or {}
         item = "master (ROADMAP A3d)"
         _check(path, "master", master, MASTER_FIXED, item)
-        if master.get("meta_store", "mem") != "mem":
-            raise ValueError(
-                f"{path}: master.meta_store = {master['meta_store']!r}: the "
-                f"port's master keeps its namespace in memory (\"mem\", "
-                f"journal and snapshots); the KV metadata store is not "
-                f"ported yet (ROADMAP A3d)")
+        for key, allowed in (("meta_store", META_STORES),
+                             ("meta_engine", META_ENGINES)):
+            if key in master and master[key] not in allowed:
+                raise ValueError(
+                    f"{path}: master.{key} = {master[key]!r}: the port's "
+                    f"master takes {list(allowed)}")
         policy = master.get("block_placement_policy", "local")
         if policy not in PLACEMENTS:
             raise ValueError(

@@ -15,10 +15,13 @@ other's journal:
   file and renamed; a snapshot drops the older snapshots and the
   segments it covers;
 - on recovery the newest snapshot is loaded and the later entries are
-  returned; a torn or corrupt tail is truncated at its first bad frame.
+  returned; a torn or corrupt tail is truncated at its first bad frame;
+- with the KV metadata store the store is the checkpoint: no snapshot
+  is written, and ``gc_covered`` (:203-215) drops the closed segments
+  whose entries the store has applied.
 
 Left out: the raft bookkeeping (the seq → term window, ``term_of``,
-``reset_log``) and ``gc_covered`` of the KV store (ROADMAP A3d)."""
+``reset_log``)."""
 
 from __future__ import annotations
 
@@ -174,6 +177,17 @@ class Journal:
             if segs[i + 1][0] - 1 <= before_seq and start_seq <= before_seq:
                 os.unlink(p)
 
+    def gc_covered(self, applied_seq: int) -> None:
+        """Drop the closed segments whose entries are all at or below
+        ``applied_seq`` (the KV store's checkpoint, which writes no
+        snapshot). The open segment is rolled first, so that it goes at
+        a later call, once a segment follows it."""
+        self._roll()
+        segs = self._list("edits-")
+        for i, (_start, path) in enumerate(segs[:-1]):
+            if segs[i + 1][0] - 1 <= applied_seq:
+                os.unlink(path)
+
     def _list(self, prefix: str) -> list[tuple[int, str]]:
         out = []
         for name in os.listdir(self.dir):
@@ -240,23 +254,26 @@ class Journal:
 
 class GroupCommitter:
     """Coalesces concurrent metadata mutations into one journal flush
-    (the HDFS NameNode's ``logEdit``/``logSync``). The reference's also
-    lands the group's KV batch; the mem store has none.
+    and one KV write batch (the HDFS NameNode's ``logEdit``/``logSync``).
 
-    Mutation handlers journal with ``flush=False`` and apply, then
-    :meth:`note` the committer and ``await sync()`` before the reply
-    leaves. The committer's task commits everything noted so far in one
-    ``journal.sync()``; an ``asyncio.sleep(0)`` a cycle admits handlers
-    that are already runnable into the group, so groups form under load
-    with no idle latency. When the previous group held more than one
-    entry, the group lingers ``window_ms`` more, up to ``max_entries``.
+    Mutation handlers journal with ``flush=False``, apply and stage their
+    KV writes, then :meth:`note` the committer and ``await sync()`` before
+    the reply leaves. The committer's task commits everything noted so
+    far in one ``journal.sync()`` and one ``store.commit_applied`` (the
+    group's KV batch, tagged with the journal's seq; a store of None, or
+    the mem store, has no batch); an ``asyncio.sleep(0)`` a cycle admits
+    handlers that are already runnable into the group, so groups form
+    under load with no idle latency. When the previous group held more
+    than one entry, the group lingers ``window_ms`` more, up to
+    ``max_entries``.
     A flush failure marks the committer broken: every waiter fails, later
     mutations are refused, and the master is read-only until a restart
     replays the flushed prefix."""
 
-    def __init__(self, journal: Journal | None, window_ms: float = 1.0,
-                 max_entries: int = 1024):
+    def __init__(self, journal: Journal | None, store=None,
+                 window_ms: float = 1.0, max_entries: int = 1024):
         self.journal = journal
+        self.store = store
         self.window_s = max(0.0, window_ms) / 1000.0
         self.max_entries = max(1, max_entries)
         self.broken: BaseException | None = None
@@ -321,6 +338,10 @@ class GroupCommitter:
         try:
             if self.journal is not None:
                 self.journal.sync()
+            if self.store is not None:
+                self.store.commit_applied(
+                    self.journal.seq if self.journal is not None
+                    else self.store.get_counter("applied_seq", 0))
         except BaseException as e:
             self.broken = e
             log.critical("group commit failed; master is read-only: %s", e)

@@ -4,8 +4,10 @@ Each ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a``, and
 each ``csrc/*.cc`` source (host code, such as the crc32c routine) by the
 host C++ compiler, into a shared library with a plain C interface, at
 first use, into ``curvine_tpu_torch/build/`` (listed in ``.gitignore``),
-and loaded with ``ctypes``; again whenever the source, or for a ``.cu``
-source any ``csrc/*.cuh`` header, is newer than the library. The sources
+and loaded with ``ctypes``; again whenever the source, or a header of
+its kind under ``csrc/`` (``.cuh`` for a ``.cu`` source, ``.h`` for a
+``.cc`` source, such as the KV engine's ``kvwire.h``), is newer than the
+library. The sources
 include no PyTorch header, so a build takes seconds. Nothing here runs
 at import time: the CPU tests import every module of the port on
 machines without ``nvcc``.
@@ -28,6 +30,8 @@ BUILD = os.path.join(PKG, "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 CXX_FLAGS = ["-std=c++17", "-O3", "-shared", "-fPIC"]
+# a source's extension -> the headers under csrc/ that make it stale
+_HEADERS = {".cu": ".cuh", ".cc": ".h"}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -62,15 +66,16 @@ def cxx_path() -> str:
 
 def is_stale(so: str, src: str, csrc: str = CSRC) -> bool:
     """Whether the library ``so`` must be built again from ``src``: it is
-    missing, or older than its source or, for a ``.cu`` source, than the
-    newest ``.cuh`` header under ``csrc`` (any kernel may include any of
-    them)."""
+    missing, or older than its source or than the newest header of the
+    source's kind under ``csrc`` (``.cuh`` for a ``.cu`` source, ``.h``
+    for a ``.cc`` source: any source may include any of them)."""
     if not os.path.exists(so):
         return True
     newest = os.path.getmtime(src)
-    if src.endswith(".cu"):
+    header = _HEADERS.get(os.path.splitext(src)[1])
+    if header is not None:
         for f in os.listdir(csrc):
-            if f.endswith(".cuh"):
+            if f.endswith(header):
                 newest = max(newest, os.path.getmtime(os.path.join(csrc, f)))
     return os.path.getmtime(so) < newest
 

@@ -5,14 +5,18 @@
 The counterpart of ``curvine_tpu/cli/main.py:796-807`` (``cmd_master``),
 without the web server: the ``[master]`` table of the cluster's TOML
 file (``common/conf.py``) configures one ``MasterServer``, which
-recovers its namespace from the journal under ``journal_dir`` and then
-serves. Once it serves, prints one JSON line, ``{"addr": "host:port",
-"pid": N, "jax_free": true or false, "recover_s": s}``: ``jax_free``
-says that no module named ``jax*``, ``curvine_tpu`` or ``curvine_tpu.*``
-is loaded in this process, and ``recover_s`` is the
-seconds from the server's construction to serving (journal replay
-included). With ``--metrics-out``, once stopped it writes there what it
-counted (``stats``)."""
+recovers its namespace from its metadata store and the journal under
+``journal_dir`` and then serves. Once it serves, prints one JSON line,
+``{"addr": "host:port", "pid": N, "jax_free": true or false,
+"recover_s": s, "journal_seq": N, "store": {...}, "recovery": {...}}``:
+``jax_free`` says that no module
+named ``jax*``, ``curvine_tpu`` or ``curvine_tpu.*`` is loaded in this
+process, ``recover_s`` is the seconds from the server's construction to
+serving (the store's open and the journal's replay included), and
+``store`` and ``recovery`` are as in ``stats``. With
+``--metrics-out``, once stopped it writes there what it counted
+(``stats``): the RPC counts, the metadata store's kind and engine, its
+KV directory's segments, and the recovery's figures."""
 
 from __future__ import annotations
 
@@ -36,10 +40,25 @@ def jax_free() -> bool:
                    or k == "curvine_tpu" for k in sys.modules)
 
 
+def store_stats(master: MasterServer) -> dict:
+    """The metadata store's ``kind`` ("kv" or "mem"), and for the KV
+    store its ``engine`` ("native" or "python"), ``dir`` and the
+    ``segments`` there (counted on disk, so also after its close)."""
+    store = master.fs.store
+    if store.kind != "kv":
+        return {"kind": store.kind}
+    d = store.kv.dir
+    return {"kind": "kv", "engine": store.engine, "dir": d,
+            "segments": sum(n.startswith("seg-") and n.endswith(".sst")
+                            for n in os.listdir(d))}
+
+
 def stats(master: MasterServer) -> dict:
     """The master's counters and gauges, each code's ``rpc.<name>``
     histogram as its count and p50 and p99 in ms, the journal's last seq,
-    and the group commit's groups and entries."""
+    the group commit's groups and entries, the store (``store_stats``)
+    and the recovery's figures (inodes, blocks, ``applied_seq``, tail
+    entries replayed; ``MasterFilesystem.recovery``)."""
     m = master.metrics
     return {"rpc": {name[len("rpc."):]: {
                 "count": h.count, "p50_ms": 1e3 * h.quantile(0.5),
@@ -49,7 +68,9 @@ def stats(master: MasterServer) -> dict:
             "counters": dict(m.counters), "gauges": dict(m.gauges),
             "journal_seq": master.fs.journal.seq,
             "groups": master.fs.committer.groups,
-            "entries": master.fs.committer.entries}
+            "entries": master.fs.committer.entries,
+            "store": store_stats(master),
+            "recovery": dict(master.fs.recovery)}
 
 
 async def serve(conf: ClusterConf, metrics_out: str | None = None) -> None:
@@ -63,7 +84,10 @@ async def serve(conf: ClusterConf, metrics_out: str | None = None) -> None:
     try:
         print(json.dumps({"addr": master.addr, "pid": os.getpid(),
                           "jax_free": jax_free(),
-                          "recover_s": time.perf_counter() - t}), flush=True)
+                          "recover_s": time.perf_counter() - t,
+                          "journal_seq": master.fs.journal.seq,
+                          "store": store_stats(master),
+                          "recovery": master.fs.recovery}), flush=True)
         await stop.wait()
     finally:
         await master.stop()

@@ -1,12 +1,29 @@
 """MasterFilesystem: the namespace and the block management core.
 
-A carve of ``curvine_tpu/master/filesystem.py`` on the mem store. Every
-mutation is journaled before it is applied (``_log``, :166-214) and
-applied by an ``_apply_<op>`` (:374-382), so a restart reaches the same
-state by replaying the journal after the newest snapshot (``recover``,
-``checkpoint``, ``_snapshot_state`` and ``_load_snapshot``, :112-162,
-:274-372). The entries and snapshots are the reference's, field for
-field, and either package's master reopens the other's.
+A carve of ``curvine_tpu/master/filesystem.py``. Every mutation is
+journaled before it is applied (``_log``, :166-214) and applied by an
+``_apply_<op>`` (:374-382), so a restart reaches the same state by
+replay. Two durability modes, chosen by the store (``master/store.py``):
+
+- ``MemMetaStore``: the namespace in RAM; a restart loads the newest
+  snapshot and replays the journal after it (``recover``,
+  ``checkpoint``, ``_snapshot_state`` and ``_load_snapshot``,
+  :112-162, :274-372).
+- ``KvMetaStore``, the reference's default: each entry's effects and
+  its seq land as one atomic KV batch (staged under group commit, the
+  group's batch landing with its journal flush), so a restart opens the
+  store and replays only the journal's tail past ``applied_seq``, a
+  batch every 4,096 entries; when the store is behind the newest
+  snapshot (a mem store's journal reopened on KV) the snapshot is loaded
+  wholesale first. A failed apply rolls its writes back
+  (``store.rollback``). A checkpoint flushes the store's memtable and
+  drops the journal segments it covers (``gc_covered``): no snapshot.
+  ``recovery`` holds the last recovery's figures (inodes, blocks,
+  ``applied_seq``, the tail entries replayed).
+
+The entries, snapshots and KV records are the reference's, field for
+field, and either package's master reopens the other's journal and
+metadata directory.
 
 Served: ``mkdir``, ``create_file`` (with the caller's ``block_size`` and
 ``storage_policy``), ``exists``, ``file_status``,
@@ -75,13 +92,13 @@ loaded. Any other op (the reference's ``set_incomplete``, ``symlink``,
 ``link``, ``resize``, ``free``, ``tx_*``, ``raft_conf``), and a
 snapshot that holds a raft config, stops recovery with
 ``UnportedJournalOp``, which names it: skipping it would drop state
-silently. Left out: the KV store, the raft hooks, the two-phase
-transactions of the sharded namespace, and the audit log (ROADMAP
-A3d)."""
+silently. Left out: the raft hooks, the two-phase transactions of the
+sharded namespace, and the audit log (ROADMAP §A items 3-4)."""
 
 from __future__ import annotations
 
 import logging
+import time
 
 from curvine_tpu_torch.common import errors as err
 from curvine_tpu_torch.common.ec import ECProfile
@@ -95,7 +112,7 @@ from curvine_tpu_torch.common.types import (CommitBlock, ExtendedBlock,
 from curvine_tpu_torch.master.block_map import BlockMap
 from curvine_tpu_torch.master.inode import ROOT_ID, Inode, InodeTree
 from curvine_tpu_torch.master.placement import create_policy
-from curvine_tpu_torch.master.store import MemMetaStore
+from curvine_tpu_torch.master.store import KvMetaStore, MemMetaStore
 from curvine_tpu_torch.master.worker_map import WorkerMap
 
 log = logging.getLogger(__name__)
@@ -105,6 +122,8 @@ log = logging.getLogger(__name__)
 _DEFAULT_POLICY_WIRE = StoragePolicy().to_wire()
 # snapshot sections of the reference's features the port does not have
 _UNPORTED_SNAPSHOT_KEYS = ("raft_conf",)
+# a KV recovery commits its tail replay a batch every this many entries
+REPLAY_BATCH = 4096
 
 
 class UnportedJournalOp(RuntimeError):
@@ -118,8 +137,9 @@ class MasterFilesystem:
     def __init__(self, journal: Journal | None = None,
                  placement: str = "local", lost_timeout_ms: int = 30_000,
                  snapshot_interval: int = 100_000,
-                 ici_mesh_shape: list[int] | None = None):
-        self.store = MemMetaStore()
+                 ici_mesh_shape: list[int] | None = None,
+                 store: MemMetaStore | KvMetaStore | None = None):
+        self.store = store if store is not None else MemMetaStore()
         self.tree = InodeTree(self.store)
         self.blocks = BlockMap(self.store)
         self.workers = WorkerMap(lost_timeout_ms=lost_timeout_ms)
@@ -152,6 +172,14 @@ class MasterFilesystem:
         # id -> stripe, and cell block id -> (logical block id, index)
         self.ec_stripes: dict[int, dict] = {}
         self.ec_cells: dict[int, tuple[int, int]] = {}
+        # the last recover()'s figures: inodes, blocks, applied_seq (the
+        # journal's seq on the mem store), tail entries replayed
+        self.recovery: dict = {}
+        self._started = time.monotonic()
+
+    @property
+    def _kv(self) -> bool:
+        return self.store.kind == "kv"
 
     # ==================== journal plumbing ====================
 
@@ -175,6 +203,9 @@ class MasterFilesystem:
             self._rebuild_ec_index()
             return
         snap, entries = self.journal.recover()
+        if self._kv:
+            self._recover_kv(snap, entries)
+            return
         if snap is not None:
             self._load_snapshot(snap)
         for _seq, op, args, _term in entries:
@@ -185,23 +216,87 @@ class MasterFilesystem:
         if snap is not None or entries:
             log.info("recovered namespace: %d inodes, %d blocks, seq=%d",
                      self.tree.count(), self.blocks.count(), self.journal.seq)
+        self.recovery = {"inodes": self.tree.count(),
+                         "blocks": self.blocks.count(),
+                         "applied_seq": self.journal.seq,
+                         "replayed": len(entries)}
+        self._rebuild_ec_index()
+
+    def _recover_kv(self, snap: dict | None, entries: list) -> None:
+        """Resume at the store's ``applied_seq``: load the newest
+        snapshot wholesale when the store is behind it, then replay the
+        journal's tail past both (of ``entries``, as ``Journal.recover``
+        returns them, those at or below the store's ``applied_seq`` are
+        skipped), committing a batch every REPLAY_BATCH entries."""
+        applied = self.store.get_counter("applied_seq", 0)
+        snap_seq = self.journal.last_snapshot_seq
+        if snap is not None and applied < snap_seq:
+            self._load_snapshot(snap)
+            applied = snap_seq
+            self.store.commit_applied(applied)
+        if self.mounts is not None:
+            # the table as the store holds it, before the tail's mount
+            # entries act on it
+            self.mounts.load_from_store()
+        replayed = 0
+        tail_seq = applied
+        for seq, op, args, _term in entries:
+            if seq <= applied:
+                continue
+            try:
+                self._apply(op, args)
+                self.store.stage_entry()
+            except err.CurvineError as e:
+                self.store.rollback()
+                log.warning("journal replay: %s(%s) -> %s", op, args, e)
+            tail_seq = seq
+            replayed += 1
+            if replayed % REPLAY_BATCH == 0:
+                self.store.commit_applied(tail_seq)
+        if tail_seq > applied:
+            self.store.commit_applied(tail_seq)
+        self.journal.seq = max(self.journal.seq, applied)
+        self.recovery = {"inodes": self.tree.count(),
+                         "blocks": self.blocks.count(),
+                         "applied_seq": self.store.get_counter("applied_seq"),
+                         "replayed": replayed}
+        log.info("kv recovery: %d inodes, %d blocks, applied_seq=%d, "
+                 "replayed %d tail entries", self.recovery["inodes"],
+                 self.recovery["blocks"], self.recovery["applied_seq"],
+                 replayed)
         self._rebuild_ec_index()
 
     def _log(self, op: str, args: dict):
         """Journal, then apply: a failed append never leaves the state
-        ahead of the log. With a committer the append is unflushed and
-        the committer flushes the group; validate, journal and apply are
-        one synchronous stretch on the loop, so later ops see the
-        state at once."""
+        ahead of the log. With a committer the append is unflushed, the
+        entry's KV writes are staged, and the committer flushes the group
+        and lands its KV batch; validate, journal and apply are one
+        synchronous stretch on the loop, so later ops see the state at
+        once. Without one, the KV writes land with the entry."""
         grouped = self.committer is not None and self.committer.accepting
         seq = None
         if self.journal is not None:
             seq = self.journal.append(op, args, flush=not grouped)
         try:
             result = self._apply(op, args)
-        finally:
+        except BaseException:
+            if self._kv:
+                # the failed apply's writes go; its seq is still applied
+                self.store.rollback()
+                if seq is not None and not grouped:
+                    self.store.commit_applied(seq)
             if grouped:
                 self.committer.note()
+            raise
+        if self._kv:
+            if grouped:
+                self.store.stage_entry()
+            else:
+                self.store.commit_applied(
+                    seq if seq is not None
+                    else self.store.get_counter("applied_seq", 0))
+        if grouped:
+            self.committer.note()
         if seq is not None:
             self._entries_since_snapshot += 1
             if self._entries_since_snapshot >= self.snapshot_interval:
@@ -216,7 +311,14 @@ class MasterFilesystem:
     def checkpoint(self) -> None:
         if self.journal is None:
             return
-        self.journal.write_snapshot(self._snapshot_state())
+        self.flush_group()
+        if self._kv:
+            # the store is the checkpoint: flush its memtable and drop the
+            # journal segments it covers; no snapshot is written
+            self.store.flush()
+            self.journal.gc_covered(self.store.get_counter("applied_seq", 0))
+        else:
+            self.journal.write_snapshot(self._snapshot_state())
         self._entries_since_snapshot = 0
 
     def _snapshot_state(self) -> dict:
@@ -275,7 +377,7 @@ class MasterFilesystem:
                 replicas=d["rep"], blocks=list(d["blocks"]),
                 is_complete=d["done"], target=d.get("target"),
                 children_num=len(ch) if ch is not None else 0)
-            self.store.put(node)
+            self.store.put(node, new=True)
             if ch is not None:
                 for name, cid in ch.items():
                     self.store.child_put(node.id, str(name), cid)
@@ -290,6 +392,7 @@ class MasterFilesystem:
                 parent = self.store.get(pid)
                 if parent is not None:
                     parent.children_num = n
+                    self.store.put(parent)
         self.store.set_counter("next_id", snap["next_id"])
         self.store.set_counter("next_block_id", snap["next_block_id"])
         for bid, blen, iid, rep in snap["blocks"]:
@@ -694,10 +797,14 @@ class MasterFilesystem:
         if node.is_complete:
             raise err.LeaseConflict(f"{path} is not open for writing")
         self._commit(node, commit_blocks)
-        chosen = self.policy.choose(
-            self.workers.live_workers(), max(1, node.replicas),
-            client_host=client_host, exclude=set(exclude_workers or []),
-            needed=node.block_size, ici_coords=ici_coords, min_count=1)
+        try:
+            chosen = self.policy.choose(
+                self.workers.live_workers(), max(1, node.replicas),
+                client_host=client_host, exclude=set(exclude_workers or []),
+                needed=node.block_size, ici_coords=ici_coords, min_count=1)
+        except err.NoAvailableWorker:
+            self._await_workers()
+            raise
         args = dict(inode_id=node.id)
         # abandonBlock: a writer retrying a failed block open drops its
         # previous allocation in the same entry, if it is the trailing,
@@ -716,6 +823,24 @@ class MasterFilesystem:
         return LocatedBlock(block=block, offset=off,
                             locs=[w.address for w in chosen],
                             storage_types=[storage_type] * len(chosen))
+
+    def _await_workers(self) -> None:
+        """Beyond the reference: a restarted master (its recovery found
+        applied entries) that no worker has reached since it started (the
+        worker map is runtime state) answers a placement that finds no
+        worker with the retryable IN_PROGRESS, until the lost timeout has
+        passed since its start; the reference answers NO_AVAILABLE_WORKER,
+        which fails the writer. A worker's heartbeat back-off stops at
+        half the lost timeout (``WorkerServer.heartbeat_once``), so a
+        worker alive through the outage, however long, reaches the master
+        inside that window. A fresh master answers as the reference does.
+        ROADMAP §C, C9."""
+        waited = time.monotonic() - self._started
+        if self.recovery.get("applied_seq") and not self.workers.workers \
+                and waited * 1000 < self.workers.lost_timeout_ms:
+            raise err.CurvineError(
+                f"no worker has reached this master since its restart "
+                f"{waited:.1f}s ago", code=err.ErrorCode.IN_PROGRESS)
 
     def _apply_alloc_block(self, inode_id: int,
                            abandon: int | None = None) -> int:
@@ -853,6 +978,9 @@ class MasterFilesystem:
                                            keep=keep)
         if not incremental:
             self.workers.mark_reported(worker_id)
+        # a report's length bumps are durable but not journaled: they
+        # land now, not with some later entry's batch
+        self.store.commit_runtime()
         return {"delete_blocks": orphans + again}
 
     def recover_stale_leases(self, lease_timeout_ms: int = 300_000) -> int:

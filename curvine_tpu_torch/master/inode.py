@@ -6,8 +6,10 @@ being 1, and ``next_block_id`` from 1), so that the same ops give the
 same ids, and the same journal, in both packages; path walks
 (``resolve``, ``resolve_parent``, ``walk_parent``,
 ``check_parent_dirs``), ``path_of``, ``mkdirs`` and the entry
-mutations. Left out: the striped ids of the sharded namespace and
-``add_entry`` (hard links; LINK is refused)."""
+mutations. A new inode is put with ``new=True`` (:84, :204-235), which
+counts it in the KV store's ``inode_count``, so ``count()`` reads that
+counter and no scan. Left out: the striped ids of the sharded namespace
+and ``add_entry`` (hard links; LINK is refused)."""
 
 from __future__ import annotations
 
@@ -66,17 +68,21 @@ class Inode:
 
 
 class InodeTree:
-    """Path resolution and mutations over a ``MemMetaStore``. One writer
-    (the master's event loop); every mutation writes through to the
-    store."""
+    """Path resolution and mutations over a ``MemMetaStore`` or a
+    ``KvMetaStore``. One writer (the master's event loop); every mutation
+    writes through to the store."""
 
     def __init__(self, store: MemMetaStore | None = None) -> None:
         self.store = store if store is not None else MemMetaStore()
         if self.store.get(ROOT_ID) is None:
             ts = now_ms()
             self.store.put(Inode(id=ROOT_ID, name="", file_type=FileType.DIR,
-                                 parent_id=0, mtime=ts, atime=ts))
+                                 parent_id=0, mtime=ts, atime=ts), new=True)
             self.store.set_counter("next_id", ROOT_ID + 1)
+            if self.store.kind == "kv":
+                # a fresh KV store: the root lands before any entry
+                self.store.commit_applied(
+                    self.store.get_counter("applied_seq", 0))
 
     # -- id allocation (journaled through the replay's determinism) --
     def _alloc_id(self) -> int:
@@ -183,7 +189,7 @@ class InodeTree:
 
     # -- mutations (journaled ops only) --
     def add_child(self, parent: Inode, inode: Inode) -> None:
-        self.store.put(inode)
+        self.store.put(inode, new=True)
         self.store.child_put(parent.id, inode.name, inode.id)
         parent.children_num += 1
         parent.mtime = inode.mtime

@@ -6,7 +6,12 @@ serialised without locks. Every request's path fields are normalised
 first (``_norm_req``, :486-495: ``.`` and ``..`` resolved, a path out
 of the root refused). A mutation (``_h``, :497-534) is deduplicated by
 the client's ``(client_id, call_id)`` in the retry cache, and its reply
-leaves only after the group commit has flushed its journal entry.
+leaves only after the group commit has flushed its journal entry (and
+landed its KV batch). The metadata store is built as the reference
+builds it (:52-57): on ``meta_store = "kv"`` a ``KvMetaStore`` in
+``meta_dir`` (``<journal_dir>-meta`` when empty) on ``meta_engine``,
+on ``"mem"`` the mem store; ``stop()`` closes it (the KV store flushes
+its memtable).
 
 Served: MKDIR, DELETE, CREATE_FILE, OPEN_FILE, FILE_STATUS, LIST_STATUS
 and EXISTS (each falling back to the mount's UFS for a path the cache
@@ -64,7 +69,7 @@ import inspect
 import logging
 
 from curvine_tpu_torch.common import errors as err
-from curvine_tpu_torch.common.conf import ClusterConf
+from curvine_tpu_torch.common.conf import MASTER_FIXED, ClusterConf
 from curvine_tpu_torch.common.executor import ScheduledExecutor
 from curvine_tpu_torch.common.journal import GroupCommitter, Journal
 from curvine_tpu_torch.common.metrics import MetricsRegistry
@@ -76,6 +81,7 @@ from curvine_tpu_torch.master.jobs import JobManager
 from curvine_tpu_torch.master.mount import MountManager
 from curvine_tpu_torch.master.replication import ReplicationManager
 from curvine_tpu_torch.master.retry_cache import RetryCache
+from curvine_tpu_torch.master.store import KvMetaStore
 from curvine_tpu_torch.rpc.codes import MASTER_REFUSED, RpcCode
 from curvine_tpu_torch.rpc.frame import Message, pack, unpack
 from curvine_tpu_torch.rpc.server import RpcServer, ServerConn
@@ -90,14 +96,21 @@ class MasterServer:
         self.conf = conf or ClusterConf()
         mc = self.conf.master
         j = Journal(mc.journal_dir, fsync=mc.journal_fsync)
+        store = None
+        if mc.meta_store == "kv":
+            store = KvMetaStore(
+                mc.meta_dir or mc.journal_dir.rstrip("/") + "-meta",
+                fsync=mc.journal_fsync,
+                cache_inodes=MASTER_FIXED["meta_cache_inodes"],
+                engine=mc.meta_engine)
         self.fs = MasterFilesystem(
             journal=j, placement=mc.block_placement_policy,
             lost_timeout_ms=mc.worker_lost_timeout_ms,
             snapshot_interval=mc.snapshot_interval_entries,
-            ici_mesh_shape=mc.ici_mesh_shape or None)
+            ici_mesh_shape=mc.ici_mesh_shape or None, store=store)
         self.metrics = MetricsRegistry("master")
         self.fs.committer = GroupCommitter(
-            j, window_ms=mc.journal_group_commit_ms,
+            j, self.fs.store, window_ms=mc.journal_group_commit_ms,
             max_entries=mc.journal_group_max)
         self.acl = SuperuserGate(mc.superuser, mc.supergroup)
         self.retry_cache = RetryCache(mc.retry_cache_size,
@@ -162,6 +175,7 @@ class MasterServer:
         except Exception as e:  # noqa: BLE001 — a committer already broken
             log.warning("final group flush failed: %s", e)
         self.fs.journal.close()
+        self.fs.store.close()
 
     # ---------------- handlers ----------------
 

@@ -89,32 +89,33 @@ def _len(out: bytearray, n: int, fix: int | None, fix_max: int,
 
 
 def _pack(out: bytearray, obj, depth: int) -> None:
+    """One encoder a type, dispatched on the exact built-in type (the
+    metadata store packs an inode record a mutation); a subclass is
+    packed as its base type (``_base``)."""
     if depth > 512:
         raise ValueError("nesting deeper than 512")
-    if obj is None:
-        out.append(0xC0)
-    elif obj is True:
-        out.append(0xC3)
-    elif obj is False:
-        out.append(0xC2)
-    elif isinstance(obj, int):
-        _int(out, int(obj))
-    elif isinstance(obj, float):
-        out += b"\xcb" + _d.pack(obj)
-    elif isinstance(obj, str):
+    t = type(obj)
+    if t is int:
+        _int(out, obj)
+    elif t is str:
         b = obj.encode("utf-8")
         _len(out, len(b), 0xA0, 31, b"\xd9", b"\xda", b"\xdb")
         out += b
-    elif isinstance(obj, (bytes, bytearray, memoryview)):
-        b = memoryview(obj).cast("B") if isinstance(obj, memoryview) \
-            else obj
+    elif t is bytes or t is bytearray or t is memoryview:
+        b = obj.cast("B") if t is memoryview else obj
         _len(out, len(b), None, 0, b"\xc4", b"\xc5", b"\xc6")
         out += b
-    elif isinstance(obj, (list, tuple)):
+    elif t is list or t is tuple:
         _len(out, len(obj), 0x90, 15, None, b"\xdc", b"\xdd")
         for x in obj:
             _pack(out, x, depth + 1)
-    elif isinstance(obj, dict):
+    elif obj is None:
+        out.append(0xC0)
+    elif t is bool:
+        out.append(0xC3 if obj else 0xC2)
+    elif t is float:
+        out += b"\xcb" + _d.pack(obj)
+    elif t is dict:
         _len(out, len(obj), 0x80, 15, None, b"\xde", b"\xdf")
         for k, v in obj.items():
             if not isinstance(k, (str, int)):
@@ -123,7 +124,22 @@ def _pack(out: bytearray, obj, depth: int) -> None:
             _pack(out, k, depth + 1)
             _pack(out, v, depth + 1)
     else:
-        raise TypeError(f"cannot serialize {type(obj).__name__!r} object")
+        _pack(out, _base(obj), depth)
+
+
+# a subclass's base type and its conversion (for numbers and str the
+# base's own method, so that an override of ``__str__`` or ``__int__``
+# does not change the bytes)
+_BASES = ((int, int.__int__), (float, float.__float__), (str, str.__str__),
+          (bytes, bytes), (bytearray, bytearray), (list, list),
+          (tuple, list), (dict, dict))
+
+
+def _base(obj):
+    for base, convert in _BASES:
+        if isinstance(obj, base):
+            return convert(obj)
+    raise TypeError(f"cannot serialize {type(obj).__name__!r} object")
 
 
 def packb(obj, use_bin_type: bool = True) -> bytes:
@@ -169,7 +185,13 @@ class _Reader:
     def value(self, depth: int = 0):
         if depth > 512:
             raise UnpackValueError("nesting deeper than 512")
-        c = self.num(_B)
+        # the format byte is read in place, not by a struct unpack: a
+        # snapshot's decode reads one a value
+        pos = self.pos
+        if pos >= len(self.buf):
+            raise UnpackValueError("incomplete input")
+        c = self.buf[pos]
+        self.pos = pos + 1
         if c < 0x80:
             return c
         if c >= 0xE0:

@@ -427,8 +427,13 @@ class WorkerServer:
     async def heartbeat_once(self) -> None:
         """Heartbeat every master (followers serve reads too); the
         master's deletes apply to the store and the tier-0. When no
-        master answers: one warning, then exponential back-off up to
-        60 s, the tick returning at once until it lapses."""
+        master answers: one warning, then exponential back-off, the tick
+        returning at once until it lapses. The back-off stops at 60 s,
+        as the reference's, and (beyond the reference) at half the
+        cluster's ``worker_lost_timeout_ms``: a restarted master waits
+        that long for its workers before it fails a placement (ROADMAP
+        §C, C9), so a worker alive through an outage of any length
+        reaches it in time."""
         if time.monotonic() < self._hb_backoff_until:
             return
         # the tier-0's state is read under its lock, on a thread
@@ -456,12 +461,14 @@ class WorkerServer:
         if not any(oks):
             self._hb_fails += 1
             base = self.conf.worker.heartbeat_ms / 1000.0
-            delay = min(base * (2 ** min(self._hb_fails, 6)), 60.0)
+            cap = max(base, min(
+                60.0, self.conf.master.worker_lost_timeout_ms / 2000.0))
+            delay = min(base * (2 ** min(self._hb_fails, 6)), cap)
             self._hb_backoff_until = time.monotonic() + delay
             if self._hb_fails == 1:
                 log.warning("no master reachable for heartbeat (%s); backing "
-                            "off up to 60s",
-                            ", ".join(self.conf.client.master_addrs))
+                            "off up to %.1fs",
+                            ", ".join(self.conf.client.master_addrs), cap)
             return
         if self._hb_fails:
             log.info("master reachable again after %d failed heartbeats",

@@ -58,6 +58,24 @@ def test_headers_do_not_touch_host_sources(tree):
     assert not _build.is_stale(str(so), str(csrc / "h.cc"), str(csrc))
 
 
+def test_newer_h_header_makes_every_cc_stale(tree):
+    """A host source includes ``.h`` headers (the KV engine's
+    ``kvwire.h``): a newer one builds every ``.cc`` source again, and no
+    ``.cu`` source."""
+    csrc, so = tree
+    _touch(csrc / "kv.cc", 100)
+    _touch(csrc / "old.h", 150)
+    _touch(so, 200)
+    assert not _build.is_stale(str(so), str(csrc / "kv.cc"), str(csrc))
+    _touch(csrc / "kvwire.h", 250)
+    assert _build.is_stale(str(so), str(csrc / "kv.cc"), str(csrc))
+    _touch(csrc / "k.cu", 100)
+    assert not _build.is_stale(str(so), str(csrc / "k.cu"), str(csrc))
+    assert "kvwire.h" in os.listdir(_build.CSRC)
+    assert "kv_engine" in _build.sources() and "kvwire" not in \
+        _build.sources()
+
+
 def test_other_files_are_not_headers(tree):
     csrc, so = tree
     _touch(csrc / "k.cu", 100)

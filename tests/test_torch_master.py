@@ -881,9 +881,9 @@ async def test_replication_code_is_served(tmp_path, code):
 
 
 @pytest.mark.parametrize("key", sorted(MASTER_FIXED) + [
-    "meta_store", "block_placement_policy"])
+    "meta_store", "meta_engine", "block_placement_policy"])
 def test_fixed_master_field_is_refused(tmp_path, key):
-    other = {"meta_store": "kv",
+    other = {"meta_store": "rocks", "meta_engine": "rocksdb",
              "block_placement_policy": "nearest"}.get(key)
     if other is None:
         v = MASTER_FIXED[key]
@@ -893,6 +893,12 @@ def test_fixed_master_field_is_refused(tmp_path, key):
     f.write_text(f"[master]\n{key} = {json.dumps(other)}\n")
     with pytest.raises(ValueError, match=f"master.{key}"):
         ClusterConf.load(str(f))
+    if key == "meta_store":
+        # both of the reference's stores load; "kv" is the default
+        for store in ("kv", "mem"):
+            f.write_text(f"[master]\nmeta_store = \"{store}\"\n")
+            assert ClusterConf.load(str(f)).master.meta_store == store
+        assert ClusterConf().master.meta_store == "kv"
     f.write_text(f"[master]\nrpc_port = 1234\nsuperuser = \"alice\"\n"
                  f"worker_lost_timeout_ms = 5\n")
     mc = ClusterConf.load(str(f)).master

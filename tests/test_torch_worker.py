@@ -370,6 +370,34 @@ async def test_heartbeats_back_off_while_no_master_answers(tmp_path):
         await w.stop()
 
 
+async def test_heartbeat_back_off_stops_at_half_the_lost_timeout(tmp_path):
+    """With the defaults (3 s heartbeats, a 30 s lost timeout) the back-off
+    doubles from 6 s and stops at 15 s, where the reference's goes on to
+    60 s: a master restarted after an outage of any length waits 30 s
+    for its workers, and each of them tries again inside 15 s (ROADMAP
+    §C, C9)."""
+    import socket
+    import time
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    dead = f"127.0.0.1:{s.getsockname()[1]}"
+    s.close()                                  # nothing listens there
+    conf = _worker_conf([dead], str(tmp_path))
+    conf.worker.heartbeat_ms = 3_000
+    assert conf.master.worker_lost_timeout_ms == 30_000
+    w = port_server.WorkerServer(conf)
+    await w.rpc.start()
+    try:
+        delays = []
+        for _ in range(8):                     # an outage of minutes
+            w._hb_backoff_until = 0.0
+            await w.heartbeat_once()
+            delays.append(round(w._hb_backoff_until - time.monotonic()))
+        assert delays == [6, 12, 15, 15, 15, 15, 15, 15]
+    finally:
+        await w.stop()
+
+
 async def test_eviction_ghosts_the_device_copy(tmp_path):
     """A block dropped under the mem tier's pressure leaves the tier-0
     as an eviction (ghosted), so a re-pin of it skips probation."""

@@ -184,6 +184,24 @@ Phases, each raising on a fault (the exit code is then non-zero):
    the shards, every batch equal to its tokens; the shards pinned by the
    promote cycles (K1 launches equal to the pins); three flagship steps
    on batches taken from the pinned copies (K3 once a layer a step);
+6j. ha: raft HA of the master, with phase ufs's parameters and step.
+   (a) Three of the port's masters in their own processes, one raft
+   group (``raft_peers``), each with its journal and KV directory, and
+   two of the port's workers that heartbeat all three (and report their
+   blocks in full every second, so that a follower knows each replica):
+   the seconds to one leader. (b) Phase kv (b)'s writers, the leader
+   SIGKILLed after the 4th shard: the seconds to a new leader and until
+   each writer's next acknowledgement, no caller error, every
+   acknowledged file on the new leader, the survivors equal; the killed
+   master started again and caught up. (c) A follower stopped and wiped,
+   nine 8 MiB xattrs set (the namespace past MAX_FRAME), leadership
+   handed to the other follower (RAFT_TRANSFER), the wiped node started
+   again and caught up by a chunked snapshot (chunks sent, installs, the
+   leader's longest loop stall meanwhile, and whether an election
+   followed). (d) ``GpuTrainFeed`` over the shards through a second
+   RAFT_TRANSFER 4 batches in, every batch equal to its tokens. (e) The
+   shards and the small files pinned (K1 launches equal to the pins),
+   three flagship steps on the pinned copy (K3);
 6b. ckpt: the flagship's parameters as phase ufs left them (99 tensors,
    1.92 GiB of bf16) saved with ``save_checkpoint`` through the port's
    client into the cluster, every byte by short circuit (SC_WRITE_OPEN:
@@ -326,6 +344,8 @@ and read just after them (K3), again just before phase 6h's promote
 cycles and read just after them (K1), again just before phase 6h's three
 steps and read just after them (K3), again just before phase 6i's promote
 cycles and read just after them (K1), again just before phase 6i's three
+steps and read just after them (K3), again just before phase 6j's promote
+cycles and read just after them (K1), again just before phase 6j's three
 steps and read just after them (K3), again just before phase 6b and read just
 after it (K3's forward, twice a layer for the two losses, and no backward
 kernel), again just before phase 6f's two losses and read just after
@@ -335,9 +355,10 @@ after them (K3), again just before phase 6d's three pipeline steps and
 read just after them (K3), again just before phase 6e's three ring
 steps and read just after them (K3: none), and just before phase 7's
 ``query_many`` and read just after it (K2, which must equal the ADC
-stages the search issued). The kernels line gives K1's nine counts
+stages the search issued). The kernels line gives K1's ten counts
 summed (each held to its pins, the refused device copies included) and
-phase 6's, 6a's, 6g's, 6h's, 6i's, 6c's, 6d's and 6f's K3 counts summed.
+phase 6's, 6a's, 6g's, 6h's, 6i's, 6j's, 6c's, 6d's and 6f's K3 counts
+summed.
 The port's
 worker and master are stopped, the process group destroyed, and the
 data directory removed, however the run ends. No process of the run
@@ -508,6 +529,23 @@ KV_RETRY_MAX = 8
 KV_TIER_BYTES = SHARDS * SHARD_BYTES + 6 * BLOCK
 KV_HBM_BYTES = (SHARDS + 2) * BLOCK
 KV_PHASE_BYTES = 2 * GiB + SHARDS * SHARD_BYTES + 256 * MiB
+# phase ha: HA_MASTERS of the port's masters in one raft group, two
+# workers (each able to hold every shard) that report their blocks in
+# full every HA_REPORT_MS; phase kv (b)'s writers with the leader killed
+# after HA_KILL_AFTER shards; HA_PADS files with an xattr of HA_PAD bytes
+# (the namespace past MAX_FRAME, as tests/test_raft.py:491-541 makes it);
+# a RAFT_TRANSFER HA_TRANSFER_AFTER batches into the feed; each wait at
+# most HA_LIMIT_S. The phase writes at most HA_PHASE_BYTES to the data
+# directory (the shards and small files, and each master's journal, KV
+# directory and snapshot of the pads)
+HA_MASTERS = 3
+HA_KILL_AFTER = 4
+HA_TRANSFER_AFTER = 4
+HA_PADS, HA_PAD = 9, 8 * MiB
+HA_REPORT_MS = 1_000
+HA_LIMIT_S = 60
+HA_PHASE_BYTES = SHARDS * SHARD_BYTES + 4 * HA_MASTERS * HA_PADS * HA_PAD \
+    + 256 * MiB
 
 
 def log(msg: str) -> None:
@@ -925,7 +963,11 @@ def start_master(root: str, conf: str, n: int = 0):
     ``recover_s``) with ``start_s``, the seconds from the launch to the
     line; raises when the line does not come within MASTER_START_S or
     the master loaded a module of JAX or of the JAX package."""
-    import select
+    return master_line(*launch_master(root, conf, n))
+
+
+def launch_master(root: str, conf: str, n: int = 0):
+    """``start_master``'s launch: the process, not waited for."""
     err = open(os.path.join(root, f"master{n}.err"), "wb")
     t = time.perf_counter()
     proc = subprocess.Popen(
@@ -933,6 +975,12 @@ def start_master(root: str, conf: str, n: int = 0):
          "--metrics-out", os.path.join(root, f"master{n}.json")],
         cwd=HERE, stdout=subprocess.PIPE, stderr=err)
     err.close()
+    return root, n, proc, t
+
+
+def master_line(root: str, n: int, proc, t: float):
+    """``start_master``'s wait for the launched master's JSON line."""
+    import select
     ready, _, _ = select.select([proc.stdout], [], [], MASTER_START_S)
     line = proc.stdout.readline() if ready else b""
     if not line:
@@ -974,15 +1022,20 @@ class PortWorker:
     ``worker.hbm``): a mem tier of ``tier_bytes`` under ``root``, a device
     tier-0 of ``hbm_bytes`` on ``dev``, 64 MiB blocks, no periodic promote
     cycle (the worker phase runs its cycles itself), ICI coordinates
-    ``coords``; it joins the device domain of this process."""
+    ``coords``; it joins the device domain of this process. ``master``
+    is one master's address or a raft group's list; ``report_ms``, when
+    set, is its full block report's period."""
 
-    def __init__(self, master: str, root: str, tier_bytes: int,
-                 dev: torch.device, coords=(), hbm_bytes: int = TIER_BYTES):
+    def __init__(self, master, root: str, tier_bytes: int,
+                 dev: torch.device, coords=(), hbm_bytes: int = TIER_BYTES,
+                 report_ms: int = 0):
         import threading
         from curvine_tpu_torch.common.conf import ClusterConf, TierConf
         from curvine_tpu_torch.worker.server import WorkerServer
         conf = ClusterConf()
-        conf.client.master_addrs = [master]
+        conf.client.master_addrs = _addrs(master)
+        if report_ms:
+            conf.worker.block_report_interval_ms = report_ms
         conf.client.block_size = BLOCK
         wc = conf.worker
         wc.hostname, wc.rpc_port = "127.0.0.1", 0
@@ -1044,13 +1097,17 @@ def await_port_worker(master: str, pw: PortWorker, timeout: float = 60
                              f"port's worker {pw.worker.worker_id} alone")
 
 
-def port_client(master: str, coords=(), **client):
-    """The port's client of ``master``; its writes are placed near ICI
-    ``coords``."""
+def _addrs(master) -> list[str]:
+    return [master] if isinstance(master, str) else list(master)
+
+
+def port_client(master, coords=(), **client):
+    """The port's client of ``master`` (an address, or a raft group's
+    list); its writes are placed near ICI ``coords``."""
     from curvine_tpu_torch.client.unified import CurvineClient
     from curvine_tpu_torch.common.conf import ClusterConf
     conf = ClusterConf()
-    conf.client.master_addrs = [master]
+    conf.client.master_addrs = _addrs(master)
     conf.worker.ici_coords = list(coords)
     for k, v in client.items():
         setattr(conf.client, k, v)
@@ -6160,6 +6217,613 @@ def phase_kv(dev: torch.device, root: str, seed: int, params: dict, step,
     return res
 
 
+# ------------------------------------------------------------------ ha
+
+async def raft_statuses(addrs: list[str]) -> list[dict | None]:
+    """RAFT_STATUS of each master (None for one that does not answer)."""
+    from curvine_tpu_torch.rpc.client import Connection
+    from curvine_tpu_torch.rpc.codes import RpcCode
+    from curvine_tpu_torch.rpc.deadline import Deadline
+    from curvine_tpu_torch.rpc.frame import pack, unpack
+
+    async def one(a):
+        try:
+            conn = await asyncio.wait_for(Connection(a, 2_000).connect(), 2)
+        except Exception:  # noqa: BLE001 — a master down answers None
+            return None
+        try:
+            rep = await conn.call(RpcCode.RAFT_STATUS, data=pack({}),
+                                  deadline=Deadline(2.0))
+            return unpack(rep.data)
+        except Exception:  # noqa: BLE001
+            return None
+        finally:
+            await conn.close()
+    return list(await asyncio.gather(*(one(a) for a in addrs)))
+
+
+def one_leader(addrs: list[str], timeout: float = HA_LIMIT_S,
+               above_term: int = -1, what: str = "one leader"
+               ) -> tuple[list[dict], float]:
+    """Poll RAFT_STATUS until the masters at ``addrs`` agree on one leader
+    of a term above ``above_term``: their statuses and the seconds."""
+    t = time.perf_counter()
+    while True:
+        st = asyncio.run(raft_statuses(addrs))
+        lead = [s for s in st if s and s["role"] == "leader"
+                and s["term"] > above_term]
+        if len(lead) == 1 and all(
+                s and s["leader_id"] == lead[0]["node_id"]
+                and s["term"] == lead[0]["term"] for s in st):
+            return st, time.perf_counter() - t
+        if time.perf_counter() - t > timeout:
+            raise AssertionError(f"ha: never {what} in {timeout}s: {st}")
+        time.sleep(0.02)
+
+
+def ha_master_conf(d: str, port: int, addrs: list[str], nid: int) -> str:
+    """``master_conf``'s file for node ``nid`` of the raft group at
+    ``addrs`` (its own journal, KV directory and port)."""
+    path = master_conf(d, port)
+    with open(path, "a") as f:
+        f.write(f"raft_peers = {json.dumps(addrs)}\nraft_node_id = {nid}\n")
+    return path
+
+
+def start_ha(base: str) -> tuple[dict, list[str], dict, float]:
+    """HA_MASTERS masters of one raft group, launched at once on loopback
+    ports probed first; a port taken meanwhile by another process
+    (EADDRINUSE) starts the whole group again on fresh ports and fresh
+    directories, as the reference's ``_make_ha_cluster`` does. Returns
+    {node id: [process, directory, conf, starts]}, the addresses, the
+    start lines and the launch's time."""
+    import socket
+    for attempt in range(3):
+        socks = [socket.socket() for _ in range(HA_MASTERS)]
+        for s in socks:
+            s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+            s.bind(("127.0.0.1", 0))
+        ports = [s.getsockname()[1] for s in socks]
+        for s in socks:
+            s.close()
+        addrs = [f"127.0.0.1:{p}" for p in ports]
+        nodes, infos, launched = {}, {}, []
+        t0 = time.perf_counter()
+        for nid in range(1, HA_MASTERS + 1):
+            d = os.path.join(base, f"a{attempt}", f"m{nid}")
+            os.makedirs(d)
+            conf = ha_master_conf(d, ports[nid - 1], addrs, nid)
+            launched.append((nid, launch_master(d, conf, 0)))
+            nodes[nid] = [launched[-1][1][2], d, conf, 1]
+        try:
+            for nid, la in launched:
+                _p, infos[nid] = master_line(*la)
+            return nodes, addrs, infos, t0
+        except RuntimeError as e:
+            for n in nodes.values():
+                stop_master(n[0])
+            if "Address already in use" not in str(e) or attempt == 2:
+                raise
+            log(f"ha (a): a port was taken meanwhile; starting again: {e}")
+    raise AssertionError("unreachable")
+
+
+def phase_ha(dev: torch.device, root: str, seed: int, params: dict, step,
+             client_res: dict) -> dict:
+    """Raft HA of the master on one card, with phase ufs's parameters and
+    step. (a) HA_MASTERS of the port's masters in their own processes,
+    one raft group (``raft_peers``), each with its journal, its KV
+    directory (the native engine) and a 30 s lost timeout, and two of the
+    port's workers in this process that heartbeat all three and report
+    their blocks in full every HA_REPORT_MS (the reference's HA test sets
+    300 ms: a replica's location reaches a follower only by a full
+    report); the seconds from the launch to one leader, and each node's
+    term and role. (b) Phase feed's shape at one replica with a writer
+    of 4 KiB files beside it, the leader SIGKILLed after shard
+    HA_KILL_AFTER: the seconds to a new leader and until each writer has
+    its next acknowledgement, no caller error, every acknowledged file on
+    the new leader with its length and the survivors equal (journal
+    head, files); the killed master started again, and the seconds until
+    its head is the leader's. (c) A follower stopped and its journal and
+    KV directory wiped; HA_PADS files with an 8 MiB xattr each (SET_ATTR),
+    so that the namespace exceeds MAX_FRAME; leadership handed to the
+    other follower (RAFT_TRANSFER, timed) and the wiped node started
+    again: it must hold the last pad, caught up by a chunked snapshot
+    (more than one chunk; the leader's longest loop stall while it cut
+    and sent it); the terms show whether an election followed. (d)
+    ``GpuTrainFeed`` over the shards, a RAFT_TRANSFER HA_TRANSFER_AFTER
+    batches in: every batch equal to its tokens, batches/s beside phase
+    client's. (e) The shards and the small files read through the client
+    and pinned by the workers' promote cycles (K1 launches equal to the
+    pins), three flagship steps on the pinned copy of the first shard
+    (K3). Every master's dump after its stop: the ``raft.*`` counters.
+    The phase's masters and workers are stopped and its directory
+    removed, however it ends."""
+    import signal
+    import threading
+
+    from curvine_tpu_torch.gpu import cuda_ops, flash
+    from curvine_tpu_torch.gpu.loader import GpuTrainFeed
+    base = os.path.join(root, "ha")
+    os.makedirs(base)
+    res: dict = {}
+    workers: list[PortWorker] = []
+    nodes: dict = {}
+    tokens = ufs_tokens(seed, SHARDS, 0x6861)
+    shard_tokens = SHARD_BYTES // 4
+    kernels = [getattr(flash, nm) for nm in K3_NAMES]
+    cfg = _flagship()
+    paths = [f"/ha/train/shard-{i:05d}.bin" for i in range(SHARDS)]
+    t_phase = time.perf_counter()
+
+    def small_bytes(i: int) -> bytes:
+        return i.to_bytes(4, "little") * (KV_SMALL // 4)
+
+    def restart(nid: int) -> dict:
+        """Node ``nid``, stopped or killed, started again on its conf."""
+        proc, d, conf, n = nodes[nid]
+        if proc.poll() is None:
+            stop_master(proc)
+        else:
+            proc.wait()
+            proc.stdout.close()
+        nodes[nid][0], info = start_master(d, conf, n)
+        nodes[nid][3] = n + 1
+        return info
+
+    try:
+        # (a) the group
+        nodes, addrs, infos, t0 = start_ha(base)
+        st, _ = one_leader(addrs)
+        elect_s = time.perf_counter() - t0
+        addr_of = {s["node_id"]: a for s, a in zip(st, addrs)}
+        leader = st[0]["leader_id"]
+        res["a"] = dict(elect_s=elect_s, term=st[0]["term"], leader=leader,
+                        nodes={s["node_id"]: {"role": s["role"],
+                                              "term": s["term"]} for s in st},
+                        start_s={n: i["start_s"] for n, i in infos.items()})
+        for i, name in enumerate("ab"):
+            workers.append(PortWorker(
+                addrs, os.path.join(base, name), KV_TIER_BYTES, dev,
+                coords=(i, 0), hbm_bytes=KV_HBM_BYTES,
+                report_ms=HA_REPORT_MS))
+        by_id = {pw.worker.worker_id: pw for pw in workers}
+        for a in addrs:
+            await_live(a, list(by_id), phase="ha")
+        log(f"ha (a): {HA_MASTERS} of the port's masters (one raft group, "
+            f"each its own process, journal and KV directory) elected node "
+            f"{leader} in term {st[0]['term']} {elect_s:.3f}s after the "
+            f"launch; roles {[(s['node_id'], s['role']) for s in st]}; "
+            f"both workers live on all three")
+
+        # (b) writers through the leader's death
+        acked: list[tuple[str, float, float]] = []
+        done = threading.Event()
+        failed: list[BaseException] = []
+        kill: dict = {}
+
+        def finished() -> bool:
+            """The shards are written, and a small file begun after the
+            kill is acknowledged (or HA_LIMIT_S passed since it)."""
+            return done.is_set() and (
+                "t" not in kill or (acked and acked[-1][1] > kill["t"])
+                or time.perf_counter() - kill["t"] > HA_LIMIT_S)
+
+        def small():
+            async def run():
+                async with port_client(addrs,
+                                       conn_retry_max=KV_RETRY_MAX) as c:
+                    i = 0
+                    while not finished():
+                        d = f"/ha/small/d{i // 16:04d}"
+                        t = time.perf_counter()
+                        if i % 16 == 0:
+                            await c.meta.mkdir(d)
+                        await c.write_all(f"{d}/f{i:05d}", small_bytes(i))
+                        acked.append((f"{d}/f{i:05d}", t,
+                                      time.perf_counter()))
+                        i += 1
+            try:
+                asyncio.run(run())
+            except BaseException as e:  # noqa: BLE001 — raised below
+                failed.append(e)
+
+        def watch():
+            """The seconds from the kill to a new leader the survivors
+            agree on."""
+            survivors = [a for n, a in addr_of.items() if n != leader]
+            st2, _s = one_leader(survivors, above_term=res["a"]["term"],
+                                 what="a new leader after the kill")
+            kill["elected"] = time.perf_counter()
+            kill["status"] = st2
+
+        async def writers():
+            async with port_client(addrs, conn_retry_max=KV_RETRY_MAX) as c:
+                th = threading.Thread(target=small, name="ha-small")
+                th.start()
+                t0w = time.perf_counter()
+                shard_t = []
+                wt = None
+                try:
+                    await c.meta.mkdir("/ha/train")
+                    for i, p in enumerate(paths):
+                        await c.write_all(p, tokens[i * shard_tokens:
+                                                    (i + 1) * shard_tokens])
+                        shard_t.append(time.perf_counter())
+                        if i + 1 == HA_KILL_AFTER:
+                            kill["t"] = time.perf_counter()
+                            kill["acked"] = len(acked)
+                            os.kill(nodes[leader][0].pid, signal.SIGKILL)
+                            wt = threading.Thread(target=watch)
+                            wt.start()
+                finally:
+                    done.set()
+                    await asyncio.to_thread(th.join)
+                    if wt is not None:
+                        await asyncio.to_thread(wt.join)
+                if failed:
+                    raise failed[0]
+                return shard_t, t0w
+        shard_t, t0w = asyncio.run(writers())
+        if "elected" not in kill:
+            raise AssertionError("ha (b): no new leader after the kill")
+        new_leader = kill["status"][0]["leader_id"]
+        survivors = {n: a for n, a in addr_of.items() if n != leader}
+        after = [a for _p, t, a in acked if t > kill["t"]]
+        small_next = min(after) - kill["t"] if after else None
+        shard_next = shard_t[HA_KILL_AFTER] - kill["t"]
+
+        async def survey(a):
+            """Every file under /ha on the master at ``a``: its length,
+            whether it is complete, its blocks (id, length), those with
+            bytes and no live location, and those of no bytes (a block
+            whose ADD_BLOCK was retried on the new leader, whose retry
+            cache never saw the first: it was left empty)."""
+            async with port_client(a) as c:
+                out = {}
+                dirs = ["/ha"]
+                while dirs:
+                    for st in await c.meta.list_status(dirs.pop()):
+                        if st.is_dir:
+                            dirs.append(st.path)
+                            continue
+                        lbs = (await c.meta.get_block_locations(
+                            st.path)).block_locs
+                        out[st.path] = {
+                            "len": st.len, "complete": st.is_complete,
+                            "blocks": sorted([lb.block.id, lb.block.len]
+                                             for lb in lbs),
+                            "unlocated": [lb.block.id for lb in lbs
+                                          if lb.block.len and not lb.locs],
+                            "empty": [lb.block.id for lb in lbs
+                                      if not lb.block.len]}
+                return out
+
+        def heads():
+            return {s["node_id"]: s["last_seq"]
+                    for s in asyncio.run(raft_statuses(
+                        list(survivors.values()))) if s}
+        conv_s = _poll(lambda: len(set(heads().values())) == 1
+                       and len(heads()) == 2, HA_LIMIT_S,
+                       "the survivors at one journal head", 0.05, "ha")
+        ns = asyncio.run(survey(survivors[new_leader]))
+        located_s = _poll(
+            lambda: not any(f["unlocated"] for f in asyncio.run(
+                survey(survivors[new_leader])).values()),
+            HA_LIMIT_S, "every block with bytes located on the new leader",
+            0.1, "ha")
+        ns = asyncio.run(survey(survivors[new_leader]))
+        other = next(n for n in survivors if n != new_leader)
+        ns_other = asyncio.run(survey(survivors[other]))
+
+        def files(x):
+            return {p: (f["len"], f["complete"], f["blocks"])
+                    for p, f in x.items()}
+        missing = [p for p, _t, _a in acked
+                   if ns.get(p, {}).get("len") != KV_SMALL
+                   or not ns[p]["complete"]]
+        shards_bad = [p for p in paths
+                      if ns.get(p, {}).get("len") != SHARD_BYTES
+                      or not ns[p]["complete"]]
+        if missing or shards_bad or files(ns) != files(ns_other) \
+                or not kill["acked"] or not after:
+            raise AssertionError(
+                f"ha (b): {len(missing)} of {len(acked)} acknowledged small "
+                f"files missing or short ({missing[:5]}), shards {shards_bad}"
+                f", the survivors' files equal: {files(ns) == files(ns_other)}"
+                f", {kill['acked']} small files before the kill, "
+                f"{len(after)} begun after it")
+        head = heads()[new_leader]
+        t = time.perf_counter()
+        again = restart(leader)
+        caught_s = _poll(
+            lambda: (lambda h: h.get(leader) is not None
+                     and h.get(leader) >= h.get(new_leader, 1 << 62))(
+                {s["node_id"]: s["last_seq"] for s in asyncio.run(
+                    raft_statuses(list(addr_of.values()))) if s}),
+            HA_LIMIT_S, "the restarted master at the leader's head", 0.05,
+            "ha")
+        res["b"] = dict(
+            shards=SHARDS, write_s=shard_t[-1] - t0w, small_files=len(acked),
+            small_before_kill=kill["acked"], killed=leader,
+            new_leader=new_leader, term=kill["status"][0]["term"],
+            elect_s=kill["elected"] - kill["t"], shard_next_s=shard_next,
+            small_next_s=small_next, converge_s=conv_s, located_s=located_s,
+            empty_blocks=sum(len(f["empty"]) for f in ns.values()),
+            head=head, restart_s=again["start_s"],
+            caught_up_s=time.perf_counter() - t,
+            caught_up_after_start_s=caught_s,
+            retry_max=KV_RETRY_MAX)
+        rb = res["b"]
+        log(f"ha (b): {SHARDS} shards of {SHARD_BYTES // MiB} MiB written "
+            f"to /ha/train at one replica in {rb['write_s']:.3f}s beside "
+            f"{len(acked)} files of {KV_SMALL} bytes; the leader (node "
+            f"{leader}) killed (SIGKILL) after shard {HA_KILL_AFTER}'s "
+            f"commit with {kill['acked']} small files acknowledged; node "
+            f"{new_leader} leader of term {rb['term']} {rb['elect_s']:.3f}s "
+            f"after the kill; the writers' next acknowledgements "
+            f"{shard_next:.3f}s (shards) and {small_next:.3f}s (small files) "
+            f"after it; no caller saw an error (retrying up to "
+            f"{KV_RETRY_MAX} times); every acknowledged file on the new "
+            f"leader with its length, the survivors at one head "
+            f"({rb['head']}) with the same files ({rb['empty_blocks']} empty "
+            f"blocks of retried ADD_BLOCKs); the killed master back in "
+            f"{rb['restart_s']:.3f}s and at the leader's head "
+            f"{caught_s:.3f}s after its start")
+
+        # (c) a chunked snapshot install at full frame size
+        st, _ = one_leader(list(addr_of.values()))
+        lead_c = st[0]["leader_id"]
+        f1, f2 = [n for n in sorted(addr_of) if n != lead_c]
+        stop_master(nodes[f1][0])
+        jdir = os.path.join(nodes[f1][1], "cluster", "journal")
+        shutil.rmtree(jdir)
+        shutil.rmtree(jdir + "-meta")
+        pad = "x" * HA_PAD
+
+        async def pads():
+            from curvine_tpu_torch.common.types import SetAttrOpts
+            async with port_client(addrs,
+                                   conn_retry_max=KV_RETRY_MAX) as c:
+                await c.meta.mkdir("/ha/fat")
+                for i in range(HA_PADS):
+                    await c.meta.create_file(f"/ha/fat/f{i}")
+                    await c.meta.complete_file(f"/ha/fat/f{i}", 0)
+                    await c.meta.set_attr(
+                        f"/ha/fat/f{i}", SetAttrOpts(add_x_attr={"pad": pad}))
+                t = time.perf_counter()
+                target = await c.meta.raft_transfer(f2)
+                return target, time.perf_counter() - t
+        t = time.perf_counter()
+        target, transfer_s = asyncio.run(pads())
+        pads_s = time.perf_counter() - t - transfer_s
+        st, _ = one_leader([addr_of[lead_c], addr_of[f2]])
+        term_transfer = st[0]["term"]
+        again = restart(f1)
+        wiped_run = f"{f1}.{nodes[f1][3] - 1}"      # its dump's name
+
+        def holds_pad() -> bool:
+            async def run():
+                async with port_client(addr_of[f1]) as c:
+                    if not await c.meta.exists(f"/ha/fat/f{HA_PADS - 1}"):
+                        return False
+                    stt = await c.meta.file_status(f"/ha/fat/f{HA_PADS - 1}")
+                    return len(stt.x_attr.get("pad", "")) == HA_PAD
+            try:
+                return asyncio.run(run())
+            except Exception:  # noqa: BLE001 — installing: asked again
+                return False
+        install_s = _poll(holds_pad, HA_LIMIT_S,
+                          "the wiped master holding the last pad", 0.1, "ha")
+        st, _ = one_leader(list(addr_of.values()))
+        res["c"] = dict(stopped=f1, target=target, transfer_s=transfer_s,
+                        pads=HA_PADS, pad_bytes=HA_PAD, pads_s=pads_s,
+                        restart_s=again["start_s"], install_s=install_s,
+                        term_after_transfer=term_transfer,
+                        term_after_install=st[0]["term"],
+                        leader_after_install=st[0]["leader_id"])
+        rc = res["c"]
+        if target != f2 or rc["leader_after_install"] != f2:
+            raise AssertionError(f"ha (c): the transfer went to {target}, "
+                                 f"the leader is {rc['leader_after_install']}"
+                                 f", not node {f2}")
+        log(f"ha (c): node {f1} stopped and wiped; {HA_PADS} files with an "
+            f"{HA_PAD // MiB} MiB xattr each set in {pads_s:.3f}s; "
+            f"leadership handed from node {lead_c} to node {f2} in "
+            f"{transfer_s:.3f}s (term {term_transfer}); node {f1} back in "
+            f"{rc['restart_s']:.3f}s and holding the last pad "
+            f"{install_s:.3f}s after its start; term {rc['term_after_install']}"
+            f" after the install ({'no' if rc['term_after_install'] == term_transfer else 'AN'}"
+            f" election since the transfer)")
+
+        # (d) the feed through a second failover
+        expect = torch.from_numpy(tokens).to(dev)
+        per_batch = BATCH * SEQ
+
+        async def feed():
+            async with port_client(addrs,
+                                   conn_retry_max=KV_RETRY_MAX) as c:
+                f = GpuTrainFeed(c, "/ha/train", BATCH, SEQ, device=dev)
+                bad = torch.zeros((), dtype=torch.int64, device=dev)
+                n, tr = 0, None
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                async for b in f:
+                    ref = expect[n * per_batch:(n + 1) * per_batch]
+                    bad += (b != ref.view(BATCH, SEQ)).sum()
+                    n += 1
+                    if n == HA_TRANSFER_AFTER:
+                        tr = asyncio.ensure_future(timed_transfer(c))
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t
+                return n, int(bad), secs, await tr
+
+        async def timed_transfer(c):
+            t = time.perf_counter()
+            target = await c.meta.raft_transfer()
+            return target, time.perf_counter() - t
+        n, bad, feed_s, (target_d, transfer_d) = asyncio.run(feed())
+        del expect
+        n_expect = tokens.size // (BATCH * SEQ)
+        st, _ = one_leader(list(addr_of.values()))
+        if n != n_expect or bad or st[0]["leader_id"] != target_d \
+                or target_d == f2:
+            raise AssertionError(f"ha (d): {n} batches of {n_expect}, {bad} "
+                                 f"tokens unequal; transfer to {target_d}, "
+                                 f"leader {st[0]['leader_id']}")
+        res["d"] = dict(batches=n, feed_s=feed_s, batches_per_s=n / feed_s,
+                        client_batches_per_s=client_res["batches_per_s"],
+                        target=target_d, transfer_s=transfer_d,
+                        term=st[0]["term"])
+        log(f"ha (d): one epoch of GpuTrainFeed over /ha/train, {n} batches "
+            f"at {BATCH}x{SEQ}, each equal to its tokens, through a "
+            f"RAFT_TRANSFER {HA_TRANSFER_AFTER} batches in (node {f2} -> "
+            f"{target_d}, {transfer_d:.3f}s, term {st[0]['term']}): "
+            f"{n / feed_s:.2f} batches/s against phase client's "
+            f"{client_res['batches_per_s']:.2f}")
+
+        # (e) the device path: pins (K1) and steps (K3)
+        small_paths = [p for p, _t, _a in acked]
+        want = paths + small_paths
+        holder, locs = {}, {}
+
+        async def heat(todo):
+            async with port_client(addrs) as c:
+                for p in todo:
+                    fb = await c.meta.get_block_locations(p)
+                    lb = next(x for x in fb.block_locs if x.block.len)
+                    holder[p] = lb.block.id
+                    locs[p] = lb.locs[0].worker_id
+                    r = await c.open(p)
+                    try:
+                        await r.read_all()
+                    finally:
+                        await r.close()
+
+        def unpinned() -> list[str]:
+            return [p for p in want if p not in locs or not
+                    by_id[locs[p]].worker.hbm_holds(holder[p])]
+
+        pins0 = sum(pw.worker.metrics.counters.get("blocks.hbm_pinned", 0)
+                    for pw in workers)
+        cuda_ops.block_checksum.launches = 0
+        cycles = 0
+        while cycles < 8 and unpinned():
+            asyncio.run(heat(unpinned()))
+            for pw in workers:
+                pw.call(pw.worker._promote_once())
+            cycles += 1
+        k1 = cuda_ops.block_checksum.launches
+        pins = sum(pw.worker.metrics.counters.get("blocks.hbm_pinned", 0)
+                   for pw in workers) - pins0
+        if unpinned() or k1 != pins or pins < len(want):
+            raise AssertionError(f"ha (e): {cycles} promote cycles, {pins} "
+                                 f"pins, {k1} K1 launches, not pinned "
+                                 f"{unpinned()[:5]}")
+        pinned = {}
+        for i, p in enumerate(paths):
+            got = by_id[locs[p]].worker.hbm_get(holder[p]).reshape(
+                -1).view(torch.int32)
+            if not torch.equal(got, torch.from_numpy(
+                    tokens[i * shard_tokens:(i + 1) * shard_tokens]).to(dev)):
+                raise AssertionError(f"ha (e): {p}'s device copy differs "
+                                     f"from its tokens")
+            pinned[p] = got
+        for p in small_paths:
+            got = by_id[locs[p]].worker.hbm_get(holder[p]).reshape(-1)
+            want_b = small_bytes(int(p.rsplit("f", 1)[1]))
+            if bytes(got.cpu().numpy().tobytes()) != want_b:
+                raise AssertionError(f"ha (e): {p}'s device copy differs")
+        per_step = TRAIN_BATCH * TRAIN_SEQ
+        first = tokens[:per_step * UFS_STEPS].reshape(UFS_STEPS, TRAIN_BATCH,
+                                                      TRAIN_SEQ)
+        seen = []
+
+        def check(b):
+            seen.append(bool(torch.equal(b, torch.from_numpy(
+                first[len(seen)]).to(dev))))
+
+        async def from_tier0():
+            src = pinned[paths[0]]
+            for k in range(UFS_STEPS):
+                yield src[k * per_step:(k + 1) * per_step].view(
+                    TRAIN_BATCH, TRAIN_SEQ)
+
+        for fn in kernels:
+            fn.launches = 0
+        step_s, losses = asyncio.run(timed_steps(step, params, from_tier0(),
+                                                 check))
+        launches = {fn.__name__: fn.launches for fn in kernels}
+        del pinned, got
+        if seen != [True] * UFS_STEPS or not all(map(math.isfinite, losses)) \
+                or set(launches.values()) != {cfg.n_layers * UFS_STEPS}:
+            raise AssertionError(f"ha (e): batches equal to their tokens "
+                                 f"{seen}, losses {losses}, K3 launches "
+                                 f"{launches}")
+        res["e"] = dict(cycles=cycles, pins=pins, small_pins=len(small_paths),
+                        k1_launches=k1, losses=losses,
+                        step_ms=[x * 1e3 for x in step_s], launches=launches)
+        log(f"ha (e): the {SHARDS} shards and {len(small_paths)} small files "
+            f"read through the client and pinned by the workers' promote "
+            f"cycles ({cycles}): {pins} pins, {k1} K1 launches, each device "
+            f"copy equal to its bytes; {UFS_STEPS} flagship steps at "
+            f"{TRAIN_BATCH}x{TRAIN_SEQ} on batches taken from the pinned copy "
+            f"of {paths[0]}, each equal to its tokens: losses "
+            f"{[round(x, 4) for x in losses]}, step ms "
+            f"{[round(x * 1e3, 2) for x in step_s]}; K3 launches {launches}")
+
+        # every master's dump: the raft counters
+        for nid in sorted(nodes):
+            stop_master(nodes[nid][0])
+        dumps = {}
+        for nid, (_p, d, _c, n) in sorted(nodes.items()):
+            for k in range(n):
+                path = os.path.join(d, f"master{k}.json")
+                if os.path.exists(path):    # a SIGKILLed run wrote none
+                    with open(path) as f:
+                        dumps[f"{nid}.{k}"] = json.load(f)
+        raft = {k: {c: v for c, v in {**x["counters"], **x["gauges"]}.items()
+                    if c.startswith("raft.")} for k, x in dumps.items()}
+        sent = sum(r.get("raft.snapshot_chunks_sent", 0)
+                   for r in raft.values())
+        installs = {k: r.get("raft.snapshot_installs", 0)
+                    for k, r in raft.items()}
+        stall = max(r.get("raft.snapshot_loop_stall_ms", 0)
+                    for r in raft.values())
+        res["raft"] = raft
+        res["c"].update(chunks_sent=sent, installs=installs,
+                        loop_stall_ms=stall,
+                        cut_s=max(r.get("raft.snapshot_build_s", 0)
+                                  for r in raft.values()),
+                        pack_s=max(r.get("raft.snapshot_pack_s", 0)
+                                   for r in raft.values()))
+        # the wiped node's run after the wipe installed the stream
+        if installs.get(wiped_run, 0) < 1 \
+                or sent * 4 * MiB <= 64 * MiB + 1024:
+            raise AssertionError(f"ha (c): {sent} chunks sent, installs "
+                                 f"{installs}")
+        res["b"]["rejoin_installs"] = installs.get(f"{leader}.1", 0)
+        res["phase_s"] = time.perf_counter() - t_phase
+        log(f"ha: the masters' raft counters {raft}")
+        log(f"ha (c): {sent} snapshot chunks sent in all (the pads' stream "
+            f"past MAX_FRAME), installs {installs}; the leader's longest "
+            f"loop stall while it cut and sent a snapshot {stall:.1f} ms "
+            f"(the cut {res['c']['cut_s']:.3f}s on the loop, the build and "
+            f"pack {res['c']['pack_s']:.3f}s on a thread); the restarted "
+            f"ex-leader caught up by "
+            f"{'a snapshot' if res['b']['rejoin_installs'] else 'the log'}; "
+            f"the phase {res['phase_s']:.1f}s")
+    finally:
+        for pw in workers:
+            pw.stop()
+        for n in nodes.values():
+            stop_master(n[0])
+        shutil.rmtree(base, ignore_errors=True)
+    res["k1_launches"] = k1
+    res["launches"] = launches
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6185,7 +6849,7 @@ def main() -> int:
     need = N_BLOCKS * BLOCK + SHARDS * SHARD_BYTES + WORKER_TIER_BYTES \
         + 2 * ICI_TIER_BYTES + 3 * REP_TIER_BYTES + UFS_PHASE_BYTES \
         + RECOVER_PHASE_BYTES + DRAIN_PHASE_BYTES + EC_PHASE_BYTES \
-        + KV_PHASE_BYTES
+        + KV_PHASE_BYTES + HA_PHASE_BYTES
     root = pick_data_dir(need)
     log(f"main: data under {root} (needs {need / GiB:.2f} GiB and 1 GiB "
         f"spare: {N_BLOCKS} blocks and {SHARDS} POSIX shards of 64 MiB, "
@@ -6198,7 +6862,9 @@ def main() -> int:
         f"pulls, at most {DRAIN_PHASE_BYTES / GiB:.2f} GiB, phase ec's "
         f"replicas, cells and rebuilt cells, at most "
         f"{EC_PHASE_BYTES / GiB:.2f} GiB, phase kv's namespace, journals "
-        f"and shards, at most {KV_PHASE_BYTES / GiB:.2f} GiB)")
+        f"and shards, at most {KV_PHASE_BYTES / GiB:.2f} GiB, phase ha's "
+        f"shards and three masters' journals and KV directories, at most "
+        f"{HA_PHASE_BYTES / GiB:.2f} GiB)")
     cluster = pw = None
     try:
         cuda_ops.block_checksum.launches = 0
@@ -6229,6 +6895,8 @@ def main() -> int:
         results["ec"] = phase_ec(dev, root, args.seed, params, step,
                                  results["client"])
         results["kv"] = phase_kv(dev, root, args.seed, params, step,
+                                 results["client"])
+        results["ha"] = phase_ha(dev, root, args.seed, params, step,
                                  results["client"])
         del step
         results["ckpt"], probe = phase_ckpt(dev, info["addr"], args.seed,
@@ -6280,8 +6948,9 @@ def main() -> int:
     log("main: no process of this run (this one, where the port's workers "
         "run, and each of the port's masters it started: the cluster's "
         "twice, phase drain's twice, phase ec's, phase kv's twice, phase "
-        "recover's, phase ici's and phase replicate's) loaded a module of "
-        "JAX or of the JAX package")
+        "ha's three and their two restarts, phase recover's, phase ici's "
+        "and phase replicate's) loaded a module of JAX or of the JAX "
+        "package")
     if launches != results["main"]["pins"]:
         raise AssertionError(f"{launches} kernel launches for "
                              f"{results['main']['pins']} pins")
@@ -6298,6 +6967,7 @@ def main() -> int:
                     + results["drain"]["k1_launches"]
                     + results["ec"]["k1_launches"]
                     + results["kv"]["k1_launches"]
+                    + results["ha"]["k1_launches"]
                     + results["recover"]["k1_launches"],
         "max_abs_err": k["max_abs_err"],
         "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
@@ -6317,6 +6987,7 @@ def main() -> int:
                         + results["drain"]["launches"][name]
                         + results["ec"]["launches"][name]
                         + results["kv"]["launches"][name]
+                        + results["ha"]["launches"][name]
                         + results["mesh"]["launches"][name]
                         + results["pipeline"]["launches"][name]
                         + results["recover"]["launches"][name],

@@ -11,7 +11,10 @@ calls the cache client's read path and the loader's writes need (:211-410,
 ``decommission_worker`` (:517-524, which answers the worker's state);
 and the mount and job calls (:533-603): ``mount``, ``umount``,
 ``update_mount``, ``mount_table``, ``get_mount_info``, ``submit_job``,
-``submit_load``, ``submit_export``, ``job_status`` and ``cancel_job``.
+``submit_load``, ``submit_export``, ``job_status`` and ``cancel_job``;
+and the raft membership plane (:439-470): ``raft_status`` (any master
+answers), ``refresh_masters`` (the master list from the active raft
+config), ``raft_member_change`` and ``raft_transfer``.
 Every mutation carries
 (client_id, call_id) for the master's retry cache, and every request the
 conf's ``user`` and ``groups`` for the master's ACL checks (empty, the
@@ -24,7 +27,7 @@ file.
 Left out (ROADMAP A3): the metadata lease cache and its invalidation
 pushes, the native fast metadata port (every call goes to the master's
 RPC port, which answers them all), tracing, and the other calls (locks,
-raft membership, links)."""
+links)."""
 
 from __future__ import annotations
 
@@ -323,3 +326,35 @@ class FsClient:
 
     async def cancel_job(self, job_id: str) -> None:
         await self.call(RpcCode.CANCEL_JOB, {"job_id": job_id}, mutate=True)
+
+    # ---------------- raft membership plane ----------------
+
+    async def raft_status(self) -> dict:
+        """RAFT_STATUS of the master this client points at: any node
+        answers (role, term, leader, voters and learners, match lag)."""
+        return await self.call(RpcCode.RAFT_STATUS, {})
+
+    async def refresh_masters(self) -> list[str]:
+        """Take the master list from the cluster's active raft config (a
+        node added since the conf was written is not in it)."""
+        st = await self.raft_status()
+        members = [a for a in (st.get("voters") or {}).values() if a]
+        if members:
+            cur = (self.masters[self._active]
+                   if self._active < len(self.masters) else None)
+            self.masters = members
+            self._active = (members.index(cur) if cur in members else 0)
+        return list(self.masters)
+
+    async def raft_member_change(self, action: str, node_id: int,
+                                 addr: str = "") -> dict:
+        """Add, promote or remove a member, on the leader; the answer
+        comes once the config entry is committed on a quorum."""
+        return await self.call(RpcCode.RAFT_MEMBER_CHANGE,
+                               {"action": action, "node_id": node_id,
+                                "addr": addr}, mutate=True)
+
+    async def raft_transfer(self, target: int | None = None) -> int:
+        """Hand leadership over; returns the new leader's node id."""
+        rep = await self.call(RpcCode.RAFT_TRANSFER, {"target": target})
+        return rep.get("target", 0)

@@ -16,8 +16,12 @@ reference's default of 65,536 inodes, a constant) or ``"mem"`` (the
 namespace in RAM, made durable by the journal's snapshots); any other
 value of either is refused by name. The
 master's fields that name a feature the port's master does not have are
-constants (``MASTER_FIXED``), at the value it implements: raft and its
-membership knobs, the sharded namespace, the native fast metadata port
+constants (``MASTER_FIXED``), at the value it implements: the sharded
+namespace (``meta_shards`` stays 1: the reference refuses sharding
+under raft anyway), raft's tuning knobs that no cluster file sets
+(``raft_promote_lag``, ``raft_snapshot_chunk_mb`` and
+``raft_transfer_timeout_ms``, at the reference's defaults), the native
+fast metadata port
 (the reference's default is on), ACLs beyond the superuser gate
 (``acl_enabled`` stays on), the UFS backup, the TTL scanner, the read
 leases, the audit log, the dir watchdog and ``min_replication``. A file
@@ -26,6 +30,9 @@ that sets one of them otherwise is refused by name.
 (the torus-distance spread) among them; ``ici_mesh_shape`` (the torus
 the hop distance wraps on) and ``replication_pull_budget_ms`` (the
 budget of one pull the replication manager dispatches) are fields.
+A node's own raft settings (:104-119) are fields with the reference's
+defaults: ``raft_peers`` (every master's ``host:port``; empty, a single
+master), ``raft_node_id`` and ``raft_learner``.
 ``fast_port``, ``web_port`` and ``worker_heartbeat_ms`` are ignored, as
 the reference's master ignores them with the fast port off and no web
 server.
@@ -80,9 +87,9 @@ MASTER_FIXED = {
     "acl_enabled": True, "audit_log": False, "watchdog_stall_ms": 10_000,
     "ufs_backup_uri": "", "ufs_backup_interval_s": 300, "meta_shards": 1,
     "shard_backend": "process", "shard_dir_cache": 65_536,
-    "raft_peers": [], "raft_node_id": 1, "raft_promote_lag": 64,
-    "raft_snapshot_chunk_mb": 4, "raft_transfer_timeout_ms": 5_000,
-    "raft_learner": False, "ttl_check_ms": 1_000, "ttl_bucket_ms": 1_000,
+    "raft_promote_lag": 64, "raft_snapshot_chunk_mb": 4,
+    "raft_transfer_timeout_ms": 5_000,
+    "ttl_check_ms": 1_000, "ttl_bucket_ms": 1_000,
     "min_replication": 1, "meta_cache_inodes": 65_536}
 PLACEMENTS = ("local", "random", "robin", "weighted", "load", "ici")
 META_STORES = ("kv", "mem")
@@ -135,6 +142,11 @@ class MasterConf:
     # submit and the destination's stream from the source), carried in
     # the request header
     replication_pull_budget_ms: int = 20_000
+    # raft (HA); empty peers: a single master on its journal
+    raft_peers: list[str] = field(default_factory=list)
+    raft_node_id: int = 1
+    # start this node as a non-voting learner
+    raft_learner: bool = False
 
 
 @dataclass

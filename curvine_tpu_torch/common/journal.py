@@ -7,8 +7,8 @@ files are the reference's, so either package's master reopens the
 other's journal:
 
 - an entry is the frame ``[u32 len][u32 crc32][payload]``, the payload
-  ``[seq, op, args, term]`` (``term`` is 0 on a single master; a
-  3-element entry reads as term 0);
+  ``[seq, op, args, term]``, ``term`` the raft term the entry was
+  written in (0 on a single master; a 3-element entry reads as term 0);
 - segments are ``edits-<first seq>.log``, rolled at ``SEGMENT_MAX``;
 - a snapshot is ``snapshot-<seq>``, the blob
   ``{"__snap__": state, "__last_term__": term}``, written to a temporary
@@ -18,10 +18,11 @@ other's journal:
   returned; a torn or corrupt tail is truncated at its first bad frame;
 - with the KV metadata store the store is the checkpoint: no snapshot
   is written, and ``gc_covered`` (:203-215) drops the closed segments
-  whose entries the store has applied.
-
-Left out: the raft bookkeeping (the seq → term window, ``term_of``,
-``reset_log``)."""
+  whose entries the store has applied;
+- the raft bookkeeping: ``term`` is stamped into every entry, ``term_of``
+  answers from a window of the recent entries' terms (16,384, pruned to
+  8,192), and ``reset_log`` drops every segment when a snapshot install
+  replaces the state."""
 
 from __future__ import annotations
 
@@ -37,7 +38,6 @@ log = logging.getLogger(__name__)
 
 _ENTRY = struct.Struct(">II")
 SEGMENT_MAX = 64 * 1024 * 1024
-TERM = 0                # a single master's raft term, in every entry
 
 
 def _pack(obj) -> bytes:
@@ -54,11 +54,28 @@ class Journal:
         self.fsync = fsync
         os.makedirs(self.dir, exist_ok=True)
         self.seq = 0                       # last written seq
+        self.term = 0                      # current raft term (stamped in)
         self.last_term = 0                 # term of the last entry on disk
         self.last_snapshot_seq = 0         # set by recover()
         self._fh = None
         self._fh_size = 0
         self._unflushed = False
+        # seq -> term of the recent entries (log matching); bounded
+        self._terms: dict[int, int] = {}
+
+    def note_term(self, seq: int, term: int) -> None:
+        self._terms[seq] = term
+        if len(self._terms) > 16_384:
+            cutoff = seq - 8_192
+            self._terms = {s: t for s, t in self._terms.items()
+                           if s >= cutoff}
+
+    def term_of(self, seq: int) -> int | None:
+        """Term of entry ``seq`` if known (None past the retained window:
+        the caller falls back to a snapshot install)."""
+        if seq == 0:
+            return 0
+        return self._terms.get(seq)
 
     @staticmethod
     def _frame(seq: int, op: str, args: dict, term: int) -> bytes:
@@ -66,14 +83,17 @@ class Journal:
         return _ENTRY.pack(len(payload), zlib.crc32(payload)) + payload
 
     # ---------- write ----------
-    def append(self, op: str, args: dict, flush: bool = True) -> int:
+    def append(self, op: str, args: dict, term: int | None = None,
+               flush: bool = True) -> int:
         """Append one entry. With ``flush=False`` the frame lands in the
         stdio buffer only, and a later :meth:`sync` (the group commit
         point) makes it durable: the RPC reply for this entry must not
         leave before that sync returns."""
         self.seq += 1
-        self.last_term = TERM
-        frame = self._frame(self.seq, op, args, TERM)
+        t = self.term if term is None else term
+        self.last_term = t
+        self.note_term(self.seq, t)
+        frame = self._frame(self.seq, op, args, t)
         fh = self._writer()
         fh.write(frame)
         self._fh_size += len(frame)
@@ -88,24 +108,24 @@ class Journal:
         return self.seq
 
     def append_batch(self, entries: list[tuple]) -> list[int]:
-        """Frame N ``(op, args)`` entries into one write and one flush
-        (and fsync). Returns the seqs. On a write failure the seq and the
-        file are restored, so no half batch stays in the log.
-
-        No caller in the port yet: the reference's one caller is the raft
-        follower's ``apply_replicated_batch``, which waits with raft
-        (ROADMAP A3d). It stays only for parity with the reference's
-        journal, held by its mirrored tests, so that follower lands on a
-        frame writer that is already tested."""
+        """Frame N ``(op, args)`` or ``(op, args, term)`` entries into one
+        write and one flush (and fsync); an entry without a term takes the
+        journal's. The raft follower's ``apply_replicated_batch`` passes
+        each entry's own term. Returns the seqs. On a write failure the
+        seq, the terms and the file are restored, so no half batch stays
+        in the log."""
         if not entries:
             return []
         fh = self._writer()
         seq0, term0 = self.seq, self.last_term
         frames, seqs = [], []
-        for op, args in entries:
+        for e in entries:
+            op, args = e[0], e[1]
+            term = e[2] if len(e) > 2 and e[2] is not None else self.term
             self.seq += 1
-            self.last_term = TERM
-            frames.append(self._frame(self.seq, op, args, TERM))
+            self.last_term = term
+            self.note_term(self.seq, term)
+            frames.append(self._frame(self.seq, op, args, term))
             seqs.append(self.seq)
         blob = b"".join(frames)
         try:
@@ -114,6 +134,8 @@ class Journal:
             if self.fsync:
                 os.fsync(fh.fileno())
         except Exception:
+            for s in seqs:
+                self._terms.pop(s, None)
             self.seq, self.last_term = seq0, term0
             try:
                 fh.truncate(self._fh_size)
@@ -177,6 +199,15 @@ class Journal:
             if segs[i + 1][0] - 1 <= before_seq and start_seq <= before_seq:
                 os.unlink(p)
 
+    def reset_log(self) -> None:
+        """Drop every log segment (a snapshot install): the entries on
+        disk may be of a history the installed snapshot supersedes, and a
+        restart would replay them."""
+        self._roll()
+        for _seq, p in self._list("edits-"):
+            os.unlink(p)
+        self._terms.clear()
+
     def gc_covered(self, applied_seq: int) -> None:
         """Drop the closed segments whose entries are all at or below
         ``applied_seq`` (the KV store's checkpoint, which writes no
@@ -213,6 +244,7 @@ class Journal:
             if isinstance(snap_state, dict) and "__snap__" in snap_state:
                 self.last_term = snap_state.get("__last_term__", 0)
                 snap_state = snap_state["__snap__"]
+                self.note_term(snap_seq, self.last_term)
         self.last_snapshot_seq = snap_seq
         entries: list = []
         last_seq = snap_seq
@@ -240,6 +272,7 @@ class Journal:
             rec = _unpack(data[start:end])
             seq, op, args = rec[0], rec[1], rec[2]
             term = rec[3] if len(rec) > 3 else 0
+            self.note_term(seq, term)
             if seq > snap_seq:
                 out.append((seq, op, args, term))
             if seq >= last_seq:

@@ -8,15 +8,19 @@ file (``common/conf.py``) configures one ``MasterServer``, which
 recovers its namespace from its metadata store and the journal under
 ``journal_dir`` and then serves. Once it serves, prints one JSON line,
 ``{"addr": "host:port", "pid": N, "jax_free": true or false,
-"recover_s": s, "journal_seq": N, "store": {...}, "recovery": {...}}``:
+"recover_s": s, "journal_seq": N, "store": {...}, "recovery": {...},
+"raft": {...} or null}``:
 ``jax_free`` says that no module
 named ``jax*``, ``curvine_tpu`` or ``curvine_tpu.*`` is loaded in this
 process, ``recover_s`` is the seconds from the server's construction to
 serving (the store's open and the journal's replay included), and
-``store`` and ``recovery`` are as in ``stats``. With
+``store`` and ``recovery`` are as in ``stats``, and ``raft`` is the
+node's ``RaftLite.status()`` under raft (null without). With
 ``--metrics-out``, once stopped it writes there what it counted
-(``stats``): the RPC counts, the metadata store's kind and engine, its
-KV directory's segments, and the recovery's figures."""
+(``stats``): the RPC counts, the counters and gauges (``raft.*`` among
+them), the metadata store's kind and engine, its KV directory's
+segments, the recovery's figures, and ``raft``, the status as it stood
+just before the stop."""
 
 from __future__ import annotations
 
@@ -53,12 +57,17 @@ def store_stats(master: MasterServer) -> dict:
                             for n in os.listdir(d))}
 
 
-def stats(master: MasterServer) -> dict:
+def raft_status(master: MasterServer) -> dict | None:
+    return master.raft.status() if master.raft is not None else None
+
+
+def stats(master: MasterServer, raft: dict | None = None) -> dict:
     """The master's counters and gauges, each code's ``rpc.<name>``
     histogram as its count and p50 and p99 in ms, the journal's last seq,
     the group commit's groups and entries, the store (``store_stats``)
     and the recovery's figures (inodes, blocks, ``applied_seq``, tail
-    entries replayed; ``MasterFilesystem.recovery``)."""
+    entries replayed; ``MasterFilesystem.recovery``), and ``raft``, the
+    raft status given."""
     m = master.metrics
     return {"rpc": {name[len("rpc."):]: {
                 "count": h.count, "p50_ms": 1e3 * h.quantile(0.5),
@@ -70,7 +79,8 @@ def stats(master: MasterServer) -> dict:
             "groups": master.fs.committer.groups,
             "entries": master.fs.committer.entries,
             "store": store_stats(master),
-            "recovery": dict(master.fs.recovery)}
+            "recovery": dict(master.fs.recovery),
+            "raft": raft}
 
 
 async def serve(conf: ClusterConf, metrics_out: str | None = None) -> None:
@@ -87,13 +97,15 @@ async def serve(conf: ClusterConf, metrics_out: str | None = None) -> None:
                           "recover_s": time.perf_counter() - t,
                           "journal_seq": master.fs.journal.seq,
                           "store": store_stats(master),
-                          "recovery": master.fs.recovery}), flush=True)
+                          "recovery": master.fs.recovery,
+                          "raft": raft_status(master)}), flush=True)
         await stop.wait()
     finally:
+        last = raft_status(master)
         await master.stop()
         if metrics_out:
             with open(metrics_out, "w") as f:
-                json.dump(stats(master), f)
+                json.dump(stats(master, last), f)
 
 
 def main() -> None:

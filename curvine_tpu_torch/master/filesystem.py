@@ -83,17 +83,29 @@ the block (:733-744).
 
 The port applies the journal ops ``mkdir``, ``create``, ``delete``,
 ``rename``, ``alloc_block``, ``commit_blocks``, ``complete``,
-``set_attr``, ``ec_plan``, ``ec_put``, the raft leader's ``noop``,
-``job_put``, ``job_del`` and ``worker_deco`` (:405-420), and, once the
-server's ``MountManager`` (``master/mount.py``) has attached its hooks,
-``mount_add``, ``mount_remove`` and ``mount_update``; a snapshot's
-``jobs``, ``ec``, ``mounts`` and ``deco`` sections are saved and
-loaded. Any other op (the reference's ``set_incomplete``, ``symlink``,
-``link``, ``resize``, ``free``, ``tx_*``, ``raft_conf``), and a
-snapshot that holds a raft config, stops recovery with
+``set_attr``, ``ec_plan``, ``ec_put``, the raft leader's ``noop``, the
+raft membership's ``raft_conf`` (:383-392: recorded as ``raft_conf``,
+which ``master/ha.py`` adopts), ``job_put``, ``job_del`` and
+``worker_deco`` (:405-420), and, once the server's ``MountManager``
+(``master/mount.py``) has attached its hooks, ``mount_add``,
+``mount_remove`` and ``mount_update``; a snapshot's ``jobs``, ``ec``,
+``mounts``, ``deco`` and ``raft_conf`` sections are saved and loaded.
+Any other op (the reference's ``set_incomplete``, ``symlink``, ``link``,
+``resize``, ``free``, ``tx_*``) stops recovery with
 ``UnportedJournalOp``, which names it: skipping it would drop state
-silently. Left out: the raft hooks, the two-phase transactions of the
-sharded namespace, and the audit log (ROADMAP §A items 3-4)."""
+silently.
+
+The raft hooks (:166-271): ``_log`` calls ``on_mutation`` (the leader's
+``RaftLite.on_mutation``) with each journaled entry's seq and term, also
+when its apply fails, so that the followers' seqs stay contiguous (they
+fail the same way and skip it). A follower journals a leader's batch
+with one flush and applies it in order (``apply_replicated_batch``: an
+entry whose apply fails is rolled back alone, and the KV batch commits
+under the tail's seq); ``install_snapshot`` replaces the whole state, then
+drops the log and writes the snapshot. ``check_lost_workers(act=False)``
+keeps the LOST bookkeeping of a follower without its repair. Left out:
+the two-phase transactions of the sharded namespace and the audit log
+(ROADMAP §A items 3-4)."""
 
 from __future__ import annotations
 
@@ -120,8 +132,6 @@ log = logging.getLogger(__name__)
 # the default storage policy in wire form (copied into each entry: journal
 # args never share mutable state)
 _DEFAULT_POLICY_WIRE = StoragePolicy().to_wire()
-# snapshot sections of the reference's features the port does not have
-_UNPORTED_SNAPSHOT_KEYS = ("raft_conf",)
 # a KV recovery commits its tail replay a batch every this many entries
 REPLAY_BATCH = 4096
 
@@ -168,6 +178,11 @@ class MasterFilesystem:
         self.on_worker_lost = None
         # set by MasterServer: the mount table (master/mount.py)
         self.mounts = None
+        # set by MasterServer under raft: RaftLite.on_mutation
+        self.on_mutation = None
+        # the active raft membership config, as the last raft_conf entry
+        # or snapshot set it (RaftLite adopts it)
+        self.raft_conf: dict | None = None
         # the runtime index of the store's stripe records: logical block
         # id -> stripe, and cell block id -> (logical block id, index)
         self.ec_stripes: dict[int, dict] = {}
@@ -287,6 +302,8 @@ class MasterFilesystem:
                     self.store.commit_applied(seq)
             if grouped:
                 self.committer.note()
+            if seq is not None and self.on_mutation is not None:
+                self.on_mutation(seq, op, args, self.journal.last_term)
             raise
         if self._kv:
             if grouped:
@@ -298,10 +315,58 @@ class MasterFilesystem:
         if grouped:
             self.committer.note()
         if seq is not None:
+            if self.on_mutation is not None:
+                self.on_mutation(seq, op, args, self.journal.last_term)
             self._entries_since_snapshot += 1
             if self._entries_since_snapshot >= self.snapshot_interval:
                 self.checkpoint()
         return result
+
+    def apply_replicated_batch(
+            self, entries: list[tuple[int, str, dict, int]]) -> None:
+        """A follower's apply of a leader's batch: journal the whole batch
+        with one flush, apply it in order, then land the group's KV writes
+        as one batch under the tail's seq. An entry whose apply fails (the
+        leader's failed the same way) is rolled back alone. A cancellation
+        marks nothing applied: the journal holds the batch, and a restart
+        replays it."""
+        assert self.journal is not None
+        if not entries:
+            return
+        self.journal.append_batch([(op, args, term)
+                                   for _seq, op, args, term in entries])
+        try:
+            for _seq, op, args, _term in entries:
+                try:
+                    self._apply(op, args)
+                    if self._kv:
+                        self.store.stage_entry()
+                except Exception as e:
+                    if self._kv:
+                        self.store.rollback()
+                    lvl = (log.warning if isinstance(e, err.CurvineError)
+                           else log.error)
+                    lvl("follower apply %s failed: %s", op, e)
+        except BaseException:
+            if self._kv:
+                self.store.rollback_group()
+            raise
+        if self._kv:
+            self.store.commit_applied(entries[-1][0])
+
+    def install_snapshot(self, state: dict, seq: int, last_term: int) -> None:
+        """Replace the whole state (a raft catch-up or a divergence's
+        heal), then drop the log, whose entries may be of a superseded
+        history, and write the snapshot."""
+        self._load_snapshot(state)
+        if self._kv:
+            self.store.commit_applied(seq)
+        if self.journal is not None:
+            self.journal.reset_log()
+            self.journal.seq = seq
+            self.journal.last_term = last_term
+            self.journal.note_term(seq, last_term)
+            self.journal.write_snapshot(state)
 
     def flush_group(self) -> None:
         """Commit any open journal group inline."""
@@ -323,12 +388,38 @@ class MasterFilesystem:
 
     def _snapshot_state(self) -> dict:
         """The whole namespace, as the reference's mem-store snapshot."""
+        return self.build_snapshot(self.snapshot_cut())
+
+    def snapshot_cut(self):
+        """A consistent cut of what a snapshot holds, taken between
+        entries on the loop; ``build_snapshot`` turns it into the state.
+        On the KV store the records are copied raw (``store.frozen()``,
+        a copy that grows with the namespace), and the decode may run on
+        another thread (a raft leader's snapshot: ROADMAP §C, C10); on the mem store the cut is
+        the state itself."""
         self.flush_group()
+        extra = {"deco": sorted(self.workers.deco_ids)}
+        if self.mounts is not None:
+            extra["mounts"] = self.mounts.snapshot_state()
+        if self.raft_conf is not None:
+            extra["raft_conf"] = self.raft_conf
+        if self._kv:
+            return self.store.frozen(), extra
+        return self._state_of(self.store, extra)
+
+    def build_snapshot(self, cut) -> dict:
+        """The state of a ``snapshot_cut``."""
+        if isinstance(cut, dict):
+            return cut
+        return self._state_of(*cut)
+
+    @staticmethod
+    def _state_of(store, extra: dict) -> dict:
         ch_map: dict[int, dict[str, int]] = {}
-        for pid, name, cid in self.store.iter_children_all():
+        for pid, name, cid in store.iter_children_all():
             ch_map.setdefault(pid, {})[name] = cid
         inodes = []
-        for node in self.store.iter_inodes():
+        for node in store.iter_inodes():
             inodes.append({
                 "id": node.id, "name": node.name, "ft": int(node.file_type),
                 "pid": node.parent_id, "mtime": node.mtime, "atime": node.atime,
@@ -343,25 +434,20 @@ class MasterFilesystem:
                 "ch": ch_map.get(node.id, {}) if node.is_dir else None,
             })
         blocks = [(bid, length, iid, rep)
-                  for bid, (length, iid, rep) in self.store.iter_blocks()]
-        state = {"next_id": self.store.get_counter("next_id", ROOT_ID + 1),
-                 "next_block_id": self.store.get_counter("next_block_id", 1),
+                  for bid, (length, iid, rep) in store.iter_blocks()]
+        state = {"next_id": store.get_counter("next_id", ROOT_ID + 1),
+                 "next_block_id": store.get_counter("next_block_id", 1),
                  "inodes": inodes, "blocks": blocks,
-                 "jobs": list(self.store.iter_jobs()),
-                 "ec": [[bid, stripe] for bid, stripe in self.store.iter_ec()],
-                 "deco": sorted(self.workers.deco_ids)}
-        if self.mounts is not None:
-            state["mounts"] = self.mounts.snapshot_state()
+                 "jobs": list(store.iter_jobs()),
+                 "ec": [[bid, stripe] for bid, stripe in store.iter_ec()]}
+        state.update(extra)
         return state
 
     def _load_snapshot(self, snap: dict) -> None:
-        held = [k for k in _UNPORTED_SNAPSHOT_KEYS if snap.get(k)]
         if snap.get("mounts") and self.mounts is None:
-            held.append("mounts")
-        if held:
             raise UnportedJournalOp(
-                f"the snapshot holds {held}, which the port's master does "
-                f"not apply (ROADMAP A3d)")
+                "the snapshot holds ['mounts'], which the master applies "
+                "only with a MountManager attached")
         self.store.clear()
         self.open_files = None       # rebuilt lazily from the new state
         have_entries = any(d.get("ch") is not None for d in snap["inodes"])
@@ -407,6 +493,8 @@ class MasterFilesystem:
             self.store.deco_put(wid)
         if self.mounts is not None and "mounts" in snap:
             self.mounts.load_snapshot_state(snap["mounts"])
+        if snap.get("raft_conf") is not None:
+            self.raft_conf = snap["raft_conf"]
 
     def _apply(self, op: str, args: dict):
         fn = getattr(self, f"_apply_{op}", None)
@@ -418,6 +506,16 @@ class MasterFilesystem:
 
     def _apply_noop(self) -> None:
         """A raft leader's term-opening entry."""
+
+    def _apply_raft_conf(self, ver: int = 0, voters: dict | None = None,
+                         learners: dict | None = None,
+                         action: str | None = None,
+                         target: int | None = None) -> None:
+        """A raft membership entry: recorded, so that snapshots and replay
+        carry it; ``RaftLite`` adopts it."""
+        self.raft_conf = {"ver": ver, "voters": dict(voters or {}),
+                          "learners": dict(learners or {}),
+                          "action": action, "target": target}
 
     def decommission_worker(self, worker_id: int, on: bool = True) -> None:
         """The journaled decommission intent (off: recommission). A
@@ -1016,13 +1114,15 @@ class MasterFilesystem:
                 log.warning("lease recovery of %s failed: %s", path, e)
         return recovered
 
-    def check_lost_workers(self) -> list[WorkerInfo]:
-        """Mark the workers whose heartbeat expired LOST, drop their
-        replicas and hand the blocks they held to ``on_worker_lost``."""
+    def check_lost_workers(self, act: bool = True) -> list[WorkerInfo]:
+        """Mark the workers whose heartbeat expired LOST and drop their
+        replicas (every node: reads filter locations on a worker's state),
+        and with ``act`` hand the blocks they held to ``on_worker_lost``
+        (a raft follower starts no repair)."""
         newly_lost = self.workers.check_lost()
         for w in newly_lost:
             affected = self.blocks.worker_lost(w.address.worker_id)
-            if affected and self.on_worker_lost:
+            if act and affected and self.on_worker_lost:
                 self.on_worker_lost(w, affected)
         return newly_lost
 

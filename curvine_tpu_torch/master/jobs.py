@@ -33,9 +33,10 @@ Where the port differs: the prefetch planner lists a
 mounted directory's UFS objects beside its cached files, as LIST_STATUS
 does, where the reference lists the cached namespace only, so a window
 over a mount that nothing has loaded yet plans its objects (the
-reference plans none); ``run`` has no leader gate (the port has no raft)
-and recovers once, at its start, as ``run(leader_gate=None)`` does; the
-dispatch pool is closed at the master's stop (``close``)."""
+reference plans none); the dispatch pool is closed at the master's stop
+(``close``). ``run(leader_gate)`` is the reference's (:405-425): a
+follower dispatches nothing, and a node recovers the journaled jobs
+when it starts as leader or is elected."""
 
 from __future__ import annotations
 
@@ -423,11 +424,21 @@ class JobManager:
                           for i, cid in enumerate(cell_ids)]})
         return plans
 
-    async def run(self) -> None:
-        """Recover the journaled jobs, then dispatch queued tasks."""
-        self.recover()
+    async def run(self, leader_gate=None) -> None:
+        """Dispatch queued tasks while leader; recover the journaled jobs
+        at the start and at each election."""
+        was_leader = False
         while True:
-            task = await self._pending.get()
+            is_leader = leader_gate is None or leader_gate()
+            if is_leader and not was_leader:
+                self.recover()
+            was_leader = is_leader
+            try:
+                task = await asyncio.wait_for(self._pending.get(), 1.0)
+            except asyncio.TimeoutError:
+                continue              # the gate's next check
+            if not is_leader:
+                continue
             job = self.jobs.get(task.job_id)
             if job is None or job.state in (JobState.CANCELLED,
                                             JobState.FAILED):

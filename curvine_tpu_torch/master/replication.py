@@ -56,8 +56,9 @@ sibling cells. Ported:
 
 The verdicts ``_reconstruct`` and ``_ec_scan`` read are the ones the
 master has noted (``note_verdicts``); the port's workers run no scrub,
-so nothing sends them one yet. Left out: the leader gate (the port's
-master is a single node, without raft) and the trace each dispatch
+so nothing sends them one yet. Under raft, ``run(leader_gate)`` gates
+the queue and the scan on leadership (:163-198): a follower neither
+dispatches a queued block nor scans. Left out: the trace each dispatch
 opens."""
 
 from __future__ import annotations
@@ -79,6 +80,7 @@ log = logging.getLogger(__name__)
 class ReplicationManager:
     def __init__(self, fs, scan_interval_s: float = 5.0,
                  pull_budget_ms: int = 20_000, metrics=None):
+        self._leader_gate = None
         self.fs = fs
         self.metrics = metrics
         self.scan_interval_s = scan_interval_s
@@ -186,12 +188,15 @@ class ReplicationManager:
             exclude=exclude | holders, needed=meta.len if meta else 0)
         return chosen[0]
 
-    async def run(self) -> None:
+    async def run(self, leader_gate=None) -> None:
+        self._leader_gate = leader_gate
         scan = asyncio.ensure_future(self._scan_loop())
         try:
             while True:
                 bid = await self.queue.get()
                 self._queued.discard(bid)
+                if leader_gate is not None and not leader_gate():
+                    continue    # a follower dispatches no repair
                 try:
                     ok = await self._dispatch(bid)
                 except Exception as e:  # noqa: BLE001 — retried later
@@ -216,6 +221,8 @@ class ReplicationManager:
     async def _scan_loop(self) -> None:
         while True:
             await asyncio.sleep(self.scan_interval_s)
+            if self._leader_gate is not None and not self._leader_gate():
+                continue
             under = [m.block_id for m in self.fs.blocks.under_replicated()]
             if under:
                 log.info("scan: %d under-replicated blocks", len(under))

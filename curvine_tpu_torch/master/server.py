@@ -54,10 +54,29 @@ workers, whose blocks it re-replicates) and ``lease-recovery`` ticks;
 timed into the ``rpc.<code name>`` histograms of ``metrics``; the
 ``replication.*`` counters are summed there too.
 
+Raft HA (:152-168, :213-214, :314-315): with ``raft_peers`` set the
+master runs ``master/ha.py``'s ``RaftLite`` (node ``raft_node_id``, the
+peers' addresses in node order), which serves RAFT_VOTE through
+RAFT_STATUS. Every mutation is refused NOT_LEADER on a follower, with the
+leader's address and the members as hints (:511-512), and its reply
+waits for its entry's commit on a quorum after the group's flush
+(``_commit_barrier``, :598-610). The periodic duties that act on the
+namespace run on the leader only (:218-290): the replication queue and
+scan, job dispatch, lease recovery and a lost worker's repair; the LOST
+bookkeeping itself runs on every node. REPORT_UNDER_REPLICATED_BLOCKS
+answers NOT_LEADER on a follower, so that the worker turns to the leader
+(:1229-1234). Beyond the reference (ROADMAP §C, C12), a follower's answer
+to a block report names no orphan: the worker deletes what any master
+names, and a follower that lags the leader, or a wiped one installing a
+snapshot, would name the blocks written since. RAFT_MEMBER_CHANGE (a
+mutation: its answer comes once the config entry commits) and
+RAFT_TRANSFER (:403-410, :971-987) answer UNSUPPORTED on a master
+without raft.
+
 Every request but a worker's must come from the superuser
 (``acl.SuperuserGate``). Every other code the reference's master
 registers (:340-410, ``rpc/codes.py::MASTER_REFUSED``) is answered
-UNSUPPORTED by name: locks, quotas, raft, shards, batches other
+UNSUPPORTED by name: locks, quotas, shards, batches other
 than META_BATCH, links, appends, metrics reports, spans and health. Read leases and the fast metadata port are
 not served: a read's reply carries no ``lease`` token and
 ``master_info`` no ``fast_addr``, so a client caches nothing (ROADMAP
@@ -77,6 +96,7 @@ from curvine_tpu_torch.common.path import norm_path
 from curvine_tpu_torch.common.types import CommitBlock, SetAttrOpts
 from curvine_tpu_torch.master.acl import SuperuserGate
 from curvine_tpu_torch.master.filesystem import MasterFilesystem
+from curvine_tpu_torch.master.ha import RaftLite
 from curvine_tpu_torch.master.jobs import JobManager
 from curvine_tpu_torch.master.mount import MountManager
 from curvine_tpu_torch.master.replication import ReplicationManager
@@ -127,6 +147,24 @@ class MasterServer:
         self.executor = ScheduledExecutor("master")
         # worker_id -> its last heartbeat's byte counters
         self._worker_counters: dict[int, dict] = {}
+        self.raft: RaftLite | None = None
+        if mc.raft_peers:
+            peers = {i + 1: addr for i, addr in enumerate(mc.raft_peers)
+                     if i + 1 != mc.raft_node_id}
+            if 0 < mc.raft_node_id <= len(mc.raft_peers):
+                self_addr = mc.raft_peers[mc.raft_node_id - 1]
+            else:
+                self_addr = f"{mc.hostname}:{mc.rpc_port}"
+            self.raft = RaftLite(
+                mc.raft_node_id, peers, self.fs, self.rpc,
+                self_addr=self_addr, learner=mc.raft_learner,
+                promote_lag=MASTER_FIXED["raft_promote_lag"],
+                snapshot_chunk_bytes=(
+                    MASTER_FIXED["raft_snapshot_chunk_mb"] * 1024 * 1024),
+                transfer_timeout_s=(
+                    MASTER_FIXED["raft_transfer_timeout_ms"] / 1000),
+                metrics=self.metrics)
+            self.fs.on_mutation = self.raft.on_mutation
         self._register_handlers()
 
     @property
@@ -139,18 +177,33 @@ class MasterServer:
         # the durable decommission intents
         self.fs.workers.deco_ids |= set(self.fs.store.iter_deco())
         await self.rpc.start()
+        if self.raft is not None:
+            await self.raft.start()
+        # a follower acting on replicated state would append entries of
+        # its own: every duty that acts is gated on leadership
+        gate = self._is_leader
         self.executor.submit_periodic(
             "heartbeat-check", self._heartbeat_tick,
             self.conf.master.heartbeat_check_ms / 1000)
         self.executor.submit_periodic("lease-recovery",
-                                      self.fs.recover_stale_leases,
+                                      self._lease_recovery_tick,
                                       LEASE_RECOVERY_S)
-        self.executor.submit("replication", self.replication.run())
-        self.executor.submit("jobs", self.jobs.run())
+        self.executor.submit("replication",
+                             self.replication.run(leader_gate=gate))
+        self.executor.submit("jobs", self.jobs.run(leader_gate=gate))
         log.info("master started at %s", self.addr)
 
+    def _is_leader(self) -> bool:
+        return self.raft is None or self.raft.is_leader
+
+    def _lease_recovery_tick(self) -> None:
+        if self._is_leader():
+            self.fs.recover_stale_leases()
+
     def _heartbeat_tick(self) -> None:
-        self.fs.check_lost_workers()
+        # the LOST bookkeeping runs on every node (reads filter their
+        # locations on it); the repair it starts, on the leader only
+        self.fs.check_lost_workers(act=self._is_leader())
         self._prune_worker_counters()
 
     def _prune_worker_counters(self) -> None:
@@ -166,6 +219,8 @@ class MasterServer:
                 c.get(name, 0) for c in self._worker_counters.values()))
 
     async def stop(self) -> None:
+        if self.raft is not None:
+            await self.raft.stop()
         await self.executor.stop()
         await self.replication.close()
         await self.jobs.close()
@@ -216,6 +271,10 @@ class MasterServer:
         r(C.CANCEL_JOB, self._h(self._cancel_job, mutate=True))
         r(C.PREFETCH_WINDOW, self._h(self._prefetch_window, mutate=True))
         r(C.REPORT_TASK, self._h(self._report_task))
+        # raft's admin calls; RaftLite registers RAFT_VOTE..RAFT_STATUS
+        r(C.RAFT_MEMBER_CHANGE, self._h(self._raft_member_change,
+                                        mutate=True))
+        r(C.RAFT_TRANSFER, self._h(self._raft_transfer))
         for code in MASTER_REFUSED:
             r(code, self._not_ported)
 
@@ -248,6 +307,8 @@ class MasterServer:
             req = self._norm_req(unpack(msg.data) or {})
             if not mutate:
                 return {}, pack(await call(req))
+            if self.raft is not None:
+                self.raft.check_leader()
             key = (req.get("client_id"), req.get("call_id"))
             dedup = key[0] is not None and key[1] is not None
             if dedup:
@@ -255,13 +316,37 @@ class MasterServer:
                 if cached is not None:
                     return {}, cached
             rep = await call(req)
-            # acked only after the group holding the entry has flushed
+            # acked only after the group holding the entry has flushed,
+            # and under raft once the entry is on a quorum
             await self.fs.committer.sync()
+            await self._commit_barrier(msg.deadline)
             data = pack(rep)
             if dedup:
                 self.retry_cache.put(key, data)
             return {}, data
         return handler
+
+    async def _commit_barrier(self, deadline=None) -> None:
+        """Raft's commit rule: the reply waits until the journal's head
+        is on a quorum, within the caller's deadline."""
+        if self.raft is not None:
+            await self.raft.wait_committed(self.fs.journal.seq,
+                                           deadline=deadline)
+
+    def _raft_member_change(self, q):
+        """Journal one membership change (add, promote or remove); the
+        mutation's commit barrier makes the answer mean committed."""
+        if self.raft is None:
+            raise err.Unsupported("raft is not enabled on this master")
+        return self.raft.propose_member_change(
+            q.get("action", ""), q.get("node_id", 0), q.get("addr", ""))
+
+    async def _raft_transfer(self, q):
+        """Drain the log to the target voter, then RAFT_TIMEOUT_NOW."""
+        if self.raft is None:
+            raise err.Unsupported("raft is not enabled on this master")
+        target = await self.raft.transfer_leadership(q.get("target"))
+        return {"target": target}
 
     # --- namespace ---
     def _mkdir(self, q):
@@ -397,9 +482,15 @@ class MasterServer:
         return cmds
 
     def _worker_block_report(self, q):
-        return self.fs.worker_block_report(
+        rep = self.fs.worker_block_report(
             q["worker_id"], q.get("blocks", {}), q.get("storage_types", {}),
             incremental=q.get("incremental", False))
+        if not self._is_leader():
+            # a follower may lag the leader, or hold nothing while a
+            # snapshot installs: a block it does not know is no orphan to
+            # it, and the worker obeys every master (ROADMAP §C, C12)
+            rep["delete_blocks"] = []
+        return rep
 
     def _replacement_worker(self, q):
         w = self.replication.replacement_worker(
@@ -418,7 +509,11 @@ class MasterServer:
         """Corrupt or lost replicas, from a worker (with its
         ``worker_id``) or a client. A worker's replica is flagged, never
         deleted at once: it stops counting, stays as the last-resort
-        source, and is retired once the block is back at its count."""
+        source, and is retired once the block is back at its count. A
+        follower answers NOT_LEADER: the worker turns to the leader, whose
+        repair queue is the one that runs."""
+        if not self._is_leader():
+            raise err.NotLeader("repair reports go to the leader")
         wid = q.get("worker_id")
         bids = [int(b) for b in q.get("block_ids", [])]
         verdicts = q.get("verdicts")

@@ -31,8 +31,12 @@ other's directory:
 A mutation writes into a pending overlay; ``commit_applied(seq)`` lands
 it and the new ``applied_seq`` as one atomic KV batch. Under group
 commit ``stage_entry`` moves each applied entry's writes into a staged
-overlay, and the group lands as one batch. Left out: the two-phase
-transaction records (``tx_*``, :464-492) of the sharded namespace."""
+overlay, and the group lands as one batch. ``KvMetaStore.frozen()``
+(beyond the reference) copies the records a snapshot reads, raw, into a
+read-only ``FrozenKv`` with the same read surface: a copy without
+decode, taken on the event loop and decoded off it (a raft leader's
+snapshot, ROADMAP §C, C10); it still grows with the namespace. Left out: the two-phase transaction records (``tx_*``,
+:464-492) of the sharded namespace."""
 
 from __future__ import annotations
 
@@ -558,3 +562,42 @@ class KvMetaStore:
 
     def close(self) -> None:
         self.kv.close()
+
+    def frozen(self) -> "FrozenKv":
+        """A read-only copy of the records a snapshot reads, as raw bytes
+        (no decode), taken between entries; safe to read on another
+        thread while this store goes on."""
+        recs = {p: list(self.kv.scan(prefix=p)) for p in FrozenKv.PREFIXES}
+        counters = {}
+        for name in ("next_id", "next_block_id"):
+            if name in self._counters:
+                counters[name] = self._counters[name]
+            else:       # read without caching a default
+                raw = self._read(b"M" + name.encode())
+                counters[name] = None if raw is None else _unpack(raw)
+        return FrozenKv(recs, counters)
+
+
+class FrozenKv:
+    """``KvMetaStore.frozen()``'s copy: its read surface over the copied
+    records, decoded as they are read."""
+
+    PREFIXES = (b"i", b"c", b"b", b"J", b"E")
+
+    def __init__(self, recs: dict, counters: dict):
+        self._recs = recs
+        self._counters = counters
+        self.kv = self
+
+    def scan(self, prefix: bytes):
+        return iter(self._recs[prefix])
+
+    def get_counter(self, name: str, default: int = 0) -> int:
+        v = self._counters.get(name)
+        return default if v is None else v
+
+    iter_inodes = KvMetaStore.iter_inodes
+    iter_children_all = KvMetaStore.iter_children_all
+    iter_blocks = KvMetaStore.iter_blocks
+    iter_jobs = KvMetaStore.iter_jobs
+    iter_ec = KvMetaStore.iter_ec

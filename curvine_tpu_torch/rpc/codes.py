@@ -12,7 +12,8 @@ reports back, the master's load, export and prefetch tasks and their
 reports, the master's info for checks of the master's view, and the
 call the worker refuses by name (batched small writes); and those the
 port's master serves (the namespace, block, worker-plane, replication,
-mount, job and prefetch-window calls) or refuses by name
+mount, job and prefetch-window calls, and raft between masters) or
+refuses by name
 (``MASTER_REFUSED``: every other code the reference's master
 registers). The numbers are the wire's and must not change."""
 
@@ -69,6 +70,15 @@ class RpcCode(enum.IntEnum):
     SHARD_TABLE = 73
     TENANT_STATS = 74
     PREFETCH_WINDOW = 75
+    # raft between masters (master/ha.py); RAFT_STATUS answers on any
+    # node, MEMBER_CHANGE and TRANSFER are the leader's admin calls
+    RAFT_VOTE = 90
+    RAFT_APPEND = 91
+    RAFT_SNAPSHOT = 92
+    RAFT_PREVOTE = 93
+    RAFT_SNAPSHOT_CHUNK = 94
+    RAFT_TIMEOUT_NOW = 95
+    RAFT_STATUS = 96
     RAFT_MEMBER_CHANGE = 97
     RAFT_TRANSFER = 98
     # worker → master
@@ -112,4 +122,4 @@ MASTER_REFUSED = (
     RpcCode.METRICS_REPORT, RpcCode.CLUSTER_HEALTH, RpcCode.GET_SPANS,
     RpcCode.SHARD_TX,
     RpcCode.SHARD_TX_LIST, RpcCode.SHARD_STATS, RpcCode.SHARD_TABLE,
-    RpcCode.TENANT_STATS, RpcCode.RAFT_MEMBER_CHANGE, RpcCode.RAFT_TRANSFER)
+    RpcCode.TENANT_STATS)

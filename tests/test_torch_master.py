@@ -475,17 +475,26 @@ def test_journal_op_set_attr_is_applied(tmp_path):
         (0o600, "u", "g", 3, {}, "rs-2-1")
 
 
-@pytest.mark.parametrize("key", ["raft_conf"])
-def test_snapshot_section_the_port_does_not_apply_is_refused(tmp_path, key):
+def test_raft_conf_snapshot_and_entries_are_applied(tmp_path):
+    """The raft config, once refused, is applied since the port has raft
+    (``master/ha.py``): a JAX master's snapshot with a ``raft_conf``
+    section, and its journaled ``raft_conf`` entries after it, reopen in
+    the port's master to the same config, which the port's next snapshot
+    carries as the JAX package's does."""
     fs = JaxFs(journal=JaxJournal(str(tmp_path / "j")), store=JaxMemStore())
     fs.mkdir("/d")
-    state = fs._snapshot_state()
-    state[key] = {"raft_conf": {"ver": 1}}.get(key, [{"job_id": "j1"}])
-    fs.journal.write_snapshot(state)
+    fs._log("raft_conf", {"ver": 1, "voters": {"1": "a:1", "2": "b:2"},
+                          "learners": {}, "action": "add", "target": 2})
+    fs.checkpoint()
+    fs._log("raft_conf", {"ver": 2, "voters": {"1": "a:1", "2": "b:2"},
+                          "learners": {"3": "c:3"},
+                          "action": "add_learner", "target": 3})
+    want = fs._snapshot_state()["raft_conf"]
     fs.journal.close()
     port = MasterFilesystem(journal=Journal(str(tmp_path / "j")))
-    with pytest.raises(UnportedJournalOp, match=key):
-        port.recover()
+    port.recover()
+    assert port.raft_conf == want and want["ver"] == 2
+    assert port._snapshot_state()["raft_conf"] == want
 
 
 @pytest.mark.parametrize("key", ["jobs", "mounts", "deco", "ec"])
@@ -904,6 +913,109 @@ def test_fixed_master_field_is_refused(tmp_path, key):
     mc = ClusterConf.load(str(f)).master
     assert (mc.rpc_port, mc.superuser, mc.worker_lost_timeout_ms) == \
         (1234, "alice", 5)
+
+
+RAFT_FIELDS = [("raft_peers", ["127.0.0.1:1", "127.0.0.1:2"]),
+               ("raft_node_id", 2), ("raft_learner", True)]
+
+
+@pytest.mark.parametrize("key,value", RAFT_FIELDS,
+                         ids=[k for k, _ in RAFT_FIELDS])
+def test_raft_master_field_is_honoured(tmp_path, key, value):
+    """A node's own raft settings are fields: each loads from the cluster
+    file (the reference's defaults otherwise) and reaches the master's
+    ``RaftLite``, whose tuning knobs are ``MASTER_FIXED``'s values; with
+    no ``raft_peers`` the master runs without raft."""
+    assert key not in MASTER_FIXED
+    f = tmp_path / "c.toml"
+    peers = value if key == "raft_peers" else ["127.0.0.1:1", "127.0.0.1:2",
+                                               "127.0.0.1:3"]
+    f.write_text(f"[master]\njournal_dir = \"{tmp_path / 'journal'}\"\n"
+                 f"raft_peers = {json.dumps(peers)}\n"
+                 + (f"{key} = {json.dumps(value)}\n"
+                    if key != "raft_peers" else ""))
+    conf = ClusterConf.load(str(f))
+    assert getattr(conf.master, key) == value
+    defaults = ClusterConf().master
+    assert (defaults.raft_peers, defaults.raft_node_id,
+            defaults.raft_learner) == ([], 1, False)
+    m = MasterServer(conf)
+    try:
+        r = m.raft
+        me = conf.master.raft_node_id
+        got = {"raft_peers": sorted([*r.peers.values(), r._addr_of(me)]),
+               "raft_node_id": r.node_id,
+               "raft_learner": me in r.learners}[key]
+        assert got == (sorted(value) if key == "raft_peers" else value)
+        assert (r.promote_lag, r.snapshot_chunk_bytes >> 20,
+                r.transfer_timeout_s * 1000) == (
+            MASTER_FIXED["raft_promote_lag"],
+            MASTER_FIXED["raft_snapshot_chunk_mb"],
+            MASTER_FIXED["raft_transfer_timeout_ms"]) == (64, 4, 5_000)
+        assert m.fs.on_mutation == r.on_mutation
+    finally:
+        m.fs.journal.close()
+        m.fs.store.close()
+    single = MasterServer(_master_conf(tmp_path / "one"))
+    try:
+        assert single.raft is None and single.fs.on_mutation is None
+    finally:
+        single.fs.journal.close()
+        single.fs.store.close()
+
+
+@pytest.mark.parametrize("code", [RpcCode.RAFT_MEMBER_CHANGE,
+                                  RpcCode.RAFT_TRANSFER],
+                         ids=lambda c: c.name)
+async def test_raft_admin_code_is_served(tmp_path, code):
+    """RAFT_MEMBER_CHANGE and RAFT_TRANSFER left MASTER_REFUSED: a
+    master without raft answers that raft is not enabled (as the
+    reference's does); a one-node raft master journals a membership
+    change and refuses a transfer with no other voter."""
+    assert code not in MASTER_REFUSED
+    req = ({"action": "add", "node_id": 2, "addr": "127.0.0.1:2"}
+           if code == RpcCode.RAFT_MEMBER_CHANGE else {"target": None})
+    async with _cluster(tmp_path / "one", workers=0) as (m, _ws, conf):
+        c = _client(conf)
+        try:
+            with pytest.raises(err.Unsupported, match="raft is not enabled"):
+                await c.meta.call(code, req, mutate=True)
+        finally:
+            await c.close()
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    conf = _master_conf(tmp_path / "raft", rpc_port=port,
+                        raft_peers=[f"127.0.0.1:{port}"])
+    m = MasterServer(conf)
+    await m.start()
+    try:
+        async def elected():
+            while not m.raft.is_leader:
+                await asyncio.sleep(0.02)
+        await asyncio.wait_for(elected(), 15)
+        conf.client.master_addrs = [m.addr]
+        c = _client(conf)
+        try:
+            if code == RpcCode.RAFT_MEMBER_CHANGE:
+                rep = await c.meta.raft_member_change(
+                    "add", 2, "127.0.0.1:2")
+                assert (rep["ver"], rep["learners"]) == \
+                    (1, {"2": "127.0.0.1:2"})
+                assert m.fs.raft_conf["action"] == "add_learner"
+                assert m.raft.learners == {2: "127.0.0.1:2"}
+            else:
+                with pytest.raises(err.InvalidArgument,
+                                   match="no other voter"):
+                    await c.meta.raft_transfer()
+            st = await c.meta.raft_status()
+            assert (st["role"], st["node_id"]) == ("leader", 1)
+        finally:
+            await c.close()
+    finally:
+        await m.stop()
 
 
 @pytest.mark.parametrize("key,value", [("replication_pull_budget_ms", 1234),

@@ -193,15 +193,34 @@ Phases, each raising on a fault (the exit code is then non-zero):
    SIGKILLed after the 4th shard: the seconds to a new leader and until
    each writer's next acknowledgement, no caller error, every
    acknowledged file on the new leader, the survivors equal; the killed
-   master started again and caught up. (c) A follower stopped and wiped,
-   nine 8 MiB xattrs set (the namespace past MAX_FRAME), leadership
-   handed to the other follower (RAFT_TRANSFER), the wiped node started
-   again and caught up by a chunked snapshot (chunks sent, installs, the
-   leader's longest loop stall meanwhile, and whether an election
-   followed). (d) ``GpuTrainFeed`` over the shards through a second
+   master started again and caught up. (c) A round at 9 and three at 36
+   8 MiB xattrs (72 and 288 MiB, past MAX_FRAME): a follower stopped and
+   wiped, the pads set, leadership handed to the other follower
+   (RAFT_TRANSFER), the wiped node started again and caught up by a
+   chunked snapshot; each round's chunks, the cut's seconds on the
+   leader's loop and the drain, build and pack's in a forked child, the
+   leader's longest loop stall, the wiped node's install on its thread,
+   its swap and its longest loop stall (either stall at 300 ms, half the
+   least election timeout, or a cut of 5 ms on the loop fails the
+   phase), and whether an election followed. (d) ``GpuTrainFeed`` over the shards through a second
    RAFT_TRANSFER 4 batches in, every batch equal to its tokens. (e) The
    shards and the small files pinned (K1 launches equal to the pins),
    three flagship steps on the pinned copy (K3);
+6k. shm: the shared-memory read plane, with phase ufs's parameters and
+   step: a master of the phase's own (``ici`` placement) and three of
+   the port's workers, F with ``shm_reads`` off, S with it on and a
+   tier-0, W on an SSD tier with a warm cache; phase feed's shape
+   written to each. (a) ``GpuTrainFeed`` over F's shards (the fd path)
+   and S's (the sealed memfds' mappings), interleaved twice: GiB/s into
+   device memory, batches/s and ``cache_fetch`` split into the probe,
+   the map and the copy, beside phase 3's ``link_gibs``; through shm a
+   hit a block and no fallback. (b) W's shards fed by the fd path, read
+   until they are warm, fed again: a warm hit a block, the warm cache's
+   stats. (d) S's blocks pinned (K1), three flagship steps fed from the
+   mappings (K3). (c) A block deleted under a reader's view: the view
+   stays equal. A side channel that did not start fails the phase; any
+   phase whose reads fell back from a mapping fails the run (each
+   phase's shm counters are logged);
 6b. ckpt: the flagship's parameters as phase ufs left them (99 tensors,
    1.92 GiB of bf16) saved with ``save_checkpoint`` through the port's
    client into the cluster, every byte by short circuit (SC_WRITE_OPEN:
@@ -346,6 +365,8 @@ steps and read just after them (K3), again just before phase 6i's promote
 cycles and read just after them (K1), again just before phase 6i's three
 steps and read just after them (K3), again just before phase 6j's promote
 cycles and read just after them (K1), again just before phase 6j's three
+steps and read just after them (K3), again just before phase 6k's promote
+cycles and read just after them (K1), again just before phase 6k's three
 steps and read just after them (K3), again just before phase 6b and read just
 after it (K3's forward, twice a layer for the two losses, and no backward
 kernel), again just before phase 6f's two losses and read just after
@@ -355,10 +376,10 @@ after them (K3), again just before phase 6d's three pipeline steps and
 read just after them (K3), again just before phase 6e's three ring
 steps and read just after them (K3: none), and just before phase 7's
 ``query_many`` and read just after it (K2, which must equal the ADC
-stages the search issued). The kernels line gives K1's ten counts
+stages the search issued). The kernels line gives K1's eleven counts
 summed (each held to its pins, the refused device copies included) and
-phase 6's, 6a's, 6g's, 6h's, 6i's, 6j's, 6c's, 6d's and 6f's K3 counts
-summed.
+phase 6's, 6a's, 6g's, 6h's, 6i's, 6j's, 6k's, 6c's, 6d's and 6f's K3
+counts summed.
 The port's
 worker and master are stopped, the process group destroyed, and the
 data directory removed, however the run ends. No process of the run
@@ -541,11 +562,29 @@ KV_PHASE_BYTES = 2 * GiB + SHARDS * SHARD_BYTES + 256 * MiB
 HA_MASTERS = 3
 HA_KILL_AFTER = 4
 HA_TRANSFER_AFTER = 4
-HA_PADS, HA_PAD = 9, 8 * MiB
+HA_PADS, HA_PADS_BIG, HA_PAD = 9, 36, 8 * MiB
+# the rounds at HA_PADS_BIG pads, for the spread of their stalls
+HA_BIG_ROUNDS = 3
+# a loop stall that fails the phase: half the least election timeout
+HA_STALL_MS = 300
+# a cut on the leader's loop that fails the phase: cursors opened, no
+# record read (a copy of the records took 119-176 ms at 72 MiB)
+HA_CUT_MS = 5.0
 HA_REPORT_MS = 1_000
 HA_LIMIT_S = 60
-HA_PHASE_BYTES = SHARDS * SHARD_BYTES + 4 * HA_MASTERS * HA_PADS * HA_PAD \
-    + 256 * MiB
+HA_PHASE_BYTES = SHARDS * SHARD_BYTES \
+    + 4 * HA_MASTERS * HA_PADS_BIG * HA_PAD + 256 * MiB
+# phase shm: three of the port's workers under a master of their own (the
+# ici placement, REP_LOST_MS), each able to hold phase feed's shards: F
+# with shm_reads off, S with it on and a tier-0 for its shards, W on an
+# SSD tier with a warm cache that holds them; each wait at most
+# SHM_LIMIT_S. The phase writes at most SHM_PHASE_BYTES to the data
+# directory (the shards three times)
+SHM_TIER_BYTES = SHARDS * SHARD_BYTES + 4 * BLOCK
+SHM_HBM_BYTES = (SHARDS + 2) * BLOCK
+SHM_WARM_MB = (SHARDS + 2) * SHARD_BYTES // MiB
+SHM_LIMIT_S = 60
+SHM_PHASE_BYTES = 3 * SHARDS * SHARD_BYTES + 64 * MiB
 
 
 def log(msg: str) -> None:
@@ -1024,11 +1063,13 @@ class PortWorker:
     cycle (the worker phase runs its cycles itself), ICI coordinates
     ``coords``; it joins the device domain of this process. ``master``
     is one master's address or a raft group's list; ``report_ms``, when
-    set, is its full block report's period."""
+    set, is its full block report's period; ``tier`` names the tier's
+    storage type, and ``worker`` sets other fields of its conf (the shm
+    plane's)."""
 
     def __init__(self, master, root: str, tier_bytes: int,
                  dev: torch.device, coords=(), hbm_bytes: int = TIER_BYTES,
-                 report_ms: int = 0):
+                 report_ms: int = 0, tier: str = "mem", **worker):
         import threading
         from curvine_tpu_torch.common.conf import ClusterConf, TierConf
         from curvine_tpu_torch.worker.server import WorkerServer
@@ -1042,11 +1083,13 @@ class PortWorker:
         wc.heartbeat_ms = WORKER_HEARTBEAT_MS
         wc.promote_interval_ms = 0
         wc.promote_min_reads = WORKER_MIN_READS
-        wc.tiers = [TierConf(storage_type="mem",
-                             dir=os.path.join(root, "worker", "mem"),
+        wc.tiers = [TierConf(storage_type=tier,
+                             dir=os.path.join(root, "worker", tier),
                              capacity=tier_bytes)]
         wc.hbm_capacity = hbm_bytes
         wc.ici_coords = list(coords)
+        for k, v in worker.items():
+            setattr(wc, k, v)
         self.conf = conf
         self.worker = WorkerServer(conf, devices=[dev])
         self.loop = asyncio.new_event_loop()
@@ -1111,7 +1154,23 @@ def port_client(master, coords=(), **client):
     conf.worker.ici_coords = list(coords)
     for k, v in client.items():
         setattr(conf.client, k, v)
-    return CurvineClient(conf)
+    c = CurvineClient(conf)
+    CLIENT_COUNTERS.append(c.counters)
+    return c
+
+
+# every port client's counters, in the order the clients were made: each
+# phase's shared-memory reads are tallied from the clients it made
+CLIENT_COUNTERS: list[dict] = []
+SHM_KEYS = ("read.shm_hits", "read.shm_warm_hits", "read.shm_fallbacks",
+            "read.shm_warm_fallbacks", "sc.bytes.read")
+
+
+def shm_tally(since: int) -> dict:
+    """The shared-memory counters summed over the clients made since
+    ``since`` (an index of CLIENT_COUNTERS)."""
+    return {k: sum(c.get(k, 0) for c in CLIENT_COUNTERS[since:])
+            for k in SHM_KEYS}
 
 
 def phase_client(rng: np.random.Generator, dev: torch.device, master: str,
@@ -1145,10 +1204,10 @@ def phase_client(rng: np.random.Generator, dev: torch.device, master: str,
             # they leave the worker phase's promote cycles to its own
             await c.meta.delete("/ds/feed", recursive=True)
         return paths, write_s, written, fed, feed.profiler, counters, raws, \
-            rb_s, rb_counters
+            rb_s, rb_counters, dict(feed.source.fetch_split)
 
     paths, write_s, written, (n, bad, secs), prof, counters, raws, rb_s, \
-        rb = asyncio.run(run())
+        rb, split = asyncio.run(run())
     if len(paths) != SHARDS or n != n_expect or bad:
         raise AssertionError(f"client: {len(paths)} shards, {n}/{n_expect} "
                              f"batches, {bad} tokens differ from the host "
@@ -1166,7 +1225,11 @@ def phase_client(rng: np.random.Generator, dev: torch.device, master: str,
         "read_block_gibs": SHARD_BYTES / GiB / rb_s[0],
         "read_block_again_gibs": SHARD_BYTES / GiB / rb_s[1],
         "posix_batches_per_s": posix["batches_per_s"],
-        "posix_gibs": posix["gibs"]})
+        "posix_gibs": posix["gibs"],
+        "shm_hits": counters.get("read.shm_hits", 0),
+        "shm_fallbacks": counters.get("read.shm_fallbacks", 0),
+        "fetch_split_ms_per_block": {k: v * 1e3 / SHARDS
+                                     for k, v in split.items()}})
     if not all(np.array_equal(np.frombuffer(raw, dtype=np.int32),
                               tokens[:SHARD_BYTES // 4]) for raw in raws):
         raise AssertionError(f"client: {paths[0]} read through READ_BLOCK "
@@ -1179,7 +1242,12 @@ def phase_client(rng: np.random.Generator, dev: torch.device, master: str,
         f"the port's client in {write_s:.3f}s ({res['write_gibs']:.3f} "
         f"GiB/s; {res['sc_bytes_written']} bytes by short circuit, "
         f"{res['sc_write_fallbacks']} blocks over WRITE_BLOCK); the feed "
-        f"read {sc} bytes by short circuit (mmap_view) "
+        f"read {sc} bytes by short circuit (mmap_view; "
+        f"{res['shm_hits']} reads from the worker's sealed memfds, "
+        f"{res['shm_fallbacks']} fallbacks; cache_fetch a block: probe "
+        f"{res['fetch_split_ms_per_block']['probe']:.3f} ms, map "
+        f"{res['fetch_split_ms_per_block']['map']:.3f} ms, copy "
+        f"{res['fetch_split_ms_per_block']['copy']:.3f} ms) "
         f"and {res['read_block_bytes']} by READ_BLOCK, sent "
         f"{res['advise_rpcs']} advise RPCs; {res['batches_per_s']:.1f} "
         f"batches/s ({res['gibs']:.3f} GiB/s) against phase 4's POSIX "
@@ -6324,13 +6392,18 @@ def phase_ha(dev: torch.device, root: str, seed: int, params: dict, step,
     its next acknowledgement, no caller error, every acknowledged file on
     the new leader with its length and the survivors equal (journal
     head, files); the killed master started again, and the seconds until
-    its head is the leader's. (c) A follower stopped and its journal and
-    KV directory wiped; HA_PADS files with an 8 MiB xattr each (SET_ATTR),
-    so that the namespace exceeds MAX_FRAME; leadership handed to the
-    other follower (RAFT_TRANSFER, timed) and the wiped node started
-    again: it must hold the last pad, caught up by a chunked snapshot
-    (more than one chunk; the leader's longest loop stall while it cut
-    and sent it); the terms show whether an election followed. (d)
+    its head is the leader's. (c) A round at HA_PADS files with an 8 MiB
+    xattr each (SET_ATTR; 72 MiB, past MAX_FRAME), then HA_BIG_ROUNDS at
+    HA_PADS_BIG (288 MiB): a follower stopped and its journal and KV
+    directory wiped, the pads set, leadership handed to the other
+    follower (RAFT_TRANSFER, timed; after the first round the node the
+    last installed) and the wiped node started again: it must hold the last
+    pad, caught up by a chunked snapshot; from the masters' dumps, each
+    round's chunks, the cut's seconds on the leader's loop, the drain,
+    build and pack's in a forked child, the leader's longest loop stall, and
+    the wiped node's install on its thread, its swap and its longest loop
+    stall; either stall at HA_STALL_MS or more, a cut at HA_CUT_MS or
+    more, or an election after the transfer, fails the phase. (d)
     ``GpuTrainFeed`` over the shards, a RAFT_TRANSFER HA_TRANSFER_AFTER
     batches in: every batch equal to its tokens, batches/s beside phase
     client's. (e) The shards and the small files read through the client
@@ -6571,70 +6644,93 @@ def phase_ha(dev: torch.device, root: str, seed: int, params: dict, step,
             f"{rb['restart_s']:.3f}s and at the leader's head "
             f"{caught_s:.3f}s after its start")
 
-        # (c) a chunked snapshot install at full frame size
-        st, _ = one_leader(list(addr_of.values()))
-        lead_c = st[0]["leader_id"]
-        f1, f2 = [n for n in sorted(addr_of) if n != lead_c]
-        stop_master(nodes[f1][0])
-        jdir = os.path.join(nodes[f1][1], "cluster", "journal")
-        shutil.rmtree(jdir)
-        shutil.rmtree(jdir + "-meta")
+        # (c) chunked snapshot installs at full frame size: a round at
+        # HA_PADS pads, then HA_BIG_ROUNDS at HA_PADS_BIG, each to a wiped
+        # node
         pad = "x" * HA_PAD
+        res["c"] = {"rounds": []}
+        made = 0
+        for n_pads in (HA_PADS,) + (HA_PADS_BIG,) * HA_BIG_ROUNDS:
+            st, _ = one_leader(list(addr_of.values()))
+            lead_c = st[0]["leader_id"]
+            fol = [n for n in sorted(addr_of) if n != lead_c]
+            if res["c"]["rounds"]:
+                # the node that installed last round takes over, and the
+                # other follower is wiped
+                f2 = res["c"]["rounds"][-1]["wiped"]
+                f1 = next(n for n in fol if n != f2)
+            else:
+                f1, f2 = fol
+            stop_master(nodes[f1][0])
+            jdir = os.path.join(nodes[f1][1], "cluster", "journal")
+            shutil.rmtree(jdir)
+            shutil.rmtree(jdir + "-meta")
+            leader_run = f"{f2}.{nodes[f2][3] - 1}"
 
-        async def pads():
-            from curvine_tpu_torch.common.types import SetAttrOpts
-            async with port_client(addrs,
-                                   conn_retry_max=KV_RETRY_MAX) as c:
-                await c.meta.mkdir("/ha/fat")
-                for i in range(HA_PADS):
-                    await c.meta.create_file(f"/ha/fat/f{i}")
-                    await c.meta.complete_file(f"/ha/fat/f{i}", 0)
-                    await c.meta.set_attr(
-                        f"/ha/fat/f{i}", SetAttrOpts(add_x_attr={"pad": pad}))
-                t = time.perf_counter()
-                target = await c.meta.raft_transfer(f2)
-                return target, time.perf_counter() - t
-        t = time.perf_counter()
-        target, transfer_s = asyncio.run(pads())
-        pads_s = time.perf_counter() - t - transfer_s
-        st, _ = one_leader([addr_of[lead_c], addr_of[f2]])
-        term_transfer = st[0]["term"]
-        again = restart(f1)
-        wiped_run = f"{f1}.{nodes[f1][3] - 1}"      # its dump's name
+            async def pads(lo, hi, to):
+                from curvine_tpu_torch.common.types import SetAttrOpts
+                async with port_client(addrs,
+                                       conn_retry_max=KV_RETRY_MAX) as c:
+                    if lo == 0:
+                        await c.meta.mkdir("/ha/fat")
+                    for i in range(lo, hi):
+                        await c.meta.create_file(f"/ha/fat/f{i}")
+                        await c.meta.complete_file(f"/ha/fat/f{i}", 0)
+                        await c.meta.set_attr(
+                            f"/ha/fat/f{i}",
+                            SetAttrOpts(add_x_attr={"pad": pad}))
+                    t = time.perf_counter()
+                    target = await c.meta.raft_transfer(to)
+                    return target, time.perf_counter() - t
+            t = time.perf_counter()
+            target, transfer_s = asyncio.run(pads(made, n_pads, f2))
+            pads_s = time.perf_counter() - t - transfer_s
+            made = n_pads
+            st, _ = one_leader([addr_of[lead_c], addr_of[f2]])
+            term_transfer = st[0]["term"]
+            again = restart(f1)
+            wiped_run = f"{f1}.{nodes[f1][3] - 1}"      # its dump's name
 
-        def holds_pad() -> bool:
-            async def run():
-                async with port_client(addr_of[f1]) as c:
-                    if not await c.meta.exists(f"/ha/fat/f{HA_PADS - 1}"):
-                        return False
-                    stt = await c.meta.file_status(f"/ha/fat/f{HA_PADS - 1}")
-                    return len(stt.x_attr.get("pad", "")) == HA_PAD
-            try:
-                return asyncio.run(run())
-            except Exception:  # noqa: BLE001 — installing: asked again
-                return False
-        install_s = _poll(holds_pad, HA_LIMIT_S,
-                          "the wiped master holding the last pad", 0.1, "ha")
-        st, _ = one_leader(list(addr_of.values()))
-        res["c"] = dict(stopped=f1, target=target, transfer_s=transfer_s,
-                        pads=HA_PADS, pad_bytes=HA_PAD, pads_s=pads_s,
-                        restart_s=again["start_s"], install_s=install_s,
-                        term_after_transfer=term_transfer,
-                        term_after_install=st[0]["term"],
-                        leader_after_install=st[0]["leader_id"])
-        rc = res["c"]
-        if target != f2 or rc["leader_after_install"] != f2:
-            raise AssertionError(f"ha (c): the transfer went to {target}, "
-                                 f"the leader is {rc['leader_after_install']}"
-                                 f", not node {f2}")
-        log(f"ha (c): node {f1} stopped and wiped; {HA_PADS} files with an "
-            f"{HA_PAD // MiB} MiB xattr each set in {pads_s:.3f}s; "
-            f"leadership handed from node {lead_c} to node {f2} in "
-            f"{transfer_s:.3f}s (term {term_transfer}); node {f1} back in "
-            f"{rc['restart_s']:.3f}s and holding the last pad "
-            f"{install_s:.3f}s after its start; term {rc['term_after_install']}"
-            f" after the install ({'no' if rc['term_after_install'] == term_transfer else 'AN'}"
-            f" election since the transfer)")
+            def holds_pad() -> bool:
+                async def run():
+                    async with port_client(addr_of[f1]) as c:
+                        last = f"/ha/fat/f{n_pads - 1}"
+                        if not await c.meta.exists(last):
+                            return False
+                        stt = await c.meta.file_status(last)
+                        return len(stt.x_attr.get("pad", "")) == HA_PAD
+                try:
+                    return asyncio.run(run())
+                except Exception:  # noqa: BLE001 — installing: asked again
+                    return False
+            install_s = _poll(holds_pad, HA_LIMIT_S,
+                              "the wiped master holding the last pad", 0.1,
+                              "ha")
+            st, _ = one_leader(list(addr_of.values()))
+            rc = dict(wiped=f1, leader=f2, target=target,
+                      transfer_s=transfer_s, pads=n_pads, pad_bytes=HA_PAD,
+                      namespace_mib=n_pads * HA_PAD // MiB, pads_s=pads_s,
+                      restart_s=again["start_s"], install_s=install_s,
+                      term_after_transfer=term_transfer,
+                      term_after_install=st[0]["term"],
+                      leader_after_install=st[0]["leader_id"],
+                      leader_run=leader_run, wiped_run=wiped_run)
+            res["c"]["rounds"].append(rc)
+            if target != f2 or rc["leader_after_install"] != f2:
+                raise AssertionError(
+                    f"ha (c): the transfer went to {target}, the leader is "
+                    f"{rc['leader_after_install']}, not node {f2}")
+            log(f"ha (c) at {rc['namespace_mib']} MiB: node {f1} stopped "
+                f"and wiped; pads up to {n_pads} files with an "
+                f"{HA_PAD // MiB} MiB xattr each, set in {pads_s:.3f}s; "
+                f"leadership handed from node {lead_c} to node {f2} in "
+                f"{transfer_s:.3f}s (term {term_transfer}); node {f1} back "
+                f"in {rc['restart_s']:.3f}s and holding the last pad "
+                f"{install_s:.3f}s after its start; term "
+                f"{rc['term_after_install']} after the install "
+                f"({'no' if rc['term_after_install'] == term_transfer else 'AN'}"
+                f" election since the transfer)")
+        f2 = res["c"]["rounds"][-1]["leader"]
 
         # (d) the feed through a second failover
         expect = torch.from_numpy(tokens).to(dev)
@@ -6792,24 +6888,60 @@ def phase_ha(dev: torch.device, root: str, seed: int, params: dict, step,
                     for r in raft.values())
         res["raft"] = raft
         res["c"].update(chunks_sent=sent, installs=installs,
-                        loop_stall_ms=stall,
-                        cut_s=max(r.get("raft.snapshot_build_s", 0)
-                                  for r in raft.values()),
-                        pack_s=max(r.get("raft.snapshot_pack_s", 0)
-                                   for r in raft.values()))
-        # the wiped node's run after the wipe installed the stream
-        if installs.get(wiped_run, 0) < 1 \
-                or sent * 4 * MiB <= 64 * MiB + 1024:
-            raise AssertionError(f"ha (c): {sent} chunks sent, installs "
-                                 f"{installs}")
+                        loop_stall_ms=stall)
+        for rc in res["c"]["rounds"]:
+            lr = raft.get(rc["leader_run"], {})
+            wr = raft.get(rc["wiped_run"], {})
+            rc.update(
+                chunks_sent=lr.get("raft.snapshot_chunks_sent", 0),
+                cut_s=lr.get("raft.snapshot_build_s", 0.0),
+                fork_s=lr.get("raft.snapshot_fork_s", 0.0),
+                pack_s=lr.get("raft.snapshot_pack_s", 0.0),
+                leader_stall_ms=lr.get("raft.snapshot_loop_stall_ms", 0.0),
+                leader_stall_at_s=lr.get("raft.snapshot_stall_at_s", 0.0),
+                install_build_s=wr.get("raft.install_build_s", 0.0),
+                install_swap_s=wr.get("raft.install_swap_s", 0.0),
+                install_stall_ms=wr.get("raft.install_loop_stall_ms", 0.0),
+                install_stall_at_s=wr.get("raft.install_stall_at_s", 0.0),
+                installs=installs.get(rc["wiped_run"], 0),
+                elections=rc["term_after_install"]
+                - rc["term_after_transfer"])
+            log(f"ha (c) at {rc['namespace_mib']} MiB: {rc['chunks_sent']} "
+                f"chunks from node {rc['leader']}; the cut "
+                f"{rc['cut_s'] * 1e3:.3f} ms and the fork "
+                f"{rc['fork_s'] * 1e3:.3f} ms on the leader's loop, the "
+                f"drain, build and pack {rc['pack_s']:.3f}s in the child; the "
+                f"leader's longest loop stall {rc['leader_stall_ms']:.1f} ms, "
+                f"{rc['leader_stall_at_s']:.3f}s after the cut; the wiped "
+                f"node's install {rc['install_build_s']:.3f}s on a thread, "
+                f"the swap {rc['install_swap_s'] * 1e3:.3f} ms, its longest "
+                f"loop stall {rc['install_stall_ms']:.1f} ms, "
+                f"{rc['install_stall_at_s']:.3f}s into the install; "
+                f"{rc['elections']} elections after the transfer")
+            # the wiped node's run after the wipe installed the stream; a
+            # loop held past half the least election timeout fails
+            if rc["installs"] < 1 or rc["chunks_sent"] * 4 * MiB \
+                    <= rc["pads"] * HA_PAD or rc["elections"] \
+                    or rc["leader_stall_ms"] >= HA_STALL_MS \
+                    or rc["install_stall_ms"] >= HA_STALL_MS \
+                    or rc["cut_s"] * 1e3 >= HA_CUT_MS:
+                raise AssertionError(f"ha (c): the round {rc}, installs "
+                                     f"{installs}")
+        small, *bigs = res["c"]["rounds"]
+        big = max(bigs, key=lambda rc: rc["cut_s"])
+        res["c"]["cut_ratio"] = big["cut_s"] / max(small["cut_s"], 1e-9)
         res["b"]["rejoin_installs"] = installs.get(f"{leader}.1", 0)
         res["phase_s"] = time.perf_counter() - t_phase
         log(f"ha: the masters' raft counters {raft}")
-        log(f"ha (c): {sent} snapshot chunks sent in all (the pads' stream "
-            f"past MAX_FRAME), installs {installs}; the leader's longest "
-            f"loop stall while it cut and sent a snapshot {stall:.1f} ms "
-            f"(the cut {res['c']['cut_s']:.3f}s on the loop, the build and "
-            f"pack {res['c']['pack_s']:.3f}s on a thread); the restarted "
+        log(f"ha (c): {sent} snapshot chunks sent in all (the pads' streams "
+            f"past MAX_FRAME), installs {installs}; the longest leader's "
+            f"loop stall while it cut and sent a snapshot {stall:.1f} ms; "
+            f"the longest cut at {big['namespace_mib']} MiB "
+            f"{res['c']['cut_ratio']:.2f}x the cut at "
+            f"{small['namespace_mib']} MiB (each below {HA_CUT_MS} ms); the "
+            f"leader's stalls at {big['namespace_mib']} MiB "
+            f"{[round(rc['leader_stall_ms'], 1) for rc in bigs]} ms; the "
+            f"restarted "
             f"ex-leader caught up by "
             f"{'a snapshot' if res['b']['rejoin_installs'] else 'the log'}; "
             f"the phase {res['phase_s']:.1f}s")
@@ -6821,6 +6953,303 @@ def phase_ha(dev: torch.device, root: str, seed: int, params: dict, step,
         shutil.rmtree(base, ignore_errors=True)
     res["k1_launches"] = k1
     res["launches"] = launches
+    return res
+
+# ------------------------------------------------------------------- shm
+
+async def fed_epoch(c, path: str, expect: torch.Tensor, dev: torch.device):
+    """One epoch of ``GpuTrainFeed`` over ``path`` at phase feed's batch,
+    each device batch held to ``expect``; (batches, tokens that differ,
+    seconds, profiler, the source's cache_fetch split)."""
+    from curvine_tpu_torch.gpu.loader import GpuTrainFeed
+    f = GpuTrainFeed(c, path, BATCH, SEQ, device=dev)
+    n, bad, secs = await drive_feed(f, expect, dev)
+    return n, bad, secs, f.profiler, dict(f.source.fetch_split)
+
+
+def phase_shm(dev: torch.device, root: str, seed: int, params: dict, step,
+              link_gibs: float) -> dict:
+    """The shared-memory read plane, with phase ufs's parameters and
+    step: a master of the phase's own (the ici placement) and three of
+    the port's workers in this process, F at (0, 0) with ``shm_reads``
+    off, S at (1, 0) with it on (the default) and a tier-0 on the card,
+    and W at (2, 0) on an SSD tier (the file layout, under the run's
+    data directory) with a warm cache of SHM_WARM_MB. Phase feed's shape
+    written three times, by ICI coordinates: /shm/fd on F, /shm/shm on S,
+    /shm/warm on W. (a) ``GpuTrainFeed`` at phase feed's batch over
+    /shm/fd (the fd path) and /shm/shm (the mapping), interleaved twice,
+    each batch equal to its tokens: batches/s, the GiB/s into device
+    memory and ``cache_fetch`` split into the probe, the map and the copy,
+    beside phase 3's ``link_gibs``; through shm, ``read.shm_hits`` equal
+    to the blocks read and no fallback. (b) /shm/warm fed once (the fd
+    path), each block read again until its heat reaches
+    ``shm_warm_min_reads``, then fed again: ``read.shm_warm_hits`` equal to
+    the blocks read, no fallback, the warm cache's stats. (d) S's blocks,
+    hot from (a)'s reads, pinned into its tier-0 by promote cycles (K1
+    against the host hash, launches equal to the pins), each device copy
+    equal to its tokens; three flagship steps on batches fed from
+    /shm/shm through the mappings, each equal to its tokens (K3). (c) A
+    block of /shm/shm deleted while a reader holds its mapping's view:
+    the view reads equal bytes after the worker dropped the block and its
+    export, and after the reader dropped the mapping. Fails if a side
+    channel did not start, or a read counted a fallback. The master and
+    workers are stopped and the directory removed, however it ends."""
+    from curvine_tpu_torch.gpu import cuda_ops, flash
+    from curvine_tpu_torch.gpu.loader import GpuTrainFeed, write_token_shards
+    base = os.path.join(root, "shm")
+    os.makedirs(base)
+    res: dict = {}
+    workers: dict[str, PortWorker] = {}
+    proc = None
+    tokens = ufs_tokens(seed, SHARDS, 0x73686D)
+    shard_tokens = SHARD_BYTES // 4
+    kernels = [getattr(flash, nm) for nm in K3_NAMES]
+    cfg = _flagship()
+    t_phase = time.perf_counter()
+    try:
+        conf = master_conf(base, lost_ms=REP_LOST_MS, policy="ici")
+        proc, info = start_master(base, conf)
+        master = info["addr"]
+        workers["f"] = PortWorker(master, os.path.join(base, "f"),
+                                  SHM_TIER_BYTES, dev, coords=(0, 0),
+                                  hbm_bytes=0, shm_reads=False)
+        workers["s"] = PortWorker(master, os.path.join(base, "s"),
+                                  SHM_TIER_BYTES, dev, coords=(1, 0),
+                                  hbm_bytes=SHM_HBM_BYTES)
+        workers["w"] = PortWorker(master, os.path.join(base, "w"),
+                                  SHM_TIER_BYTES, dev, coords=(2, 0),
+                                  hbm_bytes=0, tier="ssd",
+                                  shm_warm_cap_mb=SHM_WARM_MB)
+        wf, ws, ww = (workers[n].worker for n in "fsw")
+        if wf.shm is not None or ws._shm_channel is None \
+                or ww._shm_channel is None or ww.shm_warm is None:
+            raise AssertionError(
+                f"shm: F's exporter {wf.shm}, S's channel "
+                f"{ws._shm_channel}, W's channel {ww._shm_channel} and warm "
+                f"cache {ww.shm_warm}: a side channel did not start")
+        await_live(master, [w.worker_id for w in (wf, ws, ww)], phase="shm")
+        log(f"shm: a master and three of the port's workers: F "
+            f"({wf.worker_id}, shm_reads off), S ({ws.worker_id}, its side "
+            f"channel at {ws._shm_channel.path}) and W ({ww.worker_id}, an "
+            f"SSD tier, a warm cache of {SHM_WARM_MB} MiB, its channel at "
+            f"{ww._shm_channel.path})")
+
+        async def write(path, coords, **kw):
+            async with port_client(master, coords=coords, **kw) as c:
+                t = time.perf_counter()
+                await write_token_shards(c, path, tokens, shard_tokens)
+                return time.perf_counter() - t
+
+        placed = {}
+        for path, coords, who, kw in (
+                ("/shm/fd", (0, 0), wf, {}), ("/shm/shm", (1, 0), ws, {}),
+                ("/shm/warm", (2, 0), ww, {"storage_type": "ssd"})):
+            secs = asyncio.run(write(path, coords, **kw))
+            locs = [_block_locs(master, f"{path}/shard-{i:05d}.bin")
+                    for i in range(SHARDS)]
+            if any(len(x) != 1 or x[0][1] != [who.worker_id] for x in locs):
+                raise AssertionError(f"shm: {path} placed {locs}, not each "
+                                     f"shard one block on {who.worker_id}")
+            placed[path] = [x[0][0] for x in locs]
+            res.setdefault("write_s", {})[path] = secs
+        ssd = {b for b, i in ww.store.blocks.items()
+               if i.tier.storage_type.name == "SSD"}
+        if not set(placed["/shm/warm"]) <= ssd:
+            raise AssertionError("shm: /shm/warm's blocks are not on W's "
+                                 "SSD tier")
+        expect = torch.from_numpy(tokens).to(dev)
+        n_expect = tokens.size // (BATCH * SEQ)
+
+        def run_feed(path: str, label: str) -> dict:
+            async def run():
+                async with port_client(master) as c:
+                    got = await fed_epoch(c, path, expect, dev)
+                    return got, dict(c.counters)
+            (n, bad, secs, prof, split), counters = asyncio.run(run())
+            if n != n_expect or bad:
+                raise AssertionError(f"shm: {label}: {n}/{n_expect} batches, "
+                                     f"{bad} tokens unequal")
+            out = feed_stats(f"shm {label}", n, secs, prof)
+            out.update(read_gibs_into_device=out["gibs"], fetch_split_s=split,
+                       fetch_split_ms_per_block={
+                           k: v * 1e3 / SHARDS for k, v in split.items()},
+                       counters={k: counters.get(k, 0) for k in SHM_KEYS})
+            log(f"shm {label}: {out['read_gibs_into_device']:.3f} GiB/s into "
+                f"device memory ({out['batches_per_s']:.1f} batches/s) "
+                f"against phase 3's link_gibs {link_gibs:.3f}; cache_fetch "
+                f"a block: probe "
+                f"{out['fetch_split_ms_per_block']['probe']:.3f} ms, map "
+                f"{out['fetch_split_ms_per_block']['map']:.3f} ms, copy "
+                f"{out['fetch_split_ms_per_block']['copy']:.3f} ms; "
+                f"counters {out['counters']}")
+            return out
+
+        # (a) the fd path against the mapping, interleaved
+        res["a"] = {"fd": [], "shm": []}
+        for _ in range(2):
+            res["a"]["fd"].append(run_feed("/shm/fd", "(a) fd path"))
+            res["a"]["shm"].append(run_feed("/shm/shm", "(a) shm"))
+        for r in res["a"]["fd"]:
+            if r["counters"]["read.shm_hits"] or \
+                    r["counters"]["read.shm_fallbacks"]:
+                raise AssertionError(f"shm (a): F offered shm: "
+                                     f"{r['counters']}")
+        for r in res["a"]["shm"]:
+            if r["counters"]["read.shm_hits"] != SHARDS or \
+                    r["counters"]["read.shm_fallbacks"]:
+                raise AssertionError(f"shm (a): {r['counters']['read.shm_hits']}"
+                                     f" shm hits for {SHARDS} blocks read, "
+                                     f"{r['counters']['read.shm_fallbacks']} "
+                                     f"fallbacks")
+        res["a"]["grants"] = ws.metrics.counters.get("shm.grants", 0)
+        res["a"]["exports"] = ws.shm.exports
+        res["a"]["export_hits"] = ws.shm.hits
+
+        # (b) the warm cache: W's blocks heated by reads, then fed again
+        res["b"] = {"fd": run_feed("/shm/warm", "(b) SSD, fd path")}
+        min_reads = ww.conf.worker.shm_warm_min_reads
+
+        async def heat():
+            async with port_client(master) as c:
+                for _ in range(min_reads - 1):
+                    for i in range(SHARDS):
+                        r = await c.open(f"/shm/warm/shard-{i:05d}.bin")
+                        if await r.mmap_view(0, r.len) is None:
+                            raise AssertionError("shm (b): no short circuit")
+                        await r.close()
+        asyncio.run(heat())
+        heat_now = {b: ww.store.get(b, touch=False).heat
+                    for b in placed["/shm/warm"]}
+        res["b"]["warm"] = run_feed("/shm/warm", "(b) SSD, warm shm")
+        res["b"]["heat"] = heat_now
+        res["b"]["warm_stats"] = ww.shm_warm.stats()
+        wc_ = res["b"]["warm"]["counters"]
+        if wc_["read.shm_warm_hits"] != SHARDS or wc_["read.shm_hits"] \
+                or wc_["read.shm_warm_fallbacks"] or \
+                res["b"]["warm_stats"]["exports"] != SHARDS:
+            raise AssertionError(f"shm (b): {wc_}, the warm cache "
+                                 f"{res['b']['warm_stats']}, heat {heat_now}")
+        log(f"shm (b): W's blocks read {min_reads} times (heat "
+            f"{sorted(heat_now.values())}); the warm cache "
+            f"{res['b']['warm_stats']}; warm grants "
+            f"{ww.metrics.counters.get('shm.warm_grants', 0)}")
+
+        # (d) S's blocks pinned by K1, then three steps fed by the mappings
+        s_pw = workers["s"]
+        pins0 = ws.metrics.counters.get("blocks.hbm_pinned", 0)
+        cuda_ops.block_checksum.launches = 0
+        cycles = []
+        while not all(ws.hbm_holds(b) for b in placed["/shm/shm"]) \
+                and len(cycles) < 8:
+            t = time.perf_counter()
+            s_pw.call(ws._promote_once())
+            cycles.append(time.perf_counter() - t)
+        k1 = cuda_ops.block_checksum.launches
+        pins = ws.metrics.counters.get("blocks.hbm_pinned", 0) - pins0
+        missing = [b for b in placed["/shm/shm"] if not ws.hbm_holds(b)]
+        if missing or k1 != pins:
+            raise AssertionError(f"shm (d): {len(cycles)} promote cycles, "
+                                 f"{pins} pins, {k1} K1 launches, blocks not "
+                                 f"pinned {missing}")
+        for i, b in enumerate(placed["/shm/shm"]):
+            got = ws.hbm_get(b)
+            if not torch.equal(got.view(torch.int32),
+                               expect[i * shard_tokens:
+                                      (i + 1) * shard_tokens]):
+                raise AssertionError(f"shm (d): block {b}'s device copy "
+                                     f"differs from its tokens")
+        del got
+        first = tokens[:TRAIN_BATCH * TRAIN_SEQ * UFS_STEPS].reshape(
+            UFS_STEPS, TRAIN_BATCH, TRAIN_SEQ)
+        seen = []
+
+        def check(b):
+            seen.append(bool(torch.equal(b, torch.from_numpy(
+                first[len(seen)]).to(dev))))
+
+        async def train_steps():
+            async with port_client(master) as c:
+                f = GpuTrainFeed(c, "/shm/shm", TRAIN_BATCH, TRAIN_SEQ,
+                                 depth=2, device=dev)
+
+                async def take():
+                    for _ in range(UFS_STEPS):
+                        yield await anext(f.prefetcher)
+
+                try:
+                    got = await timed_steps(step, params, take(), check)
+                finally:
+                    await f.prefetcher.aclose()
+                return got, dict(c.counters)
+
+        for fn in kernels:
+            fn.launches = 0
+        (step_s, losses), counters = asyncio.run(train_steps())
+        launches = {fn.__name__: fn.launches for fn in kernels}
+        if seen != [True] * UFS_STEPS or not all(map(math.isfinite, losses)) \
+                or set(launches.values()) != {cfg.n_layers * UFS_STEPS} \
+                or not counters.get("read.shm_hits") \
+                or counters.get("read.shm_fallbacks"):
+            raise AssertionError(f"shm (d): batches equal {seen}, losses "
+                                 f"{losses}, K3 launches {launches}, "
+                                 f"counters {counters}")
+        res["d"] = dict(cycles=len(cycles), pins=pins, k1_launches=k1,
+                        losses=losses, step_ms=[x * 1e3 for x in step_s],
+                        launches=launches,
+                        shm_hits=counters.get("read.shm_hits", 0))
+        log(f"shm (d): {len(cycles)} promote cycles pinned S's {pins} "
+            f"shm-read blocks, each verified by K1 ({k1} launches) and "
+            f"equal to its tokens on the card; {UFS_STEPS} flagship steps at "
+            f"{TRAIN_BATCH}x{TRAIN_SEQ} on batches fed from the mappings "
+            f"({res['d']['shm_hits']} shm hits), each equal to its tokens: "
+            f"losses {[round(x, 4) for x in losses]}, step ms "
+            f"{[round(x * 1e3, 2) for x in step_s]}; K3 launches {launches}")
+
+        # (c) a block deleted under a reader's mapping
+        victim = "/shm/shm/shard-00000.bin"
+        bid = placed["/shm/shm"][0]
+
+        async def deleted_under_view():
+            async with port_client(master) as c:
+                r = await c.open(victim)
+                view = await r.mmap_view(0, r.len)
+                if view is None or bid not in r._shm_maps:
+                    raise AssertionError("shm (c): the block is not mapped")
+                await c.meta.delete(victim)
+                t = time.perf_counter()
+                while ws.store.contains(bid) or bid in ws.shm._fds:
+                    if time.perf_counter() - t > SHM_LIMIT_S:
+                        raise AssertionError("shm (c): S kept the block")
+                    await asyncio.sleep(0.05)
+                gone_s = time.perf_counter() - t
+                same = np.array_equal(view.view(np.int32),
+                                      tokens[:shard_tokens])
+                r._drop_shm(bid)              # the reader's eviction
+                again = np.array_equal(view.view(np.int32),
+                                       tokens[:shard_tokens])
+                await r.close()
+                return same, again, gone_s, dict(c.counters)
+        same, again, gone_s, counters = asyncio.run(deleted_under_view())
+        if not (same and again) or counters.get("read.shm_fallbacks"):
+            raise AssertionError(f"shm (c): the view equal after the delete "
+                                 f"{same}, after the reader's drop {again}; "
+                                 f"{counters}")
+        res["c"] = dict(dropped_s=gone_s, equal=True)
+        log(f"shm (c): {victim} deleted while a reader held its mapping's "
+            f"view; S dropped the block and its export {gone_s:.3f}s later, "
+            f"and the view still equals its tokens, also after the reader "
+            f"dropped the mapping")
+        del expect
+        res["phase_s"] = time.perf_counter() - t_phase
+        log(f"shm: the phase {res['phase_s']:.1f}s")
+    finally:
+        for w in workers.values():
+            w.stop()
+        if proc is not None:
+            stop_master(proc)
+        shutil.rmtree(base, ignore_errors=True)
+    res["k1_launches"] = res["d"]["k1_launches"]
+    res["launches"] = res["d"]["launches"]
     return res
 
 
@@ -6844,12 +7273,21 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)} ({card})")
     rng = np.random.default_rng(args.seed)
     results = {"card": card, "seed": args.seed}
+
+    def tallied(fn, *a):
+        """``fn(*a)``, its result (the first, when a tuple) given the
+        shared-memory counters of the port clients it made."""
+        mark = len(CLIENT_COUNTERS)
+        out = fn(*a)
+        (out[0] if isinstance(out, tuple) else out)["shm_reads"] = \
+            shm_tally(mark)
+        return out
     results["build"] = phase_build()
     results["kernel"] = phase_kernel(rng, dev)
     need = N_BLOCKS * BLOCK + SHARDS * SHARD_BYTES + WORKER_TIER_BYTES \
         + 2 * ICI_TIER_BYTES + 3 * REP_TIER_BYTES + UFS_PHASE_BYTES \
         + RECOVER_PHASE_BYTES + DRAIN_PHASE_BYTES + EC_PHASE_BYTES \
-        + KV_PHASE_BYTES + HA_PHASE_BYTES
+        + KV_PHASE_BYTES + HA_PHASE_BYTES + SHM_PHASE_BYTES
     root = pick_data_dir(need)
     log(f"main: data under {root} (needs {need / GiB:.2f} GiB and 1 GiB "
         f"spare: {N_BLOCKS} blocks and {SHARDS} POSIX shards of 64 MiB, "
@@ -6864,7 +7302,8 @@ def main() -> int:
         f"{EC_PHASE_BYTES / GiB:.2f} GiB, phase kv's namespace, journals "
         f"and shards, at most {KV_PHASE_BYTES / GiB:.2f} GiB, phase ha's "
         f"shards and three masters' journals and KV directories, at most "
-        f"{HA_PHASE_BYTES / GiB:.2f} GiB)")
+        f"{HA_PHASE_BYTES / GiB:.2f} GiB, phase shm's shards three times, "
+        f"at most {SHM_PHASE_BYTES / GiB:.2f} GiB)")
     cluster = pw = None
     try:
         cuda_ops.block_checksum.launches = 0
@@ -6880,35 +7319,33 @@ def main() -> int:
         await_port_worker(info["addr"], pw)
         log(f"client: the port's worker {pw.worker.worker_id} serves at "
             f"{pw.worker.addr}, the master's only live worker")
-        results["client"] = phase_client(rng, dev, info["addr"],
-                                         results["feed"])
-        results["worker"] = phase_worker(rng, dev, info["addr"], pw,
-                                         results["main"]["promote_gibs"])
+        results["client"] = tallied(phase_client, rng, dev, info["addr"],
+                                    results["feed"])
+        results["worker"] = tallied(phase_worker, rng, dev, info["addr"],
+                                    pw, results["main"]["promote_gibs"])
         results["flash"] = phase_flash(dev, args.seed)
-        results["train"], params, step = phase_train(
-            dev, info["addr"], args.seed, results["flash"])
+        results["train"], params, step = tallied(
+            phase_train, dev, info["addr"], args.seed, results["flash"])
         log(f"train: mfu {results['train']['mfu']:.4f} on {card}")
-        results["ufs"] = phase_ufs(dev, info["addr"], pw, root, args.seed,
-                                   params, step, results["client"])
-        results["drain"] = phase_drain(dev, root, args.seed, params, step,
-                                       results["client"])
-        results["ec"] = phase_ec(dev, root, args.seed, params, step,
-                                 results["client"])
-        results["kv"] = phase_kv(dev, root, args.seed, params, step,
-                                 results["client"])
-        results["ha"] = phase_ha(dev, root, args.seed, params, step,
-                                 results["client"])
+        results["ufs"] = tallied(phase_ufs, dev, info["addr"], pw, root,
+                                 args.seed, params, step, results["client"])
+        for name, fn in (("drain", phase_drain), ("ec", phase_ec),
+                         ("kv", phase_kv), ("ha", phase_ha)):
+            results[name] = tallied(fn, dev, root, args.seed, params, step,
+                                    results["client"])
+        results["shm"] = tallied(phase_shm, dev, root, args.seed, params,
+                                 step, results["main"]["link_gibs"])
         del step
-        results["ckpt"], probe = phase_ckpt(dev, info["addr"], args.seed,
-                                            params,
-                                            results["main"]["link_gibs"], pw)
-        results["recover"] = phase_recover(dev, root, args.seed, params,
-                                           results["ckpt"])
+        results["ckpt"], probe = tallied(phase_ckpt, dev, info["addr"],
+                                         args.seed, params,
+                                         results["main"]["link_gibs"], pw)
+        results["recover"] = tallied(phase_recover, dev, root, args.seed,
+                                     params, results["ckpt"])
         # freed at del, without the collector (ROADMAP C3)
         del params
         held = torch.cuda.memory_allocated(dev)
-        results["mesh"] = phase_mesh(dev, info["addr"], args.seed,
-                                     results["train"])
+        results["mesh"] = tallied(phase_mesh, dev, info["addr"], args.seed,
+                                  results["train"])
         results["mesh"]["held_before_bytes"] = held
         log(f"mesh: device memory allocated before the phase "
             f"{held / GiB:.2f} GiB (phase 6's parameters and optimizer "
@@ -6916,11 +7353,24 @@ def main() -> int:
             f"{torch.cuda.memory_allocated(dev) / GiB:.2f} GiB")
         results["pipeline"] = phase_pipeline(dev, args.seed)
         results["ring"] = phase_ring(dev, args.seed)
-        results["vector"] = phase_vector(dev, info["addr"], args.seed)
-        results["master"] = phase_master(root, conf, cluster, pw, probe,
-                                         results["ufs"])
-        results["ici"] = phase_ici(rng, dev, root)
-        results["replicate"] = phase_replicate(rng, dev, root)
+        results["vector"] = tallied(phase_vector, dev, info["addr"],
+                                    args.seed)
+        results["master"] = tallied(phase_master, root, conf, cluster, pw,
+                                    probe, results["ufs"])
+        results["ici"] = tallied(phase_ici, rng, dev, root)
+        results["replicate"] = tallied(phase_replicate, rng, dev, root)
+        # which phases read through the shared-memory plane; none may
+        # count a fallback
+        shm_by_phase = {k: v["shm_reads"] for k, v in results.items()
+                        if isinstance(v, dict) and "shm_reads" in v}
+        results["shm_by_phase"] = shm_by_phase
+        log(f"shm: the port clients' shared-memory reads by phase "
+            f"{shm_by_phase}")
+        fell = {k: v for k, v in shm_by_phase.items()
+                if v["read.shm_fallbacks"] or v["read.shm_warm_fallbacks"]}
+        if fell:
+            raise AssertionError(f"shm: reads fell back from the mapping to "
+                                 f"the fd path in {fell}")
         # every phase's cluster traffic went through the port's worker
         await_port_worker(info["addr"], pw)
         m = pw.worker.metrics
@@ -6968,6 +7418,7 @@ def main() -> int:
                     + results["ec"]["k1_launches"]
                     + results["kv"]["k1_launches"]
                     + results["ha"]["k1_launches"]
+                    + results["shm"]["k1_launches"]
                     + results["recover"]["k1_launches"],
         "max_abs_err": k["max_abs_err"],
         "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
@@ -6988,6 +7439,7 @@ def main() -> int:
                         + results["ec"]["launches"][name]
                         + results["kv"]["launches"][name]
                         + results["ha"]["launches"][name]
+                        + results["shm"]["launches"][name]
                         + results["mesh"]["launches"][name]
                         + results["pipeline"]["launches"][name]
                         + results["recover"]["launches"][name],

@@ -50,19 +50,39 @@ refreshed locations serve the rest of the file. The counters ``sc.bytes.read`` a
 ``read.zero_copy_bytes`` (the reference's names) say which path served
 the bytes.
 
+The shared-memory plane (:161-168, :288-298, :351-358, :397-502), the
+reference's default same-host path: a probe answered with ``shm`` and
+``shm_sock`` records the worker's side channel, and the block's first
+read fetches its sealed memfd there (``worker/shm.py::fetch_block_fd``,
+on a thread), checks its seals and length, maps it read only and
+verifies the whole block once against its commit crc (``_shm_map``).
+Every read of the block is then a copy out of the mapping
+(``_shm_read_into``, before the fd path in ``_read_into``), and
+``mmap_view`` returns a read-only view of it with no copy
+(``_shm_view``). A failed fetch, a missing seal or a bad crc counts
+``read.shm_fallbacks`` and the fd path serves the block; hits count
+``read.shm_hits``, and a warm-cache block (``shm_warm`` on the probe, or
+named on an SC_READ_REPORT reply) counts ``read.shm_warm_hits`` and
+``read.shm_warm_fallbacks`` instead. Its bytes count in
+``sc.bytes.read``; ``read.zero_copy_bytes`` keeps the port's meaning,
+READ_BLOCK's bytes (the reference counts a mapping's views there too).
+A mapping is dropped with the
+block's other handles (``_drop_shm``); a view a caller holds keeps it
+alive. ``fetch_split`` sums the seconds of the probe, the map (the
+fetch and map, or the block file's open) and the copy (out of the
+mapping, or the preadv).
+
 Short-circuit reads bypass the worker, so their heat is reported back
 (``_note_sc_read``, ``_flush_sc_reads``; :138-143, :565-600, :1330-1333):
 per-block read counts, sent in SC_READ_REPORT to the worker that granted
 the block every 512 reads and on ``close``. The worker's promotion scan
-then counts reads, not opens. The reply's shared-memory warm-cache offer
-is ignored. The short circuit probes the first replica of the breaker's
+then counts reads, not opens. The short circuit probes the first replica of the breaker's
 order that is on this host, and skips a holder whose breaker is open
 (as the reference's cell reads do, :1035-1045): its block is then read
 through READ_BLOCK from the next replica, and probed again once the
 breaker lets it by.
 
-Left out (ROADMAP A3b): the shared-memory side channel (a worker's offer
-is ignored and the fd path taken), holes (a file resized past its last
+Left out (ROADMAP A3b): holes (a file resized past its last
 block; they raise ``NotImplementedError``),
 short-circuit reads of a bdev tier's leased extents (its blocks are read
 through READ_BLOCK), the sequential prefetch window, parallel
@@ -73,8 +93,11 @@ from __future__ import annotations
 
 import asyncio
 import bisect
+import fcntl
 import logging
+import mmap
 import os
+import time
 
 import numpy as np
 
@@ -86,9 +109,18 @@ from curvine_tpu_torch.common.types import (ExtendedBlock, FileBlocks,
 from curvine_tpu_torch.rpc.client import ConnectionPool
 from curvine_tpu_torch.rpc.codes import RpcCode
 from curvine_tpu_torch.rpc.frame import pack, unpack
+from curvine_tpu_torch.worker import shm as wshm
 from curvine_tpu_torch.worker.blockfile import crc_update, supported
 
 log = logging.getLogger(__name__)
+
+
+# the seals a worker's memfd must carry before a client maps it: its
+# bytes can then never change or shrink under the mapping
+_SHM_SEALS = fcntl.F_SEAL_SHRINK | fcntl.F_SEAL_GROW | fcntl.F_SEAL_WRITE
+# a mapping's pages are faulted in by the map call, in one pass: page by
+# page on first touch costs several times more on a virtual machine
+_SHM_MAP_FLAGS = mmap.MAP_SHARED | getattr(mmap, "MAP_POPULATE", 0)
 
 
 def _block_crc(algo: str, data) -> int | None:
@@ -134,6 +166,18 @@ class FsReader:
         self._sc_pending = 0
         self._sc_flush_task: asyncio.Task | None = None
         self._tasks: set[asyncio.Task] = set()
+        # the shared-memory plane: block id -> the worker's side channel
+        # for blocks it offered, block id -> (memfd, mapping) once
+        # fetched (verified once, bounded with the probe cache), and the
+        # blocks whose offer is the warm cache's (counted apart)
+        self._shm_sock: dict[int, str] = {}
+        self._shm_maps: dict[int, tuple[int, mmap.mmap]] = {}
+        self._shm_warm: set[int] = set()
+        # seconds of this reader's block fetches, by part: the probe
+        # (GET_BLOCK_INFO), the map (the shm fd's fetch, seal check, map
+        # and verify, or the block file's open) and the copy (out of the
+        # mapping, or the preadv); the feed reports them
+        self.fetch_split = {"probe": 0.0, "map": 0.0, "copy": 0.0}
 
     def _count(self, key: str, n: int) -> None:
         self.counters[key] = self.counters.get(key, 0) + n
@@ -315,6 +359,23 @@ class FsReader:
         (the block moved, shrank or left the worker)."""
         self._local_paths.pop(bid, None)
         self._close_fd(bid)
+        self._drop_shm(bid)
+
+    def _drop_shm(self, bid: int) -> None:
+        """Close a block's mapping and memfd, and forget its offer. A view
+        a caller still holds keeps the mapping open past this
+        (BufferError: the mmap lives until the last view goes), so an
+        eviction never takes pages from under a read."""
+        self._shm_sock.pop(bid, None)
+        self._shm_warm.discard(bid)
+        ent = self._shm_maps.pop(bid, None)
+        if ent is not None:
+            fd, mm = ent
+            try:
+                mm.close()
+            except BufferError:
+                pass
+            os.close(fd)
 
     async def _local_path(self, lb: LocatedBlock) -> str | None:
         """The path of a co-located block's file (cached), from the
@@ -332,6 +393,7 @@ class FsReader:
                     and self.health.state(self._addr(loc)) == OPEN:
                 return None      # not cached: probed again once it heals
             if loc is not None:
+                t0 = time.perf_counter()
                 try:
                     addr = self._addr(loc)
                     conn = await self.pool.get(addr)
@@ -346,9 +408,17 @@ class FsReader:
                             and not info.get("lease_ms"):
                         path = p
                         self._sc_loc[bid] = loc
+                        if info.get("shm") and info.get("shm_sock"):
+                            # the worker offers the sealed memfd: the
+                            # next read fetches and maps it (it wins over
+                            # the fd path)
+                            self._shm_sock[bid] = info["shm_sock"]
+                            if info.get("shm_warm"):
+                                self._shm_warm.add(bid)
                 except err.CurvineError as e:
                     log.debug("short-circuit probe of block %d failed: %s",
                               bid, e)
+                self.fetch_split["probe"] += time.perf_counter() - t0
         while len(self._local_paths) >= self._SC_CACHE_CAP:
             self._drop_local(next(iter(self._local_paths)))
         self._local_paths[bid] = path
@@ -362,11 +432,14 @@ class FsReader:
             if cached[1] == path:
                 return cached[0]
             self._close_fd(bid)
+        t0 = time.perf_counter()
         try:
             fd = os.open(path, os.O_RDONLY)
         except OSError:
             self._drop_local(bid)
             return None
+        finally:
+            self.fetch_split["map"] += time.perf_counter() - t0
         self._local_fds[bid] = (fd, path)
         return fd
 
@@ -392,6 +465,124 @@ class FsReader:
         self._tasks.add(t)
         t.add_done_callback(self._tasks.discard)
 
+    # ---------------- the shared-memory plane ----------------
+
+    def _shm_hit(self, bid: int) -> None:
+        """One read served by a mapping, counted to its plane: the warm
+        cache's (a block below the MEM tier) apart from the MEM
+        exports'."""
+        self._count("read.shm_warm_hits" if bid in self._shm_warm
+                    else "read.shm_hits", 1)
+
+    def _shm_fallback(self, bid: int) -> None:
+        self._count("read.shm_warm_fallbacks" if bid in self._shm_warm
+                    else "read.shm_fallbacks", 1)
+
+    async def _shm_map(self, lb: LocatedBlock) -> mmap.mmap | None:
+        """The block's mapping, made at its first read: the memfd fetched
+        over the worker's side channel (a blocking socket on a thread:
+        asyncio cannot carry SCM_RIGHTS), its seals checked, mapped read
+        only, and the whole block verified once against its commit crc;
+        every later read is a memory access. None: the caller takes the
+        fd path (a failed fetch is counted, and the block's offer
+        dropped, so it is not fetched again)."""
+        bid = lb.block.id
+        ent = self._shm_maps.get(bid)
+        if ent is not None:
+            return ent[1]
+        if not self.short_circuit or not lb.locs:
+            return None
+        if bid not in self._local_paths:
+            await self._local_path(lb)      # the probe learns the offer
+        spath = self._shm_sock.get(bid)
+        if spath is None:
+            return None
+        t0 = time.perf_counter()
+        try:
+            return await self._shm_fetch_map(lb, spath)
+        finally:
+            self.fetch_split["map"] += time.perf_counter() - t0
+
+    async def _shm_fetch_map(self, lb: LocatedBlock, spath: str):
+        bid = lb.block.id
+        try:
+            fd, length = await asyncio.to_thread(wshm.fetch_block_fd,
+                                                 spath, bid)
+        except (LookupError, OSError, ValueError) as e:
+            log.debug("shm fetch of block %d failed: %s", bid, e)
+            self._shm_fallback(bid)
+            self._shm_sock.pop(bid, None)
+            return None
+        other = self._shm_maps.get(bid)
+        if other is not None:
+            os.close(fd)                    # a concurrent fetch won
+            return other[1]
+        try:
+            sealed = fcntl.fcntl(fd, fcntl.F_GET_SEALS) & _SHM_SEALS \
+                == _SHM_SEALS
+            mm = (mmap.mmap(fd, length, flags=_SHM_MAP_FLAGS,
+                            prot=mmap.PROT_READ)
+                  if sealed and length == lb.block.len and length > 0
+                  else None)
+        except (OSError, ValueError):
+            mm = None
+        if mm is None:
+            os.close(fd)
+            self._shm_fallback(bid)
+            self._shm_sock.pop(bid, None)
+            return None
+        warm = bid in self._shm_warm
+        if self.verify and not self._sc_verify_ok(lb, memoryview(mm)):
+            # flagged and the block's handles dropped; read elsewhere
+            try:
+                mm.close()
+            except BufferError:
+                pass
+            os.close(fd)
+            self._count("read.shm_warm_fallbacks" if warm
+                        else "read.shm_fallbacks", 1)
+            return None
+        self._shm_maps[bid] = (fd, mm)
+        return mm
+
+    async def _shm_read_into(self, lb: LocatedBlock, block_off: int,
+                             out: memoryview) -> int:
+        """Fill ``out`` from the block's mapping (one copy, no RPC, no
+        syscall); 0 when the block is not served by shm."""
+        mm = await self._shm_map(lb)
+        if mm is None:
+            return 0
+        t0 = time.perf_counter()
+        n = len(out)
+        out[:n] = np.frombuffer(mm, dtype=np.uint8, count=n,
+                                offset=block_off)
+        self.fetch_split["copy"] += time.perf_counter() - t0
+        self._note_sc_read(lb.block.id, n)
+        self._shm_hit(lb.block.id)
+        return n
+
+    async def _shm_view(self, offset: int, n: int) -> np.ndarray | None:
+        """A read-only uint8 view of a single block's range in its
+        mapping, with no copy; None when the range spans blocks or the
+        block is not served by shm."""
+        if n <= 0:
+            return None
+        located = self._locate(offset)
+        if located is None:
+            return None
+        lb, block_off = located
+        if self._ec_active(lb) or block_off + n > lb.block.len:
+            return None
+        mm = await self._shm_map(lb)
+        if mm is None:
+            return None
+        t0 = time.perf_counter()
+        view = np.frombuffer(mm, dtype=np.uint8, count=n, offset=block_off)
+        self.fetch_split["copy"] += time.perf_counter() - t0
+        self._note_sc_read(lb.block.id, n)
+        self._shm_hit(lb.block.id)
+        return view
+
     # ---------------- short-circuit read accounting ----------------
 
     def _note_sc_read(self, block_id: int, nbytes: int) -> None:
@@ -416,8 +607,15 @@ class FsReader:
         for addr, block_reads in by_addr.items():
             try:
                 conn = await self.pool.get(addr)
-                await conn.call(RpcCode.SC_READ_REPORT,
-                                data=pack({"block_reads": block_reads}))
+                rep = await conn.call(RpcCode.SC_READ_REPORT,
+                                      data=pack({"block_reads": block_reads}))
+                # the reply names the blocks whose heat just made them
+                # warm-servable: this reader probed them before the heat,
+                # and maps the warm copy at its next read
+                hdr = rep.header if isinstance(rep.header, dict) else {}
+                for bid, sock in (hdr.get("shm_warm") or {}).items():
+                    self._shm_sock[int(bid)] = sock
+                    self._shm_warm.add(int(bid))
             except err.CurvineError as e:
                 log.debug("sc read report to %s failed: %s", addr, e)
 
@@ -443,7 +641,11 @@ class FsReader:
         uint8 array: one preadv from the block file (the page cache, or
         the tmpfs of a mem tier). None when the range spans blocks, is
         not on this host, is striped, or fails its crc (the caller then
-        reads through ``read_all``)."""
+        reads through ``read_all``). A block the worker serves by shm
+        gives a read-only view of its mapping instead, with no copy."""
+        view = await self._shm_view(offset, n)
+        if view is not None:
+            return view
         located = self._locate(offset)
         if located is None:
             return None
@@ -453,13 +655,16 @@ class FsReader:
         fd = await self._local_fd(lb)
         if fd is None:
             return None
+        t0 = time.perf_counter()
         buf = np.empty(n, dtype=np.uint8)
         got = os.preadv(fd, [memoryview(buf)], block_off)
+        ok = got == n and not (
+            self.verify and block_off == 0 and n == lb.block.len
+            and not self._sc_verify_ok(lb, buf))
+        self.fetch_split["copy"] += time.perf_counter() - t0
         if got != n:
             self._drop_local(lb.block.id)
-            return None
-        if self.verify and block_off == 0 and n == lb.block.len \
-                and not self._sc_verify_ok(lb, buf):
+        if not ok:
             return None
         self._note_sc_read(lb.block.id, n)
         return buf
@@ -534,9 +739,16 @@ class FsReader:
                     break
                 filled += got
                 continue
+            # the mapping first: no RPC, and no syscall once it is made
+            got = await self._shm_read_into(lb, block_off, seg)
+            if got > 0:
+                filled += got
+                continue
             fd = await self._local_fd(lb)
             if fd is not None:
+                t0 = time.perf_counter()
                 got = os.preadv(fd, [seg], block_off)
+                self.fetch_split["copy"] += time.perf_counter() - t0
                 if self.verify and block_off == 0 \
                         and got == lb.block.len \
                         and not self._sc_verify_ok(lb, seg):
@@ -627,5 +839,7 @@ class FsReader:
         for fd, _path in self._local_fds.values():
             os.close(fd)
         self._local_fds.clear()
+        for bid in list(self._shm_maps):
+            self._drop_shm(bid)
         if self._tasks:
             await asyncio.gather(*list(self._tasks), return_exceptions=True)

@@ -54,9 +54,11 @@ in the reference, ``breaker_fail_threshold``, ``breaker_open_ms`` and
 The worker's fields that name a branch the port's worker does not have
 are constants too (``WORKER_FIXED``, ``TIER_FIXED``, ``QOS_FIXED``): the
 bdev layout and a tier's direct-IO queue depth, the direct-IO engine,
-the shared-memory reads and their warm cache, the disk-fault thresholds
-and the QoS tenant specs. A file that sets one of them to anything but
-the value the port implements is refused. The device-path transfer
+the disk-fault thresholds and the QoS tenant specs. A file that sets one
+of them to anything but the value the port implements is refused. The
+shared-memory read plane's four keys (``shm_reads``, ``shm_export_cap``,
+``shm_warm_cap_mb``, ``shm_warm_min_reads``, :204-218) are fields at the
+reference's defaults: on, 128, 64 and 3. The device-path transfer
 (``ici_transfer``, on by default, as in the reference), the bound of
 the tier-0's heartbeat advertisement (``hbm_advertise_max``) and the
 tasks a worker runs at once (``task_parallelism``, :168) are fields.
@@ -97,8 +99,7 @@ META_ENGINES = ("auto", "native", "python")
 
 
 # the worker's branches the port does not have, at the value it implements
-WORKER_FIXED = {"shm_reads": False,
-                "shm_warm_cap_mb": 0, "direct_io": False,
+WORKER_FIXED = {"direct_io": False,
                 "direct_io_engine": "off", "disk_error_threshold": 3,
                 "disk_error_decay_s": 60.0, "disk_probe_interval_s": 5.0,
                 "disk_probe_failures": 2, "disk_probe_successes": 3,
@@ -189,6 +190,21 @@ class WorkerConf:
     cache_small_ratio: float = 0.1
     # the master's load, export and prefetch tasks run at once
     task_parallelism: int = 4
+    # the shared-memory read plane (worker/shm.py): MEM-tier blocks
+    # exported as sealed memfds and handed to co-located clients over an
+    # SCM_RIGHTS unix side channel, whose reads are then slices of the
+    # mapping, with no RPC; needs os.memfd_create (Linux)
+    shm_reads: bool = True
+    # sealed-memfd export cache entries (LRU; an eviction closes the
+    # worker's fd, a client's dup stays valid)
+    shm_export_cap: int = 128
+    # the warm cache for the tiers below mem: a read-hot block's bytes
+    # copied once into a sealed memfd and served over the same channel;
+    # bounded in MiB, 0 disables it (the MEM exports are unaffected)
+    shm_warm_cap_mb: int = 64
+    # reads (the SC_READ_REPORT heat) a block below mem needs before it
+    # earns a warm copy
+    shm_warm_min_reads: int = 3
 
 
 @dataclass

@@ -177,15 +177,33 @@ class Journal:
 
     # ---------- snapshot ----------
     def write_snapshot(self, state: dict) -> str:
-        path = os.path.join(self.dir, f"snapshot-{self.seq:020d}")
-        tmp = path + ".tmp"
+        path = self.place_snapshot(
+            self.stage_snapshot(state, self.seq, self.last_term))
+        self._gc(before_seq=self.seq)
+        return path
+
+    def stage_snapshot(self, state: dict, seq: int, last_term: int) -> str:
+        """The snapshot file of ``state`` at ``seq`` written and fsync'd
+        under its temporary name (``recover`` ignores it), and nothing
+        else: it reads no journal state, so a raft follower writes it on
+        a worker thread. ``place_snapshot`` renames it into place."""
+        tmp = os.path.join(self.dir, f"snapshot-{seq:020d}.tmp")
         with open(tmp, "wb") as f:
-            f.write(_pack({"__snap__": state,
-                           "__last_term__": self.last_term}))
+            f.write(wirepack.packb_buffer({"__snap__": state,
+                                           "__last_term__": last_term}))
             f.flush()
             os.fsync(f.fileno())
+        return tmp
+
+    def place_snapshot(self, tmp: str) -> str:
+        """A staged snapshot renamed into place, and every other snapshot
+        removed: ``recover`` loads the newest, and one of a superseded
+        history may be newer."""
+        path = tmp.removesuffix(".tmp")
         os.replace(tmp, path)
-        self._gc(before_seq=self.seq)
+        for _s, p in self._list("snapshot-"):
+            if p != path:
+                os.unlink(p)
         return path
 
     def _gc(self, before_seq: int) -> None:

@@ -59,6 +59,8 @@ def load() -> ctypes.CDLL:
                                  ctypes.c_uint32, ctypes.c_char_p,
                                  ctypes.c_uint32]
     lib.kv_scan_close.argtypes = [ctypes.c_void_p]
+    lib.kv_scan_mem_items.restype = ctypes.c_uint64
+    lib.kv_scan_mem_items.argtypes = [ctypes.c_void_p]
     lib.kv_scan_many.restype = ctypes.c_int64
     lib.kv_scan_many.argtypes = [ctypes.c_void_p, ctypes.c_char_p,
                                  ctypes.c_uint32]
@@ -130,39 +132,19 @@ class NativeKvStore:
         finally:
             self._lib.kv_free(out)
 
-    _SCAN_BUF = 1 << 20
-    _U32X2 = struct.Struct("<II")
-
     def scan(self, prefix: bytes = b"", start: bytes | None = None):
-        """Yields (key, value) in key order for keys with ``prefix``,
-        from ``start``; one FFI call fills a buffer of records (a call
-        an item costs more than the Python engine's whole scan)."""
+        """An iterator of (key, value) in key order for keys with
+        ``prefix``, from ``start``. A cursor: the engine copies the
+        memtable's items under the prefix and opens every segment's file
+        when it is made (``kv_scan_open``), so it may be drained later, on
+        another thread, while this store takes writes, flushes and
+        compacts."""
         it = self._lib.kv_scan_open(self._h, prefix, len(prefix),
                                     start or b"", len(start) if start else 0)
         if not it:
             raise RuntimeError(f"kv_scan: {self._err()}")
-        bufsize = self._SCAN_BUF
-        buf = ctypes.create_string_buffer(bufsize)
-        try:
-            while True:
-                n = self._lib.kv_scan_many(it, buf, bufsize)
-                if n < -1:
-                    # one record larger than the buffer: grow and retry
-                    bufsize = -n
-                    buf = ctypes.create_string_buffer(bufsize)
-                    continue
-                self._check(n)
-                if n == 0:
-                    return
-                data = buf.raw[:n]
-                off = 0
-                while off < n:
-                    kl, vl = self._U32X2.unpack_from(data, off)
-                    off += 8
-                    yield data[off:off + kl], data[off + kl:off + kl + vl]
-                    off += kl + vl
-        finally:
-            self._lib.kv_scan_close(it)
+        return _Cursor(self._lib, it)
+
 
     # ---- maintenance ----
 
@@ -183,3 +165,72 @@ class NativeKvStore:
     @property
     def segment_count(self) -> int:
         return int(self._lib.kv_segment_count(self._h))
+
+
+class _Cursor:
+    """An open ``kv_scan_open`` iterator, read a buffer of records at a
+    time: one FFI call fills the buffer (a call an item costs more than
+    the Python engine's whole scan). The engine's iterator holds copies
+    and its own file handles, so it outlives the store's later writes
+    and may be drained on any one thread; it is freed when exhausted or
+    dropped."""
+
+    _SCAN_BUF = 1 << 20
+    _U32X2 = struct.Struct("<II")
+
+    def __init__(self, lib, it):
+        self._lib = lib
+        self._it = it
+        self._bufsize = self._SCAN_BUF
+        self._buf = None            # made at the first fill, by the drainer
+        self._data = b""
+        self._off = 0
+
+    def __iter__(self):
+        return self
+
+    def __next__(self) -> tuple[bytes, bytes]:
+        if self._off >= len(self._data):
+            self._fill()
+        data, off = self._data, self._off
+        kl, vl = self._U32X2.unpack_from(data, off)
+        off += 8
+        self._off = off + kl + vl
+        return data[off:off + kl], data[off + kl:off + kl + vl]
+
+    def _fill(self) -> None:
+        if self._it is None:
+            raise StopIteration
+        if self._buf is None:
+            self._buf = ctypes.create_string_buffer(self._bufsize)
+        while True:
+            n = self._lib.kv_scan_many(self._it, self._buf, self._bufsize)
+            if n < -1:
+                # one record larger than the buffer: grow and retry
+                self._bufsize = -n
+                self._buf = ctypes.create_string_buffer(self._bufsize)
+                continue
+            break
+        if n <= 0:
+            self.close()
+            if n < 0:
+                raise RuntimeError(
+                    f"kv: {self._lib.kv_errmsg().decode(errors='replace')}")
+            raise StopIteration
+        self._data = ctypes.string_at(self._buf, n)   # one copy of n bytes
+        self._off = 0
+
+    @property
+    def mem_items(self) -> int:
+        """The memtable items the engine copied into this cursor when it
+        was opened (0 once it is exhausted)."""
+        return 0 if self._it is None else int(
+            self._lib.kv_scan_mem_items(self._it))
+
+    def close(self) -> None:
+        it, self._it = self._it, None
+        if it is not None:
+            self._lib.kv_scan_close(it)
+
+    def __del__(self):
+        self.close()

@@ -28,7 +28,11 @@ memtable into a new segment and drops the WAL; past
 ``compact_threshold`` segments the newest ones of comparable size are
 merged (size-tiered), and a merge that covers every segment drops the
 tombstones. ``scan`` yields a prefix in key order, the memtable
-shadowing the segments."""
+shadowing the segments; it is a cursor (beyond the reference, whose scan
+is a generator that takes its memtable slice and opens its segments at
+the first ``next()``): its memtable slice and its segment files are
+taken when it is made, so a thread can drain it while the store goes on
+(a raft leader's snapshot, ROADMAP §C, C10)."""
 
 from __future__ import annotations
 
@@ -124,7 +128,9 @@ class Segment:
         return _MISS
 
     def iter_from(self, start: bytes = b""):
-        """Yields (key, value|None) with key >= start, in order."""
+        """Yields (key, value|None) with key >= start, in order. The file
+        is opened here, not at the first ``next()``: a cursor made now
+        goes on reading this run after a compaction unlinks it."""
         off = 0
         if start and self.index:
             lo, hi = 0, len(self.index)
@@ -136,8 +142,12 @@ class Segment:
                     hi = mid
             if lo > 0:
                 off = self.index[lo - 1][1]
-        with open(self.path, "rb") as f:
-            f.seek(off)
+        f = open(self.path, "rb")
+        f.seek(off)
+        return self._entries(f, start)
+
+    def _entries(self, f, start: bytes):
+        with f:
             while f.tell() < self.index_off:
                 hdr = f.read(_ENT_HDR.size)
                 if len(hdr) < _ENT_HDR.size:
@@ -158,16 +168,20 @@ _MISS = _Miss()
 
 def _merge_runs(segments, drop_tombs: bool, start: bytes = b""):
     """Ordered (key, value) across `segments` (oldest→newest); the newest
-    occurrence of a key wins."""
-    def source(seg, rank):
-        # rank must be bound eagerly (a genexp in the comprehension
-        # would close over the loop variable and give every source
-        # the same final rank, breaking newest-wins)
-        return ((k, rank, v) for k, v in seg.iter_from(start))
-
-    # newer segments get lower rank so heapq pops them first
-    sources = [source(seg, rank)
+    occurrence of a key wins. Every segment's file is opened before this
+    returns."""
+    # newer segments get lower rank so heapq pops them first; the rank
+    # is bound eagerly, one generator a segment
+    sources = [_ranked(seg.iter_from(start), rank)
                for rank, seg in enumerate(reversed(segments))]
+    return _newest_wins(sources, drop_tombs)
+
+
+def _ranked(entries, rank: int):
+    return ((k, rank, v) for k, v in entries)
+
+
+def _newest_wins(sources, drop_tombs: bool):
     last = None
     for k, _rank, v in heapq.merge(*sources):
         if k == last:
@@ -176,6 +190,27 @@ def _merge_runs(segments, drop_tombs: bool, start: bytes = b""):
         if v is None and drop_tombs:
             continue
         yield k, v
+
+
+def _shadowed(mem_items: list, seg_iter, prefix: bytes):
+    """The memtable's items merged over the segments', the memtable
+    shadowing them, tombstones skipped, up to the end of ``prefix``."""
+    mem_iter = iter(mem_items)
+    a = next(mem_iter, None)
+    b = next(seg_iter, None)
+    while a is not None or b is not None:
+        if b is None or (a is not None and a[0] <= b[0]):
+            if b is not None and a[0] == b[0]:
+                b = next(seg_iter, None)
+            k, v = a
+            a = next(mem_iter, None)
+        else:
+            k, v = b
+            b = next(seg_iter, None)
+        if prefix and not k.startswith(prefix):
+            return
+        if v is not None:
+            yield k, v
 
 
 class KvStore:
@@ -341,7 +376,7 @@ class KvStore:
             return
         self._gen += 1
         path = os.path.join(self.dir, f"seg-{self._gen:012d}.sst")
-        self._write_segment(path, self._merged_segments(drop_tombs=True))
+        self._write_segment(path, _merge_runs(self.segments, True))
         old = self.segments
         self.segments = [Segment(path)]
         for seg in old:
@@ -377,10 +412,6 @@ class KvStore:
             seg.close()
             os.unlink(seg.path)
 
-    def _merged_segments(self, drop_tombs: bool, start: bytes = b""):
-        """Ordered (key, value) across ALL segments; newest wins."""
-        yield from _merge_runs(self.segments, drop_tombs, start)
-
     # ---------- reads ----------
 
     def get(self, key: bytes) -> bytes | None:
@@ -393,31 +424,18 @@ class KvStore:
         return None
 
     def scan(self, prefix: bytes = b"", start: bytes | None = None):
-        """Yields (key, value) in key order for keys with ``prefix``.
-        Memtable shadows segments; tombstones are skipped."""
+        """An iterator of (key, value) in key order for keys with
+        ``prefix``; the memtable shadows the segments, tombstones are
+        skipped. A cursor: the memtable's items under the prefix are
+        copied and every segment's file opened here, so it may be drained
+        later, on another thread, while this store takes writes, flushes
+        and compacts (an unlinked run stays readable through its open
+        file)."""
         lo = start if start is not None else prefix
-        mem_items = iter(sorted(
-            (k, v) for k, v in self.mem.items() if k >= lo))
-        seg_iter = self._merged_segments(drop_tombs=False, start=lo)
-
-        def merged():
-            a = next(mem_items, None)
-            b = next(seg_iter, None)
-            while a is not None or b is not None:
-                if b is None or (a is not None and a[0] <= b[0]):
-                    if b is not None and a[0] == b[0]:
-                        b = next(seg_iter, None)
-                    yield a
-                    a = next(mem_items, None)
-                else:
-                    yield b
-                    b = next(seg_iter, None)
-
-        for k, v in merged():
-            if prefix and not k.startswith(prefix):
-                break
-            if v is not None:
-                yield k, v
+        mem_items = sorted((k, v) for k, v in self.mem.items()
+                           if k >= lo and k.startswith(prefix))
+        return _shadowed(mem_items, _merge_runs(self.segments, False, lo),
+                         prefix)
 
     # ---------- misc ----------
 

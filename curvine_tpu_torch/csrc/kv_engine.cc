@@ -13,7 +13,13 @@
 //                  footer [index_off u64 be][count u64 be] "CVSST02\0"
 //
 // Host code, not a device kernel. Single-threaded: the master is one
-// event loop. The C interface below is bound with ctypes
+// event loop. The one exception is a scan cursor (ScanIter): when
+// kv_scan_open makes it, it copies the memtable's items under its prefix
+// and takes a shared_ptr of every segment, and reads nothing of the Store
+// after that, so another thread may drain it with kv_scan_many while the
+// loop writes, flushes and compacts (an unlinked segment stays readable
+// through its own descriptor, which the shared_ptr keeps open; SegStream
+// reads it with pread). The C interface below is bound with ctypes
 // (curvine_tpu_torch/common/kvnative.py); gpu/_build.py compiles this
 // file with the host C++ compiler at first use.
 
@@ -204,44 +210,91 @@ struct Segment {
 
 using SegPtr = std::shared_ptr<Segment>;
 
-// streaming reader over one segment (iter_from parity)
+// streaming reader over one segment (iter_from parity). It reads with
+// pread on the segment's own descriptor, which the shared_ptr keeps open
+// after a compaction unlinks the file; pread leaves the descriptor's
+// offset alone, so Segment::get may seek and read it on the loop while
+// another thread drains this stream. Nothing is read (nor the start
+// looked up) until the first next(): opening a cursor touches no file.
 struct SegStream {
+  static constexpr size_t BUF = 1 << 20;
   SegPtr seg;
-  FILE* f = nullptr;
-  uint64_t pos = 0;
+  std::string start;
+  bool begun = false;
+  uint64_t pos = 0;  // file offset of the next unread byte
+  std::string buf;   // bytes [buf_off, buf_off + buf.size()) of the file
+  uint64_t buf_off = 0;
+  size_t buf_at = 0;
 
-  SegStream(SegPtr s, const std::string& start) : seg(std::move(s)) {
-    f = fopen(seg->path.c_str(), "rb");
-    if (!f) throw std::runtime_error("open " + seg->path);
-    uint64_t off = 0;
-    if (!start.empty()) seg->seek_slot(start, &off);
-    fseek(f, long(off), SEEK_SET);
-    pos = off;
+  SegStream(SegPtr s, const std::string& lo) : seg(std::move(s)), start(lo) {}
+
+  // n bytes at pos into dst, through the buffer (a large read goes
+  // straight to dst)
+  bool read(void* dst, size_t n) {
+    auto* out = static_cast<char*>(dst);
+    while (n > 0) {
+      size_t have = buf.size() - buf_at;
+      if (have == 0) {
+        uint64_t left = seg->index_off - pos;
+        if (n >= BUF) {
+          if (n > left) return false;
+          if (!pread_all(out, n, pos)) return false;
+          pos += n;
+          return true;
+        }
+        size_t want = size_t(std::min<uint64_t>(BUF, left));
+        if (want == 0) return false;
+        buf.resize(want);
+        if (!pread_all(buf.data(), want, pos)) return false;
+        buf_off = pos;
+        buf_at = 0;
+        have = want;
+      }
+      size_t take = std::min(have, n);
+      memcpy(out, buf.data() + buf_at, take);
+      buf_at += take;
+      out += take;
+      n -= take;
+      pos += take;
+    }
+    return true;
   }
-  ~SegStream() {
-    if (f) fclose(f);
+
+  bool pread_all(char* dst, size_t n, uint64_t off) {
+    int fd = fileno(seg->fh);
+    while (n > 0) {
+      ssize_t got = pread(fd, dst, n, off_t(off));
+      if (got < 0 && errno == EINTR) continue;
+      if (got <= 0) return false;
+      dst += got;
+      n -= size_t(got);
+      off += uint64_t(got);
+    }
+    return true;
   }
 
   bool next(std::string* k, std::optional<std::string>* v) {
-    while (pos < seg->index_off) {
-      uint8_t hdr[8];
-      if (fread(hdr, 1, 8, f) != 8) return false;
-      uint32_t klen = be32(hdr);
-      int32_t vlen = int32_t(be32(hdr + 4));
-      k->resize(klen);
-      if (fread(k->data(), 1, klen, f) != klen) return false;
-      if (vlen < 0) {
-        v->reset();
-      } else {
-        std::string val(size_t(vlen), '\0');
-        if (vlen && fread(val.data(), 1, size_t(vlen), f) != size_t(vlen))
-          return false;
-        *v = std::move(val);
-      }
-      pos += 8 + klen + (vlen > 0 ? uint64_t(vlen) : 0);
-      return true;
+    if (!begun) {
+      uint64_t off = 0;
+      if (!start.empty()) seg->seek_slot(start, &off);
+      pos = off;
+      begun = true;
     }
-    return false;
+    if (pos >= seg->index_off) return false;
+    uint8_t hdr[8];
+    if (!read(hdr, 8)) return false;
+    uint32_t klen = be32(hdr);
+    int32_t vlen = int32_t(be32(hdr + 4));
+    k->resize(klen);
+    if (klen && !read(k->data(), klen)) return false;
+    if (vlen < 0) {
+      v->reset();
+    } else {
+      std::string val(size_t(vlen), '\0');
+      if (vlen && !read(val.data(), size_t(vlen))) return false;
+      *v = std::move(val);
+    }
+    return true;
   }
 };
 
@@ -477,24 +530,34 @@ struct Store {
       bool ok;
     };
     std::vector<Src> srcs;
+    std::string start;
     std::string last;
     bool have_last = false;
+    bool primed = false;
     bool drop_tombs;
 
-    Merge(const std::vector<SegPtr>& segs, bool drop, const std::string& start)
-        : drop_tombs(drop) {
+    // opens (and seeks) every segment's stream; their first entries are
+    // read at the first next(), so a scan cursor opened on the master's
+    // loop reads no record there (its drainer reads them)
+    Merge(const std::vector<SegPtr>& segs, bool drop, const std::string& lo)
+        : start(lo), drop_tombs(drop) {
       int rank = 0;
-      for (auto it = segs.rbegin(); it != segs.rend(); ++it, ++rank) {
-        Src s{std::make_unique<SegStream>(*it, start), "", std::nullopt, rank,
-              false};
+      for (auto it = segs.rbegin(); it != segs.rend(); ++it, ++rank)
+        srcs.push_back(Src{std::make_unique<SegStream>(*it, start), "",
+                           std::nullopt, rank, false});
+    }
+
+    void prime() {
+      for (auto& s : srcs) {
         s.ok = s.st->next(&s.k, &s.v);
         // iter_from parity: skip entries below start
         while (s.ok && s.k < start) s.ok = s.st->next(&s.k, &s.v);
-        srcs.push_back(std::move(s));
       }
+      primed = true;
     }
 
     bool next(std::string* k, std::optional<std::string>* v) {
+      if (!primed) prime();
       for (;;) {
         int best = -1;
         for (size_t i = 0; i < srcs.size(); i++) {
@@ -617,17 +680,26 @@ struct ScanIter {
   std::string pending_k;
   std::optional<std::string> pending_v;
   bool pending_ok = false;
+  bool started = false;  // the segments' first entry read (first next())
   bool held = false;  // kv_scan_many: current item not yet delivered
 
   ScanIter(Store& st, const std::string& pfx, const std::string& lo)
       : prefix(pfx) {
-    for (auto it = st.mem.lower_bound(lo); it != st.mem.end(); ++it)
+    // the memtable's items from lo to the end of the prefix, no further:
+    // a cursor opened on the master's loop costs what its prefix holds
+    // in the memtable, not the memtable's tail
+    for (auto it = st.mem.lower_bound(lo); it != st.mem.end(); ++it) {
+      if (!pfx.empty() && it->first.compare(0, pfx.size(), pfx) != 0) break;
       mem_items.emplace_back(it->first, it->second);
+    }
     segs = std::make_unique<Store::Merge>(st.segments, false, lo);
-    pending_ok = segs->next(&pending_k, &pending_v);
   }
 
   bool next() {
+    if (!started) {
+      pending_ok = segs->next(&pending_k, &pending_v);
+      started = true;
+    }
     for (;;) {
       bool have_mem = mi < mem_items.size();
       std::string k;
@@ -780,6 +852,11 @@ int kv_scan_next(void* it, const uint8_t** k, uint32_t* klen,
 }
 
 void kv_scan_close(void* it) { delete static_cast<ScanIter*>(it); }
+
+// the memtable items a cursor copied when it was opened
+uint64_t kv_scan_mem_items(void* it) {
+  return static_cast<ScanIter*>(it)->mem_items.size();
+}
 
 // Batched scan: fills buf with consecutive
 // [klen u32 le][vlen u32 le][key][value] records. Returns bytes

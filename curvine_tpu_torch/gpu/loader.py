@@ -11,8 +11,11 @@ Two sources feed the same batching:
 
 - ``CacheShardSource`` (:24-133) reads the shards out of the cache
   through the port's ``CurvineClient``: ``mmap_view`` where the block is
-  on this host (one preadv, the short circuit), ``read_all`` (READ_BLOCK)
-  otherwise; with ``prefetch=True`` it advises the master's rolling
+  on this host (a read-only view of the worker's sealed memfd when it
+  offers the shared-memory plane, which the staging ring then copies to
+  the card; else one preadv, the fd short circuit), ``read_all``
+  (READ_BLOCK) otherwise; ``fetch_split`` splits ``cache_fetch`` into
+  the probe, the map and the copy; with ``prefetch=True`` it advises the master's rolling
   prefetch window as its cursor moves, fire-and-forget, and advises the
   next epoch's head near the end of each epoch.
   ``write_token_shards`` (:135-166) writes shards through the client
@@ -127,6 +130,12 @@ class CacheShardSource(_Batcher):
         self.prefetch_window = int(prefetch_window)
         self._advise_tasks: set[asyncio.Task] = set()
         self._advised_next_epoch = False
+        # cache_fetch split, seconds summed over the shards fetched: the
+        # probe (GET_BLOCK_INFO), the map (a shm memfd's fetch, seal
+        # check, map and verify at a block's first read, or the block
+        # file's open) and the copy (out of the mapping, the preadv, or
+        # READ_BLOCK's stream when the block is not on this host)
+        self.fetch_split = {"probe": 0.0, "map": 0.0, "copy": 0.0}
 
     async def shards(self, epoch: int | None = None) -> list[str]:
         statuses = await self.client.meta.list_status(self.path)
@@ -173,8 +182,15 @@ class CacheShardSource(_Batcher):
         n_bytes = reader.len // self.dtype.itemsize * self.dtype.itemsize
         view = await reader.mmap_view(0, n_bytes)
         if view is None:
+            split = reader.fetch_split
+            t0, before = time.perf_counter(), sum(split.values())
             view = np.frombuffer(await reader.read_all(),
                                  dtype=np.uint8)[:n_bytes]
+            # what the parts did not count: READ_BLOCK's stream
+            split["copy"] += max(0.0, time.perf_counter() - t0
+                                 - (sum(split.values()) - before))
+        for part, sec in reader.fetch_split.items():
+            self.fetch_split[part] += sec
         return view.view(self.dtype), reader.len, reader
 
     async def _epoch_done(self) -> None:

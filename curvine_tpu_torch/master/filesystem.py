@@ -101,8 +101,11 @@ when its apply fails, so that the followers' seqs stay contiguous (they
 fail the same way and skip it). A follower journals a leader's batch
 with one flush and applies it in order (``apply_replicated_batch``: an
 entry whose apply fails is rolled back alone, and the KV batch commits
-under the tail's seq); ``install_snapshot`` replaces the whole state, then
-drops the log and writes the snapshot. ``check_lost_workers(act=False)``
+under the tail's seq); a snapshot install replaces the whole state, then
+drops the log and writes the snapshot: ``build_install`` builds the new
+state into a fresh store and stages the snapshot file (off the loop,
+beyond the reference's ``install_snapshot``), ``adopt_install`` swaps
+them in. ``check_lost_workers(act=False)``
 keeps the LOST bookkeeping of a follower without its repair. Left out:
 the two-phase transactions of the sharded namespace and the audit log
 (ROADMAP §A items 3-4)."""
@@ -118,6 +121,7 @@ from curvine_tpu_torch.common.journal import GroupCommitter, Journal
 from curvine_tpu_torch.common.types import (CommitBlock, ExtendedBlock,
                                             FileBlocks, FileStatus, FileType,
                                             LocatedBlock, MasterInfo,
+                                            MountInfo,
                                             SetAttrOpts, StoragePolicy,
                                             StorageType, TtlAction,
                                             WorkerInfo, WorkerState, now_ms)
@@ -169,7 +173,8 @@ class MasterFilesystem:
         # listing one does not locate it again, and deletes it again
         self._retired: dict[int, set[int]] = {}
         # inode ids of files open for writing; None until the first lease
-        # recovery after a start builds it by one scan
+        # recovery after a start builds it by one scan (a snapshot install
+        # sets it from the snapshot)
         self.open_files: set[int] | None = None
         # set by MasterServer: _log then journals unflushed and the RPC
         # handler awaits committer.sync() before it replies
@@ -354,19 +359,53 @@ class MasterFilesystem:
         if self._kv:
             self.store.commit_applied(entries[-1][0])
 
-    def install_snapshot(self, state: dict, seq: int, last_term: int) -> None:
-        """Replace the whole state (a raft catch-up or a divergence's
-        heal), then drop the log, whose entries may be of a superseded
-        history, and write the snapshot."""
-        self._load_snapshot(state)
+    def build_install(self, state: dict, seq: int, last_term: int):
+        """A snapshot install (a raft catch-up or a divergence's heal)
+        replaces the whole state, then drops the log, whose entries may
+        be of a superseded history, and writes the snapshot. This is the
+        part of it that may run on a worker thread while the loop goes
+        on: the new state built into a fresh store (``store.fresh()``: on
+        the KV store a new directory, its batch committed under ``seq``
+        and flushed), the journal's snapshot file staged, and the files
+        open for writing listed. It reads nothing of this filesystem but
+        the store's settings. Returns what ``adopt_install`` swaps in."""
+        self._check_snapshot(state)
+        built = self.store.fresh()
+        # a KV store lands its batch in parts (the RAM store has none)
+        self._fill_store(built, state,
+                         land=built.land_pending if self._kv else None)
         if self._kv:
-            self.store.commit_applied(seq)
+            built.commit_applied(seq)
+            built.close()
+        staged = None
+        if self.journal is not None:
+            staged = self.journal.stage_snapshot(state, seq, last_term)
+        # the files open for writing, which the lease recovery would
+        # otherwise find by a scan of every inode on the loop
+        open_files = {d["id"] for d in state["inodes"]
+                      if d["ft"] != int(FileType.DIR) and not d["done"]}
+        return built, staged, open_files
+
+    def adopt_install(self, built, state: dict, seq: int,
+                      last_term: int) -> None:
+        """The swap, on the loop, in the order a crash may stop at any
+        step of: the log dropped (a restart then recovers the old state,
+        consistent, at its applied seq), the staged snapshot put in place
+        (a KV store behind it loads it whole), the built store adopted;
+        then the runtime tables the snapshot carries (decommission
+        intents, mounts, the stripe index, the raft config) and the
+        journal's seq and term."""
+        store, staged, open_files = built
         if self.journal is not None:
             self.journal.reset_log()
+            self.journal.place_snapshot(staged)
+        self.store.adopt(store)
+        self.open_files = open_files
+        self._adopt_tables(state)
+        if self.journal is not None:
             self.journal.seq = seq
             self.journal.last_term = last_term
             self.journal.note_term(seq, last_term)
-            self.journal.write_snapshot(state)
 
     def flush_group(self) -> None:
         """Commit any open journal group inline."""
@@ -393,10 +432,11 @@ class MasterFilesystem:
     def snapshot_cut(self):
         """A consistent cut of what a snapshot holds, taken between
         entries on the loop; ``build_snapshot`` turns it into the state.
-        On the KV store the records are copied raw (``store.frozen()``,
-        a copy that grows with the namespace), and the decode may run on
-        another thread (a raft leader's snapshot: ROADMAP §C, C10); on the mem store the cut is
-        the state itself."""
+        On the KV store it is one engine cursor a prefix
+        (``store.frozen()``, a cost bounded by the memtable), drained and
+        decoded off the loop (a raft leader's snapshot, in a forked
+        child: ROADMAP §C, C10); on the mem store the cut is the state
+        itself."""
         self.flush_group()
         extra = {"deco": sorted(self.workers.deco_ids)}
         if self.mounts is not None:
@@ -444,12 +484,24 @@ class MasterFilesystem:
         return state
 
     def _load_snapshot(self, snap: dict) -> None:
+        self._check_snapshot(snap)
+        self.store.clear()
+        self.open_files = None       # rebuilt lazily from the new state
+        self._fill_store(self.store, snap)
+        self._adopt_tables(snap)
+
+    def _check_snapshot(self, snap: dict) -> None:
         if snap.get("mounts") and self.mounts is None:
             raise UnportedJournalOp(
                 "the snapshot holds ['mounts'], which the master applies "
                 "only with a MountManager attached")
-        self.store.clear()
-        self.open_files = None       # rebuilt lazily from the new state
+
+    @staticmethod
+    def _fill_store(store, snap: dict, land=None) -> None:
+        """Write a snapshot's records into ``store`` (pending, not
+        committed; ``land``, when given, is called after each inode and
+        may land what is pending). Touches nothing but ``store``, so a
+        raft follower runs it on a thread into a fresh store."""
         have_entries = any(d.get("ch") is not None for d in snap["inodes"])
         for d in snap["inodes"]:
             ch = d.get("ch") if have_entries else None
@@ -463,34 +515,43 @@ class MasterFilesystem:
                 replicas=d["rep"], blocks=list(d["blocks"]),
                 is_complete=d["done"], target=d.get("target"),
                 children_num=len(ch) if ch is not None else 0)
-            self.store.put(node, new=True)
+            store.put(node, new=True)
             if ch is not None:
                 for name, cid in ch.items():
-                    self.store.child_put(node.id, str(name), cid)
+                    store.child_put(node.id, str(name), cid)
+            if land is not None:
+                land()
         if not have_entries:
             # an older snapshot: the entries come from (parent_id, name)
             counts: dict[int, int] = {}
             for d in snap["inodes"]:
                 if d["pid"]:
-                    self.store.child_put(d["pid"], d["name"], d["id"])
+                    store.child_put(d["pid"], d["name"], d["id"])
                     counts[d["pid"]] = counts.get(d["pid"], 0) + 1
             for pid, n in counts.items():
-                parent = self.store.get(pid)
+                parent = store.get(pid)
                 if parent is not None:
                     parent.children_num = n
-                    self.store.put(parent)
-        self.store.set_counter("next_id", snap["next_id"])
-        self.store.set_counter("next_block_id", snap["next_block_id"])
+                    store.put(parent)
+        store.set_counter("next_id", snap["next_id"])
+        store.set_counter("next_block_id", snap["next_block_id"])
         for bid, blen, iid, rep in snap["blocks"]:
-            self.store.block_put(bid, blen, iid, rep)
+            store.block_put(bid, blen, iid, rep)
         for wire in snap.get("jobs", []):
-            self.store.job_put(wire["job_id"], wire)
+            store.job_put(wire["job_id"], wire)
         for bid, stripe in snap.get("ec", []):
-            self.store.ec_put(bid, stripe)
+            store.ec_put(bid, stripe)
+        for wid in snap.get("deco", []):
+            store.deco_put(wid)
+        for m in snap.get("mounts") or []:
+            store.mount_put(m["cv_path"], MountInfo.from_wire(m).to_wire())
+
+    def _adopt_tables(self, snap: dict) -> None:
+        """The runtime tables of a snapshot whose records are in the
+        store: the stripe index, the decommission intents, the mount
+        table and the raft config."""
         self._rebuild_ec_index()
         self.workers.deco_ids = set(snap.get("deco", []))
-        for wid in self.workers.deco_ids:
-            self.store.deco_put(wid)
         if self.mounts is not None and "mounts" in snap:
             self.mounts.load_snapshot_state(snap["mounts"])
         if snap.get("raft_conf") is not None:

@@ -20,7 +20,8 @@ master serve in one group. ``RaftLite``:
   snapshot install when the predecessor's term has left the journal's
   window (:644-709);
 - the chunked, resumable snapshot install with its whole-blob CRC, and
-  the skip of a stale one (:711-762, :907-981);
+  the skip of a stale one (:711-762, :907-981), cut, built and
+  installed off the loops (below);
 - membership: learners, their promotion once their lag is at most
   ``promote_lag``, one change in flight at a time, removal, and the
   ``raft_conf`` entries that take effect when appended (:182-340);
@@ -30,22 +31,37 @@ master serve in one group. ``RaftLite``:
   and the role gauge (:340-356).
 
 Where the port differs (ROADMAP §C, C10): the leader builds and packs
-the snapshot, and takes its CRC, on a worker thread, not on its event
-loop, which takes only a consistent cut (``fs.snapshot_cut``: on the KV
-store its records, copied raw); and while the pack runs it keeps
-sending the member heartbeats, which its replicate loop, waiting on the
-snapshot, does not. The reference does all of it on the loop and sends
-the member nothing meanwhile; the port's codec is Python, and where
-masters share one event loop (the CPU tests) a large namespace's build
-and pack held the heartbeats past the followers' least election
-timeout, so that a follower's prevote found a grant and a needless
-election followed (with two members to catch up, elections followed
-each other, each leader's noop making the next snapshot). The cut
-still copies every record on the loop, so its stall grows with the
-namespace. The longest stall of the loop while a snapshot is cut
-and sent is kept in the gauge ``raft.snapshot_loop_stall_ms``, the
-cut's seconds in ``raft.snapshot_build_s`` and the build and pack's in
-``raft.snapshot_pack_s``.
+the snapshot, and takes its CRC, in a forked child process, not on its
+event loop, which takes only a consistent cut (``fs.snapshot_cut``: on
+the KV store one engine cursor a prefix, whose cost on the loop is
+bounded by the memtable, not by the namespace) and forks. On a thread
+the pack, pure Python, shared the interpreter's lock with the loop,
+which then waited up to a switch interval at each of its system calls:
+311 ms at a 288 MiB namespace on the card's host. The child hands the
+blob back in a memfd. While the pack runs, and while
+the member installs what it was sent, it keeps sending the member
+heartbeats, which its replicate loop, waiting on the snapshot, does
+not. The follower installs off its loop too: the blob's assembly, CRC
+and unpack, the new state built into a fresh store and the journal's
+snapshot file staged run on a worker thread, and only the swap (the log
+dropped, the snapshot and the store put in place, the seq, term and
+config taken) on the loop;
+meanwhile it applies no append (a batch is refused as in progress, and
+the leader requeues it) and answers beats with its old applied seq, so
+its election timer goes on being reset. The reference does all of it on
+the loops and sends the member nothing meanwhile; the port's codec is
+Python, and where masters share one event loop (the CPU tests) a large
+namespace's build and pack held the heartbeats past the followers'
+least election timeout, so that a follower's prevote found a grant and
+a needless election followed. The longest stall of the leader's loop
+while a snapshot is cut and sent is kept in the gauge
+``raft.snapshot_loop_stall_ms``, the cut's seconds in
+``raft.snapshot_build_s``, the fork's in ``raft.snapshot_fork_s`` and
+the child's drain, build and pack's in ``raft.snapshot_pack_s``
+(``raft.snapshot_stall_at_s`` says when the longest stall began); the
+follower's in ``raft.install_loop_stall_ms``,
+``raft.install_build_s`` and ``raft.install_swap_s``
+(``raft.install_stall_at_s``).
 
 A member's calls carry as their head the last entry sent to it, not the
 journal's head (C14): in the reference an entry appended while a call is
@@ -67,15 +83,23 @@ are healed by a snapshot install from the new leader)."""
 from __future__ import annotations
 
 import asyncio
+import contextlib
+import ctypes
 import logging
+import mmap
 import os
 import random
+import signal
+import stat
+import struct
+import threading
 import time
+import traceback
 import zlib
 
 from curvine_tpu_torch.common import errors as err
 from curvine_tpu_torch.rpc import wirepack
-from curvine_tpu_torch.rpc.client import ConnectionPool
+from curvine_tpu_torch.rpc.client import Connection, ConnectionPool
 from curvine_tpu_torch.rpc.codes import RpcCode
 from curvine_tpu_torch.rpc.deadline import Deadline
 from curvine_tpu_torch.rpc.frame import Message, pack, unpack
@@ -89,8 +113,11 @@ _ROLE_GAUGE = {FOLLOWER: 0, CANDIDATE: 1, LEADER: 2}
 # soft byte cap of one RAFT_APPEND batch: entries with fat args (xattrs)
 # must never push a frame past MAX_FRAME
 _BATCH_SOFT_BYTES = 8 * 1024 * 1024
-# the period of the loop-stall probe while a snapshot is sent
+# the period of the loop-stall probe while a snapshot is sent or installed
 _STALL_TICK_S = 0.005
+# the wait for a snapshot stream's last chunk, whose answer follows the
+# member's install (the leader beats the member meanwhile)
+_INSTALL_TIMEOUT_S = 300.0
 
 
 def _rough_size(obj) -> int:
@@ -109,6 +136,63 @@ def _unpack_blob(data) -> dict:
     return wirepack.unpackb(bytes(data), raw=False, strict_map_key=False)
 
 
+# a forked pack's answer on its pipe: the blob's length and CRC
+_PACKED = struct.Struct("<QI")
+
+
+def _pack_child(pack, cut, fd: int, wfd: int) -> None:
+    """The child of ``RaftLite._pack_apart``: ``pack(cut)``, the blob
+    written to the memfd ``fd`` and its length and CRC to the pipe
+    ``wfd``; it exits and never returns to the parent's loop. Its only
+    output besides is a failed pack's traceback, written straight to fd
+    2 (the parent's threads may have held the stream's locks at the
+    fork). It first closes the sockets it inherited: a listening port or
+    a connection the parent closes must not stay open in it."""
+    code = 1
+    try:
+        for name in os.listdir("/proc/self/fd"):
+            with contextlib.suppress(OSError):
+                if stat.S_ISSOCK(os.fstat(int(name)).st_mode):
+                    os.close(int(name))
+        blob, crc = pack(cut)
+        n = len(blob)
+        os.ftruncate(fd, n)
+        if n:
+            with mmap.mmap(fd, n) as out:
+                out[:] = blob
+        os.write(wfd, _PACKED.pack(n, crc))
+        code = 0
+    except BaseException:  # noqa: BLE001 — reported by the exit code
+        os.write(2, traceback.format_exc().encode(errors="replace"))
+    finally:
+        os._exit(code)
+
+
+class _Child:
+    """A forked pack's pid, and whether it has been reaped: a kill is
+    sent only before that, while the pid is still the child's (alive,
+    or a zombie not yet waited for)."""
+
+    def __init__(self, pid: int):
+        self.pid = pid
+        self.reaped = False
+        self.lock = threading.Lock()
+
+    def wait(self, rfd: int) -> tuple[bytes, int]:
+        """The answer from the pipe ``rfd`` and the wait status (on a
+        thread)."""
+        head = os.read(rfd, _PACKED.size)
+        os.waitid(os.P_PID, self.pid, os.WEXITED | os.WNOWAIT)
+        with self.lock:
+            self.reaped = True
+            return head, os.waitpid(self.pid, 0)[1]
+
+    def kill(self) -> None:
+        with self.lock:
+            if not self.reaped:
+                os.kill(self.pid, signal.SIGKILL)
+
+
 async def _call(conn, code: RpcCode, body: bytes, timeout_s: float):
     """One raft RPC with its own timeout (the reference's ``timeout=``)."""
     return await conn.call(code, data=body, deadline=Deadline(timeout_s))
@@ -116,18 +200,23 @@ async def _call(conn, code: RpcCode, body: bytes, timeout_s: float):
 
 class _LoopStall:
     """The longest stall of the running event loop while it is armed: a
-    task that sleeps ``_STALL_TICK_S`` and notes how late it woke."""
+    task that sleeps ``_STALL_TICK_S`` and notes how late it woke, and
+    when (``at_s``, seconds after arming) that stall began."""
 
     def __init__(self):
         self.max_s = 0.0
+        self.at_s = 0.0
         self._task: asyncio.Task | None = None
 
     async def _probe(self) -> None:
         loop = asyncio.get_running_loop()
+        t0 = loop.time()
         while True:
             t = loop.time()
             await asyncio.sleep(_STALL_TICK_S)
-            self.max_s = max(self.max_s, loop.time() - t - _STALL_TICK_S)
+            late = loop.time() - t - _STALL_TICK_S
+            if late > self.max_s:
+                self.max_s, self.at_s = late, t - t0
 
     async def __aenter__(self) -> "_LoopStall":
         self._task = asyncio.ensure_future(self._probe())
@@ -194,6 +283,9 @@ class RaftLite:
         self._commit_waiters: list[tuple[int, asyncio.Future]] = []
         # the chunked snapshot being received (follower)
         self._snap_rx: dict | None = None
+        # the stream id of the snapshot this follower is installing (its
+        # build runs on a thread): appends wait, beats are answered
+        self._installing: str | None = None
         # the last adopted config, kept in the hard state file
         self._hs_conf: dict | None = None
         self._state_path = os.path.join(
@@ -764,87 +856,172 @@ class RaftLite:
                     q.put_nowait(entry)
                 await asyncio.sleep(0.2)
 
-    def _pack_snapshot(self, cut) -> tuple[bytes, int]:
-        """The state of a cut, packed, and the blob's CRC (on a worker
-        thread)."""
-        blob = pack({"state": self.fs.build_snapshot(cut)})
+    def _pack_snapshot(self, cut) -> tuple[bytearray, int]:
+        """The state of a cut, packed, and the blob's CRC (in the child
+        of ``_pack_apart``)."""
+        blob = wirepack.packb_buffer({"state": self.fs.build_snapshot(cut)})
         return blob, zlib.crc32(blob)
+
+    async def _pack_apart(self, cut) -> tuple[mmap.mmap, int]:
+        """``_pack_snapshot`` in a forked child, which inherits the cut
+        (the KV store's cursors, copy-on-write) and shares no
+        interpreter lock with this loop; the loop pays the fork
+        (``raft.snapshot_fork_s``) and waits for the answer on threads.
+        Returns the blob, a read-only mapping of the child's memfd, and
+        its CRC; a pack cancelled (this node stepped down) kills the
+        child."""
+        fd = os.memfd_create("curvine-snapshot", os.MFD_CLOEXEC)
+        rfd, wfd = os.pipe()
+        try:
+            t = time.perf_counter()
+            pid = os.fork()
+            if pid == 0:
+                _pack_child(self._pack_snapshot, cut, fd, wfd)
+            child = _Child(pid)
+            if self.metrics is not None:
+                self.metrics.gauge("raft.snapshot_fork_s",
+                                   time.perf_counter() - t)
+            del cut                 # the cursors: the child drains its own
+            os.close(wfd)
+            wfd = -1
+            try:
+                head, status = await asyncio.to_thread(child.wait, rfd)
+            except asyncio.CancelledError:
+                child.kill()            # the thread reaps it
+                raise
+            if status or len(head) != _PACKED.size:
+                log.warning("node %d: the snapshot's pack failed in its "
+                            "child (wait status %d)", self.node_id, status)
+                raise err.AbnormalData(
+                    f"the snapshot's pack failed in its child (wait "
+                    f"status {status})")
+            n, crc = _PACKED.unpack(head)
+            blob = await asyncio.to_thread(
+                mmap.mmap, fd, n, mmap.MAP_SHARED | mmap.MAP_POPULATE,
+                mmap.PROT_READ)
+            return blob, crc
+        finally:
+            for f in (fd, rfd, wfd):
+                if f >= 0:
+                    os.close(f)
 
     async def _send_snapshot(self, pid: int, addr: str) -> int:
         """The chunked snapshot install: the state streams as bounded
         RAFT_SNAPSHOT_CHUNK frames, resumable (the member answers how
         many chunks it holds), with a whole-blob CRC checked before the
         install. Returns the snapshot's seq (0 when this node stepped
-        down meanwhile). A consistent cut of the state is taken on the loop, with
-        the seq and term that go with it; the state's build, the pack and
-        the CRC run on a worker thread, so the loop keeps beating."""
+        down meanwhile). A consistent cut of the state is taken on the
+        loop, with the seq and term that go with it; the state's build,
+        the pack and the CRC run in a forked child (``_pack_apart``), so
+        the loop keeps beating."""
         conn = await self.pool.get(addr)
         async with _LoopStall() as stall:
             t0 = time.perf_counter()
             cut = self.fs.snapshot_cut()
             seq, lterm = self.last_seq(), self.last_term()
             t1 = time.perf_counter()
-            packing = asyncio.ensure_future(
-                asyncio.to_thread(self._pack_snapshot, cut))
-            while not (await asyncio.wait(
-                    {packing}, timeout=self.heartbeat_ms / 1000))[0]:
-                # the member hears nothing else from this leader meanwhile
-                if not await self._beat(conn):
-                    packing.cancel()
-                    await asyncio.gather(packing, return_exceptions=True)
-                    return 0
+            packing = asyncio.ensure_future(self._pack_apart(cut))
+            del cut
+            if not await self._beat_until(conn, packing):
+                return 0
             blob, crc = packing.result()
             t2 = time.perf_counter()
-            del cut
+            size = len(blob)
             csize = self.snapshot_chunk_bytes
-            total = max(1, (len(blob) + csize - 1) // csize)
+            total = max(1, (size + csize - 1) // csize)
             # a deterministic stream id: a retransmit after a blip resumes
             # the same stream instead of starting again from chunk 0
             sid = f"{self.node_id}.{self.term}.{seq}"
-            i, applied, stalls = 0, 0, 0
-            while i < total:
-                rep = await _call(conn, RpcCode.RAFT_SNAPSHOT_CHUNK, pack({
-                    "term": self.term, "leader": self.node_id, "sid": sid,
-                    "seq": seq, "last_term": lterm, "idx": i,
-                    "total": total, "crc": crc,
-                    "data": blob[i * csize:(i + 1) * csize]}), 10.0)
-                body = unpack(rep.data) or {}
-                if body.get("term", 0) > self.term:
-                    self._step_down(body["term"])
-                    return 0
-                if self.metrics is not None:
-                    self.metrics.inc("raft.snapshot_chunks_sent")
-                have = int(body.get("have", i + 1))
-                applied = max(applied, int(body.get("applied_seq", 0)))
-                if have <= i:
-                    # the member restarted the stream (a CRC mismatch, a
-                    # new stream); bounded, so a broken peer cannot spin
-                    stalls += 1
-                    if stalls > 3:
-                        raise err.AbnormalData(
-                            f"snapshot stream to node {pid} not progressing "
-                            f"(chunk {i}, follower has {have})")
-                    i = max(0, have)
-                    continue
-                i = have
+            # the chunks go on a connection of their own: the pool's caps
+            # a call at 2 s, and the last chunk's answer waits for the
+            # member's install
+            stream = Connection(addr, timeout_ms=int(
+                _INSTALL_TIMEOUT_S * 1000))
+            try:
+                await asyncio.wait_for(stream.connect(), 2.0)
+                i, applied = await self._stream_chunks(
+                    stream, conn, pid, blob, csize, total, sid, seq, lterm,
+                    crc)
+            finally:
+                await stream.close()
+                blob.close()
+            if i < 0:
+                return 0
         if self.metrics is not None:
             self.metrics.gauge("raft.snapshot_build_s", t1 - t0)
             self.metrics.gauge("raft.snapshot_pack_s", t2 - t1)
             prev = self.metrics.gauges.get("raft.snapshot_loop_stall_ms", 0)
-            self.metrics.gauge("raft.snapshot_loop_stall_ms",
-                               max(prev, stall.max_s * 1000))
+            if stall.max_s * 1000 >= prev:
+                self.metrics.gauge("raft.snapshot_loop_stall_ms",
+                                   stall.max_s * 1000)
+                # when it began, after the cut: in the pack (before
+                # snapshot_build_s + snapshot_pack_s) or in the stream
+                self.metrics.gauge("raft.snapshot_stall_at_s", stall.at_s)
         if pid in self.match:
             self.match[pid] = max(self.match.get(pid, 0), applied)
             self._advance_commit()
         log.info("snapshot (seq=%d, %d chunk(s), %.1f MiB) sent to %s",
-                 seq, total, len(blob) / 1048576, addr)
+                 seq, total, size / 1048576, addr)
         return seq
+
+    async def _stream_chunks(self, stream, conn, pid: int, blob, csize: int,
+                             total: int, sid: str, seq: int, lterm: int,
+                             crc: int) -> tuple[int, int]:
+        """Send a snapshot's chunks on ``stream``, resuming where the
+        member says it is, and beating it on ``conn`` while an answer is
+        awaited (the last one follows its install). Returns the chunks it
+        holds and its applied seq, or (-1, 0) once this node stepped
+        down."""
+        i, applied, stalls = 0, 0, 0
+        while i < total:
+            sending = asyncio.ensure_future(_call(
+                stream, RpcCode.RAFT_SNAPSHOT_CHUNK, pack({
+                    "term": self.term, "leader": self.node_id, "sid": sid,
+                    "seq": seq, "last_term": lterm, "idx": i,
+                    "total": total, "crc": crc,
+                    "data": blob[i * csize:(i + 1) * csize]}),
+                _INSTALL_TIMEOUT_S if i == total - 1 else 10.0))
+            if not await self._beat_until(conn, sending):
+                return -1, 0
+            body = unpack(sending.result().data) or {}
+            if body.get("term", 0) > self.term:
+                self._step_down(body["term"])
+                return -1, 0
+            if self.metrics is not None:
+                self.metrics.inc("raft.snapshot_chunks_sent")
+            have = int(body.get("have", i + 1))
+            applied = max(applied, int(body.get("applied_seq", 0)))
+            if have <= i:
+                # the member restarted the stream (a CRC mismatch, a new
+                # stream); bounded, so a broken peer cannot spin
+                stalls += 1
+                if stalls > 3:
+                    raise err.AbnormalData(
+                        f"snapshot stream to node {pid} not progressing "
+                        f"(chunk {i}, follower has {have})")
+                i = max(0, have)
+                continue
+            i = have
+        return i, applied
+
+    async def _beat_until(self, conn, fut: asyncio.Future) -> bool:
+        """Wait for ``fut`` (a snapshot's pack, or a chunk's answer),
+        beating the member every heartbeat meanwhile: its replicate loop
+        sends it nothing else. False, with ``fut`` cancelled, once this
+        node has stepped down."""
+        while not (await asyncio.wait(
+                {fut}, timeout=self.heartbeat_ms / 1000))[0]:
+            if not await self._beat(conn):
+                fut.cancel()
+                await asyncio.gather(fut, return_exceptions=True)
+                return False
+        return True
 
     async def _beat(self, conn) -> bool:
         """An empty RAFT_APPEND to a member whose snapshot is being
-        packed: it resets the member's election timer (its answer asks
-        for the snapshot again, which is on its way). False once this
-        node has stepped down."""
+        packed or installed: it resets the member's election timer (its
+        answer may ask for the snapshot, which is on its way). False once
+        this node has stepped down."""
         try:
             rep = await _call(conn, RpcCode.RAFT_APPEND, pack({
                 "term": self.term, "leader": self.node_id, "entries": [],
@@ -852,7 +1029,8 @@ class RaftLite:
                 "leader_seq": self.last_seq(),
                 "leader_last_term": self.last_term()}), 2.0)
         except err.CurvineError as e:
-            log.debug("heartbeat during a snapshot's pack failed: %s", e)
+            log.debug("heartbeat during a snapshot's transfer failed: %s",
+                      e)
             return self.role == LEADER
         body = unpack(rep.data) or {}
         if body.get("term", 0) > self.term:
@@ -951,6 +1129,16 @@ class RaftLite:
         self._touch()
         need_snapshot = False
         entries = q.get("entries", [])
+        if self._installing is not None:
+            if entries:
+                # the leader requeues the batch and sends it again
+                raise err.CurvineError(
+                    "installing a snapshot", code=err.ErrorCode.IN_PROGRESS)
+            # a beat: the old head, and no snapshot asked for (one is
+            # being installed)
+            return {}, pack({"term": self.term,
+                             "applied_seq": self.last_seq(),
+                             "need_snapshot": False})
         if entries:
             # log matching: our entry at prev_seq must carry prev_term; a
             # deposed leader's divergent history fails this and heals by
@@ -1013,14 +1201,81 @@ class RaftLite:
             return {}, pack({"term": self.term,
                              "applied_seq": self.last_seq(),
                              "skipped": True})
-        self.fs.install_snapshot(q["state"], q["seq"],
-                                 q.get("last_term", 0))
-        self._adopt_config(getattr(self.fs, "raft_conf", None))
-        if self.metrics is not None:
-            self.metrics.inc("raft.snapshot_installs")
+        if self._installing is not None:
+            return {}, pack({"term": self.term,
+                             "applied_seq": self.last_seq()})
+        await self._install(lambda: q["state"], q["seq"],
+                            q.get("last_term", 0), "monolithic")
         log.info("node %d: installed snapshot at seq %d", self.node_id,
                  q["seq"])
         return {}, pack({"term": self.term, "applied_seq": self.last_seq()})
+
+    @staticmethod
+    def _state_of_blob(parts: list[bytes], crc: int):
+        """A chunked stream's state (on a worker thread): the parts copied
+        into one anonymous mapping by ``ctypes.memmove``, which lets the
+        interpreter's lock go (a join, or a zeroed buffer of the blob's
+        length, would hold it against the loop for the whole blob, page
+        faults included), the whole-blob CRC checked (None on a
+        mismatch), the blob unpacked."""
+        blob = mmap.mmap(-1, max(1, sum(len(p) for p in parts)))
+        dst = ctypes.c_char.from_buffer(blob)
+        base, off = ctypes.addressof(dst), 0
+        for p in parts:
+            ctypes.memmove(base + off, p, len(p))
+            off += len(p)
+        del dst
+        blob = memoryview(blob)[:off]
+        if zlib.crc32(blob) != crc:
+            return None
+        return wirepack.unpackb(blob, raw=False,
+                                strict_map_key=False)["state"]
+
+    async def _install(self, state_of, seq: int, last_term: int,
+                       sid: str) -> bool:
+        """Install a snapshot off the loop: ``state_of`` (the unpack),
+        ``fs.build_install`` (the new state built into a fresh store, the
+        journal's snapshot file staged) on a worker thread; then the
+        swap on the loop (``fs.adopt_install``, the config adopted).
+        Meanwhile appends wait and beats are answered with the old
+        applied seq, so the election timer goes on being reset. False
+        when ``state_of`` found the blob corrupt. The loop's longest
+        stall over the install is kept in ``raft.install_loop_stall_ms``,
+        the thread's seconds in ``raft.install_build_s`` and the swap's in
+        ``raft.install_swap_s``."""
+        self._installing = sid
+
+        def build():
+            state = state_of()
+            if state is None:
+                return None
+            return state, self.fs.build_install(state, seq, last_term)
+
+        try:
+            async with _LoopStall() as stall:
+                t0 = time.perf_counter()
+                got = await asyncio.to_thread(build)
+                if got is None:
+                    return False
+                t1 = time.perf_counter()
+                state, built = got
+                self.fs.adopt_install(built, state, seq, last_term)
+                self._adopt_config(getattr(self.fs, "raft_conf", None))
+                t2 = time.perf_counter()
+                if self.metrics is not None:
+                    self.metrics.inc("raft.snapshot_installs")
+                    self.metrics.gauge("raft.install_build_s", t1 - t0)
+                    self.metrics.gauge("raft.install_swap_s", t2 - t1)
+        finally:
+            self._installing = None
+            self._touch()
+        if self.metrics is not None:
+            prev = self.metrics.gauges.get("raft.install_loop_stall_ms", 0)
+            if stall.max_s * 1000 >= prev:
+                self.metrics.gauge("raft.install_loop_stall_ms",
+                                   stall.max_s * 1000)
+                self.metrics.gauge("raft.install_stall_at_s", stall.at_s)
+        return True
 
     async def _h_snapshot_chunk(self, msg: Message, conn: ServerConn):
         """One piece of a snapshot stream. Answers ``have`` (the chunks
@@ -1036,6 +1291,11 @@ class RaftLite:
         self.leader_id = q["leader"]
         self._touch()
         total = int(q["total"])
+        if self._installing is not None:
+            # a retransmit while this stream installs: it is whole here
+            have = total if self._installing == q["sid"] else 0
+            return {}, pack({"term": self.term, "have": have,
+                             "applied_seq": self.last_seq()})
         if self._snapshot_is_stale(q.get("last_term", 0), q["seq"]):
             self._snap_rx = None
             return {}, pack({"term": self.term, "have": total,
@@ -1052,22 +1312,18 @@ class RaftLite:
         if have < rx["total"]:
             return {}, pack({"term": self.term, "have": have,
                              "applied_seq": self.last_seq()})
-        blob = b"".join(rx["parts"])
+        parts = rx["parts"]
         self._snap_rx = None
-        if zlib.crc32(blob) != q.get("crc", 0):
+        if not await self._install(
+                lambda: self._state_of_blob(parts, q.get("crc", 0)),
+                q["seq"], q.get("last_term", 0), q["sid"]):
             log.warning("node %d: snapshot stream %s failed CRC, "
                         "restarting", self.node_id, q["sid"])
             return {}, pack({"term": self.term, "have": 0,
                              "applied_seq": self.last_seq()})
-        body = _unpack_blob(blob)
-        self.fs.install_snapshot(body["state"], q["seq"],
-                                 q.get("last_term", 0))
-        self._adopt_config(getattr(self.fs, "raft_conf", None))
-        if self.metrics is not None:
-            self.metrics.inc("raft.snapshot_installs")
         log.info("node %d: installed chunked snapshot at seq %d "
                  "(%d chunks, %.1f MiB)", self.node_id, q["seq"], have,
-                 len(blob) / 1048576)
+                 sum(len(p) for p in parts) / 1048576)
         return {}, pack({"term": self.term, "have": have,
                          "applied_seq": self.last_seq()})
 

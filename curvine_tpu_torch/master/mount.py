@@ -240,11 +240,9 @@ class MountManager:
         return [m.to_wire() for m in self._mounts.values()]
 
     def load_snapshot_state(self, state: list[dict]) -> None:
+        """The table of a snapshot whose mount records the filesystem
+        already wrote into the store (``_fill_store``)."""
         self._mounts = {m["cv_path"]: MountInfo.from_wire(m) for m in state}
-        # the snapshot's install cleared the store's records, and a later
-        # restart reloads the table from the store
-        for cv_path, info in self._mounts.items():
-            self.fs.store.mount_put(cv_path, info.to_wire())
         if self._mounts:
             top = max(m.mount_id for m in self._mounts.values())
             self._ids = itertools.count(top + 1)

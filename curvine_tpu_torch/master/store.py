@@ -32,15 +32,20 @@ A mutation writes into a pending overlay; ``commit_applied(seq)`` lands
 it and the new ``applied_seq`` as one atomic KV batch. Under group
 commit ``stage_entry`` moves each applied entry's writes into a staged
 overlay, and the group lands as one batch. ``KvMetaStore.frozen()``
-(beyond the reference) copies the records a snapshot reads, raw, into a
-read-only ``FrozenKv`` with the same read surface: a copy without
-decode, taken on the event loop and decoded off it (a raft leader's
-snapshot, ROADMAP §C, C10); it still grows with the namespace. Left out: the two-phase transaction records (``tx_*``,
-:464-492) of the sharded namespace."""
+(beyond the reference) cuts the records a snapshot reads: one engine
+cursor a prefix, opened on the event loop at a cost bounded by the
+memtable, and a read-only ``FrozenKv`` with the same read surface over
+them, drained and decoded off the loop (a raft leader's snapshot, in a
+forked child: ROADMAP §C, C10). ``fresh`` and ``adopt`` (both stores) let a raft follower
+build the state it installs off the loop and swap it in. Left out: the
+two-phase transaction records (``tx_*``, :464-492) of the sharded
+namespace."""
 
 from __future__ import annotations
 
 import logging
+import os
+import shutil
 import struct
 from collections import OrderedDict
 
@@ -205,6 +210,19 @@ class MemMetaStore:
         self.deco_tbl.clear()
         self.ec_tbl.clear()
 
+    _TABLES = ("inodes", "children", "blocks", "counters", "mounts_tbl",
+               "jobs_tbl", "deco_tbl", "ec_tbl")
+
+    def fresh(self) -> "MemMetaStore":
+        """An empty store, for a state built off the loop (``adopt``)."""
+        return MemMetaStore()
+
+    def adopt(self, other: "MemMetaStore") -> None:
+        """Take ``other``'s tables as this store's (a raft follower's
+        install, built on a thread)."""
+        for name in self._TABLES:
+            setattr(self, name, getattr(other, name))
+
     def close(self) -> None:
         pass
 
@@ -282,6 +300,9 @@ class KvMetaStore:
     def __init__(self, kv_dir: str, cache_inodes: int = 65_536,
                  fsync: bool = False, memtable_max_bytes: int = 8 << 20,
                  engine: str = "auto"):
+        self.kv_dir = kv_dir
+        self._fsync = fsync
+        self._memtable_max = memtable_max_bytes
         self.kv = open_kv(kv_dir, engine, fsync, memtable_max_bytes)
         # the engine in use: "native" or "python"
         self.engine = self.kv.kind
@@ -298,6 +319,9 @@ class KvMetaStore:
         # as one write batch; rollback (one failed apply) keeps it
         self._staged: dict[bytes, bytes | None] = {}
         self._counters: dict[str, int] = {}        # write-back cache
+        # the inode records' bytes pending since the last landing
+        # (``land_pending``)
+        self._pending_bytes = 0
 
     # ---- keys ----
     @staticmethod
@@ -339,7 +363,8 @@ class KvMetaStore:
             self._cache.popitem(last=False)
 
     def put(self, inode, new: bool = False) -> None:
-        self._pending[self._ik(inode.id)] = _enc_inode(inode)
+        raw = self._pending[self._ik(inode.id)] = _enc_inode(inode)
+        self._pending_bytes += len(raw)
         self._cache_put(inode)
         if new:
             self.bump_counter("inode_count", 1)
@@ -515,12 +540,22 @@ class KvMetaStore:
             self._pending.clear()
         self.kv.write_batch(list(self._staged.items()))
         self._staged.clear()
+        self._pending_bytes = 0
+
+    def land_pending(self, limit: int = 8 << 20) -> None:
+        """Land the pending writes once their inode records pass
+        ``limit`` bytes, without moving ``applied_seq``: a store filled
+        off the loop (``fresh``) is written in batches of about that
+        size, none of which holds the interpreter's lock for long."""
+        if self._pending_bytes >= limit:
+            self.commit_runtime()
 
     def commit_runtime(self) -> None:
         """Land the pending writes without moving ``applied_seq`` (a
         block report's length bumps: durable, not journaled). Inside an
         open group they join the group instead, so that runtime state
         never lands ahead of an unflushed journal group."""
+        self._pending_bytes = 0
         if not self._pending:
             return
         if self._staged:
@@ -563,36 +598,79 @@ class KvMetaStore:
     def close(self) -> None:
         self.kv.close()
 
+    def fresh(self) -> "KvMetaStore":
+        """An empty store of this engine and these settings in
+        ``<kv_dir>.install`` (an earlier one there removed): a raft
+        follower builds the state it installs there, off the loop, and
+        hands the closed store to ``adopt``."""
+        path = self.kv_dir.rstrip("/") + ".install"
+        shutil.rmtree(path, ignore_errors=True)
+        return KvMetaStore(path, cache_inodes=1024, fsync=self._fsync,
+                           memtable_max_bytes=self._memtable_max,
+                           engine=self.engine)
+
+    def adopt(self, built: "KvMetaStore") -> None:
+        """Take the closed store ``built`` (``fresh``, filled and committed
+        on a thread) as this one: the old engine's files are dropped, the
+        built directory is renamed into place and reopened, and the caches
+        and overlays are cleared. Its cost is the reopen (each segment's
+        footer and sparse index), not the records."""
+        self.kv.clear()
+        self.kv.close()
+        old = self.kv_dir.rstrip("/") + ".old"
+        shutil.rmtree(old, ignore_errors=True)
+        os.replace(self.kv_dir, old)
+        os.replace(built.kv_dir, self.kv_dir)
+        shutil.rmtree(old, ignore_errors=True)
+        self.kv = open_kv(self.kv_dir, self.engine, self._fsync,
+                          self._memtable_max)
+        self._cache.clear()
+        self._child_cache.clear()
+        self._pending.clear()
+        self._staged.clear()
+        self._counters.clear()
+
     def frozen(self) -> "FrozenKv":
-        """A read-only copy of the records a snapshot reads, as raw bytes
-        (no decode), taken between entries; safe to read on another
-        thread while this store goes on."""
-        recs = {p: list(self.kv.scan(prefix=p)) for p in FrozenKv.PREFIXES}
-        counters = {}
-        for name in ("next_id", "next_block_id"):
-            if name in self._counters:
-                counters[name] = self._counters[name]
-            else:       # read without caching a default
-                raw = self._read(b"M" + name.encode())
-                counters[name] = None if raw is None else _unpack(raw)
-        return FrozenKv(recs, counters)
+        """A read-only cut of the records a snapshot reads, taken between
+        entries: one engine cursor a prefix (``KvStore.scan``: the
+        memtable's items under the prefix copied, the segment files
+        opened) and the two counters. It copies no segment record, so
+        its cost is bounded by the memtable, not by the namespace;
+        another thread or a forked child drains it while this store goes
+        on writing, flushing and compacting."""
+        cursors = {p: self.kv.scan(prefix=p) for p in FrozenKv.PREFIXES}
+        # the counters this store has cached; the others are read from a
+        # cursor by the drainer (a point read here could go down every
+        # segment)
+        counters = {name: self._counters[name]
+                    for name in FrozenKv.COUNTERS if name in self._counters}
+        if len(counters) < len(FrozenKv.COUNTERS):
+            cursors[b"M"] = self.kv.scan(prefix=b"M")
+        return FrozenKv(cursors, counters)
 
 
 class FrozenKv:
-    """``KvMetaStore.frozen()``'s copy: its read surface over the copied
-    records, decoded as they are read."""
+    """``KvMetaStore.frozen()``'s cut: its read surface over the cursors,
+    each drained once, its records decoded as they are read."""
 
     PREFIXES = (b"i", b"c", b"b", b"J", b"E")
+    COUNTERS = ("next_id", "next_block_id")
 
-    def __init__(self, recs: dict, counters: dict):
-        self._recs = recs
+    def __init__(self, cursors: dict, counters: dict):
+        self._cursors = cursors
         self._counters = counters
         self.kv = self
 
     def scan(self, prefix: bytes):
-        return iter(self._recs[prefix])
+        return self._cursors.pop(prefix)
 
     def get_counter(self, name: str, default: int = 0) -> int:
+        counters = self._cursors.pop(b"M", None)
+        if counters is not None:
+            for k, raw in counters:
+                name_k = k[1:].decode()
+                if name_k in self.COUNTERS:
+                    self._counters.setdefault(name_k, _unpack(raw))
         v = self._counters.get(name)
         return default if v is None else v
 

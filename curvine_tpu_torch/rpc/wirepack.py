@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import struct
 
-__all__ = ["packb", "unpackb", "UnpackException", "UnpackValueError"]
+__all__ = ["packb", "packb_buffer", "unpackb", "UnpackException", "UnpackValueError"]
 
 _B = struct.Struct(">B")
 _H = struct.Struct(">H")
@@ -148,9 +148,17 @@ def packb(obj, use_bin_type: bool = True) -> bytes:
     if not use_bin_type:
         raise ValueError("only use_bin_type=True is carried: str and "
                          "bytes must stay apart on the wire")
+    return bytes(packb_buffer(obj))
+
+
+def packb_buffer(obj) -> bytearray:
+    """``packb``'s bytes in the bytearray they were packed into, with no
+    final copy: for a caller that writes or slices a large value (a
+    snapshot) on a worker thread, where one copy of it would hold the
+    interpreter's lock against the event loop for its whole length."""
     out = bytearray()
     _pack(out, obj, 0)
-    return bytes(out)
+    return out
 
 
 class _Reader:
@@ -174,11 +182,11 @@ class _Reader:
         return st.unpack(self.take(st.size))[0]
 
     def text(self, n: int):
-        b = bytes(self.take(n))
+        b = self.take(n)
         if self.raw:
-            return b
+            return bytes(b)
         try:
-            return b.decode("utf-8")
+            return str(b, "utf-8")      # decoded in place, no copy first
         except UnicodeDecodeError as e:
             raise UnpackValueError(f"str is not UTF-8: {e}") from e
 

@@ -33,10 +33,10 @@ A carve of ``curvine_tpu/worker/server.py``:
 - the handlers (:752-768): WRITE_BLOCK (:776-925), READ_BLOCK
   (:962-1102, the file path: ``sendfile``, or ``preadv`` with a crc when
   the reader asks to ``verify``), DELETE_BLOCK, GET_BLOCK_INFO (with the
-  commit crc and, for a block the tier-0 exports, the ``hbm`` offer:
-  worker id, ICI coordinates and the export entry; never an shm offer),
-  SC_WRITE_OPEN, _COMMIT and _ABORT, SC_READ_REPORT (heat only), HBM_PIN
-  and HBM_UNPIN; WRITE_BLOCKS_BATCH (:1103-1136): small blocks in one
+  commit crc, the shm offer and, for a block the tier-0 exports, the
+  ``hbm`` offer: worker id, ICI coordinates and the export entry),
+  SC_WRITE_OPEN, _COMMIT and _ABORT, SC_READ_REPORT (heat, and the warm
+  advert on its reply), HBM_PIN and HBM_UNPIN; WRITE_BLOCKS_BATCH (:1103-1136): small blocks in one
   request, each committed with the checksum its sender computed
   (``crc32`` and ``algo``), which this worker checks first: a block
   whose bytes do not match it is refused (the reference commits it
@@ -95,10 +95,23 @@ drop calls ``record_stream``); the device domain reaches the tier through
 ``hbm_get`` too, so a peer's fetch never races a promotion or a drop, and
 a landing copies the block to the host before it lets the tensor go.
 
+The shared-memory read plane (:140-165, :276-303, :402-411,
+:1171-1274), on by default as in the reference (``shm_reads``): an
+``ShmExporter`` of sealed memfd copies of MEM-tier blocks, a
+``WarmShmCache`` for read-hot blocks of the tiers below it
+(``shm_warm_cap_mb``, ``shm_warm_min_reads``), both dropped by the
+store's ``on_delete`` and ``on_move`` hooks, and the SCM_RIGHTS side
+channel (``worker/shm.py``), started after the RPC port and stopped
+before it. GET_BLOCK_INFO offers ``shm`` and ``shm_sock`` for a
+committed MEM-tier block (``_shm_servable``), with ``shm_warm`` for a
+warm-servable one (``_shm_warm_servable``); the channel's thread grants
+through ``_shm_grant`` (``shm.grants``, ``shm.warm_grants``) on a copy
+of the block's entry taken under the store's lock; the warm cache's
+stats are the ``cache.shm_warm.*`` metrics.
+
 Not ported (ROADMAP A3c): the bdev layout and direct IO (refused by the
-conf), the shared-memory channel (never offered), scrub and the disk
-health machinery (every dir reports healthy), QoS, tracing and the web
-server."""
+conf), scrub and the disk health machinery (every dir reports healthy),
+QoS, tracing and the web server."""
 
 from __future__ import annotations
 
@@ -133,6 +146,9 @@ from curvine_tpu_torch.rpc.server import RpcServer, ServerConn
 from curvine_tpu_torch.worker.blockfile import (ALGO_CRC32C, crc_update,
                                                 map_block, supported)
 from curvine_tpu_torch.worker.promote import promote_block
+from curvine_tpu_torch.worker.shm import (ShmChannel, ShmExporter,
+                                          WarmShmCache, channel_path,
+                                          shm_supported)
 from curvine_tpu_torch.worker.storage import BlockStore, TierDir
 
 log = logging.getLogger(__name__)
@@ -191,6 +207,23 @@ class WorkerServer:
                                 small_ratio=wc.cache_small_ratio)
         self.metrics = MetricsRegistry("worker")
         self.rpc.metrics = self.metrics
+        # the shared-memory read plane (worker/shm.py): sealed-memfd
+        # copies of MEM-tier blocks, and a warm cache of read-hot blocks
+        # below it, handed to co-located clients over the side channel,
+        # which start() opens (its path names the final port); a block
+        # deleted or moved drops its copies
+        self.shm: ShmExporter | None = None
+        self.shm_warm: WarmShmCache | None = None
+        self._shm_channel: ShmChannel | None = None
+        if wc.shm_reads and shm_supported():
+            self.shm = ShmExporter(cap=wc.shm_export_cap)
+            if wc.shm_warm_cap_mb > 0:
+                self.shm_warm = WarmShmCache(
+                    cap_bytes=wc.shm_warm_cap_mb << 20,
+                    admission=wc.cache_admission,
+                    ghost_entries=wc.cache_ghost_entries)
+            self.store.on_delete = self._shm_invalidate
+            self.store.on_move = self._shm_invalidate
         self.master_pool = ConnectionPool(
             size=2, timeout_ms=self.conf.client.rpc_timeout_ms)
         # streams of replication pulls from peer workers
@@ -262,6 +295,16 @@ class WorkerServer:
                                            or self.hbm is not None):
             self.executor.submit_periodic("promote", self._promote_once,
                                           wc.promote_interval_ms / 1000)
+        if self.shm is not None:
+            ch = ShmChannel(channel_path(self.rpc.port), self._shm_grant)
+            try:
+                ch.start()
+                self._shm_channel = ch
+            except OSError as e:
+                # no unix sockets here: the probe offers no shm, and
+                # clients read through the fd path
+                log.warning("shm side channel disabled: %s", e)
+                self.shm = None
         log.info("worker %d started at %s", self.worker_id, self.addr)
 
     async def stop(self) -> None:
@@ -272,6 +315,13 @@ class WorkerServer:
             t.cancel()
         await asyncio.gather(*self._bg, return_exceptions=True)
         self._bg.clear()
+        if self._shm_channel is not None:
+            await asyncio.to_thread(self._shm_channel.stop)
+            self._shm_channel = None
+        if self.shm is not None:
+            self.shm.close()
+        if self.shm_warm is not None:
+            self.shm_warm.close()
         await self.rpc.stop()
         await self.master_pool.close()
         await self.peer_pool.close()
@@ -396,6 +446,15 @@ class WorkerServer:
             out["ici.hbm_exports"] = st.get("exports", 0)
             for k in ("ici.peer_pulls", "ici.tcp_fallbacks"):
                 out[k] = self.metrics.counters.get(k, 0)
+        if self.shm_warm is not None:
+            # the warm cache's occupancy and admission beside the tiers'
+            for k, v in self.shm_warm.stats().items():
+                if k in ("entries", "bytes", "exports", "hits",
+                         "evictions"):
+                    out[f"cache.shm_warm.{k}"] = v
+                elif k in ("policy_admits", "policy_ghost_hits",
+                           "policy_scan_evicted"):
+                    out[f"cache.shm_warm.{k[len('policy_'):]}"] = v
         return out
 
     def _heartbeat_body(self) -> bytes:
@@ -1040,6 +1099,17 @@ class WorkerServer:
         if info.crc32c is not None:
             rep["crc32"] = info.crc32c
             rep["crc_algo"] = info.crc_algo
+        if self._shm_servable(info):
+            # the shm offer: a client that knows the plane fetches the
+            # sealed memfd over the side channel; others ignore the flags
+            rep["shm"] = True
+            rep["shm_sock"] = self._shm_channel.path
+        elif self._shm_warm_servable(info):
+            # a read-hot block below mem, over the same channel; shm_warm
+            # lets the client count it to the warm plane
+            rep["shm"] = True
+            rep["shm_warm"] = True
+            rep["shm_sock"] = self._shm_channel.path
         if self.hbm is not None and self.conf.worker.ici_transfer:
             e = await asyncio.to_thread(self._hbm_export, q["block_id"])
             if e is not None:
@@ -1057,11 +1127,72 @@ class WorkerServer:
 
     async def _sc_read_report(self, msg: Message, conn: ServerConn):
         """A short-circuit client's per-block read counts: the store sees
-        only its probe, so heat follows the reads through these."""
+        only its probe, so heat follows the reads through these. The
+        reply names the blocks that have just become warm-servable, with
+        the channel's path: the reporting client's probe came before the
+        heat, and it maps the warm copy at its next read."""
         q = unpack(msg.data) or {}
+        warm: dict[int, str] = {}
         for bid, reads in (q.get("block_reads") or {}).items():
-            self.store.touch_reads(int(bid), int(reads))
-        return {}
+            bid = int(bid)
+            self.store.touch_reads(bid, int(reads))
+            if self.shm_warm is not None:
+                try:
+                    info = self.store.get(bid, touch=False)
+                except err.CurvineError:
+                    continue
+                if self._shm_warm_servable(info):
+                    warm[bid] = self._shm_channel.path
+        return {"shm_warm": warm} if warm else {}
+
+    # ---------------- the shared-memory read plane ----------------
+
+    def _shm_servable(self, info) -> bool:
+        """Committed MEM-tier blocks: a disk tier's would double its page
+        cache into anonymous memory for no gain (the warm cache takes the
+        read-hot ones)."""
+        return (self.shm is not None and self._shm_channel is not None
+                and info.state == BlockState.COMMITTED
+                and info.tier.storage_type == StorageType.MEM)
+
+    def _shm_warm_servable(self, info) -> bool:
+        """A committed block below the MEM tier whose heat crossed
+        ``shm_warm_min_reads`` and that fits the warm cache."""
+        warm = self.shm_warm
+        return (warm is not None and self._shm_channel is not None
+                and info.state == BlockState.COMMITTED
+                and int(info.tier.storage_type) > int(StorageType.MEM)
+                and info.heat >= self.conf.worker.shm_warm_min_reads
+                and info.len <= warm.cap_bytes)
+
+    def _shm_invalidate(self, block_id: int) -> None:
+        """The store's on_delete and on_move hook (under its lock): both
+        copies of the block dropped; it must not re-enter the store."""
+        if self.shm is not None:
+            self.shm.invalidate(block_id)
+        if self.shm_warm is not None:
+            self.shm_warm.invalidate(block_id)
+
+    def _shm_grant(self, block_id: int) -> tuple[int, int]:
+        """The side channel's policy (on its thread): the block looked up
+        (a copy of its entry, taken under the store's lock, so that a
+        concurrent move cannot tear it), gated by tier, and exported as a
+        sealed memfd by the MEM exporter or the warm cache. LookupError
+        answers NOT_FOUND, and the client reads through the fd path."""
+        try:
+            info = self.store.get_copy(block_id)
+        except err.CurvineError:
+            raise LookupError(f"block {block_id}") from None
+        if self._shm_servable(info):
+            fd, length = self.shm.export(block_id, info.path, info.len)
+            self.metrics.inc("shm.grants")
+            return fd, length
+        if self._shm_warm_servable(info):
+            fd, length = self.shm_warm.export(block_id, info.path,
+                                              info.len)
+            self.metrics.inc("shm.warm_grants")
+            return fd, length
+        raise LookupError(f"block {block_id} not shm-servable")
 
     def _hbm_pin_work(self, block_id: int, info, device_id,
                       replicas: int) -> tuple[int, list[int], dict]:

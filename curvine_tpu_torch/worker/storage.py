@@ -18,11 +18,16 @@ reopened block has none until it is written again.
 Not ported: ``BdevTier`` (:185-434; a ``layout = "bdev"`` tier is refused
 by ``common/conf.py``), the direct-IO engine, the scrub, the disk health
 state machine with its probes and quarantine (``DiskHealth`` :59-138:
-every dir reports ``healthy``), the fault hook, tenant quotas and the
-shared-memory export hooks (``on_delete``, ``on_move``)."""
+every dir reports ``healthy``), the fault hook and tenant quotas.
+
+The shared-memory export hooks are the reference's (:468-479, :856-860,
+:1050-1054): ``on_delete`` fires when a block leaves the store and
+``on_move`` when it changes tiers, each under the store's lock, so the
+worker's sealed-memfd copies of it are dropped (``worker/shm.py``)."""
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import os
 import threading
@@ -117,6 +122,11 @@ class BlockStore:
         self.dropped_total = 0
         self.demoted_total = 0
         self.promoted_total = 0
+        # called with a block id when the block is removed, and when it
+        # moves tiers, under the lock: the callee must not re-enter the
+        # store (the worker's shm exports drop their copies)
+        self.on_delete = None
+        self.on_move = None
         self._load_existing()
 
     def _load_existing(self) -> None:
@@ -223,6 +233,13 @@ class BlockStore:
                 self._touch_locked(info, 1)
             return info
 
+    def get_copy(self, block_id: int) -> BlockInfo:
+        """A copy of the block's entry, taken under the lock, for a reader
+        on another thread (the shm side channel) that must see one
+        consistent tier, state and length; no heat is touched."""
+        with self._lock:
+            return dataclasses.replace(self._get_locked(block_id))
+
     @staticmethod
     def _touch_locked(info: BlockInfo, reads: int) -> None:
         info.atime = time.time()
@@ -280,6 +297,11 @@ class BlockStore:
         # `evicted`: removal under cache pressure, which ghosts the id so
         # a near-future re-admission skips probation; deletes never ghost
         info.tier.policy.on_remove(info.block_id, evicted=evicted)
+        if self.on_delete is not None:
+            try:
+                self.on_delete(info.block_id)
+            except Exception:  # noqa: BLE001 — the removal must proceed
+                log.exception("on_delete of block %d", info.block_id)
         try:
             os.unlink(info.path)
         except FileNotFoundError:
@@ -366,6 +388,11 @@ class BlockStore:
             demoting = int(dest.storage_type) > int(src_tier.storage_type)
             src_tier.policy.on_remove(block_id, evicted=demoting)
             dest.policy.on_admit(block_id, length)
+            if self.on_move is not None:
+                try:
+                    self.on_move(block_id)
+                except Exception:  # noqa: BLE001 — the move must land
+                    log.exception("on_move of block %d", block_id)
             info.tier = dest
             return True
 

@@ -466,13 +466,17 @@ async def test_block_info_storages_and_report_match_the_jax_worker(tmp_path):
         jconf.client.master_addrs = list(mc.conf.client.master_addrs)
         jconf.worker.hostname, jconf.worker.rpc_port = "127.0.0.1", 0
         jconf.worker.heartbeat_ms = 200
-        jconf.worker.shm_reads = False       # the port offers no shm
+        # the fd path's answers are compared: the shm offers name each
+        # worker's own side channel (tests/test_torch_shm_parity.py)
+        jconf.worker.shm_reads = False
         jconf.worker.tiers = [JaxTierConf(
             storage_type="mem", dir=str(tmp_path / "jax"),
             capacity=64 * MiB)]
         jw = JaxWorker(jconf)
-        pw = port_server.WorkerServer(_worker_conf(
-            mc.conf.client.master_addrs, str(tmp_path / "port")))
+        pconf = _worker_conf(mc.conf.client.master_addrs,
+                             str(tmp_path / "port"))
+        pconf.worker.shm_reads = False
+        pw = port_server.WorkerServer(pconf)
         await jw.start()
         await pw.start()
         try:
@@ -812,7 +816,6 @@ def test_an_hbm_tier_without_a_cuda_device_raises(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("table", [
-    "[worker]\nshm_reads = true",
     "[worker]\ndirect_io_engine = \"uring\"",
     "[worker]\ndisk_error_threshold = 5",
     "[qos]\ntenants = [\"a:100\"]",

@@ -221,6 +221,37 @@ Phases, each raising on a fault (the exit code is then non-zero):
    stays equal. A side channel that did not start fails the phase; any
    phase whose reads fell back from a mapping fails the run (each
    phase's shm counters are logged);
+6l. wire: the wire transport (every RPC of the run rides it) and the
+   reader's read-ahead, with phase ufs's parameters and step: a master
+   of the phase's own (the robin placement) and two of the port's
+   workers, A and B, with a tier-0 each; phase feed's shape written with
+   its blocks alternating between them, and read with the short circuit
+   off. (b) The shards into device memory through the pinned staging
+   ring by ``read_all``, by ``pread_view`` in 4 MiB steps behind a
+   prefetch window of 4 segments and by ``read_range`` in 4 slices:
+   GiB/s beside phase 3's ``link_gibs``, the seconds awaiting reads and
+   staging, ``pf.bytes.read`` (above 0 through the window, 0 for
+   ``read_all``), ``read.zero_copy_bytes`` and the registered pool's
+   stats; every shard equal to its tokens on the card. (c) Positional
+   reads of one shard flipping between sequential runs and random
+   probes, each equal, ``detector.sequential`` after each run. (d) The
+   shards pinned (K1, launches equal to the pins), three flagship steps
+   on batches read by ``pread_view`` through the window (K3). (a)
+   Behind streams: 4 tasks read shards whole while 64 callers read 4 KiB
+   at random offsets of the others over the same pool, 3 s at the
+   defaults and 3 s at ``send_coalesce_frames = 1``: small reads/s,
+   p50, p99, the streams' GiB/s and the workers' frames a send (their
+   replies queue behind ``sendfile`` chunks). Then 64 callers of
+   GET_FILE_STATUS and GET_BLOCK_LOCATIONS for 5 s against the master
+   restarted on its journal, at the defaults and at one frame a send,
+   in turns: calls/s, p50, p99, the master's frames a send and its
+   dispatch split into the reply's send and the rest (its
+   ``--metrics-out`` dump). A byte of (a)-(d) by the short circuit or
+   shm, a pass's bytes unequal, or a writer broken in (b)-(d) or in an
+   (a) run (the master's too, from its dump) fails the phase; a writer
+   broken mid-frame in any phase that stops, kills or restarts no worker
+   or master fails the run: this process's, and each master's, counted
+   in its dump when it is stopped (each phase's breaks are logged);
 6b. ckpt: the flagship's parameters as phase ufs left them (99 tensors,
    1.92 GiB of bf16) saved with ``save_checkpoint`` through the port's
    client into the cluster, every byte by short circuit (SC_WRITE_OPEN:
@@ -367,6 +398,8 @@ steps and read just after them (K3), again just before phase 6j's promote
 cycles and read just after them (K1), again just before phase 6j's three
 steps and read just after them (K3), again just before phase 6k's promote
 cycles and read just after them (K1), again just before phase 6k's three
+steps and read just after them (K3), again just before phase 6l's promote
+cycles and read just after them (K1), again just before phase 6l's three
 steps and read just after them (K3), again just before phase 6b and read just
 after it (K3's forward, twice a layer for the two losses, and no backward
 kernel), again just before phase 6f's two losses and read just after
@@ -376,10 +409,10 @@ after them (K3), again just before phase 6d's three pipeline steps and
 read just after them (K3), again just before phase 6e's three ring
 steps and read just after them (K3: none), and just before phase 7's
 ``query_many`` and read just after it (K2, which must equal the ADC
-stages the search issued). The kernels line gives K1's eleven counts
+stages the search issued). The kernels line gives K1's twelve counts
 summed (each held to its pins, the refused device copies included) and
-phase 6's, 6a's, 6g's, 6h's, 6i's, 6j's, 6k's, 6c's, 6d's and 6f's K3
-counts summed.
+phase 6's, 6a's, 6g's, 6h's, 6i's, 6j's, 6k's, 6l's, 6c's, 6d's and
+6f's K3 counts summed.
 The port's
 worker and master are stopped, the process group destroyed, and the
 data directory removed, however the run ends. No process of the run
@@ -585,6 +618,31 @@ SHM_HBM_BYTES = (SHARDS + 2) * BLOCK
 SHM_WARM_MB = (SHARDS + 2) * SHARD_BYTES // MiB
 SHM_LIMIT_S = 60
 SHM_PHASE_BYTES = 3 * SHARDS * SHARD_BYTES + 64 * MiB
+# phase wire: two of the port's workers under a master of their own (the
+# robin placement, REP_LOST_MS), each with a tier-0 for its half of phase
+# feed's shards; (a) WIRE_CALLERS callers for WIRE_CALL_S a run; (b) the
+# pread_view pass in WIRE_STEP reads with a window of WIRE_READ_AHEAD
+# segments, the read_range pass in WIRE_PARALLEL slices; (c) WIRE_FLIPS
+# sequential runs of WIRE_RUN reads of WIRE_RUN_READ bytes, each followed
+# by WIRE_PROBES random reads of WIRE_PROBE bytes. At most WIRE_PHASE_BYTES on the data directory
+WIRE_CALLERS = 64
+WIRE_CALL_S = 5.0
+# phase wire (a) behind streams: shards read whole by this many tasks
+# while WIRE_CALLERS callers read WIRE_SMALL bytes at random offsets
+WIRE_STREAMS = 4
+WIRE_SMALL = 4096
+WIRE_SHARED_S = 3.0
+WIRE_STEP = 4 * MiB
+WIRE_READ_AHEAD = 4
+WIRE_PARALLEL = 4
+WIRE_FLIPS = 6
+WIRE_RUN = 8
+WIRE_RUN_READ = MiB
+WIRE_PROBES = 4
+WIRE_PROBE = 64 * 1024
+WIRE_TIER_BYTES = SHARDS * SHARD_BYTES // 2 + 4 * BLOCK
+WIRE_HBM_BYTES = (SHARDS // 2 + 2) * BLOCK
+WIRE_PHASE_BYTES = SHARDS * SHARD_BYTES + 64 * MiB
 
 
 def log(msg: str) -> None:
@@ -968,16 +1026,17 @@ def phase_feed(rng: np.random.Generator, dev: torch.device, root: str
 # ------------------------------------------------------------ the cluster
 
 def master_conf(root: str, port: int = 0, lost_ms: int = 30_000,
-                policy: str = "local") -> str:
+                policy: str = "local", rpc: dict | None = None) -> str:
     """The cluster's TOML file for the port's master: the loopback
     ``port`` (0: the master binds a free one and prints it; a restart is
     given that one, so the worker and the client find it again), its
     journal under ``root`` and its KV metadata store beside it
     (``<journal_dir>-meta``, the native engine: the reference's default
     store, and no fallback), the lost timeout (the JAX cluster's by
-    default), the heartbeat check, the placement ``policy`` and this
+    default), the heartbeat check, the placement ``policy``, this
     process's user as the superuser (the port's client names the OS
-    user)."""
+    user) and ``rpc``, the ``[rpc]`` table's keys (its defaults when
+    None)."""
     from curvine_tpu_torch.client.fs_client import _os_user
     path = os.path.join(root, "cluster.toml")
     with open(path, "w") as f:
@@ -992,6 +1051,9 @@ superuser = "{_os_user()}"
 meta_store = "kv"
 meta_engine = "native"
 """)
+        if rpc:
+            f.write("[rpc]\n" + "".join(f"{k} = {json.dumps(v)}\n"
+                                        for k, v in rpc.items()))
     return path
 
 
@@ -1009,11 +1071,12 @@ def launch_master(root: str, conf: str, n: int = 0):
     """``start_master``'s launch: the process, not waited for."""
     err = open(os.path.join(root, f"master{n}.err"), "wb")
     t = time.perf_counter()
+    out = os.path.join(root, f"master{n}.json")
     proc = subprocess.Popen(
         [sys.executable, "-m", "curvine_tpu_torch.master", "--conf", conf,
-         "--metrics-out", os.path.join(root, f"master{n}.json")],
-        cwd=HERE, stdout=subprocess.PIPE, stderr=err)
+         "--metrics-out", out], cwd=HERE, stdout=subprocess.PIPE, stderr=err)
     err.close()
+    proc.metrics_out, proc.launched = out, time.time()
     return root, n, proc, t
 
 
@@ -1044,6 +1107,7 @@ def master_line(root: str, n: int, proc, t: float):
 
 
 def stop_master(proc) -> None:
+    """Stop the master and file its writers' breaks (``master_breaks``)."""
     if proc.poll() is None:
         proc.terminate()
         try:
@@ -1052,6 +1116,33 @@ def stop_master(proc) -> None:
             proc.kill()
             proc.wait()
     proc.stdout.close()
+    if not hasattr(proc, "breaks"):
+        proc.breaks = master_breaks(proc)
+        WRITER_BREAKS.extend(proc.breaks)
+
+
+def master_breaks(proc) -> list[tuple[str, str, bool]]:
+    """The stopped master's writer breaks, as WRITER_BREAKS entries, from
+    the counters of its ``--metrics-out`` dump: ``rpc.writer_breaks``,
+    ``rpc.writer_breaks_peer_gone`` of them where the client had left.
+    A master killed by SIGKILL writes no dump and files none: every
+    phase that kills one is in BREAKS_EXPECTED."""
+    if not hasattr(proc, "metrics_out"):
+        return []
+    try:
+        if os.path.getmtime(proc.metrics_out) < proc.launched:
+            return []                       # an earlier run's dump
+        with open(proc.metrics_out) as f:
+            c = json.load(f)["counters"]
+    except (OSError, ValueError, KeyError):
+        return []
+    if c.get("blocks.report_kept"):
+        REPORTS_KEPT[f"master pid {proc.pid}"] = c["blocks.report_kept"]
+    n, gone = c.get("rpc.writer_breaks", 0), \
+        c.get("rpc.writer_breaks_peer_gone", 0)
+    name = f"master pid {proc.pid}"
+    return [(name, "counted in its dump, its stderr has the error",
+             k < gone) for k in range(n)]
 
 
 class PortWorker:
@@ -1144,9 +1235,10 @@ def _addrs(master) -> list[str]:
     return [master] if isinstance(master, str) else list(master)
 
 
-def port_client(master, coords=(), **client):
+def port_client(master, coords=(), rpc: dict | None = None, **client):
     """The port's client of ``master`` (an address, or a raft group's
-    list); its writes are placed near ICI ``coords``."""
+    list); its writes are placed near ICI ``coords``; ``rpc`` sets keys
+    of its ``[rpc]`` table."""
     from curvine_tpu_torch.client.unified import CurvineClient
     from curvine_tpu_torch.common.conf import ClusterConf
     conf = ClusterConf()
@@ -1154,6 +1246,8 @@ def port_client(master, coords=(), **client):
     conf.worker.ici_coords = list(coords)
     for k, v in client.items():
         setattr(conf.client, k, v)
+    for k, v in (rpc or {}).items():
+        setattr(conf.rpc, k, v)
     c = CurvineClient(conf)
     CLIENT_COUNTERS.append(c.counters)
     return c
@@ -1164,6 +1258,43 @@ def port_client(master, coords=(), **client):
 CLIENT_COUNTERS: list[dict] = []
 SHM_KEYS = ("read.shm_hits", "read.shm_warm_hits", "read.shm_fallbacks",
             "read.shm_warm_fallbacks", "sc.bytes.read")
+
+
+# every first break of a coalesced writer: in this process (the port's
+# clients and workers; count_writer_breaks) the writer's name, the
+# error, and whether it is a server's writer whose client had already
+# left (``peer_gone``); and each master's, filed from its dump when it
+# is stopped (stop_master)
+WRITER_BREAKS: list[tuple[str, str, bool]] = []
+# per stopped master, the replicas a full block report built before they
+# landed kept located (ROADMAP C15)
+REPORTS_KEPT: dict = {}
+# the phases that stop, kill or restart a worker or a master, where a
+# connection may break mid-frame (phase wire holds its own reads and its
+# call runs to none); a break anywhere else fails the run
+BREAKS_EXPECTED = ("recover", "drain", "ec", "kv", "ha", "replicate",
+                   "master", "wire")
+
+
+def count_writer_breaks() -> None:
+    """Record each writer's first break in WRITER_BREAKS (installed once,
+    before any phase): a writer breaks when part of a frame may be on the
+    wire, and its connection closes."""
+    from curvine_tpu_torch.rpc.transport import CoalescedWriter
+    real = CoalescedWriter._break
+    if getattr(real, "counted", False):
+        return
+
+    def _break(self, exc):
+        if self.broken is None:
+            WRITER_BREAKS.append((
+                self.name, f"{type(exc).__name__}: {exc}",
+                self.name == "server" and isinstance(
+                    exc, (ConnectionResetError, BrokenPipeError))))
+        return real(self, exc)
+
+    _break.counted = True
+    CoalescedWriter._break = _break
 
 
 def shm_tally(since: int) -> dict:
@@ -3716,6 +3847,13 @@ def phase_master(root: str, conf: str, cluster: dict, pw: PortWorker,
     t = time.perf_counter()
     stop_master(cluster["proc"])
     stop_s = time.perf_counter() - t
+    # this master served phases client to vector, which stop no master:
+    # its breaks are filed under this phase, so they are held here
+    served = [b for b in cluster["proc"].breaks if not b[2]]
+    if served:
+        raise AssertionError(f"master: the cluster's master broke "
+                             f"{len(served)} writers in the phases before "
+                             f"this one, which stop no master")
     with open(os.path.join(root, "master0.json")) as f:
         stats = json.load(f)
     files = journal_files(conf) | kv_files(conf)
@@ -7253,6 +7391,522 @@ def phase_shm(dev: torch.device, root: str, seed: int, params: dict, step,
     return res
 
 
+def wire_calls(master: str, paths: list[str], rpc: dict | None) -> dict:
+    """Phase wire (a): WIRE_CALLERS callers over one port client's pool,
+    each alternating GET_FILE_STATUS and GET_BLOCK_LOCATIONS of
+    ``paths`` for WIRE_CALL_S; calls/s, p50 and p99 in ms, the client's
+    frames a send, and the writers that broke meanwhile."""
+    from curvine_tpu_torch.common.metrics import MetricsRegistry
+
+    async def run():
+        async with port_client(master, rpc=rpc) as c:
+            c.meta.pool.metrics = MetricsRegistry("client")
+            await c.meta.file_status(paths[0])         # the dial
+            lat: list[float] = []
+            mark = len(WRITER_BREAKS)
+            t_end = time.perf_counter() + WIRE_CALL_S
+
+            async def caller(k: int):
+                i = k
+                while time.perf_counter() < t_end:
+                    p = paths[i % len(paths)]
+                    t = time.perf_counter()
+                    if i % 2:
+                        fb = await c.meta.get_block_locations(p)
+                        if fb.status.len != SHARD_BYTES:
+                            raise AssertionError(f"wire (a): {p} {fb}")
+                    else:
+                        st = await c.meta.file_status(p)
+                        if st.len != SHARD_BYTES:
+                            raise AssertionError(f"wire (a): {p} {st}")
+                    lat.append(time.perf_counter() - t)
+                    i += 1
+
+            t0 = time.perf_counter()
+            await asyncio.gather(*(caller(k) for k in range(WIRE_CALLERS)))
+            secs = time.perf_counter() - t0
+            h = c.meta.pool.metrics.histograms["rpc.send_batch_frames"]
+            return lat, secs, h.sum / h.count, WRITER_BREAKS[mark:]
+
+    lat, secs, client_mean, breaks = asyncio.run(run())
+    lat.sort()
+    return {"calls": len(lat), "calls_per_s": len(lat) / secs,
+            "p50_ms": 1e3 * lat[len(lat) // 2],
+            "p99_ms": 1e3 * lat[min(len(lat) - 1, int(len(lat) * 0.99))],
+            "client_frames_per_send": client_mean, "breaks": breaks}
+
+
+def wire_shared(master: str, paths: list[str], workers: list, seed: int,
+                rpc: dict | None) -> dict:
+    """Phase wire (a) behind streams, the traffic whose replies queue:
+    WIRE_STREAMS tasks read the first half of ``paths`` whole
+    (``read_all``, READ_BLOCK chunks by ``sendfile``) over and over while
+    WIRE_CALLERS callers read WIRE_SMALL bytes at random offsets of the
+    other half (``pread``: no window), all over one client's pool with
+    the short circuit off, for WIRE_SHARED_S; the ``workers`` (their
+    servers and the client with ``rpc`` set in their ``[rpc]`` tables).
+    The small reads/s, their p50 and p99 in ms, the streams' GiB/s, and
+    the workers' frames a send meanwhile (``rpc.send_batch_frames``; a
+    ``sendfile`` chunk is no frame of it, the EOFs queued behind one
+    are)."""
+    from curvine_tpu_torch.common.conf import RpcConf
+    saved = [w.rpc.rpc_conf for w in workers]
+    for w in workers:
+        # the servers' writers take their frames a send at each accept
+        w.rpc.rpc_conf = RpcConf(**(rpc or {}))
+    hs = [w.metrics.histograms.get("rpc.send_batch_frames")
+          for w in workers]
+    before = [(h.count, h.sum) if h is not None else (0, 0) for h in hs]
+    rng = np.random.default_rng(seed)
+    half = len(paths) // 2
+    no_sc = dict(short_circuit=False, read_ahead_chunks=WIRE_READ_AHEAD)
+
+    async def run():
+        async with port_client(master, rpc=rpc, **no_sc) as c:
+            readers = [await c.open(p) for p in paths[half:]]
+            lat: list[float] = []
+            streamed = [0]
+            t_end = time.perf_counter() + WIRE_SHARED_S
+
+            async def stream(k: int):
+                while time.perf_counter() < t_end:
+                    streamed[0] += len(await c.read_all(paths[k % half]))
+
+            async def caller(k: int):
+                r = readers[k % len(readers)]
+                while time.perf_counter() < t_end:
+                    off = int(rng.integers(0, r.len - WIRE_SMALL))
+                    t = time.perf_counter()
+                    got = await r.pread(off, WIRE_SMALL)
+                    lat.append(time.perf_counter() - t)
+                    if len(got) != WIRE_SMALL:
+                        raise AssertionError(f"wire (a): {len(got)} bytes")
+            t0 = time.perf_counter()
+            await asyncio.gather(*(stream(k) for k in range(WIRE_STREAMS)),
+                                 *(caller(k) for k in range(WIRE_CALLERS)))
+            secs = time.perf_counter() - t0
+            for r in readers:
+                await r.close()
+            return lat, secs, streamed[0], dict(c.counters)
+
+    mark = len(WRITER_BREAKS)
+    try:
+        lat, secs, streamed, counters = asyncio.run(run())
+    finally:
+        for w, rc in zip(workers, saved):
+            w.rpc.rpc_conf = rc
+    hs = [w.metrics.histograms.get("rpc.send_batch_frames")
+          for w in workers]
+    sends = sum(h.count for h in hs if h is not None) - \
+        sum(b[0] for b in before)
+    frames = sum(h.sum for h in hs if h is not None) - \
+        sum(b[1] for b in before)
+    lat.sort()
+    return {"small_reads": len(lat), "small_reads_per_s": len(lat) / secs,
+            "p50_ms": 1e3 * lat[len(lat) // 2],
+            "p99_ms": 1e3 * lat[min(len(lat) - 1, int(len(lat) * 0.99))],
+            "stream_gibs": streamed / GiB / secs,
+            "workers_sends": sends, "workers_frames": frames,
+            "workers_frames_per_send": frames / max(1, sends),
+            "sc_bytes": counters.get("sc.bytes.read", 0),
+            "shm_reads": sum(counters.get(k, 0) for k in SHM_KEYS
+                             if k.startswith("read.shm")),
+            "breaks": WRITER_BREAKS[mark:]}
+
+
+def phase_wire(dev: torch.device, root: str, seed: int, params: dict, step,
+               link_gibs: float) -> dict:
+    """The wire transport and the reader's read-ahead, with phase ufs's
+    parameters and step: a master of the phase's own on the KV store
+    (the robin placement) and two of the port's workers in this process,
+    A and B, each with a tier-0 on the card; phase feed's shape written
+    to /wire/train, its blocks alternating between A and B. Every client
+    of (b)-(d) has the short circuit off: every byte comes by READ_BLOCK
+    over the coalesced writer and the bulk decoder.
+
+    (b) The 8 shards into device memory through the pinned staging ring,
+    three ways: ``read_all``, ``pread_view`` in sequential WIRE_STEP reads
+    with a prefetch window of WIRE_READ_AHEAD segments, and
+    ``read_range(0, n, parallel=WIRE_PARALLEL)``; each shard compared on
+    the card with its tokens. Per pass: GiB/s into device memory, the
+    reader's ``pf.bytes.read`` (above 0 for ``pread_view``, 0 for
+    ``read_all``) and ``read.zero_copy_bytes``, the registered receive
+    pool's stats (the workers' ``rpc.recv_*``), the workers' bytes sent;
+    beside phase 3's ``link_gibs``. (c) Over one shard, WIRE_FLIPS
+    sequential runs of ``pread_view``, each followed by WIRE_PROBES
+    random probes: every read equal to its bytes, ``detector.sequential``
+    after each run. (d) The shards, hot from (b), pinned into the
+    workers' tier-0 by promote cycles (K1 against the host hash, launches
+    equal to the pins), each device copy equal to its tokens; three
+    flagship steps on batches read by ``pread_view`` through the window,
+    each equal to its tokens (K3). (a) Behind streams (``wire_shared``):
+    small reads sharing the pool with shard streams, at the defaults and
+    at one frame a send (the workers' and the client's). Small calls,
+    last: the master restarted on its journal, WIRE_CALLERS callers for
+    WIRE_CALL_S (``wire_calls``), four times in turns: at the defaults,
+    twice on a master and a client with ``send_coalesce_frames = 1``, at
+    the defaults; the master's frames a send and its dispatch and reply
+    send times from its ``--metrics-out`` dump. Fails if a byte of
+    (a)-(d) came by the short circuit or shm, a pass's bytes differ, a
+    run at one frame a send sent more, or a writer broke in (b)-(d) or in
+    an (a) run, the master's included. The master and workers are
+    stopped and the directory removed, however it ends."""
+    from curvine_tpu_torch.gpu import cuda_ops, flash
+    from curvine_tpu_torch.gpu.ingest import PinnedStager
+    from curvine_tpu_torch.gpu.loader import write_token_shards
+    from curvine_tpu_torch.rpc.transport import recv_pool
+    base = os.path.join(root, "wire")
+    os.makedirs(base)
+    res: dict = {}
+    workers: dict[str, PortWorker] = {}
+    proc = None
+    tokens = ufs_tokens(seed, SHARDS, 0x77697265)
+    shard_tokens = SHARD_BYTES // 4
+    kernels = [getattr(flash, nm) for nm in K3_NAMES]
+    cfg = _flagship()
+    t_phase = time.perf_counter()
+    no_sc = dict(short_circuit=False, read_ahead_chunks=WIRE_READ_AHEAD)
+    try:
+        conf = master_conf(base, lost_ms=REP_LOST_MS, policy="robin")
+        proc, info = start_master(base, conf)
+        master = info["addr"]
+        port = int(master.rsplit(":", 1)[1])
+        conf = master_conf(base, port, REP_LOST_MS, "robin")
+        for name, xy in (("a", (0, 0)), ("b", (1, 0))):
+            workers[name] = PortWorker(master, os.path.join(base, name),
+                                       WIRE_TIER_BYTES, dev, coords=xy,
+                                       hbm_bytes=WIRE_HBM_BYTES)
+        wa, wb = workers["a"].worker, workers["b"].worker
+        await_live(master, [wa.worker_id, wb.worker_id], phase="wire")
+
+        async def write():
+            async with port_client(master) as c:
+                t = time.perf_counter()
+                paths = await write_token_shards(c, "/wire/train", tokens,
+                                                 shard_tokens)
+                return paths, time.perf_counter() - t
+        paths, res["write_s"] = asyncio.run(write())
+        locs = [_block_locs(master, p) for p in paths]
+        holders = [x[0][1] for x in locs]
+        blocks = [x[0][0] for x in locs]
+        if any(len(x) != 1 or len(x[0][1]) != 1 for x in locs) or \
+                any(holders[i] == holders[i + 1] for i in range(SHARDS - 1)) \
+                or {h[0] for h in holders} != {wa.worker_id, wb.worker_id}:
+            raise AssertionError(f"wire: {locs}: not one block a shard, "
+                                 f"alternating between A and B")
+        log(f"wire: a master and two of the port's workers, A "
+            f"({wa.worker_id}) and B ({wb.worker_id}); {SHARDS} shards of "
+            f"{SHARD_BYTES // MiB} MiB written in {res['write_s']:.3f}s, "
+            f"their blocks alternating {[h[0] for h in holders]}")
+        expect = torch.from_numpy(tokens).to(dev)
+
+        def breaks_since(mark: int, label: str, got=None) -> list:
+            got = WRITER_BREAKS[mark:] if got is None else got
+            if got:
+                raise AssertionError(f"wire {label}: writers broke: {got}")
+            return got
+
+        # (b) the three passes into device memory
+        def one_pass(how: str) -> dict:
+            stager = PinnedStager(dev)
+            dst = torch.empty(SHARD_BYTES, dtype=torch.uint8, device=dev)
+            bad = torch.zeros((), dtype=torch.int64, device=dev)
+            pool0 = recv_pool().stats()
+            sent0 = [w.metrics.counters.get("rpc.bytes_sent", 0)
+                     for w in (wa, wb)]
+
+            split = {"read": 0.0, "stage": 0.0}
+
+            def stage(into, v) -> None:
+                t = time.perf_counter()
+                stager.copy_in(into, v)
+                split["stage"] += time.perf_counter() - t
+
+            async def read(coro):
+                t = time.perf_counter()
+                v = await coro
+                split["read"] += time.perf_counter() - t
+                return v
+
+            async def run():
+                async with port_client(master, **no_sc) as c:
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    for i, p in enumerate(paths):
+                        r = await c.open(p)
+                        if how == "pread_view":
+                            got = 0
+                            for off in range(0, r.len, WIRE_STEP):
+                                v = await read(r.pread_view(off, WIRE_STEP))
+                                stage(dst[off:off + len(v)], v)
+                                got += len(v)
+                        elif how == "read_all":
+                            v = np.frombuffer(await read(r.read_all()),
+                                              dtype=np.uint8)
+                            got = len(v)
+                            stage(dst[:got], v)
+                        else:
+                            v = await read(r.read_range(
+                                0, r.len, parallel=WIRE_PARALLEL))
+                            got = len(v)
+                            stage(dst[:got], v)
+                        await r.close()
+                        if got != SHARD_BYTES:
+                            raise AssertionError(f"wire (b) {how}: {p}: "
+                                                 f"{got} bytes")
+                        bad.add_((dst.view(torch.int32) != expect[
+                            i * shard_tokens:(i + 1) * shard_tokens]).sum())
+                    torch.cuda.synchronize()
+                    return time.perf_counter() - t, dict(c.counters)
+
+            secs, counters = asyncio.run(run())
+            pool1 = recv_pool().stats()
+            out = {"s": secs, "read_s": split["read"],
+                   "stage_s": split["stage"],
+                   "read_gibs_into_device": SHARDS * SHARD_BYTES / GiB / secs,
+                   "tokens_unequal": int(bad),
+                   "pf_bytes": counters.get("pf.bytes.read", 0),
+                   "zero_copy_bytes": counters.get("read.zero_copy_bytes", 0),
+                   "sc_bytes": counters.get("sc.bytes.read", 0),
+                   "shm_reads": sum(counters.get(k, 0) for k in SHM_KEYS
+                                    if k.startswith("read.shm")),
+                   "recv": {k: pool1[k] - pool0[k] if k in (
+                       "acquired", "reused") else pool1[k] for k in pool1},
+                   "workers_bytes_sent": [
+                       w.metrics.counters.get("rpc.bytes_sent", 0) - s0
+                       for w, s0 in zip((wa, wb), sent0)]}
+            log(f"wire (b) {how}: {SHARDS} shards into device memory through "
+                f"the pinned staging ring in {secs:.3f}s (awaiting the "
+                f"reads {split['read']:.3f}s, staging {split['stage']:.3f}s), "
+                f"{out['read_gibs_into_device']:.3f} GiB/s against phase 3's "
+                f"link_gibs {link_gibs:.3f}; pf.bytes.read "
+                f"{out['pf_bytes']:,}, read.zero_copy_bytes "
+                f"{out['zero_copy_bytes']:,}, short circuit "
+                f"{out['sc_bytes']}, shm reads {out['shm_reads']}; the "
+                f"registered pool {out['recv']}; the workers sent "
+                f"{out['workers_bytes_sent']}")
+            if out["tokens_unequal"]:
+                raise AssertionError(f"wire (b) {how}: "
+                                     f"{out['tokens_unequal']} tokens unequal")
+            if out["sc_bytes"] or out["shm_reads"]:
+                raise AssertionError(f"wire (b) {how}: bytes by the short "
+                                     f"circuit or shm: {counters}")
+            return out
+
+        mark = len(WRITER_BREAKS)
+        res["b"] = {how: one_pass(how)
+                    for how in ("read_all", "pread_view", "read_range")}
+        if res["b"]["pread_view"]["pf_bytes"] <= 0 or \
+                res["b"]["read_all"]["pf_bytes"] != 0:
+            raise AssertionError(f"wire (b): pf.bytes.read "
+                                 f"{[r['pf_bytes'] for r in res['b'].values()]}")
+        res["b"]["link_gibs"] = link_gibs
+
+        # (c) the window after a flip, over shard 1 (on the other worker)
+        flips = np.random.default_rng(seed + 23)
+        host = tokens[shard_tokens:2 * shard_tokens].view(np.uint8)
+
+        async def flipped():
+            async with port_client(master, **no_sc) as c:
+                r = await c.open(paths[1])
+                seq, reads = [], 0
+                for _ in range(WIRE_FLIPS):
+                    n = WIRE_RUN_READ
+                    pos = int(flips.integers(
+                        0, (r.len - WIRE_RUN * n) // n + 1)) * n
+                    for k in range(WIRE_RUN):
+                        off = pos + k * n
+                        v = await r.pread_view(off, n)
+                        reads += 1
+                        if not np.array_equal(v, host[off:off + n]):
+                            raise AssertionError(f"wire (c): {off}")
+                    seq.append(r.detector.sequential)
+                    for _ in range(WIRE_PROBES):
+                        off = int(flips.integers(0, r.len - WIRE_PROBE))
+                        v = await r.pread_view(off, WIRE_PROBE)
+                        reads += 1
+                        if not np.array_equal(v, host[off:off + WIRE_PROBE]):
+                            raise AssertionError(f"wire (c): probe {off}")
+                    seq.append(r.detector.sequential)
+                await r.close()
+                return seq, reads, dict(c.counters)
+        seq, reads, counters = asyncio.run(flipped())
+        if counters.get("sc.bytes.read", 0):
+            raise AssertionError(f"wire (c): short circuit {counters}")
+        res["c"] = {"sequential_after_each_run": seq, "reads": reads,
+                    "pf_bytes": counters.get("pf.bytes.read", 0)}
+        log(f"wire (c): {reads} positional reads over {paths[1]}, "
+            f"{WIRE_FLIPS} sequential runs of {WIRE_RUN} x "
+            f"{WIRE_RUN_READ // 1024} KiB each "
+            f"followed by {WIRE_PROBES} random probes of "
+            f"{WIRE_PROBE // 1024} KiB, all equal; detector.sequential after "
+            f"each run {seq}; pf.bytes.read {res['c']['pf_bytes']:,}")
+
+        # (d) pins (K1), then three flagship steps read through the window
+        pins0 = sum(w.metrics.counters.get("blocks.hbm_pinned", 0)
+                    for w in (wa, wb))
+        cuda_ops.block_checksum.launches = 0
+        cycles = 0
+        while not all(wa.hbm_holds(b) or wb.hbm_holds(b) for b in blocks) \
+                and cycles < 8:
+            for name in ("a", "b"):
+                workers[name].call(workers[name].worker._promote_once())
+            cycles += 1
+        k1 = cuda_ops.block_checksum.launches
+        pins = sum(w.metrics.counters.get("blocks.hbm_pinned", 0)
+                   for w in (wa, wb)) - pins0
+        if pins != SHARDS or k1 != pins:
+            raise AssertionError(f"wire (d): {cycles} cycles, {pins} pins, "
+                                 f"{k1} K1 launches")
+        for i, b in enumerate(blocks):
+            w = wa if wa.hbm_holds(b) else wb
+            if not torch.equal(w.hbm_get(b).view(torch.int32),
+                               expect[i * shard_tokens:
+                                      (i + 1) * shard_tokens]):
+                raise AssertionError(f"wire (d): block {b}'s device copy "
+                                     f"differs from its tokens")
+        first = tokens[:TRAIN_BATCH * TRAIN_SEQ * UFS_STEPS].reshape(
+            UFS_STEPS, TRAIN_BATCH, TRAIN_SEQ)
+        seen = []
+
+        def check(b):
+            seen.append(bool(torch.equal(b, torch.from_numpy(
+                first[len(seen)]).to(dev))))
+
+        async def train_steps():
+            stager = PinnedStager(dev)
+            nbytes = TRAIN_BATCH * TRAIN_SEQ * 4
+            async with port_client(master, **no_sc) as c:
+                r = await c.open(paths[0])
+
+                async def take():
+                    for k in range(UFS_STEPS):
+                        v = await r.pread_view(k * nbytes, nbytes)
+                        b = torch.empty(nbytes, dtype=torch.uint8,
+                                        device=dev)
+                        stager.copy_in(b, v)
+                        yield b.view(torch.int32).view(TRAIN_BATCH,
+                                                       TRAIN_SEQ)
+                try:
+                    got = await timed_steps(step, params, take(), check)
+                finally:
+                    await r.close()
+                return got, dict(c.counters)
+
+        for fn in kernels:
+            fn.launches = 0
+        (step_s, losses), counters = asyncio.run(train_steps())
+        launches = {fn.__name__: fn.launches for fn in kernels}
+        if seen != [True] * UFS_STEPS or not all(map(math.isfinite, losses)) \
+                or set(launches.values()) != {cfg.n_layers * UFS_STEPS} \
+                or not counters.get("pf.bytes.read") \
+                or counters.get("sc.bytes.read"):
+            raise AssertionError(f"wire (d): batches equal {seen}, losses "
+                                 f"{losses}, K3 launches {launches}, "
+                                 f"counters {counters}")
+        res["d"] = dict(cycles=cycles, pins=pins, k1_launches=k1,
+                        losses=losses, step_ms=[x * 1e3 for x in step_s],
+                        launches=launches,
+                        pf_bytes=counters.get("pf.bytes.read", 0))
+        log(f"wire (d): {cycles} promote cycles of A and B pinned the "
+            f"{pins} shards, each verified by K1 ({k1} launches) and equal "
+            f"to its tokens on the card; {UFS_STEPS} flagship steps at "
+            f"{TRAIN_BATCH}x{TRAIN_SEQ} on batches read by pread_view "
+            f"through the window (pf.bytes.read {res['d']['pf_bytes']:,}), "
+            f"each equal to its tokens: losses "
+            f"{[round(x, 4) for x in losses]}, step ms "
+            f"{[round(x * 1e3, 2) for x in step_s]}; K3 launches {launches}")
+        res["breaks_bcd"] = breaks_since(mark, "(b)-(d)")
+        del expect
+
+        # (a) behind streams: small reads whose replies queue behind the
+        # streams' sendfile chunks on the workers' writers, at the
+        # defaults and at one frame a send (the workers' and the client's)
+        one = {"send_coalesce_frames": 1}
+        res["a_streams"] = {}
+        for label, rpc in (("defaults", None),
+                           ("send_coalesce_frames 1", one)):
+            run = wire_shared(master, paths, [wa, wb], seed + 29, rpc)
+            res["a_streams"][label] = run
+            log(f"wire (a) behind streams, {label}: {WIRE_STREAMS} tasks "
+                f"reading shards whole at {run['stream_gibs']:.3f} GiB/s "
+                f"while {WIRE_CALLERS} callers read {WIRE_SMALL} B at "
+                f"random offsets for {WIRE_SHARED_S:.0f}s: "
+                f"{run['small_reads']} reads, "
+                f"{run['small_reads_per_s']:.1f} reads/s, p50 "
+                f"{run['p50_ms']:.3f} ms, p99 {run['p99_ms']:.3f} ms; the "
+                f"workers' frames a send {run['workers_frames_per_send']:.3f}"
+                f" ({run['workers_frames']} frames in {run['workers_sends']}"
+                f" sends)")
+            if run["breaks"] or run["sc_bytes"] or run["shm_reads"]:
+                raise AssertionError(f"wire (a) behind streams {label}: {run}")
+        if res["a_streams"]["send_coalesce_frames 1"][
+                "workers_frames_per_send"] != 1:
+            raise AssertionError("wire (a): send_coalesce_frames = 1 sent "
+                                 "more than one frame a send")
+
+        # (a) small calls, on a master restarted on its journal: at the
+        # defaults and at one frame a send (the master's and the client's),
+        # in turns
+        res["a"] = {"defaults": [], "send_coalesce_frames 1": []}
+        for n, (label, rpc) in enumerate(
+                (("defaults", None), ("send_coalesce_frames 1", one),
+                 ("send_coalesce_frames 1", one), ("defaults", None)),
+                start=1):
+            if proc is not None:                 # (b)-(d)'s master
+                stop_master(proc)
+                res["master_breaks_bcd"] = breaks_since(0, "(b)-(d)", [
+                    b for b in proc.breaks if not b[2]])
+                proc = None
+            conf = master_conf(base, port, REP_LOST_MS, "robin", rpc=rpc)
+            proc, _ = start_master(base, conf, n)
+            run = wire_calls(master, paths, rpc)
+            stop_master(proc)
+            run["master_breaks"] = proc.breaks
+            proc = None
+            with open(os.path.join(base, f"master{n}.json")) as f:
+                dump = json.load(f)
+            run["master_send_batch_frames"] = dump["send_batch_frames"]
+            run["master_rpc"] = {k: dump["rpc"].get(k) for k in (
+                "file_status", "get_block_locations")}
+            run["master_reply_send"] = dump["reply_send"]
+            res["a"][label].append(run)
+            mb = dump["send_batch_frames"] or {}
+            log(f"wire (a) {label}: {WIRE_CALLERS} callers, GET_FILE_STATUS "
+                f"and GET_BLOCK_LOCATIONS for {WIRE_CALL_S:.0f}s: "
+                f"{run['calls']} calls, {run['calls_per_s']:.1f} calls/s, "
+                f"p50 {run['p50_ms']:.3f} ms, p99 {run['p99_ms']:.3f} ms; "
+                f"the master's frames a send {mb.get('mean', 0):.3f} (max "
+                f"{mb.get('max')}, {mb.get('sends')} sends), the client's "
+                f"{run['client_frames_per_send']:.3f}; the master's dispatch "
+                f"p50/mean ms "
+                f"{ {k: (round(v['p50_ms'], 3), round(v['mean_ms'], 3)) for k, v in run['master_rpc'].items() if v} }"
+                f", of which the reply's send p50/mean ms "
+                f"{round(run['master_reply_send']['p50_ms'], 4)}/"
+                f"{round(run['master_reply_send']['mean_ms'], 4)}")
+            bad = run["breaks"] + [b for b in run["master_breaks"]
+                                   if not b[2]]
+            if bad:
+                raise AssertionError(f"wire (a) {label}: writers broke: "
+                                     f"{bad}")
+        res["phase_s"] = time.perf_counter() - t_phase
+        log(f"wire: the phase {res['phase_s']:.1f}s")
+    finally:
+        for w in workers.values():
+            w.stop()
+        if proc is not None:
+            stop_master(proc)
+        shutil.rmtree(base, ignore_errors=True)
+    res["k1_launches"] = res["d"]["k1_launches"]
+    res["launches"] = res["d"]["launches"]
+    return res
+
+
+# the cluster phase now running (``main``'s ``tallied``), named on the
+# last line of standard error when the run fails
+RUNNING: dict = {"phase": None}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7276,18 +7930,24 @@ def main() -> int:
 
     def tallied(fn, *a):
         """``fn(*a)``, its result (the first, when a tuple) given the
-        shared-memory counters of the port clients it made."""
-        mark = len(CLIENT_COUNTERS)
+        shared-memory counters of the port clients it made and the
+        writers that broke meanwhile."""
+        mark, breaks = len(CLIENT_COUNTERS), len(WRITER_BREAKS)
+        RUNNING["phase"] = fn.__name__
         out = fn(*a)
-        (out[0] if isinstance(out, tuple) else out)["shm_reads"] = \
-            shm_tally(mark)
+        RUNNING["phase"] = None
+        first = out[0] if isinstance(out, tuple) else out
+        first["shm_reads"] = shm_tally(mark)
+        first["writer_breaks"] = WRITER_BREAKS[breaks:]
         return out
+    count_writer_breaks()
     results["build"] = phase_build()
     results["kernel"] = phase_kernel(rng, dev)
     need = N_BLOCKS * BLOCK + SHARDS * SHARD_BYTES + WORKER_TIER_BYTES \
         + 2 * ICI_TIER_BYTES + 3 * REP_TIER_BYTES + UFS_PHASE_BYTES \
         + RECOVER_PHASE_BYTES + DRAIN_PHASE_BYTES + EC_PHASE_BYTES \
-        + KV_PHASE_BYTES + HA_PHASE_BYTES + SHM_PHASE_BYTES
+        + KV_PHASE_BYTES + HA_PHASE_BYTES + SHM_PHASE_BYTES \
+        + WIRE_PHASE_BYTES
     root = pick_data_dir(need)
     log(f"main: data under {root} (needs {need / GiB:.2f} GiB and 1 GiB "
         f"spare: {N_BLOCKS} blocks and {SHARDS} POSIX shards of 64 MiB, "
@@ -7303,7 +7963,8 @@ def main() -> int:
         f"and shards, at most {KV_PHASE_BYTES / GiB:.2f} GiB, phase ha's "
         f"shards and three masters' journals and KV directories, at most "
         f"{HA_PHASE_BYTES / GiB:.2f} GiB, phase shm's shards three times, "
-        f"at most {SHM_PHASE_BYTES / GiB:.2f} GiB)")
+        f"at most {SHM_PHASE_BYTES / GiB:.2f} GiB, phase wire's shards, at "
+        f"most {WIRE_PHASE_BYTES / GiB:.2f} GiB)")
     cluster = pw = None
     try:
         cuda_ops.block_checksum.launches = 0
@@ -7335,6 +7996,8 @@ def main() -> int:
                                     results["client"])
         results["shm"] = tallied(phase_shm, dev, root, args.seed, params,
                                  step, results["main"]["link_gibs"])
+        results["wire"] = tallied(phase_wire, dev, root, args.seed, params,
+                                  step, results["main"]["link_gibs"])
         del step
         results["ckpt"], probe = tallied(phase_ckpt, dev, info["addr"],
                                          args.seed, params,
@@ -7371,6 +8034,21 @@ def main() -> int:
         if fell:
             raise AssertionError(f"shm: reads fell back from the mapping to "
                                  f"the fd path in {fell}")
+        # writers that broke mid-frame, by phase: only where the phase
+        # stops or kills a worker or a master, or a server's client left
+        breaks = {k: v["writer_breaks"] for k, v in results.items()
+                  if isinstance(v, dict) and v.get("writer_breaks")}
+        results["writer_breaks"] = breaks
+        log(f"wire: writers broken mid-frame by phase {breaks}")
+        results["reports_kept"] = dict(REPORTS_KEPT)
+        log(f"master: replicas a full block report built before they "
+            f"landed kept located, by master (ROADMAP C15; the reference "
+            f"drops them) {REPORTS_KEPT}")
+        bad = {k: [b for b in v if not b[2]] for k, v in breaks.items()
+               if k not in BREAKS_EXPECTED}
+        if any(bad.values()):
+            raise AssertionError(f"writers broke in phases that stop no "
+                                 f"worker or master: {bad}")
         # every phase's cluster traffic went through the port's worker
         await_port_worker(info["addr"], pw)
         m = pw.worker.metrics
@@ -7419,6 +8097,7 @@ def main() -> int:
                     + results["kv"]["k1_launches"]
                     + results["ha"]["k1_launches"]
                     + results["shm"]["k1_launches"]
+                    + results["wire"]["k1_launches"]
                     + results["recover"]["k1_launches"],
         "max_abs_err": k["max_abs_err"],
         "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
@@ -7440,6 +8119,7 @@ def main() -> int:
                         + results["kv"]["launches"][name]
                         + results["ha"]["launches"][name]
                         + results["shm"]["launches"][name]
+                        + results["wire"]["launches"][name]
                         + results["mesh"]["launches"][name]
                         + results["pipeline"]["launches"][name]
                         + results["recover"]["launches"][name],
@@ -7469,4 +8149,14 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    except Exception:
+        # the traceback, then the phase it came from on the last line of
+        # standard error, where a log's tail shows it
+        import traceback
+        traceback.print_exc()
+        print(f"chip_smoke: failed in "
+              f"{RUNNING['phase'] or 'a phase that runs no cluster'}",
+              file=sys.stderr, flush=True)
+        sys.exit(1)

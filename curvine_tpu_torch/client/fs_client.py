@@ -82,7 +82,8 @@ class FsClient:
         self.masters = list(cc.master_addrs)
         self._active = 0
         self.pool = ConnectionPool(size=cc.conn_pool_size,
-                                   timeout_ms=cc.rpc_timeout_ms)
+                                   timeout_ms=cc.rpc_timeout_ms,
+                                   rpc_conf=self.conf.rpc)
         self.retry = RetryPolicy(max_retries=cc.conn_retry_max,
                                  base_ms=cc.conn_retry_base_ms)
         self.client_id = uuid.uuid4().hex

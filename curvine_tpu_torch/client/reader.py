@@ -16,8 +16,9 @@ feed reads through:
   a fresh buffer, the whole block verified against its crc when
   ``verify`` is set (``_sc_verify_ok``, :538; crc32c through the port's
   ``csrc/crc32c.cc``), None when the range is not short-circuit readable;
-- ``chunks`` (:1264-1294), the whole file in sequential chunks, without
-  the reference's read-ahead;
+- ``chunks`` (:1264-1303), the whole file in sequential chunks with
+  ``read_ahead`` chunks read ahead of the consumer (``_pread_bytes``,
+  each a task; an early exit cancels those in flight);
 - ``read``, ``read_all`` and ``pread`` (:605-646) over the positional
   core ``_read_into`` (:665-738): one buffer for the whole range, each
   block range landing in it once, by a preadv from the local block file
@@ -26,7 +27,27 @@ feed reads through:
   turn; a whole block is verified against the crc its EOF frame carries.
   Each attempt reports its outcome to the breakers, ``ok`` or ``fail``
   with the location's ``worker_id`` (:936-945). They return that
-  buffer, a ``bytearray``.
+  buffer, a ``bytearray``;
+- ``pread_view`` (:644-663), the positional read into a numpy buffer
+  (``_alloc_out``, :507-516: page-aligned, mmap-backed from 256 KiB
+  up, the reference's ``recv_aligned_min``,
+  ``rpc/transport.py::alloc_aligned``),
+  served from the prefetch window where it holds the range, and
+  ``read_range`` (:740-802), the same into one buffer cut into
+  ``parallel`` contiguous chunk-aligned slices read concurrently; a
+  range of one block served by shm is the mapping's read-only view
+  instead, with no copy (``_shm_view``);
+- the sequential prefetch window (:804-899): ``ReadDetector`` (:42-80),
+  fed by ``pread_view``'s positional reads and by seeks, says whether the
+  stream is sequential; while it is, ``_prefetch_topup`` keeps the next
+  ``read_ahead`` chunk-aligned segments (``_seg_start``) of remote
+  blocks in flight (``_fetch_seg``: READ_BLOCK into a buffer of the
+  transport's registered receive pool, ``recv_pool()``), at most
+  2·``read_ahead`` + 2 of them, and ``_pf_read_into`` serves a read out
+  of them (``pf.bytes.read``), a consumed segment's buffer going back to
+  the pool. A striped block, a co-located one and one not probed yet are
+  never prefetched: the window stops there until a direct read has
+  probed it. ``close`` cancels and awaits every segment in flight.
 
 An erasure-coded block (``_ec_active``: its stripe committed and its
 replicas retired) is read through its cells (``_read_ec``,
@@ -83,11 +104,9 @@ through READ_BLOCK from the next replica, and probed again once the
 breaker lets it by.
 
 Left out (ROADMAP A3b): holes (a file resized past its last
-block; they raise ``NotImplementedError``),
-short-circuit reads of a bdev tier's leased extents (its blocks are read
-through READ_BLOCK), the sequential prefetch window, parallel
-``read_range``, ``pread_view``, ``chunks``' read-ahead, deadlines and
-tracing."""
+block; they raise ``NotImplementedError`` until RESIZE_FILE, ROADMAP §A
+item 4), short-circuit reads of a bdev tier's leased extents (its blocks
+are read through READ_BLOCK), deadlines and tracing."""
 
 from __future__ import annotations
 
@@ -108,6 +127,7 @@ from curvine_tpu_torch.common.types import (ExtendedBlock, FileBlocks,
                                             LocatedBlock, WorkerAddress)
 from curvine_tpu_torch.rpc.client import ConnectionPool
 from curvine_tpu_torch.rpc.codes import RpcCode
+from curvine_tpu_torch.rpc import transport
 from curvine_tpu_torch.rpc.frame import pack, unpack
 from curvine_tpu_torch.worker import shm as wshm
 from curvine_tpu_torch.worker.blockfile import crc_update, supported
@@ -129,6 +149,40 @@ def _block_crc(algo: str, data) -> int | None:
     return crc_update(algo, data) if supported(algo) else None
 
 
+class ReadDetector:
+    """Whether a reader's positional reads run sequentially, which drives
+    the prefetch window. Sequential by default; ``threshold`` contiguous
+    reads confirm it. One isolated jump keeps the pattern, a second jump
+    in a row makes it random, and a seek makes it random at once."""
+
+    def __init__(self, threshold: int = 3, enabled: bool = True):
+        self.enabled = enabled
+        self.threshold = max(1, threshold)
+        self.last_pos = -1
+        self.seq_count = 0
+        self.sequential = True
+
+    def record_seek(self) -> None:
+        if not self.enabled:
+            return
+        self.seq_count = 0
+        self.last_pos = -1
+        self.sequential = False
+
+    def record_read(self, start: int, end: int) -> None:
+        if not self.enabled:
+            return
+        if self.last_pos < 0 or start == self.last_pos:
+            self.seq_count += 1
+            if self.seq_count >= self.threshold:
+                self.sequential = True
+        else:
+            if self.seq_count == 0:
+                self.sequential = False     # the second jump in a row
+            self.seq_count = 0
+        self.last_pos = end
+
+
 class FsReader:
     # cap of the short-circuit probe cache (negative answers included):
     # entries are dropped oldest first, so a block that moved is probed
@@ -137,8 +191,9 @@ class FsReader:
 
     def __init__(self, fs_client, path: str, file_blocks: FileBlocks,
                  pool: ConnectionPool, chunk_size: int = 4 * 1024 * 1024,
-                 short_circuit: bool = True, counters: dict | None = None,
-                 health=None, verify: bool = True):
+                 short_circuit: bool = True, read_ahead: int = 2,
+                 counters: dict | None = None, health=None,
+                 verify: bool = True):
         self.fs = fs_client
         self.path = path
         self.blocks = file_blocks
@@ -178,6 +233,19 @@ class FsReader:
         # and verify, or the block file's open) and the copy (out of the
         # mapping, or the preadv); the feed reports them
         self.fetch_split = {"probe": 0.0, "map": 0.0, "copy": 0.0}
+        # the prefetch window of positional reads: while the detector
+        # says sequential, the next read_ahead segments of remote blocks;
+        # segment offset -> its task, then its buffer
+        self.read_ahead = read_ahead
+        self.detector = ReadDetector()
+        self._pf: dict[int, object] = {}
+        self._pf_order: list[int] = []
+        # the queue depth a direct-IO worker advertises, which read_range
+        # fans its slices out to; 0 while the port's tiers have no direct
+        # IO (TIER_FIXED pins queue_depth to 0, ROADMAP §A item 3)
+        self.direct_queue_depth = 0
+        # prefetch segments cycle through the registered pool
+        self._recv_pool = transport.recv_pool()
 
     def _count(self, key: str, n: int) -> None:
         self.counters[key] = self.counters.get(key, 0) + n
@@ -187,6 +255,8 @@ class FsReader:
     def seek(self, pos: int) -> None:
         if pos < 0 or pos > self.len:
             raise err.InvalidArgument(f"seek {pos} out of [0, {self.len}]")
+        if pos != self.pos:
+            self.detector.record_seek()
         self.pos = pos
 
     def _locate(self, offset: int) -> tuple[LocatedBlock, int] | None:
@@ -689,17 +759,112 @@ class FsReader:
         return await self._read_into_new(
             offset, max(0, min(n, self.len - offset)))
 
-    async def chunks(self, chunk_size: int | None = None):
-        """The whole file as a stream of sequential chunks of
-        ``chunk_size`` (the reader's when None), each read when the
-        consumer asks for it; the export's source."""
-        chunk_size = chunk_size or self.chunk_size
-        self.seek(0)
-        while self.pos < self.len:
-            data = await self.read(chunk_size)
-            if not data:
+    async def pread_view(self, offset: int, n: int) -> np.ndarray:
+        """``n`` bytes at ``offset`` as a uint8 array (``_alloc_out``), the
+        cursor left where it is: co-located ranges land in it by preadv
+        or a copy out of the mapping, remote ones by READ_BLOCK or out of
+        the prefetch window when it holds them. The read feeds the
+        detector, and tops the window up."""
+        n = max(0, min(n, self.len - offset))
+        out = self._alloc_out(n)
+        filled = await self._read_into(offset, memoryview(out),
+                                       use_prefetch=True)
+        self.detector.record_read(offset, offset + filled)
+        self._prefetch_topup(offset + filled)
+        return out[:filled]
+
+    async def read_range(self, offset: int, n: int,
+                         parallel: int = 1) -> np.ndarray:
+        """``n`` bytes at ``offset`` as a uint8 array, read by ``parallel``
+        concurrent readers of contiguous chunk-aligned slices (each its
+        own READ_BLOCK streams over the pool's connections). A range of
+        one block served by shm is the mapping's read-only view, with no
+        copy."""
+        n = max(0, min(n, self.len - offset))
+        if n == 0:
+            return np.empty(0, dtype=np.uint8)
+        view = await self._shm_view(offset, n)
+        if view is not None:
+            return view
+        return await self._read_range(offset, n, parallel,
+                                      self._alloc_out(n))
+
+    async def _read_range(self, offset: int, n: int, parallel: int,
+                          out: np.ndarray) -> np.ndarray:
+        qd = self.direct_queue_depth
+        if qd > 0:
+            # a direct-IO worker: fan out to keep its submission ring
+            # full, and never past its depth. Dead while TIER_FIXED pins
+            # every tier's queue_depth to 0 (no direct IO in the port)
+            if parallel <= 1 and n >= 4 * self.chunk_size:
+                parallel = min(qd, max(1, n // (4 * self.chunk_size)))
+            elif parallel > 1:
+                parallel = min(parallel, qd)
+        if parallel <= 1 or n < 4 * self.chunk_size:
+            got = await self._read_into(offset, memoryview(out),
+                                        use_prefetch=True)
+            return out[:got]
+        # contiguous slices, chunk-aligned so that no stream cuts a chunk
+        per = -(-n // parallel)
+        per = max(self.chunk_size,
+                  (per // self.chunk_size) * self.chunk_size or per)
+        bounds = [(s, min(s + per, n)) for s in range(0, n, per)]
+        got = await asyncio.gather(
+            *(self._read_into(offset + s, memoryview(out[s:e]))
+              for s, e in bounds))
+        # a short slice truncates the result there
+        total = 0
+        for (s, e), g in zip(bounds, got):
+            total = s + g
+            if g < e - s:
                 break
-            yield data
+        return out[:total]
+
+    def _alloc_out(self, n: int) -> np.ndarray:
+        """A read's buffer for the caller: page-aligned and mmap-backed
+        from ``transport._ALIGNED_MIN`` up, else on the heap."""
+        if n >= transport._ALIGNED_MIN:
+            return transport.alloc_aligned(n)
+        return np.empty(n, dtype=np.uint8)
+
+    async def chunks(self, chunk_size: int | None = None,
+                     read_ahead: int | None = None):
+        """The whole file as a stream of sequential chunks of
+        ``chunk_size`` (the reader's when None), with the next
+        ``read_ahead`` (the reader's when None, at least 1) read while
+        the consumer works on the current one; the export's source. The
+        reads still in flight when the consumer stops are cancelled."""
+        chunk_size = chunk_size or self.chunk_size
+        read_ahead = self.read_ahead if read_ahead is None else read_ahead
+        self.seek(0)
+        pending: list[asyncio.Task] = []
+        offset = 0
+
+        def schedule() -> None:
+            nonlocal offset
+            while len(pending) < max(1, read_ahead) and offset < self.len:
+                n = min(chunk_size, self.len - offset)
+                pending.append(asyncio.ensure_future(
+                    self._pread_bytes(offset, n)))
+                offset += n
+
+        try:
+            schedule()
+            while pending:
+                data = await pending.pop(0)
+                schedule()
+                if not data:
+                    break
+                self.pos += len(data)
+                yield data
+        finally:
+            for t in pending:
+                t.cancel()
+            if pending:
+                await asyncio.gather(*pending, return_exceptions=True)
+
+    async def _pread_bytes(self, offset: int, n: int) -> bytearray:
+        return await self._read_into_new(offset, n)
 
     async def _read_into_new(self, offset: int, n: int) -> bytearray:
         out = bytearray(n)
@@ -712,16 +877,24 @@ class FsReader:
             del out[got:]
         return out
 
-    async def _read_into(self, offset: int, out: memoryview) -> int:
+    async def _read_into(self, offset: int, out: memoryview, *,
+                         use_prefetch: bool = False) -> int:
         """Fill ``out`` from ``offset``, block range by block range; each
-        lands in ``out`` once: a preadv from the block file when the block
-        is on this host, else READ_BLOCK received straight into ``out``
-        (``_readinto_remote``). Returns the bytes filled (short at the end
-        of the file or where a worker served none). A whole block is held
-        to its crc on either path (:665-738)."""
+        lands in ``out`` once: out of the prefetch window when
+        ``use_prefetch`` and it holds the range, a preadv from the block
+        file when the block is on this host, else READ_BLOCK received
+        straight into ``out`` (``_readinto_remote``). Returns the bytes
+        filled (short at the end of the file or where a worker served
+        none). A whole block is held to its crc on either path
+        (:665-738)."""
         filled = 0
         while filled < len(out):
             pos = offset + filled
+            if use_prefetch:
+                got = await self._pf_read_into(pos, out[filled:])
+                if got > 0:
+                    filled += got
+                    continue
             located = self._locate(pos)
             if located is None:
                 if pos < self.len:
@@ -767,6 +940,104 @@ class FsReader:
                     break
             filled += got
         return filled
+
+    # ---------------- the sequential prefetch window ----------------
+
+    def _seg_start(self, off: int) -> int:
+        """The start of the prefetch segment that covers ``off``: chunk-
+        aligned within its block (a segment is one READ_BLOCK stream and
+        never spans blocks); -1 past the blocks."""
+        located = self._locate(off)
+        if located is None:
+            return -1
+        lb, block_off = located
+        return lb.offset + (block_off // self.chunk_size) * self.chunk_size
+
+    def _prefetch_topup(self, from_off: int) -> None:
+        """While the stream is sequential, keep the next ``read_ahead``
+        segments from ``from_off`` in flight, and drop the oldest past
+        2·``read_ahead`` + 2. Only remote blocks: a co-located block's
+        read is one preadv or a copy out of its mapping, which a prefetch
+        would only copy once more."""
+        if not self.detector.enabled or not self.detector.sequential \
+                or self.read_ahead <= 0:
+            return
+        off = from_off
+        scheduled = 0
+        while scheduled < self.read_ahead and off < self.len:
+            s = self._seg_start(off)
+            if s < 0:
+                return
+            lb, block_off = self._locate(s)
+            if self._ec_active(lb):
+                # a stripe's read fans out over its cells itself; a
+                # prefetched segment would read them twice
+                return
+            if self._local_paths.get(lb.block.id, "?") is not None:
+                return              # co-located, or not probed yet
+            seg_len = min(self.chunk_size - block_off % self.chunk_size,
+                          lb.offset + lb.block.len - s, self.len - s)
+            if s not in self._pf:
+                self._pf[s] = asyncio.ensure_future(
+                    self._fetch_seg(s, seg_len))
+                self._pf_order.append(s)
+            off = s + seg_len
+            scheduled += 1
+        while len(self._pf_order) > 2 * self.read_ahead + 2:
+            ent = self._pf.pop(self._pf_order.pop(0), None)
+            if isinstance(ent, asyncio.Task):
+                ent.cancel()
+            elif ent is not None:
+                self._recv_pool.release(ent)
+
+    async def _fetch_seg(self, s: int, seg_len: int) -> np.ndarray:
+        """One segment read by READ_BLOCK into a buffer of the registered
+        pool (consumed by a copy, then given back)."""
+        located = self._locate(s)
+        if located is None:
+            raise err.BlockNotFound(f"prefetch segment at {s}")
+        lb, block_off = located
+        buf = self._recv_pool.acquire(seg_len)
+        got = await self._readinto_remote(lb, block_off, memoryview(buf))
+        return buf[:got]
+
+    async def _pf_read_into(self, off: int, out: memoryview) -> int:
+        """A read at ``off`` served out of the prefetch window; 0 when the
+        window does not hold it (the caller reads it directly)."""
+        if not self._pf:
+            return 0
+        s = self._seg_start(off)
+        ent = self._pf.get(s)
+        if ent is None:
+            return 0
+        if isinstance(ent, asyncio.Task):
+            try:
+                buf = await ent
+            except asyncio.CancelledError:
+                if asyncio.current_task().cancelling():
+                    raise                   # the caller's own cancel
+                self._pf.pop(s, None)       # the segment's: read directly
+                return 0
+            except (err.CurvineError, OSError):
+                self._pf.pop(s, None)
+                return 0
+            self._pf[s] = buf
+        else:
+            buf = ent
+        rel = off - s
+        if rel >= len(buf):
+            self._pf.pop(s, None)
+            return 0
+        n = min(len(out), len(buf) - rel)
+        out[:n] = buf[rel:rel + n]
+        self._count("pf.bytes.read", n)
+        if rel + n >= len(buf):
+            # consumed: its buffer goes back to the pool
+            self._pf.pop(s, None)
+            if s in self._pf_order:
+                self._pf_order.remove(s)
+            self._recv_pool.release(buf)
+        return n
 
     async def _readinto_remote(self, lb: LocatedBlock, block_off: int,
                                sink: memoryview) -> int:
@@ -829,6 +1100,18 @@ class FsReader:
             raise e from cause
 
     async def close(self) -> None:
+        # the prefetch window: cancel and await every segment in flight,
+        # so that none outlives the reader; parked buffers go back
+        tasks = [e for e in self._pf.values() if isinstance(e, asyncio.Task)]
+        for ent in self._pf.values():
+            if isinstance(ent, asyncio.Task):
+                ent.cancel()
+            else:
+                self._recv_pool.release(ent)
+        self._pf.clear()
+        self._pf_order.clear()
+        if tasks:
+            await asyncio.gather(*tasks, return_exceptions=True)
         # drain the flush in flight, then report what is left below the
         # batch of 512: no read count is dropped at close
         t, self._sc_flush_task = self._sc_flush_task, None

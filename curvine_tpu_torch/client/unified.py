@@ -93,7 +93,8 @@ class CurvineClient:
         cc = self.conf.client
         self.meta = FsClient(self.conf)
         self.pool = ConnectionPool(size=cc.conn_pool_size,
-                                   timeout_ms=cc.rpc_timeout_ms)
+                                   timeout_ms=cc.rpc_timeout_ms,
+                                   rpc_conf=self.conf.rpc)
         self.counters: dict[str, int] = {}
         # per-worker circuit breakers, shared by every reader and writer
         # of this client: a dead worker is learned once
@@ -149,8 +150,9 @@ class CurvineClient:
         return FsReader(self.meta, path, fb, self.pool,
                         chunk_size=cc.read_chunk_size,
                         short_circuit=cc.short_circuit,
-                        counters=self.counters, health=self.health,
-                        verify=cc.read_verify)
+                        read_ahead=cc.read_ahead_chunks,
+                        counters=self.counters,
+                        health=self.health, verify=cc.read_verify)
 
     async def write_all(self, path: str, data, **kw) -> None:
         async with await self.create(path, overwrite=True, **kw) as w:

@@ -4,9 +4,10 @@ Own copy of the fields of ``curvine_tpu/common/conf.py:23-306``
 (``MasterConf``, ``TierConf``, ``WorkerConf``, ``ClientConf``) that the
 port's master, cache client and worker read, with the same names and
 defaults, inside a ``ClusterConf`` that holds them; ``ClusterConf.load``
-reads the ``[master]``, ``[client]``, ``[worker]`` and ``[ec]`` tables
-of the cluster's TOML file, ``[[worker.tiers]]`` included (other tables and
-unknown keys are ignored, so the cluster's own file loads as is).
+reads the ``[master]``, ``[client]``, ``[worker]``, ``[ec]`` and
+``[rpc]`` tables of the cluster's TOML file, ``[[worker.tiers]]``
+included (other tables and unknown keys are ignored, so the cluster's
+own file loads as is).
 
 The master's metadata store is the reference's (:29-37): ``meta_store``
 is ``"kv"`` by default (the log-structured KV store, in ``meta_dir``,
@@ -68,10 +69,27 @@ file's blocks may be converted). Its other three keys, ``enabled``,
 ``profile`` and ``sweep_interval_s``, are read by neither package: they
 are constants (``EC_FIXED``) at the reference's defaults, and a file
 that sets one of them to another value is refused.
-Left out: the fuse, gateway, obs and rpc sections, the
-worker's scrub and web-server fields, the client's deadline,
-meta-cache, tracing, tenant, read-ahead and prefetch-window
-fields, and the ``CURVINE_*`` environment overrides."""
+The ``[rpc]`` table is the reference's ``RpcConf`` (:348-386), the wire
+transport's knobs (``rpc/transport.py``), shared by every client and
+server of a process. Its one field is ``send_coalesce_frames``, the
+most frames a send. Its other keys are constants (``RPC_FIXED``) at the
+reference's defaults, which are the transport's own: ``uvloop`` (off:
+the port runs stock asyncio), ``send_coalesce_bytes``,
+``send_inline_max``, ``recv_buffer_bytes``, ``recv_registered_bytes``
+and ``recv_aligned_min``; a file that sets one of them to another value
+is refused. Its io_uring receive ring (``recv_ring``,
+``recv_ring_min``) waits for the worker's direct IO: both are constants
+(``RING_FIXED``) at what the port implements, no ring, and the refusal
+names ROADMAP §A item 3.
+The client's read-ahead (:247-252) is the reference's
+``read_ahead_chunks`` (the reader's prefetch window and ``chunks``'
+read-ahead); its sequential-read detector's keys,
+``enable_smart_prefetch`` and ``sequential_read_threshold``, are
+constants (``CLIENT_FIXED``) at the reference's defaults, on and 3.
+Left out: the fuse, gateway and obs sections, the worker's scrub and
+web-server fields, the client's deadline, meta-cache, tracing, tenant
+and prefetch-window fields, the CLI's ``read_parallel`` and
+``large_file_size``, and the ``CURVINE_*`` environment overrides."""
 
 from __future__ import annotations
 
@@ -107,6 +125,17 @@ WORKER_FIXED = {"direct_io": False,
 TIER_FIXED = {"layout": "file", "queue_depth": 0}
 QOS_FIXED = {"tenants": []}
 EC_FIXED = {"enabled": True, "profile": "rs-6-3", "sweep_interval_s": 0.0}
+# the transport's keys nothing sets, at the reference's defaults (the
+# constants of rpc/transport.py)
+RPC_FIXED = {"uvloop": False, "send_coalesce_bytes": 256 * 1024,
+             "send_inline_max": 8 * 1024, "recv_buffer_bytes": 256 * 1024,
+             "recv_registered_bytes": 32 * MB,
+             "recv_aligned_min": 256 * 1024}
+# the transport's io_uring receive ring, not in the port: no ring
+RING_FIXED = {"recv_ring": False, "recv_ring_min": 256 * 1024}
+# the reader's sequential-read detector, at the reference's defaults
+CLIENT_FIXED = {"enable_smart_prefetch": True,
+                "sequential_read_threshold": 3}
 
 
 @dataclass
@@ -219,6 +248,9 @@ class ClientConf:
     replicas: int = 1
     write_chunk_size: int = 4 * MB
     read_chunk_size: int = 4 * MB
+    # chunks kept in flight ahead of a sequential reader: the prefetch
+    # window of positional reads and ``chunks``' read-ahead
+    read_ahead_chunks: int = 4
     short_circuit: bool = True
     # the tier a file's blocks are written to: hbm|mem|ssd|hdd
     storage_type: str = "mem"
@@ -263,6 +295,16 @@ def _apply(obj, table: dict) -> None:
 
 
 @dataclass
+class RpcConf:
+    """The wire transport's knob (``rpc/transport.py``), shared by every
+    client and server of the process."""
+
+    # the coalesced writer: the frames queued within one turn of the
+    # loop leave in one vectored send, at most this many frames
+    send_coalesce_frames: int = 128
+
+
+@dataclass
 class ECConf:
     """The erasure-coded capacity tier's cluster settings."""
 
@@ -277,11 +319,12 @@ class ClusterConf:
     client: ClientConf = field(default_factory=ClientConf)
     worker: WorkerConf = field(default_factory=WorkerConf)
     ec: ECConf = field(default_factory=ECConf)
+    rpc: RpcConf = field(default_factory=RpcConf)
 
     @staticmethod
     def load(path: str) -> "ClusterConf":
-        """The ``[master]``, ``[client]``, ``[worker]`` and ``[ec]``
-        tables of the TOML file at ``path``."""
+        """The ``[master]``, ``[client]``, ``[worker]``, ``[ec]`` and
+        ``[rpc]`` tables of the TOML file at ``path``."""
         with open(path, "rb") as f:
             data = tomllib.load(f)
         conf = ClusterConf()
@@ -300,10 +343,17 @@ class ClusterConf:
                 f"{path}: master.block_placement_policy = {policy!r}: the "
                 f"port's {item} takes only {list(PLACEMENTS)}")
         _apply(conf.master, master)
-        _apply(conf.client, data.get("client") or {})
+        client = data.get("client") or {}
+        _check(path, "client", client, CLIENT_FIXED, "client")
+        _apply(conf.client, client)
         ec = data.get("ec") or {}
         _check(path, "ec", ec, EC_FIXED, "erasure coding")
         _apply(conf.ec, ec)
+        rpc = data.get("rpc") or {}
+        _check(path, "rpc", rpc, RPC_FIXED, "transport")
+        _check(path, "rpc", rpc, RING_FIXED,
+               "transport (the receive ring waits for ROADMAP §A item 3)")
+        _apply(conf.rpc, rpc)
         worker = data.get("worker") or {}
         item = "worker (ROADMAP A3c)"
         _check(path, "worker", worker, WORKER_FIXED, item)

@@ -4,7 +4,9 @@
 
 The counterpart of ``curvine_tpu/cli/main.py:796-807`` (``cmd_master``),
 without the web server: the ``[master]`` table of the cluster's TOML
-file (``common/conf.py``) configures one ``MasterServer``, which
+file (``common/conf.py``; its ``[rpc]`` table the transport)
+configures one
+``MasterServer``, which
 recovers its namespace from its metadata store and the journal under
 ``journal_dir`` and then serves. Once it serves, prints one JSON line,
 ``{"addr": "host:port", "pid": N, "jax_free": true or false,
@@ -18,7 +20,8 @@ serving (the store's open and the journal's replay included), and
 node's ``RaftLite.status()`` under raft (null without). With
 ``--metrics-out``, once stopped it writes there what it counted
 (``stats``): the RPC counts, the counters and gauges (``raft.*`` among
-them), the metadata store's kind and engine, its KV directory's
+them, and ``rpc.writer_breaks``, the reply writers that broke, with
+``rpc.writer_breaks_peer_gone`` of them because the client had left), the metadata store's kind and engine, its KV directory's
 segments, the recovery's figures, and ``raft``, the status as it stood
 just before the stop."""
 
@@ -61,19 +64,40 @@ def raft_status(master: MasterServer) -> dict | None:
     return master.raft.status() if master.raft is not None else None
 
 
+# the writers' histogram of frames a send (rpc/transport.py) and the
+# dispatches' reply sends (rpc/server.py), not codes
+SEND_BATCH = "rpc.send_batch_frames"
+REPLY_SEND = "rpc.reply_send"
+
+
 def stats(master: MasterServer, raft: dict | None = None) -> dict:
     """The master's counters and gauges, each code's ``rpc.<name>``
-    histogram as its count and p50 and p99 in ms, the journal's last seq,
+    histogram as its count, p50, p99 and mean in ms, the sends of its
+    connections' writers (``send_batch_frames``: sends, frames, the mean
+    and the most frames a send), the replies' sends, a part of each
+    dispatch (``reply_send``, the same figures), the journal's
+    last seq,
     the group commit's groups and entries, the store (``store_stats``)
     and the recovery's figures (inodes, blocks, ``applied_seq``, tail
     entries replayed; ``MasterFilesystem.recovery``), and ``raft``, the
     raft status given."""
     m = master.metrics
-    return {"rpc": {name[len("rpc."):]: {
-                "count": h.count, "p50_ms": 1e3 * h.quantile(0.5),
-                "p99_ms": 1e3 * h.quantile(0.99)}
-                for name, h in sorted(m.histograms.items())
-                if name.startswith("rpc.")},
+    batches = m.histograms.get(SEND_BATCH)
+
+    def times(h) -> dict:
+        return {"count": h.count, "p50_ms": 1e3 * h.quantile(0.5),
+                "p99_ms": 1e3 * h.quantile(0.99),
+                "mean_ms": 1e3 * h.sum / max(1, h.count)}
+    return {"rpc": {name[len("rpc."):]: times(h)
+                    for name, h in sorted(m.histograms.items())
+                    if name.startswith("rpc.")
+                    and name not in (SEND_BATCH, REPLY_SEND)},
+            "reply_send": None if REPLY_SEND not in m.histograms else
+            times(m.histograms[REPLY_SEND]),
+            "send_batch_frames": None if batches is None else {
+                "sends": batches.count, "frames": batches.sum,
+                "mean": batches.sum / max(1, batches.count),
+                "max": batches.max},
             "counters": dict(m.counters), "gauges": dict(m.gauges),
             "journal_seq": master.fs.journal.seq,
             "groups": master.fs.committer.groups,
@@ -116,7 +140,8 @@ def main() -> None:
                          "stops")
     args = ap.parse_args()
     logging.basicConfig(level=logging.INFO)
-    asyncio.run(serve(ClusterConf.load(args.conf), args.metrics_out))
+    conf = ClusterConf.load(args.conf)
+    asyncio.run(serve(conf, args.metrics_out))
 
 
 if __name__ == "__main__":

@@ -67,11 +67,12 @@ cells are in the block table, so a worker's report of one is no orphan.
 first commit, registers the cells' holders and retires the block's
 replicas (``retire_stripe_replicas``: runtime only, the deletes ride the
 heartbeats; the replication scan re-runs it until no replica is left).
-Beyond the reference, whose block reports race both (ROADMAP §C, C7), a
-full report does not drop a cell located on its worker since that
-worker's previous full report (by the stripe's commit or by the worker's
-incremental report of a rebuilt cell): the report may have been built
-before the cell landed, and the next one drops it if it is gone. Nor
+Beyond the reference, whose block reports race both (ROADMAP §C, C7 and
+C15), a full report does not drop a block or a cell located on its
+worker since that worker's previous full report (by a client's commit,
+the stripe's commit or the worker's incremental report): the report may
+have been built before it landed, and the next one drops it if it is
+gone. Nor
 does a report locate again a replica that the retire queued for
 deletion: it is deleted again, until a full report no longer lists it.
 ``ec_stripes`` and ``ec_cells`` are the runtime index of the store's
@@ -164,10 +165,14 @@ class MasterFilesystem:
                                     mesh_shape=ici_mesh_shape or None)
         # worker_id -> block ids to delete (handed out by its heartbeat)
         self.pending_deletes: dict[int, set[int]] = {}
-        # worker_id -> cells located on it since its last full report (by
-        # a stripe's commit or its own incremental report): that report
-        # may have been built before the cell landed, so it keeps them
-        self._fresh_cells: dict[int, set[int]] = {}
+        # worker_id -> blocks and cells located on it since its last full
+        # report (by a client's commit, a stripe's commit or its own
+        # incremental report): that report may have been built before
+        # they landed, so it keeps them (ROADMAP §C, C7 and C15)
+        self._fresh: dict[int, set[int]] = {}
+        # the replicas a full report kept that way (the master's
+        # ``blocks.report_kept``: how often the race came)
+        self.report_kept = 0
         # worker_id -> stripe blocks whose replica on it was retired and
         # which no full report of it has shown gone yet: a report still
         # listing one does not locate it again, and deletes it again
@@ -402,6 +407,10 @@ class MasterFilesystem:
         self.store.adopt(store)
         self.open_files = open_files
         self._adopt_tables(state)
+        # the blocks the workers' reports located before the install were
+        # orphans to the old namespace: every worker reports again, asked
+        # at its next heartbeat (ROADMAP §C, C16)
+        self.workers.forget_reports()
         if self.journal is not None:
             self.journal.seq = seq
             self.journal.last_term = last_term
@@ -661,7 +670,7 @@ class MasterFilesystem:
         # the cells' holders are runtime state (rebuilt by reports)
         for cid, wid, st in cell_locs:
             self.blocks.add_replica(cid, wid, StorageType(st))
-            self._fresh_cells.setdefault(wid, set()).add(cid)
+            self._fresh.setdefault(wid, set()).add(cid)
         self.retire_stripe_replicas(block_id)
 
     def _apply_ec_put(self, block_id: int) -> None:
@@ -1048,6 +1057,7 @@ class MasterFilesystem:
         for cb in commit_blocks:
             for wid in cb.worker_ids:
                 self.blocks.add_replica(cb.block_id, wid, cb.storage_type)
+                self._fresh.setdefault(wid, set()).add(cb.block_id)
 
     def _apply_commit_blocks(self, inode_id: int, commits: list) -> None:
         node = self.tree.get(inode_id)
@@ -1087,6 +1097,20 @@ class MasterFilesystem:
             off += meta.len
         return FileBlocks(status=node.to_status(path), block_locs=out)
 
+    def reports_pending(self, fb: FileBlocks) -> list[int]:
+        """The serving workers that have sent no full report since they
+        registered, came back from LOST or this master installed a
+        snapshot, when ``fb`` names no live holder for a replicated block
+        with bytes (this master's view of those workers' blocks is not
+        built yet: their reports come at their next heartbeats, by
+        ``report_now``); else none. ROADMAP §C, C16."""
+        if all(lb.locs or lb.ec is not None or not lb.block.len
+               for lb in fb.block_locs):
+            return []
+        return sorted(
+            w.address.worker_id for w in self.workers.serving_workers()
+            if not self.workers.has_current_report(w.address.worker_id))
+
     # ==================== worker plane ====================
 
     def worker_heartbeat(self, info_wire: dict) -> dict:
@@ -1123,15 +1147,16 @@ class MasterFilesystem:
         for bid in again:
             del held[bid]
         if incremental:
-            self._fresh_cells.setdefault(worker_id, set()).update(
-                b for b in held if b in self.ec_cells)
+            self._fresh.setdefault(worker_id, set()).update(held)
             keep: set[int] = set()
         else:
             if again:
                 self._retired[worker_id] = set(again)
             else:
                 self._retired.pop(worker_id, None)
-            keep = self._fresh_cells.pop(worker_id, set())
+            keep = self._fresh.pop(worker_id, set())
+            known = self.blocks.worker_blocks.get(worker_id, set())
+            self.report_kept += len((known - held.keys()) & keep)
         orphans = self.blocks.apply_report(worker_id, held, storage_types,
                                            incremental=incremental,
                                            keep=keep)
@@ -1182,6 +1207,7 @@ class MasterFilesystem:
         (a raft follower starts no repair)."""
         newly_lost = self.workers.check_lost()
         for w in newly_lost:
+            self._fresh.pop(w.address.worker_id, None)
             affected = self.blocks.worker_lost(w.address.worker_id)
             if act and affected and self.on_worker_lost:
                 self.on_worker_lost(w, affected)

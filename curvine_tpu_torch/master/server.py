@@ -68,7 +68,12 @@ answers NOT_LEADER on a follower, so that the worker turns to the leader
 (:1229-1234). Beyond the reference (ROADMAP §C, C12), a follower's answer
 to a block report names no orphan: the worker deletes what any master
 names, and a follower that lags the leader, or a wiped one installing a
-snapshot, would name the blocks written since. RAFT_MEMBER_CHANGE (a
+snapshot, would name the blocks written since. Beyond the reference
+too (C16), GET_BLOCK_LOCATIONS on a follower that cannot locate a
+replicated block while a serving worker has yet to report to it (since
+it started, or installed a snapshot) answers NOT_LEADER, counted in
+``raft.reads_to_leader``: the client reads through the leader.
+RAFT_MEMBER_CHANGE (a
 mutation: its answer comes once the config entry commits) and
 RAFT_TRANSFER (:403-410, :971-987) answer UNSUPPORTED on a master
 without raft.
@@ -142,7 +147,8 @@ class MasterServer:
         self.mounts = MountManager(self.fs)
         self.fs.mounts = self.mounts
         self.jobs = JobManager(self.fs, self.mounts, self.conf.ec)
-        self.rpc = RpcServer(mc.hostname, mc.rpc_port, "master")
+        self.rpc = RpcServer(mc.hostname, mc.rpc_port, "master",
+                             rpc_conf=self.conf.rpc)
         self.rpc.metrics = self.metrics
         self.executor = ScheduledExecutor("master")
         # worker_id -> its last heartbeat's byte counters
@@ -436,7 +442,17 @@ class MasterServer:
 
     def _get_block_locations(self, q):
         self.acl.check(q)
-        return {"file_blocks": self.fs.get_block_locations(q["path"]).to_wire()}
+        fb = self.fs.get_block_locations(q["path"])
+        if self.raft is not None and not self._is_leader() \
+                and self.fs.reports_pending(fb):
+            # beyond the reference (ROADMAP §C, C16): a follower that
+            # cannot locate a block while workers have yet to report to it
+            # (since it started, or installed a snapshot) hands the read to
+            # the leader; the reference answers no location, and the
+            # reader fails
+            self.metrics.inc("raft.reads_to_leader")
+            self.raft.check_leader()
+        return {"file_blocks": fb.to_wire()}
 
     def _master_info(self, q):
         return {"info": self.fs.master_info(self.addr).to_wire()}
@@ -482,9 +498,12 @@ class MasterServer:
         return cmds
 
     def _worker_block_report(self, q):
+        kept = self.fs.report_kept
         rep = self.fs.worker_block_report(
             q["worker_id"], q.get("blocks", {}), q.get("storage_types", {}),
             incremental=q.get("incremental", False))
+        if self.fs.report_kept > kept:
+            self.metrics.inc("blocks.report_kept", self.fs.report_kept - kept)
         if not self._is_leader():
             # a follower may lag the leader, or hold nothing while a
             # snapshot installs: a block it does not know is no orphan to

@@ -66,9 +66,14 @@ class WorkerMap:
     def mark_reported(self, worker_id: int) -> None:
         self.report_ms[worker_id] = now_ms()
 
+    def forget_reports(self) -> None:
+        """Every worker's blocks to be reported again (a snapshot
+        install replaced what their reports had located)."""
+        self.report_ms.clear()
+
     def has_current_report(self, worker_id: int) -> bool:
-        """A full block report has come since the worker registered or
-        came back from LOST."""
+        """A full block report has come since the worker registered,
+        came back from LOST or this master installed a snapshot."""
         return self.report_ms.get(worker_id, 0) \
             > self.return_ms.get(worker_id, 0)
 

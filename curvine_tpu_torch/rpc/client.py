@@ -1,24 +1,31 @@
 """RPC client: connection, response routing, pool and retry policy.
 
 Own copy of ``curvine_tpu/rpc/client.py:47-533`` over plain ``asyncio``
-socket calls (``sock_recv_into``, ``sock_sendall``). One connection
-multiplexes concurrent requests by ``req_id``; a read loop routes each
-response frame, a streamed response's CHUNK frames and its EOF, to its
-waiter; an upload streams CHUNK frames and an EOF and awaits the ack.
+socket calls, on the wire transport of ``rpc/transport.py``
+(:47-235, :314-348): a connection's sends go through its
+``CoalescedWriter`` (the frames of concurrent requests leave in vectored
+batches; a cancelled send whose frame is still queued is dropped whole
+and the connection stays usable), and its read loop decodes many frames
+a receive through its ``BulkDecoder``. One connection multiplexes
+concurrent requests by ``req_id``; the read loop routes each response
+frame, a streamed response's CHUNK frames and its EOF, to its waiter; an
+upload streams CHUNK frames and an EOF and awaits the ack.
 ``call_readinto`` (:314-346) registers the caller's buffer as the
-request's sink: the read loop receives each chunk's payload straight
-into it, and only the EOF (its trailer merged into ``eof_header``) or an
-error reaches the waiter.
+request's sink: the read loop copies what the decoder has buffered of
+each chunk's payload into it and receives the rest straight into it
+(``BulkDecoder.recv_sink``), and only the EOF (its trailer merged into
+``eof_header``) or an error reaches the waiter. A writer that broke
+mid-frame closes the connection (``_on_send_broken``), and the read loop
+fails every waiter out. ``Connection`` and ``ConnectionPool`` take the
+``[rpc]`` table (``rpc_conf``: the writer's frames a send) and a
+``metrics`` registry for the transport's counters.
 
-Left out (ROADMAP A3b, speed work for later): the transport's
-``CoalescedWriter`` (frames are written one ``sock_sendall`` at a time
-under a lock), ``BulkDecoder``'s many-frames-per-recv decoding (one
-buffered reader instead), the io_uring ``RingRecv`` and the
-``RegisteredBuffers`` pool; and the trace and tenant headers, the
-client fault hook and the server-push receiver. ``call`` and
-``call_stream`` take a ``deadline`` (``rpc/deadline.py``), as the
-reference's do (:238-310): its remaining budget is stamped into the
-request header, and each wait for a reply is capped by it."""
+``call`` and ``call_stream`` take a ``deadline`` (``rpc/deadline.py``),
+as the reference's do (:238-310): its remaining budget is stamped into
+the request header, and each wait for a reply is capped by it.
+Left out: the io_uring ``RingRecv`` (the transport's note), the trace
+and tenant headers, the client fault hook and the server-push
+receiver."""
 
 from __future__ import annotations
 
@@ -33,64 +40,13 @@ from typing import Any, AsyncIterator
 from curvine_tpu_torch.common.errors import (ConnectError, CurvineError,
                                              ErrorCode, RpcTimeout)
 from curvine_tpu_torch.rpc.deadline import Deadline
-from curvine_tpu_torch.rpc.frame import (ENVELOPE_MAX, STATUS_ERROR, Flags,
-                                         Message, decode_header,
-                                         parse_envelope)
+from curvine_tpu_torch.rpc.frame import STATUS_ERROR, Flags, Message
+from curvine_tpu_torch.rpc.transport import (BulkDecoder, CoalescedWriter,
+                                             writer_for)
 
 log = logging.getLogger(__name__)
 
 _req_ids = itertools.count(1)
-RECV_BUFFER_BYTES = 256 * 1024
-
-
-class _Recv:
-    """Buffered reads off one socket: small reads come out of one
-    reusable buffer, large ones land in the caller's memory."""
-
-    def __init__(self, loop: asyncio.AbstractEventLoop, sock: socket.socket,
-                 size: int = RECV_BUFFER_BYTES):
-        self.loop, self.sock = loop, sock
-        self.buf = bytearray(size)
-        self.pos = self.limit = 0
-
-    async def _fill(self) -> None:
-        got = await self.loop.sock_recv_into(
-            self.sock, memoryview(self.buf)[self.limit:])
-        if got == 0:
-            raise ConnectionResetError("peer closed")
-        self.limit += got
-
-    async def exactly(self, n: int) -> bytes | bytearray:
-        """The next ``n`` bytes of the stream."""
-        if n > len(self.buf):
-            out = bytearray(n)
-            await self.into(memoryview(out))
-            return out
-        if self.pos + n > len(self.buf):        # no room behind pos
-            rem = self.limit - self.pos
-            self.buf[:rem] = self.buf[self.pos:self.limit]
-            self.pos, self.limit = 0, rem
-        while self.limit - self.pos < n:
-            await self._fill()
-        out = bytes(self.buf[self.pos:self.pos + n])
-        self.pos += n
-        if self.pos == self.limit:
-            self.pos = self.limit = 0
-        return out
-
-    async def into(self, dst: memoryview) -> None:
-        """Fill ``dst`` with the next ``len(dst)`` bytes: what is buffered
-        first, the rest received into ``dst`` itself."""
-        k = min(len(dst), self.limit - self.pos)
-        dst[:k] = self.buf[self.pos:self.pos + k]
-        self.pos += k
-        if self.pos == self.limit:
-            self.pos = self.limit = 0
-        while k < len(dst):
-            got = await self.loop.sock_recv_into(self.sock, dst[k:])
-            if got == 0:
-                raise ConnectionResetError("peer closed")
-            k += got
 
 
 @dataclass
@@ -105,15 +61,19 @@ class _Sink:
 class Connection:
     """One TCP connection; multiplexes concurrent requests by req_id."""
 
-    def __init__(self, addr: str, timeout_ms: int = 30_000):
+    def __init__(self, addr: str, timeout_ms: int = 30_000, rpc_conf=None,
+                 metrics=None):
         self.addr = addr
         self.timeout = timeout_ms / 1000
+        self.rpc_conf = rpc_conf
+        self.metrics = metrics
         self._sock: socket.socket | None = None
         self._loop: asyncio.AbstractEventLoop | None = None
         self._waiters: dict[int, asyncio.Queue] = {}
         self._sinks: dict[int, _Sink] = {}
         self._reader_task: asyncio.Task | None = None
-        self._send_lock = asyncio.Lock()
+        self._writer: CoalescedWriter | None = None
+        self._dec: BulkDecoder | None = None
         self.closed = False
 
     async def connect(self) -> "Connection":
@@ -130,32 +90,53 @@ class Connection:
             sock.close()
             raise ConnectError(f"connect {self.addr}: {e}") from e
         self._sock = sock
+        self._writer = writer_for(sock, self._loop, self.rpc_conf,
+                                  self.metrics, self._on_send_broken,
+                                  f"client {self.addr}")
+        self._dec = BulkDecoder(metrics=self.metrics)
         self._reader_task = asyncio.ensure_future(self._read_loop())
         return self
+
+    def _on_send_broken(self, exc: BaseException) -> None:
+        # part of a frame may be on the wire: the stream cannot be used
+        # again, so the pool must not hand it out, and closing the socket
+        # makes the read loop fail every waiter out
+        self.closed = True
+        if self._sock is not None:
+            try:
+                self._sock.close()
+            except OSError:
+                pass
 
     # ---------------- receive ----------------
 
     async def _read_loop(self) -> None:
-        rx = _Recv(self._loop, self._sock)
+        dec, loop, sock = self._dec, self._loop, self._sock
         try:
             while True:
-                code, req_id, status, flags, hdr_len, data_len = \
-                    parse_envelope(await rx.exactly(ENVELOPE_MAX))
-                header = decode_header(await rx.exactly(hdr_len)) \
-                    if hdr_len else {}
+                env = dec.try_next()
+                if env is None:
+                    await dec.fill(loop, sock)
+                    continue
+                code, req_id, status, flags, header, data_len = env
                 sink = self._sinks.get(req_id)
                 data = b""
                 if sink is not None and status == 0 and \
                         sink.filled + data_len <= len(sink.view):
-                    # the payload goes straight into the caller's buffer;
+                    # the buffered part of the payload is copied into the
+                    # caller's buffer, the rest received straight into it;
                     # a chunk frame then has nothing left to deliver
-                    await rx.into(sink.view[sink.filled:
-                                            sink.filled + data_len])
-                    sink.filled += data_len
+                    if data_len:
+                        dst = sink.view[sink.filled:sink.filled + data_len]
+                        got = dec.take_into(dst)
+                        if got < data_len:
+                            await dec.recv_sink(loop, sock, dst[got:])
+                        sink.filled += data_len
                     if flags & Flags.CHUNK:
                         continue
                 elif data_len:
-                    data = await rx.exactly(data_len)
+                    data = bytes(await dec.read_payload(loop, sock,
+                                                        data_len))
                 q = self._waiters.get(req_id)
                 if q is None:
                     log.debug("drop frame without a waiter: req_id=%d code"
@@ -164,12 +145,16 @@ class Connection:
                     q.put_nowait(Message(code=code, req_id=req_id,
                                          status=status, flags=flags,
                                          header=header, data=data))
-        except (ConnectionResetError, OSError):
+        except (ConnectionResetError, OSError, asyncio.CancelledError):
             pass
         except Exception:
             log.exception("connection %s read loop", self.addr)
         finally:
             self.closed = True
+            # every broken connection ends here: take the writer down
+            # with it, or its task waits for ever
+            if self._writer is not None:
+                self._writer.close()
             if self._sock is not None:
                 self._sock.close()
             err = Message(status=STATUS_ERROR, flags=Flags.RESPONSE
@@ -181,6 +166,8 @@ class Connection:
 
     async def close(self) -> None:
         self.closed = True
+        if self._writer is not None:
+            await self._writer.aclose()
         if self._reader_task is not None:
             self._reader_task.cancel()
             await asyncio.gather(self._reader_task, return_exceptions=True)
@@ -192,21 +179,19 @@ class Connection:
     # ---------------- send ----------------
 
     async def send(self, msg: Message) -> None:
-        if self.closed or self._sock is None:
+        if self.closed or self._writer is None:
             raise ConnectError(f"connection {self.addr} is closed")
-        sock = self._sock
-        async with self._send_lock:
-            try:
-                for buf in msg.encode():
-                    await self._loop.sock_sendall(sock, buf)
-            except BaseException as e:
-                # a frame may be half on the wire: the stream cannot be
-                # used again, so the read loop fails every waiter out
-                self.closed = True
-                sock.close()
-                if isinstance(e, OSError):
-                    raise ConnectError(f"send to {self.addr}: {e}") from e
-                raise
+        try:
+            await self._writer.send(msg)
+        except ConnectError:
+            self.closed = True
+            raise
+        except (OSError, RuntimeError) as e:
+            # the writer broke, and closed the connection through
+            # _on_send_broken; a cancel passes through untouched: a
+            # queued frame was dropped whole, an inline one broke it
+            self.closed = True
+            raise ConnectError(f"send to {self.addr}: {e}") from e
 
     def register(self, req_id: int) -> asyncio.Queue:
         q: asyncio.Queue = asyncio.Queue()
@@ -358,9 +343,12 @@ class ConnectionPool:
     connections; at ``size`` connections an address is served round
     robin."""
 
-    def __init__(self, size: int = 4, timeout_ms: int = 30_000):
+    def __init__(self, size: int = 4, timeout_ms: int = 30_000,
+                 rpc_conf=None, metrics=None):
         self.size = size
         self.timeout_ms = timeout_ms
+        self.rpc_conf = rpc_conf
+        self.metrics = metrics
         self._conns: dict[str, list[Connection]] = {}
         self._rr: dict[str, int] = {}
         self._lock = asyncio.Lock()
@@ -396,7 +384,8 @@ class ConnectionPool:
         last: ConnectError | None = None
         for i in range(attempts):
             try:
-                return await Connection(addr, self.timeout_ms).connect()
+                return await Connection(addr, self.timeout_ms,
+                                        self.rpc_conf, self.metrics).connect()
             except ConnectError as e:
                 last = e
                 await asyncio.sleep(0.05 * (2 ** i))

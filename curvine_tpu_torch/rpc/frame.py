@@ -9,8 +9,11 @@ side of ``error_for``: it raises the error a response carries, with its
 backoff and leader hints; ``response_for`` and ``error_for`` (:156-179)
 build a server's replies. A server sets ``Message.deadline``, never
 sent, from the request's ``deadline_ms`` header (``rpc/deadline.py``).
-Left out: the coalesced writer's ``encode_into`` and the trace context
-a server reads from a request (the port sends none)."""
+The coalesced writer appends a frame to its batch with ``encode_into``
+(:117-139), and the bulk decoder parses one frame's envelope out of its
+buffer with ``decode_envelope`` (:193-231).
+Left out: the trace context a server reads from a request (the port
+sends none)."""
 
 from __future__ import annotations
 
@@ -94,6 +97,25 @@ class Message:
             out.append(self.data)
         return out
 
+    def encode_into(self, out: bytearray, inline_max: int = 0
+                    ) -> bytes | bytearray | memoryview | None:
+        """Append this frame to ``out``, the coalesced writer's batch. A
+        data payload longer than ``inline_max`` is not copied: it is
+        returned, for the caller to send right after ``out``'s bytes; a
+        shorter one is copied into ``out`` and None is returned."""
+        hdr = wirepack.packb(self.header) if self.header else b""
+        out += LEN_PREFIX.pack(FIXED_LEN + len(hdr) + len(self.data))
+        out += FIXED.pack(VERSION, self.code, self.req_id, self.status,
+                          self.flags, len(hdr))
+        if hdr:
+            out += hdr
+        if not len(self.data):
+            return None
+        if len(self.data) <= inline_max:
+            out += self.data
+            return None
+        return self.data
+
 
 def response_for(req: Message, header: dict | None = None,
                  data: bytes | memoryview = b"",
@@ -123,24 +145,6 @@ def error_for(req: Message, e: Exception) -> Message:
                    flags=Flags.RESPONSE | Flags.EOF, header=header)
 
 
-def parse_envelope(prefix) -> tuple[int, int, int, int, int, int]:
-    """Validate the first ``ENVELOPE_MAX`` bytes of a frame; returns
-    ``(code, req_id, status, flags, header_len, data_len)``."""
-    (total,) = LEN_PREFIX.unpack_from(prefix, 0)
-    if total > MAX_FRAME or total < FIXED_LEN:
-        raise CurvineError(f"bad frame length {total}",
-                           code=ErrorCode.ABNORMAL_DATA)
-    version, code, req_id, status, flags, hdr_len = FIXED.unpack_from(
-        prefix, LEN_PREFIX.size)
-    if version != VERSION:
-        raise CurvineError(f"unsupported frame version {version}",
-                           code=ErrorCode.ABNORMAL_DATA)
-    if FIXED_LEN + hdr_len > total:
-        raise CurvineError(f"bad header length {hdr_len}",
-                           code=ErrorCode.ABNORMAL_DATA)
-    return code, req_id, status, flags, hdr_len, total - FIXED_LEN - hdr_len
-
-
 def decode_header(buf) -> dict:
     """A frame's header map ({} when empty)."""
     if not len(buf):
@@ -163,3 +167,37 @@ def pack(obj: Any) -> bytes:
 def unpack(buf) -> Any:
     return wirepack.unpackb(buf, raw=False, strict_map_key=False) \
         if len(buf) else None
+
+
+def decode_envelope(buf, pos: int, limit: int
+                    ) -> tuple[int, int, int, int, int, dict, int] | None:
+    """One frame's envelope (length prefix, fixed block, header) out of
+    ``buf[pos:limit]``, its data left unread: ``(end, code, req_id,
+    status, flags, header, data_len)`` with ``end`` the offset of the
+    first data byte, or None while the envelope is not all buffered. A
+    length past ``MAX_FRAME`` or short of ``FIXED_LEN`` is refused from
+    the prefix alone; nothing is consumed before a refusal."""
+    avail = limit - pos
+    if avail < LEN_PREFIX.size:
+        return None
+    (total,) = LEN_PREFIX.unpack_from(buf, pos)
+    if total > MAX_FRAME or total < FIXED_LEN:
+        raise CurvineError(f"bad frame length {total}",
+                           code=ErrorCode.ABNORMAL_DATA)
+    if avail < ENVELOPE_MAX:
+        return None
+    version, code, req_id, status, flags, hdr_len = FIXED.unpack_from(
+        buf, pos + LEN_PREFIX.size)
+    if version != VERSION:
+        raise CurvineError(f"unsupported frame version {version}",
+                           code=ErrorCode.ABNORMAL_DATA)
+    if FIXED_LEN + hdr_len > total:
+        raise CurvineError(f"bad header length {hdr_len}",
+                           code=ErrorCode.ABNORMAL_DATA)
+    end = pos + ENVELOPE_MAX + hdr_len
+    if limit < end:
+        return None
+    header = decode_header(memoryview(buf)[pos + ENVELOPE_MAX:end]) \
+        if hdr_len else {}
+    return (end, code, req_id, status, flags, header,
+            total - FIXED_LEN - hdr_len)

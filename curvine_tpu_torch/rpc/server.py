@@ -17,16 +17,28 @@ handler may:
 A handler's exception goes back to the caller as an error frame with the
 reference's error code (``frame.error_for``), so the JAX client and the
 port's client re-raise the same ``CurvineError``. Each dispatch is timed
-into the ``rpc.<code name>`` histogram of ``metrics`` when one is set.
+into the ``rpc.<code name>`` histogram of ``metrics`` when one is set,
+and the send of its reply, a part of it, into ``rpc.reply_send``.
 
-Left out: the transport's ``CoalescedWriter`` (each frame is written by
-``sock_sendall`` under a per-connection lock, a file chunk by
-``sock_sendfile``) and ``BulkDecoder`` (frames are read through the
-client's buffered reader, ``rpc.client._Recv``), QoS admission, the
-fault hook, the watchdog and tracing. A request's deadline budget
-(``rpc/deadline.py``) is restarted on this process's clock at dispatch
-and handed to the handler as ``msg.deadline`` (:393-399); a request
-whose budget is spent fails at once."""
+A connection runs on the wire transport (``rpc/transport.py``; :44-132,
+:244, :360): its receive loop decodes many frames a receive through its
+``BulkDecoder``, its sends go through its ``CoalescedWriter``, and a file
+chunk (``send_chunk_from_file``) is the writer's ``send_file``, so a
+READ_BLOCK's ``sendfile`` chunks and its EOF keep their order behind the
+frames already queued. A frame longer than ``MAX_FRAME``, or otherwise
+malformed, closes its connection and no other. ``stop`` awaits every
+writer's close. The server's ``rpc_conf`` (the ``[rpc]`` table) gives
+every connection's writer its frames a send; its ``metrics`` registry gets the
+writers' ``rpc.send_batch_frames``, ``rpc.bytes_sent``,
+``rpc.writer_breaks`` (``rpc.writer_breaks_peer_gone`` of them where the
+client had left) and ``rpc.send_queue_depth`` (the frames queued over
+all its connections) and the decoders' ``rpc.bytes_recv``.
+
+Left out: QoS admission, the fault hook, the watchdog and tracing. A
+request's deadline budget (``rpc/deadline.py``) is restarted on this
+process's clock at dispatch and handed to the handler as
+``msg.deadline`` (:393-399); a request whose budget is spent fails at
+once."""
 
 from __future__ import annotations
 
@@ -37,13 +49,12 @@ import time
 from typing import Awaitable, Callable
 
 from curvine_tpu_torch.common.errors import CurvineError
-from curvine_tpu_torch.rpc.client import _Recv
 from curvine_tpu_torch.rpc.codes import RpcCode
 from curvine_tpu_torch.rpc.deadline import Deadline
-from curvine_tpu_torch.rpc.frame import (ENVELOPE_MAX, FIXED, FIXED_LEN,
-                                         LEN_PREFIX, VERSION, Flags, Message,
-                                         decode_header, error_for,
-                                         parse_envelope, response_for)
+from curvine_tpu_torch.rpc.frame import (FIXED, FIXED_LEN, LEN_PREFIX,
+                                         VERSION, Flags, Message, error_for,
+                                         response_for)
+from curvine_tpu_torch.rpc.transport import BulkDecoder, writer_for
 
 log = logging.getLogger(__name__)
 
@@ -55,10 +66,11 @@ StreamSink = Callable[[dict, memoryview, bool], Awaitable[None]]
 
 
 class ServerConn:
-    """One accepted connection: a single receive loop, sends serialised
-    by a lock."""
+    """One accepted connection: a single receive loop over its decoder,
+    sends through its writer."""
 
-    def __init__(self, sock: socket.socket, loop: asyncio.AbstractEventLoop):
+    def __init__(self, sock: socket.socket, loop: asyncio.AbstractEventLoop,
+                 rpc_conf=None, metrics=None, depth_cell: dict | None = None):
         self.sock = sock
         self.loop = loop
         try:
@@ -67,8 +79,20 @@ class ServerConn:
             self.peer = None
         self._streams: dict[int, asyncio.Queue] = {}
         self._sinks: dict[int, StreamSink] = {}
-        self._send_lock = asyncio.Lock()
+        self._writer = writer_for(sock, loop, rpc_conf, metrics,
+                                  self._on_send_broken, "server", depth_cell)
+        self._dec = BulkDecoder(metrics=metrics)
+        self.metrics = metrics
         self.closed = False
+
+    def _on_send_broken(self, exc: BaseException) -> None:
+        # part of a frame may be on the wire: closing the socket ends the
+        # receive loop, which tears the connection down. A client that
+        # left mid-reply is counted apart from the writer's other breaks
+        if self.metrics is not None and isinstance(
+                exc, (ConnectionResetError, BrokenPipeError)):
+            self.metrics.inc("rpc.writer_breaks_peer_gone")
+        self._broken()
 
     # -------- inbound streams --------
 
@@ -106,7 +130,6 @@ class ServerConn:
     # -------- sends --------
 
     def _broken(self) -> None:
-        # a frame may be half on the wire: the stream cannot be used again
         self.closed = True
         try:
             self.sock.close()
@@ -116,43 +139,32 @@ class ServerConn:
     async def send(self, msg: Message) -> None:
         if self.closed:
             raise CurvineError("connection closed")
-        async with self._send_lock:
-            try:
-                for buf in msg.encode():
-                    await self.loop.sock_sendall(self.sock, buf)
-            except BaseException:
-                self._broken()
-                raise
+        await self._writer.send(msg)
 
     async def send_chunk_from_file(self, code: int, req_id: int, f,
                                    offset: int, count: int) -> int:
         """A chunk frame whose payload goes from the block file straight
-        to the socket (``sendfile``: the bytes never enter this process).
-        Returns the bytes sent; a file shorter than ``count`` breaks the
-        connection (its frame is cut short) and raises."""
+        to the socket (``sendfile``: the bytes never enter this process),
+        queued on the writer behind the frames before it. Returns the
+        bytes sent; a file shorter than ``count`` breaks the connection
+        (its frame is cut short) and raises."""
         if self.closed:
             raise CurvineError("connection closed")
         prefix = LEN_PREFIX.pack(FIXED_LEN + count) + FIXED.pack(
             VERSION, code, req_id, 0, Flags.RESPONSE | Flags.CHUNK, 0)
-        async with self._send_lock:
-            try:
-                await self.loop.sock_sendall(self.sock, prefix)
-                sent = await self.loop.sock_sendfile(self.sock, f, offset,
-                                                     count)
-            except BaseException:
-                self._broken()
-                raise
-            if sent != count:
-                self._broken()
-                raise CurvineError(f"sendfile sent {sent} of {count} bytes")
-        return sent
+        return await self._writer.send_file(prefix, f, offset, count)
 
 
 class RpcServer:
-    def __init__(self, host: str, port: int, name: str = "rpc"):
+    def __init__(self, host: str, port: int, name: str = "rpc",
+                 rpc_conf=None):
         self.host = host
         self.port = port
         self.name = name
+        self.rpc_conf = rpc_conf
+        # shared by every connection's writer: rpc.send_queue_depth is the
+        # frames queued over all of them
+        self._sendq_depth: dict = {"n": 0}
         self._handlers: dict[int, Handler] = {}
         self._lsock: socket.socket | None = None
         self._accept_task: asyncio.Task | None = None
@@ -186,7 +198,8 @@ class RpcServer:
         if self._lsock is not None:
             self._lsock.close()
             self._lsock = None
-        for conn in list(self._conns):
+        conns = list(self._conns)
+        for conn in conns:
             conn._broken()
         tasks = list(self._conn_tasks)
         for t in tasks:
@@ -198,6 +211,8 @@ class RpcServer:
                 await t
             except (asyncio.CancelledError, Exception):  # noqa: BLE001
                 pass
+        for conn in conns:
+            await conn._writer.aclose()
         self._conns.clear()
 
     @property
@@ -215,48 +230,65 @@ class RpcServer:
                 sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
             except OSError:
                 pass
-            conn = ServerConn(sock, loop)
+            conn = ServerConn(sock, loop, rpc_conf=self.rpc_conf,
+                              metrics=self.metrics,
+                              depth_cell=self._sendq_depth)
             self._conns.add(conn)
             t = asyncio.ensure_future(self._conn_loop(conn))
             self._conn_tasks.add(t)
             t.add_done_callback(self._conn_tasks.discard)
 
     async def _conn_loop(self, conn: ServerConn) -> None:
-        rx = _Recv(conn.loop, conn.sock)
+        dec = conn._dec
         pending: set[asyncio.Task] = set()
         try:
             while True:
                 try:
-                    code, req_id, status, flags, hdr_len, data_len = \
-                        parse_envelope(await rx.exactly(ENVELOPE_MAX))
-                    header = decode_header(await rx.exactly(hdr_len)) \
-                        if hdr_len else {}
-                    data = await rx.exactly(data_len) if data_len else b""
+                    env = dec.try_next()
+                    if env is None:
+                        # every frame already buffered was taken above
+                        # without touching the socket again
+                        await dec.fill(conn.loop, conn.sock)
+                        continue
                 except (ConnectionResetError, OSError):
                     break
                 except CurvineError as e:          # hostile bytes
                     log.warning("%s: malformed frame from %s: %s",
                                 self.name, conn.peer, e)
                     break
-                msg = Message(code=code, req_id=req_id, status=status,
-                              flags=flags, header=header, data=data)
+                code, req_id, status, flags, header, data_len = env
                 is_chunk = bool(flags & (Flags.CHUNK | Flags.EOF)) and \
                     not (flags & Flags.RESPONSE)
                 if is_chunk and req_id in conn._sinks:
                     if req_id in conn._streams:
                         await conn._drain_queue_into_sink(req_id)
+                    try:
+                        # a view into the decoder's buffer, valid until
+                        # its next call: the sink consumes it inline
+                        view = await dec.read_payload(conn.loop, conn.sock,
+                                                      data_len)
+                    except (ConnectionResetError, OSError):
+                        break
                     sink = conn._sinks.get(req_id)
                     if sink is None:       # the sink failed in the drain
                         continue
                     try:
-                        await sink(header, memoryview(data),
-                                   bool(flags & Flags.EOF))
+                        await sink(header, view, bool(flags & Flags.EOF))
                     except asyncio.CancelledError:
                         raise
                     except Exception:
                         log.exception("%s stream sink", self.name)
                         conn.close_stream(req_id)
                     continue
+                data = b""
+                if data_len:
+                    try:
+                        data = bytes(await dec.read_payload(
+                            conn.loop, conn.sock, data_len))
+                    except (ConnectionResetError, OSError):
+                        break
+                msg = Message(code=code, req_id=req_id, status=status,
+                              flags=flags, header=header, data=data)
                 if is_chunk:
                     # never block the receive loop on a stream no handler
                     # consumes: shed the oldest chunk, and a real upload
@@ -279,6 +311,7 @@ class RpcServer:
                     await t
                 except (asyncio.CancelledError, Exception):  # noqa: BLE001
                     pass
+            await conn._writer.aclose()
             try:
                 conn.sock.close()
             except OSError:
@@ -302,8 +335,12 @@ class RpcServer:
                 header, data = {}, result
             else:
                 header, data = result, b""
+            t1 = time.perf_counter()
             await conn.send(response_for(msg, header=header, data=data,
                                          flags=Flags.RESPONSE | Flags.EOF))
+            if self.metrics is not None:
+                self.metrics.observe("rpc.reply_send",
+                                     time.perf_counter() - t1)
         except asyncio.CancelledError:
             raise
         except Exception as e:  # noqa: BLE001 — every error crosses the wire

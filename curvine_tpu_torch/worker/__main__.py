@@ -5,7 +5,9 @@
 The counterpart of ``curvine_tpu/cli/main.py:809-822`` (``cmd_worker``),
 without the web server: the ``[worker]`` and ``[client]`` tables of the
 cluster's TOML file (``common/conf.py``; the master's address is the
-client's ``master_addrs``) configure one ``WorkerServer``, which
+client's ``master_addrs``; the ``[rpc]`` table the transport)
+configure one
+``WorkerServer``, which
 registers with the master by its heartbeat. Once it serves, prints one
 JSON line, ``{"addr": "host:port", "worker_id": N}``. A ``[worker]``
 table with ``hbm_capacity`` above 0 puts a device tier-0 on every CUDA
@@ -43,7 +45,8 @@ def main() -> None:
     ap.add_argument("--conf", required=True, help="the cluster's TOML file")
     args = ap.parse_args()
     logging.basicConfig(level=logging.INFO)
-    asyncio.run(serve(ClusterConf.load(args.conf)))
+    conf = ClusterConf.load(args.conf)
+    asyncio.run(serve(conf))
 
 
 if __name__ == "__main__":

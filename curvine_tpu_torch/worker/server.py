@@ -14,7 +14,9 @@ A carve of ``curvine_tpu/worker/server.py``:
   leaves it at stop;
 - ``_info`` (:354-376), one HBM ``StorageInfo`` per device
   (``hbm:<id>``), and ``_cache_metrics`` (:378-419), the tier, HBM and
-  ``ici.*`` keys;
+  ``ici.*`` keys and the registered receive pool's ``rpc.recv_*``
+  (``rpc/transport.py::recv_pool().stats()``, :412-418); the server and
+  the pools to the master and the peers take the ``[rpc]`` table;
 - ``heartbeat_once`` (:421-531): ``export_metrics`` of the tier-0 and
   its exports advertised (``hbm_blocks``, the ``hbm_advertise_max`` most
   recent), the master's ``delete_blocks`` applied to the store and the
@@ -143,6 +145,7 @@ from curvine_tpu_torch.rpc.codes import RpcCode
 from curvine_tpu_torch.rpc.frame import (Flags, Message, error_for, pack,
                                          response_for, unpack)
 from curvine_tpu_torch.rpc.server import RpcServer, ServerConn
+from curvine_tpu_torch.rpc.transport import recv_pool
 from curvine_tpu_torch.worker.blockfile import (ALGO_CRC32C, crc_update,
                                                 map_block, supported)
 from curvine_tpu_torch.worker.promote import promote_block
@@ -197,7 +200,8 @@ class WorkerServer:
     def __init__(self, conf: ClusterConf | None = None, devices=None):
         self.conf = conf or ClusterConf()
         wc = self.conf.worker
-        self.rpc = RpcServer(wc.hostname, wc.rpc_port, "worker")
+        self.rpc = RpcServer(wc.hostname, wc.rpc_port, "worker",
+                             rpc_conf=self.conf.rpc)
         tiers = [TierDir(_TIER_NAMES.get(t.storage_type, StorageType.MEM),
                          t.dir, t.capacity) for t in wc.tiers]
         self.store = BlockStore(tiers, wc.eviction_high_water,
@@ -225,10 +229,12 @@ class WorkerServer:
             self.store.on_delete = self._shm_invalidate
             self.store.on_move = self._shm_invalidate
         self.master_pool = ConnectionPool(
-            size=2, timeout_ms=self.conf.client.rpc_timeout_ms)
+            size=2, timeout_ms=self.conf.client.rpc_timeout_ms,
+            rpc_conf=self.conf.rpc)
         # streams of replication pulls from peer workers
         self.peer_pool = ConnectionPool(
-            size=2, timeout_ms=self.conf.client.rpc_timeout_ms)
+            size=2, timeout_ms=self.conf.client.rpc_timeout_ms,
+            rpc_conf=self.conf.rpc)
         self.worker_id = 0             # worker_id_for(host, port) at start
         self.chunk_size = wc.io_chunk_size
         # the device tier-0, one tier per device; no CUDA device and no
@@ -446,6 +452,10 @@ class WorkerServer:
             out["ici.hbm_exports"] = st.get("exports", 0)
             for k in ("ici.peer_pulls", "ici.tcp_fallbacks"):
                 out[k] = self.metrics.counters.get(k, 0)
+        # the registered receive pool: parked bytes, checked-out bytes and
+        # its counters (the ring's keys stay 0: the port has no ring)
+        for k, v in recv_pool().stats().items():
+            out[f"rpc.recv_{k}"] = v
         if self.shm_warm is not None:
             # the warm cache's occupancy and admission beside the tiers'
             for k, v in self.shm_warm.stats().items():

@@ -136,12 +136,10 @@ def test_wirepack_raw_strict_and_refusals():
 def _decode(wire: bytes):
     """A whole frame through the port's envelope and header parsing:
     (code, req_id, status, flags, header, data)."""
-    code, req_id, status, flags, hdr_len, data_len = frame.parse_envelope(
-        wire[:frame.ENVELOPE_MAX])
-    end = frame.ENVELOPE_MAX + hdr_len
+    end, code, req_id, status, flags, header, data_len = \
+        frame.decode_envelope(wire, 0, len(wire))
     assert len(wire) == end + data_len
-    return (code, req_id, status, flags,
-            frame.decode_header(wire[frame.ENVELOPE_MAX:end]), wire[end:])
+    return code, req_id, status, flags, header, wire[end:]
 
 
 def _frames():
@@ -196,7 +194,7 @@ def test_error_responses_decode_to_the_port_errors():
             assert got.value.leader_hint == "10.0.0.2:8995"
             assert got.value.members == ["a:1", "b:2"]
     with pytest.raises(perr.CurvineError, match="frame length"):
-        frame.parse_envelope(b"\x00\x00\x00\x01" + b"\x00" * 16)
+        frame.decode_envelope(b"\x00\x00\x00\x01" + b"\x00" * 16, 0, 20)
 
 
 def test_error_codes_and_wire_types_mirror_the_reference():

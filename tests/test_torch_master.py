@@ -1137,6 +1137,39 @@ def test_worker_loss_and_return_on_an_injected_clock(monkeypatch):
     assert len(fs.get_block_locations("/f").block_locs[0].locs) == 1
 
 
+@pytest.mark.parametrize("via", ["commit", "incremental"])
+def test_full_report_built_before_a_replica_landed_keeps_it(via):
+    """A worker's full report built before a block landed on it, applied
+    after the block was located there (by the client's commit or by the
+    worker's incremental report), keeps the block's location: the
+    reference drops it, and the block then has no live location until
+    the worker's next full report (ROADMAP §C, C15). The next full
+    report is built after the landing: without the block, it drops it."""
+    fs = MasterFilesystem(journal=None)
+    fs.create_file("/f", block_size=BLOCK)
+    first = _alloc_and_commit(fs, "/f", 10).block.id
+    fs.worker_block_report(WID, {first: 10}, {})
+    before = {first: 10}                 # built now, applied below
+    bid = fs.add_block("/f").block.id
+    if via == "commit":
+        fs._commit(fs.tree.resolve("/f"), [CommitBlock(
+            block_id=bid, block_len=10, worker_ids=[WID],
+            storage_type=StorageType.MEM)])
+    else:
+        fs._commit(fs.tree.resolve("/f"), [CommitBlock(
+            block_id=bid, block_len=10, worker_ids=[],
+            storage_type=StorageType.MEM)])
+        fs.worker_block_report(WID, {bid: 10}, {}, incremental=True)
+    assert fs.worker_block_report(WID, before, {}) == {"delete_blocks": []}
+    locs = [lb.locs for lb in fs.get_block_locations("/f").block_locs]
+    assert [[a.worker_id for a in x] for x in locs] == [[WID], [WID]]
+    assert fs.report_kept == 1
+    fs.worker_block_report(WID, before, {})
+    assert fs.report_kept == 1
+    locs = [lb.locs for lb in fs.get_block_locations("/f").block_locs]
+    assert [[a.worker_id for a in x] for x in locs] == [[WID], []]
+
+
 def test_stale_leases_recovered_on_an_injected_clock(monkeypatch):
     now = [5_000_000]
     monkeypatch.setattr(port_fs, "now_ms", lambda: now[0])

@@ -724,6 +724,57 @@ async def test_snapshot_pack_keeps_the_leader_beating(tmp_path,
         assert leader.metrics.gauges["raft.snapshot_loop_stall_ms"] < 1000
 
 
+async def test_a_follower_hands_reads_to_the_leader_until_its_workers_report(
+        tmp_path, monkeypatch):
+    """ROADMAP §C, C16. A wiped follower takes the worker's report before
+    its snapshot install (every block an orphan to its empty namespace),
+    then installs: it knows the file and none of its replicas. The
+    install makes it ask the worker for its blocks again, and until they
+    come it hands a read it cannot locate to the leader, so a client that
+    names that follower alone reads the file's bytes (the reference's
+    follower answers no location: the read fails with BlockNotFound).
+    Once the worker reports, the follower answers itself."""
+    gate = asyncio.Event()
+    install = RaftLite._install
+
+    async def gated(self, *a, **kw):
+        await gate.wait()
+        return await install(self, *a, **kw)
+
+    monkeypatch.setattr(RaftLite, "_install", gated)
+    async with PortRaftCluster(tmp_path) as cl:
+        leader = await cl.wait_leader()
+        w = await cl.add_worker()
+        w.executor.cancel("block-report")        # forced reports only
+        data = os.urandom(300_000)
+        await cl.client().write_all("/c16.bin", data)
+        victim = next(nid for nid in cl.masters
+                      if nid != leader.raft.node_id)
+        await cl.kill(victim)
+        cl.wipe(victim)
+        back = await cl.restart(victim)
+        await _until(lambda: back.fs.workers.has_current_report(
+            w.worker_id))
+        assert back.fs.tree.resolve("/c16.bin") is None
+        w._forced_report_at = float("inf")      # no report until asked
+        gate.set()
+        await _until(lambda: back.fs.tree.resolve("/c16.bin") is not None,
+                     timeout=20)
+        assert not back.fs.workers.has_current_report(w.worker_id)
+        assert back.fs.get_block_locations(
+            "/c16.bin").block_locs[0].locs == []
+        solo = cl.client(master_addrs=[back.addr])
+        assert bytes(await solo.read_all("/c16.bin")) == data
+        assert back.metrics.counters.get("raft.reads_to_leader", 0) >= 1
+        w._forced_report_at = 0.0
+        await _until(lambda: back.fs.get_block_locations(
+            "/c16.bin").block_locs[0].locs != [])
+        alone = cl.client(master_addrs=[back.addr])
+        fb = await alone.meta.get_block_locations("/c16.bin")
+        assert [x.worker_id for x in fb.block_locs[0].locs] == [w.worker_id]
+        assert alone.meta.masters[alone.meta._active] == back.addr
+
+
 def test_cluster_file_with_raft_peers_starts_three_masters(tmp_path):
     """A cluster file that sets ``raft_peers`` starts three masters in
     their own processes (``python -m curvine_tpu_torch.master``), which

@@ -180,26 +180,48 @@ async def test_abort_leaves_no_block_file():
 
 async def test_read_block_lands_in_the_callers_buffer(monkeypatch):
     """READ_BLOCK through ``call_readinto``: whole files and ranges equal,
-    counted as ``read.zero_copy_bytes``, and no chunk's payload passes
-    through the connection's own receive buffer; the EOF trailer carries
-    the block's crc; a sink shorter than the stream is filled to its
-    end."""
-    from curvine_tpu_torch.rpc import client as rpc_client
-    taken = []
-    real_exactly = rpc_client._Recv.exactly
+    counted as ``read.zero_copy_bytes``; a chunk's payload goes into the
+    caller's buffer, at most the decoder's buffer's worth of it copied out
+    of the connection's receive buffer and the rest received straight
+    into it, and none through the decoder's own payload reads; the EOF
+    trailer carries the block's crc; a sink shorter than the stream is
+    filled to its end."""
+    from curvine_tpu_torch.rpc import transport
+    taken, copied, direct = [], [], []
+    real_read_payload = transport.BulkDecoder.read_payload
+    real_take_into = transport.BulkDecoder.take_into
+    real_recv_sink = transport.BulkDecoder.recv_sink
 
-    async def exactly(self, n):
+    async def read_payload(self, loop, sock, n):
         taken.append(n)
-        return await real_exactly(self, n)
+        return await real_read_payload(self, loop, sock, n)
 
-    monkeypatch.setattr(rpc_client._Recv, "exactly", exactly)
+    def take_into(self, dst):
+        n = real_take_into(self, dst)
+        copied.append((n, len(self._buf)))
+        return n
+
+    async def recv_sink(self, loop, sock, view):
+        direct.append(len(view))
+        return await real_recv_sink(self, loop, sock, view)
+
+    monkeypatch.setattr(transport.BulkDecoder, "read_payload", read_payload)
+    monkeypatch.setattr(transport.BulkDecoder, "take_into", take_into)
+    monkeypatch.setattr(transport.BulkDecoder, "recv_sink", recv_sink)
     data = _data(2 * BLOCK + 4321, 5)
     async with _cluster() as mc:
         await mc.client().write_all("/rb/x.bin", data)
         pc = _port_client(mc, short_circuit=False)
         try:
             assert await pc.read_all("/rb/x.bin") == data
-            assert taken and max(taken) < 4096      # envelopes and headers
+            # only other replies' small payloads through read_payload; each
+            # chunk's buffered copy within the receive buffer, whose size
+            # stays the default; most bytes received straight into the sink
+            assert not taken or max(taken) < 4096
+            assert copied and all(n <= size == transport.RECV_BUFFER_BYTES
+                                  for n, size in copied)
+            assert sum(n for n, _ in copied) + sum(direct) == len(data)
+            assert sum(direct) > 0.8 * len(data)
             r = await pc.open("/rb/x.bin")
             assert await r.pread(BLOCK - 10, 30) == data[BLOCK - 10:BLOCK + 20]
             r.seek(3)

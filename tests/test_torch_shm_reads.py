@@ -4,15 +4,16 @@ port's own master and workers (``tests/torch_cluster.py``).
 
 Mirrors 13 of the 16 tests of ``tests/test_shm_reads.py``: those at :39,
 :70, :92, :123, :160, :186, :211, :240, :328, :381, :405, :438 and
-:461. The port's reader has no ``pread_view`` and no ``read_range`` yet
-(ROADMAP §A item 2): its ``pread`` (a copy out of the mapping) stands
+:461. The mirrors were written before the port's reader had ``pread_view``
+and ``read_range``: its ``pread`` (a copy out of the mapping) stands
 for ``pread_view``, and its ``mmap_view`` (a read-only view of the
 mapping, no copy) for the single-block ``read_range``. The port counts
 a mapping's bytes in ``sc.bytes.read`` and keeps ``read.zero_copy_bytes``
 for READ_BLOCK's, so those asserts are left out, as are ``_served_by``
-and the master's read-plane rollup (the metrics flush). The other three
-wait for later items: :269 (``rpc/transport.py``), :512 (the metrics
-flush) and :537 (the latency ladder). Beyond the mirrors: the four
+and the master's read-plane rollup (the metrics flush). :269
+(``alloc_aligned`` and the registered pool) is mirrored in
+``tests/test_torch_transport.py``. The other two wait for later items:
+:512 (the metrics flush) and :537 (the latency ladder). Beyond the mirrors: the four
 fields load from a cluster file as the JAX package's do, and a memfd
 handed without its seals is refused and read through the fd path."""
 

@@ -252,6 +252,32 @@ Phases, each raising on a fault (the exit code is then non-zero):
    broken mid-frame in any phase that stops, kills or restarts no worker
    or master fails the run: this process's, and each master's, counted
    in its dump when it is stopped (each phase's breaks are logged);
+6m. trace: tracing, the reader's deadlines and the metrics flush, with
+   phase ufs's parameters and step: a master of the phase's own (the
+   ``ici`` placement, a 30 s lost timeout), worker A in this process
+   with a tier-0 at ICI (0, 0) and worker B in a process of its own
+   (``python -m curvine_tpu_torch.worker``, which must load no module of
+   JAX or of the JAX package) at (1, 0); phase feed's shape at two
+   replicas, written near B (every block lists B first), read with the
+   short circuit off and a 2 s read budget (``op_deadline_ms``). (a)
+   ``GpuTrainFeed`` over one epoch with tracing at the ``[obs]``
+   defaults and with it off, twice in turns: batches/s. (b) One shard
+   whose first replica is B's read into device memory under a sampled
+   root; ``get_trace`` (the master's GET_SPANS collect, reaching B's
+   process) must give one tree across the client, the master and B,
+   each span inside its parent's interval within 50 ms; the tree is
+   printed. (c) The feed epoch after epoch while B is stopped (SIGSTOP
+   after 4 batches, SIGCONT 8 s later: a hung host, not a crash): each
+   read that paid a wedged hop with its seconds and its trace, the
+   wedged hops before B's breaker opened and after it half-opened, the
+   longest wait for one batch and the batches/s across the wedge; a read
+   through the wedge over the budget + 0.5 s, no wedged hop at all, or a
+   batch unequal fails the phase. (d) The shards pinned into A's tier-0
+   (K1, launches equal to the pins, each device copy equal), three
+   flagship steps on batches read by ``pread_view`` under the budget
+   (K3). (e) Every client flushed at its close: the master's
+   ``--metrics-out`` dump's ``client.*`` counters equal the sums of the
+   phase's clients' own (``read.zero_copy_bytes`` among them);
 6b. ckpt: the flagship's parameters as phase ufs left them (99 tensors,
    1.92 GiB of bf16) saved with ``save_checkpoint`` through the port's
    client into the cluster, every byte by short circuit (SC_WRITE_OPEN:
@@ -431,6 +457,7 @@ import math
 import os
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -643,6 +670,24 @@ WIRE_PROBE = 64 * 1024
 WIRE_TIER_BYTES = SHARDS * SHARD_BYTES // 2 + 4 * BLOCK
 WIRE_HBM_BYTES = (SHARDS // 2 + 2) * BLOCK
 WIRE_PHASE_BYTES = SHARDS * SHARD_BYTES + 64 * MiB
+# phase trace: a master of its own (the ici placement, a lost timeout
+# longer than the phase, so that the hung worker stays listed), worker A
+# in this process with a tier-0 and worker B in its own process; phase
+# feed's shards at two replicas, read by clients with the short circuit
+# off and a read budget of TRACE_BUDGET_MS (the reference's storm test's);
+# (c) B stopped after TRACE_STOP_AFTER batches for TRACE_WEDGE_S, every
+# read through it held to TRACE_BUDGET_MS + TRACE_SLACK_S; the wedge
+# outlasts the breaker's first open window (its third hop ends about 3.3
+# s in, then breaker_open_ms), so a half-open probe meets B still stopped
+TRACE_LOST_MS = 30_000
+TRACE_BUDGET_MS = 2_000
+TRACE_SLACK_S = 0.5
+TRACE_STOP_AFTER = 4
+TRACE_WEDGE_S = 12.0
+TRACE_NEST_S = 0.05              # (b): a span within its parent's interval
+TRACE_TIER_BYTES = SHARDS * SHARD_BYTES + 4 * BLOCK
+TRACE_HBM_BYTES = (SHARDS + 2) * BLOCK
+TRACE_PHASE_BYTES = 2 * TRACE_TIER_BYTES + 64 * MiB
 
 
 def log(msg: str) -> None:
@@ -1235,10 +1280,11 @@ def _addrs(master) -> list[str]:
     return [master] if isinstance(master, str) else list(master)
 
 
-def port_client(master, coords=(), rpc: dict | None = None, **client):
+def port_client(master, coords=(), rpc: dict | None = None,
+                obs: dict | None = None, **client):
     """The port's client of ``master`` (an address, or a raft group's
-    list); its writes are placed near ICI ``coords``; ``rpc`` sets keys
-    of its ``[rpc]`` table."""
+    list); its writes are placed near ICI ``coords``; ``rpc`` and
+    ``obs`` set keys of its ``[rpc]`` and ``[obs]`` tables."""
     from curvine_tpu_torch.client.unified import CurvineClient
     from curvine_tpu_torch.common.conf import ClusterConf
     conf = ClusterConf()
@@ -1248,6 +1294,8 @@ def port_client(master, coords=(), rpc: dict | None = None, **client):
         setattr(conf.client, k, v)
     for k, v in (rpc or {}).items():
         setattr(conf.rpc, k, v)
+    for k, v in (obs or {}).items():
+        setattr(conf.obs, k, v)
     c = CurvineClient(conf)
     CLIENT_COUNTERS.append(c.counters)
     return c
@@ -1273,7 +1321,7 @@ REPORTS_KEPT: dict = {}
 # connection may break mid-frame (phase wire holds its own reads and its
 # call runs to none); a break anywhere else fails the run
 BREAKS_EXPECTED = ("recover", "drain", "ec", "kv", "ha", "replicate",
-                   "master", "wire")
+                   "master", "wire", "trace")
 
 
 def count_writer_breaks() -> None:
@@ -7902,6 +7950,569 @@ def phase_wire(dev: torch.device, root: str, seed: int, params: dict, step,
     return res
 
 
+def launch_worker(master: str, root: str, name: str, tier_bytes: int,
+                  coords=()):
+    """``python -m curvine_tpu_torch.worker --conf <root>/<name>.toml`` in
+    its own process, not waited for (``worker_line``): a mem tier of
+    ``tier_bytes`` under ``root/name``, no tier-0, 64 MiB blocks, the
+    heartbeat of the in-process workers, ICI coordinates ``coords``."""
+    conf = os.path.join(root, f"{name}.toml")
+    with open(conf, "w") as f:
+        f.write(f"""[worker]
+hostname = "127.0.0.1"
+rpc_port = 0
+heartbeat_ms = {WORKER_HEARTBEAT_MS}
+promote_interval_ms = 0
+hbm_capacity = 0
+ici_coords = {json.dumps(list(coords))}
+[[worker.tiers]]
+storage_type = "mem"
+dir = "{os.path.join(root, name, 'mem')}"
+capacity = {tier_bytes}
+[client]
+master_addrs = {json.dumps(_addrs(master))}
+block_size = {BLOCK}
+""")
+    err = open(os.path.join(root, f"{name}.err"), "wb")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "curvine_tpu_torch.worker", "--conf", conf],
+        cwd=HERE, stdout=subprocess.PIPE, stderr=err)
+    err.close()
+    proc.launched = time.perf_counter()
+    return proc
+
+
+def worker_line(proc, root: str, name: str) -> dict:
+    """``launch_worker``'s wait for the worker's JSON line (address,
+    worker id, pid, ``jax_free``), with ``start_s``, the seconds from the
+    launch; raises when it does not come within MASTER_START_S or the
+    worker loaded a module of JAX or of the JAX package."""
+    import select
+    ready, _, _ = select.select([proc.stdout], [], [], MASTER_START_S)
+    line = proc.stdout.readline() if ready else b""
+    if not line:
+        stop_worker_proc(proc)
+        with open(os.path.join(root, f"{name}.err"), "rb") as f:
+            tail = f.read()[-4000:].decode(errors="replace")
+        raise RuntimeError(f"the port's worker {name} did not start:\n{tail}")
+    info = json.loads(line)
+    info["start_s"] = time.perf_counter() - proc.launched
+    if info.get("jax_free") is not True:
+        stop_worker_proc(proc)
+        raise AssertionError(f"the port's worker {name} (pid {info['pid']}) "
+                             f"loaded a module of JAX or of the JAX package")
+    return info
+
+
+def stop_worker_proc(proc) -> None:
+    """Stop a worker process: woken first (SIGCONT) if it was stopped,
+    then SIGTERM, and SIGKILL after 60 s."""
+    if proc.poll() is None:
+        os.kill(proc.pid, signal.SIGCONT)
+        proc.terminate()
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    proc.stdout.close()
+
+
+def watch_breaker(health, addr: str, marks: dict) -> None:
+    """Record ``addr``'s breaker transitions on the client's board as
+    they happen, wall clock (the spans' clock): each trip to OPEN in
+    ``marks["opens"]``, each probe a HALF_OPEN breaker lets by in
+    ``marks["half_opens"]``."""
+    from curvine_tpu_torch.client.health import HALF_OPEN
+    marks["opens"], marks["half_opens"] = [], []
+    fail, allow = health.fail, health.allow
+
+    def trips() -> int:
+        return health.snapshot().get(addr, {}).get("trips", 0)
+
+    def fail_watched(a, *args, **kw):
+        before = trips() if a == addr else 0
+        fail(a, *args, **kw)
+        if a == addr and trips() > before:
+            marks["opens"].append(time.time())
+
+    def allow_watched(a):
+        half = a == addr and health.state(a) == HALF_OPEN
+        ok = allow(a)
+        if half and ok:
+            marks["half_opens"].append(time.time())
+        return ok
+    health.fail, health.allow = fail_watched, allow_watched
+
+
+def trace_tree_faults(spans: list[dict], root_op: str) -> list[str]:
+    """What is wrong with one traced read's spans, by the reference's
+    acceptance trace (tests/test_obs.py:233): at least 4 spans from the
+    client, the master and a worker, one root named ``root_op``, each
+    master span under a client span, each worker span under a client
+    ``read_block``, every span inside its parent's interval within
+    TRACE_NEST_S. Empty when nothing is."""
+    out = []
+    comps = {s["component"] for s in spans}
+    if len(spans) < 4 or not {"client", "master", "worker"} <= comps:
+        out.append(f"{len(spans)} spans from {sorted(comps)}")
+    by_id = {s["span_id"]: s for s in spans}
+    roots = [s for s in spans if s["parent"] not in by_id]
+    if len(roots) != 1 or roots[0]["op"] != root_op:
+        out.append(f"roots {[(r['component'], r['op']) for r in roots]}")
+    for s in spans:
+        p = by_id.get(s["parent"])
+        if p is None:
+            continue
+        if s["component"] == "master" and p["component"] != "client":
+            out.append(f"master {s['op']} under {p['component']}")
+        if s["component"] == "worker" and \
+                (p["component"], p["op"]) != ("client", "read_block"):
+            out.append(f"worker {s['op']} under {p['component']} {p['op']}")
+        if s["dur"] < 0 or s["start"] < p["start"] - TRACE_NEST_S or \
+                s["start"] + s["dur"] > p["start"] + p["dur"] + TRACE_NEST_S:
+            out.append(f"{s['component']} {s['op']} outside "
+                       f"{p['component']} {p['op']}")
+    return out
+
+
+def phase_trace(dev: torch.device, root: str, seed: int, params: dict, step,
+                link_gibs: float) -> dict:
+    """Tracing, the reader's deadlines and the metrics flush, with phase
+    ufs's parameters and step: a master of the phase's own on the KV store
+    (the ``ici`` placement, TRACE_LOST_MS: the hung worker stays
+    listed), worker A in this process with a tier-0 on the card at ICI
+    (0, 0) and worker B in a process of its own (``python -m
+    curvine_tpu_torch.worker``, no tier-0) at (1, 0), launched before A
+    so that its interpreter starts meanwhile; phase feed's shape written
+    to /trace/train at two replicas by a client at (1, 0), so every
+    block is on B and then A, and a reader with closed breakers tries B
+    first. Every reading client has the short circuit off and
+    ``op_deadline_ms`` TRACE_BUDGET_MS.
+
+    (a) The cost of tracing: ``GpuTrainFeed`` at phase 4's batch over one
+    epoch at the ``[obs]`` defaults and one with the client's and A's
+    tracer off, twice in turns; batches/s of each (no claim). (b) One
+    traced read: a shard (its first replica B's) read whole into
+    device memory under a sampled root, then ``get_trace`` (the master's
+    GET_SPANS collect, which reaches B's process): one tree across the
+    client, the master and B, each span inside its parent's interval
+    (``trace_tree_faults``), printed. (c) The hung host: the feed epoch
+    after epoch; after TRACE_STOP_AFTER batches B gets SIGSTOP, and
+    SIGCONT TRACE_WEDGE_S later; the feed runs to the end of the epoch
+    in which B came back. Each shard read is a sampled trace of its own;
+    a read that paid a wedged hop (a client ``read_block`` to B in error)
+    is shown with its seconds and its tree; the wedged hops before B's
+    breaker opened, while it was open and after it half-opened, split
+    at the breaker's own transitions (its trips and its half-open
+    permits, recorded as they happen), the longest wait for one batch,
+    the batches/s across the wedge. (d) The shards pinned into
+    A's tier-0 by promote cycles, before each of which the shards not
+    held yet are read WORKER_MIN_READS times from A (B's breaker held
+    open in that client): K1 against the host hash, launches equal to
+    the pins, each device copy equal to its tokens; three flagship steps on
+    batches read by ``pread_view`` through the budgeted reader (K3). (e)
+    Every client closed (each flushes at close), the master stopped: its
+    ``--metrics-out`` dump's ``client.<name>`` counters equal the sums of
+    the phase's clients' own, ``read.zero_copy_bytes`` among them.
+
+    Fails if a read through the wedge took longer than TRACE_BUDGET_MS +
+    TRACE_SLACK_S, no read paid a wedged hop, a batch differs from its
+    tokens, a caller saw an error, or a check of (b), (d) or (e) fails.
+    B is woken before it is stopped; every process is stopped and the
+    directory removed, however the phase ends."""
+    from curvine_tpu_torch.gpu import cuda_ops, flash
+    from curvine_tpu_torch.gpu.ingest import PinnedStager
+    from curvine_tpu_torch.gpu.loader import GpuTrainFeed, write_token_shards
+    from curvine_tpu_torch.obs.trace import assemble_tree, render_tree
+    base = os.path.join(root, "trace")
+    os.makedirs(base)
+    res: dict = {"link_gibs": link_gibs}
+    pa = proc = bproc = None
+    mark = len(CLIENT_COUNTERS)
+    tokens = ufs_tokens(seed, SHARDS, 0x74726163)
+    shard_tokens = SHARD_BYTES // 4
+    per_batch = BATCH * SEQ
+    kernels = [getattr(flash, nm) for nm in K3_NAMES]
+    cfg = _flagship()
+    t_phase = time.perf_counter()
+    budgeted = dict(short_circuit=False, op_deadline_ms=TRACE_BUDGET_MS)
+    try:
+        conf = master_conf(base, lost_ms=TRACE_LOST_MS, policy="ici")
+        proc, info = start_master(base, conf)
+        master = info["addr"]
+        # B's interpreter starts while A does
+        bproc = launch_worker(master, base, "b", TRACE_TIER_BYTES,
+                              coords=(1, 0))
+        pa = PortWorker(master, os.path.join(base, "a"), TRACE_TIER_BYTES,
+                        dev, coords=(0, 0), hbm_bytes=TRACE_HBM_BYTES)
+        wa = pa.worker
+        binfo = worker_line(bproc, base, "b")
+        res["b_start_s"] = binfo["start_s"]
+        b_id, b_addr = binfo["worker_id"], binfo["addr"]
+        await_live(master, [wa.worker_id, b_id], phase="trace")
+        log(f"trace: a master and two of the port's workers, A "
+            f"({wa.worker_id}, this process, a tier-0) and B ({b_id}, pid "
+            f"{binfo['pid']}, its own process, started in "
+            f"{res['b_start_s']:.3f}s; modules of JAX or the JAX package "
+            f"loaded there: none)")
+
+        async def write():
+            # written near B: the ici placement lists B first, so that
+            # a reader with closed breakers tries B first
+            async with port_client(master, coords=(1, 0), replicas=2) as c:
+                t = time.perf_counter()
+                paths = await write_token_shards(c, "/trace/train", tokens,
+                                                 shard_tokens)
+                return paths, time.perf_counter() - t
+        paths, res["write_s"] = asyncio.run(write())
+        locs = [_block_locs(master, p) for p in paths]
+        blocks = [x[0][0] for x in locs]
+        firsts = [x[0][1][0] for x in locs]
+        if any(len(x) != 1 or x[0][1] != [b_id, wa.worker_id]
+               for x in locs):
+            raise AssertionError(f"trace: {locs}: not one block a shard on "
+                                 f"B, then A")
+        log(f"trace: {SHARDS} shards of {SHARD_BYTES // MiB} MiB written "
+            f"at two replicas in {res['write_s']:.3f}s; each block's first "
+            f"replica {firsts}")
+        expect = torch.from_numpy(tokens).to(dev)
+        n_expect = tokens.size // per_batch
+
+        # (a) the cost of tracing, in turns
+        res["a"] = {"traced": [], "untraced": []}
+        for traced in (True, False, True, False):
+            wa.tracer.enabled = traced
+
+            async def epoch(traced=traced):
+                async with port_client(master, obs={"enabled": traced},
+                                       **budgeted) as c:
+                    feed = GpuTrainFeed(c, "/trace/train", BATCH, SEQ,
+                                        depth=2, device=dev)
+                    return await drive_feed(feed, expect, dev)
+            n, bad, secs = asyncio.run(epoch())
+            if n != n_expect or bad:
+                raise AssertionError(f"trace (a): {n}/{n_expect} batches, "
+                                     f"{bad} tokens differ")
+            res["a"]["traced" if traced else "untraced"].append(n / secs)
+        wa.tracer.enabled = True
+        rates = {k: [round(x, 1) for x in v] for k, v in res["a"].items()}
+        log(f"trace (a): the feed over one epoch, batches/s with tracing "
+            f"at the [obs] defaults {rates['traced']}, with the client's "
+            f"and A's tracer off {rates['untraced']} (in turns)")
+
+        # (b) one traced read, its tree across client, master and B
+        ib = firsts.index(b_id)
+
+        async def traced_read():
+            stager = PinnedStager(dev)
+            dst = torch.empty(SHARD_BYTES, dtype=torch.uint8, device=dev)
+            async with port_client(master, **budgeted) as c:
+                t = time.perf_counter()
+                with c.tracer.start_trace("e2e_read", sampled=True) as sp:
+                    r = await c.open(paths[ib])
+                    try:
+                        v = await r.read_all()
+                    finally:
+                        await r.close()
+                stager.copy_in(dst, np.frombuffer(v, dtype=np.uint8))
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t
+                t = time.perf_counter()
+                spans = await c.get_trace(sp.ctx.trace_id)
+                return sp.ctx.trace_id, spans, secs, \
+                    time.perf_counter() - t, dst
+        tid, spans, secs, collect_s, dst = asyncio.run(traced_read())
+        equal = torch.equal(dst.view(torch.int32), expect[
+            ib * shard_tokens:(ib + 1) * shard_tokens])
+        del dst
+        faults = trace_tree_faults(spans, "e2e_read")
+        by_id = {s["span_id"]: s for s in spans}
+        from_b = [s for s in spans if s["component"] == "worker"
+                  and by_id.get(s["parent"], {}).get("attrs", {}).get(
+                      "addr") == b_addr]
+        res["b"] = {"read_s": secs, "collect_s": collect_s,
+                    "spans": len(spans), "from_b": len(from_b),
+                    "components": sorted({s["component"] for s in spans}),
+                    "ops": sorted({f"{s['component']}:{s['op']}"
+                                   for s in spans}), "faults": faults}
+        log(f"trace (b): shard {ib} (first replica B) into device memory "
+            f"in {secs:.3f}s under a sampled root, then get_trace in "
+            f"{collect_s:.3f}s: {len(spans)} spans, {len(from_b)} of them "
+            f"from B's process; the tree:\n"
+            + render_tree(assemble_tree(spans), tid))
+        if faults or not from_b or not equal:
+            raise AssertionError(f"trace (b): {faults}, spans from B "
+                                 f"{len(from_b)}, bytes equal {equal}")
+
+        # (c) the hung host under the feed
+        async def wedged_feed():
+            loop = asyncio.get_running_loop()
+            reads, stamps, marks = [], [], {}
+
+            def resume():
+                os.kill(bproc.pid, signal.SIGCONT)
+                marks["cont"] = time.perf_counter()
+
+            async with port_client(master, **budgeted) as c:
+                watch_breaker(c.health, b_addr, marks)
+                bad = torch.zeros((), dtype=torch.int64, device=dev)
+                epochs = 0
+                while "cont" not in marks:
+                    feed = GpuTrainFeed(c, "/trace/train", BATCH, SEQ,
+                                        depth=2, device=dev)
+                    fetch = feed.source._fetch
+
+                    async def timed_fetch(shard, fetch=fetch):
+                        t = time.perf_counter()
+                        with c.tracer.start_trace(
+                                "feed_read", attrs={"shard": shard},
+                                sampled=True) as sp:
+                            out = await fetch(shard)
+                        reads.append({"shard": shard, "t": t,
+                                      "s": time.perf_counter() - t,
+                                      "trace_id": sp.ctx.trace_id})
+                        return out
+                    feed.source._fetch = timed_fetch
+                    n = 0
+                    async for b in feed:
+                        stamps.append(time.perf_counter())
+                        bad += (b != expect[n * per_batch:(n + 1)
+                                            * per_batch].view(BATCH, SEQ)
+                                ).sum()
+                        n += 1
+                        if len(stamps) == TRACE_STOP_AFTER:
+                            os.kill(bproc.pid, signal.SIGSTOP)
+                            marks["stop"] = time.perf_counter()
+                            marks["stop_wall"] = time.time()
+                            loop.call_later(TRACE_WEDGE_S, resume)
+                    if n != n_expect:
+                        raise AssertionError(f"trace (c): epoch {epochs}: "
+                                             f"{n}/{n_expect} batches")
+                    epochs += 1
+                torch.cuda.synchronize()
+                # B is back: every read's trace, by the master's collect
+                for rd in reads:
+                    rd["spans"] = await c.get_trace(rd["trace_id"])
+                return reads, stamps, marks, int(bad), epochs, \
+                    c.health.snapshot().get(b_addr), c.health.fail_threshold
+        t = time.perf_counter()
+        reads, stamps, marks, bad, epochs, breaker, threshold = \
+            asyncio.run(wedged_feed())
+        feed_s = time.perf_counter() - t
+        hops = []
+        for rd in reads:
+            rd["wedged"] = sorted(
+                (s for s in rd["spans"] if s["component"] == "client"
+                 and s["op"] == "read_block" and s["status"] == "error"
+                 and s["attrs"].get("addr") == b_addr),
+                key=lambda s: s["start"])
+            rd["served_by_a"] = any(
+                s["component"] == "client" and s["op"] == "read_block"
+                and s["status"] == "ok" and s["attrs"].get("addr") == wa.addr
+                for s in rd["spans"])
+            hops += rd["wedged"]
+        hops.sort(key=lambda s: s["start"])
+        wedged = [rd for rd in reads if rd["wedged"]]
+        # the hops split at B's breaker's first trip and its first
+        # half-open permit after that trip, wall clock as the spans'
+        opened = min(marks["opens"] or [math.inf])
+        half = min([t for t in marks["half_opens"] if t > opened]
+                   or [math.inf])
+        gaps = [b - a for a, b in zip(stamps, stamps[1:])]
+        in_wedge = [x for x in stamps if marks["stop"] <= x <= marks["cont"]]
+        res["c"] = {
+            "epochs": epochs, "batches": len(stamps), "reads": len(reads),
+            "feed_s": feed_s, "tokens_unequal": bad,
+            "wedge_s": marks["cont"] - marks["stop"],
+            "wedged_reads": [{"shard": rd["shard"], "s": rd["s"],
+                              "hop_s": [h["dur"] for h in rd["wedged"]],
+                              "errors": [h["attrs"].get("error")
+                                         for h in rd["wedged"]],
+                              "served_by_a": rd["served_by_a"]}
+                             for rd in wedged],
+            "fail_threshold": threshold,
+            "hops_before_open": sum(h["start"] < opened for h in hops),
+            "hops_while_open": sum(opened <= h["start"] < half
+                                   for h in hops),
+            "hops_after_half_open": sum(h["start"] >= half for h in hops),
+            "hop_at_s": [h["start"] - marks["stop_wall"] for h in hops],
+            "opens_at_s": [t - marks["stop_wall"] for t in marks["opens"]],
+            "half_opens_at_s": [t - marks["stop_wall"]
+                                for t in marks["half_opens"]],
+            "breaker": breaker,
+            "longest_batch_wait_s": max(gaps),
+            # where the longest wait fell, and the shard reads that were
+            # in flight across it: (start, seconds), s after the SIGSTOP
+            "longest_batch_wait_ends_at_s":
+                stamps[gaps.index(max(gaps)) + 1] - marks["stop"],
+            "reads_across_longest_wait": [
+                (rd["t"] - marks["stop"], rd["s"]) for rd in reads
+                if rd["t"] < stamps[gaps.index(max(gaps)) + 1]
+                and rd["t"] + rd["s"] > stamps[gaps.index(max(gaps))]],
+            "longest_batch_wait_in_wedge_s": max(
+                [b - a for a, b in zip(in_wedge, in_wedge[1:])] or [0.0]),
+            "batches_per_s_across_wedge":
+                len(in_wedge) / (marks["cont"] - marks["stop"]),
+            "read_s_p50": float(np.median([rd["s"] for rd in reads]))}
+        rc = res["c"]
+        paid = [(r["shard"].rsplit("/", 1)[1], round(r["s"], 3),
+                 [round(h, 3) for h in r["hop_s"]])
+                for r in rc["wedged_reads"]]
+        across = [(round(a, 3), round(b, 3))
+                  for a, b in rc["reads_across_longest_wait"]]
+        log(f"trace (c): B (pid {bproc.pid}) stopped after "
+            f"{TRACE_STOP_AFTER} batches for {rc['wedge_s']:.3f}s under the "
+            f"feed: {rc['batches']} batches over {epochs} epochs in "
+            f"{feed_s:.3f}s, {rc['reads']} shard reads (p50 "
+            f"{rc['read_s_p50']:.3f}s); {len(wedged)} reads paid a wedged "
+            f"hop (shard, s, the wedged hop's s): {paid}; wedged hops "
+            f"{rc['hops_before_open']} before B's breaker opened (threshold "
+            f"{threshold}), {rc['hops_while_open']} while it was open, "
+            f"{rc['hops_after_half_open']} after it half-opened "
+            f"(at {[round(x, 3) for x in rc['hop_at_s']]} s after the "
+            f"SIGSTOP; it opened at "
+            f"{[round(x, 3) for x in rc['opens_at_s']]} s, let a half-open "
+            f"probe by at {[round(x, 3) for x in rc['half_opens_at_s']]} s, "
+            f"B resumed at {rc['wedge_s']:.3f} s), the breaker {breaker}; "
+            f"the longest wait for one "
+            f"batch {rc['longest_batch_wait_s']:.3f}s, ending "
+            f"{rc['longest_batch_wait_ends_at_s']:.3f}s after the SIGSTOP "
+            f"(the reads across it, start and s: {across}), "
+            f"{rc['batches_per_s_across_wedge']:.1f} batches/s across the "
+            f"wedge; every batch equal to its tokens: {bad == 0}")
+        if wedged:
+            rd = wedged[0]
+            log("trace (c): the first wedged read's trace:\n"
+                + render_tree(assemble_tree(rd["spans"]), rd["trace_id"]))
+        slow = [r for r in rc["wedged_reads"]
+                if r["s"] > TRACE_BUDGET_MS / 1000 + TRACE_SLACK_S
+                or not r["served_by_a"]]
+        if not wedged or slow or bad:
+            raise AssertionError(f"trace (c): wedged reads {len(wedged)}, "
+                                 f"over the budget or not served by A "
+                                 f"{slow}, tokens unequal {bad}")
+
+        # (d) pins into A's tier-0 (K1), then three steps (K3)
+        async def heat_a(todo: list[str]):
+            async with port_client(master, **budgeted) as c:
+                for _ in range(3):        # B's breaker held open: A serves
+                    c.health.fail(b_addr, worker_id=b_id)
+                for _ in range(WORKER_MIN_READS):
+                    for p in todo:
+                        r = await c.open(p)
+                        await r.read_all()
+                        await r.close()
+        pins0 = wa.metrics.counters.get("blocks.hbm_pinned", 0)
+        cuda_ops.block_checksum.launches = 0
+        cycles = 0
+        while not all(wa.hbm_holds(b) for b in blocks) and cycles < 8:
+            # a cycle pins at most PIN_BUDGET and halves the heat of what
+            # it leaves: the blocks not held yet are read again first
+            asyncio.run(heat_a([p for p, b in zip(paths, blocks)
+                                if not wa.hbm_holds(b)]))
+            pa.call(wa._promote_once())
+            cycles += 1
+        k1 = cuda_ops.block_checksum.launches
+        pins = wa.metrics.counters.get("blocks.hbm_pinned", 0) - pins0
+        if pins != SHARDS or k1 != pins:
+            raise AssertionError(f"trace (d): {cycles} cycles, {pins} pins, "
+                                 f"{k1} K1 launches")
+        for i, b in enumerate(blocks):
+            if not torch.equal(wa.hbm_get(b).view(torch.int32),
+                               expect[i * shard_tokens:
+                                      (i + 1) * shard_tokens]):
+                raise AssertionError(f"trace (d): block {b}'s device copy "
+                                     f"differs from its tokens")
+        first = tokens[:TRAIN_BATCH * TRAIN_SEQ * UFS_STEPS].reshape(
+            UFS_STEPS, TRAIN_BATCH, TRAIN_SEQ)
+        seen = []
+
+        def check(b):
+            seen.append(bool(torch.equal(b, torch.from_numpy(
+                first[len(seen)]).to(dev))))
+
+        async def train_steps():
+            stager = PinnedStager(dev)
+            nbytes = TRAIN_BATCH * TRAIN_SEQ * 4
+            async with port_client(master, **budgeted) as c:
+                r = await c.open(paths[0])
+
+                async def take():
+                    for k in range(UFS_STEPS):
+                        v = await r.pread_view(k * nbytes, nbytes)
+                        b = torch.empty(nbytes, dtype=torch.uint8,
+                                        device=dev)
+                        stager.copy_in(b, v)
+                        yield b.view(torch.int32).view(TRAIN_BATCH,
+                                                       TRAIN_SEQ)
+                try:
+                    return await timed_steps(step, params, take(), check)
+                finally:
+                    await r.close()
+
+        for fn in kernels:
+            fn.launches = 0
+        step_s, losses = asyncio.run(train_steps())
+        launches = {fn.__name__: fn.launches for fn in kernels}
+        if seen != [True] * UFS_STEPS or not all(map(math.isfinite, losses)) \
+                or set(launches.values()) != {cfg.n_layers * UFS_STEPS}:
+            raise AssertionError(f"trace (d): batches equal {seen}, losses "
+                                 f"{losses}, K3 launches {launches}")
+        res["d"] = dict(cycles=cycles, pins=pins, k1_launches=k1,
+                        losses=losses, step_ms=[x * 1e3 for x in step_s],
+                        launches=launches)
+        log(f"trace (d): {cycles} promote cycles of A pinned the {pins} "
+            f"shards, each verified by K1 ({k1} launches) and equal to its "
+            f"tokens on the card; {UFS_STEPS} flagship steps at "
+            f"{TRAIN_BATCH}x{TRAIN_SEQ} on batches read by pread_view "
+            f"under the {TRACE_BUDGET_MS} ms budget, each equal to its "
+            f"tokens: losses {[round(x, 4) for x in losses]}, step ms "
+            f"{[round(x * 1e3, 2) for x in step_s]}; K3 launches "
+            f"{launches}")
+
+        # (e) the flush: every client closed, the master's dump
+        stop_master(proc)
+        proc = None
+        with open(os.path.join(base, "master0.json")) as f:
+            dumped = json.load(f)["counters"]
+        mine: dict = {}
+        for cnt in CLIENT_COUNTERS[mark:]:
+            for k, v in cnt.items():
+                mine[k] = mine.get(k, 0) + v
+        differ = {k: (v, dumped.get(f"client.{k}")) for k, v in mine.items()
+                  if v and dumped.get(f"client.{k}") != v}
+        res["e"] = {"clients": len(CLIENT_COUNTERS) - mark,
+                    "zero_copy_bytes": mine.get("read.zero_copy_bytes", 0),
+                    "master_zero_copy_bytes": dumped.get(
+                        "client.read.zero_copy_bytes"),
+                    "client_counters": sorted(
+                        k for k in dumped if k.startswith("client.")),
+                    "differ": differ}
+        log(f"trace (e): {res['e']['clients']} clients flushed at close; the "
+            f"master's dump: client.read.zero_copy_bytes "
+            f"{res['e']['master_zero_copy_bytes']:,} against the clients' "
+            f"{res['e']['zero_copy_bytes']:,}; its client.* counters "
+            f"{res['e']['client_counters']}")
+        if differ or not res["e"]["zero_copy_bytes"]:
+            raise AssertionError(f"trace (e): the master's client.* "
+                                 f"counters differ from the clients': "
+                                 f"{differ}")
+        res["phase_s"] = time.perf_counter() - t_phase
+        log(f"trace: the phase {res['phase_s']:.1f}s")
+    finally:
+        if bproc is not None:
+            stop_worker_proc(bproc)
+        if pa is not None:
+            pa.stop()
+        if proc is not None:
+            stop_master(proc)
+        shutil.rmtree(base, ignore_errors=True)
+    res["k1_launches"] = res["d"]["k1_launches"]
+    res["launches"] = res["d"]["launches"]
+    return res
+
+
 # the cluster phase now running (``main``'s ``tallied``), named on the
 # last line of standard error when the run fails
 RUNNING: dict = {"phase": None}
@@ -7947,7 +8558,7 @@ def main() -> int:
         + 2 * ICI_TIER_BYTES + 3 * REP_TIER_BYTES + UFS_PHASE_BYTES \
         + RECOVER_PHASE_BYTES + DRAIN_PHASE_BYTES + EC_PHASE_BYTES \
         + KV_PHASE_BYTES + HA_PHASE_BYTES + SHM_PHASE_BYTES \
-        + WIRE_PHASE_BYTES
+        + WIRE_PHASE_BYTES + TRACE_PHASE_BYTES
     root = pick_data_dir(need)
     log(f"main: data under {root} (needs {need / GiB:.2f} GiB and 1 GiB "
         f"spare: {N_BLOCKS} blocks and {SHARDS} POSIX shards of 64 MiB, "
@@ -7964,7 +8575,8 @@ def main() -> int:
         f"shards and three masters' journals and KV directories, at most "
         f"{HA_PHASE_BYTES / GiB:.2f} GiB, phase shm's shards three times, "
         f"at most {SHM_PHASE_BYTES / GiB:.2f} GiB, phase wire's shards, at "
-        f"most {WIRE_PHASE_BYTES / GiB:.2f} GiB)")
+        f"most {WIRE_PHASE_BYTES / GiB:.2f} GiB, phase trace's shards on "
+        f"two workers, at most {TRACE_PHASE_BYTES / GiB:.2f} GiB)")
     cluster = pw = None
     try:
         cuda_ops.block_checksum.launches = 0
@@ -7998,6 +8610,9 @@ def main() -> int:
                                  step, results["main"]["link_gibs"])
         results["wire"] = tallied(phase_wire, dev, root, args.seed, params,
                                   step, results["main"]["link_gibs"])
+        results["trace"] = tallied(phase_trace, dev, root, args.seed,
+                                   params, step,
+                                   results["main"]["link_gibs"])
         del step
         results["ckpt"], probe = tallied(phase_ckpt, dev, info["addr"],
                                          args.seed, params,
@@ -8076,9 +8691,9 @@ def main() -> int:
     log("main: no process of this run (this one, where the port's workers "
         "run, and each of the port's masters it started: the cluster's "
         "twice, phase drain's twice, phase ec's, phase kv's twice, phase "
-        "ha's three and their two restarts, phase recover's, phase ici's "
-        "and phase replicate's) loaded a module of JAX or of the JAX "
-        "package")
+        "ha's three and their two restarts, phase trace's and its worker "
+        "B, phase recover's, phase ici's and phase replicate's) loaded a "
+        "module of JAX or of the JAX package")
     if launches != results["main"]["pins"]:
         raise AssertionError(f"{launches} kernel launches for "
                              f"{results['main']['pins']} pins")
@@ -8098,6 +8713,7 @@ def main() -> int:
                     + results["ha"]["k1_launches"]
                     + results["shm"]["k1_launches"]
                     + results["wire"]["k1_launches"]
+                    + results["trace"]["k1_launches"]
                     + results["recover"]["k1_launches"],
         "max_abs_err": k["max_abs_err"],
         "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
@@ -8120,6 +8736,7 @@ def main() -> int:
                         + results["ha"]["launches"][name]
                         + results["shm"]["launches"][name]
                         + results["wire"]["launches"][name]
+                        + results["trace"]["launches"][name]
                         + results["mesh"]["launches"][name]
                         + results["pipeline"]["launches"][name]
                         + results["recover"]["launches"][name],

@@ -26,3 +26,12 @@ package; ``ufs`` holds the under-filesystems (``file://``, ``mem://``)
 behind the master's mounts (``master/mount.py``) and its cache-warming
 jobs (``master/jobs.py``: load, export and the rolling prefetch
 window), which the worker runs."""
+
+import sys
+
+
+def jax_free() -> bool:
+    """No module named ``jax*`` (``jaxlib`` too), ``curvine_tpu`` or
+    ``curvine_tpu.*`` is loaded in this process."""
+    return not any(k.startswith(("jax", "curvine_tpu."))
+                   or k == "curvine_tpu" for k in sys.modules)

@@ -20,13 +20,19 @@ Every mutation carries
 conf's ``user`` and ``groups`` for the master's ACL checks (empty, the
 OS user and that user's groups; :80-81). Retryable errors are retried
 with the conf's ``conn_retry_max`` and ``conn_retry_base_ms``
-(:74-75). ``complete_file`` takes ``only_flush``: the writer's
+(:74-75); ``call`` takes a ``deadline`` (``rpc/deadline.py``), which
+rides each attempt's header and which the retry policy never sleeps
+past (:121-150). ``complete_file`` takes ``only_flush``: the writer's
 ``hflush`` journals its sealed blocks' commits without completing the
-file.
+file. With ``tracer`` set (the client's, ``obs/trace.py``), each call
+but METRICS_REPORT and GET_SPANS (``_UNTRACED``: telemetry about
+telemetry) is a ``meta.<code>`` span, whose context the connection
+stamps into the request (:58, :121-150); ``report_metrics`` (:510-515)
+sends counters and spans to the master (METRICS_REPORT).
 
 Left out (ROADMAP A3): the metadata lease cache and its invalidation
 pushes, the native fast metadata port (every call goes to the master's
-RPC port, which answers them all), tracing, and the other calls (locks,
+RPC port, which answers them all), and the other calls (locks,
 links)."""
 
 from __future__ import annotations
@@ -45,6 +51,9 @@ from curvine_tpu_torch.rpc.client import (Connection, ConnectionPool,
                                           RetryPolicy)
 from curvine_tpu_torch.rpc.codes import RpcCode
 from curvine_tpu_torch.rpc.frame import pack, unpack
+
+# the calls whose spans would be telemetry about telemetry
+_UNTRACED = frozenset({RpcCode.METRICS_REPORT, RpcCode.GET_SPANS})
 
 
 def _os_user() -> str:
@@ -78,6 +87,8 @@ def _os_groups(user: str) -> list[str]:
 class FsClient:
     def __init__(self, conf: ClusterConf | None = None):
         self.conf = conf or ClusterConf()
+        # the client's Tracer (set by CurvineClient): a span a call
+        self.tracer = None
         cc = self.conf.client
         self.masters = list(cc.master_addrs)
         self._active = 0
@@ -105,10 +116,11 @@ class FsClient:
     async def _conn(self) -> Connection:
         return await self.pool.get(self.masters[self._active])
 
-    async def call(self, code: RpcCode, req: dict,
-                   mutate: bool = False) -> dict:
-        """One request to the active master, retried on retryable errors;
-        NOT_LEADER and CONNECT move to the next master first."""
+    async def call(self, code: RpcCode, req: dict, mutate: bool = False,
+                   deadline=None) -> dict:
+        """One request to the active master, retried on retryable errors
+        within ``deadline`` (a ``Deadline``, or None); NOT_LEADER and
+        CONNECT move to the next master first."""
         req = dict(req)
         req.setdefault("user", self.user)
         req.setdefault("groups", self.groups)
@@ -118,7 +130,8 @@ class FsClient:
 
         async def once() -> dict:
             try:
-                rep = await (await self._conn()).call(code, data=pack(req))
+                rep = await (await self._conn()).call(
+                    code, data=pack(req), deadline=deadline)
                 return unpack(rep.data) or {}
             except err.CurvineError as e:
                 if e.code in (err.ErrorCode.NOT_LEADER,
@@ -126,7 +139,10 @@ class FsClient:
                     self._note_leader_hint(e)
                 raise
 
-        return await self.retry.run(once)
+        if self.tracer is not None and code not in _UNTRACED:
+            with self.tracer.span(f"meta.{RpcCode(code).name.lower()}"):
+                return await self.retry.run(once, deadline=deadline)
+        return await self.retry.run(once, deadline=deadline)
 
     def _note_leader_hint(self, e: err.CurvineError) -> None:
         """Adopt the member list a NOT_LEADER error carries and jump to
@@ -243,9 +259,19 @@ class FsClient:
             mutate=True)
         return rep["result"]
 
-    async def get_block_locations(self, path: str) -> FileBlocks:
-        rep = await self.call(RpcCode.GET_BLOCK_LOCATIONS, {"path": path})
+    async def get_block_locations(self, path: str,
+                                  deadline=None) -> FileBlocks:
+        rep = await self.call(RpcCode.GET_BLOCK_LOCATIONS, {"path": path},
+                              deadline=deadline)
         return FileBlocks.from_wire(rep["file_blocks"])
+
+    async def report_metrics(self, counters: dict,
+                             spans: list[dict] | None = None) -> None:
+        """Counter deltas and finished spans to the master."""
+        req: dict = {"counters": counters}
+        if spans:
+            req["spans"] = spans
+        await self.call(RpcCode.METRICS_REPORT, req)
 
     async def decommission_worker(self, worker_id: int,
                                   on: bool = True) -> int:

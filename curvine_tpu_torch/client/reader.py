@@ -103,15 +103,53 @@ order that is on this host, and skips a holder whose breaker is open
 through READ_BLOCK from the next replica, and probed again once the
 breaker lets it by.
 
+Deadlines (:258-266, :605-800, :901-947, :1048-1075): a read's budget
+is its ``deadline_ms`` argument, else the reader's ``op_deadline_ms``
+(the conf's), else none. ``read``, ``read_all``, ``pread``,
+``pread_view`` and ``read_range`` take it. Each replica attempt of
+``_readinto_remote`` checks the budget first and gets
+``remaining / replicas_left`` of it (``Deadline.sub``), so a wedged
+worker costs a share of the budget before the next replica is tried; a
+hop that runs out raises ``RpcTimeout``, which the breakers count as a
+failure, and the refresh runs only while the budget lasts. The port's
+own paths, where they part from the reference's, are marked so:
+
+- the refresh's replicas are tried as the first pass's are, each with
+  its share of the remaining budget (the reference gives each the whole
+  remainder, with no span);
+- a stripe (``_read_ec``): the cells of the intact pass are read in
+  parallel under half the remaining budget, and the degraded pass, under
+  the rest, tries the cells that failed it last (the reference gives the
+  intact pass the whole budget and tries the cells in their order: a
+  wedged cell holder, whose cell has no other replica, would spend all
+  of it);
+- the prefetch window (beyond the reference, whose segments carry no
+  budget and whose consumer waits without one, so that a wedged worker
+  stalls a windowed read for a whole ``rpc_timeout_ms``): each segment's
+  fetch gets a budget of its own, the size of the budget of the read
+  that scheduled it, and a read waits for a segment no longer than its
+  remaining budget's share for one of two tries (``Deadline.sub(2)``),
+  then reads the range itself within the rest;
+- as in the reference, the short-circuit probe (GET_BLOCK_INFO to a
+  worker on this host), the shm fetch (a side channel on this host) and
+  ``chunks`` carry no budget.
+
+Tracing (:238-242), with ``tracer`` set (the client's,
+``obs/trace.py``): ``read``, ``pread``, ``pread_view`` and
+``read_range`` are spans, and so is every replica attempt of a block
+(``read_block``) or of a stripe cell (``read_cell``): a failed replica
+is a span in error, not a gap.
+
 Left out (ROADMAP A3b): holes (a file resized past its last
 block; they raise ``NotImplementedError`` until RESIZE_FILE, ROADMAP §A
-item 4), short-circuit reads of a bdev tier's leased extents (its blocks
-are read through READ_BLOCK), deadlines and tracing."""
+item 4) and short-circuit reads of a bdev tier's leased extents (its
+blocks are read through READ_BLOCK)."""
 
 from __future__ import annotations
 
 import asyncio
 import bisect
+import contextlib
 import fcntl
 import logging
 import mmap
@@ -128,6 +166,7 @@ from curvine_tpu_torch.common.types import (ExtendedBlock, FileBlocks,
 from curvine_tpu_torch.rpc.client import ConnectionPool
 from curvine_tpu_torch.rpc.codes import RpcCode
 from curvine_tpu_torch.rpc import transport
+from curvine_tpu_torch.rpc.deadline import Deadline
 from curvine_tpu_torch.rpc.frame import pack, unpack
 from curvine_tpu_torch.worker import shm as wshm
 from curvine_tpu_torch.worker.blockfile import crc_update, supported
@@ -193,8 +232,13 @@ class FsReader:
                  pool: ConnectionPool, chunk_size: int = 4 * 1024 * 1024,
                  short_circuit: bool = True, read_ahead: int = 2,
                  counters: dict | None = None, health=None,
-                 verify: bool = True):
+                 verify: bool = True, op_deadline_ms: int = 0,
+                 tracer=None):
         self.fs = fs_client
+        # the budget of a read that names none (0: no budget)
+        self.op_deadline_ms = op_deadline_ms
+        # the client's Tracer (None: untraced)
+        self.tracer = tracer
         self.path = path
         self.blocks = file_blocks
         self.pool = pool
@@ -240,6 +284,9 @@ class FsReader:
         self.detector = ReadDetector()
         self._pf: dict[int, object] = {}
         self._pf_order: list[int] = []
+        # the budget of the read that last topped the window up, in ms
+        # (None: op_deadline_ms), which the segments it scheduled take
+        self._pf_budget_ms = None
         # the queue depth a direct-IO worker advertises, which read_range
         # fans its slices out to; 0 while the port's tiers have no direct
         # IO (TIER_FIXED pins queue_depth to 0, ROADMAP §A item 3)
@@ -249,6 +296,19 @@ class FsReader:
 
     def _count(self, key: str, n: int) -> None:
         self.counters[key] = self.counters.get(key, 0) + n
+
+    def _span(self, op: str, **attrs):
+        """A span of the client's tracer, or a no-op untraced."""
+        if self.tracer is None:
+            return contextlib.nullcontext()
+        return self.tracer.span(op, attrs=attrs or None)
+
+    def _deadline(self, deadline_ms: int | None) -> Deadline | None:
+        """A read's budget: ``deadline_ms``, else ``op_deadline_ms``,
+        else None."""
+        if deadline_ms is None:
+            deadline_ms = self.op_deadline_ms
+        return Deadline.after_ms(deadline_ms) if deadline_ms else None
 
     # ---------------- positioning ----------------
 
@@ -325,20 +385,24 @@ class FsReader:
             for a in cell["locs"])
 
     async def _read_cell(self, ec: dict, cell: dict, off: int,
-                         sink: memoryview) -> int:
+                         sink: memoryview,
+                         deadline: Deadline | None = None) -> int:
         """``len(sink)`` bytes at ``off`` of one stripe cell, read into
         ``sink`` as a block's are (``_readinto_remote``): failover over
-        its holders, the breakers, and the crc of a whole cell."""
+        its holders, the breakers, the budget, a ``read_cell`` span an
+        attempt, and the crc of a whole cell."""
         clb = LocatedBlock(
             block=ExtendedBlock(id=cell["block_id"], len=ec["cell_size"]),
             locs=[WorkerAddress.from_wire(a) for a in cell["locs"]])
         if not clb.locs:
             raise err.BlockNotFound(
                 f"cell {cell['block_id']} has no live locations")
-        return await self._readinto_remote(clb, off, sink)
+        return await self._readinto_remote(clb, off, sink, deadline,
+                                           op="read_cell")
 
     async def _read_ec(self, lb: LocatedBlock, block_off: int,
-                       out: memoryview) -> int:
+                       out: memoryview,
+                       deadline: Deadline | None = None) -> int:
         """Fill ``out`` from ``block_off`` of a striped block; returns the
         bytes filled. Data cell j holds the block's bytes [j * cell_size,
         (j + 1) * cell_size): intact, each covered cell's range lands in
@@ -354,23 +418,32 @@ class FsReader:
         spans = [(j, max(a - j * cs, 0), min(b - j * cs, cs))
                  for j in range(a // cs, (b - 1) // cs + 1)]
         cells = ec["cells"]
+        failed: set[int] = set()
         if all(self._cell_live(cells[j]) for j, _s, _e in spans):
+            # half the budget: the degraded pass is the intact one's
+            # failover, and gets the rest
+            intact = deadline.sub(2) if deadline is not None else None
             got = await asyncio.gather(
                 *(self._read_cell(ec, cells[j], s,
-                                  out[j * cs + s - a:j * cs + e - a])
+                                  out[j * cs + s - a:j * cs + e - a],
+                                  intact)
                   for j, s, e in spans), return_exceptions=True)
             for g in got:
                 if isinstance(g, BaseException) \
                         and not isinstance(g, err.CurvineError):
                     raise g
-            if all(g == e - s for g, (_j, s, e) in zip(got, spans)):
+            failed = {cells[j]["block_id"] for g, (j, s, e)
+                      in zip(got, spans) if g != e - s}
+            if not failed:
                 return n
-            # a holder died mid-read: degrade
-        await self._read_ec_degraded(ec, spans, a, out)
+            # a holder died or wedged mid-read: degrade
+        await self._read_ec_degraded(ec, spans, a, out, deadline, failed)
         return n
 
     async def _read_ec_degraded(self, ec: dict, spans: list, a: int,
-                                out: memoryview) -> None:
+                                out: memoryview,
+                                deadline: Deadline | None = None,
+                                failed=frozenset()) -> None:
         prof = eclib.ECProfile.parse(ec["profile"])
         cs = ec["cell_size"]
         cells = ec["cells"]
@@ -379,15 +452,23 @@ class FsReader:
         slots: list[np.ndarray | None] = [None] * (prof.k + prof.m)
         lost: list[int] = []
         got = 0
-        for idx, cell in enumerate(cells):
+        # the cells the intact pass failed on are tried last (a wedged
+        # holder would spend the rest of the budget again), and reported
+        # lost when k others serve
+        order = sorted(enumerate(cells),
+                       key=lambda ic: ic[1]["block_id"] in failed)
+        for idx, cell in order:
             if got >= prof.k:
-                break
+                if cell["block_id"] in failed:
+                    lost.append(cell["block_id"])
+                continue
             if not self._cell_live(cell):
                 lost.append(cell["block_id"])
                 continue
             buf = np.empty(hi - lo, dtype=np.uint8)
             try:
-                n = await self._read_cell(ec, cell, lo, memoryview(buf))
+                n = await self._read_cell(ec, cell, lo, memoryview(buf),
+                                          deadline)
             except err.CurvineError:
                 lost.append(cell["block_id"])
                 continue
@@ -741,56 +822,69 @@ class FsReader:
 
     # ---------------- reads ----------------
 
-    async def read(self, n: int = -1) -> bytearray:
+    async def read(self, n: int = -1, deadline_ms=None) -> bytearray:
         """Up to ``n`` bytes from the cursor (the rest of the file when
         negative), in one buffer each block range is read into; the
         cursor moves past them."""
         n = self.len - self.pos if n < 0 else min(n, self.len - self.pos)
-        out = await self._read_into_new(self.pos, n)
+        dl = self._deadline(deadline_ms)
+        with self._span("read", path=self.path, n=n):
+            out = await self._read_into_new(self.pos, n, dl)
         self.pos += len(out)
         return out
 
-    async def read_all(self) -> bytearray:
+    async def read_all(self, deadline_ms=None) -> bytearray:
         self.seek(0)
-        return await self.read(self.len)
+        return await self.read(self.len, deadline_ms=deadline_ms)
 
-    async def pread(self, offset: int, n: int) -> bytearray:
+    async def pread(self, offset: int, n: int,
+                    deadline_ms=None) -> bytearray:
         """``n`` bytes at ``offset``, the cursor left where it is."""
-        return await self._read_into_new(
-            offset, max(0, min(n, self.len - offset)))
+        n = max(0, min(n, self.len - offset))
+        dl = self._deadline(deadline_ms)
+        with self._span("pread", path=self.path, offset=offset, n=n):
+            return await self._read_into_new(offset, n, dl)
 
-    async def pread_view(self, offset: int, n: int) -> np.ndarray:
+    async def pread_view(self, offset: int, n: int,
+                         deadline_ms=None) -> np.ndarray:
         """``n`` bytes at ``offset`` as a uint8 array (``_alloc_out``), the
         cursor left where it is: co-located ranges land in it by preadv
         or a copy out of the mapping, remote ones by READ_BLOCK or out of
         the prefetch window when it holds them. The read feeds the
-        detector, and tops the window up."""
+        detector, and tops the window up; the segments it schedules get
+        a budget of its budget's size."""
         n = max(0, min(n, self.len - offset))
         out = self._alloc_out(n)
-        filled = await self._read_into(offset, memoryview(out),
-                                       use_prefetch=True)
+        dl = self._deadline(deadline_ms)
+        with self._span("pread_view", path=self.path, offset=offset, n=n):
+            filled = await self._read_into(offset, memoryview(out),
+                                           use_prefetch=True, deadline=dl)
         self.detector.record_read(offset, offset + filled)
-        self._prefetch_topup(offset + filled)
+        self._prefetch_topup(offset + filled, deadline_ms)
         return out[:filled]
 
-    async def read_range(self, offset: int, n: int,
-                         parallel: int = 1) -> np.ndarray:
+    async def read_range(self, offset: int, n: int, parallel: int = 1,
+                         deadline_ms=None) -> np.ndarray:
         """``n`` bytes at ``offset`` as a uint8 array, read by ``parallel``
         concurrent readers of contiguous chunk-aligned slices (each its
-        own READ_BLOCK streams over the pool's connections). A range of
-        one block served by shm is the mapping's read-only view, with no
-        copy."""
+        own READ_BLOCK streams over the pool's connections), all under
+        one budget. A range of one block served by shm is the mapping's
+        read-only view, with no copy."""
         n = max(0, min(n, self.len - offset))
         if n == 0:
             return np.empty(0, dtype=np.uint8)
-        view = await self._shm_view(offset, n)
-        if view is not None:
-            return view
-        return await self._read_range(offset, n, parallel,
-                                      self._alloc_out(n))
+        dl = self._deadline(deadline_ms)
+        with self._span("read_range", path=self.path, offset=offset, n=n,
+                        parallel=parallel):
+            view = await self._shm_view(offset, n)
+            if view is not None:
+                return view
+            return await self._read_range(offset, n, parallel,
+                                          self._alloc_out(n), dl)
 
     async def _read_range(self, offset: int, n: int, parallel: int,
-                          out: np.ndarray) -> np.ndarray:
+                          out: np.ndarray,
+                          deadline: Deadline | None = None) -> np.ndarray:
         qd = self.direct_queue_depth
         if qd > 0:
             # a direct-IO worker: fan out to keep its submission ring
@@ -802,7 +896,7 @@ class FsReader:
                 parallel = min(parallel, qd)
         if parallel <= 1 or n < 4 * self.chunk_size:
             got = await self._read_into(offset, memoryview(out),
-                                        use_prefetch=True)
+                                        use_prefetch=True, deadline=deadline)
             return out[:got]
         # contiguous slices, chunk-aligned so that no stream cuts a chunk
         per = -(-n // parallel)
@@ -810,7 +904,8 @@ class FsReader:
                   (per // self.chunk_size) * self.chunk_size or per)
         bounds = [(s, min(s + per, n)) for s in range(0, n, per)]
         got = await asyncio.gather(
-            *(self._read_into(offset + s, memoryview(out[s:e]))
+            *(self._read_into(offset + s, memoryview(out[s:e]),
+                              deadline=deadline)
               for s, e in bounds))
         # a short slice truncates the result there
         total = 0
@@ -866,11 +961,12 @@ class FsReader:
     async def _pread_bytes(self, offset: int, n: int) -> bytearray:
         return await self._read_into_new(offset, n)
 
-    async def _read_into_new(self, offset: int, n: int) -> bytearray:
+    async def _read_into_new(self, offset: int, n: int,
+                             deadline: Deadline | None = None) -> bytearray:
         out = bytearray(n)
         view = memoryview(out)
         try:
-            got = await self._read_into(offset, view)
+            got = await self._read_into(offset, view, deadline=deadline)
         finally:
             view.release()        # the bytearray cannot shrink while viewed
         if got < n:
@@ -878,7 +974,8 @@ class FsReader:
         return out
 
     async def _read_into(self, offset: int, out: memoryview, *,
-                         use_prefetch: bool = False) -> int:
+                         use_prefetch: bool = False,
+                         deadline: Deadline | None = None) -> int:
         """Fill ``out`` from ``offset``, block range by block range; each
         lands in ``out`` once: out of the prefetch window when
         ``use_prefetch`` and it holds the range, a preadv from the block
@@ -891,7 +988,7 @@ class FsReader:
         while filled < len(out):
             pos = offset + filled
             if use_prefetch:
-                got = await self._pf_read_into(pos, out[filled:])
+                got = await self._pf_read_into(pos, out[filled:], deadline)
                 if got > 0:
                     filled += got
                     continue
@@ -907,7 +1004,7 @@ class FsReader:
             seg = out[filled:filled + min(len(out) - filled,
                                           lb.block.len - block_off)]
             if self._ec_active(lb):
-                got = await self._read_ec(lb, block_off, seg)
+                got = await self._read_ec(lb, block_off, seg, deadline)
                 if got <= 0:
                     break
                 filled += got
@@ -933,9 +1030,11 @@ class FsReader:
                     self._note_sc_read(lb.block.id, got)
             if fd is None:
                 try:
-                    got = await self._readinto_remote(lb, block_off, seg)
+                    got = await self._readinto_remote(lb, block_off, seg,
+                                                      deadline)
                 except err.CurvineError as e:
-                    got = await self._refresh_and_read(pos, seg, e)
+                    got = await self._refresh_and_read(pos, seg, e,
+                                                       deadline)
                 if got <= 0:
                     break
             filled += got
@@ -953,15 +1052,18 @@ class FsReader:
         lb, block_off = located
         return lb.offset + (block_off // self.chunk_size) * self.chunk_size
 
-    def _prefetch_topup(self, from_off: int) -> None:
+    def _prefetch_topup(self, from_off: int,
+                        deadline_ms: int | None = None) -> None:
         """While the stream is sequential, keep the next ``read_ahead``
         segments from ``from_off`` in flight, and drop the oldest past
         2·``read_ahead`` + 2. Only remote blocks: a co-located block's
         read is one preadv or a copy out of its mapping, which a prefetch
-        would only copy once more."""
+        would only copy once more. Each segment's fetch gets a budget of
+        ``deadline_ms`` (as a read's: ``_deadline``), from its start."""
         if not self.detector.enabled or not self.detector.sequential \
                 or self.read_ahead <= 0:
             return
+        self._pf_budget_ms = deadline_ms
         off = from_off
         scheduled = 0
         while scheduled < self.read_ahead and off < self.len:
@@ -992,18 +1094,24 @@ class FsReader:
 
     async def _fetch_seg(self, s: int, seg_len: int) -> np.ndarray:
         """One segment read by READ_BLOCK into a buffer of the registered
-        pool (consumed by a copy, then given back)."""
+        pool (consumed by a copy, then given back), within a budget of
+        the scheduling read's size from its start."""
+        deadline = self._deadline(self._pf_budget_ms)
         located = self._locate(s)
         if located is None:
             raise err.BlockNotFound(f"prefetch segment at {s}")
         lb, block_off = located
         buf = self._recv_pool.acquire(seg_len)
-        got = await self._readinto_remote(lb, block_off, memoryview(buf))
+        got = await self._readinto_remote(lb, block_off, memoryview(buf),
+                                          deadline)
         return buf[:got]
 
-    async def _pf_read_into(self, off: int, out: memoryview) -> int:
+    async def _pf_read_into(self, off: int, out: memoryview,
+                            deadline: Deadline | None = None) -> int:
         """A read at ``off`` served out of the prefetch window; 0 when the
-        window does not hold it (the caller reads it directly)."""
+        window does not hold it, or its segment is not in within half the
+        read's remaining ``deadline`` (the caller reads it directly, within
+        the other half)."""
         if not self._pf:
             return 0
         s = self._seg_start(off)
@@ -1012,7 +1120,13 @@ class FsReader:
             return 0
         if isinstance(ent, asyncio.Task):
             try:
-                buf = await ent
+                if deadline is None:
+                    buf = await ent
+                else:
+                    buf = await asyncio.wait_for(
+                        asyncio.shield(ent), deadline.sub(2).remaining())
+            except asyncio.TimeoutError:
+                return 0                    # left in flight for later
             except asyncio.CancelledError:
                 if asyncio.current_task().cancelling():
                     raise                   # the caller's own cancel
@@ -1040,24 +1154,35 @@ class FsReader:
         return n
 
     async def _readinto_remote(self, lb: LocatedBlock, block_off: int,
-                               sink: memoryview) -> int:
+                               sink: memoryview,
+                               deadline: Deadline | None = None,
+                               op: str = "read_block") -> int:
         """READ_BLOCK of ``len(sink)`` bytes at ``block_off`` of the block,
         streamed in ``chunk_size`` frames straight into ``sink``
         (``Connection.call_readinto``), from each replica in turn, local
         first; a whole block is held to the crc on the EOF frame
-        (:905-950). Each attempt fills ``sink`` from its start and
-        reports its outcome to the breakers."""
+        (:905-950). Each attempt checks ``deadline`` first and gets its
+        share of it (``remaining / replicas_left``), is an ``op`` span,
+        fills ``sink`` from its start and reports its outcome to the
+        breakers."""
+        locs = self._failover_locs(lb)
         last: Exception | None = None
-        for loc in self._failover_locs(lb):
+        for i, loc in enumerate(locs):
             addr = self._addr(loc)
+            hop = None
+            if deadline is not None:
+                deadline.check(f"read block {lb.block.id}")
+                hop = deadline.sub(len(locs) - i)
             try:
                 eof: dict = {}
-                conn = await self.pool.get(addr)
-                got = await conn.call_readinto(
-                    RpcCode.READ_BLOCK, sink, header={
-                        "block_id": lb.block.id, "offset": block_off,
-                        "len": len(sink), "chunk_size": self.chunk_size},
-                    eof_header=eof)
+                with self._span(op, addr=addr, block=lb.block.id):
+                    conn = await self.pool.get(addr)
+                    got = await conn.call_readinto(
+                        RpcCode.READ_BLOCK, sink, header={
+                            "block_id": lb.block.id, "offset": block_off,
+                            "len": len(sink),
+                            "chunk_size": self.chunk_size},
+                        eof_header=eof, deadline=hop)
                 if self.verify and block_off == 0 \
                         and got == lb.block.len \
                         and eof.get("block_crc32") is not None:
@@ -1081,12 +1206,17 @@ class FsReader:
         raise last or err.BlockNotFound(f"block {lb.block.id} unreadable")
 
     async def _refresh_and_read(self, pos: int, seg: memoryview,
-                                cause: err.CurvineError) -> int:
+                                cause: err.CurvineError,
+                                deadline: Deadline | None = None) -> int:
         """Every replica of the range at ``pos`` failed with ``cause``:
         the file's locations asked for once more, and the range read
         from the refreshed replicas; ``cause`` (or the refreshed
-        replicas' last error) is raised when that fails too."""
-        self.blocks = await self.fs.get_block_locations(self.path)
+        replicas' last error) is raised when that fails too, or at once
+        when the budget is spent."""
+        if deadline is not None and deadline.expired:
+            raise cause
+        self.blocks = await self.fs.get_block_locations(self.path,
+                                                        deadline=deadline)
         self._block_offs = [lb.offset for lb in self.blocks.block_locs]
         self._last_block_idx = 0
         located = self._locate(pos)
@@ -1095,7 +1225,7 @@ class FsReader:
         lb, block_off = located
         try:
             return await self._readinto_remote(
-                lb, block_off, seg[:lb.block.len - block_off])
+                lb, block_off, seg[:lb.block.len - block_off], deadline)
         except err.CurvineError as e:
             raise e from cause
 

@@ -26,6 +26,24 @@ that went over WRITE_BLOCK with the short circuit on),
 ``write.block_replay_bytes`` (bytes replayed into re-placed blocks) and
 ``advise.rpcs``.
 
+The observability plane (:48-52, :73-122): the client's ``tracer``
+(``obs/trace.py``, from the ``[obs]`` table) is shared with ``meta``
+and with every reader and writer it opens; ``open``, ``write_all``
+(``write``) and ``read_all`` (``read``) are spans, and the UFS legs
+``ufs_read`` and ``ufs_load`` (:177, :196, :272, :284, :363). Each
+reader gets the conf's ``op_deadline_ms``. ``flush_metrics`` sends the
+counters' deltas since the last flush (from a snapshot: increments that
+land during the call wait for the next) and the finished spans to the
+master (METRICS_REPORT, which files them as ``client.<name>``); the
+spans go back into the ring when the master is away. A flush runs every
+5 s from the first ``create`` or ``open`` (a task started then, since a
+client may be built outside a loop), and at ``close``. Beyond the
+reference, flushes run one at a time, and ``close`` lets a periodic
+report in flight end before its own: two flushes at once, or a report
+cut off after the master took it, would count a delta twice.
+``get_trace`` flushes, then asks the master for a trace's spans from
+itself and every worker (GET_SPANS with ``collect``).
+
 ``read_all`` reads a cached file (complete, every block located) through
 the cache; any other file under a mount comes from the UFS through it,
 and is cached when the mount's ``auto_cache`` is set. A file under no
@@ -41,11 +59,13 @@ scanner is not ported, ``MASTER_FIXED``), and the mount's ``replicas``,
 Left out (ROADMAP A3e): the ``FallbackReader`` (a cached read that goes
 on from the UFS after every replica is lost mid-stream; ``unified_open``
 returns the cache's reader), ``write_through`` (``WriteType.FS``), the
-metadata cache, tracing, the metrics flush to the master, tenants,
-appends, batched small-file writes and ``content_summary``."""
+metadata cache, tenants, appends, batched small-file writes and
+``content_summary``."""
 
 from __future__ import annotations
 
+import asyncio
+import contextvars
 import logging
 
 from curvine_tpu_torch.client.fs_client import FsClient
@@ -58,7 +78,9 @@ from curvine_tpu_torch.common.conf import ClusterConf
 from curvine_tpu_torch.common.types import (FileBlocks, StoragePolicy,
                                             StorageState, StorageType,
                                             TtlAction)
+from curvine_tpu_torch.obs.trace import Tracer
 from curvine_tpu_torch.rpc.client import ConnectionPool
+from curvine_tpu_torch.rpc.codes import RpcCode
 from curvine_tpu_torch.ufs.base import create_ufs
 
 log = logging.getLogger(__name__)
@@ -104,10 +126,87 @@ class CurvineClient:
                 fail_threshold=cc.breaker_fail_threshold,
                 open_s=cc.breaker_open_ms / 1000.0,
                 decay_s=cc.breaker_decay_ms / 1000.0)
+        # the tracing front end, shared with meta, readers and writers
+        self.tracer = Tracer.from_conf("client", self.conf.obs)
+        self.meta.tracer = self.tracer
+        # the counters as the master last took them, and the periodic
+        # flush's task (started by the first create or open)
+        self._reported: dict[str, int] = {}
+        self._metrics_task: asyncio.Task | None = None
+        # the periodic flush's report in flight, and the lock that puts
+        # flushes in turn: two at once would both send one delta
+        self._flushing: asyncio.Future | None = None
+        self._flush_lock = asyncio.Lock()
 
     async def close(self) -> None:
+        if self._metrics_task is not None:
+            self._metrics_task.cancel()
+            await asyncio.gather(self._metrics_task, return_exceptions=True)
+            self._metrics_task = None
+        if self._flushing is not None:
+            await asyncio.gather(self._flushing, return_exceptions=True)
+        try:
+            await self.flush_metrics()
+        except Exception as e:  # noqa: BLE001 — the master may be away
+            log.debug("metrics flush at close failed: %s", e)
         await self.meta.close()
         await self.pool.close()
+
+    def _ensure_metrics_task(self) -> None:
+        """The flush every 5 s, so that a long job's counters reach the
+        master as they grow; started from an async entry point, in a
+        context of its own: a flush belongs to no caller's trace (the
+        reference's task inherits the trace of the ``open`` that started
+        it, and its reports land in that trace long after it ended)."""
+        if self._metrics_task is not None:
+            return
+
+        async def loop():
+            while True:
+                await asyncio.sleep(5.0)
+                # shielded: a close that cancels the loop waits for the
+                # report in flight rather than cutting it off, which could
+                # leave the master holding a delta the client resends
+                self._flushing = asyncio.ensure_future(self.flush_metrics())
+                try:
+                    await asyncio.shield(self._flushing)
+                except Exception as e:  # noqa: BLE001 — retried next time
+                    log.debug("metrics flush failed: %s", e)
+
+        self._metrics_task = asyncio.get_running_loop().create_task(
+            loop(), context=contextvars.Context())
+
+    async def flush_metrics(self) -> None:
+        """The counters' deltas since the last flush, and the finished
+        spans, to the master; the spans go back into the ring on a
+        failure, for the next flush. Flushes run one at a time."""
+        async with self._flush_lock:
+            await self._flush()
+
+    async def _flush(self) -> None:
+        snap = dict(self.counters)
+        delta = {k: v - self._reported.get(k, 0) for k, v in snap.items()
+                 if v != self._reported.get(k, 0)}
+        spans = self.tracer.drain()
+        if delta or spans:
+            try:
+                await self.meta.report_metrics(delta, spans=spans)
+            except BaseException:
+                self.tracer.ingest(spans)
+                raise
+            self._reported = snap
+
+    async def get_trace(self, trace_id: str) -> list[dict]:
+        """Every collected span of one trace: this client's finished
+        spans flushed to the master, then the master's merge of its own
+        store and every worker's (GET_SPANS with ``collect``)."""
+        try:
+            await self.flush_metrics()
+        except err.CurvineError:
+            pass                        # the collect may still answer
+        rep = await self.meta.call(RpcCode.GET_SPANS,
+                                   {"trace_id": trace_id, "collect": True})
+        return rep.get("spans", [])
 
     async def __aenter__(self) -> "CurvineClient":
         return self
@@ -127,6 +226,7 @@ class CurvineClient:
         near the conf's ``worker.ici_coords``."""
         cc = self.conf.client
         block_size = block_size or cc.block_size
+        self._ensure_metrics_task()
         await self.meta.create_file(path, overwrite=overwrite,
                                     replicas=replicas, block_size=block_size,
                                     storage_policy=storage_policy)
@@ -140,10 +240,14 @@ class CurvineClient:
                         counters=self.counters, health=self.health,
                         ici_coords=list(self.conf.worker.ici_coords) or None,
                         replay_buffer=cc.write_replay_buffer,
-                        min_replicas=cc.write_min_replicas)
+                        min_replicas=cc.write_min_replicas,
+                        tracer=self.tracer)
 
     async def open(self, path: str) -> FsReader:
-        return self._reader(path, await self.meta.get_block_locations(path))
+        self._ensure_metrics_task()
+        with self.tracer.span("open", attrs={"path": path}):
+            fb = await self.meta.get_block_locations(path)
+        return self._reader(path, fb)
 
     def _reader(self, path: str, fb) -> FsReader:
         cc = self.conf.client
@@ -152,38 +256,49 @@ class CurvineClient:
                         short_circuit=cc.short_circuit,
                         read_ahead=cc.read_ahead_chunks,
                         counters=self.counters,
-                        health=self.health, verify=cc.read_verify)
+                        health=self.health, verify=cc.read_verify,
+                        op_deadline_ms=cc.op_deadline_ms,
+                        tracer=self.tracer)
 
     async def write_all(self, path: str, data, **kw) -> None:
-        async with await self.create(path, overwrite=True, **kw) as w:
-            await w.write(data)
+        # one span over the create, the uploads and the completion: every
+        # call under it joins the trace through the ambient context
+        with self.tracer.span("write", attrs={"path": path,
+                                              "bytes": len(data)}):
+            async with await self.create(path, overwrite=True, **kw) as w:
+                await w.write(data)
 
     async def read_all(self, path: str) -> bytes:
         """The whole file: from the cache when it is cached there, else
         through its mount from the UFS."""
-        try:
-            fb = await self.meta.get_block_locations(path)
-        except err.FileNotFound as e:
-            why = e
-        else:
-            why = _uncached(path, fb)
-            if why is None:
-                r = self._reader(path, fb)
-                try:
-                    return await r.read_all()
-                finally:
-                    await r.close()
-        mount = await self.meta.get_mount_info(path)
-        if mount is None:
-            raise why
-        mount, ufs, uri = self._ufs_of(mount, path)
-        data = await ufs.read_all(uri)
-        if mount.auto_cache:
+        with self.tracer.span("read", attrs={"path": path}) as sp:
             try:
-                await self.write_all(path, data)
-            except err.CurvineError as e:
-                log.debug("auto-cache of %s failed: %s", path, e)
-        return data
+                fb = await self.meta.get_block_locations(path)
+            except err.FileNotFound as e:
+                why = e
+            else:
+                why = _uncached(path, fb)
+                if why is None:
+                    r = self._reader(path, fb)
+                    try:
+                        return await r.read_all()
+                    finally:
+                        await r.close()
+            # the UFS leg, a span of its own: a miss's trace shows where
+            # its time went
+            with self.tracer.span("ufs_read", attrs={"path": path}):
+                mount = await self.meta.get_mount_info(path)
+                if mount is None:
+                    raise why
+                mount, ufs, uri = self._ufs_of(mount, path)
+                data = await ufs.read_all(uri)
+            sp.set_attr("ufs_fallback", True)
+            if mount.auto_cache:
+                try:
+                    await self.write_all(path, data)
+                except err.CurvineError as e:
+                    log.debug("auto-cache of %s failed: %s", path, e)
+            return data
 
     async def advise(self, path: str, cursor: int = 0, window: int = 8,
                      epoch: int = 0, seed: int = 0) -> dict:
@@ -227,6 +342,10 @@ class CurvineClient:
                             replicas: int | None = None) -> int:
         """Warm one file, UFS to cache (the worker side of a load task),
         under the mount's caching policy; returns the bytes loaded."""
+        with self.tracer.span("ufs_load", attrs={"path": path}):
+            return await self._load_from_ufs(path, replicas)
+
+    async def _load_from_ufs(self, path: str, replicas: int | None) -> int:
         mount, ufs, uri = await self._ufs_for(path)
         st = await ufs.stat(uri)
         if st is None:

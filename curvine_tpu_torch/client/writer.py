@@ -60,11 +60,19 @@ mid-block and every refused or acked open, with the worker's id, and
 ADD_BLOCK excludes the workers behind open breakers beside this
 stream's own failures; when that exclusion leaves placement nothing
 (NO_AVAILABLE_WORKER) the request goes again without it: an open
-breaker beats no worker. Left out: tracing."""
+breaker beats no worker.
+
+Tracing (:52-57, :111-130, :444, :647), with ``tracer`` set (the
+client's, ``obs/trace.py``): each WRITE_BLOCK open is a
+``write_attempt`` span (a refused open leaves a span in error, not a
+gap), a leg lost mid-block leaves one more ``write_attempt`` span in
+error, and ``close``'s seal and completion are a ``write_commit``
+span; the uploads' requests join whatever trace the caller opened."""
 
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import logging
 import random
 
@@ -93,7 +101,9 @@ class FsWriter:
                  short_circuit: bool = True, counters: dict | None = None,
                  ici_coords: list[int] | None = None,
                  replay_buffer: bool = True, min_replicas: int = 1,
-                 health=None):
+                 health=None, tracer=None):
+        # the client's Tracer (None: untraced)
+        self.tracer = tracer
         self.fs = fs_client
         self.path = path
         self.pool = pool
@@ -140,11 +150,22 @@ class FsWriter:
     def _count(self, key: str, n: int = 1) -> None:
         self.counters[key] = self.counters.get(key, 0) + n
 
+    def _span(self, op: str, **attrs):
+        """A span of the client's tracer, or a no-op untraced."""
+        if self.tracer is None:
+            return contextlib.nullcontext()
+        return self.tracer.span(op, attrs=attrs or None)
+
     def _note_leg_failed(self, loc, worker_id: int, cause) -> None:
         if self.health is not None:
             self.health.fail(self._addr(loc), worker_id=worker_id)
         self._failed_workers.add(worker_id)
         self._count("write.replica_failover")
+        if self.tracer is not None:
+            # the lost leg is an attempt in error in the trace, not a gap
+            bid = self._block.block.id if self._block is not None else 0
+            self.tracer.span("write_attempt", attrs={
+                "addr": self._addr(loc), "block": bid}).error(cause).finish()
         log.warning("write %s: replica %s (worker %d) lost mid-block: %s",
                     self.path, self._addr(loc), worker_id, cause)
 
@@ -393,11 +414,15 @@ class FsWriter:
         for loc in locs:
             addr = self._addr(loc)
             try:
-                conn = await self.pool.get(addr)
-                up = await conn.open_upload(RpcCode.WRITE_BLOCK, header={
-                    "block_id": self._block.block.id,
-                    "storage_type": int(self.storage_type),
-                    "algo": self._crc_algo, "len_hint": self.block_size})
+                # a span an attempt: a refused open is a span in error
+                with self._span("write_attempt", addr=addr,
+                                block=self._block.block.id):
+                    conn = await self.pool.get(addr)
+                    up = await conn.open_upload(RpcCode.WRITE_BLOCK, header={
+                        "block_id": self._block.block.id,
+                        "storage_type": int(self.storage_type),
+                        "algo": self._crc_algo,
+                        "len_hint": self.block_size})
             except err.CurvineError:
                 # the next placement leaves this worker out, and so do
                 # the next files' once its breaker opens
@@ -579,10 +604,11 @@ class FsWriter:
     async def close(self) -> None:
         if self._closed:
             return
-        await self._seal_block()
-        commits, self._commits = self._commits, []
-        await self.fs.complete_file(self.path, self.pos,
-                                    commit_blocks=commits)
+        with self._span("write_commit", path=self.path, bytes=self.pos):
+            await self._seal_block()
+            commits, self._commits = self._commits, []
+            await self.fs.complete_file(self.path, self.pos,
+                                        commit_blocks=commits)
         self._closed = True
         await asyncio.gather(*self._reports, return_exceptions=True)
 

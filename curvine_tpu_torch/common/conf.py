@@ -4,8 +4,8 @@ Own copy of the fields of ``curvine_tpu/common/conf.py:23-306``
 (``MasterConf``, ``TierConf``, ``WorkerConf``, ``ClientConf``) that the
 port's master, cache client and worker read, with the same names and
 defaults, inside a ``ClusterConf`` that holds them; ``ClusterConf.load``
-reads the ``[master]``, ``[client]``, ``[worker]``, ``[ec]`` and
-``[rpc]`` tables of the cluster's TOML file, ``[[worker.tiers]]``
+reads the ``[master]``, ``[client]``, ``[worker]``, ``[ec]``, ``[rpc]``
+and ``[obs]`` tables of the cluster's TOML file, ``[[worker.tiers]]``
 included (other tables and unknown keys are ignored, so the cluster's
 own file loads as is).
 
@@ -51,7 +51,9 @@ caller), and the block keeps streaming on its surviving legs while at
 least ``write_min_replicas`` remain; and the per-worker circuit
 breakers of ``client/health.py`` (``breaker_enabled``, on by default as
 in the reference, ``breaker_fail_threshold``, ``breaker_open_ms`` and
-``breaker_decay_ms``, :281-290).
+``breaker_decay_ms``, :281-290); and the reader's deadline,
+``op_deadline_ms`` (:275-280; 0, the default, is none), the budget of
+one read, which its hops to a block's replicas share.
 The worker's fields that name a branch the port's worker does not have
 are constants too (``WORKER_FIXED``, ``TIER_FIXED``, ``QOS_FIXED``): the
 bdev layout and a tier's direct-IO queue depth, the direct-IO engine,
@@ -86,10 +88,17 @@ The client's read-ahead (:247-252) is the reference's
 read-ahead); its sequential-read detector's keys,
 ``enable_smart_prefetch`` and ``sequential_read_threshold``, are
 constants (``CLIENT_FIXED``) at the reference's defaults, on and 3.
-Left out: the fuse, gateway and obs sections, the worker's scrub and
-web-server fields, the client's deadline, meta-cache, tracing, tenant
-and prefetch-window fields, the CLI's ``read_parallel`` and
-``large_file_size``, and the ``CURVINE_*`` environment overrides."""
+The ``[obs]`` table is the reference's ``ObsConf`` (:331-345), the
+tracing plane's (``obs/trace.py``). Its one field is ``enabled`` (on).
+Its other keys are constants (``OBS_FIXED``) at the reference's
+defaults, which are the tracer's own: ``trace_sample_rate`` (0.01),
+``slow_op_ms`` (1,000), ``span_store_size`` (8,192) and
+``trace_collect_timeout_ms`` (2,000); a file that sets one of them to
+another value is refused.
+Left out: the fuse and gateway sections, the worker's scrub and
+web-server fields, the client's meta-cache, tenant and prefetch-window
+fields, the CLI's ``read_parallel`` and ``large_file_size``, and the
+``CURVINE_*`` environment overrides."""
 
 from __future__ import annotations
 
@@ -136,6 +145,10 @@ RING_FIXED = {"recv_ring": False, "recv_ring_min": 256 * 1024}
 # the reader's sequential-read detector, at the reference's defaults
 CLIENT_FIXED = {"enable_smart_prefetch": True,
                 "sequential_read_threshold": 3}
+# the tracing plane's keys nothing sets, at the reference's defaults
+# (the constants of obs/trace.py)
+OBS_FIXED = {"trace_sample_rate": 0.01, "slow_op_ms": 1_000,
+             "span_store_size": 8192, "trace_collect_timeout_ms": 2_000}
 
 
 @dataclass
@@ -275,6 +288,11 @@ class ClientConf:
     breaker_fail_threshold: int = 3
     breaker_open_ms: int = 5_000
     breaker_decay_ms: int = 30_000
+    # the budget of one read (rpc/deadline.py), carried in each request's
+    # header: a hop waits at most the remaining budget over the replicas
+    # left to try, so a wedged worker costs a share of it, not a whole
+    # rpc_timeout_ms, before the read fails over; 0 is no budget
+    op_deadline_ms: int = 0
 
 
 def _check(path: str, section: str, table: dict, fixed: dict,
@@ -314,17 +332,26 @@ class ECConf:
 
 
 @dataclass
+class ObsConf:
+    """The tracing plane's switch (``obs/trace.py``)."""
+
+    # off: every span is a no-op
+    enabled: bool = True
+
+
+@dataclass
 class ClusterConf:
     master: MasterConf = field(default_factory=MasterConf)
     client: ClientConf = field(default_factory=ClientConf)
     worker: WorkerConf = field(default_factory=WorkerConf)
     ec: ECConf = field(default_factory=ECConf)
     rpc: RpcConf = field(default_factory=RpcConf)
+    obs: ObsConf = field(default_factory=ObsConf)
 
     @staticmethod
     def load(path: str) -> "ClusterConf":
-        """The ``[master]``, ``[client]``, ``[worker]``, ``[ec]`` and
-        ``[rpc]`` tables of the TOML file at ``path``."""
+        """The ``[master]``, ``[client]``, ``[worker]``, ``[ec]``,
+        ``[rpc]`` and ``[obs]`` tables of the TOML file at ``path``."""
         with open(path, "rb") as f:
             data = tomllib.load(f)
         conf = ClusterConf()
@@ -354,6 +381,9 @@ class ClusterConf:
         _check(path, "rpc", rpc, RING_FIXED,
                "transport (the receive ring waits for ROADMAP §A item 3)")
         _apply(conf.rpc, rpc)
+        obs = data.get("obs") or {}
+        _check(path, "obs", obs, OBS_FIXED, "tracing")
+        _apply(conf.obs, obs)
         worker = data.get("worker") or {}
         item = "worker (ROADMAP A3c)"
         _check(path, "worker", worker, WORKER_FIXED, item)

@@ -33,18 +33,11 @@ import json
 import logging
 import os
 import signal
-import sys
 import time
 
+from curvine_tpu_torch import jax_free
 from curvine_tpu_torch.common.conf import ClusterConf
 from curvine_tpu_torch.master.server import MasterServer
-
-
-def jax_free() -> bool:
-    """No module named ``jax*`` (``jaxlib`` too), ``curvine_tpu`` or
-    ``curvine_tpu.*`` is loaded."""
-    return not any(k.startswith(("jax", "curvine_tpu."))
-                   or k == "curvine_tpu" for k in sys.modules)
 
 
 def store_stats(master: MasterServer) -> dict:

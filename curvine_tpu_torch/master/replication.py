@@ -58,12 +58,15 @@ The verdicts ``_reconstruct`` and ``_ec_scan`` read are the ones the
 master has noted (``note_verdicts``); the port's workers run no scrub,
 so nothing sends them one yet. Under raft, ``run(leader_gate)`` gates
 the queue and the scan on leadership (:163-198): a follower neither
-dispatches a queued block nor scans. Left out: the trace each dispatch
-opens."""
+dispatches a queued block nor scans. With ``tracer`` set (the master's),
+each dispatch roots a trace, ``replicate_block`` or ``reconstruct_cell``
+(:382, :489), whose context rides the submit's header: the
+destination's span, and its pull from the source, join it."""
 
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import logging
 
 from curvine_tpu_torch.common import errors as err
@@ -81,6 +84,8 @@ class ReplicationManager:
     def __init__(self, fs, scan_interval_s: float = 5.0,
                  pull_budget_ms: int = 20_000, metrics=None):
         self._leader_gate = None
+        # the master's Tracer (obs/trace.py): each dispatch roots a trace
+        self.tracer = None
         self.fs = fs
         self.metrics = metrics
         self.scan_interval_s = scan_interval_s
@@ -104,6 +109,13 @@ class ReplicationManager:
         self._hbm_blocks: dict[int, set[int]] = {}
         # block_id -> "mismatch" | "truncated", from worker reports
         self._verdicts: dict[int, str] = {}
+
+    def _root(self, op: str, block_id: int, dst):
+        """A dispatch's root span (a no-op without a tracer)."""
+        if self.tracer is None:
+            return contextlib.nullcontext()
+        return self.tracer.start_trace(
+            op, attrs={"block_id": block_id, "dst": dst.address.worker_id})
 
     def _inc(self, name: str, v: int = 1) -> None:
         if self.metrics is not None:
@@ -375,16 +387,17 @@ class ReplicationManager:
             self._inc("replication.ici_hinted")
         self._inflight.add(block_id)
         try:
-            conn = await self.pool.get(
-                f"{dst.address.ip_addr or dst.address.hostname}:"
-                f"{dst.address.rpc_port}")
-            job = {"block_id": block_id, "block_len": meta.len,
-                   "source": src.address.to_wire()}
-            if ici_hint is not None:
-                job["ici"] = ici_hint
-            await conn.call(
-                RpcCode.SUBMIT_BLOCK_REPLICATION_JOB, data=pack(job),
-                deadline=Deadline.after_ms(self.pull_budget_ms))
+            with self._root("replicate_block", block_id, dst):
+                conn = await self.pool.get(
+                    f"{dst.address.ip_addr or dst.address.hostname}:"
+                    f"{dst.address.rpc_port}")
+                job = {"block_id": block_id, "block_len": meta.len,
+                       "source": src.address.to_wire()}
+                if ici_hint is not None:
+                    job["ici"] = ici_hint
+                await conn.call(
+                    RpcCode.SUBMIT_BLOCK_REPLICATION_JOB, data=pack(job),
+                    deadline=Deadline.after_ms(self.pull_budget_ms))
         except err.CurvineError as e:
             log.warning("replication submit for block %d to worker %d "
                         "failed: %s", block_id, dst.address.worker_id, e)
@@ -460,18 +473,19 @@ class ReplicationManager:
                 return False
         self._inflight.add(cell_id)
         try:
-            conn = await self.pool.get(
-                f"{dst.address.ip_addr or dst.address.hostname}:"
-                f"{dst.address.rpc_port}")
-            await conn.call(
-                RpcCode.SUBMIT_BLOCK_REPLICATION_JOB, data=pack({
-                    "block_id": cell_id,
-                    "block_len": stripe["cell_size"],
-                    "ec": {"cell_index": cell_index,
-                           "profile": stripe["profile"],
-                           "cell_size": stripe["cell_size"],
-                           "sources": sources}}),
-                deadline=Deadline.after_ms(self.pull_budget_ms))
+            with self._root("reconstruct_cell", cell_id, dst):
+                conn = await self.pool.get(
+                    f"{dst.address.ip_addr or dst.address.hostname}:"
+                    f"{dst.address.rpc_port}")
+                await conn.call(
+                    RpcCode.SUBMIT_BLOCK_REPLICATION_JOB, data=pack({
+                        "block_id": cell_id,
+                        "block_len": stripe["cell_size"],
+                        "ec": {"cell_index": cell_index,
+                               "profile": stripe["profile"],
+                               "cell_size": stripe["cell_size"],
+                               "sources": sources}}),
+                    deadline=Deadline.after_ms(self.pull_budget_ms))
         except err.CurvineError as e:
             log.warning("rebuild submit for cell %d to worker %d failed: "
                         "%s", cell_id, dst.address.worker_id, e)

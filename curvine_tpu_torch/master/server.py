@@ -78,17 +78,29 @@ mutation: its answer comes once the config entry commits) and
 RAFT_TRANSFER (:403-410, :971-987) answer UNSUPPORTED on a master
 without raft.
 
-Every request but a worker's must come from the superuser
+Tracing (:133-149, :1066-1115): the master's ``Tracer``
+(``obs/trace.py``, from the ``[obs]`` table) is its RPC server's
+``obs`` and the replication manager's, which roots a trace at each
+dispatch. METRICS_REPORT takes a client's counter deltas into
+``metrics`` as ``client.<name>`` (the ``--metrics-out`` dump's counters
+carry them) and its finished spans into the store; GET_SPANS answers
+the store's spans of one trace, and with ``collect`` merges every
+serving worker's (GET_SPANS to each, within
+``obs/trace.py::COLLECT_TIMEOUT_MS``: ``collect_trace``). Neither
+checks the caller, as in the reference.
+
+Every other request but a worker's must come from the superuser
 (``acl.SuperuserGate``). Every other code the reference's master
 registers (:340-410, ``rpc/codes.py::MASTER_REFUSED``) is answered
 UNSUPPORTED by name: locks, quotas, shards, batches other
-than META_BATCH, links, appends, metrics reports, spans and health. Read leases and the fast metadata port are
-not served: a read's reply carries no ``lease`` token and
+than META_BATCH, links, appends and health. Read leases and the fast
+metadata port are not served: a read's reply carries no ``lease`` token and
 ``master_info`` no ``fast_addr``, so a client caches nothing (ROADMAP
 A3d)."""
 
 from __future__ import annotations
 
+import asyncio
 import inspect
 import logging
 
@@ -107,6 +119,8 @@ from curvine_tpu_torch.master.mount import MountManager
 from curvine_tpu_torch.master.replication import ReplicationManager
 from curvine_tpu_torch.master.retry_cache import RetryCache
 from curvine_tpu_torch.master.store import KvMetaStore
+from curvine_tpu_torch.obs.trace import COLLECT_TIMEOUT_MS, Tracer
+from curvine_tpu_torch.rpc.client import ConnectionPool
 from curvine_tpu_torch.rpc.codes import MASTER_REFUSED, RpcCode
 from curvine_tpu_torch.rpc.frame import Message, pack, unpack
 from curvine_tpu_torch.rpc.server import RpcServer, ServerConn
@@ -150,6 +164,16 @@ class MasterServer:
         self.rpc = RpcServer(mc.hostname, mc.rpc_port, "master",
                              rpc_conf=self.conf.rpc)
         self.rpc.metrics = self.metrics
+        # a server span per dispatch; the store also holds the spans the
+        # clients push, so one GET_SPANS collect sees both sides
+        self.tracer = Tracer.from_conf("master", self.conf.obs,
+                                       metrics=self.metrics)
+        self.rpc.obs = self.tracer
+        self.replication.tracer = self.tracer
+        # the collect's GET_SPANS to the workers, each within its timeout
+        self._obs_pool = ConnectionPool(
+            size=1, timeout_ms=COLLECT_TIMEOUT_MS,
+            rpc_conf=self.conf.rpc)
         self.executor = ScheduledExecutor("master")
         # worker_id -> its last heartbeat's byte counters
         self._worker_counters: dict[int, dict] = {}
@@ -229,6 +253,7 @@ class MasterServer:
             await self.raft.stop()
         await self.executor.stop()
         await self.replication.close()
+        await self._obs_pool.close()
         await self.jobs.close()
         await self.rpc.stop()
         try:
@@ -281,6 +306,8 @@ class MasterServer:
         r(C.RAFT_MEMBER_CHANGE, self._h(self._raft_member_change,
                                         mutate=True))
         r(C.RAFT_TRANSFER, self._h(self._raft_transfer))
+        r(C.METRICS_REPORT, self._h(self._metrics_report))
+        r(C.GET_SPANS, self._h(self._get_spans))
         for code in MASTER_REFUSED:
             r(code, self._not_ported)
 
@@ -643,6 +670,55 @@ class MasterServer:
         self.acl.check(q)
         self.jobs.cancel(q["job_id"])
         return {}
+
+    # --- the observability plane ---
+    def _metrics_report(self, q):
+        """A client's counter deltas, summed into this master's registry
+        as ``client.<name>``, and its finished spans, kept in the store
+        so that a trace's assembly sees the client's side."""
+        for name, value in (q.get("counters") or {}).items():
+            self.metrics.inc(f"client.{name}", value)
+        spans = q.get("spans")
+        if spans:
+            self.tracer.ingest(spans)
+        return {}
+
+    def _get_spans(self, q):
+        """One trace's spans in this master's store; with ``collect`` the
+        serving workers' too (``collect_trace``)."""
+        tid = str(q.get("trace_id", ""))
+        if q.get("collect"):
+            return self.collect_trace(tid)
+        return {"spans": self.tracer.spans_for(tid)}
+
+    async def collect_trace(self, trace_id: str) -> dict:
+        """This master's spans of a trace (the clients' pushed ones
+        among them) and every serving worker's, by GET_SPANS to each; a
+        slow or dead worker costs the collect's timeout, never the
+        answer."""
+        spans = list(self.tracer.spans_for(trace_id))
+        timeout = COLLECT_TIMEOUT_MS / 1000.0
+        payload = pack({"trace_id": trace_id})
+
+        async def fetch(w):
+            a = w.address
+            conn = await self._obs_pool.get(
+                f"{a.ip_addr or a.hostname}:{a.rpc_port}")
+            rep = await conn.call(RpcCode.GET_SPANS, data=payload)
+            return (unpack(rep.data) or {}).get("spans", [])
+
+        workers = self.fs.workers.serving_workers()
+        if workers:
+            results = await asyncio.wait_for(
+                asyncio.gather(*(fetch(w) for w in workers),
+                               return_exceptions=True),
+                timeout + 1.0)
+            for r in results:
+                if isinstance(r, list):
+                    spans.extend(r)
+                else:
+                    log.debug("span collect from a worker failed: %s", r)
+        return {"spans": spans}
 
     def _report_task(self, q):
         """A worker's report of one task (the worker plane: no user)."""

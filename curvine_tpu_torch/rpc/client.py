@@ -16,16 +16,24 @@ each chunk's payload into it and receives the rest straight into it
 (``BulkDecoder.recv_sink``), and only the EOF (its trailer merged into
 ``eof_header``) or an error reaches the waiter. A writer that broke
 mid-frame closes the connection (``_on_send_broken``), and the read loop
-fails every waiter out. ``Connection`` and ``ConnectionPool`` take the
-``[rpc]`` table (``rpc_conf``: the writer's frames a send) and a
-``metrics`` registry for the transport's counters.
+fails every waiter out. A ``call_readinto`` that leaves (a timeout, a
+cancel) unregisters its sink, and the read loop checks the sink before
+each receive into the caller's buffer: the rest of a frame it was
+receiving there, should a stalled server resume, goes to the decoder's
+buffer and is dropped, never into a buffer the caller has handed on,
+and the connection stays usable. ``Connection`` and ``ConnectionPool``
+take the ``[rpc]`` table (``rpc_conf``: the writer's frames a send) and
+a ``metrics`` registry for the transport's counters.
 
-``call`` and ``call_stream`` take a ``deadline`` (``rpc/deadline.py``),
-as the reference's do (:238-310): its remaining budget is stamped into
-the request header, and each wait for a reply is capped by it.
-Left out: the io_uring ``RingRecv`` (the transport's note), the trace
-and tenant headers, the client fault hook and the server-push
-receiver."""
+``call``, ``call_stream`` and ``call_readinto`` take a ``deadline``
+(``rpc/deadline.py``), as the reference's do (:238-346): its remaining
+budget is stamped into the request header, and each wait for a reply is
+capped by it. Every request that carries no trace context gets the
+ambient one (``obs/trace.py::current_ctx``, :247-252), so the server's
+span links to the span the request was made under. ``RetryPolicy.run``
+takes a ``deadline`` too, and never sleeps past it (:495-530).
+Left out: the io_uring ``RingRecv`` (the transport's note), the tenant
+header, the client fault hook and the server-push receiver."""
 
 from __future__ import annotations
 
@@ -39,6 +47,7 @@ from typing import Any, AsyncIterator
 
 from curvine_tpu_torch.common.errors import (ConnectError, CurvineError,
                                              ErrorCode, RpcTimeout)
+from curvine_tpu_torch.obs.trace import TRACE_KEY, current_ctx
 from curvine_tpu_torch.rpc.deadline import Deadline
 from curvine_tpu_torch.rpc.frame import STATUS_ERROR, Flags, Message
 from curvine_tpu_torch.rpc.transport import (BulkDecoder, CoalescedWriter,
@@ -130,7 +139,9 @@ class Connection:
                         dst = sink.view[sink.filled:sink.filled + data_len]
                         got = dec.take_into(dst)
                         if got < data_len:
-                            await dec.recv_sink(loop, sock, dst[got:])
+                            await dec.recv_sink(
+                                loop, sock, dst[got:],
+                                lambda: self._sinks.get(req_id) is sink)
                         sink.filled += data_len
                     if flags & Flags.CHUNK:
                         continue
@@ -216,13 +227,17 @@ class Connection:
 
     @staticmethod
     def _stamped(code: int, header: dict | None,
-                 deadline: Deadline | None) -> dict:
-        """The request header with the deadline's remaining budget; a
-        spent budget raises before anything is sent."""
+                 deadline: Deadline | None = None) -> dict:
+        """The request header with the deadline's remaining budget and
+        the ambient trace context; a spent budget raises before anything
+        is sent."""
         header = dict(header or {})
         if deadline is not None:
             deadline.check(f"rpc {code}")
             deadline.stamp(header)
+        ctx = current_ctx()
+        if ctx is not None and TRACE_KEY not in header:
+            ctx.stamp(header)
         return header
 
     async def call(self, code: int, data: bytes | memoryview = b"",
@@ -259,7 +274,8 @@ class Connection:
 
     async def call_readinto(self, code: int, sink: memoryview,
                             header: dict,
-                            eof_header: dict | None = None) -> int:
+                            eof_header: dict | None = None,
+                            deadline: Deadline | None = None) -> int:
         """Unary request → a stream whose chunk payloads are received
         straight into ``sink``; returns the bytes filled. The EOF frame's
         header (the server's trailer, e.g. the block's commit-time crc)
@@ -271,9 +287,10 @@ class Connection:
         state = self._sinks[req_id] = _Sink(view=sink)
         try:
             await self.send(Message(code=int(code), req_id=req_id,
-                                    header=dict(header)))
+                                    header=self._stamped(code, header,
+                                                         deadline)))
             while True:
-                rep = await self._next(q, code)
+                rep = await self._next(q, code, deadline)
                 if len(rep.data):
                     n = min(len(rep.data), len(sink) - state.filled)
                     sink[state.filled:state.filled + n] = rep.data[:n]
@@ -331,7 +348,7 @@ class Connection:
         q = self.register(req_id)
         try:
             await self.send(Message(code=int(code), req_id=req_id,
-                                    header=dict(header)))
+                                    header=self._stamped(code, header)))
         except BaseException:
             self.unregister(req_id)
             raise
@@ -401,7 +418,9 @@ class ConnectionPool:
 
 class RetryPolicy:
     """Exponential backoff with jitter on retryable errors; a server's
-    ``retry_after_ms`` hint wins over the backoff."""
+    ``retry_after_ms`` hint wins over the backoff. With a ``deadline``
+    the policy never sleeps past the budget: when the next backoff would
+    cross it, the last error is raised at once."""
 
     def __init__(self, max_retries: int = 3, base_ms: int = 100,
                  max_ms: int = 5_000):
@@ -409,7 +428,8 @@ class RetryPolicy:
         self.base_ms = base_ms
         self.max_ms = max_ms
 
-    async def run(self, fn, *args, **kwargs) -> Any:
+    async def run(self, fn, *args, deadline: Deadline | None = None,
+                  **kwargs) -> Any:
         attempt = 0
         while True:
             try:
@@ -423,6 +443,8 @@ class RetryPolicy:
                 else:
                     delay = min(self.max_ms, self.base_ms * 2 ** attempt)
                     delay = delay * (0.5 + random.random() / 2) / 1000
+                if deadline is not None and delay >= deadline.remaining():
+                    raise            # the sleep would outlive the budget
                 log.debug("retry %d after %.3fs: %s", attempt + 1, delay, e)
                 await asyncio.sleep(delay)
                 attempt += 1

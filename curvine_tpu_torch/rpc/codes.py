@@ -119,7 +119,6 @@ MASTER_REFUSED = (
     RpcCode.ADD_BLOCKS_BATCH, RpcCode.COMPLETE_FILES_BATCH,
     RpcCode.LIST_OPTIONS, RpcCode.CONTENT_SUMMARY, RpcCode.GET_LOCK,
     RpcCode.SET_LOCK, RpcCode.LIST_LOCK, RpcCode.ASSIGN_WORKER,
-    RpcCode.METRICS_REPORT, RpcCode.CLUSTER_HEALTH, RpcCode.GET_SPANS,
-    RpcCode.SHARD_TX,
+    RpcCode.CLUSTER_HEALTH, RpcCode.SHARD_TX,
     RpcCode.SHARD_TX_LIST, RpcCode.SHARD_STATS, RpcCode.SHARD_TABLE,
     RpcCode.TENANT_STATS)

@@ -3,10 +3,12 @@
 Own copy of ``curvine_tpu/rpc/deadline.py``: a caller's time budget
 rides the request header (``DEADLINE_KEY``, the remaining milliseconds,
 restamped at each hop), a hop's wait is ``min(its timeout, remaining)``,
-and a server fails a request whose budget is already spent instead of
-doing work its caller no longer waits for. The replication manager
-gives each pull it dispatches a budget; the destination's stream from
-the source then fails inside it rather than after a whole RPC timeout."""
+or ``remaining / hops_left`` where the caller still has replicas to try
+(``sub``), and a server fails a request whose budget is already spent
+instead of doing work its caller no longer waits for. The reader gives
+each read its ``op_deadline_ms``; the replication manager gives each
+pull it dispatches a budget, and the destination's stream from the
+source then fails inside it rather than after a whole RPC timeout."""
 
 from __future__ import annotations
 
@@ -62,6 +64,12 @@ class Deadline:
         """A hop's wait: min(its timeout, the remaining budget)."""
         r = max(self.remaining(), MIN_WAIT_S)
         return r if timeout_s is None else min(timeout_s, r)
+
+    def sub(self, hops_left: int) -> "Deadline":
+        """The remaining budget split evenly over ``hops_left`` attempts
+        in turn: with N replicas left, a wedged one takes 1/N of what
+        remains, and the next is reached inside the budget."""
+        return Deadline(self.remaining() / max(1, hops_left))
 
     def check(self, what: str = "operation") -> None:
         if self.expired:

@@ -8,12 +8,12 @@ bytes, never copied into the header. ``Message.check`` is the decoding
 side of ``error_for``: it raises the error a response carries, with its
 backoff and leader hints; ``response_for`` and ``error_for`` (:156-179)
 build a server's replies. A server sets ``Message.deadline``, never
-sent, from the request's ``deadline_ms`` header (``rpc/deadline.py``).
+sent, from the request's ``deadline_ms`` header (``rpc/deadline.py``),
+and ``Message.trace``, never sent either, from its ``trace_ctx`` header
+(``trace_ctx()``; ``obs/trace.py``), the caller's span.
 The coalesced writer appends a frame to its batch with ``encode_into``
 (:117-139), and the bulk decoder parses one frame's envelope out of its
-buffer with ``decode_envelope`` (:193-231).
-Left out: the trace context a server reads from a request (the port
-sends none)."""
+buffer with ``decode_envelope`` (:193-231)."""
 
 from __future__ import annotations
 
@@ -22,6 +22,7 @@ from dataclasses import dataclass, field
 from typing import Any
 
 from curvine_tpu_torch.common.errors import CurvineError, ErrorCode
+from curvine_tpu_torch.obs.trace import SpanCtx
 from curvine_tpu_torch.rpc import wirepack
 from curvine_tpu_torch.rpc.deadline import Deadline
 
@@ -54,6 +55,9 @@ class Message:
     # server side: the caller's budget, set at dispatch from the header
     # (never sent)
     deadline: Deadline | None = None
+    # server side: the caller's span, set at dispatch from the header
+    # (never sent)
+    trace: SpanCtx | None = None
 
     @property
     def is_response(self) -> bool:
@@ -66,6 +70,10 @@ class Message:
     @property
     def is_eof(self) -> bool:
         return bool(self.flags & Flags.EOF)
+
+    def trace_ctx(self) -> SpanCtx | None:
+        """The caller's trace context, if the request carries one."""
+        return SpanCtx.from_header(self.header)
 
     def check(self) -> "Message":
         """Raise the remote error this response carries, if any."""

@@ -34,11 +34,19 @@ writers' ``rpc.send_batch_frames``, ``rpc.bytes_sent``,
 client had left) and ``rpc.send_queue_depth`` (the frames queued over
 all its connections) and the decoders' ``rpc.bytes_recv``.
 
-Left out: QoS admission, the fault hook, the watchdog and tracing. A
-request's deadline budget (``rpc/deadline.py``) is restarted on this
+A request's deadline budget (``rpc/deadline.py``) is restarted on this
 process's clock at dispatch and handed to the handler as
 ``msg.deadline`` (:393-399); a request whose budget is spent fails at
-once."""
+once. ``fault_hook``, when set, is awaited between two checks of the
+budget (:152, :393-407) as ``hook(server name, msg)``: it may sleep or raise,
+and a False answer drops the request unanswered (the caller's wait runs
+out as if the frame were lost); tests use it as a spy and as a wedged
+worker. With ``obs`` (a ``Tracer``, ``obs/trace.py``) set, each dispatch
+is a server span named after its code, parented on the request's trace
+context (``msg.trace``) and ambient for the handler's own downstream
+calls; it ends in error on an exception or a cancel (:157-159,
+:380-391, :423-443).
+Left out: QoS admission and the watchdog."""
 
 from __future__ import annotations
 
@@ -172,6 +180,11 @@ class RpcServer:
         self._conn_tasks: set[asyncio.Task] = set()
         # optional MetricsRegistry: per-code dispatch latency histograms
         self.metrics = None
+        # optional async hook(server name, msg) -> bool, awaited per
+        # request: it may sleep or raise; False drops the request
+        self.fault_hook = None
+        # optional Tracer: a server span per dispatch
+        self.obs = None
 
     def register(self, code: int, handler: Handler) -> None:
         self._handlers[int(code)] = handler
@@ -319,11 +332,26 @@ class RpcServer:
 
     async def _dispatch(self, msg: Message, conn: ServerConn) -> None:
         handler = self._handlers.get(msg.code)
+        name = _code_name(msg.code)
+        # the caller's span rides the header as the deadline does; the
+        # dispatch's span is ambient for the handler's own calls
+        msg.trace = msg.trace_ctx()
+        span = None
+        if self.obs is not None:
+            span = self.obs.span(name, parent=msg.trace)
+            span.__enter__()
         t0 = time.perf_counter()
         try:
             msg.deadline = Deadline.from_header(msg.header)
             if msg.deadline is not None:
-                msg.deadline.check(f"{self.name} {_code_name(msg.code)}")
+                msg.deadline.check(f"{self.name} {name}")
+            if self.fault_hook is not None:
+                if not await self.fault_hook(self.name, msg):
+                    return          # dropped: no answer
+                if msg.deadline is not None:
+                    # the budget may have run out behind the hook: the
+                    # caller gave up, so the work would be dead
+                    msg.deadline.check(f"{self.name} {name}")
             if handler is None:
                 raise CurvineError(f"no handler for code {msg.code}")
             result = await handler(msg, conn)
@@ -342,8 +370,12 @@ class RpcServer:
                 self.metrics.observe("rpc.reply_send",
                                      time.perf_counter() - t1)
         except asyncio.CancelledError:
+            if span is not None:
+                span.error("cancelled")
             raise
         except Exception as e:  # noqa: BLE001 — every error crosses the wire
+            if span is not None:
+                span.error(e)
             if not isinstance(e, CurvineError):
                 log.exception("%s handler error code=%s", self.name,
                               msg.code)
@@ -352,8 +384,10 @@ class RpcServer:
             except Exception:  # noqa: BLE001 — the connection died
                 pass
         finally:
+            if span is not None:
+                span.__exit__(None, None, None)
             if self.metrics is not None:
-                self.metrics.observe(f"rpc.{_code_name(msg.code)}",
+                self.metrics.observe(f"rpc.{name}",
                                      time.perf_counter() - t0)
 
 

@@ -31,7 +31,9 @@ a connection; one ``sock_recv_into`` usually lands many frames, whose
 envelopes are decoded back to back (``frame.decode_envelope``) with no
 further system call. A payload that is not all buffered is completed by
 exact reads: into the caller's view for a sink (``recv_sink``, the
-zero-copy block read), into the decoder's buffer up to
+zero-copy block read, checked before each receive: once the sink's
+owner has left, the rest goes to the decoder's buffer, ``recv_while``),
+into the decoder's buffer up to
 ``RECV_RETAIN_MAX``, and into a transient buffer past it, so that one
 giant frame does not keep its size for the connection's life.
 
@@ -245,6 +247,42 @@ async def recv_exact(loop: asyncio.AbstractEventLoop, sock: socket.socket,
         if got == 0:
             raise ConnectionResetError("peer closed")
         off += got
+
+
+async def recv_while(loop: asyncio.AbstractEventLoop, sock: socket.socket,
+                     view: memoryview, live) -> int:
+    """Fill ``view`` from the socket while ``live()`` holds, checked
+    before each receive, so that no byte lands in ``view`` once its owner
+    has left (a pending ``sock_recv_into`` would write into it whenever
+    the peer sent); returns the bytes received into it. A peer's close
+    raises ``ConnectionResetError``."""
+    off, n = 0, len(view)
+    while off < n and live():
+        try:
+            got = sock.recv_into(view[off:])
+        except (BlockingIOError, InterruptedError):
+            await _wait_readable(loop, sock)
+            continue
+        if got == 0:
+            raise ConnectionResetError("peer closed")
+        off += got
+    return off
+
+
+async def _wait_readable(loop: asyncio.AbstractEventLoop,
+                         sock: socket.socket) -> None:
+    fut = loop.create_future()
+    fd = sock.fileno()
+
+    def ready() -> None:
+        if not fut.done():
+            fut.set_result(None)
+
+    loop.add_reader(fd, ready)
+    try:
+        await fut
+    finally:
+        loop.remove_reader(fd)
 
 
 async def _wait_writable(loop: asyncio.AbstractEventLoop,
@@ -648,11 +686,23 @@ class BulkDecoder:
             self._pos += n
         return n
 
-    async def recv_sink(self, loop, sock, view: memoryview) -> None:
+    async def recv_sink(self, loop, sock, view: memoryview,
+                        live=None) -> bool:
         """The rest of a sink payload, received straight into ``view``,
-        past the buffer."""
-        await recv_exact(loop, sock, view)
-        self._account(len(view))
+        past the buffer. With ``live``, checked before each receive
+        (``recv_while``), the payload's rest goes to the buffer and is
+        dropped once ``live()`` is false: the sink's owner left and may
+        have handed ``view`` on. Returns whether ``view`` was filled."""
+        if live is None:
+            await recv_exact(loop, sock, view)
+            self._account(len(view))
+            return True
+        got = await recv_while(loop, sock, view, live)
+        self._account(got)
+        if got < len(view):
+            await self.read_payload(loop, sock, len(view) - got)
+            return False
+        return True
 
     async def read_payload(self, loop, sock, n: int) -> memoryview:
         """A view of the next ``n`` payload bytes, valid until the next

@@ -9,7 +9,9 @@ client's ``master_addrs``; the ``[rpc]`` table the transport)
 configure one
 ``WorkerServer``, which
 registers with the master by its heartbeat. Once it serves, prints one
-JSON line, ``{"addr": "host:port", "worker_id": N}``. A ``[worker]``
+JSON line, ``{"addr": "host:port", "worker_id": N, "pid": N, "jax_free":
+true or false}`` (``jax_free``: no module of JAX or of the JAX package
+is loaded in this process). A ``[worker]``
 table with ``hbm_capacity`` above 0 puts a device tier-0 on every CUDA
 device, and fails where there is none."""
 
@@ -19,8 +21,10 @@ import argparse
 import asyncio
 import json
 import logging
+import os
 import signal
 
+from curvine_tpu_torch import jax_free
 from curvine_tpu_torch.common.conf import ClusterConf
 from curvine_tpu_torch.worker.server import WorkerServer
 
@@ -34,7 +38,8 @@ async def serve(conf: ClusterConf) -> None:
     await worker.start()
     try:
         print(json.dumps({"addr": worker.addr,
-                          "worker_id": worker.worker_id}), flush=True)
+                          "worker_id": worker.worker_id, "pid": os.getpid(),
+                          "jax_free": jax_free()}), flush=True)
         await stop.wait()
     finally:
         await worker.stop()

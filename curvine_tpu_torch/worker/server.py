@@ -111,9 +111,17 @@ through ``_shm_grant`` (``shm.grants``, ``shm.warm_grants``) on a copy
 of the block's entry taken under the store's lock; the warm cache's
 stats are the ``cache.shm_warm.*`` metrics.
 
+Tracing (:174-179, :768-774, :790-913): the worker's ``Tracer``
+(``obs/trace.py``, from the ``[obs]`` table) is its RPC server's
+``obs``, so each dispatch is a server span under the caller's; GET_SPANS
+answers this worker's spans of one trace (the master's collect); and a
+WRITE_BLOCK stream is one ``write_block_stream`` span from the request
+to its EOF commit, its abort or its error (the dispatch's span ends when
+the handler returns, before the chunks).
+
 Not ported (ROADMAP A3c): the bdev layout and direct IO (refused by the
 conf), scrub and the disk health machinery (every dir reports healthy),
-QoS, tracing and the web server."""
+QoS and the web server."""
 
 from __future__ import annotations
 
@@ -140,6 +148,7 @@ from curvine_tpu_torch.common.types import (BlockState, JobState,
                                             WorkerInfo, now_ms)
 from curvine_tpu_torch.gpu import ici_plane
 from curvine_tpu_torch.gpu.hbm import MultiHbmTier, export_metrics
+from curvine_tpu_torch.obs.trace import Tracer
 from curvine_tpu_torch.rpc.client import Connection, ConnectionPool
 from curvine_tpu_torch.rpc.codes import RpcCode
 from curvine_tpu_torch.rpc.frame import (Flags, Message, error_for, pack,
@@ -211,6 +220,10 @@ class WorkerServer:
                                 small_ratio=wc.cache_small_ratio)
         self.metrics = MetricsRegistry("worker")
         self.rpc.metrics = self.metrics
+        # a server span per dispatch, and the spans GET_SPANS answers
+        self.tracer = Tracer.from_conf("worker", self.conf.obs,
+                                       metrics=self.metrics)
+        self.rpc.obs = self.tracer
         # the shared-memory read plane (worker/shm.py): sealed-memfd
         # copies of MEM-tier blocks, and a warm cache of read-hot blocks
         # below it, handed to co-located clients over the side channel,
@@ -677,6 +690,13 @@ class WorkerServer:
         r(RpcCode.SUBMIT_BLOCK_REPLICATION_JOB, self._replicate_block)
         r(RpcCode.SUBMIT_TASK, self._submit_task)
         r(RpcCode.WRITE_BLOCKS_BATCH, self._write_blocks_batch)
+        r(RpcCode.GET_SPANS, self._get_spans)
+
+    async def _get_spans(self, msg: Message, conn: ServerConn):
+        """This worker's spans of one trace (the master's collect)."""
+        q = unpack(msg.data) or {}
+        return {}, pack({"spans":
+                         self.tracer.spans_for(str(q.get("trace_id", "")))})
 
     # ---------------- the master's tasks ----------------
 
@@ -952,11 +972,21 @@ class WorkerServer:
                 f"worker {self.worker_id} is draining; "
                 f"re-place block {block_id}")
         hint = StorageType(q.get("storage_type", int(StorageType.MEM)))
-        info = self.store.create_temp(block_id, hint, q.get("len_hint", 0))
+        # the dispatch's span ends when this handler returns, before the
+        # chunks: this one, ended by hand, covers the stream
+        wspan = self.tracer.span("write_block_stream", parent=msg.trace,
+                                 attrs={"block_id": block_id})
+        try:
+            info = self.store.create_temp(block_id, hint,
+                                          q.get("len_hint", 0))
+        except Exception as e:
+            wspan.error(e).finish()
+            raise
         try:
             f = open(info.path, "wb")
-        except OSError:
+        except OSError as e:
             self.store.delete(block_id)
+            wspan.error(e).finish()
             raise
         # the commit checksum's algorithm is the client's choice (it
         # streams the same hash for the wire check)
@@ -982,6 +1012,8 @@ class WorkerServer:
                     # the client superseded this upload: drop the temp
                     # block now; no ack, the client stopped listening
                     self.store.delete(block_id)
+                    wspan.set_attr("aborted", True)
+                    wspan.finish()
                     return
                 want = header.get("crc32")
                 if want is not None and header.get("algo", algo) == algo \
@@ -993,11 +1025,14 @@ class WorkerServer:
                     self.store.commit, block_id, state["total"],
                     checksum=state["crc"], checksum_algo=algo)
                 self.metrics.inc("bytes.written", state["total"])
+                wspan.set_attr("bytes", state["total"])
+                wspan.finish()
                 await conn.send(response_for(msg, header={
                     "block_id": block_id, "len": state["total"],
                     "crc32": state["crc"], "worker_id": self.worker_id},
                     flags=Flags.RESPONSE | Flags.EOF))
             except Exception as e:  # noqa: BLE001 — surface to the client
+                wspan.error(e).finish()
                 conn.close_stream(msg.req_id)
                 f.close()
                 self.store.delete(block_id)

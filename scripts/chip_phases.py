@@ -2,8 +2,8 @@
 
     python3 scripts/chip_phases.py [--seed N] [--out FILE] PHASE [...]
 
-PHASE is ``drain``, ``ec``, ``shm``, ``ha`` or ``wire``. The kernels are
-built from the checkout (``phase_build``), the flagship's parameters and
+PHASE is ``drain``, ``ec``, ``shm``, ``ha``, ``wire`` or ``trace``. The
+kernels are built from the checkout (``phase_build``), the flagship's parameters and
 AdamW step made from the seed (the phases train three steps on them),
 each phase run in a data directory of its own size (``pick_data_dir``),
 and with ``--out`` every number written to FILE as JSON. Each phase also
@@ -28,10 +28,10 @@ import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
 
-PHASES = ("drain", "ec", "shm", "ha", "wire")
+PHASES = ("drain", "ec", "shm", "ha", "wire", "trace")
 NEED = {"drain": cs.DRAIN_PHASE_BYTES, "ec": cs.EC_PHASE_BYTES,
         "shm": cs.SHM_PHASE_BYTES, "ha": cs.HA_PHASE_BYTES,
-        "wire": cs.WIRE_PHASE_BYTES}
+        "wire": cs.WIRE_PHASE_BYTES, "trace": cs.TRACE_PHASE_BYTES}
 # worker id -> (start, seconds) of each heartbeat, this process's workers
 BEATS: dict[int, list[tuple[float, float]]] = {}
 
@@ -90,8 +90,9 @@ def main() -> int:
         root = cs.pick_data_dir(NEED[name])
         t_phase = time.perf_counter()
         try:
-            if name in ("shm", "wire"):
-                fn = cs.phase_shm if name == "shm" else cs.phase_wire
+            if name in ("shm", "wire", "trace"):
+                fn = {"shm": cs.phase_shm, "wire": cs.phase_wire,
+                      "trace": cs.phase_trace}[name]
                 out[name] = fn(dev, root, args.seed, params, step, math.nan)
             else:
                 fn = {"drain": cs.phase_drain, "ec": cs.phase_ec,

@@ -72,7 +72,8 @@ required = {"curvine_tpu_torch.gpu.attention", "curvine_tpu_torch.gpu.flash",
             "curvine_tpu_torch.ufs.base", "curvine_tpu_torch.ufs.local",
             "curvine_tpu_torch.ufs.memory", "curvine_tpu_torch.master.mount",
             "curvine_tpu_torch.master.jobs",
-            "curvine_tpu_torch.client.ufs_reader"}
+            "curvine_tpu_torch.client.ufs_reader",
+            "curvine_tpu_torch.obs.trace"}
 sys.exit(1 if bad or mapped or len(names) < 71 or required - set(names)
          else 0)
 """

@@ -20,7 +20,8 @@ the port's master, the port's master, worker and client in subprocesses
 that load no module of JAX or of the JAX package, each refused code,
 each fixed conf field and a non-superuser refused by name, each
 placement policy set in the conf picking the workers its rule names,
-and worker loss and lease recovery on an injected clock."""
+worker loss and lease recovery on an injected clock, and METRICS_REPORT
+and GET_SPANS served since they left ``MASTER_REFUSED``."""
 
 import asyncio
 import copy
@@ -734,6 +735,46 @@ async def test_attr_and_stripe_code_is_served(tmp_path, code):
                 assert m.metrics.counters["ec.stripes_committed"] == 1
         finally:
             await c.close()
+
+
+@pytest.mark.parametrize("code", [RpcCode.METRICS_REPORT,
+                                  RpcCode.GET_SPANS], ids=lambda c: c.name)
+async def test_metrics_and_spans_code_is_served(tmp_path, code):
+    """METRICS_REPORT and GET_SPANS left MASTER_REFUSED: on a raw
+    connection a report's counters land as ``client.<name>`` and its
+    spans in the master's store, and GET_SPANS answers them (with
+    ``collect``, the worker's spans too)."""
+    assert code not in MASTER_REFUSED
+    async with _cluster(tmp_path, workers=1) as (m, ws, conf):
+        span = {"trace_id": "t1", "span_id": 5, "parent": 0,
+                "component": "client", "op": "read", "start": 1.0,
+                "dur": 0.5, "status": "ok", "attrs": {}}
+        ws[0].tracer.store.append({**span, "span_id": 7, "parent": 5,
+                                   "component": "worker"})
+        conn = await Connection(m.addr).connect()
+        try:
+            if code == RpcCode.METRICS_REPORT:
+                for _ in range(2):
+                    rep = unpack((await conn.call(code, data=pack({
+                        "counters": {"read.zero_copy_bytes": 4096},
+                        "spans": [span]}))).data)
+                    assert rep == {}
+                assert m.metrics.counters["client.read.zero_copy_bytes"] \
+                    == 8192
+                assert m.tracer.spans_for("t1") == [span, span]
+            else:
+                m.tracer.ingest([span])
+                rep = unpack((await conn.call(code, data=pack({
+                    "trace_id": "t1"}))).data)
+                assert rep == {"spans": [span]}
+                rep = unpack((await conn.call(code, data=pack({
+                    "trace_id": "t1", "collect": True}))).data)
+                assert sorted(s["span_id"] for s in rep["spans"]) == [5, 7]
+                rep = unpack((await conn.call(code, data=pack({
+                    "trace_id": "none", "collect": True}))).data)
+                assert rep == {"spans": []}
+        finally:
+            await conn.close()
 
 
 async def test_decommission_code_is_served(tmp_path):

@@ -201,9 +201,9 @@ async def test_read_block_lands_in_the_callers_buffer(monkeypatch):
         copied.append((n, len(self._buf)))
         return n
 
-    async def recv_sink(self, loop, sock, view):
+    async def recv_sink(self, loop, sock, view, live=None):
         direct.append(len(view))
-        return await real_recv_sink(self, loop, sock, view)
+        return await real_recv_sink(self, loop, sock, view, live)
 
     monkeypatch.setattr(transport.BulkDecoder, "read_payload", read_payload)
     monkeypatch.setattr(transport.BulkDecoder, "take_into", take_into)

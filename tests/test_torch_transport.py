@@ -15,7 +15,9 @@ refused (below). Beyond the mirrors: a ``send_file`` item keeps its FIFO
 place behind the frames queued before it and a file shorter than its
 frame breaks the connection, the pool hands no region to two of 16
 threads at once, a writer's break is counted in its registry (apart
-when a server's client left), and the ``[rpc]`` table loads as the JAX
+when a server's client left), a sink whose caller left mid-payload
+takes none of the payload's late bytes and its connection stays usable,
+and the ``[rpc]`` table loads as the JAX
 package's does, each of its fixed keys refused at another value.
 
 The port's ``Connection.call`` sends a request's body as its data (the
@@ -34,7 +36,8 @@ import pytest
 from curvine_tpu.common.conf import ClusterConf as JaxConf
 from curvine_tpu_torch.common.conf import (CLIENT_FIXED, RING_FIXED,
                                            RPC_FIXED, ClusterConf, RpcConf)
-from curvine_tpu_torch.common.errors import ConnectError, CurvineError
+from curvine_tpu_torch.common.errors import (ConnectError, CurvineError,
+                                             RpcTimeout)
 from curvine_tpu_torch.common.metrics import MetricsRegistry
 from curvine_tpu_torch.rpc import transport as transport_mod
 from curvine_tpu_torch.rpc.client import Connection
@@ -644,6 +647,64 @@ async def test_large_sink_payload_end_to_end():
     finally:
         await conn.close()
         await srv.stop()
+
+
+async def test_a_sink_left_mid_payload_takes_no_late_bytes():
+    """A server sends a chunk's header and half its payload, then stalls:
+    the ``call_readinto`` times out and its caller hands the buffer on.
+    When the server resumes, the rest of the frame must not land in that
+    buffer; it is dropped, and the connection serves the next call."""
+    resume = asyncio.Event()
+    n = 64 * 1024
+
+    async def request(reader) -> int:
+        total = LEN_PREFIX.unpack(await reader.readexactly(LEN_PREFIX.size))
+        return FIXED.unpack_from(await reader.readexactly(total[0]))[2]
+
+    def frames(req_id: int, fill: bytes) -> tuple[bytes, bytes]:
+        return (_frame_bytes(Message(code=9_901, req_id=req_id,
+                                     flags=Flags.RESPONSE | Flags.CHUNK,
+                                     data=fill * n)),
+                _frame_bytes(Message(code=9_901, req_id=req_id,
+                                     flags=Flags.RESPONSE | Flags.EOF)))
+
+    async def serve(reader, writer):
+        try:
+            chunk, eof = frames(await request(reader), b"\x11")
+            writer.write(chunk[:len(chunk) - n // 2])
+            await writer.drain()
+            await resume.wait()
+            writer.write(chunk[len(chunk) - n // 2:] + eof)
+            writer.write(b"".join(frames(await request(reader), b"\x33")))
+            await writer.drain()
+            await reader.read()
+        except (asyncio.IncompleteReadError, ConnectionError):
+            pass
+        finally:
+            writer.close()
+
+    srv = await asyncio.start_server(serve, "127.0.0.1", 0)
+    port = srv.sockets[0].getsockname()[1]
+    conn = await Connection(f"127.0.0.1:{port}", timeout_ms=300).connect()
+    try:
+        sink = bytearray(n)
+        with pytest.raises(RpcTimeout):
+            await conn.call_readinto(9_901, memoryview(sink), header={})
+        assert sink[:n // 2] == b"\x11" * (n // 2)
+        sink[:] = b"\x22" * n          # the buffer's next owner
+        resume.set()
+        await asyncio.sleep(0.2)
+        assert sink == b"\x22" * n
+        assert not conn.closed
+        again = bytearray(n)
+        assert await conn.call_readinto(9_901, memoryview(again),
+                                        header={}) == n
+        assert again == b"\x33" * n
+    finally:
+        resume.set()
+        await conn.close()
+        srv.close()
+        await srv.wait_closed()
 
 
 # ---------------------------------------------------------- breaks

@@ -894,6 +894,7 @@ master_addrs = {json.dumps(mc.conf.client.master_addrs)}
         try:
             line = await asyncio.wait_for(proc.stdout.readline(), 120)
             info = json.loads(line)
+            assert info["jax_free"] is True and info["pid"] == proc.pid
             await mc.await_workers(1, timeout=30)
             live = mc.master.fs.workers.live_workers()
             host, port = info["addr"].rsplit(":", 1)
